@@ -1,0 +1,73 @@
+"""Parameters to and from a flat dict of numpy arrays keyed by path string.
+
+Keys are spelled as the JAX package's parameter paths (``embed``,
+``layers/0/mixer/wq``, ``layers/0/ffn/w_gate``, ``final_norm``, ``unembed``):
+a numeric segment is an index into a list (the period positions), any other
+segment a dict key.  So a tree flattened on the JAX side hands over one to
+one; this module itself never sees JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.array(arr)  # a writable copy: the tensor shares its memory
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        idx = sorted(node, key=int)
+        if [int(i) for i in idx] != list(range(len(idx))):
+            raise ValueError(f"list indices {idx} are not 0..{len(idx) - 1}")
+        return [node[i] for i in idx]
+    return node
+
+
+def from_numpy(tree: dict, device, dtype=None) -> dict:
+    """{path: array} -> the port's nested parameters on ``device``.
+
+    ``dtype`` (a torch dtype or its name) casts the floating leaves.
+    """
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    root: dict = {}
+    for path, arr in tree.items():
+        parts = path.split("/")
+        node = root
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        t = _tensor(np.asarray(arr))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        node[parts[-1]] = t.to(device)
+    return _listify(root)
+
+
+def to_numpy(params) -> dict:
+    """The port's parameters -> {path: array}; bf16 leaves come back as f32."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = ((str(i), v) for i, v in enumerate(node))
+        else:
+            t = node.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.to(torch.float32)
+            out[prefix] = t.numpy()
+            return
+        for k, v in items:
+            walk(v, f"{prefix}/{k}" if prefix else k)
+
+    walk(params, "")
+    return out

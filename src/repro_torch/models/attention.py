@@ -1,0 +1,169 @@
+"""GQA attention: full-sequence (prefill) and cached decode (port of
+``repro.models.attention``).
+
+Projections keep the JAX layout: wq/wk/wv [d, heads, dh], wo [H, dh, d].
+At ``FLASH_MIN_SEQ`` tokens and above, prefill goes through ``ops.mha``
+(the flash kernel on a CUDA tensor); decode on a cache of
+``DECODE_KERNEL_MIN_CAPACITY`` slots and above goes through
+``ops.decode_attention`` (the flash-decode kernel).  Both thresholds are the
+JAX package's, so the port launches its kernels exactly where the reference
+reaches its Pallas kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.layers import rope_apply
+
+# sequences at or above this length take the flash path (never materialises
+# [Sq,Sk]); below it the plain sdpa runs
+FLASH_MIN_SEQ = 1024
+# caches at or above this capacity take the flash-decode path
+DECODE_KERNEL_MIN_CAPACITY = 4096
+
+
+def attn_shapes(cfg: ModelConfig) -> dict:
+    """{leaf: (shape, fan_in)} of one attention block."""
+    dh, d = cfg.resolved_head_dim, cfg.d_model
+    return {
+        "wq": ((d, cfg.n_heads, dh), d),
+        "wk": ((d, cfg.n_kv_heads, dh), d),
+        "wv": ((d, cfg.n_kv_heads, dh), d),
+        "wo": ((cfg.n_heads, dh, d), cfg.n_heads * dh),
+    }
+
+
+def _repeat_kv(k, n_heads: int):
+    """[B,S,KV,dh] -> [B,S,H,dh] by repeating each group."""
+    kv = k.shape[-2]
+    if kv == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kv, dim=-2)
+
+
+def sdpa(q, k, v, *, mask=None, scale: Optional[float] = None):
+    """q [B,Sq,H,dh], k/v [B,Sk,H,dh]; softmax in f32.
+
+    As in the JAX package, Q.K^T is rounded to the input dtype before the
+    f32 softmax, and the probabilities are cast to v's dtype before P.V.
+    """
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def make_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
+              q_offset: int = 0, device=None):
+    """[1,1,Sq,Sk] boolean mask."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= ki > qi - window
+    return m[None, None]
+
+
+def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
+              window: Optional[int] = None, context=None, mask=None,
+              prefix_len: int = 0):
+    """Full-sequence self-attention (prefill).
+
+    x [B,S,D]; mask: optional explicit [.,.,Sq,Sk] bool mask (forces sdpa).
+    prefix_len: prefix-LM semantics, composed as causal flash over the whole
+    sequence plus a small full sdpa over the prefix block.
+    """
+    if context is not None:
+        raise NotImplementedError("cross-attention is not ported yet "
+                                  "(ROADMAP.md, Queue 1: remaining families)")
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = rope_apply(q, positions, cfg.rope_theta)
+    k = rope_apply(k, positions, cfg.rope_theta)
+
+    if mask is None and causal and x.shape[1] >= FLASH_MIN_SEQ:
+        out = ops.mha(q, k, v, causal=True, window=window)
+        if prefix_len:
+            pre = sdpa(q[:, :prefix_len],
+                       _repeat_kv(k[:, :prefix_len], cfg.n_heads),
+                       _repeat_kv(v[:, :prefix_len], cfg.n_heads))
+            out = torch.cat([pre.to(out.dtype), out[:, prefix_len:]], dim=1)
+        return torch.einsum("bqhd,hdk->bqk", out, p["wo"])
+
+    k = _repeat_kv(k, cfg.n_heads)
+    v = _repeat_kv(v, cfg.n_heads)
+    if mask is None and (causal or window is not None):
+        s = x.shape[1]
+        mask = make_mask(s, s, causal=causal, window=window, device=x.device)
+        if prefix_len:
+            qi = torch.arange(s, device=x.device)[:, None]
+            ki = torch.arange(s, device=x.device)[None, :]
+            mask = mask | ((qi < prefix_len) & (ki < prefix_len))[None, None]
+    out = sdpa(q, k, v, mask=mask)
+    return torch.einsum("bqhd,hdk->bqk", out, p["wo"])
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device=None):
+    dh = cfg.resolved_head_dim
+    shape = (batch, capacity, cfg.n_kv_heads, dh)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position stored in each slot, shared by the batch; -1 = empty
+        "slot_pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
+                     window: Optional[int] = None, cross_kv=None, ctx=None):
+    """One-token attention.  x [B,1,D]; pos the absolute position (a Python int).
+
+    Full cache: slot = pos.  SWA ring cache: slot = pos % capacity.
+    The cache is updated IN PLACE (its k, v and slot_pos tensors are written
+    at the slot), unlike the JAX package, which returns new arrays.
+    Returns (out [B,1,D], cache).
+    """
+    if cross_kv is not None:
+        raise NotImplementedError("cross-attention decode is not ported yet "
+                                  "(ROADMAP.md, Queue 1: remaining families)")
+    if ctx is not None:
+        raise NotImplementedError("context-parallel decode is not ported yet "
+                                  "(ROADMAP.md, Queue 1: fabric and rail-sharded serving)")
+    pos = int(pos)
+    capacity = cache["k"].shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope_apply(q, posv, cfg.rope_theta)
+    k_new = rope_apply(k_new, posv, cfg.rope_theta)
+
+    slot = pos if window is None else pos % capacity
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    slot_pos = cache["slot_pos"]
+    slot_pos[slot] = pos
+
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid &= slot_pos > pos - window
+
+    if capacity >= DECODE_KERNEL_MIN_CAPACITY:  # no repeat_kv
+        vm = valid[None, :].expand(q.shape[0], capacity)
+        out = ops.decode_attention(q, cache["k"], cache["v"], vm)
+    else:
+        k = _repeat_kv(cache["k"], cfg.n_heads)
+        v = _repeat_kv(cache["v"], cfg.n_heads)
+        out = sdpa(q, k, v, mask=valid[None, None, None, :])
+    return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache

@@ -1,0 +1,76 @@
+"""Core layers: norms, RoPE, gated MLPs, initialisers (port of ``repro.models.layers``).
+
+Plain functions on tensors; parameters are plain dicts of tensors with the
+JAX package's (in_dim, ..., out_dim) layout.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def dense_init(shape, dtype, generator: torch.Generator, device, in_axis_size=None,
+               out: torch.Tensor = None):
+    """LeCun-normal init drawn in f32 on ``generator``, then cast to ``dtype``.
+
+    ``out`` receives the cast values in place (a slice of a stacked leaf), so
+    only one f32 draw of ``shape`` is alive at a time.
+    """
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    std = 1.0 / max(fan_in, 1) ** 0.5
+    x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    x.mul_(std)
+    if out is None:
+        return x.to(dtype)
+    out.copy_(x)
+    return out
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab padded to a multiple of 256 so it shards over any mesh axis."""
+    return ((cfg.vocab_size + 255) // 256) * 256
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def rms_norm_init(d, device=None):
+    # zero-centred scale (gemma-style "1 + w")
+    return torch.zeros((d,), dtype=torch.float32, device=device)
+
+
+def rope_apply(x, positions, theta: float):
+    """Half-split rotary embedding with f32 angles.
+
+    x: [..., S, H, dh]  positions: broadcastable to [..., S] (integer)
+    """
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions.to(torch.float32)[..., None] * freq  # [..., S, half]
+    sin = torch.sin(ang)[..., None, :]  # [..., S, 1, half]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    out = torch.cat([r1, r2, x[..., 2 * half:].to(r1.dtype)], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_apply(p, x, act: str = "swiglu"):
+    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU."""
+    g = torch.einsum("...d,df->...f", x, p["w_gate"])
+    u = torch.einsum("...d,df->...f", x, p["w_up"])
+    if act == "geglu":
+        g = F.gelu(g, approximate="tanh")
+    else:
+        g = F.silu(g)
+    return torch.einsum("...f,fd->...d", g * u, p["w_down"])

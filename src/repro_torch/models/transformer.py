@@ -1,0 +1,206 @@
+"""Dense decoder LM: init, prefill forward and cached decode (port of
+``repro.models.transformer``, dense family).
+
+Parameters are a plain dict in the JAX package's tree layout:
+``{"embed", "layers": [one dict per period position], "final_norm",
+"unembed"}``, with every layer leaf stacked ``[n_periods, ...]``.  The JAX
+package scans over periods; here a Python loop walks them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, mlp_apply, padded_vocab, rms_norm,
+                                       rms_norm_init)
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """The serving slice runs dense decoders; other families raise."""
+    todo = {"moe": "MoE", "ssm": "SSM/hybrid", "hybrid": "SSM/hybrid",
+            "vlm": "remaining families", "audio": "remaining families"}
+    if cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.encoder or cfg.frontend:
+        item = todo.get(cfg.family, "remaining families")
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                                  f"(ROADMAP.md, Queue 1: {item})")
+
+
+def period_spec(cfg: ModelConfig) -> Tuple[Tuple[str, Optional[str]], ...]:
+    """((mixer_kind, ffn_kind), ...) for one period."""
+    moe_every = cfg.moe.moe_every if cfg.moe else 1
+    plen = math.lcm(len(cfg.pattern), moe_every)
+    out = []
+    for i in range(plen):
+        kind = cfg.pattern[i % len(cfg.pattern)]
+        if cfg.layer_has_moe(i):
+            ffn = "moe"
+        elif cfg.d_ff > 0:
+            ffn = "dense"
+        else:
+            ffn = None
+        out.append((kind, ffn))
+    return tuple(out)
+
+
+def n_periods(cfg: ModelConfig) -> int:
+    plen = len(period_spec(cfg))
+    assert cfg.n_layers % plen == 0, (cfg.name, cfg.n_layers, plen)
+    return cfg.n_layers // plen
+
+
+def _stacked(shapes: dict, np_: int, dtype, gen, device) -> dict:
+    """Stacked leaves [n_periods, ...], drawn one period at a time."""
+    out = {}
+    for name, (shape, fan_in) in shapes.items():
+        leaf = torch.empty((np_,) + shape, dtype=dtype, device=device)
+        for p in range(np_):
+            dense_init(shape, dtype, gen, device, in_axis_size=fan_in, out=leaf[p])
+        out[name] = leaf
+    return out
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random parameters from a seeded generator on ``device``.
+
+    Each leaf is drawn in f32 and cast to ``cfg.dtype``; layer leaves are
+    drawn one period at a time, so the f32 peak is one period's largest
+    leaf, not a whole stacked leaf (7.5 GB for llama3-8b's w_gate).
+    """
+    _check_dense(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    d, np_ = cfg.d_model, n_periods(cfg)
+    vp = padded_vocab(cfg)
+    layers = []
+    for _ in period_spec(cfg):
+        lp = {"norm1": torch.zeros((np_, d), dtype=torch.float32, device=device),
+              "mixer": _stacked(attn.attn_shapes(cfg), np_, dtype, gen, device)}
+        if cfg.d_ff > 0:
+            lp["norm2"] = torch.zeros((np_, d), dtype=torch.float32, device=device)
+            lp["ffn"] = _stacked({"w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
+                                  "w_down": ((cfg.d_ff, d), cfg.d_ff)},
+                                 np_, dtype, gen, device)
+        layers.append(lp)
+    params = {
+        "embed": dense_init((vp, d), dtype, gen, device, in_axis_size=d),
+        "layers": layers,
+        "final_norm": rms_norm_init(d, device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init((d, vp), dtype, gen, device)
+    return params
+
+
+def param_count(params) -> int:
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        if isinstance(t, (list, tuple)):
+            return sum(count(v) for v in t)
+        return t.numel()
+    return count(params)
+
+
+def _period(tree, p: int):
+    """The period-``p`` slice of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _period(v, p) for k, v in tree.items()}
+    return tree[p]
+
+
+def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
+                    mask=None, prefix_len: int = 0):
+    kind, ffn = spec
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    h = attn.attention(lp["mixer"], h, positions, cfg, causal=causal,
+                       window=cfg.sliding_window, mask=mask, prefix_len=prefix_len)
+    x = x + h
+    if ffn is not None:
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp_apply(lp["ffn"], h, cfg.mlp_act)
+    return x
+
+
+def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
+                mask=None, prefix_len: int = 0):
+    """Run the period stack over x [B,S,D]."""
+    specs = period_spec(cfg)
+    for p in range(n_periods(cfg)):
+        for pos, spec in enumerate(specs):
+            x = _apply_sublayer(_period(layers[pos], p), x, positions, cfg, spec,
+                                causal=causal, mask=mask, prefix_len=prefix_len)
+    return x
+
+
+def _unembed(params, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return torch.einsum("...d,vd->...v", x, params["embed"])
+    return torch.einsum("...d,dv->...v", x, params["unembed"])
+
+
+def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False):
+    """Teacher-forced forward.  Returns (logits, moe_aux) like the JAX package.
+
+    batch: {"tokens" [B,S]}.  last_only: logits of the final position only.
+    """
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = stack_apply(params["layers"], x, positions, cfg, causal=True)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    logits = _unembed(params, x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
+    """Per-period-position caches, leaves stacked [n_periods, ...].
+
+    A sliding-window architecture keeps a ring cache of
+    ``min(capacity, sliding_window)`` slots.
+    """
+    _check_dense(cfg)
+    np_ = n_periods(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    caches = []
+    for _ in period_spec(cfg):
+        cap = capacity
+        if cfg.sliding_window is not None:
+            cap = min(capacity, cfg.sliding_window)
+        one = attn.init_kv_cache(cfg, batch, cap, dtype, device)
+        caches.append({k: v[None].repeat((np_,) + (1,) * v.dim()) for k, v in one.items()})
+    return caches
+
+
+def decode_step(params, state, token, pos: int, cfg: ModelConfig):
+    """One decode step.  token [B,1] integer, pos the absolute position (int).
+
+    ``state`` is updated in place and returned.  Returns (logits [B,1,V], state).
+    """
+    _check_dense(cfg)
+    x = params["embed"][token]
+    specs = period_spec(cfg)
+    for p in range(n_periods(cfg)):
+        for i, (kind, ffn) in enumerate(specs):
+            lp = _period(params["layers"][i], p)
+            z = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            z, _ = attn.decode_attention(lp["mixer"], z, pos, _period(state[i], p), cfg,
+                                         window=cfg.sliding_window)
+            x = x + z
+            if ffn is not None:
+                z = rms_norm(x, lp["norm2"], cfg.norm_eps)
+                x = x + mlp_apply(lp["ffn"], z, cfg.mlp_act)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, x, cfg), state
+
+
+def prefill(params, batch, cfg: ModelConfig, capacity: int):
+    """Last-token logits of the whole prompt (the caches are built by decode)."""
+    return lm_forward(params, batch, cfg, last_only=True)

@@ -98,3 +98,8 @@ def mesh_pod():
 def mesh_data8():
     return jax.make_mesh((8,), ("data",),
                          axis_types=(jax.sharding.AxisType.Auto,))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips elsewhere")
