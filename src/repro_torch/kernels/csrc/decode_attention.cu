@@ -234,6 +234,9 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const void* va
 
 extern "C" int repro_decode_num_splits(int C) { return (C + CHUNK - 1) / CHUNK; }
 
+// Most query heads per kv head that one pass-1 block holds in its registers.
+extern "C" int repro_decode_max_rep() { return 2 * MAXI; }
+
 // Dynamic shared memory of one pass-1 block, in bytes.
 extern "C" int repro_decode_attention_smem_bytes(int rep, int dh) {
     return (int)partial_smem_bytes(rep, dh <= 64 ? 64 : 128);
@@ -253,7 +256,7 @@ extern "C" int repro_decode_attention_fwd(
         int64_t osb, int64_t osh, float scale, int device, void* stream) {
     const int64_t st[12] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc, osb, osh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dh <= 0 || dh > 128 || dh % 4 || H % KV || H / KV > 2 * MAXI || C <= 0)
+    if (dh <= 0 || dh > 128 || dh % 4 || H % KV || H / KV > repro_decode_max_rep() || C <= 0)
         return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaSuccess;
     cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own

@@ -21,9 +21,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("decode_attention", {
     "repro_decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
     "repro_decode_num_splits": [_I],
+    "repro_decode_max_rep": [],
     "repro_decode_attention_smem_bytes": [_I, _I],
 })
-MAX_REP = 16  # query heads per kv head that one block's registers hold
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *,
@@ -42,9 +42,6 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
             or k_cache.shape[3] != dh or h % kvh):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
                          f"v {tuple(v_cache.shape)}")
-    if h // kvh > MAX_REP:
-        raise ValueError(f"{h // kvh} query heads per kv head; the kernel takes at most "
-                         f"{MAX_REP}")
     check_head_dim(dh)
     if valid_mask.dtype not in (torch.bool, torch.uint8) or valid_mask.shape != (b, c):
         raise ValueError(f"valid_mask must be bool/uint8 [{b},{c}], got "
@@ -56,6 +53,9 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     lib = KERNEL.lib()
     rep = h // kvh
+    if rep > lib.repro_decode_max_rep():
+        raise ValueError(f"{rep} query heads per kv head; the kernel takes at most "
+                         f"{lib.repro_decode_max_rep()}")
     nsplit = lib.repro_decode_num_splits(c)
     f32 = torch.float32
     acc_p = torch.empty((b, kvh, nsplit, rep, dh), dtype=f32, device=q.device)

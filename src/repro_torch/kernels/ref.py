@@ -22,6 +22,21 @@ import torch
 # finite, so that a fully masked block gives exp(0) and never NaN
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
+# What a kernel is held to against these plain versions.  Both compute in
+# f32 and round once to the output dtype, so in bf16 an element may differ by
+# one bf16 ulp of its value (at most 2^-7 of it); ATOL covers the f32 sums'
+# order.  f32 keeps the JAX package's kernel tolerance.
+ATOL = 1e-5
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (ATOL + RTOL * |want|), with ``want`` the plain
+    version's output: at most 1 where ``got`` agrees with it."""
+    w = want.float()
+    allowed = ATOL + RTOL[want.dtype] * w.abs()
+    return ((got.float() - w).abs() / allowed).max().item()
+
 
 def _pad_to(x: torch.Tensor, mult: int, dim: int):
     s = x.shape[dim]

@@ -31,6 +31,10 @@ def _t(*arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
+def _bf16(*arrs):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+
+
 def _j(*arrs):
     return [jnp.asarray(a) for a in arrs]
 
@@ -88,6 +92,29 @@ def test_plain_decode_ragged_cache_matches_jax():
     got = tref.decode_attention(*_t(q, kc, vc, valid), block_k=64).numpy()
     want = jref.decode_attention(*_j(q, kc, vc, valid), block_k=64)
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["flash", "decode"])
+def test_bf16_tolerance_admits_reordering_and_rejects_planted_faults(kind):
+    """The tolerance the CUDA kernels are held to (``ref.tolerance_ratio``):
+    the plain version with the kernels' block sizes, its f32 sums in another
+    order, passes; a dropped KV tile or cache split fails."""
+    if kind == "flash":
+        q, k, v = _bf16(*_qkv(1, 512, 512, 8, 2, 128, seed=4))
+        want = tref.mha(q, k, v)
+        reordered = tref.mha(q, k, v, block_q=64, block_k=32)
+        fault = tref.mha(q, k, v, kv_valid_len=512 - 32)
+    else:
+        q, k, v = _bf16(*_qkv(4, 1, 1024, 8, 2, 128, seed=4))
+        valid = torch.ones((4, 1024), dtype=torch.bool)
+        want = tref.decode_attention(q, k, v, valid)
+        reordered = tref.decode_attention(q, k, v, valid, block_k=256)
+        dropped = valid.clone()
+        dropped[:, 512:768] = False
+        fault = tref.decode_attention(q, k, v, dropped)
+    assert want.dtype == torch.bfloat16
+    assert tref.tolerance_ratio(reordered, want) <= 1
+    assert tref.tolerance_ratio(fault, want) > 1
 
 
 def test_ops_on_cpu_tensors_launch_nothing():

@@ -7,9 +7,11 @@ JAX run them without the suite's conftest:
     PYTHONPATH=src python -m pytest --noconftest -o "markers=cuda: needs an NVIDIA GPU" \
         -q tests/test_torch_kernels_cuda.py
 
-Tolerances: f32 1e-5 (the JAX package's kernel tolerance); bf16 2e-2 (its
-bf16 tolerance: the kernel and the plain version both accumulate in f32 and
-round once to bf16).
+Tolerance: ``ref.tolerance_ratio`` <= 1, i.e. f32 1e-5 (the JAX package's
+kernel tolerance); bf16 1e-5 + 2^-7 |plain|, one bf16 ulp of each element
+(the kernel and the plain version both accumulate in f32 and round once to
+bf16).  tests/test_torch_kernels.py shows that this bf16 tolerance rejects a
+dropped KV tile or cache split.
 """
 import pytest
 import torch
@@ -19,7 +21,6 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -56,8 +57,7 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, wi
     assert tfa.KERNEL.launches == before + 1
     want = ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
     assert got.dtype == dtype and got.shape == q.shape
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL[dtype], err
+    assert ref.tolerance_ratio(got, want) <= 1
 
 
 def test_flash_kernel_reads_strided_views(dev):
@@ -67,7 +67,7 @@ def test_flash_kernel_reads_strided_views(dev):
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     got = tfa.flash_attention(q, k, v)
     want = ref.mha(q, k, v)
-    assert (got - want).abs().max().item() <= 1e-5
+    assert ref.tolerance_ratio(got, want) <= 1
 
 
 def _mask(kind, b, c, dev, gen):
@@ -99,8 +99,8 @@ def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     torch.cuda.synchronize()
     assert tda.KERNEL.launches == before + 1
     want = ref.decode_attention(q, kc, vc, valid)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL[dtype], err
+    assert got.dtype == dtype and got.shape == q.shape
+    assert ref.tolerance_ratio(got, want) <= 1
 
 
 def test_kernels_refuse_unsupported_inputs(dev):

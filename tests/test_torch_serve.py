@@ -34,7 +34,7 @@ def _pair(arch: str):
     jcfg = jax_config(arch, smoke=True).replace(dtype="float32")
     tcfg = get_config(arch, smoke=True).replace(dtype="float32")
     jparams = T.init_lm(jax.random.PRNGKey(0), jcfg)
-    tparams = bridge.from_numpy(_flat(jparams), "cpu")
+    tparams = bridge.from_numpy(_flat(jparams), "cpu", dtype="float32")
     return jcfg, tcfg, jparams, tparams
 
 
@@ -77,6 +77,21 @@ def test_bridge_takes_bf16():
     t = bridge.from_numpy({"layers/0/w": arr}, "cpu")["layers"][0]["w"]
     assert t.dtype == torch.bfloat16
     assert torch.equal(t, torch.arange(6, dtype=torch.bfloat16).reshape(2, 3))
+
+
+def test_bridge_casts_floating_leaves_only():
+    tree = {"embed": np.ones((4, 2), np.float32), "layers/0/ids": np.arange(3)}
+    p = bridge.from_numpy(tree, "cpu", dtype="bfloat16")
+    assert p["embed"].dtype == torch.bfloat16
+    assert p["layers"][0]["ids"].dtype == torch.int64
+
+
+def test_prefill_matches_jax_prefill(yi):
+    jcfg, tcfg, jparams, tparams = yi
+    toks = _tokens(2, 12, tcfg.vocab_size, seed=4)
+    want, _ = T.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, 16)
+    got, _ = tf.prefill(tparams, {"tokens": torch.from_numpy(toks).long()}, tcfg, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 @pytest.mark.parametrize("arch,b,s", [("yi_9b", 8, 12), ("llama3_8b", 2, 12),
