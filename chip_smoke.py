@@ -7,17 +7,20 @@ Run from the root of the repository.  Phases, in order; any failure raises
 and the script exits non-zero without printing a result:
 
  1. device: name, count, and ``nvidia-smi`` name and power limit;
- 2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-    (one process per source, started together), with registers, shared
+ 2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+    nvcc (one process per source, started together), with registers, shared
     memory and spills from ``-Xptxas -v``;
  3. kernels: each kernel against its plain version on the card at the main
-    path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 (in
-    bf16 one bf16 ulp of each element); a planted fault (a KV tile or a
-    cache split dropped, emulated in the plain version) must fail the same
-    check; times of kernel, plain version and
-    ``scaled_dot_product_attention`` (the library yardstick, never used by
-    the port) with CUDA events around back-to-back calls, and the card's
-    own time per call from torch.profiler;
+    path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
+    the attention kernels (in bf16 one bf16 ulp of each element) and
+    ``ref.ssd_tolerance_ratio`` <= 1 for the SSD scan (f32, 1e-5 + 1e-4 of
+    each (batch, head)'s largest value); a planted fault (a KV tile, a cache
+    split, a chunk's entering state or intra-chunk term dropped, emulated in
+    the plain version) must fail the same check; times of kernel, plain
+    version and, for attention, ``scaled_dot_product_attention`` (the
+    library yardstick, never used by the port; no PyTorch call computes the
+    SSD scan) with CUDA events around back-to-back calls, and the card's own
+    time per call from torch.profiler;
  4. prefill: full-width llama3-8b (32 layers, bf16, random weights from a
     seed) on B=1, S=4096 through ``make_prefill_step``; the flash kernel must
     launch once per layer, and each launch of one prefill is held against
@@ -33,7 +36,20 @@ and the script exits non-zero without printing a result:
     and 16 more steps are timed, and each launch of one step there is held
     against the plain version; torch.profiler gives the device's busy share
     of prefill and decode, and the decode kernel's share of device time;
- 6. serve: ``repro_torch.launch.serve.main`` at full width.
+ 6. mamba2-370m prefill: full width and depth (48 layers, bf16, random
+    weights from a seed) on B=1, S=32768 through ``make_prefill_step``; the
+    SSD kernel must launch once per layer, and each launch of one prefill is
+    held against the plain version on its own inputs; at depth 2 the logits
+    at every position (in slices of positions) through the kernel must
+    match those through the plain version, and those with a planted fault
+    (every chunk's entering state dropped) must not;
+ 7. mamba2-370m decode: ``make_decode_step`` on the same weights, B=8, 8
+    teacher-forced and 8 greedy tokens timed; at depth 2, 160 teacher-forced
+    steps (across two chunk boundaries) must give the logits of the
+    kernel-path prefill of the same prompt at every position, and not those
+    of the faulty prefill: the recurrence checks the scan;
+ 8. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b and
+    mamba2-370m.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one JSON
 line with every kernel's numbers and the ``nvidia-smi`` line.  Needs one card
@@ -53,6 +69,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor cores: the peak for f32 operands
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores (printed as a note)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 # Kernels are held to ref.tolerance_ratio <= 1 (bf16: 1e-5 + 2^-7 |plain|,
 # one bf16 ulp of each element; f32: 1e-5).  Whole models are held to the
@@ -62,6 +80,7 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 MODEL_LIMIT = 0.05
 FLASH_TILE = 32            # keys per KV tile of csrc/flash_attention.cu
 DECODE_SPLIT = 256         # cache slots per split of csrc/decode_attention.cu
+NO_LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
 
 
 def log(*a):
@@ -141,54 +160,60 @@ def device_profile(fn, label: str, top: int = 6):
 
 
 def timings(kernel, plain, library, iters: int) -> dict:
-    """ms per call of the kernel, its plain version and the library call by
-    CUDA events around back-to-back calls (``time_ms``: where the host
-    launches slower than the card runs, this is the host's time), and the
-    card's own time per call (``device_ms``, None where not measured)."""
+    """ms per call of the kernel, its plain version and the library call (None
+    where there is none) by CUDA events around back-to-back calls
+    (``time_ms``: where the host launches slower than the card runs, this is
+    the host's time), and the card's own time per call (``device_ms``, None
+    where not measured)."""
     out = {}
     for name, fn, n in (("ms", kernel, iters), ("plain_ms", plain, max(2, iters // 4)),
                         ("library_ms", library, iters)):
-        out[name] = time_ms(fn, n)
-        out[name.replace("ms", "device_ms")] = device_ms(fn, n)
+        out[name] = time_ms(fn, n) if fn is not None else None
+        out[name.replace("ms", "device_ms")] = device_ms(fn, n) if fn is not None else None
     return out
 
 
 @contextlib.contextmanager
-def swapped_ops(mha, decode_attention):
-    """Route the model's attention through other functions on the card.
+def swapped_ops(**fns):
+    """Route the model's kernels (``mha``, ``decode_attention``, ``ssd``)
+    through other functions on the card.
 
     Only this script does this: to run a model through the plain versions,
     through a planted fault, or through the kernels with each launch held
     against its plain version.  The port itself has no such switch.
     """
     from repro_torch.kernels import ops
-    saved = ops.mha, ops.decode_attention
-    ops.mha, ops.decode_attention = mha, decode_attention
+    saved = {name: getattr(ops, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(ops, name, fn)
     try:
         yield
     finally:
-        ops.mha, ops.decode_attention = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
 def plain_ops():
     from repro_torch.kernels import ref
-    return swapped_ops(ref.mha, ref.decode_attention)
+    return swapped_ops(mha=ref.mha, decode_attention=ref.decode_attention,
+                       ssd=ref.ssd_chunked)
 
 
 def shifted_heads_ops():
     """A planted fault: every query head reads the next kv head's K/V."""
     from repro_torch.kernels import ref
     return swapped_ops(
-        lambda q, k, v, **kw: ref.mha(q, k.roll(1, 2), v.roll(1, 2), **kw),
-        lambda q, kc, vc, valid, **kw: ref.decode_attention(q, kc.roll(1, 2), vc.roll(1, 2),
-                                                            valid, **kw))
+        mha=lambda q, k, v, **kw: ref.mha(q, k.roll(1, 2), v.roll(1, 2), **kw),
+        decode_attention=lambda q, kc, vc, valid, **kw: ref.decode_attention(
+            q, kc.roll(1, 2), vc.roll(1, 2), valid, **kw))
 
 
 def checked_ops(ratios: list):
     """The kernels, with every launch's output held against the plain version
-    on the same inputs; each launch appends its tolerance ratio."""
+    on the same inputs; each launch appends its tolerance ratio (for the SSD
+    scan the worse of y's and the final state's)."""
     from repro_torch.kernels import ops, ref
-    mha, dec = ops.mha, ops.decode_attention
+    mha, dec, ssd = ops.mha, ops.decode_attention, ops.ssd
 
     def checked_mha(q, k, v, **kw):
         out = mha(q, k, v, **kw)
@@ -199,7 +224,14 @@ def checked_ops(ratios: list):
         out = dec(q, kc, vc, valid, **kw)
         ratios.append(ref.tolerance_ratio(out, ref.decode_attention(q, kc, vc, valid, **kw)))
         return out
-    return swapped_ops(checked_mha, checked_dec)
+
+    def checked_ssd(*args, **kw):
+        y, st = ssd(*args, **kw)
+        y_w, st_w = ref.ssd_chunked(*args, **kw)
+        ratios.append(max(ref.ssd_tolerance_ratio(y, y_w),
+                          ref.ssd_tolerance_ratio(st, st_w, head_dim=1)))
+        return y, st
+    return swapped_ops(mha=checked_mha, decode_attention=checked_dec, ssd=checked_ssd)
 
 
 def hold(label: str, got, want) -> tuple:
@@ -212,10 +244,11 @@ def hold(label: str, got, want) -> tuple:
     return err, ratio
 
 
-def control(label: str, fault, want) -> float:
-    """A planted fault, emulated in the plain version, must fail ``hold``."""
+def control(label: str, fault, want, ratio_fn=None) -> float:
+    """A planted fault, emulated in the plain version, must fail ``hold``
+    (or the check ``ratio_fn`` stands for)."""
     from repro_torch.kernels import ref
-    ratio = ref.tolerance_ratio(fault, want)
+    ratio = (ratio_fn or ref.tolerance_ratio)(fault, want)
     log(f"{label}: max_abs_err {max_err(fault, want):.3g}, {ratio:.1f} x the tolerance "
         f"(must exceed 1)")
     if not ratio > 1:
@@ -238,14 +271,16 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build, ops
     secs = _build.build_all(list(ops.KERNELS.values()))
-    log(f"[build] both kernels in {secs:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    log(f"[build] all {len(ops.KERNELS)} kernels in {secs:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, k in ops.KERNELS.items():
         for fn, res in k.resources().items():
             log(f"[build] {name}: {fn}: {res}")
     fa_lib, da_lib = ops.KERNELS["flash_attention"].lib(), ops.KERNELS["decode_attention"].lib()
+    ssd_lib = ops.KERNELS["ssd_scan"].lib()
     log(f"[build] dynamic shared memory per block at dh=128: flash "
         f"{fa_lib.repro_flash_attention_smem_bytes(128)} B, decode pass 1 (rep=4) "
-        f"{da_lib.repro_decode_attention_smem_bytes(4, 128)} B")
+        f"{da_lib.repro_decode_attention_smem_bytes(4, 128)} B; ssd scan at chunk 64, "
+        f"N=128: {ssd_lib.repro_ssd_scan_smem_bytes(64, 128)} B")
 
 
 def flash_case(b, s, h, kv, dh, dtype, seed=0):
@@ -408,7 +443,7 @@ def phase_prefill(cfg, params):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = ops.launch_counts()
-        if counts != {"flash_attention": cfg.n_layers, "decode_attention": 0}:
+        if counts != {**NO_LAUNCHES, "flash_attention": cfg.n_layers}:
             raise AssertionError(f"prefill launches {counts}, want {cfg.n_layers} flash")
     if logits.shape != (1, 1, padded_vocab(cfg)) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite/shaped")
@@ -439,8 +474,8 @@ def phase_prefill(cfg, params):
     del got
     with shifted_heads_ops():
         shifted = position_rel_rms(all_logits(), want)
-    with swapped_ops(lambda q, k, v, **kw: ref.mha(
-            q, k, v, kv_valid_len=k.shape[1] - FLASH_TILE, **kw), ref.decode_attention):
+    with swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
+            q, k, v, kv_valid_len=k.shape[1] - FLASH_TILE, **kw)):
         dropped = position_rel_rms(all_logits(), want)
     log(f"[prefill] depth 2, full width, all 4096 positions, worst position's relative RMS "
         f"of the logits: kernels vs plain {rel:.3g} (limit {MODEL_LIMIT}); controls: "
@@ -498,7 +533,7 @@ def phase_decode(cfg, params):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
-        if counts != {"flash_attention": 0, "decode_attention": cfg.n_layers * n}:
+        if counts != {**NO_LAUNCHES, "decode_attention": cfg.n_layers * n}:
             raise AssertionError(f"decode launches {counts}, want {cfg.n_layers * n} decode")
         if not torch.isfinite(logits).all():
             raise AssertionError("decode logits not finite")
@@ -579,6 +614,312 @@ def phase_decode(cfg, params):
             "full_context_decode_worst_ratio": max(ratios)}
 
 
+def ssd_inputs(b, s, h, p, g, n, seed=0, h_init=False):
+    """Inputs at the model's scale, x, B and C sliced out of one conv output
+    [B,S,H*P+2*G*N] as ``ssm_apply`` slices them (strided, not copied); dt
+    = softplus(z + dt_bias) with dt_bias drawn as the model's init draws it;
+    a = -(1..H)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = F.silu(torch.randn((b, s, h * p + 2 * g * n), generator=gen, device="cuda"))
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt0 = torch.exp(torch.rand((h,), generator=gen, device="cuda") * (hi - lo) + lo)
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda") + dt_bias)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=gen, device="cuda") if h_init else None
+    return x, dt, a, bm, cm, h0
+
+
+def pad_seq(t, s_to: int):
+    import torch.nn.functional as F
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, s_to - t.shape[1]))
+
+
+def ssd_drop_entering_state(x, dt, a, bm, cm, chunk, at):
+    """A planted fault: the plain scan with the state entering chunk ``at`` dropped."""
+    import torch
+    from repro_torch.kernels import ref
+    cut = at * chunk
+    y1, _ = ref.ssd_chunked(x[:, :cut], dt[:, :cut], a, bm[:, :cut], cm[:, :cut], chunk)
+    y2, st = ref.ssd_chunked(x[:, cut:], dt[:, cut:], a, bm[:, cut:], cm[:, cut:], chunk)
+    return torch.cat([y1, y2], 1), st
+
+
+def ssd_drop_intra(x, dt, a, bm, cm, chunk, at):
+    """A planted fault: the plain scan without chunk ``at``'s intra-chunk term
+    (that chunk alone from a zero state is exactly its intra-chunk term)."""
+    from repro_torch.kernels import ref
+    y, st = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
+    sl = slice(at * chunk, (at + 1) * chunk)
+    intra, _ = ref.ssd_chunked(x[:, sl], dt[:, sl], a, bm[:, sl], cm[:, sl], chunk)
+    y[:, sl] -= intra
+    return y, st
+
+
+def ssd_chunks_independent(x, dt, a, bm, cm, chunk, h_init=None):
+    """A planted model fault: every chunk's entering state dropped (the plain
+    scan over each chunk as a sequence of its own; a ragged S zero-padded)."""
+    from repro_torch.kernels import ref
+    b, s, h, p = x.shape
+    nc, g, n = -(-s // chunk), bm.shape[2], bm.shape[3]
+    x, dt, bm, cm = (pad_seq(t, nc * chunk) for t in (x, dt, bm, cm))
+    y, st = ref.ssd_chunked(x.reshape(b * nc, chunk, h, p), dt.reshape(b * nc, chunk, h), a,
+                            bm.reshape(b * nc, chunk, g, n), cm.reshape(b * nc, chunk, g, n),
+                            chunk)
+    return y.reshape(b, nc * chunk, h, p)[:, :s], st.reshape(b, nc, h, p, n)[:, -1]
+
+
+def hold_ssd(label: str, y, st, y_want, st_want) -> tuple:
+    """The SSD kernel's y and state against the plain version's; returns
+    (max_abs_err, worst ratio)."""
+    from repro_torch.kernels import ref
+    ratio = max(ref.ssd_tolerance_ratio(y, y_want), ref.ssd_tolerance_ratio(st, st_want, 1))
+    err = max(max_err(y, y_want), max_err(st, st_want))
+    log(f"{label}: max_abs_err {err:.3g} (max |y| {y_want.abs().max().item():.3g}), "
+        f"{ratio:.4f} of the tolerance, margin {1 - ratio:.4f}")
+    if not ratio <= 1:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version")
+    return err, ratio
+
+
+def phase_ssd_kernel():
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as tssd
+    worst, worst_ratio = 0.0, 0.0
+    for b, s, h, p, g, n, chunk, h_init, padded in [
+            (2, 4096, 32, 64, 2, 128, 64, False, False),    # two groups
+            (1, 2048, 32, 64, 1, 128, 8, False, False),     # chunks 8, 16, 32
+            (1, 2048, 32, 64, 1, 128, 16, False, False),
+            (1, 2048, 32, 64, 1, 128, 32, False, False),
+            (1, 1000, 32, 64, 1, 128, 64, False, False),    # ragged S, masked by the kernel
+            (1, 1000, 32, 64, 1, 128, 64, False, True),     # ragged S, zero-padded by the caller
+            (1, 2048, 32, 64, 1, 128, 64, True, False)]:    # h_init
+        x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, p, g, n, h_init=h_init)
+        y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk, h_init=h0)
+        if padded:
+            sp = -(-s // chunk) * chunk
+            y, st = tssd.ssd_scan(*(pad_seq(t, sp) for t in (x, dt)), a,
+                                  *(pad_seq(t, sp) for t in (bm, cm)), chunk, h_init=h0)
+            y = y[:, :s]
+        else:
+            y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
+        err, ratio = hold_ssd(f"[ssd] B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}"
+                              f"{' h_init' if h_init else ''}{' zero-padded' if padded else ''}",
+                              y, st, y_w, st_w)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+
+    # the main path's shape: mamba2-370m prefill, one layer
+    b, s, h, p, g, n, chunk = 1, 32768, 32, 64, 1, 128, 64
+    x, dt, a, bm, cm, _ = ssd_inputs(b, s, h, p, g, n, seed=1)
+    y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
+    y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk)
+    err, ratio = hold_ssd(f"[ssd] main shape B={b} S={s} H={h} P={p} G={g} N={n} "
+                          f"chunk={chunk}, strided inputs", y, st, y_w, st_w)
+    worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    del y, st
+    at = s // chunk // 2
+    ctrl = min(control(f"[ssd] control: plain with the state entering chunk {at} dropped",
+                       ssd_drop_entering_state(x, dt, a, bm, cm, chunk, at)[0], y_w,
+                       ratio_fn=ref.ssd_tolerance_ratio),
+               control(f"[ssd] control: plain without chunk {at}'s intra-chunk term",
+                       ssd_drop_intra(x, dt, a, bm, cm, chunk, at)[0], y_w,
+                       ratio_fn=ref.ssd_tolerance_ratio))
+    del y_w, st_w
+    torch.cuda.empty_cache()
+    t = timings(lambda: tssd.ssd_scan(x, dt, a, bm, cm, chunk),
+                lambda: ref.ssd_chunked(x, dt, a, bm, cm, chunk), None, 12)
+    nc, L = s // chunk, chunk
+    # bytes: each input read once, each output written once (f32)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + b * h * p * n + h)
+    # least operations: C B^T once per group and chunk, causal halves, the
+    # state read and the state update
+    flops = b * nc * (g * L * (L + 1) * n + h * (L * (L + 1) * p + 4 * L * n * p))
+    # f32 operands: the card's peak for them is the TF32 tensor cores
+    bound_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    ms = t["ms"]
+    log(f"[ssd] {ms:.3f} ms kernel, {t['plain_ms']:.3f} ms plain (CUDA events; device time "
+        f"{t['device_ms']} / {t['plain_device_ms']}); no library call computes the SSD scan; "
+        f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP: {flops / PEAK_TF32_FLOPS * 1e3:.4f} "
+        f"ms on the TF32 tensor cores, {flops / PEAK_F32_FLOPS * 1e3:.4f} ms on the f32 CUDA "
+        f"cores alone; {nbytes / 1e6:.1f} MB: {nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms); "
+        f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s achieved")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:31",
+            "max_abs_err": worst, "tolerance": "1e-5 + 1e-4 max|plain| per (batch, head) (f32)",
+            "tolerance_ratio": worst_ratio, "control_ratio": ctrl, **t,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_TF32_FLOPS > nbytes / PEAK_HBM_BYTES
+            else "bytes",
+            "shape": f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"}
+
+
+def sliced_logits_rel_rms(p2, cfg2, tokens, runs: dict, slice_len: int = 4096) -> dict:
+    """Worst position's relative RMS of the logits of each run against the
+    first, at every position.  ``runs`` maps a label to a context manager
+    factory (or None for the port as it is); ``lm_forward`` gives the final
+    hidden states and ``unembed`` makes the logits ``slice_len`` positions
+    at a time, since all logits at S=32768 would take 6.6 GB in f32."""
+    from repro_torch.models import transformer as tf
+    hs = {}
+    for label, ctx in runs.items():
+        with (ctx() if ctx is not None else contextlib.nullcontext()):
+            hs[label], _ = tf.lm_forward(p2, {"tokens": tokens}, cfg2, hidden=True)
+    labels = list(runs)
+    out = {label: 0.0 for label in labels[1:]}
+    for i in range(0, tokens.shape[1], slice_len):
+        want = tf.unembed(p2, hs[labels[0]][:, i:i + slice_len], cfg2)
+        for label in labels[1:]:
+            got = tf.unembed(p2, hs[label][:, i:i + slice_len], cfg2)
+            out[label] = max(out[label], position_rel_rms(got, want))
+    return out
+
+
+def phase_mamba_prefill(cfg, params):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.serve.step import ServeSetup, make_prefill_step
+    s = 32768
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
+    step = make_prefill_step(ServeSetup(cfg=cfg), (1, 1), params)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        if counts != {**NO_LAUNCHES, "ssd_scan": cfg.n_layers}:
+            raise AssertionError(f"mamba prefill launches {counts}, want {cfg.n_layers} ssd")
+    if logits.shape != (1, 1, padded_vocab(cfg)) or not torch.isfinite(logits).all():
+        raise AssertionError(f"mamba prefill logits {tuple(logits.shape)} not finite/shaped")
+    log(f"[mamba prefill] mamba2-370m {cfg.n_layers} layers B=1 S={s}: {times[0]:.1f} ms "
+        f"first, {times[1]:.1f} ms second; ssd launches {counts['ssd_scan']}")
+    busy, dev = device_profile(lambda: step(params, {"tokens": tokens}),
+                               f"mamba prefill B=1 S={s}")
+    ssd_ms = sum(ms for key, ms in dev.items() if "ssd_chunk_scan_kernel" in key)
+    share = ssd_ms / sum(dev.values()) if dev else None
+    if dev:
+        log(f"[mamba prefill] ssd kernel {ssd_ms:.2f} ms of {sum(dev.values()):.2f} ms device "
+            f"time ({100 * share:.1f} %)")
+
+    ratios = []
+    with checked_ops(ratios):
+        step(params, {"tokens": tokens})
+    log(f"[mamba prefill] {cfg.n_layers} layers: each ssd launch against ref.ssd_chunked on the "
+        f"same inputs: worst {max(ratios):.4f} of the tolerance over {len(ratios)} launches")
+    if len(ratios) != cfg.n_layers or not max(ratios) <= 1:
+        raise AssertionError(f"mamba prefill: an ssd launch disagrees with the plain version: "
+                             f"{ratios}")
+
+    # depth 2, full width: logits at every position through the kernel, the
+    # plain version and a planted fault
+    cfg2 = cfg.replace(n_layers=2)
+    p2 = _first_periods(params, 2)
+    rel = sliced_logits_rel_rms(p2, cfg2, tokens, {
+        "plain": plain_ops, "kernel": None,
+        "chunks independent": lambda: swapped_ops(ssd=ssd_chunks_independent),
+        "middle state dropped": lambda: swapped_ops(
+            ssd=lambda x, dt, a, bm, cm, chunk, h_init=None: ssd_drop_entering_state(
+                x, dt, a, bm, cm, chunk, x.shape[1] // chunk // 2))})
+    log(f"[mamba prefill] depth 2, full width, all {s} positions, worst position's relative "
+        f"RMS of the logits: kernel vs plain {rel['kernel']:.3g} (limit {MODEL_LIMIT}); "
+        f"controls: every chunk's entering state dropped {rel['chunks independent']:.3g} "
+        f"(must exceed the limit), the middle chunk's entering state dropped "
+        f"{rel['middle state dropped']:.3g} (reported)")
+    if not rel["kernel"] <= MODEL_LIMIT < rel["chunks independent"]:
+        raise AssertionError(f"depth-2 mamba prefill: {rel}")
+    return {"ssd_launches": counts["ssd_scan"], "mamba_prefill_calls": 1,
+            "mamba_prefill_ms": times[1], "mamba_prefill_first_ms": times[0],
+            "mamba_prefill_device_busy": busy, "mamba_prefill_ssd_share_of_device": share,
+            "mamba_prefill_ssd_worst_ratio": max(ratios),
+            "mamba_prefill_depth2_rel_rms": rel["kernel"],
+            "mamba_prefill_depth2_chunks_independent": rel["chunks independent"],
+            "mamba_prefill_depth2_middle_state_dropped": rel["middle state dropped"]}
+
+
+def phase_mamba_decode(cfg, params):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import ServeSetup, init_serve_state, make_decode_step
+    b, n_forced, n_gen = 8, 8, 8
+    steps = n_forced + n_gen
+    setup = ServeSetup(cfg=cfg)
+    state = init_serve_state(setup, (1, 1), params, b, steps + 2)
+    step = make_decode_step(setup, (1, 1), params, batch=b, capacity=steps + 2)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (b, n_forced), generator=gen, device="cuda")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out, tok = [], None
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if i < n_forced:
+            tok = prompt[:, i:i + 1]
+        logits, state = step(params, state, tok, i)
+        out.append(logits)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts != NO_LAUNCHES or not torch.isfinite(logits).all():
+        raise AssertionError(f"mamba decode: launches {counts} (the recurrent step launches "
+                             f"no kernel of the port), finite {torch.isfinite(logits).all()}")
+    tok_s = b * steps / secs
+    log(f"[mamba decode] mamba2-370m B={b}: {n_forced} teacher-forced + {n_gen} greedy steps "
+        f"in {secs * 1e3:.1f} ms, {secs / steps * 1e3:.2f} ms/step, {tok_s:.1f} tok/s")
+    busy, _ = device_profile(lambda: step(params, state, tok, steps), f"mamba decode 1 step B={b}")
+    want, _ = tf.lm_forward(params, {"tokens": prompt}, cfg)
+    deep = position_rel_rms(torch.cat(out[:n_forced], 1), want)
+    log(f"[mamba decode] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
+        f"prefill of the prompt: worst position's relative RMS {deep:.3g} (reported)")
+
+    # depth 2: the recurrence over 160 positions (two chunk boundaries of 64)
+    # against the kernel-path prefill of the same prompt, and a faulty prefill
+    cfg2 = cfg.replace(n_layers=2)
+    p2 = _first_periods(params, 2)
+    n_long = 160
+    prompt2 = torch.randint(0, cfg.vocab_size, (b, n_long), generator=gen, device="cuda")
+    st2 = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, n_long)
+    forced = []
+    for t in range(n_long):
+        lg, st2 = tf.decode_step(p2, st2, prompt2[:, t:t + 1], t, cfg2)
+        forced.append(lg)
+    forced = torch.cat(forced, 1)
+    ops.reset_launch_counts()
+    pre, _ = tf.lm_forward(p2, {"tokens": prompt2}, cfg2)
+    if ops.launch_counts()["ssd_scan"] != cfg2.n_layers:
+        raise AssertionError("depth-2 prefill did not run the ssd kernel")
+    with swapped_ops(ssd=ssd_chunks_independent):
+        faulty, _ = tf.lm_forward(p2, {"tokens": prompt2}, cfg2)
+    e_pre, e_fault = position_rel_rms(forced, pre), position_rel_rms(forced, faulty)
+    log(f"[mamba decode] depth 2, full width, {b}x{n_long} teacher-forced positions vs the "
+        f"kernel-path prefill: worst position's relative RMS {e_pre:.3g} (limit {MODEL_LIMIT}); "
+        f"control: vs a prefill with every chunk's entering state dropped {e_fault:.3g} "
+        f"(must exceed the limit)")
+    if not e_pre <= MODEL_LIMIT < e_fault:
+        raise AssertionError(f"depth-2 mamba decode vs prefill: {e_pre}, control {e_fault}")
+    return {"mamba_decode_steps": steps, "mamba_decode_tok_s": tok_s,
+            "mamba_decode_ms_per_step": secs / steps * 1e3, "mamba_decode_device_busy": busy,
+            "mamba_decode_48_layers_vs_prefill": deep,
+            "mamba_decode_depth2_vs_prefill": e_pre,
+            "mamba_decode_depth2_vs_faulty_prefill": e_fault}
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -599,7 +940,7 @@ def run() -> int:
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-    kernels = [phase_flash(), phase_decode_kernel()]
+    kernels = [phase_flash(), phase_decode_kernel(), phase_ssd_kernel()]
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
@@ -613,16 +954,29 @@ def run() -> int:
                       launches_per_step=pre["flash_launches"] / pre["prefill_calls"])
     kernels[1].update(launches=dec["decode_launches"],
                       launches_per_step=dec["decode_launches"] / dec["decode_steps"])
-
     del params
     torch.cuda.empty_cache()
-    out = serve.main(["--arch", "llama3_8b", "--batch", "4", "--prompt-len", "12",
-                      "--gen", "20"])
-    if not torch.isfinite(out["logits"]).all():
-        raise AssertionError("serve entry point: logits not finite")
+
+    cfg = get_config("mamba2_370m")
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] mamba2-370m {tf.param_count(params) / 1e9:.3f} B params (bf16 projections, "
+        f"f32 SSM leaves) in {time.perf_counter() - t0:.1f} s")
+    mpre = phase_mamba_prefill(cfg, params)
+    mdec = phase_mamba_decode(cfg, params)
+    kernels[2].update(launches=mpre["ssd_launches"],
+                      launches_per_step=mpre["ssd_launches"] / mpre["mamba_prefill_calls"])
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in ("llama3_8b", "mamba2_370m"):
+        out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
+        if not torch.isfinite(out["logits"]).all():
+            raise AssertionError(f"serve entry point, {arch}: logits not finite")
     log(f"[serve] ok; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"whole run {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels, **pre, **dec, "card": smi}))
+    log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -31,10 +31,21 @@ def _listify(node):
     return node
 
 
+# Leaves the JAX package keeps in f32 whatever the model's dtype, of the
+# families ported so far: the norm scales and the SSM's conv, decay and skip
+# parameters.
+F32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "norm_w",
+                        "conv_w", "conv_b", "a_log", "dt_bias", "d_skip"})
+
+
 def from_numpy(tree: dict, device, dtype=None) -> dict:
     """{path: array} -> the port's nested parameters on ``device``.
 
-    ``dtype`` (a torch dtype or its name) casts the floating leaves.
+    ``dtype`` (a torch dtype or its name: the model's ``cfg.dtype``) casts
+    the floating leaves that the JAX package makes in the model's dtype;
+    those it keeps in f32 (``F32_LEAVES``, by their last path segment) are
+    made f32.  So a tree that ``to_numpy`` turned to f32 comes back with
+    the model's dtypes.
     """
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
@@ -46,7 +57,7 @@ def from_numpy(tree: dict, device, dtype=None) -> dict:
             node = node.setdefault(key, {})
         t = _tensor(np.asarray(arr))
         if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
+            t = t.to(torch.float32 if parts[-1] in F32_LEAVES else dtype)
         node[parts[-1]] = t.to(device)
     return _listify(root)
 

@@ -1,4 +1,4 @@
-"""Model configurations of the serving slice: the dense architectures."""
+"""Model configurations of the serving slices: the dense architectures and mamba2-370m."""
 from repro_torch.configs.base import ModelConfig, get_config
 
 __all__ = ["ModelConfig", "get_config"]

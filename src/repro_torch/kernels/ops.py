@@ -1,4 +1,4 @@
-"""Dispatch of the attention kernels on the tensor's device.
+"""Dispatch of the kernels (attention, SSD scan) on the tensor's device.
 
 A CPU tensor goes to the plain version in ``ref``; a CUDA tensor launches
 the hand-written kernel or raises.  There is no switch and no fallback: a
@@ -11,14 +11,16 @@ from typing import Optional
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
-KERNELS = {"flash_attention": _fa.KERNEL, "decode_attention": _da.KERNEL}
+KERNELS = {"flash_attention": _fa.KERNEL, "decode_attention": _da.KERNEL,
+           "ssd_scan": _ssd.KERNEL}
 
 
 def _route(t) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
-    raise ValueError(f"no attention kernel for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -35,6 +37,16 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] 
     if _route(q) == "cuda":
         return _da.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
     return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
+
+
+def ssd(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
+    """Mamba-2 SSD chunked scan (see ``ref.ssd_chunked`` for shapes).
+
+    Returns (y [B,S,H,P], final state [B,H,P,N]), f32.
+    """
+    if _route(x) == "cuda":
+        return _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
+    return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
 
 
 def launch_counts() -> dict:

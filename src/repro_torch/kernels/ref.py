@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the attention kernels (forward only).
+"""Plain PyTorch versions of the kernels (forward only).
 
-Counterpart of ``repro.kernels.ref``.  ``mha`` is a blocked (flash)
-attention that never materialises the [Sq, Sk] score matrix;
-``decode_attention`` is the blocked flash-decode of one query token over a
-cache.  The CPU path runs these, and the tests and ``chip_smoke.py`` hold
-the CUDA kernels in ``flash_attention.py`` and ``decode_attention.py``
-against them.
+Counterpart of ``repro.kernels.ref`` and of ``repro.models.ssm.ssd_chunked``.
+``mha`` is a blocked (flash) attention that never materialises the
+[Sq, Sk] score matrix; ``decode_attention`` is the blocked flash-decode of
+one query token over a cache; ``ssd_chunked`` is the Mamba-2 SSD chunked
+scan.  The CPU path runs these, and the tests and ``chip_smoke.py`` hold
+the CUDA kernels in ``flash_attention.py``, ``decode_attention.py`` and
+``ssd_scan.py`` against them.
 
 Conventions
   q        [B, Sq, H, dh]
@@ -166,3 +167,96 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
         return acc, m, l
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+
+# What the SSD kernel is held to against ``ssd_chunked``.  Both compute in
+# f32 but sum in other orders (the kernel takes decays as differences of
+# cumulative sums, as the Pallas kernel does, where the plain version takes
+# segment sums), and y is a sum over a whole chunk and the carried state, so
+# the error scales with the output's size, not with each element's: each
+# (batch, head) is held to SSD_ATOL + SSD_RTOL * its largest |value|, about
+# 840 f32 ulps of that scale.  The JAX package holds its Pallas kernel to
+# the oracle at 5e-4 absolute on outputs of order 10 (tests/test_kernels.py),
+# a looser bound.  Dropping the state that enters one chunk, or one chunk's
+# intra-chunk term, moves y by a sizeable part of that scale and fails.
+SSD_ATOL = 1e-5
+SSD_RTOL = 1e-4
+
+
+def ssd_tolerance_ratio(got: torch.Tensor, want: torch.Tensor, head_dim: int = 2) -> float:
+    """max |got - want| / (SSD_ATOL + SSD_RTOL * max |want|), both maxima
+    taken per (batch, head); ``head_dim`` is 2 for y [B,S,H,P] and 1 for the
+    state [B,H,P,N].  At most 1 where ``got`` agrees with the plain version."""
+    if got.shape != want.shape:
+        raise ValueError(f"shapes {tuple(got.shape)} and {tuple(want.shape)} differ")
+    w = want.float().movedim(head_dim, 1).flatten(2)
+    d = (got.float().movedim(head_dim, 1).flatten(2) - w).abs()
+    allowed = SSD_ATOL + SSD_RTOL * w.abs().amax(-1)
+    return (d.amax(-1) / allowed).max().item()
+
+
+def _segsum(dA):
+    """Stable segment sum: out[..., i, j] = sum of dA[..., k] for k in (j, i].
+
+    dA [..., L] -> [..., L, L], -inf above the diagonal.
+    """
+    L = dA.shape[-1]
+    x = dA[..., None].expand(*dA.shape, L)  # x[..., k, j] = dA[k]
+    ones = torch.ones((L, L), dtype=torch.bool, device=dA.device)
+    x = torch.where(torch.tril(ones, diagonal=-1), x, 0.0)  # keep k > j
+    seg = torch.cumsum(x, dim=-2)  # [..., i, j] = sum_{k=j+1..i} dA[k]
+    return torch.where(torch.tril(ones), seg, float("-inf"))
+
+
+def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
+    """SSD dual form over chunks (port of ``repro.models.ssm.ssd_chunked``).
+
+    x [B,S,H,P] (pre-discretisation), dt [B,S,H] (post-softplus), a [H]
+    (negative reals), b_mat/c_mat [B,S,G,N]; head h reads group h // (H/G).
+    Returns (y [B,S,H,P], final_state [B,H,P,N]), both f32.  The JAX
+    package's four-operand einsum is taken in stages (C B^T over n first),
+    so nothing of size [B,NC,L,L,H,N] is made.  A ragged S is zero-padded to
+    a chunk multiple, as the JAX package's ``ssm_apply`` pads it: dt = 0 on
+    the padding keeps the state exact.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if h % g:
+        raise ValueError(f"{h} heads are not a multiple of {g} groups")
+    x, dt, b_mat, c_mat = (_pad_to(t, chunk, 1)[0] for t in (x, dt, b_mat, c_mat))
+    rep = h // g
+    nc = x.shape[1] // chunk
+    f32 = torch.float32
+
+    xc = x.reshape(bsz, nc, chunk, h, p).to(f32)
+    dtc = dt.reshape(bsz, nc, chunk, h).to(f32)
+    bc = b_mat.reshape(bsz, nc, chunk, g, n).to(f32).repeat_interleave(rep, 3)
+    cc = c_mat.reshape(bsz, nc, chunk, g, n).to(f32).repeat_interleave(rep, 3)
+
+    dA = (dtc * a.to(f32)).movedim(-1, 2)      # [B,NC,H,L]
+    dA_cs = torch.cumsum(dA, dim=-1)           # [B,NC,H,L]
+
+    # ---- intra-chunk (attention-like) ----
+    xdt = xc * dtc[..., None]                  # [B,NC,L,H,P]
+    w = torch.einsum("bclhn,bcshn->bchls", cc, bc) * torch.exp(_segsum(dA))
+    y = torch.einsum("bchls,bcshp->bclhp", w, xdt)
+    del w
+
+    # ---- chunk states ----
+    decay_to_end = torch.exp(dA_cs[..., -1:] - dA_cs)  # [B,NC,H,L]
+    states = torch.einsum("bcshn,bcshp->bchpn", bc, xdt * decay_to_end.movedim(2, 3)[..., None])
+
+    # ---- inter-chunk recurrence over chunks ----
+    chunk_decay = torch.exp(dA_cs[..., -1])    # [B,NC,H]
+    prev = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device) if h_init is None
+            else h_init.to(f32))
+    prev_states = torch.empty_like(states)     # the state entering each chunk
+    for c in range(nc):
+        prev_states[:, c] = prev
+        prev = states[:, c] + chunk_decay[:, c, :, None, None] * prev
+
+    # ---- inter-chunk contribution ----
+    in_decay = torch.exp(dA_cs).movedim(2, 3)  # [B,NC,L,H]: decay from chunk start to l
+    y = y + torch.einsum("bclhn,bchpn->bclhp", cc, prev_states) * in_decay[..., None]
+    return y.reshape(bsz, nc * chunk, h, p)[:, :s], prev

@@ -1,5 +1,5 @@
-"""Dense decoder LM: init, prefill forward and cached decode (port of
-``repro.models.transformer``, dense family).
+"""Decoder LM: init, prefill forward and cached decode (port of
+``repro.models.transformer``, dense and SSM families).
 
 Parameters are a plain dict in the JAX package's tree layout:
 ``{"embed", "layers": [one dict per period position], "final_norm",
@@ -15,16 +15,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, mlp_apply, padded_vocab, rms_norm,
                                        rms_norm_init)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """The serving slice runs dense decoders; other families raise."""
-    todo = {"moe": "MoE", "ssm": "SSM/hybrid", "hybrid": "SSM/hybrid",
-            "vlm": "remaining families", "audio": "remaining families"}
-    if cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.encoder or cfg.frontend:
-        item = todo.get(cfg.family, "remaining families")
+def _check_family(cfg: ModelConfig) -> None:
+    """The serving slices run dense decoders and pure-SSM (Mamba-2) models;
+    other families raise and name their item of the roadmap."""
+    todo = {"moe": "item 5, MoE", "hybrid": "item 6, hybrid (needs MoE, item 5)",
+            "vlm": "item 7, remaining families", "audio": "item 7, remaining families"}
+    ported = ((cfg.family == "dense" and cfg.ssm is None and set(cfg.pattern) == {"attn"})
+              or (cfg.family == "ssm" and cfg.ssm is not None and set(cfg.pattern) == {"mamba"}))
+    if not ported or cfg.moe or cfg.encoder or cfg.frontend:
+        item = todo.get(cfg.family, "item 7, remaining families")
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP.md, Queue 1: {item})")
 
@@ -66,20 +70,24 @@ def _stacked(shapes: dict, np_: int, dtype, gen, device) -> dict:
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random parameters from a seeded generator on ``device``.
 
-    Each leaf is drawn in f32 and cast to ``cfg.dtype``; layer leaves are
-    drawn one period at a time, so the f32 peak is one period's largest
+    Each matrix is drawn in f32 and cast to ``cfg.dtype``; norm scales and
+    the SSM's conv, decay and skip leaves stay f32, as in the JAX package.
+    Layer leaves are drawn one period at a time, so the f32 peak is one period's largest
     leaf, not a whole stacked leaf (7.5 GB for llama3-8b's w_gate).
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     d, np_ = cfg.d_model, n_periods(cfg)
     vp = padded_vocab(cfg)
     layers = []
-    for _ in period_spec(cfg):
-        lp = {"norm1": torch.zeros((np_, d), dtype=torch.float32, device=device),
-              "mixer": _stacked(attn.attn_shapes(cfg), np_, dtype, gen, device)}
+    for kind, _ in period_spec(cfg):
+        lp = {"norm1": torch.zeros((np_, d), dtype=torch.float32, device=device)}
+        if kind == "attn":
+            lp["mixer"] = _stacked(attn.attn_shapes(cfg), np_, dtype, gen, device)
+        else:
+            lp["mixer"] = ssm_mod.ssm_init(cfg, np_, dtype, gen, device)
         if cfg.d_ff > 0:
             lp["norm2"] = torch.zeros((np_, d), dtype=torch.float32, device=device)
             lp["ffn"] = _stacked({"w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
@@ -117,8 +125,11 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
                     mask=None, prefix_len: int = 0):
     kind, ffn = spec
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    h = attn.attention(lp["mixer"], h, positions, cfg, causal=causal,
-                       window=cfg.sliding_window, mask=mask, prefix_len=prefix_len)
+    if kind == "attn":
+        h = attn.attention(lp["mixer"], h, positions, cfg, causal=causal,
+                           window=cfg.sliding_window, mask=mask, prefix_len=prefix_len)
+    else:
+        h = ssm_mod.ssm_apply(lp["mixer"], h, cfg)
     x = x + h
     if ffn is not None:
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
@@ -137,18 +148,22 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
     return x
 
 
-def _unembed(params, x, cfg: ModelConfig):
+def unembed(params, x, cfg: ModelConfig):
+    """Logits of final hidden states x [..., D] -> [..., padded vocab]."""
     if cfg.tie_embeddings:
         return torch.einsum("...d,vd->...v", x, params["embed"])
     return torch.einsum("...d,dv->...v", x, params["unembed"])
 
 
-def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False):
+def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
+               hidden: bool = False):
     """Teacher-forced forward.  Returns (logits, moe_aux) like the JAX package.
 
     batch: {"tokens" [B,S]}.  last_only: logits of the final position only.
+    hidden: the final (normed) hidden states [B,S,D] in place of the logits,
+    for a caller that applies ``unembed`` to a few positions at a time.
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -156,25 +171,29 @@ def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    logits = _unembed(params, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    out = x if hidden else unembed(params, x, cfg)
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
     """Per-period-position caches, leaves stacked [n_periods, ...].
 
-    A sliding-window architecture keeps a ring cache of
-    ``min(capacity, sliding_window)`` slots.
+    An attention position keeps a KV cache; a sliding-window architecture a
+    ring cache of ``min(capacity, sliding_window)`` slots.  A Mamba position
+    keeps its conv window and SSM state, whatever the capacity.
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     np_ = n_periods(cfg)
     dtype = getattr(torch, cfg.dtype)
     caches = []
-    for _ in period_spec(cfg):
-        cap = capacity
-        if cfg.sliding_window is not None:
-            cap = min(capacity, cfg.sliding_window)
-        one = attn.init_kv_cache(cfg, batch, cap, dtype, device)
+    for kind, _ in period_spec(cfg):
+        if kind == "attn":
+            cap = capacity
+            if cfg.sliding_window is not None:
+                cap = min(capacity, cfg.sliding_window)
+            one = attn.init_kv_cache(cfg, batch, cap, dtype, device)
+        else:
+            one = ssm_mod.init_ssm_cache(cfg, batch, device)
         caches.append({k: v[None].repeat((np_,) + (1,) * v.dim()) for k, v in one.items()})
     return caches
 
@@ -184,21 +203,24 @@ def decode_step(params, state, token, pos: int, cfg: ModelConfig):
 
     ``state`` is updated in place and returned.  Returns (logits [B,1,V], state).
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     x = params["embed"][token]
     specs = period_spec(cfg)
     for p in range(n_periods(cfg)):
         for i, (kind, ffn) in enumerate(specs):
             lp = _period(params["layers"][i], p)
             z = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            z, _ = attn.decode_attention(lp["mixer"], z, pos, _period(state[i], p), cfg,
-                                         window=cfg.sliding_window)
+            if kind == "attn":
+                z, _ = attn.decode_attention(lp["mixer"], z, pos, _period(state[i], p), cfg,
+                                             window=cfg.sliding_window)
+            else:
+                z, _ = ssm_mod.ssm_decode(lp["mixer"], z, _period(state[i], p), cfg)
             x = x + z
             if ffn is not None:
                 z = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 x = x + mlp_apply(lp["ffn"], z, cfg.mlp_act)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, x, cfg), state
+    return unembed(params, x, cfg), state
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int):

@@ -15,6 +15,7 @@ from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
 
 ATOL = 1e-5
 
@@ -127,7 +128,12 @@ def test_ops_on_cpu_tensors_launch_nothing():
     out = ops.decode_attention(dq, k, v, valid)
     np.testing.assert_allclose(out.numpy(),
                                tref.decode_attention(dq, k, v, valid).numpy(), atol=0)
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    x, dt = torch.randn(1, 16, 2, 4), torch.rand(1, 16, 2)
+    a, bm = -torch.arange(1.0, 3.0), torch.randn(1, 16, 1, 8)
+    y, st = ops.ssd(x, dt, a, bm, bm, 8)
+    y_w, st_w = tref.ssd_chunked(x, dt, a, bm, bm, 8)
+    assert torch.equal(y, y_w) and torch.equal(st, st_w)
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -135,6 +141,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="no attention kernel"):
+    with pytest.raises(ValueError, match="no kernel"):
         ops.mha(q.to("meta"), k.to("meta"), v.to("meta"))
     assert ops.launch_counts()["flash_attention"] == 0
+    x, dt = torch.randn(1, 16, 2, 4), torch.rand(1, 16, 2)
+    a, bm = -torch.arange(1.0, 3.0), torch.randn(1, 16, 1, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tssd.ssd_scan(x, dt, a, bm, bm, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ssd(*(t.to("meta") for t in (x, dt, a, bm, bm)), 8)
+    assert ops.launch_counts()["ssd_scan"] == 0

@@ -11,14 +11,18 @@ Tolerance: ``ref.tolerance_ratio`` <= 1, i.e. f32 1e-5 (the JAX package's
 kernel tolerance); bf16 1e-5 + 2^-7 |plain|, one bf16 ulp of each element
 (the kernel and the plain version both accumulate in f32 and round once to
 bf16).  tests/test_torch_kernels.py shows that this bf16 tolerance rejects a
-dropped KV tile or cache split.
+dropped KV tile or cache split.  The SSD scan (f32) is held to
+``ref.ssd_tolerance_ratio`` <= 1: 1e-5 + 1e-4 of each (batch, head)'s
+largest |value|, which tests/test_torch_ssm.py shows rejects a dropped
+state or intra-chunk term.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as tssd
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +117,82 @@ def test_kernels_refuse_unsupported_inputs(dev):
     kc = torch.zeros((1, 16, 4, 64), device=dev)
     with pytest.raises(ValueError, match="valid_mask"):
         tda.decode_attention(q1, kc, kc, torch.ones((1, 15), dtype=torch.bool, device=dev))
+
+
+def _ssd_case(b, s, h, p, g, n, dev, gen, h_init=False):
+    """Inputs at the model's scale: dt = softplus(z - 3), a = -(1..H)."""
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev) - 3)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    bm = torch.randn((b, s, g, n), generator=gen, device=dev)
+    cm = torch.randn((b, s, g, n), generator=gen, device=dev)
+    h0 = torch.randn((b, h, p, n), generator=gen, device=dev) if h_init else None
+    return x, dt, a, bm, cm, h0
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", [
+    (2, 64, 4, 16, 2, 8, 8, False),        # tests/test_kernels.py's shapes
+    (2, 64, 4, 16, 2, 8, 32, True),        # h_init
+    (1, 512, 8, 64, 1, 128, 64, False),    # mamba2-370m's head and state
+    (1, 300, 8, 64, 1, 128, 64, True),     # ragged S
+    (2, 100, 6, 40, 3, 24, 16, False),     # P and N not multiples of 16, G=3
+])
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
+    before = tssd.KERNEL.launches
+    y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
+    torch.cuda.synchronize()
+    assert tssd.KERNEL.launches == before + 1
+    y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk, h_init=h0)  # zero-pads a ragged S
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    assert ref.ssd_tolerance_ratio(y, y_w) <= 1
+    assert ref.ssd_tolerance_ratio(st, st_w, head_dim=1) <= 1
+
+
+def test_ssd_kernel_reads_strided_views(dev):
+    """x, B and C sliced out of one conv output [B,S,channels], as ssm_apply does."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, s, h, p, g, n = 1, 256, 4, 32, 1, 64
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen, device=dev)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    assert not x.is_contiguous()
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev) - 3)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    y, st = tssd.ssd_scan(x, dt, a, bm, cm, 32)
+    y_w, st_w = ref.ssd_chunked(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), 32)
+    assert ref.ssd_tolerance_ratio(y, y_w) <= 1
+    assert ref.ssd_tolerance_ratio(st, st_w, head_dim=1) <= 1
+
+
+def test_ssd_kernel_refuses_unsupported_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, dt, a, bm, cm, _ = _ssd_case(1, 64, 4, 16, 1, 8, dev, gen)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan(x, dt, a, bm, cm, 128)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan(x, dt, a, bm, cm, 10)
+    with pytest.raises(ValueError):
+        tssd.ssd_scan(x.bfloat16(), dt, a, bm, cm, 16)
+    with pytest.raises(ValueError, match="shapes"):
+        tssd.ssd_scan(x, dt, a[:3], bm, cm, 16)
+
+
+def test_ops_ssd_on_the_card_never_runs_the_plain_version(dev, monkeypatch):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dt, a, bm, cm, _ = _ssd_case(1, 64, 4, 16, 1, 8, dev, gen)
+
+    def plain(*a, **kw):
+        raise AssertionError("ops.ssd ran the plain version on a CUDA tensor")
+    monkeypatch.setattr(ref, "ssd_chunked", plain)
+    before = tssd.KERNEL.launches
+    ops.ssd(x, dt, a, bm, cm, 16)
+    assert tssd.KERNEL.launches == before + 1
+
+    def broken():
+        raise RuntimeError("build failed")
+    monkeypatch.setattr(tssd.KERNEL, "lib", broken)
+    with pytest.raises(RuntimeError, match="build failed"):
+        ops.ssd(x, dt, a, bm, cm, 16)

@@ -1,0 +1,301 @@
+"""The port's Mamba-2 serving path against the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages; the
+weights are made by ``repro.models.transformer.init_lm`` and bridged to the
+port with ``repro_torch.bridge``.  f32 throughout.  Tolerances: the plain
+SSD scan against the JAX oracle 1e-5 (the JAX package's kernel tolerance)
+and against the Pallas kernel in interpret mode 5e-4 (what
+tests/test_kernels.py holds the Pallas kernel to); blocks, prefill and
+decode 1e-4 (tests/test_serve.py); decode against forward 2e-3
+(tests/test_models.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_config
+from repro.kernels.ssd_scan import ssd as pl_ssd
+from repro.models import ssm as jssm
+from repro.models import transformer as T
+from repro.parallel.sharding import _path_str
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import ssm as tssm
+from repro_torch.models import transformer as tf
+from repro_torch.serve.step import (ServeSetup, init_serve_state, make_decode_step,
+                                    make_prefill_step)
+
+ARCH = "mamba2_370m"
+ATOL = 1e-4
+
+
+def _flat(params) -> dict:
+    leaves, _ = jax.tree_util.tree_flatten_with_path(params)
+    return {_path_str(path): np.asarray(x) for path, x in leaves}
+
+
+def _pair(dtype="float32"):
+    jcfg = jax_config(ARCH, smoke=True).replace(dtype=dtype)
+    tcfg = get_config(ARCH, smoke=True).replace(dtype=dtype)
+    jparams = T.init_lm(jax.random.PRNGKey(0), jcfg)
+    tparams = bridge.from_numpy(_flat(jparams), "cpu", dtype=dtype)
+    return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    return _pair()
+
+
+def _ssd_inputs(b, s, h, p, g, n, *, h_init=False, seed=0, model_scale=True):
+    """x, dt, a, B, C (and h_init) in numpy.  model_scale: dt = softplus(z - 3)
+    and a = -(1..H), as the model's init gives; else the unit-normal draws of
+    tests/test_kernels.py."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    z = rng.standard_normal((b, s, h))
+    if model_scale:
+        dt = np.log1p(np.exp(z - 3.0)).astype(np.float32)
+        a = -np.arange(1, h + 1, dtype=np.float32)
+    else:
+        dt = np.log1p(np.exp(z)).astype(np.float32)
+        a = (-np.exp(rng.standard_normal(h))).astype(np.float32)
+    bm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32) if h_init else None
+    return x, dt, a, bm, cm, h0
+
+
+def _t(*arrs):
+    return [None if a is None else torch.from_numpy(np.array(a)) for a in arrs]
+
+
+def _j(*arrs):
+    return [None if a is None else jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", [
+    (2, 64, 4, 16, 2, 8, 8, False),
+    (1, 48, 4, 8, 1, 16, 16, True),
+    (2, 64, 4, 16, 2, 8, 32, True),
+    (1, 128, 8, 16, 1, 16, 64, False),
+])
+def test_plain_ssd_matches_jax_oracle(b, s, h, p, g, n, chunk, h_init):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(b, s, h, p, g, n, h_init=h_init)
+    y, st = tref.ssd_chunked(*_t(x, dt, a, bm, cm), chunk, h_init=_t(h0)[0])
+    yj, stj = jssm.ssd_chunked(*_j(x, dt, a, bm, cm), chunk, h_init=_j(h0)[0])
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(stj), atol=1e-5)
+    assert tref.ssd_tolerance_ratio(y, torch.from_numpy(np.array(yj))) <= 1
+    assert tref.ssd_tolerance_ratio(st, torch.from_numpy(np.array(stj)), head_dim=1) <= 1
+
+
+@pytest.mark.parametrize("s,chunk,h_init", [(13, 8, False), (50, 16, True)])
+def test_plain_ssd_pads_a_ragged_length(s, chunk, h_init):
+    """A ragged S gives the JAX oracle's y and state on zero-padded inputs
+    (dt = 0 on the padding), as the JAX package's ``ssm_apply`` pads."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(2, s, 4, 8, 2, 8, h_init=h_init, seed=6)
+    pad = (-s) % chunk
+    padded = [np.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2)) for t in (x, dt, bm, cm)]
+    y, st = tref.ssd_chunked(*_t(x, dt, a, bm, cm), chunk, h_init=_t(h0)[0])
+    yj, stj = jssm.ssd_chunked(*_j(padded[0], padded[1], a, padded[2], padded[3]), chunk,
+                               h_init=_j(h0)[0])
+    assert y.shape == x.shape
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj)[:, :s], atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(stj), atol=1e-5)
+
+
+# the shapes of tests/test_kernels.py::test_pallas_ssd_vs_chunked, and h_init
+@pytest.mark.parametrize("chunk,h_init", [(8, False), (16, False), (32, False), (16, True)])
+def test_plain_ssd_matches_pallas_interpret(chunk, h_init):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(2, 64, 4, 16, 2, 8, h_init=h_init, seed=1,
+                                       model_scale=False)
+    y, st = ops.ssd(*_t(x, dt, a, bm, cm), chunk, h_init=_t(h0)[0])
+    yp, stp = pl_ssd(*_j(x, dt, a, bm, cm), chunk, h_init=_j(h0)[0], interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yp), atol=5e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(stp), atol=5e-4)
+
+
+def _drop_entering_state(x, dt, a, bm, cm, chunk, at):
+    """The plain scan with the state entering chunk ``at`` dropped."""
+    cut = at * chunk
+    y1, _ = tref.ssd_chunked(x[:, :cut], dt[:, :cut], a, bm[:, :cut], cm[:, :cut], chunk)
+    y2, st = tref.ssd_chunked(x[:, cut:], dt[:, cut:], a, bm[:, cut:], cm[:, cut:], chunk)
+    return torch.cat([y1, y2], 1), st
+
+
+def _drop_intra(x, dt, a, bm, cm, chunk, at):
+    """The plain scan with chunk ``at``'s intra-chunk term dropped: that
+    chunk alone from a zero state is exactly its intra-chunk term."""
+    y, st = tref.ssd_chunked(x, dt, a, bm, cm, chunk)
+    sl = slice(at * chunk, (at + 1) * chunk)
+    intra, _ = tref.ssd_chunked(x[:, sl], dt[:, sl], a, bm[:, sl], cm[:, sl], chunk)
+    y = y.clone()
+    y[:, sl] -= intra
+    return y, st
+
+
+@pytest.mark.parametrize("fault", [_drop_entering_state, _drop_intra])
+def test_ssd_tolerance_rejects_planted_faults(fault):
+    """The bound the CUDA kernel is held to admits the JAX oracle's other
+    summation order and rejects a dropped state or intra-chunk term."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(1, 128, 8, 16, 1, 16, seed=2)
+    args = _t(x, dt, a, bm, cm)
+    want, _ = tref.ssd_chunked(*args, 16)
+    yj, _ = jssm.ssd_chunked(*_j(x, dt, a, bm, cm), 16)
+    assert tref.ssd_tolerance_ratio(torch.from_numpy(np.array(yj)), want) <= 1
+    got, _ = fault(*args, 16, at=4)
+    assert tref.ssd_tolerance_ratio(got, want) > 100
+
+
+def test_bridge_keeps_the_jax_dtypes_of_a_bf16_tree():
+    jcfg = jax_config(ARCH, smoke=True)
+    assert jcfg.dtype == "bfloat16"
+    flat = _flat(T.init_lm(jax.random.PRNGKey(0), jcfg))
+    f32_leaves = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w", "norm1")
+    # as handed over, and after a round trip through to_numpy (bf16 -> f32)
+    for tree in (flat, bridge.to_numpy(bridge.from_numpy(flat, "cpu", dtype="bfloat16"))):
+        tp = bridge.from_numpy(tree, "cpu", dtype="bfloat16")
+        for name in ("w_in", "w_out"):
+            assert tp["layers"][0]["mixer"][name].dtype == torch.bfloat16
+        assert tp["embed"].dtype == torch.bfloat16
+        for name in f32_leaves:
+            leaf = tp["layers"][0][name] if name == "norm1" else tp["layers"][0]["mixer"][name]
+            assert leaf.dtype == torch.float32, name
+        assert tp["final_norm"].dtype == torch.float32
+        for path, arr in flat.items():
+            node = tp
+            for key in path.split("/"):
+                node = node[int(key)] if key.isdigit() else node[key]
+            want = torch.from_numpy(np.asarray(arr, np.float32))
+            assert torch.equal(node.float(), want), path
+
+
+def test_ssm_apply_matches_jax(mamba):
+    jcfg, tcfg, jparams, tparams = mamba
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 13, tcfg.d_model)).astype(np.float32)  # ragged: chunk 8
+    lp_j = jax.tree_util.tree_map(lambda t: t[0], jparams["layers"][0]["mixer"])
+    lp_t = tf._period(tparams["layers"][0]["mixer"], 0)
+    want = jssm.ssm_apply(lp_j, jnp.asarray(x), jcfg)
+    got = tssm.ssm_apply(lp_t, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_ssm_decode_matches_jax(mamba):
+    jcfg, tcfg, jparams, tparams = mamba
+    rng = np.random.default_rng(4)
+    lp_j = jax.tree_util.tree_map(lambda t: t[0], jparams["layers"][0]["mixer"])
+    lp_t = tf._period(tparams["layers"][0]["mixer"], 0)
+    cache_j = jssm.init_ssm_cache(jcfg, 2)
+    cache_t = tssm.init_ssm_cache(tcfg, 2, device="cpu")
+    for _ in range(5):
+        x = rng.standard_normal((2, 1, tcfg.d_model)).astype(np.float32)
+        want, cache_j = jssm.ssm_decode(lp_j, jnp.asarray(x), cache_j, jcfg)
+        got, cache_t = tssm.ssm_decode(lp_t, torch.from_numpy(x), cache_t, tcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    for k in ("conv", "state"):
+        np.testing.assert_allclose(cache_t[k].numpy(), np.asarray(cache_j[k]), atol=ATOL)
+
+
+def _tokens(b, s, vocab, seed=1):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s), dtype=np.int32)
+
+
+class _Spy:
+    def __init__(self, monkeypatch, name):
+        self.calls = 0
+        fn = getattr(ops, name)
+
+        def wrapped(*a, **kw):
+            self.calls += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(ops, name, wrapped)
+
+
+@pytest.mark.parametrize("s", [12, 16])
+def test_prefill_matches_jax_and_scans_once_per_layer(mamba, s, monkeypatch):
+    jcfg, tcfg, jparams, tparams = mamba
+    toks = _tokens(2, s, tcfg.vocab_size)
+    want, _ = T.lm_forward(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+    got, _ = tf.lm_forward(tparams, {"tokens": torch.from_numpy(toks).long()}, tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    spy = _Spy(monkeypatch, "ssd")
+    step = make_prefill_step(ServeSetup(cfg=tcfg), (1, 1), tparams)
+    last = step(tparams, {"tokens": torch.from_numpy(toks).long()})
+    assert spy.calls == tcfg.n_layers
+    np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1:], atol=ATOL)
+
+
+def test_lm_forward_hidden_gives_the_logits_through_unembed(mamba):
+    _, tcfg, _, tparams = mamba
+    batch = {"tokens": torch.from_numpy(_tokens(2, 12, tcfg.vocab_size, seed=3)).long()}
+    logits, _ = tf.lm_forward(tparams, batch, tcfg)
+    hidden, _ = tf.lm_forward(tparams, batch, tcfg, hidden=True)
+    assert hidden.shape == (2, 12, tcfg.d_model)
+    for i in (0, 5):  # a few positions at a time, as chip_smoke.py slices them
+        torch.testing.assert_close(tf.unembed(tparams, hidden[:, i:i + 7], tcfg),
+                                   logits[:, i:i + 7], rtol=0, atol=0)
+
+
+def _port_decode(tcfg, tparams, toks):
+    setup = ServeSetup(cfg=tcfg)
+    state = init_serve_state(setup, (1, 1), tparams, toks.shape[0], toks.shape[1])
+    step = make_decode_step(setup, (1, 1), tparams, batch=toks.shape[0],
+                            capacity=toks.shape[1])
+    outs = []
+    for t in range(toks.shape[1]):
+        lg, state = step(tparams, state, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        outs.append(lg[:, 0].numpy())
+    return np.stack(outs, 1), state
+
+
+def test_decode_matches_jax(mamba):
+    """Teacher-forced decode of S=12 (ragged against chunk 8)."""
+    jcfg, tcfg, jparams, tparams = mamba
+    toks = _tokens(2, 12, tcfg.vocab_size, seed=2)
+    step = jax.jit(lambda p, st, tok, pos: T.decode_step(p, st, tok, pos, jcfg))
+    st = T.init_decode_state(jcfg, 2, 12)
+    want = []
+    for t in range(12):
+        lg, st = step(jparams, st, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+        want.append(np.asarray(lg[:, 0]))
+    got, state = _port_decode(tcfg, tparams, toks)
+    np.testing.assert_allclose(got, np.stack(want, 1), atol=ATOL)
+    assert set(state[0]) == {"conv", "state"}
+    np.testing.assert_allclose(state[0]["state"].numpy(), np.asarray(st[0]["state"]), atol=ATOL)
+
+
+def test_decode_matches_forward(mamba):
+    """Twin of tests/test_models.py::test_decode_matches_forward for mamba2."""
+    _, tcfg, _, tparams = mamba
+    toks = _tokens(2, 12, tcfg.vocab_size, seed=5)
+    logits_tf, _ = tf.lm_forward(tparams, {"tokens": torch.from_numpy(toks).long()}, tcfg)
+    got, _ = _port_decode(tcfg, tparams, toks)
+    np.testing.assert_allclose(got, logits_tf.numpy(), atol=2e-3)
+
+
+def test_serve_main_runs_mamba_on_cpu(capsys):
+    out = launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "5", "--gen", "4"])
+    assert out["continuation"].shape == (2, 4)
+    assert torch.isfinite(out["logits"]).all()
+    assert "served 2 seqs x 9 steps" in capsys.readouterr().out
+
+
+def test_hybrid_and_moe_still_raise():
+    jamba = get_config("mamba2_370m", smoke=True).replace(family="hybrid",
+                                                          layer_pattern=("mamba", "attn"))
+    moe = get_config("llama3_8b", smoke=True).replace(
+        family="moe", moe=MoEConfig(n_experts=4, top_k=2))
+    for cfg, item in ((jamba, "item 6, hybrid"), (moe, "item 5, MoE")):
+        with pytest.raises(NotImplementedError, match=item):
+            tf.init_lm(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.init_decode_state(cfg, 1, 8, device="cpu")
