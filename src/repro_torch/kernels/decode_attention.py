@@ -21,6 +21,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("decode_attention", {
     "repro_decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
     "repro_decode_num_splits": [_I],
+    "repro_decode_split": [],
     "repro_decode_max_rep": [],
     "repro_decode_attention_smem_bytes": [_I, _I],
 })
@@ -42,7 +43,7 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
             or k_cache.shape[3] != dh or h % kvh):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
                          f"v {tuple(v_cache.shape)}")
-    check_head_dim(dh)
+    check_head_dim(dh, q.dtype)
     if valid_mask.dtype not in (torch.bool, torch.uint8) or valid_mask.shape != (b, c):
         raise ValueError(f"valid_mask must be bool/uint8 [{b},{c}], got "
                          f"{valid_mask.dtype} {tuple(valid_mask.shape)}")

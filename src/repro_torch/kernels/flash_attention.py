@@ -18,23 +18,28 @@ from repro_torch.kernels._build import CudaKernel, check_cuda_tensor
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("flash_attention", {
     "repro_flash_attention_fwd": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _I, _I, _P],
-    "repro_flash_attention_smem_bytes": [_I],
+    "repro_flash_attention_smem_bytes": [_I, _I],
+    "repro_flash_attention_kv_tile": [_I],
+    "repro_flash_attention_q_tile": [_I],
 })
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_head_dim(dh: int) -> None:
-    """Head dims the kernels take: multiples of 4 up to 128 (64, 120, 128, ...)."""
-    if dh <= 0 or dh > 128 or dh % 4:
-        raise ValueError(f"head dim {dh} is not supported by the CUDA kernels "
-                         "(a multiple of 4, at most 128)")
+def check_head_dim(dh: int, dtype: torch.dtype) -> None:
+    """Head dims the kernels take: up to 128, whole 16-byte chunks of a row
+    (multiples of 8 in bf16, of 4 in f32: 64, 120, 128, ...)."""
+    per16 = 16 // dtype.itemsize
+    if dh <= 0 or dh > 128 or dh % per16:
+        raise ValueError(f"head dim {dh} is not supported by the CUDA kernels in {dtype} "
+                         f"(a multiple of {per16}, at most 128)")
 
 
 def check_rows(name: str, t: torch.Tensor) -> None:
-    """The kernels read four elements at a time: every row must be aligned."""
-    align = 4 * t.element_size()
-    if t.data_ptr() % align or any(s % 4 for s in t.stride()[:-1] if s):
-        raise ValueError(f"{name}: rows must start on {align}-byte boundaries "
+    """The kernels copy rows in 16-byte chunks: every row must start on a
+    16-byte boundary."""
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:-1] if s):
+        raise ValueError(f"{name}: rows must start on 16-byte boundaries "
                          f"(strides {t.stride()}, pointer {t.data_ptr():#x})")
 
 
@@ -54,7 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
-    check_head_dim(dh)
+    check_head_dim(dh, q.dtype)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)

@@ -118,6 +118,59 @@ def test_bf16_tolerance_admits_reordering_and_rejects_planted_faults(kind):
     assert tref.tolerance_ratio(fault, want) > 1
 
 
+def _mha_rounding_p(q, k, v, p_rounding, *, window=None, block_k=64):
+    """Causal attention computed as the bf16 CUDA flash kernel computes it:
+    KV tiles of ``block_k`` keys, scores, softmax statistics and sums in f32,
+    and P rounded by ``p_rounding`` before P.V.  Products of two bf16 values
+    are exact in f32, so the tensor cores' products are the f32 ones here."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    q5 = q.reshape(b, s, kvh, h // kvh, dh).float()
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, kvh, h // kvh, s), tref.NEG_INF)
+    l = torch.zeros((b, kvh, h // kvh, s))
+    acc = torch.zeros((b, kvh, h // kvh, s, dh))
+    qi = torch.arange(s)
+    for k0 in range(0, s, block_k):
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", q5, kf[:, k0:k0 + block_k]) * dh ** -0.5
+        ki = k0 + torch.arange(sc.shape[-1])
+        sc = torch.where(tref._block_mask(qi, ki, causal=True, window=window), sc, tref.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        vb = vf[:, k0:k0 + block_k]
+        pv = sum(torch.einsum("bgrqk,bkgd->bgrqd", part, vb) for part in p_rounding(p))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def _p_hi_lo(p):
+    """The kernel's scheme: P = P_hi + P_lo, both bf16, two products."""
+    hi = p.bfloat16().float()
+    return hi, (p - hi).bfloat16().float()
+
+
+def _p_bf16_once(p):
+    """FlashAttention-2's and SDPA's scheme: P rounded once to bf16."""
+    return (p.bfloat16().float(),)
+
+
+@pytest.mark.parametrize("dh,window", [(128, None), (120, None), (128, 100)])
+def test_flash_kernel_p_split_holds_the_bf16_tolerance(dh, window):
+    """The bf16 flash kernel splits P into a bf16 high and low part before
+    P.V; that keeps its output within one bf16 ulp of ``ref.mha``
+    (``tolerance_ratio`` <= 1), where P rounded once to bf16 does not."""
+    q, k, v = _bf16(*_qkv(1, 512, 512, 8, 2, dh, seed=4))
+    want = tref.mha(q, k, v, causal=True, window=window)
+    split = tref.tolerance_ratio(_mha_rounding_p(q, k, v, _p_hi_lo, window=window), want)
+    once = tref.tolerance_ratio(_mha_rounding_p(q, k, v, _p_bf16_once, window=window), want)
+    assert split <= 1, split
+    assert once > 1, once
+
+
 def test_ops_on_cpu_tensors_launch_nothing():
     ops.reset_launch_counts()
     q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 16))

@@ -48,6 +48,19 @@ def _randn(shape, dtype, dev, gen, scale=0.5):
     (1, 96, 96, 8, 8, 120, torch.float32, True, 40, 0),
     (2, 200, 200, 4, 2, 64, torch.float32, False, None, 0),      # not causal
     (1, 64, 320, 4, 1, 128, torch.float32, True, None, 256),     # q_offset
+    # bf16 tensor-core kernel (64-row q tiles, 64-key KV tiles) at its tile edges
+    (1, 1, 1, 8, 2, 128, torch.bfloat16, True, None, 0),
+    (1, 63, 63, 8, 2, 128, torch.bfloat16, True, None, 0),
+    (1, 65, 65, 8, 2, 64, torch.bfloat16, True, None, 0),
+    (1, 127, 127, 8, 2, 120, torch.bfloat16, True, None, 0),
+    (1, 129, 129, 8, 2, 128, torch.bfloat16, True, None, 0),
+    (1, 4097, 4097, 8, 2, 128, torch.bfloat16, True, None, 0),
+    (1, 300, 300, 8, 2, 128, torch.bfloat16, True, 77, 0),       # window, not a tile multiple
+    (1, 100, 333, 8, 2, 128, torch.bfloat16, True, None, 233),   # q_offset, not a multiple
+    (1, 100, 333, 8, 2, 120, torch.bfloat16, True, 90, 233),     # both
+    (2, 512, 512, 32, 8, 128, torch.bfloat16, True, None, 0),    # llama3-8b heads
+    (2, 200, 200, 8, 2, 64, torch.bfloat16, False, None, 0),     # not causal
+    (1, 130, 257, 8, 2, 120, torch.bfloat16, False, None, 0),    # not causal, Sq != Sk
 ])
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, window,
                                     q_offset):
@@ -64,11 +77,14 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, wi
     assert ref.tolerance_ratio(got, want) <= 1
 
 
-def test_flash_kernel_reads_strided_views(dev):
+@pytest.mark.parametrize("dtype,s,dh", [(torch.float32, 128, 64), (torch.bfloat16, 300, 128),
+                                         (torch.bfloat16, 200, 120)])
+def test_flash_kernel_reads_strided_views(dev, dtype, s, dh):
     """q/k/v sliced out of a fused [B,S,H+2KV,dh] tensor: no copy needed."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    qkv = _randn((1, 128, 12, 64), torch.float32, dev, gen)
+    qkv = _randn((1, s, 12, dh), dtype, dev, gen)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert not q.is_contiguous()
     got = tfa.flash_attention(q, k, v)
     want = ref.mha(q, k, v)
     assert ref.tolerance_ratio(got, want) <= 1
@@ -91,6 +107,15 @@ def _mask(kind, b, c, dev, gen):
     (3, 300, 8, 2, 64, torch.float32, "holes"),
     (1, 513, 8, 8, 120, torch.float32, "all"),
     (2, 4096, 32, 4, 128, torch.float32, "tail"),
+    # C not a multiple of the split, rep = 1, 2, 3, 8 and 16, dh 64 and 120 in bf16
+    (2, 1000, 8, 8, 128, torch.bfloat16, "holes"),
+    (2, 777, 16, 8, 128, torch.bfloat16, "prefix"),
+    (1, 700, 24, 8, 120, torch.bfloat16, "holes"),
+    (2, 4096, 64, 8, 128, torch.bfloat16, "all"),
+    (1, 1500, 32, 2, 128, torch.bfloat16, "holes"),
+    (2, 333, 8, 2, 64, torch.bfloat16, "prefix"),
+    (2, 4096, 32, 8, 128, torch.bfloat16, "tail"),
+    (1, 600, 16, 1, 128, torch.float32, "holes"),
 ])
 def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -107,6 +132,21 @@ def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     assert ref.tolerance_ratio(got, want) <= 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_reads_strided_caches(dev, dtype):
+    """k and v caches sliced out of one [B,C,2KV,dh] tensor, a broadcast mask."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, c, h, kv, dh = 2, 1100, 32, 8, 128
+    q = _randn((b, 1, h, dh), dtype, dev, gen)
+    kvc = _randn((b, c, 2 * kv, dh), dtype, dev, gen)
+    kc, vc = kvc[:, :, :kv], kvc[:, :, kv:]
+    assert not kc.is_contiguous()
+    valid = (torch.arange(c, device=dev) < 1050)[None, :].expand(b, c)
+    got = tda.decode_attention(q, kc, vc, valid)
+    want = ref.decode_attention(q, kc, vc, valid)
+    assert ref.tolerance_ratio(got, want) <= 1
+
+
 def test_kernels_refuse_unsupported_inputs(dev):
     q = torch.zeros((1, 64, 4, 256), device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -117,6 +157,13 @@ def test_kernels_refuse_unsupported_inputs(dev):
     kc = torch.zeros((1, 16, 4, 64), device=dev)
     with pytest.raises(ValueError, match="valid_mask"):
         tda.decode_attention(q1, kc, kc, torch.ones((1, 15), dtype=torch.bool, device=dev))
+    # bf16 rows are copied in 16-byte chunks: dh = 36 (72-byte rows) is refused
+    qb = torch.zeros((1, 64, 4, 36), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte|head dim"):
+        tfa.flash_attention(qb, qb, qb)
+    with pytest.raises(ValueError, match="16-byte"):
+        wide = torch.zeros((1, 64, 4, 72), device=dev, dtype=torch.bfloat16)
+        tfa.flash_attention(wide[..., 4:68], wide[..., 4:68], wide[..., 4:68])
 
 
 def _ssd_case(b, s, h, p, g, n, dev, gen, h_init=False):
