@@ -9,18 +9,20 @@ and the script exits non-zero without printing a result:
  1. device: name, count, and ``nvidia-smi`` name and power limit;
  2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     nvcc (one process per source, started together), with registers, shared
-    memory and spills from ``-Xptxas -v``;
+    memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel
+    or in any pass of the SSD scan fails;
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
     ``ref.ssd_tolerance_ratio`` <= 1 for the SSD scan (f32, 1e-5 + 1e-4 of
     each (batch, head)'s largest value); a planted fault (a KV tile, a cache
-    split, a chunk's entering state or intra-chunk term dropped, emulated in
-    the plain version) must fail the same check; times of kernel, plain
-    version and, for attention, ``scaled_dot_product_attention`` (the
-    library yardstick, never used by the port; no PyTorch call computes the
-    SSD scan) with CUDA events around back-to-back calls, and the card's own
-    time per call from torch.profiler;
+    split, a chunk's entering state, also at the first chunk of one of the
+    SSD kernel's segments, or an intra-chunk term dropped, emulated in the
+    plain version) must fail the same check; times of kernel, plain version
+    and, for attention, ``scaled_dot_product_attention`` (the library
+    yardstick, never used by the port; no PyTorch call computes the SSD
+    scan) with CUDA events around back-to-back calls, and the card's own
+    time per call from torch.profiler, for the SSD scan also per pass;
  4. prefill: full-width llama3-8b (32 layers, bf16, random weights from a
     seed) on B=1, S=4096 through ``make_prefill_step``; the flash kernel must
     launch once per layer, and each launch of one prefill is held against
@@ -84,6 +86,8 @@ MODEL_LIMIT = 0.05
 # the bound shows here rather than as a slower kernel.
 FLASH_BF16_MAX_REGISTERS = 240
 NO_LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+# The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order.
+SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
 
 
 def log(*a):
@@ -139,10 +143,9 @@ def _device_us(prof) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def device_ms(fn, iters: int):
-    """Device time of one call of ``fn``: the kernel time torch.profiler sees
-    over ``iters`` calls, over ``iters``; None where it sees none.  Unlike
-    ``time_ms`` it leaves out the gaps where the card waits for the host."""
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """{kernel name: device ms per call of ``fn``} that torch.profiler sees
+    over ``iters`` calls; empty where it sees none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -151,8 +154,15 @@ def device_ms(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(us for us, _ in _device_us(prof).values())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    return {key: us / iters / 1e3 for key, (us, _) in _device_us(prof).items() if us > 0}
+
+
+def device_ms(fn, iters: int):
+    """Device time of one call of ``fn``: the kernel time torch.profiler sees
+    over ``iters`` calls, over ``iters``; None where it sees none.  Unlike
+    ``time_ms`` it leaves out the gaps where the card waits for the host."""
+    total = sum(device_ms_by_kernel(fn, iters).values())
+    return total if total > 0 else None
 
 
 def device_profile(fn, label: str, top: int = 6):
@@ -306,13 +316,21 @@ def phase_build():
             raise AssertionError(f"[build] bf16 flash kernel {fn}: {res}, over "
                                  f"{FLASH_BF16_MAX_REGISTERS} registers or spilling")
     log(f"[build] bf16 flash kernels within {FLASH_BF16_MAX_REGISTERS} registers, no spills")
+    ssd = ops.KERNELS["ssd_scan"].resources()
+    missing = [k for k in SSD_PASSES if not any(k in fn for fn in ssd)]
+    spills = {fn: res for fn, res in ssd.items() if res["spill_stores"]}
+    if missing or spills:
+        raise AssertionError(f"[build] ssd scan: passes missing from the ptxas log {missing}, "
+                             f"spilling {spills}")
+    log(f"[build] ssd scan: all {len(SSD_PASSES)} passes built, no spills")
     fa_lib, da_lib = ops.KERNELS["flash_attention"].lib(), ops.KERNELS["decode_attention"].lib()
     ssd_lib = ops.KERNELS["ssd_scan"].lib()
     log(f"[build] shared memory per block at dh=128: flash bf16 "
         f"{fa_lib.repro_flash_attention_smem_bytes(1, 128)} B ({flash_tile()}-key tiles), "
         f"f32 {fa_lib.repro_flash_attention_smem_bytes(0, 128)} B; decode pass 1 (rep=4) "
         f"{da_lib.repro_decode_attention_smem_bytes(4, 128)} B ({decode_split()}-slot splits); "
-        f"ssd scan at chunk 64, N=128: {ssd_lib.repro_ssd_scan_smem_bytes(64, 128)} B")
+        f"ssd scan passes A, B, D: "
+        f"{', '.join(str(ssd_lib.repro_ssd_scan_smem_bytes(i)) for i in (0, 1, 3))} B")
 
 
 def flash_case(b, s, h, kv, dh, dtype, seed=0):
@@ -746,6 +764,21 @@ def hold_ssd(label: str, y, st, y_want, st_want) -> tuple:
     return err, ratio
 
 
+def ssd_executed_flops(b, s, h, p, g, n, chunk) -> int:
+    """Derived, not measured: the FLOPs the SSD kernel's mma.sync tiles run on
+    the tensor cores (csrc/ssd_scan.cu: 16 x 8 x 8 tiles, causal tiles of C
+    B^T and of W X only, the state products in passes B and D, each product
+    three times for 3xTF32)."""
+    nc, up8 = -(-s // chunk), lambda v: -(-v // 8) * 8
+    i_tiles = range(0, chunk, 16)
+    k_n, k_l, p_tiles, n_tiles = up8(n) // 8, up8(chunk) // 8, -(-p // 8), -(-n // 8)
+    cb = sum(sum(1 for j in range(0, chunk, 8) if j <= i + 15) for i in i_tiles) * k_n
+    state = -(-p // 16) * n_tiles * k_l
+    y = sum(p_tiles * (k_n + min(k_l, (i + 16) // 8)) for i in i_tiles)
+    mma = b * nc * (g * cb + h * (2 * state + y))
+    return 3 * 2 * 16 * 8 * 8 * mma
+
+
 def phase_ssd_kernel():
     import torch
     from repro_torch.kernels import ref
@@ -758,6 +791,7 @@ def phase_ssd_kernel():
             (1, 2048, 32, 64, 1, 128, 32, False, False),
             (1, 1000, 32, 64, 1, 128, 64, False, False),    # ragged S, masked by the kernel
             (1, 1000, 32, 64, 1, 128, 64, False, True),     # ragged S, zero-padded by the caller
+            (1, 4000, 32, 64, 1, 128, 64, False, False),    # ragged, inside the last segment
             (1, 2048, 32, 64, 1, 128, 64, True, False)]:    # h_init
         x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, p, g, n, h_init=h_init)
         y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk, h_init=h0)
@@ -768,23 +802,31 @@ def phase_ssd_kernel():
             y = y[:, :s]
         else:
             y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
+        segs = tssd.plan(b, s, h, p, g, n, chunk)["segments"]
         err, ratio = hold_ssd(f"[ssd] B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}"
-                              f"{' h_init' if h_init else ''}{' zero-padded' if padded else ''}",
-                              y, st, y_w, st_w)
+                              f"{' h_init' if h_init else ''}{' zero-padded' if padded else ''}"
+                              f" ({segs} segments)", y, st, y_w, st_w)
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
 
     # the main path's shape: mamba2-370m prefill, one layer
     b, s, h, p, g, n, chunk = 1, 32768, 32, 64, 1, 128, 64
+    pl = tssd.plan(b, s, h, p, g, n, chunk)
     x, dt, a, bm, cm, _ = ssd_inputs(b, s, h, p, g, n, seed=1)
     y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
     y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk)
     err, ratio = hold_ssd(f"[ssd] main shape B={b} S={s} H={h} P={p} G={g} N={n} "
-                          f"chunk={chunk}, strided inputs", y, st, y_w, st_w)
+                          f"chunk={chunk}, strided inputs ({pl['segments']} segments of "
+                          f"{pl['chunks_per_segment']} chunks)", y, st, y_w, st_w)
     worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
     del y, st
     at = s // chunk // 2
+    edge = pl["chunks_per_segment"]  # the first chunk of the kernel's second segment
     ctrl = min(control(f"[ssd] control: plain with the state entering chunk {at} dropped",
                        ssd_drop_entering_state(x, dt, a, bm, cm, chunk, at)[0], y_w,
+                       ratio_fn=ref.ssd_tolerance_ratio),
+               control(f"[ssd] control: plain with the state entering chunk {edge} dropped "
+                       f"(the first chunk of a segment)",
+                       ssd_drop_entering_state(x, dt, a, bm, cm, chunk, edge)[0], y_w,
                        ratio_fn=ref.ssd_tolerance_ratio),
                control(f"[ssd] control: plain without chunk {at}'s intra-chunk term",
                        ssd_drop_intra(x, dt, a, bm, cm, chunk, at)[0], y_w,
@@ -793,26 +835,38 @@ def phase_ssd_kernel():
     torch.cuda.empty_cache()
     t = timings(lambda: tssd.ssd_scan(x, dt, a, bm, cm, chunk),
                 lambda: ref.ssd_chunked(x, dt, a, bm, cm, chunk), None, 12)
+    passes = device_ms_by_kernel(lambda: tssd.ssd_scan(x, dt, a, bm, cm, chunk), 12)
+    pass_ms = {k: sum(v for key, v in passes.items() if k in key) for k in SSD_PASSES}
+    log("[ssd] device ms per call by pass: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items()))
     nc, L = s // chunk, chunk
     # bytes: each input read once, each output written once (f32)
     nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + b * h * p * n + h)
     # least operations: C B^T once per group and chunk, causal halves, the
     # state read and the state update
     flops = b * nc * (g * L * (L + 1) * n + h * (L * (L + 1) * p + 4 * L * n * p))
+    executed = ssd_executed_flops(b, s, h, p, g, n, chunk)
     # f32 operands: the card's peak for them is the TF32 tensor cores
     bound_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     ms = t["ms"]
+    dev_ms = t["device_ms"] or ms
     log(f"[ssd] {ms:.3f} ms kernel, {t['plain_ms']:.3f} ms plain (CUDA events; device time "
         f"{t['device_ms']} / {t['plain_device_ms']}); no library call computes the SSD scan; "
         f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP: {flops / PEAK_TF32_FLOPS * 1e3:.4f} "
-        f"ms on the TF32 tensor cores, {flops / PEAK_F32_FLOPS * 1e3:.4f} ms on the f32 CUDA "
-        f"cores alone; {nbytes / 1e6:.1f} MB: {nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms); "
-        f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s achieved")
+        f"ms on the TF32 tensor cores; {nbytes / 1e6:.1f} MB: "
+        f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms), {100 * bound_ms / dev_ms:.1f} % of the bound "
+        f"(device time); {nbytes / dev_ms / 1e6:.0f} GB/s achieved")
+    log(f"[ssd] derived from the kernel's tiles, not measured: {executed / 1e9:.1f} GFLOP on the "
+        f"tensor cores in 3xTF32 ({executed / PEAK_TF32_FLOPS * 1e3:.4f} ms at the TF32 peak), "
+        f"{executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:31",
             "max_abs_err": worst, "tolerance": "1e-5 + 1e-4 max|plain| per (batch, head) (f32)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl, **t,
+            "pass_device_ms": pass_ms, "segments": pl["segments"],
+            "chunks_per_segment": pl["chunks_per_segment"],
+            "executed_gflop_derived": executed / 1e9, "needed_gflop": flops / 1e9,
             "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_TF32_FLOPS > nbytes / PEAK_HBM_BYTES
             else "bytes",
@@ -866,7 +920,7 @@ def phase_mamba_prefill(cfg, params):
         f"first, {times[1]:.1f} ms second; ssd launches {counts['ssd_scan']}")
     busy, dev = device_profile(lambda: step(params, {"tokens": tokens}),
                                f"mamba prefill B=1 S={s}")
-    ssd_ms = sum(ms for key, ms in dev.items() if "ssd_chunk_scan_kernel" in key)
+    ssd_ms = sum(ms for key, ms in dev.items() if any(k in key for k in SSD_PASSES))
     share = ssd_ms / sum(dev.values()) if dev else None
     if dev:
         log(f"[mamba prefill] ssd kernel {ssd_ms:.2f} ms of {sum(dev.values()):.2f} ms device "

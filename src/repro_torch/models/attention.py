@@ -62,7 +62,7 @@ def sdpa(q, k, v, *, mask=None, scale: Optional[float] = None):
 
 
 def make_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
-              q_offset: int = 0, device=None):
+              q_offset: int = 0, device="cuda"):
     """[1,1,Sq,Sk] boolean mask."""
     qi = torch.arange(sq, device=device)[:, None] + q_offset
     ki = torch.arange(sk, device=device)[None, :]
@@ -114,7 +114,7 @@ def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
     return torch.einsum("bqhd,hdk->bqk", out, p["wo"])
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device=None):
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device="cuda"):
     dh = cfg.resolved_head_dim
     shape = (batch, capacity, cfg.n_kv_heads, dh)
     return {

@@ -41,7 +41,7 @@ def rms_norm(x, w, eps: float = 1e-5):
     return (y * (1.0 + w.to(torch.float32))).to(dt)
 
 
-def rms_norm_init(d, device=None):
+def rms_norm_init(d, device="cuda"):
     # zero-centred scale (gemma-style "1 + w")
     return torch.zeros((d,), dtype=torch.float32, device=device)
 

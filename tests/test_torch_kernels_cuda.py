@@ -183,10 +183,19 @@ def _ssd_case(b, s, h, p, g, n, dev, gen, h_init=False):
     (1, 512, 8, 64, 1, 128, 64, False),    # mamba2-370m's head and state
     (1, 300, 8, 64, 1, 128, 64, True),     # ragged S
     (2, 100, 6, 40, 3, 24, 16, False),     # P and N not multiples of 16, G=3
+    # several segments of chunks (passes B-D), mamba2-370m's head and state
+    (1, 4096, 8, 64, 1, 128, 64, False),
+    (1, 4000, 8, 64, 1, 128, 64, False),   # ragged last chunk inside the last segment
+    (2, 4096, 4, 64, 1, 128, 64, True),    # h_init carried across segments
+    (1, 4096, 8, 64, 2, 128, 64, True),    # G=2: one C B^T per group shared by 4 heads
+    (1, 2050, 4, 40, 2, 24, 32, True),     # P, N not multiples of 16, a 2-position chunk
+    (1, 999, 3, 6, 1, 10, 12, True),       # rows not 16-byte aligned: 4-byte copies
 ])
 def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
     gen = torch.Generator(device=dev).manual_seed(3)
     x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
+    if s >= 2048:  # these cases are there for the segment passes
+        assert tssd.plan(b, s, h, p, g, n, chunk)["segments"] > 1
     before = tssd.KERNEL.launches
     y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
     torch.cuda.synchronize()

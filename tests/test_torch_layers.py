@@ -55,3 +55,25 @@ def test_padded_vocab_and_init_scale():
     w = tl.dense_init((512, 256), torch.bfloat16, gen, "cpu")
     assert w.dtype == torch.bfloat16
     assert abs(float(w.float().std()) - 1 / np.sqrt(512)) < 2e-3
+
+
+def test_public_helpers_default_to_the_card_and_take_the_cpu_when_asked():
+    """The port's helpers that make tensors default to ``device="cuda"`` like
+    ``init_lm`` and ``init_ssm_cache``; the CPU only when the caller asks."""
+    import inspect
+
+    from repro_torch.models import attention as ta
+    from repro_torch.models import ssm as tssm
+    from repro_torch.models import transformer as tf
+    for fn in (ta.make_mask, ta.init_kv_cache, tl.rms_norm_init, tf.init_lm,
+               tssm.init_ssm_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    m = ta.make_mask(4, 6, causal=True, window=None, q_offset=2, device="cpu")
+    assert m.device.type == "cpu" and m.shape == (1, 1, 4, 6)
+    assert torch.equal(m[0, 0], torch.arange(6)[None, :] <= torch.arange(4)[:, None] + 2)
+    cfg = get_config("llama3_8b", smoke=True)
+    cache = ta.init_kv_cache(cfg, 2, 8, torch.float32, device="cpu")
+    assert cache["k"].device.type == "cpu"
+    assert cache["k"].shape == (2, 8, cfg.n_kv_heads, cfg.resolved_head_dim)
+    w = tl.rms_norm_init(16, device="cpu")
+    assert w.device.type == "cpu" and torch.equal(w, torch.zeros(16))

@@ -299,3 +299,130 @@ def test_hybrid_and_moe_still_raise():
             tf.init_lm(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tf.init_decode_state(cfg, 1, 8, device="cpu")
+
+
+def _tf32(t):
+    """Round f32 to TF32 (10 mantissa bits, to nearest, ties away from zero),
+    as ``cvt.rna.tf32.f32`` does."""
+    u = t.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_hi_lo(t):
+    """The CUDA kernel's 3xTF32 scheme: hi is t with the mantissa bits TF32
+    lacks cleared, lo = t - hi with those bits dropped as the tensor cores
+    drop them; a product is hi.hi + hi.lo + lo.hi, summed in f32."""
+    hi = (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    lo = (t - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def _tf32_once(t):
+    """One TF32 product: each operand rounded once."""
+    return (_tf32(t),)
+
+
+def _tc(spec, a, b, parts):
+    """A product on the tensor cores: every pair of operand parts whose
+    indices sum to less than the number of parts (hi.hi, hi.lo, lo.hi)."""
+    pa, pb = parts(a), parts(b)
+    return sum(torch.einsum(spec, u, v) for i, u in enumerate(pa) for j, v in enumerate(pb)
+               if i + j < len(pa))
+
+
+def _ssd_as_the_kernel(x, dt, a, bm, cm, chunk, parts):
+    """The SSD scan computed as csrc/ssd_scan.cu computes it, with every
+    matrix product's operands split by ``parts``: C B^T per group and chunk;
+    W = C B^T * exp(cs_i - cs_j) * dt_j on and below the diagonal; y = W X +
+    exp(cs) * (C state^T); state' = exp(cs_last) state + (X * dt *
+    exp(cs_last - cs))^T B.  Decays, sums and dt stay f32."""
+    bsz, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    x, dt, bm, cm = (tref._pad_to(t, chunk, 1)[0] for t in (x, dt, bm, cm))
+    nc, rep = x.shape[1] // chunk, h // g
+    xc = x.reshape(bsz, nc, chunk, h, p).movedim(3, 2)    # [B,NC,H,L,P]
+    dtc = dt.reshape(bsz, nc, chunk, h).movedim(3, 2)    # [B,NC,H,L]
+    bc = bm.reshape(bsz, nc, chunk, g, n).movedim(3, 2)   # [B,NC,G,L,N]
+    cc = cm.reshape(bsz, nc, chunk, g, n).movedim(3, 2)
+    cb = _tc("bcgin,bcgjn->bcgij", cc, bc, parts).repeat_interleave(rep, 2)
+    cs = torch.cumsum(dtc * a[:, None], -1)
+    low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    diff = torch.where(low, cs[..., :, None] - cs[..., None, :], 0.0)
+    w = torch.where(low, cb * torch.exp(diff) * dtc[..., None, :], 0.0)
+    y = _tc("bchij,bchjp->bchip", w, xc, parts)
+    xw = xc * (dtc * torch.exp(cs[..., -1:] - cs))[..., None]
+    bh, ch = bc.repeat_interleave(rep, 2), cc.repeat_interleave(rep, 2)
+    st = torch.zeros(bsz, h, p, n)
+    for c in range(nc):
+        y[:, c] += _tc("bhin,bhpn->bhip", ch[:, c], st, parts) * torch.exp(cs[:, c])[..., None]
+        st = (torch.exp(cs[:, c, :, -1])[..., None, None] * st
+              + _tc("bhsp,bhsn->bhpn", xw[:, c], bh[:, c], parts))
+    return y.movedim(2, 3).reshape(bsz, nc * chunk, h, p)[:, :s], st
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssd_kernel_3xtf32_holds_the_tolerance_where_tf32_does_not(seed):
+    """The CUDA kernel runs every product of the scan on the TF32 tensor
+    cores, each f32 operand split into a TF32 high and low part.  At
+    mamba2-370m's head (P=64, N=128, G=1, chunk 64) that stays within
+    ``ref.ssd_tolerance_ratio`` <= 1 of the plain version on y and the final
+    state; rounding each operand once to TF32 does not."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(1, 1024, 4, 64, 1, 128, seed=seed)
+    args = _t(x, dt, a, bm, cm)
+    y_w, st_w = tref.ssd_chunked(*args, 64)
+    y3, st3 = _ssd_as_the_kernel(*args, 64, _tf32_hi_lo)
+    y1, st1 = _ssd_as_the_kernel(*args, 64, _tf32_once)
+    split = max(tref.ssd_tolerance_ratio(y3, y_w), tref.ssd_tolerance_ratio(st3, st_w, 1))
+    once = min(tref.ssd_tolerance_ratio(y1, y_w), tref.ssd_tolerance_ratio(st1, st_w, 1))
+    assert split <= 1, split
+    assert once > 1, once
+
+
+def _ssd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, h_init=None, drop=None):
+    """The kernel's segment-parallel scan, built from ``ref.ssd_chunked``:
+    each segment of ``seg_chunks`` chunks is scanned from a zero state (its
+    local state) with its total decay exp(sum of dA); the combine gives each
+    segment its entering state (segment 0: h_init or 0; then entering(k+1) =
+    local(k) + decay(k) * entering(k)); the outputs are each segment scanned
+    again from its entering state.  ``drop``: a planted fault, the state
+    entering that segment dropped from its outputs."""
+    s, seg = x.shape[1], seg_chunks * chunk
+    cuts = [(i, min(s, i + seg)) for i in range(0, s, seg)]
+    part = lambda t, lo, hi: t[:, lo:hi]  # noqa: E731
+    local, decay = [], []
+    for lo, hi in cuts:
+        _, st = tref.ssd_chunked(*(part(t, lo, hi) for t in (x, dt)), a,
+                                 *(part(t, lo, hi) for t in (bm, cm)), chunk)
+        local.append(st)
+        decay.append(torch.exp((dt[:, lo:hi] * a).sum(1)))  # [B,H]
+    entering = [torch.zeros_like(local[0]) if h_init is None else h_init]
+    for k in range(len(cuts)):
+        entering.append(local[k] + decay[k][..., None, None] * entering[k])
+    ys = [tref.ssd_chunked(*(part(t, lo, hi) for t in (x, dt)), a,
+                           *(part(t, lo, hi) for t in (bm, cm)), chunk,
+                           h_init=None if k == drop else entering[k])[0]
+          for k, (lo, hi) in enumerate(cuts)]
+    return torch.cat(ys, 1), entering[-1]
+
+
+@pytest.mark.parametrize("s,chunk,seg_chunks,h_init", [
+    (1024, 64, 4, False),      # four whole segments
+    (1000, 64, 3, True),       # ragged last chunk inside a short last segment, h_init
+    (777, 16, 5, True),        # segment edges that are not a power of two
+    (512, 32, 16, False),      # one segment: the plain scan itself
+])
+def test_ssd_segment_decomposition_matches_the_whole_scan(s, chunk, seg_chunks, h_init):
+    """The algebra of the kernel's segment passes (local states, combine,
+    outputs) against ``ref.ssd_chunked`` over the whole sequence, within the
+    tolerance the kernel is held to."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(2, s, 4, 16, 2, 32, h_init=h_init, seed=7)
+    args = _t(x, dt, a, bm, cm)
+    h0 = _t(h0)[0]
+    y_w, st_w = tref.ssd_chunked(*args, chunk, h_init=h0)
+    y, st = _ssd_by_segments(*args, chunk, seg_chunks, h_init=h0)
+    assert y.shape == y_w.shape
+    assert tref.ssd_tolerance_ratio(y, y_w) <= 1
+    assert tref.ssd_tolerance_ratio(st, st_w, head_dim=1) <= 1
+    if s > seg_chunks * chunk:  # the state entering segment 1 dropped: a fault it sees
+        y_d, _ = _ssd_by_segments(*args, chunk, seg_chunks, h_init=h0, drop=1)
+        assert tref.ssd_tolerance_ratio(y_d, y_w) > 1
