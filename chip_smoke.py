@@ -145,7 +145,10 @@ def _device_us(prof) -> dict:
 
 def device_ms_by_kernel(fn, iters: int) -> dict:
     """{kernel name: device ms per call of ``fn``} that torch.profiler sees
-    over ``iters`` calls; empty where it sees none."""
+    over ``iters`` calls; empty where it sees none.  A kernel's time is its
+    mean time a launch times its launches a call (launches seen / ``iters``,
+    rounded), so a profile that lost the records of a few calls (10 of 12
+    once on an H100) still reads the time of one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -154,7 +157,16 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {key: us / iters / 1e3 for key, (us, _) in _device_us(prof).items() if us > 0}
+    out = {}
+    for key, (us, n) in _device_us(prof).items():
+        if us <= 0:
+            continue
+        per_call = round(n / iters)
+        if per_call and n != per_call * iters:
+            log(f"[profile] {n} launches of {key[:60]} seen over {iters} calls: "
+                f"taken as {per_call} a call")
+        out[key] = (us / n * per_call if per_call else us / iters) / 1e3
+    return out
 
 
 def device_ms(fn, iters: int):
@@ -802,7 +814,7 @@ def phase_ssd_kernel():
             y = y[:, :s]
         else:
             y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
-        segs = tssd.plan(b, s, h, p, g, n, chunk)["segments"]
+        segs = tssd.plan(b, s, h, p, g, n, chunk).segments
         err, ratio = hold_ssd(f"[ssd] B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}"
                               f"{' h_init' if h_init else ''}{' zero-padded' if padded else ''}"
                               f" ({segs} segments)", y, st, y_w, st_w)
@@ -815,12 +827,12 @@ def phase_ssd_kernel():
     y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
     y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk)
     err, ratio = hold_ssd(f"[ssd] main shape B={b} S={s} H={h} P={p} G={g} N={n} "
-                          f"chunk={chunk}, strided inputs ({pl['segments']} segments of "
-                          f"{pl['chunks_per_segment']} chunks)", y, st, y_w, st_w)
+                          f"chunk={chunk}, strided inputs ({pl.segments} segments of "
+                          f"{pl.chunks_per_segment} chunks)", y, st, y_w, st_w)
     worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
     del y, st
     at = s // chunk // 2
-    edge = pl["chunks_per_segment"]  # the first chunk of the kernel's second segment
+    edge = pl.chunks_per_segment  # the first chunk of the kernel's second segment
     ctrl = min(control(f"[ssd] control: plain with the state entering chunk {at} dropped",
                        ssd_drop_entering_state(x, dt, a, bm, cm, chunk, at)[0], y_w,
                        ratio_fn=ref.ssd_tolerance_ratio),
@@ -864,10 +876,7 @@ def phase_ssd_kernel():
             "replaces": "src/repro/kernels/ssd_scan.py:31",
             "max_abs_err": worst, "tolerance": "1e-5 + 1e-4 max|plain| per (batch, head) (f32)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl, **t,
-            "pass_device_ms": pass_ms, "segments": pl["segments"],
-            "chunks_per_segment": pl["chunks_per_segment"],
-            "executed_gflop_derived": executed / 1e9, "needed_gflop": flops / 1e9,
-            "bound_ms": bound_ms,
+            "pass_device_ms": pass_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_TF32_FLOPS > nbytes / PEAK_HBM_BYTES
             else "bytes",
             "shape": f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"}

@@ -345,7 +345,9 @@ __device__ __forceinline__ int st_col(int nt, int e) {
 // ---- pass B: each segment's state from a zero state, and its total decay ----
 
 // FULL: L, P and N at their largest (mamba2-370m's head) and rows that take
-// 16-byte copies, all known to the compiler.
+// 16-byte copies, all known to the compiler.  At mamba2-370m's prefill shape
+// a call takes 1.55 ms of device time with the FULL passes B and D and 2.06
+// ms with the generic ones (H100 SXM, scripts/ssd_full_build_ab.py).
 template <bool FULL>
 __global__ void __launch_bounds__(NT, 2)
 ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
@@ -589,16 +591,18 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ bm,
 
 // Segments of chunks for B*H heads of nc chunks: the count that keeps the
 // waves of passes B and D fullest, in units of one chunk of pass D (a chunk
-// of pass B ~0.4 of that; a block's set-up ~1).
-Shape plan(int B, int S, int H, int P, int G, int N, int L, int device, bool vec) {
-    Shape sh{S, H, P, G, N, L, (S + L - 1) / L, 1, 0, vec};
-    if (sh.nc == 0) return sh;
-    int sms = 132, occ_b = 2, occ_d = 1;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+// of pass B ~0.4 of that; a block's set-up ~1).  Also sets the passes'
+// shared-memory limits on the current device, which their launches need.
+Shape plan(int B, int S, int H, int P, int G, int N, int L, int device) {
+    Shape sh{S, H, P, G, N, L, (S + L - 1) / L, 1, 0, false};
+    cudaFuncSetAttribute(ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_A * 4);
     for (auto k : {ssd_state_kernel<false>, ssd_state_kernel<true>})
         cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_B * 4);
     for (auto k : {ssd_output_kernel<false>, ssd_output_kernel<true>})
         cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_D * 4);
+    if (sh.nc == 0) return sh;
+    int sms = 132, occ_b = 2, occ_d = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_b, ssd_state_kernel<false>, NT,
                                                   SMEM_B * 4);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_d, ssd_output_kernel<false>, NT_D,
@@ -653,13 +657,16 @@ extern "C" int repro_ssd_scan_limits(int* max_l, int* max_p, int* max_n) {
 }
 
 // The plan for a shape on a device: segments, chunks per segment and the
-// scratch the wrapper allocates (floats).  Returns cudaError_t.
+// scratch the wrapper allocates (floats).  It also sets the passes' shared-
+// memory limits on the device, so it comes before the first
+// repro_ssd_scan_fwd there; the wrapper computes it once per shape and
+// device.  Returns cudaError_t.
 extern "C" int repro_ssd_scan_plan(int B, int S, int H, int P, int G, int N, int L, int device,
                                    int* nseg, int* cps, int64_t* ws_floats) {
     if (!valid_shape(B, S, H, P, G, N, L)) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const Shape sh = plan(B, S, H, P, G, N, L, device, false);
+    const Shape sh = plan(B, S, H, P, G, N, L, device);
     *nseg = sh.nseg;
     *cps = sh.cps;
     *ws_floats = workspace_floats(B, sh);
@@ -668,7 +675,9 @@ extern "C" int repro_ssd_scan_plan(int B, int S, int H, int P, int G, int N, int
 
 // x [B,S,H,P], dt [B,S,H], a [H] (contiguous), bm/cm [B,S,G,N], h_init
 // [B,H,P,N] or null, y [B,S,H,P], st [B,H,P,N], ws scratch of ws_floats
-// floats (16-byte aligned; repro_ssd_scan_plan gives the size); all f32.
+// floats (16-byte aligned); all f32.  nseg and cps are the plan's segments
+// and chunks per segment, and ws_floats at least its scratch
+// (repro_ssd_scan_plan, called before on this device).
 // Strides in elements: (batch, seq, head) for x, dt, y; (batch, seq, group)
 // for bm, cm; (batch, head, row) for h_init and st; the last dim is
 // unit-stride.  device is the CUDA ordinal of the tensors and the stream.
@@ -676,7 +685,7 @@ extern "C" int repro_ssd_scan_plan(int B, int S, int H, int P, int G, int N, int
 extern "C" int repro_ssd_scan_fwd(
         const float* x, const float* dt, const float* a, const float* bm, const float* cm,
         const float* h_init, float* y, float* st, float* ws, int64_t ws_floats,
-        int B, int S, int H, int P, int G, int N, int L,
+        int B, int S, int H, int P, int G, int N, int L, int nseg, int cps,
         int64_t xsb, int64_t xss, int64_t xsh, int64_t dsb, int64_t dss, int64_t dsh,
         int64_t bsb, int64_t bss, int64_t bsg, int64_t csb, int64_t css, int64_t csg,
         int64_t ysb, int64_t yss, int64_t ysh, int64_t hsb, int64_t hsh, int64_t hsp,
@@ -688,8 +697,11 @@ extern "C" int repro_ssd_scan_fwd(
     auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
     const bool vec = P % 4 == 0 && N % 4 == 0 && al16(x) && al16(bm) && al16(cm) &&
                      (xsb | xss | xsh | bsb | bss | bsg | csb | css | csg) % 4 == 0;
-    const Shape sh = plan(B, S, H, P, G, N, L, device, vec);
-    if (!al16(ws) || ws_floats < workspace_floats(B, sh)) return (int)cudaErrorInvalidValue;
+    const int nc = (S + L - 1) / L;
+    const Shape sh{S, H, P, G, N, L, nc, cps, nseg, vec};
+    if (cps < 1 || nseg != (nc + cps - 1) / cps || !al16(ws) ||
+        ws_floats < workspace_floats(B, sh))
+        return (int)cudaErrorInvalidValue;
     const Strides sd{xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg,
                      ysb, yss, ysh, hsb, hsh, hsp, ssb, ssh, ssp};
     float* cd = ws;
@@ -699,9 +711,6 @@ extern "C" int repro_ssd_scan_fwd(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool full = L == MAX_L && P == MAX_P && N == MAX_N && vec;
     if (sh.nc > 0) {
-        err = cudaFuncSetAttribute(ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   SMEM_A * 4);
-        if (err != cudaSuccess) return (int)err;
         ssd_cb_kernel<<<dim3(sh.nc, G, B), NT, SMEM_A * 4, s>>>(dt, a, bm, cm, cb, cd, sh, sd);
         const dim3 grid(sh.nseg, H, B);
         if (full)

@@ -12,6 +12,8 @@ here, and counts as one launch.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -19,7 +21,7 @@ from repro_torch.kernels._build import CudaKernel, check_cuda_tensor
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 KERNEL = CudaKernel("ssd_scan", {
-    "repro_ssd_scan_fwd": [_P] * 9 + [_L] + [_I] * 7 + [_L] * 21 + [_I, _P],
+    "repro_ssd_scan_fwd": [_P] * 9 + [_L] + [_I] * 9 + [_L] * 21 + [_I, _P],
     "repro_ssd_scan_plan": [_I] * 8 + [ctypes.POINTER(_I)] * 2 + [ctypes.POINTER(_L)],
     "repro_ssd_scan_smem_bytes": [_I],
     "repro_ssd_scan_limits": [ctypes.POINTER(_I)] * 3,
@@ -33,15 +35,21 @@ def limits() -> dict:
     return dict(zip(("chunk", "p", "n"), (v.value for v in vals)))
 
 
-def plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int, device: int = 0) -> dict:
-    """How the kernel splits a shape on a device: {"segments", "chunks_per_segment",
-    "workspace_floats"}."""
+class Plan(NamedTuple):
+    segments: int
+    chunks_per_segment: int
+    workspace_floats: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int, device: int = 0) -> Plan:
+    """How the kernel splits a shape on a device, computed once per shape and
+    device; ``ssd_scan`` launches with it."""
     nseg, cps, ws = _I(), _I(), _L()
     KERNEL.check(KERNEL.lib().repro_ssd_scan_plan(b, s, h, p, g, n, chunk, device,
                                                    ctypes.byref(nseg), ctypes.byref(cps),
                                                    ctypes.byref(ws)))
-    return {"segments": nseg.value, "chunks_per_segment": cps.value,
-            "workspace_floats": ws.value}
+    return Plan(nseg.value, cps.value, ws.value)
 
 
 def ssd_scan(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
@@ -77,14 +85,15 @@ def ssd_scan(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
                          f"{lim['n']}")
     y = torch.empty((b, s, h, p), dtype=f32, device=x.device)
     st = torch.empty((b, h, p, n), dtype=f32, device=x.device)
-    ws_floats = plan(b, s, h, p, g, n, chunk, x.device.index or 0)["workspace_floats"]
-    ws = torch.empty((ws_floats,), dtype=f32, device=x.device)
+    pl = plan(b, s, h, p, g, n, chunk, x.device.index or 0)
+    ws = torch.empty((pl.workspace_floats,), dtype=f32, device=x.device)
     hs = h_init.stride()[:3] if h_init is not None else (0, 0, 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = KERNEL.lib().repro_ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
         h_init.data_ptr() if h_init is not None else None, y.data_ptr(), st.data_ptr(),
-        ws.data_ptr(), ws_floats, b, s, h, p, g, n, chunk,
+        ws.data_ptr(), pl.workspace_floats, b, s, h, p, g, n, chunk, pl.segments,
+        pl.chunks_per_segment,
         *x.stride()[:3], *dt.stride(), *b_mat.stride()[:3], *c_mat.stride()[:3],
         *y.stride()[:3], *hs, *st.stride()[:3], x.device.index or 0, stream)
     KERNEL.check(err)

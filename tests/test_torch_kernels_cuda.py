@@ -195,7 +195,7 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
     gen = torch.Generator(device=dev).manual_seed(3)
     x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
     if s >= 2048:  # these cases are there for the segment passes
-        assert tssd.plan(b, s, h, p, g, n, chunk)["segments"] > 1
+        assert tssd.plan(b, s, h, p, g, n, chunk).segments > 1
     before = tssd.KERNEL.launches
     y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
     torch.cuda.synchronize()
