@@ -7,10 +7,10 @@ Run from the root of the repository.  Phases, in order; any failure raises
 and the script exits non-zero without printing a result:
 
  1. device: name, count, and ``nvidia-smi`` name and power limit;
- 2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+ 2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     nvcc (one process per source, started together), with registers, shared
-    memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel
-    or in any pass of the SSD scan fails;
+    memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel,
+    in the flash backward's kernels or in any pass of the SSD scan fails;
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
@@ -22,7 +22,13 @@ and the script exits non-zero without printing a result:
     and, for attention, ``scaled_dot_product_attention`` (the library
     yardstick, never used by the port; no PyTorch call computes the SSD
     scan) with CUDA events around back-to-back calls, and the card's own
-    time per call from torch.profiler, for the SSD scan also per pass;
+    time per call from torch.profiler, for the SSD scan also per pass; the
+    flash backward kernel against ``ref.mha_bwd`` (dq, dk and dv, to
+    ``ref.grad_tolerance_ratio`` <= 1: one bf16 ulp, or 1e-4 in f32) at the
+    training path's shape, with a binding window and in f32 with a ragged S,
+    with the forward kernel's log-sum-exp against ``ref.mha_fwd_lse``'s, three
+    planted faults, and the autograd of ``scaled_dot_product_attention`` as
+    its library yardstick;
  4. prefill: full-width llama3-8b (32 layers, bf16, random weights from a
     seed) on B=1, S=4096 through ``make_prefill_step``; the flash kernel must
     launch once per layer, and each launch of one prefill is held against
@@ -51,7 +57,18 @@ and the script exits non-zero without printing a result:
     kernel-path prefill of the same prompt at every position, and not those
     of the faulty prefill: the recurrence checks the scan;
  8. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b and
-    mamba2-370m.
+    mamba2-370m;
+ 9. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
+    weights from seed 0) through ``make_train_step`` as ``repro_torch.launch.train`` sets it up
+    on an NCCL group of one process, B=1, S=4096, four AdamW steps on one
+    fixed ``synth_batch``: the loss must fall at every step, the flash
+    forward and backward kernels must launch once per layer and step, and
+    each launch of one step is held against its plain version on its own
+    inputs; at depth 2 every leaf's gradient through the kernels must match
+    the gradient through the plain versions, and the gradient with a planted
+    fault in the backward must not; step time, tokens/s, the model-FLOP
+    share of the bf16 peak, peak memory and the device's busy share of one
+    profiled step.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one JSON
 line with every kernel's numbers and the ``nvidia-smi`` line.  Needs one card
@@ -62,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -85,7 +103,17 @@ MODEL_LIMIT = 0.05
 # phase fails above this count or on any spill, so a compiler that drops
 # the bound shows here rather than as a slower kernel.
 FLASH_BF16_MAX_REGISTERS = 240
-NO_LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
+               "ssd_scan": 0}
+# The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
+FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+# Training (phase 9): h2o-danube-3-4b, the one dense configuration whose
+# training state (bf16 parameters and gradients, f32 AdamW moments: 47.5 GB)
+# fits one 80 GB card, on one sequence of S=4096 (flash attention at S >=
+# 1024).  AdamW's lr with a warmup of one step, so the first step takes it
+# whole; at 3e-4 a step moves a weight of ~0.016 (1/sqrt(3840)) by ~2 %.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS = "h2o_danube_3_4b", 4096, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
 # The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order.
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
 
@@ -277,10 +305,11 @@ def checked_ops(ratios: list):
     return swapped_ops(mha=checked_mha, decode_attention=checked_dec, ssd=checked_ssd)
 
 
-def hold(label: str, got, want) -> tuple:
-    """Kernel output against the plain version's; returns (max_abs_err, ratio)."""
+def hold(label: str, got, want, ratio_fn=None) -> tuple:
+    """Kernel output against the plain version's, by ``ref.tolerance_ratio``
+    or ``ratio_fn``; returns (max_abs_err, ratio)."""
     from repro_torch.kernels import ref
-    err, ratio = max_err(got, want), ref.tolerance_ratio(got, want)
+    err, ratio = max_err(got, want), (ratio_fn or ref.tolerance_ratio)(got, want)
     log(f"{label}: max_abs_err {err:.3g}, {ratio:.3f} of the tolerance")
     if not ratio <= 1:
         raise AssertionError(f"{label}: the kernel disagrees with its plain version")
@@ -335,6 +364,18 @@ def phase_build():
         raise AssertionError(f"[build] ssd scan: passes missing from the ptxas log {missing}, "
                              f"spilling {spills}")
     log(f"[build] ssd scan: all {len(SSD_PASSES)} passes built, no spills")
+    bwd = ops.KERNELS["flash_attention_bwd"].resources()
+    missing = [k for k in FLASH_BWD_PASSES if not any(k in fn for fn in bwd)]
+    spills = {fn: res for fn, res in bwd.items() if res["spill_stores"]}
+    if missing or spills:
+        raise AssertionError(f"[build] flash backward: kernels missing from the ptxas log "
+                             f"{missing}, spilling {spills}")
+    bwd_lib = ops.KERNELS["flash_attention_bwd"].lib()
+    log(f"[build] flash backward: all {len(FLASH_BWD_PASSES)} kernels built, no spills; shared "
+        f"memory per block at dh=128: dk/dv {bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 128)}"
+        f" B ({bwd_lib.repro_flash_attention_bwd_tile(0)}-key tiles), dq "
+        f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 128)} B "
+        f"({bwd_lib.repro_flash_attention_bwd_tile(1)}-row tiles)")
     fa_lib, da_lib = ops.KERNELS["flash_attention"].lib(), ops.KERNELS["decode_attention"].lib()
     ssd_lib = ops.KERNELS["ssd_scan"].lib()
     log(f"[build] shared memory per block at dh=128: flash bf16 "
@@ -420,6 +461,111 @@ def phase_flash():
             "max_abs_err": worst, "tolerance": "1e-5 + 2^-7 |plain| (bf16)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
             "library_tolerance_ratio": lib_ratio, **t,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
+            else "bytes",
+            "shape": f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"}
+
+
+def flash_bwd_faults(q, k, v, o, lse, do, want):
+    """Three planted faults of the backward, emulated in the plain version:
+    one key tile's dk/dv dropped, one q tile's dq dropped, and one q tile's
+    share of every dk/dv dropped (its rows of do zeroed).  Returns
+    [(label, gradient, the plain version's)]."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    bk = fab.KERNEL.lib().repro_flash_attention_bwd_tile(0)
+    bq = fab.KERNEL.lib().repro_flash_attention_bwd_tile(1)
+    s = q.shape[1]
+    dk, dq = want[1].clone(), want[0].clone()
+    dk[:, s // 2:s // 2 + bk] = 0
+    dq[:, s // 2:s // 2 + bq] = 0
+    do_f = do.clone()
+    do_f[:, s // 2:s // 2 + 32] = 0
+    _, dk_q, _ = ref.mha_bwd(q, k, v, o, lse, do_f, causal=True)
+    return [(f"one {bk}-key tile's dk dropped", dk, want[1]),
+            (f"one {bq}-row tile's dq dropped", dq, want[0]),
+            ("one 32-row q tile's share of every dk dropped", dk_q, want[1])]
+
+
+def phase_flash_bwd():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst, worst_ratio, lse_worst = 0.0, 0.0, 0.0
+    for b, s, h, kv, dh, dtype, window, seed in [
+            (1, 4096, 32, 8, 120, bf16, None, 1),   # the training path's shape
+            (1, 4096, 32, 8, 120, bf16, 512, 2),    # a binding window
+            (1, 1000, 32, 8, 120, f32, None, 3)]:   # f32, ragged S
+        q, k, v = flash_case(b, s, h, kv, dh, dtype, seed=seed)
+        do = flash_case(b, s, h, kv, dh, dtype, seed=seed + 10)[0]
+        label = f"[flash bwd] B={b} S={s} H={h} KV={kv} dh={dh} {dtype} window={window}"
+        o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+        o_w, lse_w = ref.mha_fwd_lse(q, k, v, window=window)
+        hold(f"{label}: forward o", o, o_w)
+        lse_ratio = ref.lse_tolerance_ratio(lse, lse_w)
+        log(f"{label}: forward lse max_abs_err {max_err(lse, lse_w):.3g}, {lse_ratio:.4f} of "
+            f"the tolerance (1e-5 of max(1, |lse|))")
+        if not lse_ratio <= 1:
+            raise AssertionError(f"{label}: the forward's lse disagrees with ref.mha_fwd_lse")
+        lse_worst = max(lse_worst, lse_ratio)
+        got = fab.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        want = ref.mha_bwd(q, k, v, o, lse, do, window=window)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, ratio = hold(f"{label}: {name}", g, w, ref.grad_tolerance_ratio)
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        del got
+    # the main path's shape again: controls, times, bound
+    b, s, h, kv, dh = 1, 4096, 32, 8, 120
+    q, k, v = flash_case(b, s, h, kv, dh, bf16, seed=1)
+    do = flash_case(b, s, h, kv, dh, bf16, seed=11)[0]
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    want = ref.mha_bwd(q, k, v, o, lse, do)
+    faults = flash_bwd_faults(q, k, v, o, lse, do, want)
+    ctrl = min(control(f"[flash bwd] control: {label}", fault, w, ref.grad_tolerance_ratio)
+               for label, fault, w in faults)
+    # the bound the training phase holds each in-model launch to
+    head_rms = {label: ref.head_rel_rms(fault, w) for label, fault, w in faults}
+    kernel_rms = max(ref.head_rel_rms(g, w) for g, w in
+                     zip(fab.flash_attention_bwd(q, k, v, o, lse, do), want))
+    log(f"[flash bwd] worst (batch, head) relative RMS: kernel {kernel_rms:.3g}; controls "
+        + ", ".join(f"{label} {r:.3g}" for label, r in head_rms.items())
+        + f" (limit {ref.HEAD_RMS_LIMIT:.4g}: the kernel within, each control beyond)")
+    if not kernel_rms <= ref.HEAD_RMS_LIMIT < min(head_rms.values()):
+        raise AssertionError(f"[flash bwd] head RMS bound: kernel {kernel_rms}, controls {head_rms}")
+    del want, faults
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    t = timings(lambda: fab.flash_attention_bwd(q, k, v, o, lse, do),
+                lambda: ref.mha_bwd(q, k, v, o, lse, do),
+                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), 6)
+    passes = device_ms_by_kernel(lambda: fab.flash_attention_bwd(q, k, v, o, lse, do), 4)
+    pass_ms = {k_: sum(v_ for key, v_ in passes.items() if k_ in key) for k_ in FLASH_BWD_PASSES}
+    log("[flash bwd] device ms per call by kernel: "
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in pass_ms.items()))
+    pairs = b * h * s * (s + 1) // 2           # unmasked (query, key) pairs
+    flops = 10 * pairs * dh                    # S again, dP, dV, dK, dQ: 2.5x the forward
+    nbytes = 2 * (4 * b * s * h * dh + 4 * b * s * kv * dh) + 4 * b * h * s
+    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    dev_ms = t["device_ms"] or t["ms"]
+    log(f"[flash bwd] {t['ms']:.3f} ms kernel, {t['plain_ms']:.3f} ms plain, "
+        f"{t['library_ms']:.3f} ms sdpa backward (CUDA events; device time {t['device_ms']} / "
+        f"{t['plain_device_ms']} / {t['library_device_ms']}), bound {bound_ms:.4f} ms "
+        f"({flops / 1e9:.1f} GFLOP needed, {nbytes / 1e6:.1f} MB); "
+        f"{flops / dev_ms / 1e9:.1f} TFLOP/s needed, {100 * bound_ms / dev_ms:.2f} % of the "
+        f"bound (device time)")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:140",
+            "max_abs_err": worst,
+            "tolerance": "dq, dk, dv: 1e-5 + 2^-7 |plain| (bf16), 1e-4 (f32)",
+            "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
+            "forward_lse_tolerance_ratio": lse_worst, "head_rel_rms": kernel_rms,
+            "control_head_rel_rms": min(head_rms.values()), **t, "pass_device_ms": pass_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
             else "bytes",
@@ -1040,6 +1186,189 @@ def phase_mamba_decode(cfg, params):
             "mamba_decode_depth2_vs_faulty_prefill": e_fault}
 
 
+def checked_train_ops(fwd: list, bwd: list):
+    """The training path's kernels with every launch held against its plain
+    version on its own inputs.  The forward appends (o's ``tolerance_ratio``
+    with the absolute term scaled by max(1, max |v|), lse's
+    ``lse_tolerance_ratio``, o's unscaled ``tolerance_ratio``); the backward
+    (the worst ``head_rel_rms`` of dq, dk and dv, their worst
+    ``grad_tolerance_ratio``).  The unscaled ratios are reported only."""
+    from repro_torch.kernels import ops, ref
+    kernel_fwd, kernel_bwd = ops.mha_fwd, ops.mha_bwd
+
+    def checked_fwd(q, k, v, **kw):
+        o, lse = kernel_fwd(q, k, v, **kw)
+        o_w, lse_w = ref.mha_fwd_lse(q, k, v, **kw)
+        fwd.append((ref.tolerance_ratio(o, o_w, max(1.0, v.abs().max().item())),
+                    ref.lse_tolerance_ratio(lse, lse_w), ref.tolerance_ratio(o, o_w)))
+        return o, lse
+
+    def checked_bwd(q, k, v, o, lse, do, **kw):
+        got = kernel_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.mha_bwd(q, k, v, o, lse, do, **kw)
+        bwd.append((max(ref.head_rel_rms(g, w) for g, w in zip(got, want)),
+                    max(ref.grad_tolerance_ratio(g, w) for g, w in zip(got, want))))
+        return got
+    return swapped_ops(mha_fwd=checked_fwd, mha_bwd=checked_bwd)
+
+
+def plain_train_ops():
+    from repro_torch.kernels import ref
+    return swapped_ops(mha_fwd=ref.mha_fwd_lse, mha_bwd=ref.mha_bwd)
+
+
+def faulty_bwd_ops():
+    """A planted fault in the backward: dk and dv from the first query head
+    of each kv head's group only (the loop over the group's heads stops
+    after one), dq right."""
+    import torch
+    from repro_torch.kernels import ref
+
+    def bwd(q, k, v, o, lse, do, **kw):
+        dq, _, _ = ref.mha_bwd(q, k, v, o, lse, do, **kw)
+        b, s, h, dh = q.shape
+        kvh = k.shape[2]
+        first = lambda t: t.reshape(b, s, kvh, h // kvh, dh)[:, :, :, 0]  # noqa: E731
+        lse1 = lse.reshape(b, kvh, h // kvh, -1)[:, :, 0].contiguous()
+        _, dk, dv = ref.mha_bwd(first(q), k, v, first(o), lse1, first(do), **kw)
+        return dq, dk, dv
+    return swapped_ops(mha_fwd=ref.mha_fwd_lse, mha_bwd=bwd)
+
+
+def leaf_rel_rms(got, want) -> dict:
+    """{path: RMS of (got - want) over the RMS of want} of two gradient trees."""
+    from repro_torch import bridge
+    g, w = bridge.flatten(got), bridge.flatten(want)
+    return {k: ((g[k].float() - w[k].float()).pow(2).mean().sqrt()
+                / w[k].float().pow(2).mean().sqrt()).item() for k in w}
+
+
+def phase_train():
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step, mesh_axes
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    launch_train.init_distributed(dev)
+    mesh = launch_train.make_mesh({"data": 1}, dev)
+    setup = TrainSetup(cfg=cfg, opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=dev)
+    step = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))
+    n_params = tf.param_count(params)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name} {n_params / 1e9:.3f} B params ({cfg.n_layers} layers, d={cfg.d_model},"
+        f" {cfg.n_heads} heads, kv {cfg.n_kv_heads}, dh {cfg.resolved_head_dim}, remat "
+        f"{cfg.remat!r}), bf16 with f32 AdamW moments, initialised on the card from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB; "
+        f"NCCL group of {torch.distributed.get_world_size()}, mesh {mesh_axes(mesh)}, "
+        f"fabric {step.fabric.kind}; lr {TRAIN_LR}, warmup {TRAIN_WARMUP} step")
+    batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=1), 0, device=dev)
+    per_step = {**NO_LAUNCHES, "flash_attention": cfg.n_layers * (2 if cfg.remat == "full" else 1),
+                "flash_attention_bwd": cfg.n_layers}
+    losses, times = [], []
+    total = dict(NO_LAUNCHES)
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, ef, m = step(params, opt, ef, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        if counts != per_step:
+            raise AssertionError(f"train step {i}: launches {counts}, want {per_step}")
+        total = {k: total[k] + counts[k] for k in total}
+        losses.append(float(m["loss"]))
+        log(f"[train] step {i}: loss {losses[-1]:.5f} ce {float(m['ce']):.5f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {m['lr']:.3g}, {times[-1]:.1f} ms")
+    if not all(math.isfinite(x) for x in losses) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"train: the loss did not fall at every step: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times[1:])
+    tokens = TRAIN_SEQ
+    s, h, dh = TRAIN_SEQ, cfg.n_heads, cfg.resolved_head_dim
+    dense_flops = 6 * n_params * tokens
+    attn_flops = 3 * 4 * cfg.n_layers * h * dh * s * (s + 1) // 2   # causal QK^T and PV, x3
+    mfu = (dense_flops + attn_flops) / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    log(f"[train] step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+        f"{times[0]:.1f} ms), {tokens / step_ms * 1e3:.1f} tokens/s; model FLOPs "
+        f"{(dense_flops + attn_flops) / 1e12:.2f} T a step (6 N T = {dense_flops / 1e12:.2f} T "
+        f"with N = {n_params}, T = {tokens}; causal attention 12 L H dh S(S+1)/2 = "
+        f"{attn_flops / 1e12:.3f} T): {100 * mfu:.2f} % of the bf16 peak; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches a step {per_step}")
+    busy, dev_ms = device_profile(lambda: step(params, opt, ef, batch), "train step", top=8)
+    shares = {}
+    if dev_ms:
+        tot = sum(dev_ms.values())
+        for label, keys in (("flash bwd", FLASH_BWD_PASSES), ("flash fwd", ("flash_fwd_kernel",))):
+            shares[label] = sum(v for key, v in dev_ms.items() if any(k in key for k in keys))
+            log(f"[train] profiled step: {label} {shares[label]:.2f} ms of {tot:.2f} ms device "
+                f"time ({100 * shares[label] / tot:.1f} %)")
+
+    # every flash launch of one step (gradients only), held against the plain version
+    fwd, bwd = [], []
+    with checked_train_ops(fwd, bwd):
+        grads, _ = step.grads_fn(params, batch)
+    del grads
+    worst_fwd = [max(r[i] for r in fwd) for i in range(3)]
+    worst_bwd = [max(r[i] for r in bwd) for i in range(2)]
+    log(f"[train] one step's launches against the plain versions on their own inputs: forward "
+        f"over {len(fwd)}: o {worst_fwd[0]:.3f} of the tolerance with its absolute term scaled "
+        f"by max(1, max|v|) (unscaled {worst_fwd[2]:.3f}, reported), lse {worst_fwd[1]:.4f}; "
+        f"backward over {len(bwd)}: worst (batch, head) relative RMS of dq, dk, dv "
+        f"{worst_bwd[0]:.3g} (limit {ref.HEAD_RMS_LIMIT:.4g}; grad_tolerance_ratio "
+        f"{worst_bwd[1]:.3g}, reported: the gradients lie below its absolute term)")
+    if len(bwd) != cfg.n_layers or not (worst_fwd[0] <= 1 and worst_fwd[1] <= 1
+                                        and worst_bwd[0] <= ref.HEAD_RMS_LIMIT):
+        raise AssertionError(f"train: a flash launch disagrees with its plain version: "
+                             f"{fwd} {bwd}")
+
+    # depth 2, full width: every leaf's gradient through the kernels against the
+    # gradient through the plain versions and through a planted fault
+    cfg2 = cfg.replace(n_layers=2)
+    p2 = _first_periods(params, 2)
+    step2 = make_train_step(TrainSetup(cfg=cfg2), mesh, tf.init_lm(cfg2, device="meta"))
+    got, _ = step2.grads_fn(p2, batch)
+    with plain_train_ops():
+        want, _ = step2.grads_fn(p2, batch)
+    rel = leaf_rel_rms(got, want)
+    del got
+    with faulty_bwd_ops():
+        fault = leaf_rel_rms(step2.grads_fn(p2, batch)[0], want)
+    worst_leaf = max(rel, key=rel.get)
+    log(f"[train] depth 2, full width, per-leaf relative RMS of the gradient, kernels vs plain: "
+        f"worst {rel[worst_leaf]:.3g} ({worst_leaf}; limit {MODEL_LIMIT}); control, dk/dv from "
+        f"one head of each group: worst {max(fault.values()):.3g} "
+        f"({max(fault, key=fault.get)}; must exceed the limit)")
+    if not max(rel.values()) <= MODEL_LIMIT < max(fault.values()):
+        raise AssertionError(f"depth-2 gradients: kernels {rel}, control {fault}")
+    del params, opt, p2, want
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return {"train_arch": cfg.name, "train_params": n_params, "train_seq": TRAIN_SEQ,
+            "train_remat": cfg.remat, "train_lr": TRAIN_LR, "train_warmup": TRAIN_WARMUP,
+            "train_losses": losses, "train_step_ms": step_ms, "train_step_times_ms": times,
+            "train_tokens_per_s": tokens / step_ms * 1e3, "train_mfu": mfu,
+            "train_model_flops": dense_flops + attn_flops, "train_peak_bytes": peak,
+            "train_device_busy": busy, "train_device_ms_by_part": shares,
+            "train_launches_per_step": per_step, "train_launches": total,
+            "train_fwd_o_scaled_ratio": worst_fwd[0], "train_fwd_lse_ratio": worst_fwd[1],
+            "train_fwd_o_unscaled_ratio": worst_fwd[2], "train_bwd_head_rel_rms": worst_bwd[0],
+            "train_bwd_grad_tolerance_ratio": worst_bwd[1],
+            "train_depth2_grad_rel_rms": max(rel.values()),
+            "train_depth2_fault_rel_rms": max(fault.values())}
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1060,7 +1389,7 @@ def run() -> int:
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-    kernels = [phase_flash(), phase_decode_kernel(), phase_ssd_kernel()]
+    kernels = [phase_flash(), phase_flash_bwd(), phase_decode_kernel(), phase_ssd_kernel()]
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
@@ -1072,7 +1401,7 @@ def run() -> int:
     dec = phase_decode(cfg, params)
     kernels[0].update(launches=pre["flash_launches"],
                       launches_per_step=pre["flash_launches"] / pre["prefill_calls"])
-    kernels[1].update(launches=dec["decode_launches"],
+    kernels[2].update(launches=dec["decode_launches"],
                       launches_per_step=dec["decode_launches"] / dec["decode_steps"])
     del params
     torch.cuda.empty_cache()
@@ -1085,7 +1414,7 @@ def run() -> int:
         f"f32 SSM leaves) in {time.perf_counter() - t0:.1f} s")
     mpre = phase_mamba_prefill(cfg, params)
     mdec = phase_mamba_decode(cfg, params)
-    kernels[2].update(launches=mpre["ssd_launches"],
+    kernels[3].update(launches=mpre["ssd_launches"],
                       launches_per_step=mpre["ssd_launches"] / mpre["mamba_prefill_calls"])
     del params
     torch.cuda.empty_cache()
@@ -1094,9 +1423,15 @@ def run() -> int:
         out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
         if not torch.isfinite(out["logits"]).all():
             raise AssertionError(f"serve entry point, {arch}: logits not finite")
-    log(f"[serve] ok; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
-        f"whole run {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, "card": smi}))
+    log(f"[serve] ok; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    torch.cuda.empty_cache()
+
+    tr = phase_train()
+    kernels[0].update(launches_train=tr["train_launches"]["flash_attention"])
+    kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
+                      launches_per_step=tr["train_launches_per_step"]["flash_attention_bwd"])
+    log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **tr, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.parallel import sharding
+
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
     arr = np.array(arr)  # a writable copy: the tensor shares its memory
@@ -62,8 +64,8 @@ def from_numpy(tree: dict, device, dtype=None) -> dict:
     return _listify(root)
 
 
-def to_numpy(params) -> dict:
-    """The port's parameters -> {path: array}; bf16 leaves come back as f32."""
+def flatten(tree) -> dict:
+    """A tree of dicts and lists -> {path: leaf}."""
     out = {}
 
     def walk(node, prefix):
@@ -72,13 +74,37 @@ def to_numpy(params) -> dict:
         elif isinstance(node, (list, tuple)):
             items = ((str(i), v) for i, v in enumerate(node))
         else:
-            t = node.detach().cpu()
-            if t.dtype == torch.bfloat16:
-                t = t.to(torch.float32)
-            out[prefix] = t.numpy()
+            out[prefix] = node
             return
         for k, v in items:
             walk(v, f"{prefix}/{k}" if prefix else k)
 
-    walk(params, "")
+    walk(tree, "")
     return out
+
+
+def to_numpy(params) -> dict:
+    """The port's parameters -> {path: array}; bf16 leaves come back as f32."""
+    out = {}
+    for path, t in flatten(params).items():
+        t = t.detach().cpu()
+        out[path] = (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+    return out
+
+
+def shards_from_numpy(tree: dict, index: int, n_rails: int, device, dtype=None) -> dict:
+    """Global {path: array} (e.g. the JAX package's ``init_lm``) -> the port's
+    stored FSDP shards of rail rank ``index`` of ``n_rails`` (flat index,
+    major axis first), by the port's sharding rules (``model_size=1``).
+    ``to_numpy`` of the gathered parameters gives the global arrays back."""
+    out = {}
+    for path, arr in tree.items():
+        arr = np.asarray(arr)
+        stacked = path.startswith("layers") or "/layers/" in path
+        _, fd, _ = sharding.leaf_spec(path, arr.shape, n_rails=n_rails, rail_axes=("data",),
+                                      model_size=1, stacked=stacked)
+        if fd is not None and n_rails > 1:
+            size = arr.shape[fd] // n_rails
+            arr = np.take(arr, np.arange(index * size, (index + 1) * size), axis=fd)
+        out[path] = arr
+    return from_numpy(out, device, dtype)

@@ -4,7 +4,10 @@
 // (launched by `_flash_fwd2`).  Same function as the plain version
 // `repro_torch.kernels.ref.mha`: softmax(q k^T * scale + mask) v with the
 // online-softmax statistics (m, l, acc) held in f32 and the output
-// normalised once at the end, l clamped at 1e-30.
+// normalised once at the end, l clamped at 1e-30.  Given an `lse` pointer it
+// also writes each row's log-sum-exp m + log(l) [B,H,Sq] f32, as
+// `ref.mha_fwd_lse` does: the input of the backward kernels
+// (flash_attention_bwd.cu).  Serving passes none and writes nothing more.
 //
 // What bounds it on an H100: at S=4096 (llama3-8b prefill: H=32, KV=8,
 // dh=128) the causal half of the two products is ~137 GFLOP against ~67 MB
@@ -70,7 +73,7 @@ constexpr int smem_floats() { return BQ * (DHP + 4) + 2 * BK * (DHP + 4) + BQ * 
 template <int DHP>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int rep, int dh,
                  int64_t qsb, int64_t qss, int64_t qsh,
                  int64_t ksb, int64_t kss, int64_t ksh,
@@ -226,6 +229,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int row = q0 + ty + 16 * i;
         if (row >= Sq) continue;
         const float l = fmaxf(l_r[i], 1e-30f);
+        if (lse != nullptr && tx == 0) lse[((int64_t)b * gridDim.y + h) * Sq + row] = m_r[i] + logf(l);
         float* orow = o + b * osb + row * oss + h * osh;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -238,7 +242,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DHP>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
                    int B, int Sq, int Sk, int H, int KV, int dh, const int64_t* st,
                    float scale, int causal, int window, int q_offset, cudaStream_t stream) {
     const size_t smem = smem_floats<DHP>() * sizeof(float);
@@ -248,7 +252,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     flash_fwd_kernel<DHP><<<grid, NT, smem, stream>>>(
-        q, k, v, o, Sq, Sk, H / KV, dh, st[0], st[1], st[2], st[3], st[4], st[5],
+        q, k, v, o, lse, Sq, Sk, H / KV, dh, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window, q_offset);
     return cudaGetLastError();
 }
@@ -322,7 +326,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ro
 template <int DHP>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int rep, int dh,
                  int64_t qsb, int64_t qss, int64_t qsh,
                  int64_t ksb, int64_t kss, int64_t ksh,
@@ -493,6 +497,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l = fmaxf(l, 1e-30f);
         const int row = q0 + r_lo + 8 * hr;
         if (row >= Sq) continue;
+        if (lse != nullptr && (lane & 3) == 0)
+            lse[((int64_t)b * gridDim.y + h) * Sq + row] = m_r[hr] + logf(l);
         bf16* orow = o + b * osb + row * oss + h * osh;
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
@@ -505,7 +511,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DHP>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                    int B, int Sq, int Sk, int H, int KV, int dh, const int64_t* st,
                    float scale, int causal, int window, int q_offset, cudaStream_t stream) {
     const int smem = smem_bytes<DHP>();
@@ -514,7 +520,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     flash_fwd_kernel<DHP><<<grid, NT, smem, stream>>>(
-        q, k, v, o, Sq, Sk, H / KV, dh, st[0], st[1], st[2], st[3], st[4], st[5],
+        q, k, v, o, lse, Sq, Sk, H / KV, dh, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window, q_offset);
     return cudaGetLastError();
 }
@@ -539,13 +545,15 @@ extern "C" int repro_flash_attention_smem_bytes(int dtype, int dh) {
     return (dh <= 64 ? simt::smem_floats<64>() : simt::smem_floats<128>()) * (int)sizeof(float);
 }
 
-// q [B,Sq,H,dh], k/v [B,Sk,KV,dh], o [B,Sq,H,dh]; strides in elements as
+// q [B,Sq,H,dh], k/v [B,Sk,KV,dh], o [B,Sq,H,dh]; lse [B,H,Sq] f32, contiguous,
+// or null: where given, each row's log-sum-exp m + log(max(l, 1e-30)) of its
+// scaled, masked scores (the backward's input); strides in elements as
 // (batch, seq, head) for q, k, v, o in that order; the head dim is unit-stride.
 // dtype: 0 = f32, 1 = bf16.  Every row starts on a 16-byte boundary, and in
 // bf16 dh is a multiple of 8.  window <= 0 means no window.  device is the
 // CUDA ordinal the tensors and the stream belong to.  Returns cudaError_t.
 extern "C" int repro_flash_attention_fwd(
-        const void* q, const void* k, const void* v, void* o, int dtype,
+        const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
         int B, int Sq, int Sk, int H, int KV, int dh,
         int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
         int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss, int64_t osh,
@@ -560,9 +568,9 @@ extern "C" int repro_flash_attention_fwd(
         const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                     *fv = static_cast<const float*>(v);
         float* fo = static_cast<float*>(o);
-        return dh <= 64 ? simt::launch<64>(fq, fk, fv, fo, B, Sq, Sk, H, KV, dh, st, scale,
+        return dh <= 64 ? simt::launch<64>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st, scale,
                                            causal, window, q_offset, s)
-                        : simt::launch<128>(fq, fk, fv, fo, B, Sq, Sk, H, KV, dh, st, scale,
+                        : simt::launch<128>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st, scale,
                                             causal, window, q_offset, s);
     }
     if (dtype == REPRO_BF16) {
@@ -571,9 +579,9 @@ extern "C" int repro_flash_attention_fwd(
         const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
                    *bv = static_cast<const bf16*>(v);
         bf16* bo = static_cast<bf16*>(o);
-        return dh <= 64 ? tc::launch<64>(bq, bk, bv, bo, B, Sq, Sk, H, KV, dh, st, scale, causal,
+        return dh <= 64 ? tc::launch<64>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale, causal,
                                          window, q_offset, s)
-                        : tc::launch<128>(bq, bk, bv, bo, B, Sq, Sk, H, KV, dh, st, scale,
+                        : tc::launch<128>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale,
                                           causal, window, q_offset, s);
     }
     return (int)cudaErrorInvalidValue;

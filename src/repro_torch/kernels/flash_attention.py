@@ -17,7 +17,7 @@ from repro_torch.kernels._build import CudaKernel, check_cuda_tensor
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("flash_attention", {
-    "repro_flash_attention_fwd": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _I, _I, _P],
+    "repro_flash_attention_fwd": [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _I, _I, _P],
     "repro_flash_attention_smem_bytes": [_I, _I],
     "repro_flash_attention_kv_tile": [_I],
     "repro_flash_attention_q_tile": [_I],
@@ -44,8 +44,12 @@ def check_rows(name: str, t: torch.Tensor) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
-    """CUDA kernel.  q [B,Sq,H,dh], k/v [B,Sk,KV,dh] -> [B,Sq,H,dh] in q's dtype."""
+                    scale: Optional[float] = None, q_offset: int = 0, return_lse: bool = False):
+    """CUDA kernel.  q [B,Sq,H,dh], k/v [B,Sk,KV,dh] -> o [B,Sq,H,dh] in q's dtype.
+
+    With ``return_lse`` -> (o, lse [B,H,Sq] f32), the rows' log-sum-exp that
+    the backward kernel reads (``ref.mha_fwd_lse``'s convention).
+    """
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention takes {list(DTYPES)}, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -64,12 +68,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         raise ValueError(f"window must be positive, got {window}")
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = KERNEL.lib().repro_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if return_lse else None, DTYPES[q.dtype],
         b, sq, sk, h, kvh, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         scale, int(causal), int(window or 0), int(q_offset), q.device.index or 0, stream)
     KERNEL.check(err)
     KERNEL.launches += 1
-    return o
+    return (o, lse) if return_lse else o

@@ -3,18 +3,27 @@
 A CPU tensor goes to the plain version in ``ref``; a CUDA tensor launches
 the hand-written kernel or raises.  There is no switch and no fallback: a
 CUDA tensor never reaches the plain version through these functions.
+
+Where an input of ``mha`` needs a gradient, ``mha`` is an autograd function:
+its forward (``mha_fwd``) also keeps the rows' log-sum-exp, and its backward
+(``mha_bwd``) launches the backward kernel, or runs ``ref.mha_bwd`` on CPU
+tensors.  Without a gradient it takes the serving route, which writes no
+log-sum-exp.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
-KERNELS = {"flash_attention": _fa.KERNEL, "decode_attention": _da.KERNEL,
-           "ssd_scan": _ssd.KERNEL}
+KERNELS = {"flash_attention": _fa.KERNEL, "flash_attention_bwd": _fab.KERNEL,
+           "decode_attention": _da.KERNEL, "ssd_scan": _ssd.KERNEL}
 
 
 def _route(t) -> str:
@@ -26,10 +35,52 @@ def _route(t) -> str:
 def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         scale: Optional[float] = None, q_offset: int = 0):
     """Flash attention.  q [B,Sq,H,dh], k/v [B,Sk,KV,dh] -> [B,Sq,H,dh]."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
     if _route(q) == "cuda":
         return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
                                    q_offset=q_offset)
     return ref.mha(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
+
+
+def mha_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None, q_offset: int = 0):
+    """Flash attention keeping the rows' log-sum-exp: (o [B,Sq,H,dh], lse
+    [B,H,Sq] f32)."""
+    if _route(q) == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                   q_offset=q_offset, return_lse=True)
+    return ref.mha_fwd_lse(q, k, v, causal=causal, window=window, scale=scale,
+                           q_offset=q_offset)
+
+
+def mha_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None, q_offset: int = 0):
+    """Gradients (dq, dk, dv) of flash attention from ``mha_fwd``'s o and lse."""
+    if _route(q) == "cuda":
+        return _fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                        scale=scale, q_offset=q_offset)
+    return ref.mha_bwd(q, k, v, o, lse, do, causal=causal, window=window, scale=scale,
+                       q_offset=q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``mha`` with a gradient: forward and backward through ``mha_fwd`` and
+    ``mha_bwd``, looked up when called."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        o, lse = mha_fwd(q, k, v, causal=causal, window=window, scale=scale,
+                         q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = mha_bwd(q, k, v, o, lse, do.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None):
@@ -42,9 +93,15 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] 
 def ssd(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
     """Mamba-2 SSD chunked scan (see ``ref.ssd_chunked`` for shapes).
 
-    Returns (y [B,S,H,P], final state [B,H,P,N]), f32.
+    Returns (y [B,S,H,P], final state [B,H,P,N]), f32.  On the card it has no
+    gradient yet: SSM training waits for a CUDA SSD backward kernel.
     """
     if _route(x) == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, dt, a, b_mat, c_mat, h_init)):
+            raise NotImplementedError("the SSD scan has no backward kernel yet: SSM training "
+                                      "waits for it (ROADMAP.md, Queue 2: CUDA SSD backward "
+                                      "kernel)")
         return _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
     return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
 

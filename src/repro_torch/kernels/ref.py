@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the kernels (forward only).
+"""Plain PyTorch versions of the kernels.
 
 Counterpart of ``repro.kernels.ref`` and of ``repro.models.ssm.ssd_chunked``.
 ``mha`` is a blocked (flash) attention that never materialises the
-[Sq, Sk] score matrix; ``decode_attention`` is the blocked flash-decode of
+[Sq, Sk] score matrix; ``mha_fwd_lse`` also returns the rows' log-sum-exp,
+and ``mha_bwd`` is the blocked backward that recomputes P from it (the JAX
+package's ``_mha_bwd_blocks``); ``decode_attention`` is the blocked flash-decode of
 one query token over a cache; ``ssd_chunked`` is the Mamba-2 SSD chunked
 scan.  The CPU path runs these, and the tests and ``chip_smoke.py`` hold
-the CUDA kernels in ``flash_attention.py``, ``decode_attention.py`` and
-``ssd_scan.py`` against them.
+the CUDA kernels in ``flash_attention.py``, ``flash_attention_bwd.py``,
+``decode_attention.py`` and ``ssd_scan.py`` against them.
 
 Conventions
   q        [B, Sq, H, dh]
@@ -31,12 +33,67 @@ ATOL = 1e-5
 RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 
 
-def tolerance_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got - want| / (ATOL + RTOL * |want|), with ``want`` the plain
-    version's output: at most 1 where ``got`` agrees with it."""
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, atol_scale: float = 1.0) -> float:
+    """max |got - want| / (ATOL * atol_scale + RTOL * |want|), with ``want``
+    the plain version's output: at most 1 where ``got`` agrees with it.
+
+    ``atol_scale`` scales the absolute term with the inputs' size: attention
+    inside a model passes max(1, max |v|).  The bf16 flash kernel carries P
+    to 16 bits (a bf16 high and low part), so an output near 0, a cancelling
+    sum of P |v|, is off by up to ~2^-17 max |v| (2.6e-5 where |v| reaches
+    5.8 after a few training steps of h2o-danube-3-4b on an H100).
+    """
     w = want.float()
-    allowed = ATOL + RTOL[want.dtype] * w.abs()
+    allowed = ATOL * atol_scale + RTOL[want.dtype] * w.abs()
     return ((got.float() - w).abs() / allowed).max().item()
+
+
+# Inside a model the loss is a mean over thousands of tokens, so attention's
+# gradients are 1e-8..1e-4, below any absolute term set for the kernels'
+# test inputs: there the backward is held per (batch, head) by the RMS of
+# the difference over the RMS of the plain version's gradient, which does
+# not depend on their size.  Both versions round once to bf16 (2^-9 of a
+# value on average); the bound is one bf16 ulp, 2^-7.  Zeroing one 64-row
+# tile of a head's 4096 rows reads sqrt(64 / 4096) = 0.125.
+HEAD_RMS_LIMIT = 2.0 ** -7
+
+
+def head_rel_rms(got: torch.Tensor, want: torch.Tensor, head_dim: int = 2) -> float:
+    """The worst (batch, head)'s RMS of (got - want) over the RMS of want;
+    ``head_dim`` is 2 for [B,S,H,dh]."""
+    w = want.float().movedim(head_dim, 1).flatten(2)
+    d = got.float().movedim(head_dim, 1).flatten(2) - w
+    return (d.pow(2).mean(-1).sqrt() / w.pow(2).mean(-1).sqrt().clamp(min=1e-30)).max().item()
+
+
+# What the backward kernel's dq, dk and dv are held to.  bf16: one bf16 ulp
+# of each element, as the forward.  f32: 1e-4, the JAX package's tolerance
+# for attention gradients (tests/test_kernels.py); a gradient is a sum over
+# up to S rows (dv = P^T dO), so the two versions' orders of summation part
+# by more than the forward's 1e-5 (1.05e-5 on dv at S=1000 on an H100).
+GRAD_ATOL = {torch.float32: 1e-4, torch.bfloat16: ATOL}
+
+
+def grad_tolerance_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (GRAD_ATOL + RTOL * |want|), with ``want`` the
+    plain backward's gradient: at most 1 where ``got`` agrees with it."""
+    w = want.float()
+    allowed = GRAD_ATOL[want.dtype] + RTOL[want.dtype] * w.abs()
+    return ((got.float() - w).abs() / allowed).max().item()
+
+
+# The forward's log-sum-exp is f32 in both versions; the kernel takes its
+# exponentials with other instructions and sums in another order, a few f32
+# ulps of the row sum.  Held to 1e-5 of max(1, |lse|): relative where |lse|
+# >= 1, absolute near 0 (a row that sees one key has lse = its one score).
+LSE_RTOL = 1e-5
+
+
+def lse_tolerance_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (LSE_RTOL * max(1, |want|)): at most 1 where the
+    kernel's log-sum-exp agrees with ``mha_fwd_lse``'s."""
+    w = want.float()
+    return ((got.float() - w).abs() / (LSE_RTOL * w.abs().clamp(min=1.0))).max().item()
 
 
 def _pad_to(x: torch.Tensor, mult: int, dim: int):
@@ -98,6 +155,25 @@ def _mha_fwd_blocks(q5, k, v, *, causal, window, scale, q_offset,
     return out.permute(0, 3, 1, 2, 4), lse
 
 
+def _blocked(q, k, v, scale, block_q, block_k, kv_valid_len):
+    """q, k, v in the blocked layout: q5 [B,Sq',KV,R,dh] and k, v [B,Sk',KV,dh]
+    zero-padded to block multiples, with the blocks, the scale and the valid
+    KV length (padded KV slots are masked)."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    if h % kvh:
+        raise ValueError(f"n_heads {h} is not a multiple of n_kv_heads {kvh}")
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    block_q = min(block_q, max(sq, 1))
+    block_k = min(block_k, max(k.shape[1], 1))
+    q5, _ = _pad_to(q.reshape(b, sq, kvh, h // kvh, dh), block_q, 1)
+    k, sk0 = _pad_to(k, block_k, 1)
+    v, _ = _pad_to(v, block_k, 1)
+    if k.shape[1] != sk0 and kv_valid_len is None:
+        kv_valid_len = sk0
+    return q5, k, v, scale, block_q, block_k, kv_valid_len
+
+
 def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         scale: Optional[float] = None, q_offset: int = 0,
         block_q: int = 512, block_k: int = 512, kv_valid_len=None):
@@ -105,25 +181,85 @@ def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
     Never materialises [Sq,Sk].  ``kv_valid_len`` masks trailing cache slots.
     """
+    return mha_fwd_lse(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset,
+                       block_q=block_q, block_k=block_k, kv_valid_len=kv_valid_len)[0]
+
+
+def mha_fwd_lse(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                scale: Optional[float] = None, q_offset: int = 0,
+                block_q: int = 512, block_k: int = 512, kv_valid_len=None):
+    """``mha`` that also returns each row's log-sum-exp of its scaled, masked
+    scores, m + log(max(l, 1e-30)): (o [B,Sq,H,dh] in q's dtype, lse [B,H,Sq]
+    f32), head h = kv head h // rep, as ``_mha_fwd_blocks`` orders them."""
+    b, sq, h, dh = q.shape
+    q5, k, v, scale, block_q, block_k, kv_valid_len = _blocked(q, k, v, scale, block_q,
+                                                               block_k, kv_valid_len)
+    out, lse = _mha_fwd_blocks(q5, k, v, causal=causal, window=window, scale=scale,
+                               q_offset=q_offset, block_q=block_q, block_k=block_k,
+                               kv_valid_len=kv_valid_len)
+    return (out[:, :sq].reshape(b, sq, h, dh).to(q.dtype),
+            lse.reshape(b, h, -1)[:, :, :sq].contiguous())
+
+
+def _mha_bwd_blocks(q5, k, v, out5, lse, dout5, *, causal, window, scale, q_offset,
+                    block_q, block_k, kv_valid_len=None):
+    """Core blocked backward (port of ``repro.kernels.ref._mha_bwd_blocks``):
+    P recomputed per block from lse, delta = rowsum(dO * O), dS = P (dP -
+    delta).  q5/out5/dout5 [B,Sq,KV,R,dh], k/v [B,Sk,KV,dh], lse [B,KV,R,Sq].
+    Returns (dq [B,Sq,KV,R,dh], dk, dv [B,Sk,KV,dh]) in f32.  Each q block's
+    dq sums the kv blocks in order, and each kv block's dk and dv sum the q
+    blocks in order, as the JAX package's scans do."""
+    b, sq, kvh, rep, dh = q5.shape
+    sk = k.shape[1]
+    nq, nk = sq // block_q, sk // block_k
+    f32 = torch.float32
+    dev = q5.device
+    delta = torch.einsum("bqgrd,bqgrd->bgrq", dout5.to(f32), out5.to(f32))
+    dq = torch.zeros((b, sq, kvh, rep, dh), dtype=f32, device=dev)
+    dk = torch.zeros((b, sk, kvh, dh), dtype=f32, device=dev)
+    dv = torch.zeros((b, sk, kvh, dh), dtype=f32, device=dev)
+    for iq in range(nq):
+        qs = slice(iq * block_q, (iq + 1) * block_q)
+        qblk, doblk = q5[:, qs].to(f32), dout5[:, qs].to(f32)
+        lse_blk, delta_blk = lse[..., qs], delta[..., qs]
+        qpos = q_offset + iq * block_q + torch.arange(block_q, device=dev)
+        for ik in range(nk):
+            ks = slice(ik * block_k, (ik + 1) * block_k)
+            kblk, vblk = k[:, ks].to(f32), v[:, ks].to(f32)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qblk, kblk) * scale
+            kpos = ik * block_k + torch.arange(block_k, device=dev)
+            mask = _block_mask(qpos, kpos, causal=causal, window=window)
+            if kv_valid_len is not None:
+                mask &= (kpos < kv_valid_len)[None, :]
+            p = torch.exp(torch.where(mask, s, NEG_INF) - lse_blk[..., None])
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", doblk, vblk)
+            ds = p * (dp - delta_blk[..., None])
+            dq[:, qs] += torch.einsum("bgrqk,bkgd->bqgrd", ds, kblk) * scale
+            dv[:, ks] += torch.einsum("bgrqk,bqgrd->bkgd", p, doblk)
+            dk[:, ks] += torch.einsum("bgrqk,bqgrd->bkgd", ds, qblk) * scale
+    return dq, dk, dv
+
+
+def mha_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None, q_offset: int = 0,
+            block_q: int = 512, block_k: int = 512):
+    """Gradients of ``mha`` from its output ``o`` and ``lse`` (``mha_fwd_lse``):
+    q, o, do [B,Sq,H,dh], k/v [B,Sk,KV,dh], lse [B,H,Sq] -> (dq, dk, dv) in
+    the inputs' dtypes, accumulated in f32; dk and dv sum the ``rep`` query
+    heads of each kv head."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
-    if h % kvh:
-        raise ValueError(f"n_heads {h} is not a multiple of n_kv_heads {kvh}")
-    rep = h // kvh
-    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
-    block_q = min(block_q, max(sq, 1))
-    block_k = min(block_k, max(k.shape[1], 1))
-
-    q5 = q.reshape(b, sq, kvh, rep, dh)
-    q5, sq0 = _pad_to(q5, block_q, 1)
-    k, sk0 = _pad_to(k, block_k, 1)
-    v, _ = _pad_to(v, block_k, 1)
-    if k.shape[1] != sk0 and kv_valid_len is None:  # padded KV slots are masked
-        kv_valid_len = sk0
-    out, _ = _mha_fwd_blocks(q5, k, v, causal=causal, window=window, scale=scale,
-                             q_offset=q_offset, block_q=block_q, block_k=block_k,
-                             kv_valid_len=kv_valid_len)
-    return out[:, :sq0].reshape(b, sq0, h, dh).to(q.dtype)
+    sk = k.shape[1]
+    q5, kp, vp, scale, block_q, block_k, kv_valid_len = _blocked(q, k, v, scale, block_q,
+                                                                 block_k, None)
+    o5, _ = _pad_to(o.reshape(b, sq, kvh, h // kvh, dh), block_q, 1)
+    do5, _ = _pad_to(do.reshape(b, sq, kvh, h // kvh, dh), block_q, 1)
+    lse4, _ = _pad_to(lse.to(torch.float32).reshape(b, kvh, h // kvh, sq), block_q, 3)
+    dq, dk, dv = _mha_bwd_blocks(q5, kp, vp, o5, lse4, do5, causal=causal, window=window,
+                                 scale=scale, q_offset=q_offset, block_q=block_q,
+                                 block_k=block_k, kv_valid_len=kv_valid_len)
+    return (dq[:, :sq].reshape(b, sq, h, dh).to(q.dtype), dk[:, :sk].to(k.dtype),
+            dv[:, :sk].to(v.dtype))
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *,

@@ -1,0 +1,109 @@
+"""Training driver: FSDP over photonic rails (or EPS) with synthetic data.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi_9b --smoke \
+        --device cpu --steps 4 --mesh 1x1 --batch 8 --seq 32
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch yi_9b --smoke --device cpu --mesh 4x1 --batch 8 --seq 32
+
+Port of ``repro.launch.train``.  ``--mesh`` is DxM or PxDxM (pod, data,
+model) as there; the port has no tensor parallelism, so M must be 1, and the
+product is the world size.  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
+set) it joins that group; otherwise it forms a group of one process itself.
+Runs on CUDA with NCCL unless ``--device cpu`` is given (gloo); if CUDA is
+asked for and absent it raises rather than running on the CPU.
+``--plane-report`` waits for the control plane and is refused.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.configs.base import get_config
+from repro_torch.launch.serve import resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.train.data import DataConfig, synth_batch
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step
+
+
+def parse_mesh(s: str) -> dict:
+    """"DxM" or "PxDxM" -> {axis: size} of the rail axes; M must be 1."""
+    dims = tuple(int(x) for x in s.lower().split("x"))
+    if len(dims) not in (2, 3):
+        raise ValueError(f"--mesh {s}: DxM or PxDxM")
+    if dims[-1] != 1:
+        raise ValueError(f"--mesh {s}: the port has no tensor parallelism (model axis "
+                         f"{dims[-1]}); it waits for ROADMAP.md, Queue 1: training")
+    return dict(zip(("data",) if len(dims) == 2 else ("pod", "data"), dims[:-1]))
+
+
+def init_distributed(device: torch.device) -> None:
+    """Join the ``torchrun`` group, or form a group of one process."""
+    if dist.is_initialized():
+        return
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+
+
+def make_mesh(axes: dict, device: torch.device):
+    if math.prod(axes.values()) != dist.get_world_size():
+        raise ValueError(f"mesh {axes} needs {math.prod(axes.values())} processes, "
+                         f"the group has {dist.get_world_size()}")
+    return init_device_mesh(device.type, tuple(axes.values()), mesh_dim_names=tuple(axes))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--fabric", default="photonic", choices=["photonic", "eps"])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--plane-report", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.plane_report:
+        ap.error("--plane-report needs the photonic control plane, which is not ported; it "
+                 "waits for ROADMAP.md, Queue 1: control plane and simulator")
+    try:
+        axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    init_distributed(device)
+    mesh = make_mesh(axes, device)
+    setup = TrainSetup(cfg=cfg, fabric=args.fabric, accum=args.accum,
+                       opt=OptConfig(warmup_steps=10))
+    dc = DataConfig(seq_len=args.seq, global_batch=args.batch)
+    params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=device)
+    step_fn = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))
+
+    t0 = time.time()
+    for step in range(args.steps):
+        batch = synth_batch(cfg, dc, step, device=device)
+        params, opt, ef, m = step_fn(params, opt, ef, batch)
+        if dist.get_rank() == 0 and (step % 5 == 0 or step == args.steps - 1):
+            print(f"step {step:4d} loss {float(m['loss']):.4f} ce {float(m['ce']):.4f} "
+                  f"gnorm {float(m['grad_norm']):.3f} ({time.time() - t0:.1f}s)", flush=True)
+    return float(m["loss"])
+
+
+if __name__ == "__main__":
+    main()

@@ -74,3 +74,20 @@ def mlp_apply(p, x, act: str = "swiglu"):
     else:
         g = F.silu(g)
     return torch.einsum("...f,fd->...d", g * u, p["w_down"])
+
+
+def cross_entropy(logits, targets, vocab_size: int, z_loss: float = 1e-4):
+    """Token CE with padded-vocab masking and z-loss, in f32.  logits [..., Vp].
+
+    Returns (mean of ce + z_loss * lse^2, mean ce), as the JAX package does.
+    """
+    lg = logits.to(torch.float32)
+    vp = lg.shape[-1]
+    if vp > vocab_size:
+        neg = torch.zeros((vp,), dtype=torch.float32, device=lg.device)
+        neg[vocab_size:] = -1e9
+        lg = lg + neg
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, targets[..., None].long())[..., 0]
+    ce = lse - gold
+    return (ce + z_loss * lse.square()).mean(), ce.mean()

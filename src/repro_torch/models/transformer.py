@@ -1,23 +1,34 @@
-"""Decoder LM: init, prefill forward and cached decode (port of
+"""Decoder LM: init, forward, loss and cached decode (port of
 ``repro.models.transformer``, dense and SSM families).
 
 Parameters are a plain dict in the JAX package's tree layout:
 ``{"embed", "layers": [one dict per period position], "final_norm",
 "unembed"}``, with every layer leaf stacked ``[n_periods, ...]``.  The JAX
 package scans over periods; here a Python loop walks them.
+
+``layer_param_fn`` is the FSDP hook: the trainer stores parameter shards and
+passes a gather function that ``stack_apply`` calls on each period's
+parameters inside the period's body, so each period's weights are gathered
+just in time and autograd sends the gradients back through the gather's
+transpose.  With ``remat="full"`` the body runs under
+``torch.utils.checkpoint``, so the backward gathers again, as the JAX
+package's scan under ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (dense_init, mlp_apply, padded_vocab, rms_norm,
-                                       rms_norm_init)
+from repro_torch.models.layers import (cross_entropy, dense_init, mlp_apply, padded_vocab,
+                                       rms_norm, rms_norm_init)
+
+ParamFn = Optional[Callable[[Any], Any]]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -73,11 +84,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     Each matrix is drawn in f32 and cast to ``cfg.dtype``; norm scales and
     the SSM's conv, decay and skip leaves stay f32, as in the JAX package.
     Layer leaves are drawn one period at a time, so the f32 peak is one period's largest
-    leaf, not a whole stacked leaf (7.5 GB for llama3-8b's w_gate).
+    leaf, not a whole stacked leaf (7.5 GB for llama3-8b's w_gate).  On the
+    "meta" device it makes the tree of shapes and dtypes only (a template).
     """
     _check_family(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     d, np_ = cfg.d_model, n_periods(cfg)
     vp = padded_vocab(cfg)
@@ -115,7 +127,8 @@ def param_count(params) -> int:
 
 
 def _period(tree, p: int):
-    """The period-``p`` slice of a stacked tree (views, no copies)."""
+    """The period-``p`` slice of a stacked tree (views, no copies); a leaf
+    may also be a list with one tensor per period."""
     if isinstance(tree, dict):
         return {k: _period(v, p) for k, v in tree.items()}
     return tree[p]
@@ -138,13 +151,32 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
 
 
 def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
-                mask=None, prefix_len: int = 0):
-    """Run the period stack over x [B,S,D]."""
+                mask=None, prefix_len: int = 0, layer_param_fn: ParamFn = None):
+    """Run the period stack over x [B,S,D].
+
+    ``layer_param_fn`` maps one period's parameters (a list over the period's
+    positions) to the ones the layers use, inside the period's body.
+    ``cfg.remat``: "none" keeps every activation for the backward; "full"
+    keeps each period's input only and runs the body again in the backward.
+    """
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat {cfg.remat!r} is not ported yet (ROADMAP.md, "
+                                  "Queue 1: training, remat='dots')")
     specs = period_spec(cfg)
-    for p in range(n_periods(cfg)):
+
+    def body(h, per_params):
+        pp = layer_param_fn(per_params) if layer_param_fn else per_params
         for pos, spec in enumerate(specs):
-            x = _apply_sublayer(_period(layers[pos], p), x, positions, cfg, spec,
-                                causal=causal, mask=mask, prefix_len=prefix_len)
+            h = _apply_sublayer(pp[pos], h, positions, cfg, spec, causal=causal, mask=mask,
+                                prefix_len=prefix_len)
+        return h
+
+    for p in range(n_periods(cfg)):
+        per = [_period(lp, p) for lp in layers]
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(body, x, per, use_reentrant=False)
+        else:
+            x = body(x, per)
     return x
 
 
@@ -156,23 +188,33 @@ def unembed(params, x, cfg: ModelConfig):
 
 
 def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
-               hidden: bool = False):
+               hidden: bool = False, layer_param_fn: ParamFn = None):
     """Teacher-forced forward.  Returns (logits, moe_aux) like the JAX package.
 
     batch: {"tokens" [B,S]}.  last_only: logits of the final position only.
     hidden: the final (normed) hidden states [B,S,D] in place of the logits,
     for a caller that applies ``unembed`` to a few positions at a time.
+    layer_param_fn: see ``stack_apply``.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = stack_apply(params["layers"], x, positions, cfg, causal=True)
+    x = stack_apply(params["layers"], x, positions, cfg, causal=True,
+                    layer_param_fn=layer_param_fn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     out = x if hidden else unembed(params, x, cfg)
     return out, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, layer_param_fn: ParamFn = None,
+            aux_weight: float = 0.01):
+    """(loss, {"ce", "moe_aux"}) for a teacher-forced batch with "targets"."""
+    logits, aux = lm_forward(params, batch, cfg, layer_param_fn=layer_param_fn)
+    loss, ce = cross_entropy(logits, batch["targets"], cfg.vocab_size)
+    return loss + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):

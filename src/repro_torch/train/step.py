@@ -1,0 +1,217 @@
+"""The FSDP train step over photonic rails (port of ``repro.train.step``).
+
+Photonic mode (the paper's system): parameters are stored FSDP-sharded along
+each leaf's rail-divisible dim over the rail axes ("pod", "data"); the
+top-level leaves are ring-all-gathered once a step and each period's layer
+leaves just in time inside the period's body (phase "DP AllGather").
+Autograd through the gathers sends the gradients back over the ring
+reduce-scatter (phase "DP ReduceScatter").  Scalars (loss, metrics, the
+gradient norm) are management traffic: ``dist.all_reduce`` outside the
+differentiated path.
+
+EPS mode (electrical baseline): the same math with the native collectives.
+On one device every collective is the identity, as in the JAX package.
+
+Each rank differentiates its LOCAL loss / n_dp: no collective other than the
+gathers sits on the differentiated path, so the cross-rank sum happens
+exactly once, in the reduce-scatter.  Gradients of rail-replicated leaves
+(no rail-divisible dim) are then ring-all-reduced.  All sharding metadata is
+derived once from the GLOBAL parameter template, never from local shards.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.fabric import Fabric
+from repro_torch.models import transformer as tf
+from repro_torch.parallel import sharding as sh
+from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
+from repro_torch.tree import leaves, tree_map
+
+_HSDP_ITEM = "ROADMAP.md, Queue 1: training, HSDP with int8 error feedback"
+
+
+@dataclass(frozen=True)
+class TrainSetup:
+    cfg: ModelConfig
+    fabric: str = "photonic"           # "photonic" | "eps"
+    hsdp: bool = False                 # pod-replicated params + explicit AR (not ported)
+    compress_pod_grads: bool = False   # int8 + error feedback on pod AR (not ported)
+    accum: int = 1                     # gradient accumulation microbatches
+    bidirectional_rings: bool = False  # both ring directions per gather (halves)
+    opt: OptConfig = field(default_factory=OptConfig)
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def rail_axes_of(mesh, hsdp: bool) -> Tuple[str, ...]:
+    if hsdp:
+        raise NotImplementedError(f"HSDP is not ported yet ({_HSDP_ITEM})")
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def dp_axes_of(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def meta_trees(params_tpl, *, rails, n_rails: int, model_size: int = 1):
+    """(fd_tree, td_tree) of per-leaf FSDP/TP dims over the global template."""
+    specs = sh._walk(params_tpl, lambda pstr, leaf, st: sh.leaf_spec(
+        pstr, leaf.shape, n_rails=n_rails, rail_axes=rails, model_size=model_size,
+        stacked=st))
+    return tree_map(lambda s: s[1], specs), tree_map(lambda s: s[2], specs)
+
+
+def _gather_with_meta(tree, fd_tree, fab: Fabric, *, dim_off: int = 0):
+    """Ring-gather each sharded leaf; dim_off=-1 for a period's slices, whose
+    leading stack dim is gone."""
+    return tree_map(lambda leaf, fd: leaf if fd is None else fab.all_gather(leaf, fd + dim_off),
+                    tree, fd_tree)
+
+
+def _fixup_grads(grads, fd_tree, fab: Fabric):
+    """Ring-AllReduce the gradients of rail-replicated leaves."""
+    return tree_map(lambda g, fd: fab.all_reduce(g) if fd is None else g, grads, fd_tree)
+
+
+def _psum(x: torch.Tensor, fab: Fabric) -> torch.Tensor:
+    """Sum over every rail axis: management traffic, never differentiated."""
+    for group, n in zip(fab.groups, fab.sizes):
+        if n > 1:
+            dist.all_reduce(x, group=group)
+    return x
+
+
+def fabric_of(setup: TrainSetup, mesh) -> Fabric:
+    if setup.compress_pod_grads:
+        raise NotImplementedError(f"pod gradient compression is not ported yet ({_HSDP_ITEM})")
+    if setup.fabric not in ("photonic", "eps"):
+        raise ValueError(f"fabric {setup.fabric!r}: photonic or eps")
+    return Fabric.from_mesh(mesh, rail_axes_of(mesh, setup.hsdp), setup.fabric,
+                            setup.bidirectional_rings)
+
+
+def gather_tree(tree, fd_tree, fab: Fabric):
+    """Stored shards (parameters, gradients, optimizer moments) -> global tensors."""
+    with torch.no_grad():
+        return _gather_with_meta(tree, fd_tree, fab)
+
+
+def shard_tree(tree, fd_tree, index: int, n: int):
+    """Global tensors -> this rank's shards (copies, so the globals can go)."""
+    def one(t, fd):
+        if fd is None or n == 1:
+            return t
+        size = t.shape[fd] // n
+        return t.narrow(fd, index * size, size).clone()
+    return tree_map(one, tree, fd_tree)
+
+
+def _autograd_leaves(stored, gbuf):
+    """Leaves for autograd that view the stored shards, one per period for
+    the stacked layer leaves, each with ``.grad`` set to a view of the
+    gradient buffers, so that the backward accumulates in place into them
+    (autograd through a slice of a stacked leaf would make a zero gradient
+    of the whole stack for every period)."""
+    def leaf(t, g):
+        x = t.detach().requires_grad_()
+        x.grad = g
+        return x
+    work = {k: tree_map(leaf, v, gbuf[k]) for k, v in stored.items() if k != "layers"}
+    work["layers"] = tree_map(lambda t, g: [leaf(t[p], g[p]) for p in range(t.shape[0])],
+                              stored["layers"], gbuf["layers"])
+    return work
+
+
+def make_train_step(setup: TrainSetup, mesh, params_tpl):
+    """step(params, opt, ef, batch) -> (params, opt, ef, metrics), updating
+    the stored shards and the optimizer state in place.
+
+    ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with dims ("data",) or
+    ("pod", "data"); ``params_tpl`` a tree of the GLOBAL parameters (real or
+    on the meta device), which fixes the sharding metadata once.  The step
+    takes the global batch and trains on this rank's slice of it (flat rail
+    index, major axis first).  ``step.grads_fn(params, batch)`` returns the
+    gradients of the stored shards and the metrics without the update.
+    """
+    cfg = setup.cfg
+    fab = fabric_of(setup, mesh)
+    n_dp = math.prod(mesh_axes(mesh)[a] for a in dp_axes_of(mesh))
+    fd_tree, _ = meta_trees(params_tpl, rails=fab.axes, n_rails=fab.n_shards)
+    top_keys = [k for k in params_tpl if k != "layers"]
+
+    def gfn(period_params):
+        return _gather_with_meta(period_params, fd_tree["layers"], fab, dim_off=-1)
+
+    def loss_fn(work, batch):
+        top = _gather_with_meta({k: work[k] for k in top_keys},
+                                {k: fd_tree[k] for k in top_keys}, fab)
+        loss, m = tf.lm_loss(dict(top, layers=work["layers"]), batch, cfg, layer_param_fn=gfn)
+        return loss / n_dp, m
+
+    def local_batch(batch):
+        b = batch["tokens"].shape[0]
+        if b % (n_dp * setup.accum):
+            raise ValueError(f"global batch {b} is not a multiple of {n_dp} ranks x "
+                             f"{setup.accum} microbatches")
+        bl, i = b // n_dp, fab.axis_index()
+        return {k: v[i * bl:(i + 1) * bl] for k, v in batch.items()}
+
+    def grads_fn(stored, batch):
+        local = local_batch(batch)
+        gbuf = tree_map(torch.zeros_like, stored)
+        work = _autograd_leaves(stored, gbuf)
+        acc = tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32), stored) \
+            if setup.accum > 1 else None
+        bm = local["tokens"].shape[0] // setup.accum
+        loss = torch.zeros((), dtype=torch.float32, device=local["tokens"].device)
+        for i in range(setup.accum):
+            l, m = loss_fn(work, {k: v[i * bm:(i + 1) * bm] for k, v in local.items()})
+            l.backward()
+            loss += l.detach().float()
+            if acc is not None:
+                for a, g in zip(leaves(acc), leaves(gbuf)):
+                    a += g
+                    g.zero_()
+        grads = gbuf if acc is None else tree_map(lambda a: a / setup.accum, acc)
+        grads = _fixup_grads(grads, fd_tree, fab)
+        # metrics: the last microbatch's ce, as the JAX package reports it
+        stats = _psum(torch.stack([loss / setup.accum, m["ce"].detach().float()]), fab)
+        return grads, {"loss": stats[0], "ce": stats[1] / n_dp, "moe_aux": m["moe_aux"]}
+
+    def global_norm(grads):
+        """Squares of the sharded leaves summed over the rails, of the
+        replicated ones counted once."""
+        pairs = list(zip(leaves(grads), leaves(fd_tree)))
+        zero = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device)
+        sharded = sum((g.float().square().sum() for g, fd in pairs if fd is not None), zero)
+        replicated = sum((g.float().square().sum() for g, fd in pairs if fd is None), zero)
+        return torch.sqrt(_psum(sharded, fab) + replicated)
+
+    def step(params, opt, ef, batch):
+        grads, metrics = grads_fn(params, batch)
+        params, opt, om = adamw_update(params, grads, opt, setup.opt, gnorm=global_norm(grads))
+        return params, opt, ef, {**metrics, **om}
+
+    step.grads_fn = grads_fn
+    step.fabric = fab
+    step.fd_tree = fd_tree
+    return step
+
+
+def init_sharded_state(setup: TrainSetup, mesh, *, seed: int = 0, device="cuda"):
+    """(params, opt, ef): this rank's shards of ``init_lm(cfg, seed)``, f32
+    AdamW moments of the same shapes, and no error-feedback state."""
+    fab = fabric_of(setup, mesh)
+    params = tf.init_lm(setup.cfg, seed=seed, device=device)
+    fd_tree, _ = meta_trees(params, rails=fab.axes, n_rails=fab.n_shards)
+    params = shard_tree(params, fd_tree, fab.axis_index(), fab.n_shards)
+    return params, adamw_init(params), {}

@@ -9,10 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pl_decode
 from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
@@ -186,7 +189,8 @@ def test_ops_on_cpu_tensors_launch_nothing():
     y, st = ops.ssd(x, dt, a, bm, bm, 8)
     y_w, st_w = tref.ssd_chunked(x, dt, a, bm, bm, 8)
     assert torch.equal(y, y_w) and torch.equal(st, st_w)
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -204,3 +208,107 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssd(*(t.to("meta") for t in (x, dt, a, bm, bm)), 8)
     assert ops.launch_counts()["ssd_scan"] == 0
+
+
+# causal, a binding window, GQA (rep 4 and 1), q_offset, ragged S and Sq != Sk
+_BWD_CASES = [
+    (2, 64, 64, 8, 2, 16, True, None, 16, 16, 0),
+    (1, 96, 96, 4, 1, 16, True, 24, 32, 16, 0),
+    (1, 60, 60, 4, 4, 8, True, None, 16, 16, 0),      # ragged: padded q rows and keys
+    (2, 50, 50, 8, 2, 16, True, 17, 16, 32, 0),       # ragged and a window
+    (1, 32, 96, 4, 2, 16, True, 40, 16, 32, 64),      # q_offset
+    (2, 40, 72, 4, 2, 8, False, None, 16, 16, 0),     # not causal, Sq != Sk
+]
+
+
+def _jax_blocked(q, k, v, do, *, causal, window, bq, bk, q_offset):
+    """The JAX package's blocked forward and backward on the same inputs,
+    in the port's public layout: (o, lse [B,H,Sq], dq, dk, dv)."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window, scale=dh ** -0.5, q_offset=q_offset,
+              block_q=bq, block_k=bk)
+    q5, k_, v_ = jnp.asarray(q.reshape(b, sq, kvh, h // kvh, dh)), jnp.asarray(k), jnp.asarray(v)
+    q5, _ = jref._pad_to(q5, bq, 1)
+    k_, _ = jref._pad_to(k_, bk, 1)
+    v_, _ = jref._pad_to(v_, bk, 1)
+    valid = sk if k_.shape[1] != sk else None
+    out, lse = jref._mha_fwd_blocks(q5, k_, v_, kv_valid_len=valid, **kw)
+    do5, _ = jref._pad_to(jnp.asarray(do.reshape(b, sq, kvh, h // kvh, dh)), bq, 1)
+    dq, dk, dv = jref._mha_bwd_blocks(q5, k_, v_, out, lse, do5, kv_valid_len=valid, **kw)
+    return (np.asarray(out)[:, :sq].reshape(b, sq, h, dh),
+            np.asarray(lse).reshape(b, h, -1)[:, :, :sq],
+            np.asarray(dq)[:, :sq].reshape(b, sq, h, dh), np.asarray(dk)[:, :sk],
+            np.asarray(dv)[:, :sk])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,bq,bk,q_offset", _BWD_CASES)
+def test_plain_mha_fwd_lse_and_bwd_match_jax(b, sq, sk, h, kv, dh, causal, window, bq, bk,
+                                             q_offset):
+    """``ref.mha_fwd_lse`` and ``ref.mha_bwd`` against the JAX package's
+    ``_mha_fwd_blocks`` and ``_mha_bwd_blocks`` with the same blocks."""
+    q, k, v = _qkv(b, sq, sk, h, kv, dh)
+    do = (np.random.default_rng(9).standard_normal((b, sq, h, dh)) * 0.5).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, block_q=bq, block_k=bk)
+    o, lse = tref.mha_fwd_lse(*_t(q, k, v), **kw)
+    grads = tref.mha_bwd(*_t(q, k, v), o, lse, torch.from_numpy(do), **kw)
+    want = _jax_blocked(q, k, v, do, causal=causal, window=window, bq=bq, bk=bk,
+                        q_offset=q_offset)
+    for got, w in zip((o, lse) + grads, want):
+        np.testing.assert_allclose(got.numpy(), w, atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,bq,bk,q_offset", _BWD_CASES)
+def test_plain_mha_bwd_matches_jax_vjp(b, sq, sk, h, kv, dh, causal, window, bq, bk, q_offset):
+    """``ref.mha_bwd`` with the port's default blocks against ``jax.vjp`` of
+    ``repro.kernels.ref.mha``, and ``ops.mha``'s gradient on CPU tensors
+    against both."""
+    q, k, v = _qkv(b, sq, sk, h, kv, dh)
+    do = (np.random.default_rng(9).standard_normal((b, sq, h, dh)) * 0.5).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.mha(a, b_, c, block_q=bq, block_k=bk, **kw),
+                     *_j(q, k, v))
+    want = vjp(jnp.asarray(do))
+    o, lse = tref.mha_fwd_lse(*_t(q, k, v), **kw)
+    got = tref.mha_bwd(*_t(q, k, v), o, lse, torch.from_numpy(do), **kw)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    ops.reset_launch_counts()
+    ops.mha(tq, tk, tv, **kw).backward(torch.from_numpy(do))
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    for g, a, w in zip(got, (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=1e-5)
+        np.testing.assert_allclose(a.numpy(), g.numpy(), atol=0)
+
+
+@pytest.mark.parametrize("cast", [_bf16, _t])
+def test_bwd_tolerance_admits_reordering_and_rejects_planted_faults(cast):
+    """What the backward kernel is held to (``ref.grad_tolerance_ratio`` on
+    dq, dk and dv): the plain backward with the kernel's tile sizes passes;
+    one key tile's dk/dv dropped, one q tile's dq dropped, or one q tile's
+    share of every dk/dv dropped (its rows of do zeroed) fails."""
+    q, k, v = cast(*_qkv(1, 256, 256, 8, 2, 64, seed=5))
+    do = cast(_qkv(1, 256, 256, 8, 2, 64, seed=6)[0])[0]
+    o, lse = tref.mha_fwd_lse(q, k, v)
+    want = tref.mha_bwd(q, k, v, o, lse, do)
+    reordered = tref.mha_bwd(q, k, v, o, lse, do, block_q=32, block_k=64)
+    assert all(tref.grad_tolerance_ratio(g, w) <= 1 for g, w in zip(reordered, want))
+    dq, dk, dv = (t.clone() for t in want)
+    dk[:, 64:128] = 0
+    dv[:, 64:128] = 0
+    dq[:, 128:192] = 0
+    assert tref.grad_tolerance_ratio(dk, want[1]) > 1
+    assert tref.grad_tolerance_ratio(dv, want[2]) > 1
+    assert tref.grad_tolerance_ratio(dq, want[0]) > 1
+    do_f = do.clone()
+    do_f[:, 160:192] = 0
+    _, dk_q, dv_q = tref.mha_bwd(q, k, v, o, lse, do_f)
+    assert tref.grad_tolerance_ratio(dk_q, want[1]) > 1
+    assert tref.grad_tolerance_ratio(dv_q, want[2]) > 1
+
+
+def test_bwd_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 16))
+    o, lse = tref.mha_fwd_lse(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfab.flash_attention_bwd(q, k, v, o, lse, o)
+    assert ops.launch_counts()["flash_attention_bwd"] == 0

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as tssd
 
@@ -88,6 +89,110 @@ def test_flash_kernel_reads_strided_views(dev, dtype, s, dh):
     got = tfa.flash_attention(q, k, v)
     want = ref.mha(q, k, v)
     assert ref.tolerance_ratio(got, want) <= 1
+
+
+# the backward kernels: 64-key tiles of 32-row steps (dk/dv), 64-row tiles of
+# 32-key steps (dq); edges of both, windows, q_offset, GQA and rep = 1
+_BWD_CASES = [
+    (1, 256, 256, 8, 2, 128, torch.bfloat16, True, None, 0),
+    (1, 1, 1, 8, 2, 64, torch.bfloat16, True, None, 0),
+    (1, 31, 31, 4, 2, 120, torch.bfloat16, True, None, 0),
+    (1, 33, 33, 4, 1, 128, torch.float32, True, None, 0),
+    (2, 63, 63, 8, 2, 120, torch.bfloat16, True, None, 0),
+    (1, 65, 65, 8, 8, 64, torch.float32, True, None, 0),
+    (1, 129, 129, 8, 2, 128, torch.bfloat16, True, 40, 0),
+    (1, 1000, 1000, 32, 8, 120, torch.bfloat16, True, None, 0),   # h2o-danube heads, ragged
+    (1, 700, 700, 8, 2, 120, torch.bfloat16, True, 100, 0),       # window binds
+    (1, 300, 300, 4, 4, 64, torch.float32, True, 77, 0),
+    (1, 100, 333, 8, 2, 128, torch.bfloat16, True, None, 233),    # q_offset
+    (1, 100, 333, 8, 2, 120, torch.float32, True, 90, 233),       # both
+    (2, 200, 200, 4, 2, 64, torch.float32, False, None, 0),       # not causal
+    (1, 130, 257, 8, 2, 120, torch.bfloat16, False, None, 0),     # not causal, Sq != Sk
+]
+
+
+def _bwd_inputs(b, sq, sk, h, kv, dh, dtype, dev, seed, **kw):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn((b, sq, h, dh), dtype, dev, gen)
+    k = _randn((b, sk, kv, dh), dtype, dev, gen)
+    v = _randn((b, sk, kv, dh), dtype, dev, gen)
+    do = _randn((b, sq, h, dh), dtype, dev, gen)
+    o, lse = ref.mha_fwd_lse(q, k, v, **kw)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,dtype,causal,window,q_offset", _BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, window,
+                                        q_offset):
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, o, lse, do = _bwd_inputs(b, sq, sk, h, kv, dh, dtype, dev, 3, **kw)
+    before = tfab.KERNEL.launches
+    got = tfab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert tfab.KERNEL.launches == before + 1
+    want = ref.mha_bwd(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert ref.grad_tolerance_ratio(g, w) <= 1, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_rejects_planted_faults(dev, dtype):
+    """The tolerance sees one key tile's dk/dv or one q tile's dq dropped, and
+    one q tile's contribution to every dk/dv dropped."""
+    kw = dict(causal=True, window=None, q_offset=0)
+    q, k, v, o, lse, do = _bwd_inputs(1, 512, 512, 8, 2, 120, dtype, dev, 4, **kw)
+    dq, dk, dv = tfab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.mha_bwd(q, k, v, o, lse, do, **kw)
+    bk, bq = tfab.KERNEL.lib().repro_flash_attention_bwd_tile(0), 32
+    dk_f, dv_f, dq_f = dk.clone(), dv.clone(), dq.clone()
+    dk_f[:, 128:128 + bk] = 0
+    dv_f[:, 128:128 + bk] = 0
+    dq_f[:, 256:256 + tfab.KERNEL.lib().repro_flash_attention_bwd_tile(1)] = 0
+    assert ref.grad_tolerance_ratio(dk_f, want[1]) > 1
+    assert ref.grad_tolerance_ratio(dv_f, want[2]) > 1
+    assert ref.grad_tolerance_ratio(dq_f, want[0]) > 1
+    do_f = do.clone()
+    do_f[:, 320:320 + bq] = 0  # rows 320..351 contribute nothing to dk and dv
+    _, dk_q, dv_q = ref.mha_bwd(q, k, v, o, lse, do_f, **kw)
+    assert ref.grad_tolerance_ratio(dk_q, want[1]) > 1
+    assert ref.grad_tolerance_ratio(dv_q, want[2]) > 1
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,dtype,window", [
+    (1, 1000, 32, 8, 120, torch.bfloat16, None), (1, 300, 8, 2, 128, torch.bfloat16, 77),
+    (2, 129, 4, 4, 64, torch.float32, None), (1, 200, 8, 2, 120, torch.float32, 40)])
+def test_flash_kernel_lse_matches_plain(dev, b, s, h, kv, dh, dtype, window):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (_randn((b, s, n, dh), dtype, dev, gen) for n in (h, kv, kv))
+    o, lse = tfa.flash_attention(q, k, v, window=window, return_lse=True)
+    o_w, lse_w = ref.mha_fwd_lse(q, k, v, window=window)
+    assert ref.tolerance_ratio(o, o_w) <= 1
+    assert ref.lse_tolerance_ratio(lse, lse_w) <= 1
+
+
+def test_ops_mha_trains_through_the_kernels(dev):
+    """With a gradient, ops.mha launches the forward and the backward kernel."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (_randn((1, 300, n, 120), torch.bfloat16, dev, gen).requires_grad_()
+               for n in (8, 2, 2))
+    ops.reset_launch_counts()
+    o = ops.mha(q, k, v, causal=True)
+    o.float().square().sum().backward()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    o_w, lse_w = ref.mha_fwd_lse(q.detach(), k.detach(), v.detach())
+    want = ref.mha_bwd(q.detach(), k.detach(), v.detach(), o.detach(), lse_w,
+                       2 * o.detach().float().to(torch.bfloat16))
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert ref.grad_tolerance_ratio(g, w) <= 1
+
+
+def test_ops_ssd_on_the_card_has_no_gradient_yet(dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dt, a, bm, cm, _ = _ssd_case(1, 64, 4, 16, 1, 8, dev, gen)
+    with pytest.raises(NotImplementedError, match="SSD backward"):
+        ops.ssd(x.requires_grad_(), dt, a, bm, cm, 16)
 
 
 def _mask(kind, b, c, dev, gen):
