@@ -10,7 +10,8 @@ and the script exits non-zero without printing a result:
  2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     nvcc (one process per source, started together), with registers, shared
     memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel,
-    in the flash backward's kernels or in any pass of the SSD scan fails;
+    in the flash backward's kernels or in any pass of the SSD scan fails, as
+    does a missing bf16 tensor-core dk/dv or dq kernel (dh 64 and 128);
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
@@ -28,7 +29,8 @@ and the script exits non-zero without printing a result:
     training path's shape, with a binding window and in f32 with a ragged S,
     with the forward kernel's log-sum-exp against ``ref.mha_fwd_lse``'s, three
     planted faults, and the autograd of ``scaled_dot_product_attention`` as
-    its library yardstick;
+    its library yardstick; its device time per pass (delta, dk/dv, dq) and
+    the tensor-core FLOPs its tiles execute (derived, logged only);
  4. prefill: full-width llama3-8b (32 layers, bf16, random weights from a
     seed) on B=1, S=4096 through ``make_prefill_step``; the flash kernel must
     launch once per layer, and each launch of one prefill is held against
@@ -370,10 +372,20 @@ def phase_build():
     if missing or spills:
         raise AssertionError(f"[build] flash backward: kernels missing from the ptxas log "
                              f"{missing}, spilling {spills}")
+    tc_bwd = {fn: res for fn, res in bwd.items() if "2tc4dkdv11dkdv_kernel" in fn
+              or "2tc2dq9dq_kernel" in fn}
+    if len(tc_bwd) != 4:  # dk/dv and dq, each at dh 64 and 128
+        raise AssertionError(f"[build] flash backward: bf16 tensor-core kernels in the ptxas "
+                             f"log: {sorted(tc_bwd)}")
+    log("[build] flash backward bf16 tensor-core kernels: " + "; ".join(
+        f"{fn[:48]}: {res['registers']} registers, {res['spill_stores']} B spilled"
+        for fn, res in sorted(tc_bwd.items())))
     bwd_lib = ops.KERNELS["flash_attention_bwd"].lib()
     log(f"[build] flash backward: all {len(FLASH_BWD_PASSES)} kernels built, no spills; shared "
-        f"memory per block at dh=128: dk/dv {bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 128)}"
-        f" B ({bwd_lib.repro_flash_attention_bwd_tile(0)}-key tiles), dq "
+        f"memory per bf16 block at dh=128: dk/dv "
+        f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 128)} B "
+        f"({bwd_lib.repro_flash_attention_bwd_tile(0)}-key tiles, "
+        f"{bwd_lib.repro_flash_attention_bwd_tile(2)}-row q steps), dq "
         f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 128)} B "
         f"({bwd_lib.repro_flash_attention_bwd_tile(1)}-row tiles)")
     fa_lib, da_lib = ops.KERNELS["flash_attention"].lib(), ops.KERNELS["decode_attention"].lib()
@@ -474,18 +486,34 @@ def flash_bwd_faults(q, k, v, o, lse, do, want):
     [(label, gradient, the plain version's)]."""
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ref
-    bk = fab.KERNEL.lib().repro_flash_attention_bwd_tile(0)
-    bq = fab.KERNEL.lib().repro_flash_attention_bwd_tile(1)
+    lib = fab.KERNEL.lib()
+    bk, bq, step = (lib.repro_flash_attention_bwd_tile(i) for i in range(3))
     s = q.shape[1]
     dk, dq = want[1].clone(), want[0].clone()
     dk[:, s // 2:s // 2 + bk] = 0
     dq[:, s // 2:s // 2 + bq] = 0
     do_f = do.clone()
-    do_f[:, s // 2:s // 2 + 32] = 0
+    do_f[:, s // 2:s // 2 + step] = 0
     _, dk_q, _ = ref.mha_bwd(q, k, v, o, lse, do_f, causal=True)
     return [(f"one {bk}-key tile's dk dropped", dk, want[1]),
             (f"one {bq}-row tile's dq dropped", dq, want[0]),
-            ("one 32-row q tile's share of every dk dropped", dk_q, want[1])]
+            (f"one {step}-row q tile's share of every dk dropped", dk_q, want[1])]
+
+
+def flash_bwd_executed_flops(b, s, h, kv, dh) -> int:
+    """Derived, not measured: the tensor-core FLOPs of every whole tile pair
+    the bf16 backward kernels visit at a causal shape with no window (tile
+    sizes from the library, dh padded to the kernel's 64 or 128): 12 dh_pad a
+    (query, key) pair in dk/dv (S^T, dP^T, dv and dk each twice: P and dS
+    split hi + lo) and 8 dh_pad in dq (S, dP, dq twice)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    lib = fab.KERNEL.lib()
+    bk, bq_dq, bq_kv = (lib.repro_flash_attention_bwd_tile(i) for i in range(3))
+    dhp = 64 if dh <= 64 else 128
+    n_q = -(-s // bq_kv)
+    kv_pairs = sum(n_q - (kt * bk) // bq_kv for kt in range(-(-s // bk))) * (h // kv)
+    dq_pairs = sum(-(-min(s, (qt + 1) * bq_dq) // bk) for qt in range(-(-s // bq_dq)))
+    return b * (kv * kv_pairs * bk * bq_kv * 12 + h * dq_pairs * bq_dq * bk * 8) * dhp
 
 
 def phase_flash_bwd():
@@ -558,6 +586,11 @@ def phase_flash_bwd():
         f"({flops / 1e9:.1f} GFLOP needed, {nbytes / 1e6:.1f} MB); "
         f"{flops / dev_ms / 1e9:.1f} TFLOP/s needed, {100 * bound_ms / dev_ms:.2f} % of the "
         f"bound (device time)")
+    executed = flash_bwd_executed_flops(b, s, h, kv, dh)
+    log(f"[flash bwd] derived from the kernels' tiles, not measured: {executed / 1e9:.1f} GFLOP "
+        f"on the tensor cores ({executed / flops:.2f}x the {flops / 1e9:.1f} needed: the dq pass "
+        f"recomputes S and dP, P and dS are split hi + lo, dh padded to "
+        f"{64 if dh <= 64 else 128}), {executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:140",

@@ -1,6 +1,8 @@
-// Helpers shared by the attention kernels: vector loads of four f32
-// elements, the stores back to the input type, and 16-byte asynchronous
-// copies into shared memory.
+// Helpers shared by the kernels: vector loads of four f32 elements, the
+// stores back to the input type, 16- and 4-byte asynchronous copies into
+// shared memory, and the bf16 tensor-core building blocks of the flash
+// forward and backward kernels (ldmatrix, mma.sync m16n8k16, the hi + lo
+// split of an f32 operand, padded bf16 tiles filled by cp.async).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +38,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                  "r"(valid ? 16 : 0));
 }
 
+// 4 bytes global -> shared, asynchronously; zero-filled where !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -43,4 +51,84 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bf16 tensor cores (mma.sync.m16n8k16, sm_80 and later) ----
+
+// Padded row stride, in elements, of a bf16 tile DHP wide: rows 16 B apart
+// modulo 128 B, so the 8 row addresses of an ldmatrix fall in 8 distinct
+// bank groups.
+template <int DHP>
+__host__ __device__ constexpr int bf16_lds() { return DHP + 8; }
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of row
+// i % 8 of matrix i / 8.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// The same, each matrix transposed: for B operands whose contraction runs
+// over the rows of the tile in shared memory.
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+    return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) = hi + lo with hi = bf16(x) and lo = bf16(x - hi), packed in pairs
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi = bf16x2_bits(h);
+    lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The A fragment (16 rows x 16 columns) of columns [16 t, 16 t + 16) of an
+// m16n8 accumulator array c[n-tile][4], split into bf16 hi and lo parts:
+// the accumulator of one product becomes the A operand of the next.
+template <int N>
+__device__ __forceinline__ void acc_to_a_split(const float (&c)[N][4], int t, uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+    split_bf16(c[2 * t][0], c[2 * t][1], hi[0], lo[0]);
+    split_bf16(c[2 * t][2], c[2 * t][3], hi[1], lo[1]);
+    split_bf16(c[2 * t + 1][0], c[2 * t + 1][1], hi[2], lo[2]);
+    split_bf16(c[2 * t + 1][2], c[2 * t + 1][3], hi[3], lo[3]);
+}
+
+// Rows [row0, row0 + ROWS) of a [rows, dh] bf16 matrix -> a padded shared
+// tile [ROWS][bf16_lds<DHP>()] by NT threads, 16 bytes a copy; rows at or
+// past `nrows` and columns at or past dh are zero-filled.  A thread copies
+// one column chunk of rows NT / (DHP / 8) apart, from one row address.  The
+// caller commits the group.
+template <int DHP, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               int64_t row_stride, int row0, int nrows, int dh,
+                                               int tid) {
+    constexpr int CPR = DHP / 8;      // 16-byte chunks per row
+    constexpr int RSTEP = NT / CPR;   // rows apart of one thread's chunks
+    static_assert(NT % CPR == 0 && ROWS % RSTEP == 0, "whole rows per pass");
+    const int r0 = tid / CPR, c = (tid % CPR) * 8;
+    const __nv_bfloat16* p = src + (int64_t)(row0 + r0) * row_stride + c;
+    const uint32_t d = smem_addr(dst + r0 * bf16_lds<DHP>() + c);
+#pragma unroll
+    for (int j = 0; j < ROWS / RSTEP; ++j) {
+        const bool ok = row0 + r0 + j * RSTEP < nrows && c < dh;
+        cp_async16(d + 2 * j * RSTEP * bf16_lds<DHP>(), ok ? p + j * RSTEP * row_stride : src,
+                   ok);
+    }
 }

@@ -266,62 +266,8 @@ constexpr int BQ = 64;   // q rows per block: 4 warps of 16 rows
 constexpr int BK = 64;   // keys per KV tile
 constexpr int NT = 128;
 
-// padded row stride of a tile, in elements
 template <int DHP>
-__host__ __device__ constexpr int lds() { return DHP + 8; }
-
-template <int DHP>
-constexpr int smem_bytes() { return 4 * BK * lds<DHP>() * (int)sizeof(bf16); }
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-    return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x0, x1) = hi + lo with hi = bf16(x) and lo = bf16(x - hi), packed in pairs
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    hi = bits(h);
-    lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// rows [row0, row0 + ROWS) of a [rows, dh] matrix -> a padded shared tile;
-// rows at or past `nrows` and columns at or past dh are zero-filled
-template <int DHP, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t row_stride,
-                                          int row0, int nrows, int dh, int tid) {
-    constexpr int CPR = DHP / 8;  // 16-byte chunks per row
-    static_assert(ROWS * CPR % NT == 0, "whole chunks per thread");
-#pragma unroll
-    for (int j = 0; j < ROWS * CPR / NT; ++j) {
-        const int i = tid + j * NT;
-        const int r = i / CPR, c = (i % CPR) * 8;
-        const bool ok = row0 + r < nrows && c < dh;
-        const bf16* p = ok ? src + (int64_t)(row0 + r) * row_stride + c : src;
-        cp_async16(smem_addr(dst + r * lds<DHP>() + c), p, ok);
-    }
-}
+constexpr int smem_bytes() { return 4 * BK * bf16_lds<DHP>() * (int)sizeof(bf16); }
 
 template <int DHP>
 __global__ void __launch_bounds__(NT, 2)
@@ -333,7 +279,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t vsb, int64_t vss, int64_t vsh,
                  int64_t osb, int64_t oss, int64_t osh,
                  float scale, int causal, int window, int q_offset) {
-    constexpr int LDS = lds<DHP>();
+    constexpr int LDS = bf16_lds<DHP>();
     constexpr int KS = DHP / 16;     // k-steps of Q K^T
     constexpr int NO = DHP / 8;      // n-tiles (8 columns) of the output
     constexpr int NS = BK / 8;       // n-tiles (8 keys) of S
@@ -366,11 +312,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // group 0: Q; group 1: the first K/V tile
     // Q: K's second stage, until Q is in registers
     bf16* Qs = Ks + TILE;
-    load_tile<DHP, BQ>(Qs, qb, qss, q0, Sq, dh, tid);
+    load_tile_bf16<DHP, BQ, NT>(Qs, qb, qss, q0, Sq, dh, tid);
     cp_async_commit();
     if (n_tiles > 0) {
-        load_tile<DHP, BK>(Ks, kb, kss, kt_begin * BK, Sk, dh, tid);
-        load_tile<DHP, BK>(Vs, vb, vss, kt_begin * BK, Sk, dh, tid);
+        load_tile_bf16<DHP, BK, NT>(Ks, kb, kss, kt_begin * BK, Sk, dh, tid);
+        load_tile_bf16<DHP, BK, NT>(Vs, vb, vss, kt_begin * BK, Sk, dh, tid);
     }
     cp_async_commit();
 
@@ -399,8 +345,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* Kt = Ks + (it & 1) * TILE;
         const bf16* Vt = Vs + (it & 1) * TILE;
         if (it + 1 < n_tiles) {  // the next tile, into the other stage
-            load_tile<DHP, BK>(Ks + ((it + 1) & 1) * TILE, kb, kss, k0 + BK, Sk, dh, tid);
-            load_tile<DHP, BK>(Vs + ((it + 1) & 1) * TILE, vb, vss, k0 + BK, Sk, dh, tid);
+            load_tile_bf16<DHP, BK, NT>(Ks + ((it + 1) & 1) * TILE, kb, kss, k0 + BK, Sk, dh, tid);
+            load_tile_bf16<DHP, BK, NT>(Vs + ((it + 1) & 1) * TILE, vb, vss, k0 + BK, Sk, dh, tid);
         }
         cp_async_commit();
         cp_async_wait<1>();  // this tile has landed
@@ -416,8 +362,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             for (int ks = 0; ks < KS; ks += 2) {
                 uint32_t kf[4];
                 ldsm4(kf, smem_addr(Kt + (j * 8 + (lane & 7)) * LDS + ks * 16 + (lane >> 3) * 8));
-                mma(s[j], qf[ks], kf[0], kf[1]);
-                mma(s[j], qf[ks + 1], kf[2], kf[3]);
+                mma_bf16(s[j], qf[ks], kf[0], kf[1]);
+                mma_bf16(s[j], qf[ks + 1], kf[2], kf[3]);
             }
         }
 
@@ -471,19 +417,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int t = 0; t < BK / 16; ++t) {
             uint32_t ph[4], pl[4];
-            split_bf16(s[2 * t][0], s[2 * t][1], ph[0], pl[0]);
-            split_bf16(s[2 * t][2], s[2 * t][3], ph[1], pl[1]);
-            split_bf16(s[2 * t + 1][0], s[2 * t + 1][1], ph[2], pl[2]);
-            split_bf16(s[2 * t + 1][2], s[2 * t + 1][3], ph[3], pl[3]);
+            acc_to_a_split(s, t, ph, pl);
 #pragma unroll
             for (int n = 0; n < NO; n += 2) {
                 uint32_t vf[4];
                 ldsm4_trans(vf, smem_addr(Vt + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
                                           n * 8 + (lane >> 4) * 8));
-                mma(acc[n], ph, vf[0], vf[1]);
-                mma(acc[n], pl, vf[0], vf[1]);
-                mma(acc[n + 1], ph, vf[2], vf[3]);
-                mma(acc[n + 1], pl, vf[2], vf[3]);
+                mma_bf16(acc[n], ph, vf[0], vf[1]);
+                mma_bf16(acc[n], pl, vf[0], vf[1]);
+                mma_bf16(acc[n + 1], ph, vf[2], vf[3]);
+                mma_bf16(acc[n + 1], pl, vf[2], vf[3]);
             }
         }
         __syncthreads();  // every warp is done with this stage before it is refilled

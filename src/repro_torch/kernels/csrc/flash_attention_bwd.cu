@@ -1,47 +1,90 @@
 // Flash-attention backward for Hopper (sm_90a), causal / sliding-window, GQA.
 //
-// Replaces `_flash_vjp_bwd` in src/repro/kernels/flash_attention.py, which is
-// not a Pallas kernel: on the TPU the gradient is recomputed in XLA through
-// `ref._mha_fwd_blocks` and `ref._mha_bwd_blocks`.  Same function as the plain
-// version `repro_torch.kernels.ref.mha_bwd`: from q, k, v, the forward's o and
-// lse and the output's gradient do,
+// Replaces `_flash_vjp_bwd` in src/repro/kernels/flash_attention.py
+// (:140-163), which is not a Pallas kernel: on the TPU the gradient is
+// recomputed in XLA through `ref._mha_fwd_blocks` and `ref._mha_bwd_blocks`.
+// Same function as the plain version `repro_torch.kernels.ref.mha_bwd`: from
+// q, k, v, the forward's o and lse and the output's gradient do,
 //     P = exp(q k^T * scale - lse) (0 where masked),  dP = do v^T,
 //     delta = rowsum(do * o),  dS = P * (dP - delta),
 //     dv = P^T do,  dk = dS^T q * scale,  dq = dS k * scale,
-// with dk and dv summed over the `rep` query heads of each kv head.  Every
-// product and sum is f32; each output is rounded once to the input type.
+// with dk and dv summed over the `rep` query heads of each kv head.  Sums are
+// f32; each output is rounded once to the input type.
 //
 // What bounds it on an H100: at S=4096 (h2o-danube-3-4b training: H=32,
-// KV=8, dh=120) the causal half of the five products is ~322 GFLOP (2.5x the
-// forward's) against ~100 MB moved: arithmetic, ~0.33 ms at the bf16
-// tensor-core peak.  This first version runs f32 FMAs on the CUDA cores (67
-// TFLOP/s peak), so it is far from that bound; the tensor-core redesign is
-// later work.  It keeps P and dS in f32 in the products that form dv and dk:
-// P rounded to bf16 before P^T do moves dv by tens of bf16 ulps against the
-// plain version, which the forward kernel avoids by splitting P into hi + lo.
+// KV=8, dh=120) the causal half of the five products is 322 GFLOP against
+// ~158 MB read and written: ~2000 FLOP a byte, far above the ~295 FLOP/B
+// ridge, so it is bound by operations (0.33 ms at the bf16 tensor-core
+// peak) and the products belong on the tensor cores.
 //
-// Three kernels, deterministic (no atomics):
-//  * `delta_kernel`: delta [B,H,Sq] f32, one warp per row.
-//  * `dkdv_kernel`: one block per (64-key tile, kv head, batch).  K and V stay
-//    in shared memory; a loop walks the rep query heads and, for each, the
-//    32-row q tiles that can see a key of the tile (causal: rows at or after
-//    the tile; window: rows within `window` of it), recomputing P and dS and
-//    accumulating dk and dv in registers.
-//  * `dq_kernel`: one block per (64-row q tile, head, batch), walking the
-//    32-key tiles that the rows can see (the forward's loop), accumulating dq.
-// Tiles are staged in shared memory as f32 (bf16 inputs converted on load),
-// rows padded by 16 B; threads form a 16 x 16 grid as in the forward's f32
-// kernel.  dh up to 64 runs a 64-wide tile, up to 128 a 128-wide one,
-// zero-padded (dh=120's tail is never written).  Ragged S and q_offset are
-// masked element by element at the tiles that cross an edge.  A row with no
-// visible key gets dq = 0 (the plain version gives it the uniform P of its
-// masked keys: such rows never occur on a causal path).
+// bf16 (every model path): the tensor-core kernels `tc::dkdv_kernel` and
+// `tc::dq_kernel`, every product `mma.sync.m16n8k16` bf16 -> f32 with
+// operands from `ldmatrix` (`.trans` where the contraction runs over the
+// rows of a tile), as in the forward (flash_attention.cu; the building
+// blocks are in common.cuh).
+//  * P and dS are split into bf16 hi + lo in all three products that take
+//    them: dv = P^T_hi do + P^T_lo do, dk = dS^T_hi q + dS^T_lo q, dq = dS_hi
+//    k + dS_lo k.  Emulated on the CPU (tests/test_torch_kernels.py: B=1
+//    S=512 H=8 KV=2, dh 128 and 120, causal, window none and 100; products
+//    of two bf16 values are exact in f32), the split holds dq, dk and dv to
+//    one bf16 ulp (`ref.grad_tolerance_ratio` <= 1), and P or dS rounded once
+//    to bf16 (FlashAttention-2's choice) in any one of the three products
+//    misses it there; the test asserts both.  S, dP, P
+//    and dS live in f32 registers: the accumulator fragments of S and dP
+//    become the A fragments of the next products, so P and dS never touch
+//    shared memory.
+//  * The tensor cores add products into their f32 accumulator by
+//    truncation, not rounding.  dv of the first keys at S=4096 sums ~16K
+//    rows in one accumulator, ~2000 mma adds: where that sum cancels it
+//    drifted to 2.4 of the tolerance on an H100.  So the products of each step of q
+//    rows (dk/dv) or each key tile (dq) are summed from 0 in a fresh
+//    accumulator and added into the f32 registers by a rounding add
+//    (`product_into`).
+//  * `tc::dkdv_kernel`: one block of 4 warps per (64-key tile, kv head,
+//    batch), each warp owning 16 keys, key tile 0 (under a causal mask the
+//    one that sees the most rows) first.  The block walks the rep query
+//    heads of its group and, for each, the 32-row q tiles that can see a
+//    key of its tile, so GQA is summed inside the block, with no atomics.
+//    q and do tiles with their rows of lse and delta stream through two
+//    `cp.async` stages; K and V stay in shared memory and are read with
+//    `ldmatrix` for each step.  Key-major, per step of q rows: S^T = K Q^T,
+//    P^T split hi + lo, dv += P^T do; then dP^T = V do^T, dS^T = P^T (dP^T -
+//    delta) with P^T taken as hi + lo (2^-17 of P, below dS's own split), so
+//    the f32 P^T and dP^T are never live together, dk += dS^T q.
+//    Registers: dk and dv take 64 + 64 f32 a thread at dh=128, half of the
+//    255; with 32-row steps or a fully unrolled k-step loop ptxas (nvcc
+//    12.9) spills, so at dh=128 a step is 16 rows and the loop
+//    is unrolled by 4 (`q_rows`, `ks_unroll`), which ptxas keeps in 255
+//    registers with no spill.
+//  * Deterministic: no atomics, so the dq pass recomputes S and dP.  The
+//    tensor cores execute 12 dh_pad FLOP a (query, key) pair of every tile
+//    pair visited in dk/dv (S^T, dP^T, dv twice, dk twice) and 8 dh_pad in
+//    dq (S, dP, dq twice): 20 x 128 against the 10 dh that the function
+//    needs, ~698 GFLOP against 322 at the shape above (derived from the
+//    tiles, chip_smoke.py logs it).
+//  * Tiles wholly above the causal diagonal or left of the window are never
+//    loaded; only tiles that cross the diagonal, the window's edge, Sq or Sk
+//    are masked element by element.  dh up to 64 runs a 64-wide tile, up to
+//    128 a 128-wide one, zero-padded (dh=120's tail is never written).
+//
+// f32: `simt::dkdv_kernel` and `simt::dq_kernel`, f32 FMAs on the CUDA cores
+// (67 TFLOP/s peak), tiles staged in shared memory as f32, P and dS through
+// shared memory.  No model path runs attention in f32 on the card, and it
+// meets the f32 tolerance (1e-4), so this path keeps the first version's
+// design.
+//
+// Both: `delta_kernel` first (delta [B,H,Sq] f32, one warp per row).  q, k,
+// v, o and do are read in their [B, S, heads, dh] layout through the strides
+// given; ragged S and q_offset are masked here.  A row with no visible key
+// gets dq = 0 (the plain version gives it the uniform P of its masked keys:
+// such rows never occur on a causal path).
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int NT = 256;  // threads of the dk/dv and dq kernels: 16 x 16, thread (ty, tx)
 
 // strides in elements, (batch, seq, head) of q, k, v, do, dk, dv, dq, o in that order
 struct Strides {
@@ -63,24 +106,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
     acc = fmaf(a.y, b.y, acc);
     acc = fmaf(a.z, b.z, acc);
     return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float comp(float4 a, int u) {
-    return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;
-}
-
-// rows [row0, row0 + ROWS) of a [rows, dh] matrix -> shared [ROWS][DHP + 4] f32;
-// rows at or past `nrows` and columns at or past dh are zero-filled
-template <int DHP, int ROWS, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int64_t row_stride,
-                                          int row0, int nrows, int dh) {
-    constexpr int D4 = DHP / 4, LD = DHP + 4;
-    for (int i = threadIdx.x; i < ROWS * D4; i += NT) {
-        const int r = i / D4, d = (i % D4) * 4;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 + r < nrows && d < dh) x = ld4(src + (int64_t)(row0 + r) * row_stride + d);
-        *reinterpret_cast<float4*>(dst + r * LD + d) = x;
-    }
 }
 
 __device__ __forceinline__ bool visible(int key, int qpos, int Sk, int causal, int window) {
@@ -106,6 +131,38 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
     if (lane == 0) delta[row] = acc;
 }
 
+template <typename T>
+cudaError_t launch_delta(const T* o, const T* dO, float* delta, int B, int Sq, int H, int dh,
+                         const Strides& st, cudaStream_t stream) {
+    const int64_t* s = st.v;
+    const int64_t rows = (int64_t)B * H * Sq;
+    delta_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
+        o, dO, delta, B, Sq, H, dh, s[21], s[22], s[23], s[9], s[10], s[11]);
+    return cudaGetLastError();
+}
+
+namespace simt {
+
+constexpr int NT = 256;  // threads of the dk/dv and dq kernels: 16 x 16, thread (ty, tx)
+
+__device__ __forceinline__ float comp(float4 a, int u) {
+    return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;
+}
+
+// rows [row0, row0 + ROWS) of a [rows, dh] matrix -> shared [ROWS][DHP + 4] f32;
+// rows at or past `nrows` and columns at or past dh are zero-filled
+template <int DHP, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t row_stride,
+                                          int row0, int nrows, int dh) {
+    constexpr int D4 = DHP / 4, LD = DHP + 4;
+    for (int i = threadIdx.x; i < ROWS * D4; i += NT) {
+        const int r = i / D4, d = (i % D4) * 4;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 + r < nrows && d < dh) x = ld4(src + (int64_t)(row0 + r) * row_stride + d);
+        *reinterpret_cast<float4*>(dst + r * LD + d) = x;
+    }
+}
+
 namespace dkdv {
 
 constexpr int BK = 64;  // keys per block
@@ -115,11 +172,11 @@ constexpr int LDT = BQ + 4;
 template <int DHP>
 constexpr int smem_floats() { return (2 * BK + 2 * BQ) * (DHP + 4) + 2 * BK * LDT + 2 * BQ; }
 
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(NT, 1)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dO, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const float* __restrict__ dO, const float* __restrict__ lse,
+            const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
             int Sq, int Sk, int H, int rep, int dh, const Strides st,
             float scale, int causal, int window, int q_offset) {
     constexpr int LD = DHP + 4, NJ = DHP / 64;
@@ -136,8 +193,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
     const int k0 = blockIdx.x * BK;  // key tile 0 first: under a causal mask it sees the most rows
     const int g = blockIdx.y, b = blockIdx.z;
-    const T* kb = k + b * st.v[3] + g * st.v[5];
-    const T* vb = v + b * st.v[6] + g * st.v[8];
+    const float* kb = k + b * st.v[3] + g * st.v[5];
+    const float* vb = v + b * st.v[6] + g * st.v[8];
     load_rows<DHP, BK>(Ks, kb, st.v[4], k0, Sk, dh);
     load_rows<DHP, BK>(Vs, vb, st.v[7], k0, Sk, dh);
 
@@ -158,8 +215,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
     for (int r = 0; r < rep; ++r) {
         const int h = g * rep + r;
-        const T* qb = q + b * st.v[0] + h * st.v[2];
-        const T* db = dO + b * st.v[9] + h * st.v[11];
+        const float* qb = q + b * st.v[0] + h * st.v[2];
+        const float* db = dO + b * st.v[9] + h * st.v[11];
         const float* lse_h = lse + ((int64_t)b * H + h) * Sq;
         const float* del_h = delta + ((int64_t)b * H + h) * Sq;
         for (int qt = qt_begin; qt < qt_end; ++qt) {
@@ -261,8 +318,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int i = 0; i < 4; ++i) {
         const int key = k0 + ty + 16 * i;
         if (key >= Sk) continue;
-        T* krow = dk + b * st.v[12] + (int64_t)key * st.v[13] + g * st.v[14];
-        T* vrow = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17];
+        float* krow = dk + b * st.v[12] + (int64_t)key * st.v[13] + g * st.v[14];
+        float* vrow = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
             const int d = tx * 4 + 64 * j;
@@ -287,11 +344,11 @@ constexpr int LDP = BK + 4;
 template <int DHP>
 constexpr int smem_floats() { return (2 * BQ + 2 * BK) * (DHP + 4) + BQ * LDP; }
 
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(NT, 2)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dO, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ dO, const float* __restrict__ lse,
+          const float* __restrict__ delta, float* __restrict__ dq,
           int Sq, int Sk, int H, int rep, int dh, const Strides st,
           float scale, int causal, int window, int q_offset) {
     constexpr int LD = DHP + 4, NJ = DHP / 64;
@@ -306,8 +363,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
     const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
     const int q0 = qt * BQ, qa0 = q_offset + q0;
-    const T* kb = k + b * st.v[3] + g * st.v[5];
-    const T* vb = v + b * st.v[6] + g * st.v[8];
+    const float* kb = k + b * st.v[3] + g * st.v[5];
+    const float* vb = v + b * st.v[6] + g * st.v[8];
     load_rows<DHP, BQ>(Qs, q + b * st.v[0] + h * st.v[2], st.v[1], q0, Sq, dh);
     load_rows<DHP, BQ>(dOs, dO + b * st.v[9] + h * st.v[11], st.v[10], q0, Sq, dh);
     float lse_r[4], del_r[4];
@@ -415,7 +472,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int i = 0; i < 4; ++i) {
         const int row = q0 + ty + 16 * i;
         if (row >= Sq) continue;
-        T* qrow = dq + b * st.v[18] + (int64_t)row * st.v[19] + h * st.v[20];
+        float* qrow = dq + b * st.v[18] + (int64_t)row * st.v[19] + h * st.v[20];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
             const int d = tx * 4 + 64 * j;
@@ -428,25 +485,21 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 }  // namespace dq
 
-template <typename T, int DHP>
-cudaError_t launch(const T* q, const T* k, const T* v, const T* o, const T* dO,
-                   const float* lse, float* delta, T* dq, T* dk, T* dv,
+template <int DHP>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* o, const float* dO,
+                   const float* lse, float* delta, float* dq, float* dk, float* dv,
                    int B, int Sq, int Sk, int H, int KV, int dh, const Strides& st,
                    float scale, int causal, int window, int q_offset, cudaStream_t stream) {
-    const int64_t* s = st.v;
-    const int64_t rows = (int64_t)B * H * Sq;
-    delta_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
-        o, dO, delta, B, Sq, H, dh, s[21], s[22], s[23], s[9], s[10], s[11]);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_delta(o, dO, delta, B, Sq, H, dh, st, stream);
     if (err != cudaSuccess) return err;
 
     const int smem_kv = dkdv::smem_floats<DHP>() * (int)sizeof(float);
-    err = cudaFuncSetAttribute(dkdv::dkdv_kernel<T, DHP>,
+    err = cudaFuncSetAttribute(dkdv::dkdv_kernel<DHP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
     if (err != cudaSuccess) return err;
     if (Sk > 0) {
         dim3 grid((Sk + dkdv::BK - 1) / dkdv::BK, KV, B);
-        dkdv::dkdv_kernel<T, DHP><<<grid, NT, smem_kv, stream>>>(
+        dkdv::dkdv_kernel<DHP><<<grid, NT, smem_kv, stream>>>(
             q, k, v, dO, lse, delta, dk, dv, Sq, Sk, H, H / KV, dh, st, scale, causal,
             window, q_offset);
         err = cudaGetLastError();
@@ -454,44 +507,459 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* o, const T* dO,
     }
 
     const int smem_q = dq::smem_floats<DHP>() * (int)sizeof(float);
-    err = cudaFuncSetAttribute(dq::dq_kernel<T, DHP>,
+    err = cudaFuncSetAttribute(dq::dq_kernel<DHP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + dq::BQ - 1) / dq::BQ, H, B);
-    dq::dq_kernel<T, DHP><<<grid, NT, smem_q, stream>>>(
+    dq::dq_kernel<DHP><<<grid, NT, smem_q, stream>>>(
         q, k, v, dO, lse, delta, dq, Sq, Sk, H, H / KV, dh, st, scale, causal, window,
         q_offset);
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* dO,
-                     const float* lse, float* delta, void* dq, void* dk, void* dv,
-                     int B, int Sq, int Sk, int H, int KV, int dh, const Strides& st,
-                     float scale, int causal, int window, int q_offset, cudaStream_t stream) {
-    auto c = [](const void* p) { return static_cast<const T*>(p); };
-    auto m = [](void* p) { return static_cast<T*>(p); };
-    if (dh <= 64)
-        return launch<T, 64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq), m(dk), m(dv), B,
-                             Sq, Sk, H, KV, dh, st, scale, causal, window, q_offset, stream);
-    return launch<T, 128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq), m(dk), m(dv), B, Sq,
-                          Sk, H, KV, dh, st, scale, causal, window, q_offset, stream);
+}  // namespace simt
+
+namespace tc {
+
+constexpr int NT = 128;  // 4 warps of 16 rows (keys in dk/dv, q rows in dq)
+
+// acc[n] += sum over t of (hi[t] + lo[t]) B_t, n over the NO 8-column tiles,
+// with B_t rows [16 t, 16 t + 16) of a shared bf16 tile of row stride LDS,
+// read by `ldmatrix.trans` from `b` (this lane's shared address of row 0,
+// column 0).  The tensor cores add into their f32 accumulator by
+// truncation, so the 2 T products of each pair of tiles are summed from 0 in
+// a fresh accumulator and added into `acc` by a rounding f32 add: a sum over
+// thousands of rows in one mma accumulator drifts by several bf16 ulps
+// where it cancels.
+template <int NO, int T, int LDS>
+__device__ __forceinline__ void product_into(float (&acc)[NO][4], const uint32_t (&hi)[T][4],
+                                             const uint32_t (&lo)[T][4], uint32_t b) {
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+        float part[2][4] = {};
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+            uint32_t f[4];
+            ldsm4_trans(f, b + 2 * (t * 16 * LDS + n * 8));
+            mma_bf16(part[0], hi[t], f[0], f[1]);
+            mma_bf16(part[0], lo[t], f[0], f[1]);
+            mma_bf16(part[1], hi[t], f[2], f[3]);
+            mma_bf16(part[1], lo[t], f[2], f[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            acc[n][e] += part[0][e];
+            acc[n + 1][e] += part[1][e];
+        }
+    }
 }
+
+// c[j] = A B_j^T for the NS 8-row n-tiles j: A 16 rows by KS 16-column
+// k-steps of a shared bf16 tile read by `ldmatrix` from `a` (this lane's
+// address of k-step 0), B_j rows [8 j, 8 j + 8) of another read from `b`
+// (this lane's address of n-tile 0, k-step 0), both at row stride LDS
+template <int KS, int NS, int LDS, int UNROLL = KS>
+__device__ __forceinline__ void mma_abt(float (&c)[NS][4], uint32_t a, uint32_t b) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll UNROLL
+    for (int ks = 0; ks < KS; ++ks) {
+        uint32_t af[4];
+        ldsm4(af, a + 32 * ks);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {  // n-tiles j and j + 1: b0, b1 of j, then of j + 1
+            uint32_t bf[4];
+            ldsm4(bf, b + 2 * (j * 8 * LDS + ks * 16));
+            mma_bf16(c[j], af, bf[0], bf[1]);
+            mma_bf16(c[j + 1], af, bf[2], bf[3]);
+        }
+    }
+}
+
+// the sum of the two bf16 pairs packed in x and y, as f32
+__device__ __forceinline__ float2 bf16x2_sum(uint32_t x, uint32_t y) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
+    return make_float2(a.x + b.x, a.y + b.y);
+}
+
+namespace dkdv {
+
+constexpr int BK = 64;  // keys per block
+constexpr int BQ = 32;  // q rows per stage of the loop
+// q rows of S^T and dP^T in registers at a time, and the unrolling of the
+// k-step loop that forms them, by the tile width (see the note at the top)
+template <int DHP>
+__host__ __device__ constexpr int q_rows() { return DHP > 64 ? 16 : 32; }
+template <int DHP>
+__host__ __device__ constexpr int ks_unroll() { return DHP > 64 ? 4 : DHP / 16; }
+
+// K, V; two stages of q, do; two stages of lse, delta
+template <int DHP>
+constexpr int smem_bytes() {
+    return (2 * BK + 4 * BQ) * bf16_lds<DHP>() * (int)sizeof(bf16) + 4 * BQ * (int)sizeof(float);
+}
+
+template <int DHP>
+__global__ void __launch_bounds__(NT, 2)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+            const bf16* __restrict__ dO, const float* __restrict__ lse,
+            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+            int B, int Sq, int Sk, int H, int KV, int dh, const Strides st,
+            float scale, int causal, int window, int q_offset) {
+    constexpr int LDS = bf16_lds<DHP>();
+    constexpr int KS = DHP / 16;  // k-steps (over dh) of S^T and dP^T
+    constexpr int NO = DHP / 8;   // n-tiles (8 columns) of dk and dv
+    constexpr int QH = q_rows<DHP>();
+    constexpr int NS = QH / 8;    // n-tiles (8 q rows) of S^T and dP^T
+    constexpr int TILE = BQ * LDS;
+    extern __shared__ uint4 smem_tc[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem_tc);        // [BK][LDS]
+    bf16* Vs = Ks + BK * LDS;                            // [BK][LDS]
+    bf16* Qs = Vs + BK * LDS;                            // [2][BQ][LDS]
+    bf16* dOs = Qs + 2 * TILE;                           // [2][BQ][LDS]
+    float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][BQ]: lse
+    float* Ds = Ls + 2 * BQ;                               // [2][BQ]: delta
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // kv heads and batches fastest, key tiles in order: tile 0, which under a
+    // causal mask sees the most rows, is scheduled first
+    const int g = blockIdx.x % KV, b = (blockIdx.x / KV) % B, kt = blockIdx.x / (KV * B);
+    const int k0 = kt * BK, rep = H / KV;
+
+    // rows that can see a key of [k0, k0 + BK): qpos >= k0 (causal) and
+    // qpos < k0 + BK - 1 + window (window), qpos = q_offset + row
+    int i_lo = 0, i_hi = Sq;
+    if (causal) i_lo = max(0, k0 - q_offset);
+    if (window > 0) i_hi = min(Sq, k0 + BK - 1 + window - q_offset);
+    const int qt_begin = i_lo / BQ;
+    const int n_qt = i_hi > i_lo ? (i_hi + BQ - 1) / BQ - qt_begin : 0;
+    const int n_steps = rep * n_qt;  // (query head, q tile) steps
+
+    // this thread's keys: rows kr and kr + 8 of its warp's 16; columns kq, kq + 1 of a fragment
+    const int kr = warp * 16 + (lane >> 2), kq = 2 * (lane & 3);
+    // key k0 + kr + 8 hr is visible from the query positions [vis[2 hr], vis[2 hr + 1]]
+    // (causal: from itself; window: up to window - 1 after it; rows < Sq; none if >= Sk)
+    int vis[4];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int key = k0 + kr + 8 * hr;
+        vis[2 * hr] = causal ? key : INT_MIN;
+        const int last = q_offset + Sq - 1;  // the last query position
+        vis[2 * hr + 1] = key >= Sk ? INT_MIN
+                          : window > 0 && window <= last ? min(last, key + window - 1) : last;
+    }
+    float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+    // q, do, lse and delta of step (head g rep + r, q tile qt) into stage `stage`
+    auto load_step = [&](int r, int qt, int stage) {
+        const int h = g * rep + r, q0 = qt * BQ;
+        load_tile_bf16<DHP, BQ, NT>(Qs + stage * TILE, q + b * st.v[0] + h * st.v[2], st.v[1],
+                                    q0, Sq, dh, tid);
+        load_tile_bf16<DHP, BQ, NT>(dOs + stage * TILE, dO + b * st.v[9] + h * st.v[11],
+                                    st.v[10], q0, Sq, dh, tid);
+        if (tid < BQ) {
+            const bool ok = q0 + tid < Sq;
+            const int64_t at = ((int64_t)b * H + h) * Sq + q0 + tid;
+            cp_async4(smem_addr(Ls + stage * BQ + tid), ok ? lse + at : lse, ok);
+            cp_async4(smem_addr(Ds + stage * BQ + tid), ok ? delta + at : delta, ok);
+        }
+    };
+
+    // this lane's ldmatrix addresses in shared memory: A fragments of K and V
+    // (rows are keys), B fragments of q and do, row-major (rows along n) and
+    // transposed (rows along k), at row 0 of a stage
+    const uint32_t ka_addr = smem_addr(Ks + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
+    const uint32_t va_addr = ka_addr + 2 * BK * LDS;
+    const uint32_t b_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8);
+    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8);
+
+    if (n_steps > 0) {
+        // group 0: K, V and the first step
+        load_tile_bf16<DHP, BK, NT>(Ks, k + b * st.v[3] + g * st.v[5], st.v[4], k0, Sk, dh, tid);
+        load_tile_bf16<DHP, BK, NT>(Vs, v + b * st.v[6] + g * st.v[8], st.v[7], k0, Sk, dh, tid);
+        load_step(0, qt_begin, 0);
+        cp_async_commit();
+    }
+
+    for (int it = 0, r = 0, qt = qt_begin; it < n_steps; ++it) {
+        const int stage = it & 1;
+        const int q0 = qt * BQ, qa0 = q_offset + q0;
+        if (++qt == qt_begin + n_qt) qt = qt_begin, ++r;  // (r, qt) is now the next step
+        if (it + 1 < n_steps) load_step(r, qt, stage ^ 1);  // into the other stage
+        cp_async_commit();
+        cp_async_wait<1>();  // this step has landed
+        __syncthreads();
+
+        const uint32_t q_st = smem_addr(Qs + stage * TILE), do_st = smem_addr(dOs + stage * TILE);
+        const float* Lt = Ls + stage * BQ;
+        const float* Dt = Ds + stage * BQ;
+        const bool edge = q0 + BQ > Sq || k0 + BK > Sk || (causal && k0 + BK - 1 > qa0) ||
+                          (window > 0 && k0 <= qa0 + BQ - 1 - window);
+
+#pragma unroll 1
+        for (int hq = 0; hq < BQ; hq += QH) {
+            // fragments c[j] hold q rows hq + 8 j + kq (+1) of keys kr ([0..1]) and kr + 8 ([2..3])
+            const uint32_t b_off = b_lane + 2 * hq * LDS, r_off = r_lane + 2 * hq * LDS;
+            uint32_t hi[QH / 16][4], lo[QH / 16][4];
+            {
+                // S^T = K Q^T; P^T = exp(S^T scale - lse), 0 where masked, split hi + lo
+                float s[NS][4];
+                mma_abt<KS, NS, LDS, ks_unroll<DHP>()>(s, ka_addr, q_st + b_off);
+#pragma unroll
+                for (int j = 0; j < NS; ++j) {
+                    const int qr = hq + 8 * j + kq;  // tile row of elements 0, 2; qr + 1 of 1, 3
+                    const float2 l2 = *reinterpret_cast<const float2*>(Lt + qr);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        float p = __expf(fmaf(s[j][e], scale, -((e & 1) ? l2.y : l2.x)));
+                        if (edge) {
+                            const int qpos = qa0 + qr + (e & 1);
+                            if (qpos < vis[e & 2] || qpos > vis[(e & 2) + 1]) p = 0.f;
+                        }
+                        s[j][e] = p;
+                    }
+                }
+#pragma unroll
+                for (int t = 0; t < QH / 16; ++t) acc_to_a_split(s, t, hi[t], lo[t]);
+            }
+            // dv += P^T_hi dO + P^T_lo dO
+            product_into<NO, QH / 16, LDS>(acc_v, hi, lo, do_st + r_off);
+            {
+                // dP^T = V dO^T; dS^T = P^T (dP^T - delta) with P^T = hi + lo (the f32
+                // P^T is not kept: 2^-17 of it, below dS's own split), split hi + lo
+                float dp[NS][4];
+                mma_abt<KS, NS, LDS, ks_unroll<DHP>()>(dp, va_addr, do_st + b_off);
+#pragma unroll
+                for (int j = 0; j < NS; ++j) {
+                    const float2 d2 = *reinterpret_cast<const float2*>(Dt + hq + 8 * j + kq);
+#pragma unroll
+                    for (int hr = 0; hr < 2; ++hr) {
+                        const float2 p = bf16x2_sum(hi[j / 2][(j & 1) * 2 + hr],
+                                                    lo[j / 2][(j & 1) * 2 + hr]);
+                        dp[j][2 * hr] = p.x * (dp[j][2 * hr] - d2.x);
+                        dp[j][2 * hr + 1] = p.y * (dp[j][2 * hr + 1] - d2.y);
+                    }
+                }
+#pragma unroll
+                for (int t = 0; t < QH / 16; ++t) acc_to_a_split(dp, t, hi[t], lo[t]);
+            }
+            // dk += dS^T_hi Q + dS^T_lo Q
+            product_into<NO, QH / 16, LDS>(acc_k, hi, lo, q_st + r_off);
+        }
+        __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int key = k0 + kr + 8 * hr;
+        if (key >= Sk) continue;
+        bf16* krow = dk + b * st.v[12] + (int64_t)key * st.v[13] + g * st.v[14];
+        bf16* vrow = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17];
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+            const int d = n * 8 + kq;
+            if (d >= dh) continue;
+            *reinterpret_cast<__nv_bfloat162*>(krow + d) =
+                __floats2bfloat162_rn(acc_k[n][2 * hr] * scale, acc_k[n][2 * hr + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(vrow + d) =
+                __floats2bfloat162_rn(acc_v[n][2 * hr], acc_v[n][2 * hr + 1]);
+        }
+    }
+}
+
+}  // namespace dkdv
+
+namespace dq {
+
+constexpr int BQ = 64;  // q rows per block
+constexpr int BK = 64;  // keys per KV tile
+
+// q, do; two stages of K and V
+template <int DHP>
+constexpr int smem_bytes() { return (2 * BQ + 4 * BK) * bf16_lds<DHP>() * (int)sizeof(bf16); }
+
+template <int DHP>
+__global__ void __launch_bounds__(NT, 2)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dO, const float* __restrict__ lse,
+          const float* __restrict__ delta, bf16* __restrict__ dq,
+          int B, int Sq, int Sk, int H, int KV, int dh, const Strides st,
+          float scale, int causal, int window, int q_offset) {
+    constexpr int LDS = bf16_lds<DHP>();
+    constexpr int KS = DHP / 16;  // k-steps (over dh) of S and dP
+    constexpr int NO = DHP / 8;   // n-tiles (8 columns) of dq
+    constexpr int NS = BK / 8;    // n-tiles (8 keys) of S and dP
+    constexpr int TILE = BK * LDS;
+    extern __shared__ uint4 smem_tc[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // [BQ][LDS]
+    bf16* dOs = Qs + BQ * LDS;                     // [BQ][LDS]
+    bf16* Ks = dOs + BQ * LDS;                     // [2][BK][LDS]
+    bf16* Vs = Ks + 2 * TILE;                      // [2][BK][LDS]
+
+    __builtin_assume(threadIdx.x < NT);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // heads and batches fastest, q tiles longest causal first
+    const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+    const int qt = (Sq + BQ - 1) / BQ - 1 - blockIdx.x / (H * B);
+    const int g = h / (H / KV);
+    const int q0 = qt * BQ, qa0 = q_offset + q0;
+    const bf16* kb = k + b * st.v[3] + g * st.v[5];
+    const bf16* vb = v + b * st.v[6] + g * st.v[8];
+
+    // keys [k_lo, k_hi) are the only ones any row of this tile can see
+    int k_lo = 0, k_hi = Sk;
+    if (causal) k_hi = min(Sk, qa0 + BQ);
+    if (window > 0) k_lo = max(0, qa0 - window + 1);
+    const int kt_begin = k_lo / BK;
+    const int n_tiles = max(0, (k_hi + BK - 1) / BK - kt_begin);
+
+    // group 0: q, do and the first K/V tile
+    load_tile_bf16<DHP, BQ, NT>(Qs, q + b * st.v[0] + h * st.v[2], st.v[1], q0, Sq, dh, tid);
+    load_tile_bf16<DHP, BQ, NT>(dOs, dO + b * st.v[9] + h * st.v[11], st.v[10], q0, Sq, dh, tid);
+    if (n_tiles > 0) {
+        load_tile_bf16<DHP, BK, NT>(Ks, kb, st.v[4], kt_begin * BK, Sk, dh, tid);
+        load_tile_bf16<DHP, BK, NT>(Vs, vb, st.v[7], kt_begin * BK, Sk, dh, tid);
+    }
+    cp_async_commit();
+
+    // this thread's rows of the tile: r and r + 8 of its warp's 16
+    const int r_lo = warp * 16 + (lane >> 2), kq = 2 * (lane & 3);
+    float lse_r[2], del_r[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int row = q0 + r_lo + 8 * hr;
+        const int64_t at = ((int64_t)b * H + h) * Sq + row;
+        lse_r[hr] = row < Sq ? lse[at] : 0.f;
+        del_r[hr] = row < Sq ? delta[at] : 0.f;
+    }
+    float acc[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    // this lane's ldmatrix addresses in shared memory: A fragments of q and
+    // do, B fragments of K and V row-major (rows along n) and of K
+    // transposed (rows along k), at row 0 of a stage
+    const uint32_t qa_addr = smem_addr(Qs + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
+    const uint32_t oa_addr = qa_addr + 2 * BQ * LDS;
+    const uint32_t b_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8);
+    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8);
+    for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = (kt_begin + it) * BK;
+        const uint32_t k_st = smem_addr(Ks + (it & 1) * TILE), v_st = smem_addr(Vs + (it & 1) * TILE);
+        if (it + 1 < n_tiles) {  // the next tile, into the other stage
+            load_tile_bf16<DHP, BK, NT>(Ks + ((it + 1) & 1) * TILE, kb, st.v[4], k0 + BK, Sk, dh,
+                                        tid);
+            load_tile_bf16<DHP, BK, NT>(Vs + ((it + 1) & 1) * TILE, vb, st.v[7], k0 + BK, Sk, dh,
+                                        tid);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();  // this tile (and, at it = 0, q and do) has landed
+        __syncthreads();
+
+        // S = Q K^T and dP = dO V^T: s[j] holds keys k0 + 8 j + kq (+1) of rows r_lo ([0..1]) and r_lo + 8 ([2..3])
+        float s[NS][4], dp[NS][4];
+        mma_abt<KS, NS, LDS>(s, qa_addr, k_st + b_lane);
+        mma_abt<KS, NS, LDS>(dp, oa_addr, v_st + b_lane);
+
+        // dS = P (dP - delta) into dp, P = exp(S scale - lse)
+        const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qa0) ||
+                          (window > 0 && k0 <= qa0 + BQ - 1 - window);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int hr = e >> 1;
+                float p = __expf(fmaf(s[j][e], scale, -lse_r[hr]));
+                if (edge) {
+                    const int key = k0 + 8 * j + kq + (e & 1);
+                    if (!visible(key, qa0 + r_lo + 8 * hr, Sk, causal, window)) p = 0.f;
+                }
+                dp[j][e] = p * (dp[j][e] - del_r[hr]);
+            }
+
+        // dq += dS_hi K + dS_lo K over this tile's keys
+        uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+        for (int t = 0; t < BK / 16; ++t) acc_to_a_split(dp, t, hi[t], lo[t]);
+        product_into<NO, BK / 16, LDS>(acc, hi, lo, k_st + r_lane);
+        __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+    if (n_tiles == 0) cp_async_wait<0>();  // q and do were loaded for nothing
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int row = q0 + r_lo + 8 * hr;
+        if (row >= Sq) continue;
+        bf16* qrow = dq + b * st.v[18] + (int64_t)row * st.v[19] + h * st.v[20];
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+            const int d = n * 8 + kq;
+            if (d < dh)
+                *reinterpret_cast<__nv_bfloat162*>(qrow + d) =
+                    __floats2bfloat162_rn(acc[n][2 * hr] * scale, acc[n][2 * hr + 1] * scale);
+        }
+    }
+}
+
+}  // namespace dq
+
+template <int DHP>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dO,
+                   const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
+                   int B, int Sq, int Sk, int H, int KV, int dh, const Strides& st,
+                   float scale, int causal, int window, int q_offset, cudaStream_t stream) {
+    cudaError_t err = launch_delta(o, dO, delta, B, Sq, H, dh, st, stream);
+    if (err != cudaSuccess) return err;
+
+    const int smem_kv = dkdv::smem_bytes<DHP>();
+    err = cudaFuncSetAttribute(dkdv::dkdv_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+    if (err != cudaSuccess) return err;
+    if (Sk > 0) {
+        const unsigned blocks = (unsigned)((Sk + dkdv::BK - 1) / dkdv::BK) * KV * B;
+        dkdv::dkdv_kernel<DHP><<<blocks, NT, smem_kv, stream>>>(
+            q, k, v, dO, lse, delta, dk, dv, B, Sq, Sk, H, KV, dh, st, scale, causal, window,
+            q_offset);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
+
+    const int smem_q = dq::smem_bytes<DHP>();
+    err = cudaFuncSetAttribute(dq::dq_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = (unsigned)((Sq + dq::BQ - 1) / dq::BQ) * H * B;
+    dq::dq_kernel<DHP><<<blocks, NT, smem_q, stream>>>(
+        q, k, v, dO, lse, delta, dq, B, Sq, Sk, H, KV, dh, st, scale, causal, window, q_offset);
+    return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// Dynamic shared memory of one block of the dk/dv kernel (which = 0) or the
-// dq kernel (which = 1) at head dim dh, in bytes.
+// Dynamic shared memory of one block of the bf16 dk/dv kernel (which = 0) or
+// the bf16 dq kernel (which = 1) at head dim dh, in bytes: the kernels of
+// every model path (the f32 kernels' is `simt::*::smem_floats` * 4).
 extern "C" int repro_flash_attention_bwd_smem_bytes(int which, int dh) {
-    const int f = which == 0 ? (dh <= 64 ? dkdv::smem_floats<64>() : dkdv::smem_floats<128>())
-                             : (dh <= 64 ? dq::smem_floats<64>() : dq::smem_floats<128>());
-    return f * (int)sizeof(float);
+    if (which == 0) return dh <= 64 ? tc::dkdv::smem_bytes<64>() : tc::dkdv::smem_bytes<128>();
+    return dh <= 64 ? tc::dq::smem_bytes<64>() : tc::dq::smem_bytes<128>();
 }
 
-// Keys per block of the dk/dv kernel (which = 0) or q rows per block of the
-// dq kernel (which = 1).
+// Tiles of the bf16 kernels: keys per block of the dk/dv kernel (which = 0),
+// q rows per block of the dq kernel (which = 1), q rows per step of the dk/dv
+// kernel's loop (which = 2).
 extern "C" int repro_flash_attention_bwd_tile(int which) {
-    return which == 0 ? dkdv::BK : dq::BQ;
+    return which == 0 ? tc::dkdv::BK : which == 1 ? tc::dq::BQ : tc::dkdv::BQ;
 }
 
 // q, o, do [B,Sq,H,dh]; k, v [B,Sk,KV,dh]; lse [B,H,Sq] f32 contiguous (the
@@ -513,13 +981,27 @@ extern "C" int repro_flash_attention_bwd(
     cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own
     if (err != cudaSuccess) return (int)err;
     if (Sq <= 0 || B <= 0) return (int)cudaSuccess;
-    if (dtype == REPRO_F32)
-        return (int)dispatch<float>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, dh,
-                                    st, scale, causal, window, q_offset, s);
+    if (dtype == REPRO_F32) {
+        auto c = [](const void* p) { return static_cast<const float*>(p); };
+        auto m = [](void* p) { return static_cast<float*>(p); };
+        return dh <= 64
+            ? (int)simt::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                           m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
+                                           window, q_offset, s)
+            : (int)simt::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                            m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
+                                            window, q_offset, s);
+    }
     if (dtype == REPRO_BF16) {
         if (dh % 8) return (int)cudaErrorInvalidValue;
-        return (int)dispatch<bf16>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, dh,
-                                   st, scale, causal, window, q_offset, s);
+        auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+        auto m = [](void* p) { return static_cast<bf16*>(p); };
+        return dh <= 64
+            ? (int)tc::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq), m(dk), m(dv),
+                                  B, Sq, Sk, H, KV, dh, st, scale, causal, window, q_offset, s)
+            : (int)tc::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq), m(dk),
+                                   m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal, window,
+                                   q_offset, s);
     }
     return (int)cudaErrorInvalidValue;
 }

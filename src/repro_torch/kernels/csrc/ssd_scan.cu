@@ -113,12 +113,6 @@ struct Shape {
     bool vec;  // every x, B and C row starts on a 16-byte boundary and P, N % 4 == 0
 };
 
-// 4 bytes global -> shared, asynchronously; zero-filled where !valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void zero_smem(float* p, int n) {
     for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
         *reinterpret_cast<float4*>(p + i) = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -84,8 +84,16 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None):
-    """Flash-decode.  q [B,1,H,dh], caches [B,C,KV,dh], valid [B,C]."""
+    """Flash-decode.  q [B,1,H,dh], caches [B,C,KV,dh], valid [B,C].
+
+    On the card it has no gradient: no path of the port differentiates
+    decode, so a CUDA input that needs one is refused rather than given none.
+    """
     if _route(q) == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
+            raise NotImplementedError("flash-decode has no backward kernel: a CUDA input that "
+                                      "needs a gradient is refused (ROADMAP.md, Queue 2 item "
+                                      "D: decode backward)")
         return _da.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
     return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
 

@@ -11,7 +11,9 @@ product is the world size.  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
 set) it joins that group; otherwise it forms a group of one process itself.
 Runs on CUDA with NCCL unless ``--device cpu`` is given (gloo); if CUDA is
 asked for and absent it raises rather than running on the CPU.
-``--plane-report`` waits for the control plane and is refused.
+``--lr`` is AdamW's peak learning rate, as there.  The reference's flags
+that the port has not ported yet are refused by name with the ROADMAP item
+that ports each (``UNPORTED_FLAGS``), before any process group is formed.
 """
 from __future__ import annotations
 
@@ -30,6 +32,18 @@ from repro_torch.models import transformer as tf
 from repro_torch.train.data import DataConfig, synth_batch
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step
+
+
+# The reference launcher's flags the port refuses: flag -> what ports it.
+UNPORTED_FLAGS = {
+    "--hsdp": "ROADMAP.md, Queue 1 item 4: HSDP with int8 error feedback",
+    "--compress": "ROADMAP.md, Queue 1 item 4: HSDP with int8 error feedback",
+    "--ckpt": "ROADMAP.md, Queue 1 item 4: train/checkpoint.py",
+    "--ckpt-every": "ROADMAP.md, Queue 1 item 4: train/checkpoint.py",
+    "--resume": "ROADMAP.md, Queue 1 item 4: train/checkpoint.py",
+    "--plane-report": "ROADMAP.md, Queue 1 item 3: control plane and simulator",
+    "--ocs-latency": "ROADMAP.md, Queue 1 item 3: control plane and simulator",
+}
 
 
 def parse_mesh(s: str) -> dict:
@@ -72,14 +86,16 @@ def main(argv=None):
     ap.add_argument("--fabric", default="photonic", choices=["photonic", "eps"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--plane-report", action="store_true")
     ap.add_argument("--device", default="cuda")
+    for flag in UNPORTED_FLAGS:  # taken with or without a value, then refused
+        ap.add_argument(flag, nargs="?", const=True, default=None)
     args = ap.parse_args(argv)
 
-    if args.plane_report:
-        ap.error("--plane-report needs the photonic control plane, which is not ported; it "
-                 "waits for ROADMAP.md, Queue 1: control plane and simulator")
+    for flag, item in UNPORTED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} is not ported; it waits for {item}")
     try:
         axes = parse_mesh(args.mesh)
     except ValueError as e:
@@ -90,7 +106,7 @@ def main(argv=None):
     init_distributed(device)
     mesh = make_mesh(axes, device)
     setup = TrainSetup(cfg=cfg, fabric=args.fabric, accum=args.accum,
-                       opt=OptConfig(warmup_steps=10))
+                       opt=OptConfig(lr=args.lr, warmup_steps=10))
     dc = DataConfig(seq_len=args.seq, global_batch=args.batch)
     params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=device)
     step_fn = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))

@@ -174,6 +174,55 @@ def test_flash_kernel_p_split_holds_the_bf16_tolerance(dh, window):
     assert once > 1, once
 
 
+def _mha_bwd_rounding(q, k, v, o, lse, do, roundings, *, window=None):
+    """The backward computed as the bf16 CUDA kernels compute it: P in f32
+    from the forward's lse, dP and delta exact in f32, and P (in dv = P^T do)
+    or dS (in dk = dS^T q and dq = dS k) rounded by ``roundings["dv"]``,
+    ``["dk"]`` and ``["dq"]`` before its product; the dk/dv kernel forms dS
+    from P as the dv product takes it (hi + lo).  Products of two bf16 values
+    are exact in f32, so the tensor cores' products are the f32 ones here,
+    up to the order of summation."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    scale = dh ** -0.5
+    q5, do5, o5 = (t.reshape(b, s, kvh, rep, dh).float() for t in (q, do, o))
+    kf, vf = k.float(), v.float()
+    qi = torch.arange(s)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", q5, kf) * scale
+    sc = torch.where(tref._block_mask(qi, qi, causal=True, window=window), sc, tref.NEG_INF)
+    p = torch.exp(sc - lse.reshape(b, kvh, rep, s)[..., None])
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", do5, vf)
+    delta = torch.einsum("bqgrd,bqgrd->bgrq", do5, o5)
+    p_dv = roundings["dv"](p)
+    ds = sum(p_dv) * (dp - delta[..., None])
+    dv = sum(torch.einsum("bgrqk,bqgrd->bkgd", part, do5) for part in p_dv)
+    dk = sum(torch.einsum("bgrqk,bqgrd->bkgd", part, q5) for part in roundings["dk"](ds)) * scale
+    dq = sum(torch.einsum("bgrqk,bkgd->bqgrd", part, kf) for part in roundings["dq"](ds)) * scale
+    return (dq.reshape(b, s, h, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("dh,window", [(128, None), (120, None), (128, 100), (120, 100)])
+def test_flash_bwd_kernel_p_and_ds_split_holds_the_bf16_tolerance(dh, window):
+    """The bf16 backward kernels split P (in dv) and dS (in dk and dq) into a
+    bf16 high and low part before each product; that keeps dq, dk and dv
+    within one bf16 ulp of ``ref.mha_bwd`` (``grad_tolerance_ratio`` <= 1).
+    Rounding P or dS once to bf16 in any one of the three products (the
+    others split) does not: each split is needed."""
+    q, k, v = _bf16(*_qkv(1, 512, 512, 8, 2, dh, seed=4))
+    do = _bf16(_qkv(1, 512, 512, 8, 2, dh, seed=14)[0])[0]
+    o, lse = tref.mha_fwd_lse(q, k, v, causal=True, window=window)
+    want = tref.mha_bwd(q, k, v, o, lse, do, causal=True, window=window)
+    split = {name: _p_hi_lo for name in ("dq", "dk", "dv")}
+    got = _mha_bwd_rounding(q, k, v, o, lse, do, split, window=window)
+    ratios = [tref.grad_tolerance_ratio(g, w) for g, w in zip(got, want)]
+    assert max(ratios) <= 1, ratios
+    for i, name in enumerate(("dq", "dk", "dv")):
+        once = _mha_bwd_rounding(q, k, v, o, lse, do, {**split, name: _p_bf16_once},
+                                 window=window)
+        assert tref.grad_tolerance_ratio(once[i], want[i]) > 1, name
+
+
 def test_ops_on_cpu_tensors_launch_nothing():
     ops.reset_launch_counts()
     q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 16))
@@ -191,6 +240,28 @@ def test_ops_on_cpu_tensors_launch_nothing():
     assert torch.equal(y, y_w) and torch.equal(st, st_w)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                    "decode_attention": 0, "ssd_scan": 0}
+
+
+def test_ops_decode_attention_on_cpu_keeps_its_gradient():
+    """On CPU tensors ``ops.decode_attention`` is the plain version, whose
+    autograd gives the gradient of the JAX package's ``decode_attention``
+    (its custom VJP); on the card a gradient is refused
+    (tests/test_torch_kernels_cuda.py)."""
+    b, c, h, kv, dh = 2, 128, 8, 2, 16
+    rng = np.random.default_rng(3)
+    q = (rng.standard_normal((b, 1, h, dh)) * 0.5).astype(np.float32)
+    kc = (rng.standard_normal((b, c, kv, dh)) * 0.5).astype(np.float32)
+    vc = (rng.standard_normal((b, c, kv, dh)) * 0.5).astype(np.float32)
+    valid = rng.random((b, c)) < 0.7
+    dout = rng.standard_normal((b, 1, h, dh)).astype(np.float32)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, kc, vc))
+    ops.reset_launch_counts()
+    ops.decode_attention(tq, tk, tv, torch.from_numpy(valid)).backward(torch.from_numpy(dout))
+    assert ops.launch_counts()["decode_attention"] == 0
+    _, vjp = jax.vjp(lambda a, k_, v_: pl_decode(a, k_, v_, jnp.asarray(valid), block_k=64,
+                                                  interpret=True), *_j(q, kc, vc))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

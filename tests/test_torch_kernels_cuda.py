@@ -91,8 +91,10 @@ def test_flash_kernel_reads_strided_views(dev, dtype, s, dh):
     assert ref.tolerance_ratio(got, want) <= 1
 
 
-# the backward kernels: 64-key tiles of 32-row steps (dk/dv), 64-row tiles of
-# 32-key steps (dq); edges of both, windows, q_offset, GQA and rep = 1
+# the backward kernels: bf16 64-key blocks walking 64-row q tiles (dk/dv) and
+# 64-row blocks walking 64-key tiles (dq); f32 64-key blocks of 32-row steps
+# and 64-row blocks of 32-key steps; edges of both, windows, q_offset, GQA
+# and rep = 1
 _BWD_CASES = [
     (1, 256, 256, 8, 2, 128, torch.bfloat16, True, None, 0),
     (1, 1, 1, 8, 2, 64, torch.bfloat16, True, None, 0),
@@ -108,6 +110,19 @@ _BWD_CASES = [
     (1, 100, 333, 8, 2, 120, torch.float32, True, 90, 233),       # both
     (2, 200, 200, 4, 2, 64, torch.float32, False, None, 0),       # not causal
     (1, 130, 257, 8, 2, 120, torch.bfloat16, False, None, 0),     # not causal, Sq != Sk
+    # the bf16 tensor-core kernels at the edges of their 64-wide tiles
+    (1, 127, 127, 8, 2, 128, torch.bfloat16, True, None, 0),      # S = 64k - 1
+    (1, 129, 129, 8, 2, 64, torch.bfloat16, True, None, 0),       # S = 64k + 1
+    (1, 4097, 4097, 8, 2, 120, torch.bfloat16, True, None, 0),
+    (1, 1000, 1000, 8, 2, 128, torch.bfloat16, True, 200, 0),     # window across tiles
+    (1, 300, 300, 8, 2, 120, torch.bfloat16, True, 33, 0),        # window within a tile
+    (1, 64, 320, 8, 2, 64, torch.bfloat16, True, None, 256),      # q_offset, Sq < Sk
+    (2, 130, 400, 8, 2, 120, torch.bfloat16, True, 150, 270),     # both, B = 2
+    (1, 200, 200, 8, 8, 128, torch.bfloat16, True, None, 0),      # rep 1
+    (1, 300, 300, 32, 8, 120, torch.bfloat16, True, None, 0),     # rep 4
+    (1, 257, 257, 16, 2, 64, torch.bfloat16, True, None, 0),      # rep 8
+    (2, 300, 300, 8, 2, 128, torch.bfloat16, True, None, 0),      # B = 2
+    (1, 200, 200, 4, 2, 64, torch.bfloat16, False, 50, 0),        # window, not causal
 ]
 
 
@@ -136,6 +151,23 @@ def test_flash_bwd_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal
         assert ref.grad_tolerance_ratio(g, w) <= 1, name
 
 
+@pytest.mark.parametrize("dtype,s,dh", [(torch.float32, 128, 64), (torch.bfloat16, 300, 128),
+                                         (torch.bfloat16, 200, 120)])
+def test_flash_bwd_kernel_reads_strided_views(dev, dtype, s, dh):
+    """q/k/v sliced out of a fused [B,S,H+2KV,dh] tensor and do out of a wider
+    one: no copy needed."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    qkv = _randn((1, s, 12, dh), dtype, dev, gen)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    do = _randn((1, s, 16, dh), dtype, dev, gen)[:, :, 4:12]
+    assert not (q.is_contiguous() or k.is_contiguous() or do.is_contiguous())
+    o, lse = ref.mha_fwd_lse(q, k, v)
+    got = tfab.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.mha_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do.contiguous())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert ref.grad_tolerance_ratio(g, w) <= 1, name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_rejects_planted_faults(dev, dtype):
     """The tolerance sees one key tile's dk/dv or one q tile's dq dropped, and
@@ -144,16 +176,17 @@ def test_flash_bwd_kernel_rejects_planted_faults(dev, dtype):
     q, k, v, o, lse, do = _bwd_inputs(1, 512, 512, 8, 2, 120, dtype, dev, 4, **kw)
     dq, dk, dv = tfab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = ref.mha_bwd(q, k, v, o, lse, do, **kw)
-    bk, bq = tfab.KERNEL.lib().repro_flash_attention_bwd_tile(0), 32
+    lib = tfab.KERNEL.lib()
+    bk, bq = lib.repro_flash_attention_bwd_tile(0), lib.repro_flash_attention_bwd_tile(2)
     dk_f, dv_f, dq_f = dk.clone(), dv.clone(), dq.clone()
     dk_f[:, 128:128 + bk] = 0
     dv_f[:, 128:128 + bk] = 0
-    dq_f[:, 256:256 + tfab.KERNEL.lib().repro_flash_attention_bwd_tile(1)] = 0
+    dq_f[:, 256:256 + lib.repro_flash_attention_bwd_tile(1)] = 0
     assert ref.grad_tolerance_ratio(dk_f, want[1]) > 1
     assert ref.grad_tolerance_ratio(dv_f, want[2]) > 1
     assert ref.grad_tolerance_ratio(dq_f, want[0]) > 1
     do_f = do.clone()
-    do_f[:, 320:320 + bq] = 0  # rows 320..351 contribute nothing to dk and dv
+    do_f[:, 320:320 + bq] = 0  # one q tile's rows contribute nothing to dk and dv
     _, dk_q, dv_q = ref.mha_bwd(q, k, v, o, lse, do_f, **kw)
     assert ref.grad_tolerance_ratio(dk_q, want[1]) > 1
     assert ref.grad_tolerance_ratio(dv_q, want[2]) > 1
@@ -193,6 +226,23 @@ def test_ops_ssd_on_the_card_has_no_gradient_yet(dev):
     x, dt, a, bm, cm, _ = _ssd_case(1, 64, 4, 16, 1, 8, dev, gen)
     with pytest.raises(NotImplementedError, match="SSD backward"):
         ops.ssd(x.requires_grad_(), dt, a, bm, cm, 16)
+
+
+def test_ops_decode_attention_on_the_card_has_no_gradient(dev):
+    """A CUDA input that needs a gradient is refused, not given none."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = _randn((1, 1, 8, 64), torch.bfloat16, dev, gen)
+    kc, vc = (_randn((1, 256, 2, 64), torch.bfloat16, dev, gen) for _ in range(2))
+    valid = torch.ones((1, 256), dtype=torch.bool, device=dev)
+    for grad_of in range(3):
+        args = [q, kc, vc]
+        args[grad_of] = args[grad_of].clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="Queue 2 item D"):
+            ops.decode_attention(*args, valid)
+    with torch.no_grad():  # serving: no gradient asked, the kernel runs
+        before = tda.KERNEL.launches
+        ops.decode_attention(q.requires_grad_(), kc, vc, valid)
+        assert tda.KERNEL.launches == before + 1
 
 
 def _mask(kind, b, c, dev, gen):

@@ -247,28 +247,46 @@ def test_shards_round_trip_through_the_bridge(reference):
             np.testing.assert_array_equal(np.concatenate([s[path] for s in shards], fd), arr)
 
 
-def test_train_main_runs_on_cpu(capsys):
+def test_train_main_runs_on_cpu(capsys, monkeypatch):
+    """``main`` trains, and ``--lr`` reaches the optimizer's config."""
+    seen = []
+    make = launch_train.make_train_step
+
+    def recording(setup, *a, **kw):
+        seen.append(setup.opt)
+        return make(setup, *a, **kw)
+    monkeypatch.setattr(launch_train, "make_train_step", recording)
     try:
         loss = launch_train.main(["--arch", "yi_9b", "--smoke", "--device", "cpu", "--steps",
-                                  "2", "--batch", "4", "--seq", "16"])
+                                  "2", "--batch", "4", "--seq", "16", "--lr", "1e-3"])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     assert np.isfinite(loss)
     assert "step    1 loss" in capsys.readouterr().out
+    assert [(o.lr, o.warmup_steps) for o in seen] == [(1e-3, 10)]
 
 
 @pytest.mark.parametrize("flags,word", [(["--plane-report"], "control plane"),
                                         (["--mesh", "2x2"], "tensor parallelism"),
-                                        (["--mesh", "4x1"], "needs 4 processes")])
+                                        (["--mesh", "4x1"], "needs 4 processes"),
+                                        (["--hsdp"], "--hsdp is not ported"),
+                                        (["--compress"], "HSDP with int8"),
+                                        (["--ckpt", "ck"], "--ckpt is not ported"),
+                                        (["--ckpt-every", "20"], "checkpoint.py"),
+                                        (["--resume"], "--resume is not ported"),
+                                        (["--ocs-latency", "0.05"], "item 3: control plane")])
 def test_train_main_refuses_unported_options(flags, word, capsys):
     try:
         with pytest.raises((SystemExit, ValueError)) as e:
             launch_train.main(["--arch", "yi_9b", "--smoke", "--device", "cpu", *flags])
+        formed = dist.is_initialized()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     assert word in capsys.readouterr().err + str(e.value)
+    if flags[0] in launch_train.UNPORTED_FLAGS:  # refused before any process group forms
+        assert not formed
 
 
 def test_unported_setups_raise():
