@@ -58,9 +58,25 @@ and the script exits non-zero without printing a result:
     steps (across two chunk boundaries) must give the logits of the
     kernel-path prefill of the same prompt at every position, and not those
     of the faulty prefill: the recurrence checks the scan;
- 8. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b and
-    mamba2-370m;
- 9. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
+ 8. deepseek-moe-16b prefill: full width and depth (28 layers, bf16, random
+    weights from a seed) on B=1, S=4096 through ``make_prefill_step``; the
+    flash kernel must launch once per layer, and each launch is held
+    against the plain version on its own inputs; at depth 2 each run's
+    routing is recorded: the (token, k) choices that the kernels flip
+    against the plain versions must stay within 1 %, and over the tokens
+    routed alike the logits must match and those of two planted faults
+    must not;
+ 9. deepseek-moe-16b decode: B=8, capacity 4096, (a) 8 teacher-forced and 8
+    greedy steps from an empty cache, (b) 16 steps with the cache filled to
+    4064 slots; flash-decode once per layer and step; host and device ms a
+    step beside the floor of the bytes a step reads; at depth 2 the
+    teacher-forced logits through the kernel must match the plain
+    version's and the prefill's over the positions routed alike, and a
+    planted fault's must not; each decode launch of one step is held
+    against the plain version;
+10. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
+    mamba2-370m and deepseek-moe-16b;
+11. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
     weights from seed 0) through ``make_train_step`` as ``repro_torch.launch.train`` sets it up
     on an NCCL group of one process, B=1, S=4096, four AdamW steps on one
     fixed ``synth_batch``: the loss must fall at every step, the flash
@@ -70,10 +86,15 @@ and the script exits non-zero without printing a result:
     the gradient through the plain versions, and the gradient with a planted
     fault in the backward must not; step time, tokens/s, the model-FLOP
     share of the bf16 peak, peak memory and the device's busy share of one
-    profiled step.
+    profiled step;
+12. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
+    at B=2, S=4096, with the model-FLOP share over the active parameters,
+    and the first step's ``moe_aux`` held to the aux of the plain forward on
+    the same parameters.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one JSON
-line with every kernel's numbers and the ``nvidia-smi`` line.  Needs one card
+line with every kernel's numbers (and its launches in each path that ran
+it) and the ``nvidia-smi`` line.  Needs one card
 and no network; exits non-zero where ``torch.cuda.is_available()`` is false
 or the repository's sources are missing.
 """
@@ -100,6 +121,11 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 # the kernels' one-ulp differences, carried through two bf16 layers, give
 # about 0.01 there, and a head that reads the wrong kv head more than 1:
 MODEL_LIMIT = 0.05
+# An MoE model's routing through the kernels and through the plain versions:
+# the share of (token, k) choices that may differ (a one-ulp difference
+# flips a near-tie among the experts; a flipped token is left out of the
+# logits' comparison, see ``moe_prefill_depth2``).
+MOE_FLIP_LIMIT = 0.01
 # The bf16 flash kernel runs two blocks an SM; nvcc 12.9 gives it 228
 # registers at dh=128 once told the block size, 255 without.  The build
 # phase fails above this count or on any spill, so a compiler that drops
@@ -109,13 +135,17 @@ NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention
                "ssd_scan": 0}
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
 FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
-# Training (phase 9): h2o-danube-3-4b, the one dense configuration whose
+# Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
 # training state (bf16 parameters and gradients, f32 AdamW moments: 47.5 GB)
 # fits one 80 GB card, on one sequence of S=4096 (flash attention at S >=
 # 1024).  AdamW's lr with a warmup of one step, so the first step takes it
 # whole; at 3e-4 a step moves a weight of ~0.016 (1/sqrt(3840)) by ~2 %.
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS = "h2o_danube_3_4b", 4096, 4
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+# The MoE family (phases 8, 9 and 12): deepseek-moe-16b serving at full width and
+# depth (16.9 B parameters, 33.8 GB in bf16), and granite-moe-1b-a400m
+# training (1.33 B parameters, 0.43 B active a token) at B=2, S=TRAIN_SEQ.
+MOE_ARCH, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH = "deepseek_moe_16b", "granite_moe_1b_a400m", 2
 # The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order.
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
 
@@ -684,13 +714,135 @@ def phase_decode_kernel():
 
 def _first_periods(params, n: int):
     """The same weights cut to the first ``n`` periods (views, no copies)."""
-    cut = dict(params)
-    cut["layers"] = [{k: ({kk: vv[:n] for kk, vv in v.items()} if isinstance(v, dict)
-                          else v[:n]) for k, v in lp.items()} for lp in params["layers"]]
-    return cut
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+    return dict(params, layers=[cut(lp) for lp in params["layers"]])
 
 
-def phase_prefill(cfg, params):
+@contextlib.contextmanager
+def recorded_routing(routes: list):
+    """Append the routed expert ids [G,T,K] of every MoE layer that runs to
+    ``routes`` (a swap only this script makes, as ``swapped_ops``)."""
+    from repro_torch.models import moe
+    topk = moe.router_topk
+
+    def recording(logits, m, generator=None):
+        gates, idx, probs = topk(logits, m, generator)
+        routes.append(idx)
+        return gates, idx, probs
+    moe.router_topk = recording
+    try:
+        yield
+    finally:
+        moe.router_topk = topk
+
+
+@contextlib.contextmanager
+def replayed_routing(routes: list):
+    """Route the MoE layers, in the order they run, to the experts of
+    ``routes`` (as ``recorded_routing`` recorded them), with the gates taken
+    from this run's own probabilities (a swap only this script makes)."""
+    from repro_torch.models import moe
+    topk, replay = moe.router_topk, iter(routes)
+
+    def replaying(logits, m, generator=None):
+        _, _, probs = topk(logits, m, generator)
+        idx = next(replay)
+        vals = probs.gather(-1, idx)
+        return vals / vals.sum(-1, keepdim=True).clamp(min=1e-9), idx, probs
+    moe.router_topk = replaying
+    try:
+        yield
+    finally:
+        moe.router_topk = topk
+
+
+def routing_agreement(cfg, got: list, want: list):
+    """Two runs' routing, layer by layer: (the share of (token, k) choices
+    in ``got`` that ``want`` did not make, a mask [G,T] of the tokens whose
+    chosen experts and whose experts within capacity agree at every layer)."""
+    import torch
+    from repro_torch.models import moe
+    e = cfg.moe.n_experts
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"routing recorded for {len(got)} and {len(want)} MoE layers")
+    differ, agree = 0, torch.ones(got[0].shape[:2], dtype=torch.bool, device=got[0].device)
+
+    def sets(idx):
+        kept = moe.choice_positions(idx, e) < moe.moe_capacity(cfg.moe, idx.shape[1])
+        zeros = torch.zeros(idx.shape[:2] + (e,), dtype=torch.bool, device=idx.device)
+        return zeros.scatter(-1, idx, True), zeros.scatter(-1, idx, kept)
+    for a, b in zip(got, want):
+        (ca, ka), (cb, kb) = sets(a), sets(b)
+        differ += int((ca & ~cb).sum().item())
+        agree &= (ca == cb).all(-1) & (ka == kb).all(-1)
+    return differ / sum(a.numel() for a in got), agree
+
+
+def moe_prefill_depth2(cfg2, p2, tokens, tag: str) -> dict:
+    """Depth 2 of an MoE model: the logits through the kernels, the plain
+    versions and two planted faults, with each run's routing recorded.  A
+    one-ulp difference of the kernels can flip a near-tie among the experts,
+    and a flipped token's logits then differ by far more than the limit: so
+    the share of flipped (token, k) choices is held to ``MOE_FLIP_LIMIT``,
+    and the logits are compared over the tokens whose routing agrees at both
+    layers."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tf
+
+    def run(ctx=None):
+        routes = []
+        with recorded_routing(routes), (ctx or contextlib.nullcontext()):
+            logits = tf.lm_forward(p2, {"tokens": tokens}, cfg2)[0]
+        return logits, routes
+    got, r_got = run()
+    want, r_want = run(plain_ops())
+    flips, agree = routing_agreement(cfg2, r_got, r_want)
+    n_agree = int(agree.sum().item())
+    want_a = want[agree]
+    rel, rel_all = position_rel_rms(got[agree], want_a), position_rel_rms(got, want)
+    del got
+    shifted = position_rel_rms(run(shifted_heads_ops())[0][agree], want_a)
+    tile = flash_tile()
+    dropped = position_rel_rms(run(swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
+        q, k, v, kv_valid_len=k.shape[1] - tile, **kw)))[0][agree], want_a)
+    log(f"[{tag}] depth 2, full width, {tokens.shape[1]} positions: routed (token, k) choices "
+        f"through the kernels that the plain versions did not make {100 * flips:.4f} % (limit "
+        f"{100 * MOE_FLIP_LIMIT:.0f} %); {n_agree} positions route alike at both layers; "
+        f"worst relative RMS of the logits over those, kernels vs plain {rel:.3g} (limit "
+        f"{MODEL_LIMIT}; over all positions {rel_all:.3g}, reported); controls over the same "
+        f"positions: heads shifted {shifted:.3g}, last {tile}-key tile dropped {dropped:.3g} "
+        f"(both must exceed the limit)")
+    if not (flips <= MOE_FLIP_LIMIT and rel <= MODEL_LIMIT < min(shifted, dropped)):
+        raise AssertionError(f"depth-2 MoE prefill: flips {flips}, kernels {rel}, controls "
+                             f"{shifted}, {dropped}")
+    return {"prefill_depth2_routing_flips": flips, "prefill_depth2_positions_agreeing": n_agree,
+            "prefill_depth2_rel_rms": rel, "prefill_depth2_rel_rms_all_positions": rel_all,
+            "prefill_depth2_shifted_heads": shifted, "prefill_depth2_tile_dropped": dropped}
+
+
+def moe_prefill_flops(cfg, s: int) -> tuple:
+    """(needed, executed) model FLOPs of a B=1 prefill of an MoE model:
+    the projections, causal attention, the router, the routed experts (the
+    K a token chooses; executed: every expert's buffer padded to its
+    capacity), shared experts, dense FFNs and the last position's logits.
+    Derived from the shapes, not measured."""
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.moe import moe_capacity
+    m = cfg.moe
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    de = m.d_expert if m.d_expert is not None else cfg.d_ff
+    n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
+    common = cfg.n_layers * (2 * s * d * (2 * h + 2 * kv) * dh + 4 * h * dh * s * (s + 1) // 2)
+    common += (cfg.n_layers - n_moe) * 2 * s * 3 * d * cfg.d_ff + 2 * d * padded_vocab(cfg)
+    common += n_moe * (2 * s * d * m.n_experts + 2 * s * 3 * d * de * m.n_shared_experts)
+    expert = 2 * 3 * d * de
+    return (common + n_moe * s * m.top_k * expert,
+            common + n_moe * m.n_experts * moe_capacity(m, s) * expert)
+
+
+def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
+    """Prefill at B=1 S=4096; the result's keys start with ``prefix``."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as tf
@@ -712,23 +864,36 @@ def phase_prefill(cfg, params):
             raise AssertionError(f"prefill launches {counts}, want {cfg.n_layers} flash")
     if logits.shape != (1, 1, padded_vocab(cfg)) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite/shaped")
-    log(f"[prefill] llama3-8b 32 layers B=1 S=4096: {times[0]:.1f} ms first, "
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers B=1 S=4096: {times[0]:.1f} ms first, "
         f"{times[1]:.1f} ms second; flash launches {counts['flash_attention']}")
-    busy, _ = device_profile(lambda: step(params, {"tokens": tokens}), "prefill B=1 S=4096")
+    busy, dev = device_profile(lambda: step(params, {"tokens": tokens}), f"{tag} B=1 S=4096")
+    if cfg.moe and dev:
+        needed, executed = moe_prefill_flops(cfg, tokens.shape[1])
+        dev_ms = sum(dev.values())
+        log(f"[{tag}] model FLOPs, derived from the shapes, not measured: {needed / 1e12:.2f} T "
+            f"needed, {executed / 1e12:.2f} T executed (each expert's buffer padded to its "
+            f"capacity); at the device time {dev_ms:.2f} ms, {needed / dev_ms / 1e9:.1f} TFLOP/s "
+            f"needed, {100 * needed / (dev_ms / 1e3) / PEAK_BF16_FLOPS:.1f} % of the bf16 peak")
 
     # every launch of a full prefill, held against the plain version on its own inputs
     ratios = []
     with checked_ops(ratios):
         step(params, {"tokens": tokens})
-    log(f"[prefill] 32 layers: each flash launch against ref.mha on the same inputs: "
+    log(f"[{tag}] {cfg.n_layers} layers: each flash launch against ref.mha on the same inputs: "
         f"worst {max(ratios):.3f} of the tolerance over {len(ratios)} launches")
     if len(ratios) != cfg.n_layers or not max(ratios) <= 1:
         raise AssertionError(f"prefill: a flash launch disagrees with ref.mha: {ratios}")
+    out = {"flash_launches": counts["flash_attention"], "prefill_calls": 1,
+           "prefill_ms": times[1], "prefill_first_ms": times[0],
+           "prefill_device_busy": busy, "prefill_flash_worst_ratio": max(ratios)}
 
     # depth 2, full width: logits at every position through the kernels, the
     # plain versions and two planted faults
     cfg2 = cfg.replace(n_layers=2)
     p2 = _first_periods(params, 2)
+    if cfg.moe:
+        out.update(moe_prefill_depth2(cfg2, p2, tokens, tag))
+        return {prefix + k: v for k, v in out.items()}
 
     def all_logits():
         return tf.lm_forward(p2, {"tokens": tokens}, cfg2)[0]
@@ -743,17 +908,15 @@ def phase_prefill(cfg, params):
     with swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
             q, k, v, kv_valid_len=k.shape[1] - tile, **kw)):
         dropped = position_rel_rms(all_logits(), want)
-    log(f"[prefill] depth 2, full width, all 4096 positions, worst position's relative RMS "
+    log(f"[{tag}] depth 2, full width, all 4096 positions, worst position's relative RMS "
         f"of the logits: kernels vs plain {rel:.3g} (limit {MODEL_LIMIT}); controls: "
         f"heads shifted {shifted:.3g}, last {tile}-key tile dropped {dropped:.3g} "
         f"(both must exceed the limit)")
     if not rel <= MODEL_LIMIT < min(shifted, dropped):
         raise AssertionError(f"depth-2 prefill: kernels {rel}, controls {shifted}, {dropped}")
-    return {"flash_launches": counts["flash_attention"], "prefill_calls": 1,
-            "prefill_ms": times[1], "prefill_first_ms": times[0],
-            "prefill_device_busy": busy, "prefill_flash_worst_ratio": max(ratios),
-            "prefill_depth2_rel_rms": rel, "prefill_depth2_shifted_heads": shifted,
-            "prefill_depth2_tile_dropped": dropped}
+    out.update({"prefill_depth2_rel_rms": rel, "prefill_depth2_shifted_heads": shifted,
+                "prefill_depth2_tile_dropped": dropped})
+    return {prefix + k: v for k, v in out.items()}
 
 
 def fill_cache(state, n: int, seed: int) -> None:
@@ -768,9 +931,35 @@ def fill_cache(state, n: int, seed: int) -> None:
         c["slot_pos"][:, :n] = torch.arange(n, dtype=c["slot_pos"].dtype, device="cuda")
 
 
-def phase_decode(cfg, params):
+def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_tokens=None):
+    """``n`` steps of ``step`` from position ``first``, teacher-forced on the
+    columns of ``forced_tokens`` while they last, then greedy; each step must
+    launch the flash-decode kernel once per layer.  ``state`` is updated in
+    place.  Returns (seconds, the logits of each step, decode launches)."""
     import torch
     from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        if forced_tokens is not None and i < forced_tokens.shape[1]:
+            tok = forced_tokens[:, i:i + 1]
+        logits, _ = step(params, state, tok, first + i)
+        out.append(logits)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts != {**NO_LAUNCHES, "decode_attention": cfg.n_layers * n}:
+        raise AssertionError(f"decode launches {counts}, want {cfg.n_layers * n} decode")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("decode logits not finite")
+    return secs, out, counts["decode_attention"]
+
+
+def phase_decode(cfg, params):
+    import torch
     from repro_torch.models import transformer as tf
     from repro_torch.serve.step import ServeSetup, init_serve_state, make_decode_step
     b, cap, n_forced, n_gen = 8, 4096, 8, 8
@@ -782,28 +971,7 @@ def phase_decode(cfg, params):
     steps = n_forced + n_gen
 
     def run_steps(first: int, n: int, tok, forced_tokens=None):
-        """``n`` steps from position ``first``, teacher-forced on the columns
-        of ``forced_tokens`` while they last, then greedy; returns (seconds,
-        the logits of each step, decode launches)."""
-        nonlocal state
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        out = []
-        t0 = time.perf_counter()
-        for i in range(n):
-            if forced_tokens is not None and i < forced_tokens.shape[1]:
-                tok = forced_tokens[:, i:i + 1]
-            logits, state = step(params, state, tok, first + i)
-            out.append(logits)
-            tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        if counts != {**NO_LAUNCHES, "decode_attention": cfg.n_layers * n}:
-            raise AssertionError(f"decode launches {counts}, want {cfg.n_layers * n} decode")
-        if not torch.isfinite(logits).all():
-            raise AssertionError("decode logits not finite")
-        return secs, out, counts["decode_attention"]
+        return decode_steps(cfg, step, params, state, first, n, tok, forced_tokens)
 
     secs, out, launches = run_steps(0, steps, None, forced_tokens=prompt)
     tok_s = b * steps / secs
@@ -878,6 +1046,133 @@ def phase_decode(cfg, params):
             "full_context_tok_s": full_tok_s, "full_context_device_busy": full_busy,
             "full_context_kernel_share_of_device": share,
             "full_context_decode_worst_ratio": max(ratios)}
+
+
+def decode_floor_ms(params, state, n_valid: int) -> float:
+    """The least device time of one decode step: every parameter read once
+    (all of them: at one token a group every expert of an MoE layer gets a
+    buffer) but the embedding table, of which a step gathers B rows, and the
+    K/V of the ``n_valid`` valid slots of every layer's cache, at the card's
+    memory rate."""
+    from repro_torch.tree import leaves
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    weights -= params["embed"].numel() * params["embed"].element_size()
+    kv = sum(c[name][:, :, :n_valid].numel() * c[name].element_size()
+             for c in state for name in ("k", "v"))
+    return (weights + kv) / PEAK_HBM_BYTES * 1e3
+
+
+def moe_decode_depth2(cfg, params, prompt, cap: int) -> dict:
+    """Depth 2, full width: the teacher-forced decode logits through the
+    kernel against the plain version's (flips held to ``MOE_FLIP_LIMIT``)
+    and against the prefill's of the same prompt (at 8 tokens no expert of
+    deepseek-moe-16b overflows its capacity of 8, in decode or in prefill,
+    so both compute the same function; the prefill's plain attention rounds
+    elsewhere, so its flips are reported), each over the positions that,
+    with every earlier position of their row, route alike at both layers:
+    over 8 tokens a flipped token's second-layer keys and values weigh on
+    every later token.  A planted fault (heads shifted) must not match."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import ServeSetup, init_serve_state
+    cfg2 = cfg.replace(n_layers=2)
+    p2 = _first_periods(params, 2)
+    b, n = prompt.shape
+
+    def forced(ctx=None):
+        routes = []
+        with recorded_routing(routes), (ctx or contextlib.nullcontext()):
+            st = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, cap)
+            logits = [tf.decode_step(p2, st, prompt[:, t:t + 1], t, cfg2)[0] for t in range(n)]
+        # one [B,1,K] a layer and step, in step order: the routes of each layer over the steps
+        return torch.cat(logits, 1), [torch.cat(routes[i::cfg2.n_layers], 1)
+                                      for i in range(cfg2.n_layers)]
+    got, r_got = forced()
+    plain, r_plain = forced(plain_ops())
+    r_pre = []
+    with recorded_routing(r_pre):
+        pre = tf.lm_forward(p2, {"tokens": prompt}, cfg2)[0]
+    flips_plain, agree_plain = routing_agreement(cfg2, r_got, r_plain)
+    flips_pre, agree_pre = routing_agreement(cfg2, r_got, r_pre)
+    agree_plain, agree_pre = (a.cumprod(1).bool() for a in (agree_plain, agree_pre))
+    e_plain = position_rel_rms(got[agree_plain], plain[agree_plain])
+    e_pre = position_rel_rms(got[agree_pre], pre[agree_pre])
+    shifted = position_rel_rms(forced(shifted_heads_ops())[0][agree_plain], plain[agree_plain])
+    log(f"[moe decode] depth 2, full width, {b}x{n} teacher-forced positions: routed choices "
+        f"that differ from the plain version's {100 * flips_plain:.3f} % (limit "
+        f"{100 * MOE_FLIP_LIMIT:.0f} %), from the prefill's {100 * flips_pre:.3f} % (reported); "
+        f"worst relative RMS of the logits, kernel vs plain over the {int(agree_plain.sum())} "
+        f"positions routed alike up to them {e_plain:.3g}, vs prefill over {int(agree_pre.sum())} "
+        f"{e_pre:.3g} (limit {MODEL_LIMIT}); control: heads shifted {shifted:.3g} (must exceed "
+        f"the limit)")
+    if not (flips_plain <= MOE_FLIP_LIMIT and max(e_plain, e_pre) <= MODEL_LIMIT < shifted):
+        raise AssertionError(f"depth-2 MoE decode: flips {flips_plain}, {flips_pre}; "
+                             f"{e_plain} / {e_pre}, control {shifted}")
+    return {"moe_decode_depth2_flips_vs_plain": flips_plain,
+            "moe_decode_depth2_flips_vs_prefill": flips_pre,
+            "moe_decode_depth2_positions_vs_plain": int(agree_plain.sum()),
+            "moe_decode_depth2_positions_vs_prefill": int(agree_pre.sum()),
+            "moe_decode_depth2_rel_rms": e_plain, "moe_decode_depth2_vs_prefill": e_pre,
+            "moe_decode_depth2_shifted_heads": shifted}
+
+
+def phase_moe_decode(cfg, params):
+    """MoE decode at B=8, capacity 4096: (a) 8 teacher-forced and 8 greedy
+    steps from an empty cache, (b) 16 steps with the cache filled to 4064
+    slots; host ms a step, device ms a step (profiler, two steps) beside the
+    floor of the bytes a step must read, and each decode launch of one step
+    held against the plain version."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import ServeSetup, init_serve_state, make_decode_step
+    b, cap, n_forced, n_gen = 8, 4096, 8, 8
+    setup = ServeSetup(cfg=cfg)
+    state = init_serve_state(setup, (1, 1), params, b, cap)
+    step = make_decode_step(setup, (1, 1), params, batch=b, capacity=cap)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (b, n_forced), generator=gen, device="cuda")
+    steps = n_forced + n_gen
+    out, tok = {}, None
+    for label, first, n, forced in (("a", 0, steps, prompt), ("b", cap - 32, 16, None)):
+        if label == "b":
+            fill_cache(state, first, seed=5)
+        secs, logits, launches = decode_steps(cfg, step, params, state, first, n, tok, forced)
+        tok = logits[-1].argmax(-1)
+        if label == "a":
+            want, _ = tf.lm_forward(params, {"tokens": prompt}, cfg)
+            deep = position_rel_rms(torch.cat(logits[:n_forced], 1), want)
+            del want
+        filled = first + n + 1
+        busy, dev = device_profile(lambda: decode_steps(cfg, step, params, state, first + n, 2,
+                                                        tok),
+                                   f"moe decode 2 steps B={b} cap={cap}, {filled} filled slots")
+        dev_ms = sum(dev.values()) / 2 if dev else None
+        kernel_ms = sum(ms for key, ms in dev.items() if "decode_partial_kernel" in key
+                        or "decode_combine_kernel" in key) / 2
+        floor = decode_floor_ms(params, state, filled)
+        log(f"[moe decode] ({label}) {cfg.name} B={b} cap={cap}, from {first} filled slots: {n} "
+            f"steps, {secs / n * 1e3:.2f} ms/step (host), {b * n / secs:.1f} tok/s; device "
+            f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms/step (flash-decode "
+            f"{kernel_ms:.3f} ms), floor {floor:.3f} ms/step (every weight and the valid K/V "
+            f"read once at {PEAK_HBM_BYTES / 1e12:.2f} TB/s); decode launches {launches}")
+        out.update({f"moe_decode_{label}_ms_per_step": secs / n * 1e3,
+                    f"moe_decode_{label}_tok_s": b * n / secs,
+                    f"moe_decode_{label}_device_ms_per_step": dev_ms,
+                    f"moe_decode_{label}_flash_decode_device_ms_per_step": kernel_ms,
+                    f"moe_decode_{label}_floor_ms": floor, f"moe_decode_{label}_device_busy": busy,
+                    f"moe_decode_{label}_launches": launches, f"moe_decode_{label}_steps": n})
+    log(f"[moe decode] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
+        f"prefill of the prompt: worst position's relative RMS {deep:.3g} (reported, not checked)")
+    out.update(moe_decode_depth2(cfg, params, prompt, cap))
+    ratios = []
+    with checked_ops(ratios):
+        step(params, state, tok, cap - 32 + 18)
+    log(f"[moe decode] full context: each decode launch of one step against "
+        f"ref.decode_attention on the same inputs: worst {max(ratios):.3f} of the tolerance "
+        f"over {len(ratios)} launches")
+    if len(ratios) != cfg.n_layers or not max(ratios) <= 1:
+        raise AssertionError(f"moe decode: a launch disagrees with ref.decode_attention: {ratios}")
+    return {**out, "moe_decode_vs_prefill": deep, "moe_decode_worst_ratio": max(ratios)}
 
 
 def ssd_inputs(b, s, h, p, g, n, seed=0, h_init=False):
@@ -1276,7 +1571,21 @@ def leaf_rel_rms(got, want) -> dict:
                 / w[k].float().pow(2).mean().sqrt()).item() for k in w}
 
 
-def phase_train():
+def active_params(cfg, n_params: int) -> int:
+    """Parameters a token runs through: all of them for a dense model; for
+    an MoE model less the routed experts it is not sent to (E - K of each
+    MoE layer's E)."""
+    if cfg.moe is None:
+        return n_params
+    m = cfg.moe
+    de = m.d_expert if m.d_expert is not None else cfg.d_ff
+    n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
+    return n_params - n_moe * (m.n_experts - m.top_k) * 3 * cfg.d_model * de
+
+
+def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train"):
+    """Training steps of ``arch`` at B=``batch_size``, S=TRAIN_SEQ; log lines
+    start with ``[tag]``."""
     import statistics
 
     import torch
@@ -1288,7 +1597,7 @@ def phase_train():
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step, mesh_axes
     dev = torch.device("cuda")
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     launch_train.init_distributed(dev)
     mesh = launch_train.make_mesh({"data": 1}, dev)
     setup = TrainSetup(cfg=cfg, opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
@@ -1298,15 +1607,25 @@ def phase_train():
     step = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))
     n_params = tf.param_count(params)
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name} {n_params / 1e9:.3f} B params ({cfg.n_layers} layers, d={cfg.d_model},"
+    log(f"[{tag}] {cfg.name} {n_params / 1e9:.3f} B params ({cfg.n_layers} layers, d={cfg.d_model},"
         f" {cfg.n_heads} heads, kv {cfg.n_kv_heads}, dh {cfg.resolved_head_dim}, remat "
-        f"{cfg.remat!r}), bf16 with f32 AdamW moments, initialised on the card from seed 0 in "
+        f"{cfg.remat!r}), bf16 with f32 AdamW moments (with the gradients "
+        f"{n_params * 12 / 1e9:.1f} GB), initialised on the card from seed 0 in "
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB; "
         f"NCCL group of {torch.distributed.get_world_size()}, mesh {mesh_axes(mesh)}, "
         f"fabric {step.fabric.kind}; lr {TRAIN_LR}, warmup {TRAIN_WARMUP} step")
-    batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=1), 0, device=dev)
+    batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=batch_size), 0, device=dev)
     per_step = {**NO_LAUNCHES, "flash_attention": cfg.n_layers * (2 if cfg.remat == "full" else 1),
                 "flash_attention_bwd": cfg.n_layers}
+    n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
+    if n_moe:
+        # the aux loss of the model's forward on the initial parameters (one
+        # rank: the stored shards are the whole tensors) through the plain
+        # versions, for the step's moe_aux metric to be held to
+        with plain_ops(), torch.no_grad():
+            aux_plain = float(tf.lm_forward(params, batch, cfg)[1])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     total = dict(NO_LAUNCHES)
     for i in range(TRAIN_STEPS):
@@ -1321,22 +1640,38 @@ def phase_train():
             raise AssertionError(f"train step {i}: launches {counts}, want {per_step}")
         total = {k: total[k] + counts[k] for k in total}
         losses.append(float(m["loss"]))
-        log(f"[train] step {i}: loss {losses[-1]:.5f} ce {float(m['ce']):.5f} grad_norm "
+        if i == 0:
+            aux0 = float(m["moe_aux"])
+        log(f"[{tag}] step {i}: loss {losses[-1]:.5f} ce {float(m['ce']):.5f} grad_norm "
             f"{float(m['grad_norm']):.4f} lr {m['lr']:.3g}, {times[-1]:.1f} ms")
     if not all(math.isfinite(x) for x in losses) or \
             not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"train: the loss did not fall at every step: {losses}")
+    if n_moe:
+        # the aux loss sums E * sum_e f_e P_e over the MoE layers: 1 a layer
+        # when balanced.  A routing flip moves it by ~E/(G T K) of a
+        # probability: the kernels' one-ulp differences move it far less
+        # than 1 %, a layer missing from the sum by 1/n_moe.
+        rel = abs(aux0 - aux_plain) / aux_plain
+        log(f"[{tag}] moe_aux at step 1: {aux0:.5f} over {n_moe} MoE layers, {aux0 / n_moe:.5f} "
+            f"a layer; the forward through the plain versions on the same parameters "
+            f"{aux_plain:.5f}: relative difference {rel:.3g} (must be finite and within 1 %)")
+        if not (math.isfinite(aux0) and rel <= 0.01):
+            raise AssertionError(f"train: moe_aux {aux0}, plain forward {aux_plain}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(times[1:])
-    tokens = TRAIN_SEQ
+    tokens = TRAIN_SEQ * batch_size
     s, h, dh = TRAIN_SEQ, cfg.n_heads, cfg.resolved_head_dim
-    dense_flops = 6 * n_params * tokens
-    attn_flops = 3 * 4 * cfg.n_layers * h * dh * s * (s + 1) // 2   # causal QK^T and PV, x3
+    n_active = active_params(cfg, n_params)
+    dense_flops = 6 * n_active * tokens
+    # causal QK^T and PV, x3 for the backward
+    attn_flops = 3 * 4 * cfg.n_layers * h * dh * s * (s + 1) // 2 * batch_size
     mfu = (dense_flops + attn_flops) / (step_ms / 1e3) / PEAK_BF16_FLOPS
-    log(f"[train] step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+    log(f"[{tag}] step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
         f"{times[0]:.1f} ms), {tokens / step_ms * 1e3:.1f} tokens/s; model FLOPs "
         f"{(dense_flops + attn_flops) / 1e12:.2f} T a step (6 N T = {dense_flops / 1e12:.2f} T "
-        f"with N = {n_params}, T = {tokens}; causal attention 12 L H dh S(S+1)/2 = "
+        f"with N = {n_active} active of {n_params}, T = {tokens}; causal attention "
+        f"12 L H dh S(S+1)/2 B = "
         f"{attn_flops / 1e12:.3f} T): {100 * mfu:.2f} % of the bf16 peak; peak memory "
         f"{peak / 2**30:.2f} GiB; launches a step {per_step}")
     busy, dev_ms = device_profile(lambda: step(params, opt, ef, batch), "train step", top=8)
@@ -1345,7 +1680,7 @@ def phase_train():
         tot = sum(dev_ms.values())
         for label, keys in (("flash bwd", FLASH_BWD_PASSES), ("flash fwd", ("flash_fwd_kernel",))):
             shares[label] = sum(v for key, v in dev_ms.items() if any(k in key for k in keys))
-            log(f"[train] profiled step: {label} {shares[label]:.2f} ms of {tot:.2f} ms device "
+            log(f"[{tag}] profiled step: {label} {shares[label]:.2f} ms of {tot:.2f} ms device "
                 f"time ({100 * shares[label] / tot:.1f} %)")
 
     # every flash launch of one step (gradients only), held against the plain version
@@ -1355,7 +1690,7 @@ def phase_train():
     del grads
     worst_fwd = [max(r[i] for r in fwd) for i in range(3)]
     worst_bwd = [max(r[i] for r in bwd) for i in range(2)]
-    log(f"[train] one step's launches against the plain versions on their own inputs: forward "
+    log(f"[{tag}] one step's launches against the plain versions on their own inputs: forward "
         f"over {len(fwd)}: o {worst_fwd[0]:.3f} of the tolerance with its absolute term scaled "
         f"by max(1, max|v|) (unscaled {worst_fwd[2]:.3f}, reported), lse {worst_fwd[1]:.4f}; "
         f"backward over {len(bwd)}: worst (batch, head) relative RMS of dq, dk, dv "
@@ -1371,15 +1706,29 @@ def phase_train():
     cfg2 = cfg.replace(n_layers=2)
     p2 = _first_periods(params, 2)
     step2 = make_train_step(TrainSetup(cfg=cfg2), mesh, tf.init_lm(cfg2, device="meta"))
-    got, _ = step2.grads_fn(p2, batch)
+    routes = []
+    with recorded_routing(routes):
+        got, _ = step2.grads_fn(p2, batch)
     with plain_train_ops():
         want, _ = step2.grads_fn(p2, batch)
     rel = leaf_rel_rms(got, want)
-    del got
+    rel_replayed = None
+    if cfg.moe:
+        # the plain versions routed as the kernels routed: what is left of
+        # the difference is the kernels' arithmetic, without routing flips
+        with plain_train_ops(), replayed_routing(routes):
+            rel_replayed = leaf_rel_rms(got, step2.grads_fn(p2, batch)[0])
+        worst = max(rel_replayed, key=rel_replayed.get)
+        log(f"[{tag}] depth 2, the plain versions routed as the kernels routed: per-leaf "
+            f"relative RMS of the gradient, worst {rel_replayed[worst]:.3g} ({worst}; limit "
+            f"{MODEL_LIMIT})")
+        if not max(rel_replayed.values()) <= MODEL_LIMIT:
+            raise AssertionError(f"depth-2 gradients, routing replayed: {rel_replayed}")
+    del got, routes
     with faulty_bwd_ops():
         fault = leaf_rel_rms(step2.grads_fn(p2, batch)[0], want)
     worst_leaf = max(rel, key=rel.get)
-    log(f"[train] depth 2, full width, per-leaf relative RMS of the gradient, kernels vs plain: "
+    log(f"[{tag}] depth 2, full width, per-leaf relative RMS of the gradient, kernels vs plain: "
         f"worst {rel[worst_leaf]:.3g} ({worst_leaf}; limit {MODEL_LIMIT}); control, dk/dv from "
         f"one head of each group: worst {max(fault.values()):.3g} "
         f"({max(fault, key=fault.get)}; must exceed the limit)")
@@ -1388,7 +1737,9 @@ def phase_train():
     del params, opt, p2, want
     torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
-    return {"train_arch": cfg.name, "train_params": n_params, "train_seq": TRAIN_SEQ,
+    return {"train_arch": cfg.name, "train_params": n_params, "train_active_params": n_active,
+            "train_batch": batch_size, "train_seq": TRAIN_SEQ, "train_moe_aux_step1": aux0,
+            "train_moe_aux_plain_forward": aux_plain if n_moe else None,
             "train_remat": cfg.remat, "train_lr": TRAIN_LR, "train_warmup": TRAIN_WARMUP,
             "train_losses": losses, "train_step_ms": step_ms, "train_step_times_ms": times,
             "train_tokens_per_s": tokens / step_ms * 1e3, "train_mfu": mfu,
@@ -1399,7 +1750,9 @@ def phase_train():
             "train_fwd_o_unscaled_ratio": worst_fwd[2], "train_bwd_head_rel_rms": worst_bwd[0],
             "train_bwd_grad_tolerance_ratio": worst_bwd[1],
             "train_depth2_grad_rel_rms": max(rel.values()),
-            "train_depth2_fault_rel_rms": max(fault.values())}
+            "train_depth2_fault_rel_rms": max(fault.values()),
+            "train_depth2_grad_rel_rms_routing_replayed":
+                rel_replayed and max(rel_replayed.values())}
 
 
 def run() -> int:
@@ -1452,19 +1805,48 @@ def run() -> int:
     del params
     torch.cuda.empty_cache()
 
-    for arch in ("llama3_8b", "mamba2_370m"):
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] {cfg.name} {tf.param_count(params) / 1e9:.3f} B params (bf16, f32 router) in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    moe_pre = phase_prefill(cfg, params, tag="moe prefill", prefix="moe_")
+    moe_dec = phase_moe_decode(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH):
         out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
         if not torch.isfinite(out["logits"]).all():
             raise AssertionError(f"serve entry point, {arch}: logits not finite")
+        del out
+        torch.cuda.empty_cache()
     log(f"[serve] ok; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    torch.cuda.empty_cache()
 
     tr = phase_train()
-    kernels[0].update(launches_train=tr["train_launches"]["flash_attention"])
+    moe_tr = {f"moe_{k}": v for k, v in
+              phase_train(MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, tag="moe train").items()}
+    # each kernel's launches in each path that ran it (counts set to 0 just before the path)
+    dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
+    kernels[0]["launches_by_path"] = {
+        "llama3-8b prefill": pre["flash_launches"],
+        "deepseek-moe-16b prefill": moe_pre["moe_flash_launches"],
+        dense_train: tr["train_launches"]["flash_attention"],
+        moe_train: moe_tr["moe_train_launches"]["flash_attention"]}
+    kernels[1]["launches_by_path"] = {
+        dense_train: tr["train_launches"]["flash_attention_bwd"],
+        moe_train: moe_tr["moe_train_launches"]["flash_attention_bwd"]}
+    kernels[2]["launches_by_path"] = {
+        "llama3-8b decode": dec["decode_launches"],
+        "deepseek-moe-16b decode (a)": moe_dec["moe_decode_a_launches"],
+        "deepseek-moe-16b decode (b)": moe_dec["moe_decode_b_launches"]}
+    kernels[3]["launches_by_path"] = {"mamba2-370m prefill": mpre["ssd_launches"]}
     kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
                       launches_per_step=tr["train_launches_per_step"]["flash_attention_bwd"])
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **tr, "card": smi}))
+    log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
+                    **tr, **moe_tr, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -34,9 +34,9 @@ def _listify(node):
 
 
 # Leaves the JAX package keeps in f32 whatever the model's dtype, of the
-# families ported so far: the norm scales and the SSM's conv, decay and skip
-# parameters.
-F32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "norm_w",
+# families ported so far: the norm scales, the MoE router and the SSM's conv,
+# decay and skip parameters.
+F32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "norm_w", "router",
                         "conv_w", "conv_b", "a_log", "dt_bias", "d_skip"})
 
 

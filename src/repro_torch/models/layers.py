@@ -28,6 +28,21 @@ def dense_init(shape, dtype, generator: torch.Generator, device, in_axis_size=No
     return out
 
 
+def stacked_init(shapes: dict, n_periods: int, dtype, generator: torch.Generator,
+                 device) -> dict:
+    """Stacked leaves [n_periods, ...] of ``{name: (shape, fan_in)}``, in
+    ``dtype``, or of ``{name: (shape, fan_in, leaf_dtype)}``; each leaf is
+    drawn one period at a time."""
+    out = {}
+    for name, (shape, fan_in, *dt) in shapes.items():
+        leaf_dtype = dt[0] if dt else dtype
+        leaf = torch.empty((n_periods,) + shape, dtype=leaf_dtype, device=device)
+        for p in range(n_periods):
+            dense_init(shape, leaf_dtype, generator, device, in_axis_size=fan_in, out=leaf[p])
+        out[name] = leaf
+    return out
+
+
 def padded_vocab(cfg: ModelConfig) -> int:
     """Vocab padded to a multiple of 256 so it shards over any mesh axis."""
     return ((cfg.vocab_size + 255) // 256) * 256

@@ -1,5 +1,5 @@
 """Decoder LM: init, forward, loss and cached decode (port of
-``repro.models.transformer``, dense and SSM families).
+``repro.models.transformer``: the dense, SSM and MoE families).
 
 Parameters are a plain dict in the JAX package's tree layout:
 ``{"embed", "layers": [one dict per period position], "final_norm",
@@ -24,21 +24,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (cross_entropy, dense_init, mlp_apply, padded_vocab,
-                                       rms_norm, rms_norm_init)
+                                       rms_norm, rms_norm_init, stacked_init)
 
 ParamFn = Optional[Callable[[Any], Any]]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The serving slices run dense decoders and pure-SSM (Mamba-2) models;
-    other families raise and name their item of the roadmap."""
-    todo = {"moe": "item 5, MoE", "hybrid": "item 6, hybrid (needs MoE, item 5)",
+    """The ported families are dense decoders, pure-SSM (Mamba-2) models and
+    MoE decoders (attention layers and a ``MoEConfig``); other families
+    raise and name their item of the roadmap."""
+    todo = {"moe": "item 6, hybrid", "hybrid": "item 6, hybrid",
             "vlm": "item 7, remaining families", "audio": "item 7, remaining families"}
-    ported = ((cfg.family == "dense" and cfg.ssm is None and set(cfg.pattern) == {"attn"})
-              or (cfg.family == "ssm" and cfg.ssm is not None and set(cfg.pattern) == {"mamba"}))
-    if not ported or cfg.moe or cfg.encoder or cfg.frontend:
+    attn_only = cfg.ssm is None and set(cfg.pattern) == {"attn"}
+    ported = ((cfg.family == "dense" and attn_only and not cfg.moe)
+              or (cfg.family == "moe" and attn_only and cfg.moe is not None)
+              or (cfg.family == "ssm" and cfg.ssm is not None and set(cfg.pattern) == {"mamba"}
+                  and not cfg.moe))
+    if cfg.family == "moe" and cfg.moe is None:
+        raise NotImplementedError(f"{cfg.name}: family 'moe' needs a MoEConfig (cfg.moe)")
+    if not ported or cfg.encoder or cfg.frontend:
         item = todo.get(cfg.family, "item 7, remaining families")
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP.md, Queue 1: {item})")
@@ -67,22 +74,12 @@ def n_periods(cfg: ModelConfig) -> int:
     return cfg.n_layers // plen
 
 
-def _stacked(shapes: dict, np_: int, dtype, gen, device) -> dict:
-    """Stacked leaves [n_periods, ...], drawn one period at a time."""
-    out = {}
-    for name, (shape, fan_in) in shapes.items():
-        leaf = torch.empty((np_,) + shape, dtype=dtype, device=device)
-        for p in range(np_):
-            dense_init(shape, dtype, gen, device, in_axis_size=fan_in, out=leaf[p])
-        out[name] = leaf
-    return out
-
-
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random parameters from a seeded generator on ``device``.
 
-    Each matrix is drawn in f32 and cast to ``cfg.dtype``; norm scales and
-    the SSM's conv, decay and skip leaves stay f32, as in the JAX package.
+    Each matrix is drawn in f32 and cast to ``cfg.dtype``; norm scales, the
+    MoE router and the SSM's conv, decay and skip leaves stay f32, as in the
+    JAX package.
     Layer leaves are drawn one period at a time, so the f32 peak is one period's largest
     leaf, not a whole stacked leaf (7.5 GB for llama3-8b's w_gate).  On the
     "meta" device it makes the tree of shapes and dtypes only (a template).
@@ -94,17 +91,20 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     d, np_ = cfg.d_model, n_periods(cfg)
     vp = padded_vocab(cfg)
     layers = []
-    for kind, _ in period_spec(cfg):
+    for kind, ffn in period_spec(cfg):
         lp = {"norm1": torch.zeros((np_, d), dtype=torch.float32, device=device)}
         if kind == "attn":
-            lp["mixer"] = _stacked(attn.attn_shapes(cfg), np_, dtype, gen, device)
+            lp["mixer"] = stacked_init(attn.attn_shapes(cfg), np_, dtype, gen, device)
         else:
             lp["mixer"] = ssm_mod.ssm_init(cfg, np_, dtype, gen, device)
-        if cfg.d_ff > 0:
+        if ffn is not None:
             lp["norm2"] = torch.zeros((np_, d), dtype=torch.float32, device=device)
-            lp["ffn"] = _stacked({"w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
-                                  "w_down": ((cfg.d_ff, d), cfg.d_ff)},
-                                 np_, dtype, gen, device)
+        if ffn == "moe":
+            lp["ffn"] = moe_mod.moe_init(cfg, np_, dtype, gen, device)
+        elif ffn == "dense":
+            lp["ffn"] = stacked_init({"w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
+                                      "w_down": ((cfg.d_ff, d), cfg.d_ff)},
+                                     np_, dtype, gen, device)
         layers.append(lp)
     params = {
         "embed": dense_init((vp, d), dtype, gen, device, in_axis_size=d),
@@ -136,6 +136,7 @@ def _period(tree, p: int):
 
 def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
                     mask=None, prefix_len: int = 0):
+    """One layer.  Returns (x, the MoE layer's aux loss, or None)."""
     kind, ffn = spec
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind == "attn":
@@ -144,15 +145,21 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
     else:
         h = ssm_mod.ssm_apply(lp["mixer"], h, cfg)
     x = x + h
+    aux = None
     if ffn is not None:
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(lp["ffn"], h, cfg.mlp_act)
-    return x
+        if ffn == "moe":
+            h, aux = moe_mod.moe_apply(lp["ffn"], h, cfg)
+        else:
+            h = mlp_apply(lp["ffn"], h, cfg.mlp_act)
+        x = x + h
+    return x, aux
 
 
 def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
                 mask=None, prefix_len: int = 0, layer_param_fn: ParamFn = None):
-    """Run the period stack over x [B,S,D].
+    """Run the period stack over x [B,S,D].  Returns (x, the sum of the MoE
+    layers' aux losses over periods and positions).
 
     ``layer_param_fn`` maps one period's parameters (a list over the period's
     positions) to the ones the layers use, inside the period's body.
@@ -166,18 +173,24 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
 
     def body(h, per_params):
         pp = layer_param_fn(per_params) if layer_param_fn else per_params
+        auxs = []
         for pos, spec in enumerate(specs):
-            h = _apply_sublayer(pp[pos], h, positions, cfg, spec, causal=causal, mask=mask,
-                                prefix_len=prefix_len)
-        return h
+            h, a = _apply_sublayer(pp[pos], h, positions, cfg, spec, causal=causal, mask=mask,
+                                   prefix_len=prefix_len)
+            if a is not None:
+                auxs.append(a)
+        return h, auxs
 
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(n_periods(cfg)):
         per = [_period(lp, p) for lp in layers]
         if cfg.remat == "full" and torch.is_grad_enabled():
-            x = checkpoint(body, x, per, use_reentrant=False)
+            x, auxs = checkpoint(body, x, per, use_reentrant=False)
         else:
-            x = body(x, per)
-    return x
+            x, auxs = body(x, per)
+        for a in auxs:
+            total = total + a
+    return x, total
 
 
 def unembed(params, x, cfg: ModelConfig):
@@ -200,13 +213,13 @@ def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
     tokens = batch["tokens"]
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = stack_apply(params["layers"], x, positions, cfg, causal=True,
-                    layer_param_fn=layer_param_fn)
+    x, aux = stack_apply(params["layers"], x, positions, cfg, causal=True,
+                         layer_param_fn=layer_param_fn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     out = x if hidden else unembed(params, x, cfg)
-    return out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return out, aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, layer_param_fn: ParamFn = None,
@@ -260,7 +273,11 @@ def decode_step(params, state, token, pos: int, cfg: ModelConfig):
             x = x + z
             if ffn is not None:
                 z = rms_norm(x, lp["norm2"], cfg.norm_eps)
-                x = x + mlp_apply(lp["ffn"], z, cfg.mlp_act)
+                if ffn == "moe":  # B groups of one token; the aux loss is not used
+                    z, _ = moe_mod.moe_apply(lp["ffn"], z, cfg)
+                else:
+                    z = mlp_apply(lp["ffn"], z, cfg.mlp_act)
+                x = x + z
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg), state
 

@@ -185,7 +185,7 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
         grads = _fixup_grads(grads, fd_tree, fab)
         # metrics: the last microbatch's ce, as the JAX package reports it
         stats = _psum(torch.stack([loss / setup.accum, m["ce"].detach().float()]), fab)
-        return grads, {"loss": stats[0], "ce": stats[1] / n_dp, "moe_aux": m["moe_aux"]}
+        return grads, {"loss": stats[0], "ce": stats[1] / n_dp, "moe_aux": m["moe_aux"].detach()}
 
     def global_norm(grads):
         """Squares of the sharded leaves summed over the rails, of the

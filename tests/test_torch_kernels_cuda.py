@@ -407,3 +407,42 @@ def test_ops_ssd_on_the_card_never_runs_the_plain_version(dev, monkeypatch):
     monkeypatch.setattr(tssd.KERNEL, "lib", broken)
     with pytest.raises(RuntimeError, match="build failed"):
         ops.ssd(x, dt, a, bm, cm, 16)
+
+
+def test_moe_apply_on_the_card_matches_the_cpu(dev):
+    """The MoE FFN has no kernel of its own (the JAX package leaves it to
+    XLA), but its ``topk``, stable ``argsort``, ``searchsorted`` and
+    ``index_add`` run on the card: at capacity factor 0.5, so that choices
+    drop, and B=3 groups, the routing, the bf16 buffers (one row a live
+    slot: exact, though the card adds with atomics) and the f32 output
+    (within 1e-5: products summed in another order) equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek_moe_16b", smoke=True).replace(dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(7)
+    p = {k: v[0] if torch.is_tensor(v) else {kk: vv[0] for kk, vv in v.items()}
+         for k, v in moe.moe_init(cfg, 1, torch.float32, gen, "cpu").items()}
+    p_dev = {k: v.to(dev) if torch.is_tensor(v) else {kk: vv.to(dev) for kk, vv in v.items()}
+             for k, v in p.items()}
+    x = torch.randn((3, 40, cfg.d_model), generator=gen)
+    logits = torch.einsum("gtd,de->gte", x, p["router"])
+    gates, idx, _ = moe.router_topk(logits, cfg.moe)
+    gates_d, idx_d, _ = moe.router_topk(logits.to(dev), cfg.moe)
+    assert torch.equal(idx_d.cpu(), idx)
+    pos = moe.choice_positions(idx, cfg.moe.n_experts)
+    assert torch.equal(moe.choice_positions(idx_d, cfg.moe.n_experts).cpu(), pos)
+    cap = moe.moe_capacity(cfg.moe, x.shape[1])
+    fits = pos < cap
+    assert not fits.all()
+    xb = x.to(torch.bfloat16)
+    buf = moe.scatter_dispatch(xb, idx, pos, fits, cfg.moe.n_experts, cap)
+    buf_d = moe.scatter_dispatch(xb.to(dev), idx.to(dev), pos.to(dev), fits.to(dev),
+                                 cfg.moe.n_experts, cap)
+    assert torch.equal(buf_d.cpu(), buf)
+    y, aux = moe.moe_apply(p, x, cfg)
+    y_d, aux_d = moe.moe_apply(p_dev, x.to(dev), cfg)
+    assert torch.allclose(y_d.cpu(), y, atol=1e-5, rtol=0)
+    assert abs(aux_d.item() - aux.item()) < 1e-6

@@ -290,15 +290,27 @@ def test_serve_main_runs_mamba_on_cpu(capsys):
 
 
 def test_hybrid_and_moe_still_raise():
+    """The hybrid family still raises; an MoE config now initialises and runs
+    (forward and decode), and a family="moe" config without a MoEConfig
+    still raises and names MoE."""
     jamba = get_config("mamba2_370m", smoke=True).replace(family="hybrid",
                                                           layer_pattern=("mamba", "attn"))
-    moe = get_config("llama3_8b", smoke=True).replace(
-        family="moe", moe=MoEConfig(n_experts=4, top_k=2))
-    for cfg, item in ((jamba, "item 6, hybrid"), (moe, "item 5, MoE")):
-        with pytest.raises(NotImplementedError, match=item):
-            tf.init_lm(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_decode_state(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6, hybrid"):
+        tf.init_lm(jamba, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.init_decode_state(jamba, 1, 8, device="cpu")
+    dense = get_config("llama3_8b", smoke=True)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tf.init_lm(dense.replace(family="moe"), device="cpu")
+    moe = dense.replace(family="moe", moe=MoEConfig(n_experts=4, top_k=2))
+    params = tf.init_lm(moe, device="cpu")
+    assert params["layers"][0]["ffn"]["w_gate"].shape == (moe.n_layers, 4, moe.d_model, moe.d_ff)
+    tokens = torch.randint(0, moe.vocab_size, (2, 6), generator=torch.Generator().manual_seed(0))
+    logits, aux = tf.lm_forward(params, {"tokens": tokens}, moe)
+    assert torch.isfinite(logits).all() and aux.item() > 0
+    state = tf.init_decode_state(moe, 2, 8, device="cpu")
+    logits, _ = tf.decode_step(params, state, tokens[:, :1], 0, moe)
+    assert logits.shape[:2] == (2, 1) and torch.isfinite(logits).all()
 
 
 def _tf32(t):

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package's, on the CPU.
 
 yi-9b's smoke configuration in f32 on B=8, S=16, as in
-tests/test_train_step.py.  The reference is ``jax.grad`` of the JAX
+tests/test_train_step.py, and deepseek-moe-16b's (the MoE twin of its
+``test_moe_arch_through_distributed_step``).  The reference is ``jax.grad`` of the JAX
 package's ``lm_loss`` on its own ``init_lm`` parameters; the port gets the
 same parameters through ``bridge.shards_from_numpy`` and trains on four
 spawned gloo ranks (``run_ranks`` from test_torch_fabric.py).  Gradients are
@@ -29,6 +30,7 @@ from repro_torch.train.step import TrainSetup, gather_tree, make_train_step
 from repro_torch.tree import leaves, tree_map
 
 CFG = get_config("yi_9b", smoke=True).replace(dtype="float32")
+MOE_CFG = get_config("deepseek_moe_16b", smoke=True).replace(dtype="float32")
 B, S, WORLD = 8, 16, 4
 GRAD_RTOL = 1e-4   # per leaf, relative RMS
 # (label, mesh shape and axes, TrainSetup fields, config fields)
@@ -68,6 +70,18 @@ def _rank_main(rank, world, store, tmp):
         # the updated shards, gathered back to global arrays
         for path, p in bridge.to_numpy(gather_tree(params, step.fd_tree, fab)).items():
             out[f"{label}/param/{path}"] = p
+    # MoE: each rank's aux loss is over its own rows, so the step's objective
+    # is the mean over ranks of lm_loss on each rank's rows
+    moe_ref = dict(np.load(os.path.join(tmp, "moe_params.npz")))
+    mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    step = make_train_step(TrainSetup(cfg=MOE_CFG), mesh, tf.init_lm(MOE_CFG, device="meta"))
+    fab = step.fabric
+    params = bridge.shards_from_numpy(moe_ref, fab.axis_index(), fab.n_shards, "cpu", "float32")
+    grads, _ = step.grads_fn(params, batch)
+    for path, g in bridge.to_numpy(gather_tree(grads, step.fd_tree, fab)).items():
+        out[f"moe/grad/{path}"] = g
+    _, _, _, m = step(params, topt.adamw_init(params), {}, batch)
+    out["moe/loss"] = float(m["loss"])
     # the loss over 8 steps on one fixed batch (tests/test_train_step.py)
     mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
     setup = TrainSetup(cfg=CFG, opt=topt.OptConfig(lr=3e-3, warmup_steps=2))
@@ -111,9 +125,37 @@ def reference():
 
 
 @pytest.fixture(scope="module")
-def port(reference, tmp_path_factory):
+def moe_reference(reference):
+    """deepseek-moe-16b's smoke parameters; the loss on one device; and the
+    gradients of the distributed step's exact objective, (1/n_dp) times the
+    sum over ranks of ``lm_loss`` on each rank's rows, and its value."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import get_config as jax_config
+    from repro.models import transformer as T
+    from repro.parallel.sharding import _path_str
+
+    cfg = jax_config("deepseek_moe_16b", smoke=True).replace(dtype="float32")
+    params = T.init_lm(jax.random.PRNGKey(0), cfg)
+    batch = {k: jnp.asarray(v) for k, v in reference["batch"].items()}
+    rows = B // WORLD
+
+    def objective(p):
+        return sum(T.lm_loss(p, {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()},
+                             cfg)[0] for r in range(WORLD)) / WORLD
+    value, g = jax.value_and_grad(objective)(params)
+    flat = lambda t: {_path_str(p): np.asarray(x)  # noqa: E731
+                      for p, x in jax.tree_util.tree_flatten_with_path(t)[0]}
+    return {"params": flat(params), "grads": flat(g), "objective": float(value),
+            "loss": float(T.lm_loss(params, batch, cfg)[0])}
+
+
+@pytest.fixture(scope="module")
+def port(reference, moe_reference, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train")
     np.savez(tmp / "params.npz", **reference["params"])
+    np.savez(tmp / "moe_params.npz", **moe_reference["params"])
     np.savez(tmp / "batch.npz", **reference["batch"])
     run_ranks(_rank_main, WORLD, tmp, str(tmp))
     return dict(np.load(tmp / "out.npz"))
@@ -130,6 +172,36 @@ def test_loss_and_grad_norm_match_jax(reference, port, label):
     assert abs(float(port[f"{label}/loss"]) - reference["loss"]) < 1e-4
     gn = float(port[f"{label}/grad_norm"])
     assert abs(gn - reference["grad_norm"]) / reference["grad_norm"] < 1e-3
+
+
+def test_moe_gradients_match_jax_distributed_objective(moe_reference, port):
+    """Per leaf, the router and the experts included: each rank's aux loss
+    is over its own rows, which the objective reproduces exactly."""
+    for path, want in moe_reference["grads"].items():
+        assert _rel_rms(port[f"moe/grad/{path}"], want) <= GRAD_RTOL, path
+
+
+def test_moe_loss_matches_jax(moe_reference, port):
+    """The step's loss is the objective's value; against the loss on one
+    device (aux over all rows, a nonlinear partition of the same quantity)
+    it is held within 1e-2, as tests/test_train_step.py holds the JAX step."""
+    assert abs(port["moe/loss"] - moe_reference["objective"]) < 1e-4
+    assert abs(port["moe/loss"] - moe_reference["loss"]) < 1e-2
+
+
+def test_moe_leaf_specs_match_jax(moe_reference):
+    """The stacked [np, E, d, de] expert leaves, the router and the shared
+    experts get the JAX package's FSDP and TP dims."""
+    from repro.parallel import sharding as jsh
+
+    from repro_torch.parallel import sharding
+    for path, arr in moe_reference["params"].items():
+        kw = dict(n_rails=4, rail_axes=("data",), model_size=1,
+                  stacked=path.startswith("layers"))
+        assert sharding.leaf_spec(path, arr.shape, **kw)[1:] == \
+            jsh.leaf_spec(path, arr.shape, **kw)[1:], path
+    assert {p for p in moe_reference["params"] if "/ffn/" in p} >= {
+        "layers/0/ffn/router", "layers/0/ffn/w_gate", "layers/0/ffn/shared/w_down"}
 
 
 def test_step_updates_every_leaf_and_keeps_shapes(reference, port):
