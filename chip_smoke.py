@@ -10,8 +10,9 @@ and the script exits non-zero without printing a result:
  2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     nvcc (one process per source, started together), with registers, shared
     memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel,
-    in the flash backward's kernels or in any pass of the SSD scan fails, as
-    does a missing bf16 tensor-core dk/dv or dq kernel (dh 64 and 128);
+    in the flash backward's kernels, in any pass of the SSD scan or in any
+    256-wide instantiation fails, as does a missing bf16 tensor-core flash,
+    dk/dv or dq kernel (dh 64, 128 and 256);
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
@@ -74,9 +75,20 @@ and the script exits non-zero without printing a result:
     version's and the prefill's over the positions routed alike, and a
     planted fault's must not; each decode launch of one step is held
     against the plain version;
-10. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
-    mamba2-370m and deepseek-moe-16b;
-11. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
+10. gemma-7b prefill: full width and depth (28 layers, 16 heads on 16 kv
+    heads at dh 256, GeGLU, tied embeddings, bf16, random weights from
+    seed 0), as phase 4: every one of its 28 flash launches (the 256-wide
+    instantiation) held against the plain version, and the depth-2 logits;
+11. gemma-7b decode, as phase 9 without routing: (a) and (b), host and
+    device ms a step beside the floor, every flash-decode launch of a step
+    held against the plain version, the depth-2 teacher-forced logits
+    against the plain version's and the prefill's;
+12. llama-80b (the paper's Table 3 model) prefill at full width (d=8192, 64
+    heads on 8 kv heads, d_ff 28672) on 4 of its 96 layers, B=1, S=4096, as
+    phase 4;
+13. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
+    mamba2-370m, deepseek-moe-16b and gemma-7b;
+14. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
     weights from seed 0) through ``make_train_step`` as ``repro_torch.launch.train`` sets it up
     on an NCCL group of one process, B=1, S=4096, four AdamW steps on one
     fixed ``synth_batch``: the loss must fall at every step, the flash
@@ -87,10 +99,18 @@ and the script exits non-zero without printing a result:
     fault in the backward must not; step time, tokens/s, the model-FLOP
     share of the bf16 peak, peak memory and the device's busy share of one
     profiled step;
-12. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
+15. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
     at B=2, S=4096, with the model-FLOP share over the active parameters,
     and the first step's ``moe_aux`` held to the aux of the plain forward on
-    the same parameters.
+    the same parameters;
+16. train: gemma-7b at full width on 8 of its 28 layers (its whole training
+    state does not fit the card), B=1, S=4096, the same way.
+
+The kernel phase also runs each attention kernel's 256-wide instantiation
+at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
+B=8 and a full 4096-slot cache), held to its plain version, with two planted
+faults of its column split (the output's columns 128-255 zeroed, S from the
+first 128 dims only) that must fail the same check.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one JSON
 line with every kernel's numbers (and its launches in each path that ran
@@ -126,11 +146,16 @@ MODEL_LIMIT = 0.05
 # flips a near-tie among the experts; a flipped token is left out of the
 # logits' comparison, see ``moe_prefill_depth2``).
 MOE_FLIP_LIMIT = 0.01
-# The bf16 flash kernel runs two blocks an SM; nvcc 12.9 gives it 228
-# registers at dh=128 once told the block size, 255 without.  The build
-# phase fails above this count or on any spill, so a compiler that drops
-# the bound shows here rather than as a slower kernel.
+# The bf16 flash kernel runs two blocks an SM up to dh 128; nvcc 12.9 gives
+# it 222 registers at dh=128 once told the block size, 255 without.  The
+# build phase fails above this count or on any spill, so a compiler that
+# drops the bound shows here rather than as a slower kernel.
 FLASH_BF16_MAX_REGISTERS = 240
+# At dh 256 it runs one block of 8 warps an SM (its 165 KiB of shared
+# memory), each warp owning half of the output columns and reading Q's
+# fragments from shared memory; nvcc 12.9 gives it 176 registers.  Keeping
+# Q's fragments in registers would add 64: the build fails above this count.
+FLASH_BF16_256_MAX_REGISTERS = 200
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
                "ssd_scan": 0}
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
@@ -146,6 +171,14 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
 # depth (16.9 B parameters, 33.8 GB in bf16), and granite-moe-1b-a400m
 # training (1.33 B parameters, 0.43 B active a token) at B=2, S=TRAIN_SEQ.
 MOE_ARCH, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH = "deepseek_moe_16b", "granite_moe_1b_a400m", 2
+# The rest of the dense zoo (phases 10-12 and 16): gemma-7b (attention of 16
+# heads on 16 kv heads at dh 256) served at full width and depth, trained at
+# full width on GEMMA_TRAIN_LAYERS of its 28 layers (its training state at
+# full depth, 102 GB, does not fit one card); the paper's llama-80b (Table 3)
+# prefill at full width on PAPER_LAYERS of its 96 layers.
+GEMMA_ARCH, GEMMA_TRAIN_LAYERS = "gemma_7b", 8
+PAPER_ARCH, PAPER_LAYERS = "llama_80b", 4
+GEMMA_ATTN = (16, 16, 256)  # heads, kv heads, head dim
 # The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order.
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
 
@@ -381,14 +414,26 @@ def phase_build():
             log(f"[build] {name}: {fn}: {res}")
     tc = {fn: res for fn, res in ops.KERNELS["flash_attention"].resources().items()
           if "tc16flash_fwd_kernel" in fn}
-    if not tc:
-        raise AssertionError("[build] no bf16 tensor-core flash kernel in the ptxas log")
+    if len(tc) != 3:  # dh 64, 128 and 256
+        raise AssertionError(f"[build] bf16 tensor-core flash kernels in the ptxas log: {sorted(tc)}")
     for fn, res in tc.items():
-        if res["registers"] is None or res["registers"] > FLASH_BF16_MAX_REGISTERS \
-                or res["spill_stores"]:
-            raise AssertionError(f"[build] bf16 flash kernel {fn}: {res}, over "
-                                 f"{FLASH_BF16_MAX_REGISTERS} registers or spilling")
-    log(f"[build] bf16 flash kernels within {FLASH_BF16_MAX_REGISTERS} registers, no spills")
+        limit = FLASH_BF16_256_MAX_REGISTERS if "Li256E" in fn else FLASH_BF16_MAX_REGISTERS
+        if res["registers"] is None or res["registers"] > limit or res["spill_stores"]:
+            raise AssertionError(f"[build] bf16 flash kernel {fn}: {res}, over {limit} "
+                                 f"registers or spilling")
+    log(f"[build] bf16 flash kernels within {FLASH_BF16_MAX_REGISTERS} registers up to dh 128 "
+        f"and {FLASH_BF16_256_MAX_REGISTERS} at 256, no spills")
+    # every 256-wide instantiation (flash forward, backward and decode, bf16 and f32)
+    wide = {f"{name}: {fn}": res for name, k in ops.KERNELS.items()
+            for fn, res in k.resources().items() if "Li256E" in fn}
+    if len(wide) != 12:  # forward 2, backward 4, decode pass 1: 2 dtypes x 3 bundle sizes
+        raise AssertionError(f"[build] 256-wide instantiations in the ptxas log: {sorted(wide)}")
+    for fn, res in sorted(wide.items()):
+        log(f"[build] dh 256: {fn[:110]}: {res['registers']} registers, {res['static_smem']} B "
+            f"static shared memory, {res['spill_stores']} B spilled")
+    spills = {fn: res for fn, res in wide.items() if res["spill_stores"]}
+    if spills:
+        raise AssertionError(f"[build] 256-wide instantiations spilling: {spills}")
     ssd = ops.KERNELS["ssd_scan"].resources()
     missing = [k for k in SSD_PASSES if not any(k in fn for fn in ssd)]
     spills = {fn: res for fn, res in ssd.items() if res["spill_stores"]}
@@ -404,7 +449,7 @@ def phase_build():
                              f"{missing}, spilling {spills}")
     tc_bwd = {fn: res for fn, res in bwd.items() if "2tc4dkdv11dkdv_kernel" in fn
               or "2tc2dq9dq_kernel" in fn}
-    if len(tc_bwd) != 4:  # dk/dv and dq, each at dh 64 and 128
+    if len(tc_bwd) != 6:  # dk/dv and dq, each at dh 64, 128 and 256
         raise AssertionError(f"[build] flash backward: bf16 tensor-core kernels in the ptxas "
                              f"log: {sorted(tc_bwd)}")
     log("[build] flash backward bf16 tensor-core kernels: " + "; ".join(
@@ -426,6 +471,13 @@ def phase_build():
         f"{da_lib.repro_decode_attention_smem_bytes(4, 128)} B ({decode_split()}-slot splits); "
         f"ssd scan passes A, B, D: "
         f"{', '.join(str(ssd_lib.repro_ssd_scan_smem_bytes(i)) for i in (0, 1, 3))} B")
+    log(f"[build] at dh=256: flash bf16 {fa_lib.repro_flash_attention_smem_bytes(1, 256)} B "
+        f"({fa_lib.repro_flash_attention_col_parts(256)} warps a row group, one a column half), "
+        f"f32 {fa_lib.repro_flash_attention_smem_bytes(0, 256)} B; backward bf16 dk/dv "
+        f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 256)} B, dq "
+        f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 256)} B "
+        f"({bwd_lib.repro_flash_attention_bwd_col_parts(256)} blocks a tile, one a column half); "
+        f"decode pass 1 (rep=1) {da_lib.repro_decode_attention_smem_bytes(1, 256)} B")
 
 
 def flash_case(b, s, h, kv, dh, dtype, seed=0):
@@ -470,43 +522,232 @@ def phase_flash():
     lib_ratio = ref.tolerance_ratio(lib.transpose(1, 2), want)
     log(f"[flash] sdpa vs plain max_abs_err {max_err(lib.transpose(1, 2), want):.3g}, "
         f"{lib_ratio:.2f} of the tolerance (reported: SDPA rounds P to bf16 before P.V)")
+    t = flash_times(q, k, v, "[flash]")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:36", "dh256": flash_256(),
+            "max_abs_err": worst, "tolerance": "1e-5 + 2^-7 |plain| (bf16)",
+            "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
+            "library_tolerance_ratio": lib_ratio, **t,
+            "shape": f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"}
+
+
+def bound(flops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time of a call, the larger of its operations at the card's
+    peak for their type and its bytes at the memory rate, and which binds."""
+    by_ops = flops / peak_flops > nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(flops / peak_flops, nbytes / PEAK_HBM_BYTES) * 1e3,
+            "bound_by": "operations" if by_ops else "bytes"}
+
+
+def flash_times(q, k, v, tag: str) -> dict:
+    """The bf16 flash kernel, its plain version and SDPA (the yardstick) on
+    causal q, k, v: CUDA events and device times, the bound, and the FLOPs
+    the kernel's tiles execute (derived from the library's tiles and column
+    parts, not measured)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t = timings(lambda: fa.flash_attention(q, k, v, causal=True),
                 lambda: ref.mha(q, k, v, causal=True),
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                        enable_gqa=True), 12)
-    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
     pairs = b * h * s * (s + 1) // 2          # unmasked (query, key) pairs
     flops = 4 * pairs * dh                    # QK^T and PV, two FLOPs per multiply-add
-    # derived, not measured: the tensor-core FLOPs of every whole q x kv tile
-    # the kernel visits (tile sizes from its library; q tile a multiple of the
-    # kv tile, so causal tiles end on the diagonal), with P.V done twice (P
-    # split into a bf16 high and low part, csrc/flash_attention.cu)
+    nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kv * dh)
+    t.update(bound(flops, nbytes))
+    # every whole q x kv tile the kernel visits (q tile a multiple of the kv
+    # tile, so causal tiles end on the diagonal): S once for each column
+    # part, P.V twice (P split into a bf16 high and low part)
     bq, bk = flash_q_tile(), flash_tile()
     if bq % bk:
-        raise AssertionError(f"[flash] q tile {bq} not a multiple of the kv tile {bk}")
+        raise AssertionError(f"{tag} q tile {bq} not a multiple of the kv tile {bk}")
+    parts = fa.KERNEL.lib().repro_flash_attention_col_parts(dh)
     kv_tiles = sum(-(-min(s, (i + 1) * bq) // bk) for i in range(-(-s // bq)))
-    executed = (1 + 2) * 2 * b * h * kv_tiles * bq * bk * dh
-    nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kv * dh)
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    dev_ms = t["device_ms"] or ms
-    log(f"[flash] {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms sdpa "
-        f"(CUDA events; device time {t['device_ms']} / {t['plain_device_ms']} / "
-        f"{t['library_device_ms']}), bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP needed, "
-        f"{nbytes / 1e6:.1f} MB); {flops / dev_ms / 1e9:.1f} TFLOP/s needed, "
-        f"{100 * bound_ms / dev_ms:.1f} % of the bound (device time)")
-    log(f"[flash] derived from the kernel's {bq}x{bk} tiles and P.V done twice, not measured: "
-        f"{executed / 1e9:.1f} GFLOP on the tensor cores, "
+    executed = (parts + 2) * 2 * b * h * kv_tiles * bq * bk * dh
+    dev_ms = t["device_ms"] or t["ms"]
+    log(f"{tag} {t['ms']:.3f} ms kernel, {t['plain_ms']:.3f} ms plain, {t['library_ms']:.3f} ms "
+        f"sdpa (CUDA events; device time {t['device_ms']} / {t['plain_device_ms']} / "
+        f"{t['library_device_ms']}), bound {t['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP "
+        f"needed, {nbytes / 1e6:.1f} MB); {flops / dev_ms / 1e9:.1f} TFLOP/s needed, "
+        f"{100 * t['bound_ms'] / dev_ms:.1f} % of the bound (device time)")
+    log(f"{tag} derived from the kernel's {bq}x{bk} tiles, S once for each of {parts} column "
+        f"part(s) and P.V twice, not measured: {executed / 1e9:.1f} GFLOP on the tensor cores, "
         f"{executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:36",
-            "max_abs_err": worst, "tolerance": "1e-5 + 2^-7 |plain| (bf16)",
-            "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
-            "library_tolerance_ratio": lib_ratio, **t,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
-            else "bytes",
-            "shape": f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"}
+    return t
+
+
+def upper_half_zeroed(t):
+    """A planted fault of a column split: the last dim's columns from half
+    its width on (128-255 at dh 256) never written."""
+    t = t.clone()
+    t[..., t.shape[-1] // 2:] = 0
+    return t
+
+
+def flash_bwd_times(q, k, v, o, lse, do, tag: str) -> dict:
+    """The bf16 flash backward, its plain version and SDPA's backward (the
+    yardstick) on causal inputs: CUDA events and device times, the device
+    time of each of its kernels, the bound, and the FLOPs its tiles execute
+    (derived from the library's tiles and column parts, not measured)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    t = timings(lambda: fab.flash_attention_bwd(q, k, v, o, lse, do),
+                lambda: ref.mha_bwd(q, k, v, o, lse, do),
+                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), 6)
+    passes = device_ms_by_kernel(lambda: fab.flash_attention_bwd(q, k, v, o, lse, do), 4)
+    t["pass_device_ms"] = {k_: sum(v_ for key, v_ in passes.items() if k_ in key)
+                           for k_ in FLASH_BWD_PASSES}
+    log(f"{tag} device ms per call by kernel: "
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t["pass_device_ms"].items()))
+    pairs = b * h * s * (s + 1) // 2           # unmasked (query, key) pairs
+    flops = 10 * pairs * dh                    # S again, dP, dV, dK, dQ: 2.5x the forward
+    nbytes = 2 * (4 * b * s * h * dh + 4 * b * s * kv * dh) + 4 * b * h * s
+    t.update(bound(flops, nbytes))
+    dev_ms = t["device_ms"] or t["ms"]
+    log(f"{tag} {t['ms']:.3f} ms kernel, {t['plain_ms']:.3f} ms plain, "
+        f"{t['library_ms']:.3f} ms sdpa backward (CUDA events; device time {t['device_ms']} / "
+        f"{t['plain_device_ms']} / {t['library_device_ms']}), bound {t['bound_ms']:.4f} ms "
+        f"({flops / 1e9:.1f} GFLOP needed, {nbytes / 1e6:.1f} MB); "
+        f"{flops / dev_ms / 1e9:.1f} TFLOP/s needed, {100 * t['bound_ms'] / dev_ms:.2f} % of the "
+        f"bound (device time)")
+    executed = flash_bwd_executed_flops(b, s, h, kv, dh)
+    log(f"{tag} derived from the kernels' tiles, not measured: {executed / 1e9:.1f} GFLOP "
+        f"on the tensor cores ({executed / flops:.2f}x the {flops / 1e9:.1f} needed: the dq pass "
+        f"recomputes S and dP, P and dS are split hi + lo, S and dP once for each column part), "
+        f"{executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
+    return t
+
+
+def decode_times(q, kc, vc, valid, tag: str) -> dict:
+    """The bf16 flash-decode kernel, its plain version and SDPA (the
+    yardstick): CUDA events and device times, and the bound of the K/V that
+    this run's mask lets through."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    b, c, kv, dh = kc.shape
+    h = q.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    am = valid[:, None, None, :]
+    t = timings(lambda: da.decode_attention(q, kc, vc, valid),
+                lambda: ref.decode_attention(q, kc, vc, valid),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                       enable_gqa=True), 40)
+    n_valid = int(valid.sum().item())          # slots this run's mask lets through
+    nbytes = 2 * n_valid * kv * dh * 2 + 2 * (2 * b * h * dh) + b * c
+    t.update(bound(4 * n_valid * h * dh, nbytes))
+    dev_ms = t["device_ms"] or t["ms"]
+    log(f"{tag} {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms "
+        f"sdpa (CUDA events; device time {t['device_ms']} / {t['plain_device_ms']} / "
+        f"{t['library_device_ms']}), bound {t['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
+        f"{nbytes / dev_ms / 1e6:.0f} GB/s achieved, {100 * t['bound_ms'] / dev_ms:.1f} % of the "
+        f"bound (device time)")
+    return t
+
+
+def flash_256() -> dict:
+    """The bf16 flash kernel at gemma-7b's prefill shape (B=1 S=4096, 16 heads
+    on 16 kv heads, dh 256, causal): held to ``ref.mha``; two planted faults
+    of its column split (the output's columns 128-255 zeroed, S from the first
+    128 dims only) must fail the same check; times beside the bound, the
+    plain version and SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, s, (h, kv, dh) = 1, 4096, GEMMA_ATTN
+    shape = f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"
+    q, k, v = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=21)
+    want = ref.mha(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True)
+    err, ratio = hold(f"[flash dh256] gemma-7b shape {shape}", got, want)
+    ctrl = min(control("[flash dh256] control: the kernel's output with columns 128-255 zeroed",
+                       upper_half_zeroed(got), want),
+               control("[flash dh256] control: plain with S from the first 128 dims only",
+                       ref.mha(upper_half_zeroed(q), k, v, causal=True, scale=dh ** -0.5), want))
+    return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio, "control_ratio": ctrl,
+            **flash_times(q, k, v, "[flash dh256]")}
+
+
+def flash_bwd_256() -> dict:
+    """The bf16 flash backward at gemma-7b's training shape (B=1 S=4096, 16
+    heads on 16 kv heads, dh 256, causal): dq, dk and dv held to
+    ``ref.mha_bwd``; the planted faults of its column split (each gradient's
+    columns 128-255 zeroed; the gradients of attention whose S sees the
+    first 128 dims only) must fail the same check; times beside the bound,
+    the plain version and SDPA's backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    b, s, (h, kv, dh) = 1, 4096, GEMMA_ATTN
+    shape = f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"
+    q, k, v = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=22)
+    do = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=32)[0]
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    o_w, lse_w = ref.mha_fwd_lse(q, k, v)
+    hold(f"[flash bwd dh256] {shape}: forward o", o, o_w)
+    lse_ratio = ref.lse_tolerance_ratio(lse, lse_w)
+    log(f"[flash bwd dh256] forward lse {lse_ratio:.4f} of the tolerance")
+    if not lse_ratio <= 1:
+        raise AssertionError("[flash bwd dh256] the forward's lse disagrees with ref.mha_fwd_lse")
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.mha_bwd(q, k, v, o, lse, do)
+    worst, worst_ratio = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, ratio = hold(f"[flash bwd dh256] gemma-7b shape {shape}: {name}", g, w,
+                          ref.grad_tolerance_ratio)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    ctrl = min(control(f"[flash bwd dh256] control: the kernel's {name} with columns 128-255 "
+                       f"zeroed", upper_half_zeroed(g), w, ref.grad_tolerance_ratio)
+               for name, g, w in zip(("dq", "dk", "dv"), got, want))
+    del got
+    qh = upper_half_zeroed(q)
+    s_half = ref.mha_bwd(qh, k, v, *ref.mha_fwd_lse(qh, k, v, scale=dh ** -0.5), do,
+                         scale=dh ** -0.5)
+    s_ratio = max(ref.grad_tolerance_ratio(g, w) for g, w in zip(s_half, want))
+    log(f"[flash bwd dh256] control: plain with S from the first 128 dims only: worst of dq, dk, "
+        f"dv {s_ratio:.1f} x the tolerance (must exceed 1)")
+    if not s_ratio > 1:
+        raise AssertionError("[flash bwd dh256]: the tolerance does not see S from 128 dims")
+    del s_half, want
+    return {"shape": shape, "max_abs_err": worst, "tolerance_ratio": worst_ratio,
+            "control_ratio": min(ctrl, s_ratio), "forward_lse_tolerance_ratio": lse_ratio,
+            **flash_bwd_times(q, k, v, o, lse, do, "[flash bwd dh256]")}
+
+
+def decode_256() -> dict:
+    """The bf16 flash-decode kernel at gemma-7b's decode shape (B=8, a full
+    4096-slot cache, 16 heads on 16 kv heads, dh 256): held to
+    ``ref.decode_attention``; the output's columns 128-255 zeroed and S from
+    the first 128 dims only must fail the same check; times beside the
+    bound, the plain version and SDPA."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    b, c, (h, kv, dh) = 8, 4096, GEMMA_ATTN
+    shape = f"B={b} C={c} H={h} KV={kv} dh={dh} bf16, all slots valid"
+    q, kc, vc, valid = decode_inputs(b, c, h, kv, dh, torch.bfloat16, "all", seed=23)
+    want = ref.decode_attention(q, kc, vc, valid)
+    got = da.decode_attention(q, kc, vc, valid)
+    err, ratio = hold(f"[decode dh256] gemma-7b shape {shape}", got, want)
+    ctrl = min(control("[decode dh256] control: the kernel's output with columns 128-255 zeroed",
+                       upper_half_zeroed(got), want),
+               control("[decode dh256] control: plain with S from the first 128 dims only",
+                       ref.decode_attention(upper_half_zeroed(q), kc, vc, valid,
+                                            scale=dh ** -0.5), want))
+    return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio, "control_ratio": ctrl,
+            **decode_times(q, kc, vc, valid, "[decode dh256]")}
 
 
 def flash_bwd_faults(q, k, v, o, lse, do, want):
@@ -533,22 +774,24 @@ def flash_bwd_faults(q, k, v, o, lse, do, want):
 def flash_bwd_executed_flops(b, s, h, kv, dh) -> int:
     """Derived, not measured: the tensor-core FLOPs of every whole tile pair
     the bf16 backward kernels visit at a causal shape with no window (tile
-    sizes from the library, dh padded to the kernel's 64 or 128): 12 dh_pad a
-    (query, key) pair in dk/dv (S^T, dP^T, dv and dk each twice: P and dS
-    split hi + lo) and 8 dh_pad in dq (S, dP, dq twice)."""
+    sizes and column parts from the library, dh padded to the kernel's 64,
+    128 or 256): (4 parts + 8) dh_pad a (query, key) pair in dk/dv (S^T and
+    dP^T once for each column part, dv and dk each twice: P and dS split hi +
+    lo) and (4 parts + 4) dh_pad in dq (S and dP for each part, dq twice)."""
     from repro_torch.kernels import flash_attention_bwd as fab
     lib = fab.KERNEL.lib()
     bk, bq_dq, bq_kv = (lib.repro_flash_attention_bwd_tile(i) for i in range(3))
-    dhp = 64 if dh <= 64 else 128
+    parts = lib.repro_flash_attention_bwd_col_parts(dh)
+    dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
     n_q = -(-s // bq_kv)
     kv_pairs = sum(n_q - (kt * bk) // bq_kv for kt in range(-(-s // bk))) * (h // kv)
     dq_pairs = sum(-(-min(s, (qt + 1) * bq_dq) // bk) for qt in range(-(-s // bq_dq)))
-    return b * (kv * kv_pairs * bk * bq_kv * 12 + h * dq_pairs * bq_dq * bk * 8) * dhp
+    return b * (kv * kv_pairs * bk * bq_kv * (4 * parts + 8)
+                + h * dq_pairs * bq_dq * bk * (4 * parts + 4)) * dhp
 
 
 def phase_flash_bwd():
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ref
@@ -595,43 +838,15 @@ def phase_flash_bwd():
     if not kernel_rms <= ref.HEAD_RMS_LIMIT < min(head_rms.values()):
         raise AssertionError(f"[flash bwd] head RMS bound: kernel {kernel_rms}, controls {head_rms}")
     del want, faults
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    dot = do.transpose(1, 2).contiguous()
-    t = timings(lambda: fab.flash_attention_bwd(q, k, v, o, lse, do),
-                lambda: ref.mha_bwd(q, k, v, o, lse, do),
-                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), 6)
-    passes = device_ms_by_kernel(lambda: fab.flash_attention_bwd(q, k, v, o, lse, do), 4)
-    pass_ms = {k_: sum(v_ for key, v_ in passes.items() if k_ in key) for k_ in FLASH_BWD_PASSES}
-    log("[flash bwd] device ms per call by kernel: "
-        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in pass_ms.items()))
-    pairs = b * h * s * (s + 1) // 2           # unmasked (query, key) pairs
-    flops = 10 * pairs * dh                    # S again, dP, dV, dK, dQ: 2.5x the forward
-    nbytes = 2 * (4 * b * s * h * dh + 4 * b * s * kv * dh) + 4 * b * h * s
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    dev_ms = t["device_ms"] or t["ms"]
-    log(f"[flash bwd] {t['ms']:.3f} ms kernel, {t['plain_ms']:.3f} ms plain, "
-        f"{t['library_ms']:.3f} ms sdpa backward (CUDA events; device time {t['device_ms']} / "
-        f"{t['plain_device_ms']} / {t['library_device_ms']}), bound {bound_ms:.4f} ms "
-        f"({flops / 1e9:.1f} GFLOP needed, {nbytes / 1e6:.1f} MB); "
-        f"{flops / dev_ms / 1e9:.1f} TFLOP/s needed, {100 * bound_ms / dev_ms:.2f} % of the "
-        f"bound (device time)")
-    executed = flash_bwd_executed_flops(b, s, h, kv, dh)
-    log(f"[flash bwd] derived from the kernels' tiles, not measured: {executed / 1e9:.1f} GFLOP "
-        f"on the tensor cores ({executed / flops:.2f}x the {flops / 1e9:.1f} needed: the dq pass "
-        f"recomputes S and dP, P and dS are split hi + lo, dh padded to "
-        f"{64 if dh <= 64 else 128}), {executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
+    t = flash_bwd_times(q, k, v, o, lse, do, "[flash bwd]")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:140",
+            "replaces": "src/repro/kernels/flash_attention.py:140", "dh256": flash_bwd_256(),
             "max_abs_err": worst,
             "tolerance": "dq, dk, dv: 1e-5 + 2^-7 |plain| (bf16), 1e-4 (f32)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
             "forward_lse_tolerance_ratio": lse_worst, "head_rel_rms": kernel_rms,
-            "control_head_rel_rms": min(head_rms.values()), **t, "pass_device_ms": pass_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
-            else "bytes",
+            "control_head_rel_rms": min(head_rms.values()), **t,
             "shape": f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"}
 
 
@@ -684,31 +899,13 @@ def phase_decode_kernel():
     lib_ratio = ref.tolerance_ratio(lib.transpose(1, 2), want)
     log(f"[decode] sdpa vs plain max_abs_err {max_err(lib.transpose(1, 2), want):.3g}, "
         f"{lib_ratio:.2f} of the tolerance (reported)")
-    t = timings(lambda: da.decode_attention(q, kc, vc, valid),
-                lambda: ref.decode_attention(q, kc, vc, valid),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
-                                                       enable_gqa=True), 40)
-    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
-    n_valid = int(valid.sum().item())          # slots this run's mask lets through
-    kv_bytes = 2 * n_valid * kv * dh * 2
-    nbytes = kv_bytes + 2 * (2 * b * h * dh) + b * c
-    flops = 4 * n_valid * h * dh
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    dev_ms = t["device_ms"] or ms
-    log(f"[decode] {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {library_ms:.4f} ms sdpa "
-        f"(CUDA events; device time {t['device_ms']} / {t['plain_device_ms']} / "
-        f"{t['library_device_ms']}), bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); "
-        f"{nbytes / dev_ms / 1e6:.0f} GB/s achieved, {100 * bound_ms / dev_ms:.1f} % of the "
-        f"bound (device time)")
+    t = decode_times(q, kc, vc, valid, "[decode]")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:29",
+            "replaces": "src/repro/kernels/decode_attention.py:29", "dh256": decode_256(),
             "max_abs_err": worst, "tolerance": "1e-5 + 2^-7 |plain| (bf16)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
             "library_tolerance_ratio": lib_ratio, **t,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
-            else "bytes",
             "shape": f"B={b} C={c} H={h} KV={kv} dh={dh} bf16, all slots valid"}
 
 
@@ -821,20 +1018,22 @@ def moe_prefill_depth2(cfg2, p2, tokens, tag: str) -> dict:
             "prefill_depth2_shifted_heads": shifted, "prefill_depth2_tile_dropped": dropped}
 
 
-def moe_prefill_flops(cfg, s: int) -> tuple:
-    """(needed, executed) model FLOPs of a B=1 prefill of an MoE model:
-    the projections, causal attention, the router, the routed experts (the
-    K a token chooses; executed: every expert's buffer padded to its
-    capacity), shared experts, dense FFNs and the last position's logits.
+def prefill_flops(cfg, s: int) -> tuple:
+    """(needed, executed) model FLOPs of a B=1 prefill: the projections,
+    causal attention, dense FFNs, the last position's logits and, in an MoE
+    model, the router, the routed experts (the K a token chooses; executed:
+    every expert's buffer padded to its capacity) and shared experts.
     Derived from the shapes, not measured."""
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.moe import moe_capacity
-    m = cfg.moe
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    de = m.d_expert if m.d_expert is not None else cfg.d_ff
     n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
     common = cfg.n_layers * (2 * s * d * (2 * h + 2 * kv) * dh + 4 * h * dh * s * (s + 1) // 2)
     common += (cfg.n_layers - n_moe) * 2 * s * 3 * d * cfg.d_ff + 2 * d * padded_vocab(cfg)
+    if not n_moe:
+        return common, common
+    m = cfg.moe
+    de = m.d_expert if m.d_expert is not None else cfg.d_ff
     common += n_moe * (2 * s * d * m.n_experts + 2 * s * 3 * d * de * m.n_shared_experts)
     expert = 2 * 3 * d * de
     return (common + n_moe * s * m.top_k * expert,
@@ -867,12 +1066,13 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
     log(f"[{tag}] {cfg.name} {cfg.n_layers} layers B=1 S=4096: {times[0]:.1f} ms first, "
         f"{times[1]:.1f} ms second; flash launches {counts['flash_attention']}")
     busy, dev = device_profile(lambda: step(params, {"tokens": tokens}), f"{tag} B=1 S=4096")
-    if cfg.moe and dev:
-        needed, executed = moe_prefill_flops(cfg, tokens.shape[1])
+    if dev:
+        needed, executed = prefill_flops(cfg, tokens.shape[1])
         dev_ms = sum(dev.values())
         log(f"[{tag}] model FLOPs, derived from the shapes, not measured: {needed / 1e12:.2f} T "
-            f"needed, {executed / 1e12:.2f} T executed (each expert's buffer padded to its "
-            f"capacity); at the device time {dev_ms:.2f} ms, {needed / dev_ms / 1e9:.1f} TFLOP/s "
+            f"needed, {executed / 1e12:.2f} T executed"
+            + (" (each expert's buffer padded to its capacity)" if cfg.moe else "")
+            + f"; at the device time {dev_ms:.2f} ms, {needed / dev_ms / 1e9:.1f} TFLOP/s "
             f"needed, {100 * needed / (dev_ms / 1e3) / PEAK_BF16_FLOPS:.1f} % of the bf16 peak")
 
     # every launch of a full prefill, held against the plain version on its own inputs
@@ -958,6 +1158,40 @@ def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_token
     return secs, out, counts["decode_attention"]
 
 
+def dense_decode_depth2(cfg, params, prompt, cap: int, tag: str) -> tuple:
+    """Depth 2, full width: the cache built token by token through the
+    kernel must give the logits of every teacher-forced position that the
+    plain version and the prefill give; a planted fault (heads shifted) must
+    not.  Returns (vs plain, vs prefill, the fault's)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import ServeSetup, init_serve_state
+    cfg2 = cfg.replace(n_layers=2)
+    p2 = _first_periods(params, 2)
+    b, n = prompt.shape
+
+    def forced_logits():
+        st = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, cap)
+        out = []
+        for t in range(n):
+            lg, st = tf.decode_step(p2, st, prompt[:, t:t + 1], t, cfg2)
+            out.append(lg)
+        return torch.cat(out, 1)
+    got = forced_logits()
+    with plain_ops():
+        plain = forced_logits()
+    with shifted_heads_ops():
+        shifted = position_rel_rms(forced_logits(), plain)
+    pre, _ = tf.lm_forward(p2, {"tokens": prompt}, cfg2)
+    e_plain, e_pre = position_rel_rms(got, plain), position_rel_rms(got, pre)
+    log(f"[{tag}] depth 2, full width, {b}x{n} positions, worst position's relative "
+        f"RMS of the logits: kernel vs plain {e_plain:.3g}, vs prefill {e_pre:.3g} (limit "
+        f"{MODEL_LIMIT}); control: heads shifted {shifted:.3g} (must exceed the limit)")
+    if not (e_plain <= MODEL_LIMIT and e_pre <= MODEL_LIMIT < shifted):
+        raise AssertionError(f"depth-2 decode: {e_plain} / {e_pre}, control {shifted}")
+    return e_plain, e_pre, shifted
+
+
 def phase_decode(cfg, params):
     import torch
     from repro_torch.models import transformer as tf
@@ -985,31 +1219,7 @@ def phase_decode(cfg, params):
     log(f"[decode] 32 layers, {b}x{n_forced} teacher-forced positions vs the prefill of "
         f"the prompt: worst position's relative RMS {deep:.3g} (reported, not checked)")
 
-    # depth 2, full width: the cache built token by token through the kernel
-    # must give the logits of every teacher-forced position that the plain
-    # version and the prefill give; a planted fault must not
-    cfg2 = cfg.replace(n_layers=2)
-    p2 = _first_periods(params, 2)
-
-    def forced_logits():
-        st = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, cap)
-        out = []
-        for t in range(n_forced):
-            lg, st = tf.decode_step(p2, st, prompt[:, t:t + 1], t, cfg2)
-            out.append(lg)
-        return torch.cat(out, 1)
-    got = forced_logits()
-    with plain_ops():
-        plain = forced_logits()
-    with shifted_heads_ops():
-        shifted = position_rel_rms(forced_logits(), plain)
-    pre, _ = tf.lm_forward(p2, {"tokens": prompt}, cfg2)
-    e_plain, e_pre = position_rel_rms(got, plain), position_rel_rms(got, pre)
-    log(f"[decode] depth 2, full width, {b}x{n_forced} positions, worst position's relative "
-        f"RMS of the logits: kernel vs plain {e_plain:.3g}, vs prefill {e_pre:.3g} (limit "
-        f"{MODEL_LIMIT}); control: heads shifted {shifted:.3g} (must exceed the limit)")
-    if not (e_plain <= MODEL_LIMIT and e_pre <= MODEL_LIMIT < shifted):
-        raise AssertionError(f"depth-2 decode: {e_plain} / {e_pre}, control {shifted}")
+    e_plain, e_pre, shifted = dense_decode_depth2(cfg, params, prompt, cap, "decode")
 
     # a realistic context: the cache filled to n_ctx slots, then timed steps
     n_ctx, n_full = cap - 32, 16
@@ -1048,15 +1258,17 @@ def phase_decode(cfg, params):
             "full_context_decode_worst_ratio": max(ratios)}
 
 
-def decode_floor_ms(params, state, n_valid: int) -> float:
+def decode_floor_ms(cfg, params, state, n_valid: int) -> float:
     """The least device time of one decode step: every parameter read once
     (all of them: at one token a group every expert of an MoE layer gets a
-    buffer) but the embedding table, of which a step gathers B rows, and the
-    K/V of the ``n_valid`` valid slots of every layer's cache, at the card's
-    memory rate."""
+    buffer) but an untied embedding table, of which a step gathers B rows (a
+    tied one is read whole as the unembedding), and the K/V of the
+    ``n_valid`` valid slots of every layer's cache, at the card's memory
+    rate."""
     from repro_torch.tree import leaves
     weights = sum(t.numel() * t.element_size() for t in leaves(params))
-    weights -= params["embed"].numel() * params["embed"].element_size()
+    if not cfg.tie_embeddings:
+        weights -= params["embed"].numel() * params["embed"].element_size()
     kv = sum(c[name][:, :, :n_valid].numel() * c[name].element_size()
              for c in state for name in ("k", "v"))
     return (weights + kv) / PEAK_HBM_BYTES * 1e3
@@ -1116,15 +1328,17 @@ def moe_decode_depth2(cfg, params, prompt, cap: int) -> dict:
             "moe_decode_depth2_shifted_heads": shifted}
 
 
-def phase_moe_decode(cfg, params):
-    """MoE decode at B=8, capacity 4096: (a) 8 teacher-forced and 8 greedy
-    steps from an empty cache, (b) 16 steps with the cache filled to 4064
-    slots; host ms a step, device ms a step (profiler, two steps) beside the
-    floor of the bytes a step must read, and each decode launch of one step
-    held against the plain version."""
+def phase_decode_ab(cfg, params, tag: str) -> dict:
+    """Decode at B=8, capacity 4096: (a) 8 teacher-forced and 8 greedy steps
+    from an empty cache, (b) 16 steps with the cache filled to 4064 slots;
+    host ms a step, device ms a step (profiler, two steps) beside the floor
+    of the bytes a step must read, a depth-2 check (routed for an MoE model),
+    and each decode launch of one step held against the plain version.  Log
+    lines start with ``[tag]``, result keys with its words joined by _."""
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.serve.step import ServeSetup, init_serve_state, make_decode_step
+    key = tag.replace(" ", "_") + "_"
     b, cap, n_forced, n_gen = 8, 4096, 8, 8
     setup = ServeSetup(cfg=cfg)
     state = init_serve_state(setup, (1, 1), params, b, cap)
@@ -1145,34 +1359,39 @@ def phase_moe_decode(cfg, params):
         filled = first + n + 1
         busy, dev = device_profile(lambda: decode_steps(cfg, step, params, state, first + n, 2,
                                                         tok),
-                                   f"moe decode 2 steps B={b} cap={cap}, {filled} filled slots")
+                                   f"{tag} 2 steps B={b} cap={cap}, {filled} filled slots")
         dev_ms = sum(dev.values()) / 2 if dev else None
-        kernel_ms = sum(ms for key, ms in dev.items() if "decode_partial_kernel" in key
-                        or "decode_combine_kernel" in key) / 2
-        floor = decode_floor_ms(params, state, filled)
-        log(f"[moe decode] ({label}) {cfg.name} B={b} cap={cap}, from {first} filled slots: {n} "
+        kernel_ms = sum(ms for k_, ms in dev.items() if "decode_partial_kernel" in k_
+                        or "decode_combine_kernel" in k_) / 2
+        floor = decode_floor_ms(cfg, params, state, filled)
+        log(f"[{tag}] ({label}) {cfg.name} B={b} cap={cap}, from {first} filled slots: {n} "
             f"steps, {secs / n * 1e3:.2f} ms/step (host), {b * n / secs:.1f} tok/s; device "
             f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms/step (flash-decode "
             f"{kernel_ms:.3f} ms), floor {floor:.3f} ms/step (every weight and the valid K/V "
             f"read once at {PEAK_HBM_BYTES / 1e12:.2f} TB/s); decode launches {launches}")
-        out.update({f"moe_decode_{label}_ms_per_step": secs / n * 1e3,
-                    f"moe_decode_{label}_tok_s": b * n / secs,
-                    f"moe_decode_{label}_device_ms_per_step": dev_ms,
-                    f"moe_decode_{label}_flash_decode_device_ms_per_step": kernel_ms,
-                    f"moe_decode_{label}_floor_ms": floor, f"moe_decode_{label}_device_busy": busy,
-                    f"moe_decode_{label}_launches": launches, f"moe_decode_{label}_steps": n})
-    log(f"[moe decode] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
+        out.update({f"{key}{label}_ms_per_step": secs / n * 1e3,
+                    f"{key}{label}_tok_s": b * n / secs,
+                    f"{key}{label}_device_ms_per_step": dev_ms,
+                    f"{key}{label}_flash_decode_device_ms_per_step": kernel_ms,
+                    f"{key}{label}_floor_ms": floor, f"{key}{label}_device_busy": busy,
+                    f"{key}{label}_launches": launches, f"{key}{label}_steps": n})
+    log(f"[{tag}] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
         f"prefill of the prompt: worst position's relative RMS {deep:.3g} (reported, not checked)")
-    out.update(moe_decode_depth2(cfg, params, prompt, cap))
+    if cfg.moe:
+        out.update(moe_decode_depth2(cfg, params, prompt, cap))
+    else:
+        e_plain, e_pre, shifted = dense_decode_depth2(cfg, params, prompt, cap, tag)
+        out.update({f"{key}depth2_rel_rms": e_plain, f"{key}depth2_vs_prefill": e_pre,
+                    f"{key}depth2_shifted_heads": shifted})
     ratios = []
     with checked_ops(ratios):
         step(params, state, tok, cap - 32 + 18)
-    log(f"[moe decode] full context: each decode launch of one step against "
+    log(f"[{tag}] full context: each decode launch of one step against "
         f"ref.decode_attention on the same inputs: worst {max(ratios):.3f} of the tolerance "
         f"over {len(ratios)} launches")
     if len(ratios) != cfg.n_layers or not max(ratios) <= 1:
-        raise AssertionError(f"moe decode: a launch disagrees with ref.decode_attention: {ratios}")
-    return {**out, "moe_decode_vs_prefill": deep, "moe_decode_worst_ratio": max(ratios)}
+        raise AssertionError(f"{tag}: a launch disagrees with ref.decode_attention: {ratios}")
+    return {**out, f"{key}vs_prefill": deep, f"{key}worst_ratio": max(ratios)}
 
 
 def ssd_inputs(b, s, h, p, g, n, seed=0, h_init=False):
@@ -1548,14 +1767,18 @@ def plain_train_ops():
 def faulty_bwd_ops():
     """A planted fault in the backward: dk and dv from the first query head
     of each kv head's group only (the loop over the group's heads stops
-    after one), dq right."""
+    after one), dq right.  Where each kv head serves one query head
+    (gemma-7b) that is no fault: there dk and dv lose their columns from half
+    the head dim on (a column split's fault)."""
     import torch
     from repro_torch.kernels import ref
 
     def bwd(q, k, v, o, lse, do, **kw):
-        dq, _, _ = ref.mha_bwd(q, k, v, o, lse, do, **kw)
+        dq, dk, dv = ref.mha_bwd(q, k, v, o, lse, do, **kw)
         b, s, h, dh = q.shape
         kvh = k.shape[2]
+        if h == kvh:
+            return dq, upper_half_zeroed(dk), upper_half_zeroed(dv)
         first = lambda t: t.reshape(b, s, kvh, h // kvh, dh)[:, :, :, 0]  # noqa: E731
         lse1 = lse.reshape(b, kvh, h // kvh, -1)[:, :, 0].contiguous()
         _, dk, dv = ref.mha_bwd(first(q), k, v, first(o), lse1, first(do), **kw)
@@ -1583,9 +1806,11 @@ def active_params(cfg, n_params: int) -> int:
     return n_params - n_moe * (m.n_experts - m.top_k) * 3 * cfg.d_model * de
 
 
-def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train"):
-    """Training steps of ``arch`` at B=``batch_size``, S=TRAIN_SEQ; log lines
-    start with ``[tag]``."""
+def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
+                n_layers: int = 0):
+    """Training steps of ``arch`` at B=``batch_size``, S=TRAIN_SEQ, at full
+    width and depth, or on its first ``n_layers`` layers where given; log
+    lines start with ``[tag]``."""
     import statistics
 
     import torch
@@ -1598,6 +1823,10 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train")
     from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step, mesh_axes
     dev = torch.device("cuda")
     cfg = get_config(arch)
+    depth = f"{cfg.n_layers} layers"
+    if n_layers:
+        depth = f"{n_layers} of {cfg.n_layers} layers: depth cut, full width"
+        cfg = cfg.replace(n_layers=n_layers)
     launch_train.init_distributed(dev)
     mesh = launch_train.make_mesh({"data": 1}, dev)
     setup = TrainSetup(cfg=cfg, opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
@@ -1607,7 +1836,7 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train")
     step = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))
     n_params = tf.param_count(params)
     torch.cuda.synchronize()
-    log(f"[{tag}] {cfg.name} {n_params / 1e9:.3f} B params ({cfg.n_layers} layers, d={cfg.d_model},"
+    log(f"[{tag}] {cfg.name} {n_params / 1e9:.3f} B params ({depth}, d={cfg.d_model},"
         f" {cfg.n_heads} heads, kv {cfg.n_kv_heads}, dh {cfg.resolved_head_dim}, remat "
         f"{cfg.remat!r}), bf16 with f32 AdamW moments (with the gradients "
         f"{n_params * 12 / 1e9:.1f} GB), initialised on the card from seed 0 in "
@@ -1728,16 +1957,19 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train")
     with faulty_bwd_ops():
         fault = leaf_rel_rms(step2.grads_fn(p2, batch)[0], want)
     worst_leaf = max(rel, key=rel.get)
+    fault_label = ("dk/dv from one head of each group" if cfg.n_heads > cfg.n_kv_heads
+                   else "dk/dv columns from dh/2 on dropped")
     log(f"[{tag}] depth 2, full width, per-leaf relative RMS of the gradient, kernels vs plain: "
-        f"worst {rel[worst_leaf]:.3g} ({worst_leaf}; limit {MODEL_LIMIT}); control, dk/dv from "
-        f"one head of each group: worst {max(fault.values()):.3g} "
+        f"worst {rel[worst_leaf]:.3g} ({worst_leaf}; limit {MODEL_LIMIT}); control, {fault_label}: "
+        f"worst {max(fault.values()):.3g} "
         f"({max(fault, key=fault.get)}; must exceed the limit)")
     if not max(rel.values()) <= MODEL_LIMIT < max(fault.values()):
         raise AssertionError(f"depth-2 gradients: kernels {rel}, control {fault}")
     del params, opt, p2, want
     torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
-    return {"train_arch": cfg.name, "train_params": n_params, "train_active_params": n_active,
+    return {"train_arch": cfg.name, "train_layers": cfg.n_layers, "train_depth": depth,
+            "train_params": n_params, "train_active_params": n_active,
             "train_batch": batch_size, "train_seq": TRAIN_SEQ, "train_moe_aux_step1": aux0,
             "train_moe_aux_plain_forward": aux_plain if n_moe else None,
             "train_remat": cfg.remat, "train_lr": TRAIN_LR, "train_warmup": TRAIN_WARMUP,
@@ -1812,11 +2044,37 @@ def run() -> int:
     log(f"[init] {cfg.name} {tf.param_count(params) / 1e9:.3f} B params (bf16, f32 router) in "
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     moe_pre = phase_prefill(cfg, params, tag="moe prefill", prefix="moe_")
-    moe_dec = phase_moe_decode(cfg, params)
+    moe_dec = phase_decode_ab(cfg, params, "moe decode")
     del params
     torch.cuda.empty_cache()
 
-    for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH):
+    cfg = get_config(GEMMA_ARCH)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] {cfg.name} {tf.param_count(params) / 1e9:.3f} B params bf16 ({cfg.n_layers} "
+        f"layers, {cfg.n_heads} heads on {cfg.n_kv_heads} kv heads, dh {cfg.resolved_head_dim}, "
+        f"GeGLU, tied embeddings) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    gemma_pre = phase_prefill(cfg, params, tag="gemma prefill", prefix="gemma_")
+    gemma_dec = phase_decode_ab(cfg, params, "gemma decode")
+    del params
+    torch.cuda.empty_cache()
+
+    full = get_config(PAPER_ARCH)
+    cfg = full.replace(n_layers=PAPER_LAYERS)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] {cfg.name} (paper Table 3) {PAPER_LAYERS} of its {full.n_layers} layers: depth "
+        f"cut, full width (d={cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} kv heads, "
+        f"d_ff {cfg.d_ff}); {tf.param_count(params) / 1e9:.3f} B params bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paper_pre = phase_prefill(cfg, params, tag="paper prefill", prefix="llama80b_")
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH, GEMMA_ARCH):
         out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
         if not torch.isfinite(out["logits"]).all():
             raise AssertionError(f"serve entry point, {arch}: logits not finite")
@@ -1827,11 +2085,16 @@ def run() -> int:
     tr = phase_train()
     moe_tr = {f"moe_{k}": v for k, v in
               phase_train(MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, tag="moe train").items()}
+    gemma_tr = {f"gemma_{k}": v for k, v in
+                phase_train(GEMMA_ARCH, 1, tag="gemma train", n_layers=GEMMA_TRAIN_LAYERS).items()}
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
+    gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
+    paper_prefill = f"llama-80b prefill ({PAPER_LAYERS} of 96 layers)"
     kernels[0]["launches_by_path"] = {
         "llama3-8b prefill": pre["flash_launches"],
         "deepseek-moe-16b prefill": moe_pre["moe_flash_launches"],
+        paper_prefill: paper_pre["llama80b_flash_launches"],
         dense_train: tr["train_launches"]["flash_attention"],
         moe_train: moe_tr["moe_train_launches"]["flash_attention"]}
     kernels[1]["launches_by_path"] = {
@@ -1841,12 +2104,22 @@ def run() -> int:
         "llama3-8b decode": dec["decode_launches"],
         "deepseek-moe-16b decode (a)": moe_dec["moe_decode_a_launches"],
         "deepseek-moe-16b decode (b)": moe_dec["moe_decode_b_launches"]}
+    # the 256-wide instantiations: launched by the gemma-7b paths only
+    kernels[0]["dh256"]["launches_by_path"] = {
+        "gemma-7b prefill": gemma_pre["gemma_flash_launches"],
+        gemma_train: gemma_tr["gemma_train_launches"]["flash_attention"]}
+    kernels[1]["dh256"]["launches_by_path"] = {
+        gemma_train: gemma_tr["gemma_train_launches"]["flash_attention_bwd"]}
+    kernels[2]["dh256"]["launches_by_path"] = {
+        "gemma-7b decode (a)": gemma_dec["gemma_decode_a_launches"],
+        "gemma-7b decode (b)": gemma_dec["gemma_decode_b_launches"]}
     kernels[3]["launches_by_path"] = {"mamba2-370m prefill": mpre["ssd_launches"]}
     kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
                       launches_per_step=tr["train_launches_per_step"]["flash_attention_bwd"])
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
-                    **tr, **moe_tr, "card": smi}))
+                    **gemma_pre, **gemma_dec, **paper_pre, **tr, **moe_tr, **gemma_tr,
+                    "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -115,6 +115,11 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# the models of the paper's Table 3 simulations, as in ``repro.configs.base``
+# (the zoo's ASSIGNED_ARCHS waits for its hybrid, VLM and audio families)
+PAPER_ARCHS = ("llama3_8b", "deepseek_v3_16b", "llama_80b", "gpt_80b")
+
+
 def canonical(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
 

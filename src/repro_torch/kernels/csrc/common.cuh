@@ -1,7 +1,8 @@
 // Helpers shared by the kernels: vector loads of four f32 elements, the
 // stores back to the input type, 16- and 4-byte asynchronous copies into
-// shared memory, and the bf16 tensor-core building blocks of the flash
-// forward and backward kernels (ldmatrix, mma.sync m16n8k16, the hi + lo
+// shared memory, the attention kernels' head-dim tiles, and the bf16
+// tensor-core building blocks of the flash forward and backward kernels
+// (ldmatrix, mma.sync m16n8k16, A B^T from two shared tiles, the hi + lo
 // split of an f32 operand, padded bf16 tiles filled by cp.async).
 #pragma once
 
@@ -14,6 +15,13 @@
 #define REPRO_NEG_INF (-0.7f * 3.402823466e38f)
 
 enum ReproDtype { REPRO_F32 = 0, REPRO_BF16 = 1 };
+
+// The attention kernels' tile widths: a head dim runs zero-padded in the
+// narrowest of 64, 128 and 256 that holds it (0: above the largest).
+#define REPRO_MAX_HEAD_DIM 256
+__host__ __device__ constexpr int head_dim_tile(int dh) {
+    return dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= REPRO_MAX_HEAD_DIM ? 256 : 0;
+}
 
 // Four consecutive f32 elements; the wrapper checks that every row it
 // passes starts on a 16-byte boundary.
@@ -108,6 +116,30 @@ __device__ __forceinline__ void acc_to_a_split(const float (&c)[N][4], int t, ui
     split_bf16(c[2 * t][2], c[2 * t][3], hi[1], lo[1]);
     split_bf16(c[2 * t + 1][0], c[2 * t + 1][1], hi[2], lo[2]);
     split_bf16(c[2 * t + 1][2], c[2 * t + 1][3], hi[3], lo[3]);
+}
+
+// c[j] = A B_j^T for the NS 8-row n-tiles j: A 16 rows by KS 16-column
+// k-steps of a shared bf16 tile read by `ldmatrix` from `a` (this lane's
+// address of k-step 0), B_j rows [8 j, 8 j + 8) of another read from `b`
+// (this lane's address of n-tile 0, k-step 0), both at row stride LDS
+template <int KS, int NS, int LDS, int UNROLL = KS>
+__device__ __forceinline__ void mma_abt(float (&c)[NS][4], uint32_t a, uint32_t b) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll UNROLL
+    for (int ks = 0; ks < KS; ++ks) {
+        uint32_t af[4];
+        ldsm4(af, a + 32 * ks);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {  // n-tiles j and j + 1: b0, b1 of j, then of j + 1
+            uint32_t bf[4];
+            ldsm4(bf, b + 2 * (j * 8 * LDS + ks * 16));
+            mma_bf16(c[j], af, bf[0], bf[1]);
+            mma_bf16(c[j + 1], af, bf[2], bf[3]);
+        }
+    }
 }
 
 // Rows [row0, row0 + ROWS) of a [rows, dh] bf16 matrix -> a padded shared

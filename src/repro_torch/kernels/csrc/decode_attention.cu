@@ -16,7 +16,8 @@
 // the CUDA cores.  What the design does about the bytes:
 //  * K and V go from HBM straight into registers: each lane loads 16 bytes
 //    (8 bf16 or 4 f32) of a row, so a warp load covers whole rows (two
-//    128-wide bf16 rows), and nothing is staged in shared memory;
+//    128-wide bf16 rows, or one 256-wide; at dh 256 in f32 a lane loads two
+//    16-byte pieces of one row), and nothing is staged in shared memory;
 //  * each lane keeps its columns of the bundle's query vectors in
 //    registers; a score is a shuffle reduction over the lanes of one row,
 //    and P.V accumulates in registers;
@@ -49,29 +50,51 @@ __device__ __forceinline__ uint4 load16(const void* p) {
     return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-__device__ __forceinline__ void widen(const uint4& u, float (&x)[4], float) {
-    x[0] = __uint_as_float(u.x);
-    x[1] = __uint_as_float(u.y);
-    x[2] = __uint_as_float(u.z);
-    x[3] = __uint_as_float(u.w);
+// x[at ..] = the 4 f32 or 8 bf16 elements of u, as f32
+template <int N>
+__device__ __forceinline__ void widen(const uint4& u, float (&x)[N], int at, float) {
+    x[at] = __uint_as_float(u.x);
+    x[at + 1] = __uint_as_float(u.y);
+    x[at + 2] = __uint_as_float(u.z);
+    x[at + 3] = __uint_as_float(u.w);
 }
 
-__device__ __forceinline__ void widen(const uint4& u, float (&x)[8], __nv_bfloat16) {
+template <int N>
+__device__ __forceinline__ void widen(const uint4& u, float (&x)[N], int at, __nv_bfloat16) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        x[2 * i] = f.x;
-        x[2 * i + 1] = f.y;
+        x[at + 2 * i] = f.x;
+        x[at + 2 * i + 1] = f.y;
     }
 }
 
 template <typename T>
 __host__ __device__ constexpr int elems16() { return 16 / (int)sizeof(T); }
 
+// 16-byte loads of one cache row a lane makes: 1, or 2 in f32 at dh 256
+// (64 lanes' worth of a row)
+template <typename T, int DHP>
+__host__ __device__ constexpr int row_chunks() {
+    return DHP / elems16<T>() > 32 ? DHP / elems16<T>() / 32 : 1;
+}
+// blocks an SM the registers are sized for: four (128 registers a thread)
+// where a lane's rows of the R heads fit, else two (255; at dh 256 from
+// R = 4, where 128 spill), and one at R = 8
+template <typename T, int DHP, int R>
+__host__ __device__ constexpr int min_blocks() {
+    return R >= 8 ? 1 : row_chunks<T, DHP>() > 1 || (R >= 4 && DHP > 128) ? 2 : 4;
+}
+// row loads of K (and of V) in flight per lane
+template <typename T, int DHP, int R>
+__host__ __device__ constexpr int loads_in_flight() {
+    return R >= 8 || row_chunks<T, DHP>() > 1 ? 2 : 4;
+}
+
 // R query heads of one kv head over the slots [split * SPLIT, + SPLIT)
 template <typename T, int DHP, int R>
-__global__ void __launch_bounds__(NT, R >= 8 ? 1 : 4)
+__global__ void __launch_bounds__(NT, (min_blocks<T, DHP, R>()))
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, const uint8_t* __restrict__ valid,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
@@ -80,9 +103,11 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       int64_t vsb, int64_t vsc, int64_t vsh, int64_t msb, int64_t msc,
                       float scale) {
     constexpr int E = elems16<T>();      // elements per lane load
-    constexpr int LPR = DHP / E;         // lanes per cache row
+    constexpr int CH = row_chunks<T, DHP>();  // 16-byte loads of a row per lane
+    constexpr int LPR = DHP / (E * CH);  // lanes per cache row
+    constexpr int CE = CH * E;           // a lane's elements of a row
     constexpr int RPW = 32 / LPR;        // rows per warp load
-    constexpr int U = R >= 8 ? 2 : 4;    // row loads of K (and of V) in flight per lane
+    constexpr int U = loads_in_flight<T, DHP, R>();  // row loads of K (and of V) per lane
     constexpr int BATCH = U * RPW;       // rows per online-softmax step of a warp
     static_assert(TK % BATCH == 0, "whole batches per tile");
     __shared__ float Wm[NW][R], Wl[NW][R];
@@ -93,21 +118,27 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int ngrp = (rep + R - 1) / R;
     const int g = blockIdx.y / ngrp, h0 = (blockIdx.y % ngrp) * R;  // kv head, first q head
     const int nr = min(R, rep - h0);
-    const int col = (lane % LPR) * E, rsub = lane / LPR;  // this lane's columns and row
-    const bool col_ok = col < dh;
+    // this lane's row of a warp load, and its columns: E from col + c * LPR * E, c < CH
+    const int col = (lane % LPR) * E, rsub = lane / LPR;
+    bool col_ok[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) col_ok[c] = col + c * LPR * E < dh;
     const T* kb = kc + b * ksb + g * ksh + col;
     const T* vb = vc + b * vsb + g * vsh + col;
     const uint8_t* mb = valid + b * msb;
 
-    float qr[R][E], m[R], l[R], acc[R][E];
+    float qr[R][CE], m[R], l[R], acc[R][CE];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         m[r] = REPRO_NEG_INF;
         l[r] = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) qr[r][e] = acc[r][e] = 0.f;
-        if (r < nr && col_ok)
-            widen(load16(q + b * qsb + (g * rep + h0 + r) * qsh + col), qr[r], T());
+        for (int e = 0; e < CE; ++e) qr[r][e] = acc[r][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+            if (r < nr && col_ok[c])
+                widen(load16(q + b * qsb + (g * rep + h0 + r) * qsh + col + c * LPR * E), qr[r],
+                      c * E, T());
     }
 
     const int t0 = split * SPLIT + warp * TK;  // this warp's tile
@@ -120,28 +151,33 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
 
     for (int i0 = 0; tmask != 0 && i0 < TK; i0 += BATCH) {
-        uint4 kraw[U], vraw[U];
+        uint4 kraw[U][CH], vraw[U][CH];
         bool ok[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             const int i = i0 + u * RPW + rsub;
             ok[u] = (tmask >> i) & 1;  // also false past C
-            kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);  // zero in either type
-            if (ok[u] && col_ok) {
-                kraw[u] = load16(kb + (int64_t)(t0 + i) * ksc);
-                vraw[u] = load16(vb + (int64_t)(t0 + i) * vsc);
+#pragma unroll
+            for (int c = 0; c < CH; ++c) {
+                kraw[u][c] = vraw[u][c] = make_uint4(0u, 0u, 0u, 0u);  // zero in either type
+                if (ok[u] && col_ok[c]) {
+                    kraw[u][c] = load16(kb + (int64_t)(t0 + i) * ksc + c * LPR * E);
+                    vraw[u][c] = load16(vb + (int64_t)(t0 + i) * vsc + c * LPR * E);
+                }
             }
         }
         float s[U][R];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            float kf[E];
-            widen(kraw[u], kf, T());
+            float kf[CE];
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+                widen(kraw[u][c], kf, c * E, T());
 #pragma unroll
             for (int r = 0; r < R; ++r) {
                 float d = 0.f;
 #pragma unroll
-                for (int e = 0; e < E; ++e) d = fmaf(qr[r][e], kf[e], d);
+                for (int e = 0; e < CE; ++e) d = fmaf(qr[r][e], kf[e], d);
                 s[u][r] = d;
             }
         }
@@ -168,7 +204,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
             m[r] = m_new;
             l[r] *= alpha;
 #pragma unroll
-            for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
+            for (int e = 0; e < CE; ++e) acc[r][e] *= alpha;
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 p[u][r] = expf(s[u][r] - m_new);
@@ -177,12 +213,14 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            float vf[E];
-            widen(vraw[u], vf, T());
+            float vf[CE];
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+                widen(vraw[u][c], vf, c * E, T());
 #pragma unroll
             for (int r = 0; r < R; ++r)
 #pragma unroll
-                for (int e = 0; e < E; ++e) acc[r][e] = fmaf(p[u][r], vf[e], acc[r][e]);
+                for (int e = 0; e < CE; ++e) acc[r][e] = fmaf(p[u][r], vf[e], acc[r][e]);
         }
     }
 
@@ -193,13 +231,13 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         for (int r = 0; r < R; ++r) {
             l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
 #pragma unroll
-            for (int e = 0; e < E; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+            for (int e = 0; e < CE; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
         }
     if (lane < LPR) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
-            for (int e = 0; e < E; ++e) Wacc[warp][r][col + e] = acc[r][e];
+            for (int e = 0; e < CE; ++e) Wacc[warp][r][col + (e / E) * LPR * E + e % E] = acc[r][e];
     }
     if (lane == 0) {
 #pragma unroll
@@ -256,8 +294,9 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc_p,
     }
 }
 
-// query heads per pass-1 block for a bundle of rep: 2, 4 or 8 (rep 1 runs
-// the 2-head kernel with one head live; every model config has rep >= 2)
+// query heads per pass-1 block for a bundle of rep: 2, 4 or 8 (rep 1, as
+// gemma-7b's 16 heads on 16 kv heads, runs the 2-head kernel with one head
+// live)
 int heads_per_block(int rep) {
     int r = 2;
     while (r < rep && r < MAXR) r *= 2;
@@ -308,16 +347,15 @@ extern "C" int repro_decode_max_rep() { return 2 * MAXR; }
 
 // Static shared memory of one pass-1 block (the warps' merge), in bytes.
 extern "C" int repro_decode_attention_smem_bytes(int rep, int dh) {
-    const int r = heads_per_block(rep), dhp = dh <= 64 ? 64 : 128;
-    return NW * r * (dhp + 2) * (int)sizeof(float);
+    return NW * heads_per_block(rep) * (head_dim_tile(dh) + 2) * (int)sizeof(float);
 }
 
 // q [B,1,H,dh]; k/v cache [B,C,KV,dh]; valid [B,C] uint8; out [B,1,H,dh].
 // Strides in elements: q (batch, head), k and v (batch, slot, head), valid
 // (batch, slot), out (batch, head); the head dim is unit-stride and every
 // row starts on a 16-byte boundary; dh is a multiple of 8 (bf16) or 4
-// (f32).  acc_p [B,KV,nsplit,rep,dh], m_p and l_p [B,KV,nsplit,rep] are f32
-// scratch with nsplit = repro_decode_num_splits(C).  dtype: 0 = f32, 1 =
+// (f32), at most 256.  acc_p [B,KV,nsplit,rep,dh], m_p and l_p
+// [B,KV,nsplit,rep] are f32 scratch with nsplit = repro_decode_num_splits(C).  dtype: 0 = f32, 1 =
 // bf16.  device is the CUDA ordinal the tensors and the stream belong to.
 extern "C" int repro_decode_attention_fwd(
         const void* q, const void* kc, const void* vc, const void* valid, void* out,
@@ -327,8 +365,8 @@ extern "C" int repro_decode_attention_fwd(
         int64_t osb, int64_t osh, float scale, int device, void* stream) {
     const int64_t st[12] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc, osb, osh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dh <= 0 || dh > 128 || dh % 4 || H % KV || H / KV > repro_decode_max_rep() || C <= 0 ||
-        (dtype == REPRO_BF16 && dh % 8))
+    if (dh <= 0 || dh > REPRO_MAX_HEAD_DIM || dh % 4 || H % KV || H / KV > repro_decode_max_rep() ||
+        C <= 0 || (dtype == REPRO_BF16 && dh % 8))
         return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaSuccess;
     cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own
@@ -336,15 +374,26 @@ extern "C" int repro_decode_attention_fwd(
     float* a = static_cast<float*>(acc_p);
     float* m = static_cast<float*>(m_p);
     float* l = static_cast<float*>(l_p);
-    if (dtype == REPRO_F32)
-        return dh <= 64 ? launch<float, 64>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh, st,
-                                            scale, s)
-                        : launch<float, 128>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
-                                             st, scale, s);
-    if (dtype == REPRO_BF16)
-        return dh <= 64 ? launch<__nv_bfloat16, 64>(q, kc, vc, valid, out, a, m, l, B, C, H, KV,
-                                                    dh, st, scale, s)
-                        : launch<__nv_bfloat16, 128>(q, kc, vc, valid, out, a, m, l, B, C, H,
-                                                     KV, dh, st, scale, s);
+    if (dtype == REPRO_F32) {
+        switch (head_dim_tile(dh)) {
+            case 64: return launch<float, 64>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh, st,
+                                              scale, s);
+            case 128: return launch<float, 128>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
+                                                st, scale, s);
+            default: return launch<float, 256>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
+                                               st, scale, s);
+        }
+    }
+    if (dtype == REPRO_BF16) {
+        using bf16 = __nv_bfloat16;
+        switch (head_dim_tile(dh)) {
+            case 64: return launch<bf16, 64>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh, st,
+                                             scale, s);
+            case 128: return launch<bf16, 128>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
+                                               st, scale, s);
+            default: return launch<bf16, 256>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
+                                              st, scale, s);
+        }
+    }
     return (int)cudaErrorInvalidValue;
 }

@@ -36,19 +36,31 @@
 //    stages filled by 16-byte `cp.async` (zero-filled past S and past dh):
 //    tile t+1 is in flight while tile t is multiplied.  Q is staged in K's
 //    second stage until it is in registers: 68 KB a block at dh=128.  The
-//    registers (228 a thread at dh=128) let two blocks share an SM.
+//    registers (222 a thread at dh=128) let two blocks share an SM.
 //  * KV tiles wholly above the causal diagonal or left of the window are
 //    never loaded (the TPU kernel's `relevant` test); only tiles that cross
 //    the diagonal, the window's edge or S are masked element by element.
+//  * dh 256 (gemma-7b): a warp's 16 x 256 f32 accumulator alone takes 128
+//    registers and Q's fragments another 64, more than the 255 a thread can
+//    have beside S.  So the block has 8 warps, two for each 16 rows: both
+//    compute S over all 256 columns, with Q's fragments read from a shared
+//    tile of its own at each k-step (`mma_abt`), run the same online
+//    softmax, and each accumulates P.V for its own 128 output columns.  The
+//    two warps' S and softmax are the same instructions on the same data,
+//    so they agree bit for bit; each output column is written by one warp.
+//    The price: S is computed twice, so the tensor cores execute 2x the
+//    FLOPs the function needs.  Shared memory: Q and two stages of K and V,
+//    165 KiB, one block of 8 warps an SM.
 //  Rows must start on 16-byte boundaries and dh must be a multiple of 8
-//  (the wrapper checks both); dh up to 64 runs a 64-wide tile, up to 128 a
-//  128-wide one, zero-padded (e.g. dh=120, whose tail is never written).
+//  (the wrapper checks both); dh runs in the narrowest of a 64, 128 or 256
+//  wide tile, zero-padded (e.g. dh=120, whose tail is never written).
 //
 // f32: `simt::flash_fwd_kernel`, f32 FMAs on the CUDA cores (67 TFLOP/s
-// peak), one block per 64-row q tile walking KV tiles of 32 keys.  The f32
-// tolerance (1e-5 absolute) is below what TF32 tensor cores can give, and no
-// model path runs attention in f32 on the card, so this path keeps the
-// first version's design.
+// peak), one block per 64-row q tile walking KV tiles of 32 keys (at dh 256
+// 139 KiB of shared memory, one block an SM).  The f32 tolerance (1e-5
+// absolute) is below what TF32 tensor cores can give, and no model path
+// runs attention in f32 on the card, so this path keeps the first version's
+// design.
 //
 // Both: GQA by index (head h reads kv head h / rep, K/V never repeated);
 // q, k, v and o are read and written in their [B, S, heads, dh] layout
@@ -70,8 +82,9 @@ constexpr int LDP = BK + 4;
 template <int DHP>
 constexpr int smem_floats() { return BQ * (DHP + 4) + 2 * BK * (DHP + 4) + BQ * LDP; }
 
+// 256 wide the tiles take 139 KiB of shared memory: one block an SM
 template <int DHP>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, DHP > 128 ? 1 : 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int rep, int dh,
@@ -262,15 +275,26 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int BQ = 64;   // q rows per block: 4 warps of 16 rows
+constexpr int BQ = 64;   // q rows per block: 4 row groups of 16
 constexpr int BK = 64;   // keys per KV tile
-constexpr int NT = 128;
+
+// Tiles up to 128 wide: 4 warps, each owning 16 q rows and every output
+// column, Q's fragments in registers.  256 wide: 8 warps, two to a row
+// group, each owning half of the output columns, Q kept in shared memory.
+template <int DHP>
+__host__ __device__ constexpr int col_parts() { return DHP > 128 ? 2 : 1; }
+template <int DHP>
+__host__ __device__ constexpr int threads() { return 4 * 32 * col_parts<DHP>(); }
+
+// two stages of K and V (up to 128 wide Q is staged in K's second stage;
+// 256 wide it has a tile of its own)
+template <int DHP>
+constexpr int smem_bytes() {
+    return (4 + (col_parts<DHP>() > 1)) * BK * bf16_lds<DHP>() * (int)sizeof(bf16);
+}
 
 template <int DHP>
-constexpr int smem_bytes() { return 4 * BK * bf16_lds<DHP>() * (int)sizeof(bf16); }
-
-template <int DHP>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(threads<DHP>(), 2 / col_parts<DHP>())
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int rep, int dh,
@@ -279,20 +303,25 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t vsb, int64_t vss, int64_t vsh,
                  int64_t osb, int64_t oss, int64_t osh,
                  float scale, int causal, int window, int q_offset) {
+    constexpr int NT = threads<DHP>();
+    constexpr bool QREG = col_parts<DHP>() == 1;  // Q's fragments in registers
     constexpr int LDS = bf16_lds<DHP>();
-    constexpr int KS = DHP / 16;     // k-steps of Q K^T
-    constexpr int NO = DHP / 8;      // n-tiles (8 columns) of the output
-    constexpr int NS = BK / 8;       // n-tiles (8 keys) of S
-    constexpr int TILE = BK * LDS;   // elements of one K or V stage
+    constexpr int KS = DHP / 16;                     // k-steps of Q K^T
+    constexpr int DOUT = DHP / col_parts<DHP>();     // output columns of a warp
+    constexpr int NO = DOUT / 8;                     // n-tiles (8 columns) of a warp's output
+    constexpr int NS = BK / 8;                       // n-tiles (8 keys) of S
+    constexpr int TILE = BK * LDS;                   // elements of one K or V stage
     static_assert(BQ == BK, "Q is staged in a K stage");
     extern __shared__ uint4 smem_tc[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_tc);  // [2][BK][LDS]
     bf16* Vs = Ks + 2 * TILE;                      // [2][BK][LDS]
 
-    // the block is NT threads; told so, nvcc 12.9 allocates 228 registers at
+    // the block is NT threads; told so, nvcc 12.9 allocates 222 registers at
     // dh=128 instead of 255 (chip_smoke.py's [build] phase checks the count)
     __builtin_assume(threadIdx.x < NT);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wr = QREG ? warp : warp & 3;             // this warp's 16 rows of the tile
+    const int c0 = QREG ? 0 : (warp >> 2) * DOUT;      // its first output column
     const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
     const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
     const int q0 = qt * BQ;
@@ -310,8 +339,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n_tiles = max(0, (k_hi + BK - 1) / BK - kt_begin);
 
     // group 0: Q; group 1: the first K/V tile
-    // Q: K's second stage, until Q is in registers
-    bf16* Qs = Ks + TILE;
+    bf16* Qs = QREG ? Ks + TILE : Vs + 2 * TILE;
     load_tile_bf16<DHP, BQ, NT>(Qs, qb, qss, q0, Sq, dh, tid);
     cp_async_commit();
     if (n_tiles > 0) {
@@ -321,9 +349,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     // this thread's rows of the tile: r and r + 8 of its warp's 16
-    const int r_lo = warp * 16 + (lane >> 2);
+    const int r_lo = wr * 16 + (lane >> 2);
     const int qpos0 = qa0 + r_lo, qpos1 = qpos0 + 8;
     const int kq = 2 * (lane & 3);  // first of this thread's two columns of a fragment
+    const uint32_t qa_addr = smem_addr(Qs + (wr * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
 
     float m_r[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l_r[2] = {0.f, 0.f};
     float acc[NO][4];
@@ -332,13 +361,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-    uint32_t qf[KS][4];
+    uint32_t qf[QREG ? KS : 1][4];
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (QREG) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-        ldsm4(qf[ks], smem_addr(Qs + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8));
-    __syncthreads();  // Q's stage is refilled by the first iteration
+        for (int ks = 0; ks < KS; ++ks) ldsm4(qf[ks], qa_addr + 32 * ks);
+        __syncthreads();  // Q's stage is refilled by the first iteration
+    }
 
     for (int it = 0; it < n_tiles; ++it) {
         const int k0 = (kt_begin + it) * BK;
@@ -352,19 +382,25 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait<1>();  // this tile has landed
         __syncthreads();
 
-        // S = Q K^T: s[j] holds keys k0 + 8 j + kq (+1) of rows r_lo ([0..1]) and r_lo + 8 ([2..3])
+        // S = Q K^T over every column of the tile: s[j] holds keys k0 + 8 j + kq (+1)
+        // of rows r_lo ([0..1]) and r_lo + 8 ([2..3])
         float s[NS][4];
+        if constexpr (QREG) {
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
+            for (int j = 0; j < NS; ++j) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-            for (int ks = 0; ks < KS; ks += 2) {
-                uint32_t kf[4];
-                ldsm4(kf, smem_addr(Kt + (j * 8 + (lane & 7)) * LDS + ks * 16 + (lane >> 3) * 8));
-                mma_bf16(s[j], qf[ks], kf[0], kf[1]);
-                mma_bf16(s[j], qf[ks + 1], kf[2], kf[3]);
+                for (int ks = 0; ks < KS; ks += 2) {
+                    uint32_t kf[4];
+                    ldsm4(kf, smem_addr(Kt + (j * 8 + (lane & 7)) * LDS + ks * 16 + (lane >> 3) * 8));
+                    mma_bf16(s[j], qf[ks], kf[0], kf[1]);
+                    mma_bf16(s[j], qf[ks + 1], kf[2], kf[3]);
+                }
             }
+        } else {
+            mma_abt<KS, NS, LDS, 4>(s, qa_addr, smem_addr(Kt) + 2 * (((lane & 7) + (lane >> 4) * 8) * LDS +
+                                                                     ((lane >> 3) & 1) * 8));
         }
 
         const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qa0) ||
@@ -413,7 +449,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             acc[n][3] *= al[1];
         }
 
-        // acc += P_hi V + P_lo V, 16 keys a step
+        // acc += P_hi V + P_lo V over this warp's columns, 16 keys a step
 #pragma unroll
         for (int t = 0; t < BK / 16; ++t) {
             uint32_t ph[4], pl[4];
@@ -422,7 +458,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             for (int n = 0; n < NO; n += 2) {
                 uint32_t vf[4];
                 ldsm4_trans(vf, smem_addr(Vt + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                                          n * 8 + (lane >> 4) * 8));
+                                          c0 + n * 8 + (lane >> 4) * 8));
                 mma_bf16(acc[n], ph, vf[0], vf[1]);
                 mma_bf16(acc[n], pl, vf[0], vf[1]);
                 mma_bf16(acc[n + 1], ph, vf[2], vf[3]);
@@ -440,12 +476,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l = fmaxf(l, 1e-30f);
         const int row = q0 + r_lo + 8 * hr;
         if (row >= Sq) continue;
-        if (lse != nullptr && (lane & 3) == 0)
+        if (lse != nullptr && c0 == 0 && (lane & 3) == 0)
             lse[((int64_t)b * gridDim.y + h) * Sq + row] = m_r[hr] + logf(l);
         bf16* orow = o + b * osb + row * oss + h * osh;
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
-            const int d = n * 8 + kq;
+            const int d = c0 + n * 8 + kq;
             if (d < dh)
                 *reinterpret_cast<__nv_bfloat162*>(orow + d) =
                     __floats2bfloat162_rn(acc[n][2 * hr] / l, acc[n][2 * hr + 1] / l);
@@ -462,7 +498,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* 
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    flash_fwd_kernel<DHP><<<grid, NT, smem, stream>>>(
+    flash_fwd_kernel<DHP><<<grid, threads<DHP>(), smem, stream>>>(
         q, k, v, o, lse, Sq, Sk, H / KV, dh, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window, q_offset);
     return cudaGetLastError();
@@ -482,10 +518,29 @@ extern "C" int repro_flash_attention_q_tile(int dtype) {
     return dtype == REPRO_BF16 ? tc::BQ : simt::BQ;
 }
 
-// Dynamic shared memory of one block for dtype and head dim dh, in bytes.
+// Warps of the bf16 kernel that share a row group, each owning a part of the
+// output columns and computing S over every column, at head dim dh: 1 up to
+// 128, 2 above (0 where no kernel takes dh).
+extern "C" int repro_flash_attention_col_parts(int dh) {
+    switch (head_dim_tile(dh)) {
+        case 64: return tc::col_parts<64>();
+        case 128: return tc::col_parts<128>();
+        case 256: return tc::col_parts<256>();
+        default: return 0;
+    }
+}
+
+// Dynamic shared memory of one block for dtype and head dim dh, in bytes
+// (0 where no kernel takes dh).
 extern "C" int repro_flash_attention_smem_bytes(int dtype, int dh) {
-    if (dtype == REPRO_BF16) return dh <= 64 ? tc::smem_bytes<64>() : tc::smem_bytes<128>();
-    return (dh <= 64 ? simt::smem_floats<64>() : simt::smem_floats<128>()) * (int)sizeof(float);
+    const bool b = dtype == REPRO_BF16;
+    const int f = (int)sizeof(float);
+    switch (head_dim_tile(dh)) {
+        case 64: return b ? tc::smem_bytes<64>() : simt::smem_floats<64>() * f;
+        case 128: return b ? tc::smem_bytes<128>() : simt::smem_floats<128>() * f;
+        case 256: return b ? tc::smem_bytes<256>() : simt::smem_floats<256>() * f;
+        default: return 0;
+    }
 }
 
 // q [B,Sq,H,dh], k/v [B,Sk,KV,dh], o [B,Sq,H,dh]; lse [B,H,Sq] f32, contiguous,
@@ -493,8 +548,9 @@ extern "C" int repro_flash_attention_smem_bytes(int dtype, int dh) {
 // scaled, masked scores (the backward's input); strides in elements as
 // (batch, seq, head) for q, k, v, o in that order; the head dim is unit-stride.
 // dtype: 0 = f32, 1 = bf16.  Every row starts on a 16-byte boundary, and in
-// bf16 dh is a multiple of 8.  window <= 0 means no window.  device is the
-// CUDA ordinal the tensors and the stream belong to.  Returns cudaError_t.
+// bf16 dh is a multiple of 8; dh is at most 256.  window <= 0 means no window.
+// device is the CUDA ordinal the tensors and the stream belong to.  Returns
+// cudaError_t.
 extern "C" int repro_flash_attention_fwd(
         const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
         int B, int Sq, int Sk, int H, int KV, int dh,
@@ -503,7 +559,7 @@ extern "C" int repro_flash_attention_fwd(
         float scale, int causal, int window, int q_offset, int device, void* stream) {
     const int64_t st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dh <= 0 || dh > 128 || dh % 4 || H % KV) return (int)cudaErrorInvalidValue;
+    if (dh <= 0 || dh > REPRO_MAX_HEAD_DIM || dh % 4 || H % KV) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own
     if (err != cudaSuccess) return (int)err;
     if (Sq <= 0 || B <= 0) return (int)cudaSuccess;
@@ -511,10 +567,14 @@ extern "C" int repro_flash_attention_fwd(
         const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                     *fv = static_cast<const float*>(v);
         float* fo = static_cast<float*>(o);
-        return dh <= 64 ? simt::launch<64>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st, scale,
-                                           causal, window, q_offset, s)
-                        : simt::launch<128>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st, scale,
-                                            causal, window, q_offset, s);
+        switch (head_dim_tile(dh)) {
+            case 64: return simt::launch<64>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st, scale,
+                                             causal, window, q_offset, s);
+            case 128: return simt::launch<128>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st,
+                                               scale, causal, window, q_offset, s);
+            default: return simt::launch<256>(fq, fk, fv, fo, lse, B, Sq, Sk, H, KV, dh, st,
+                                              scale, causal, window, q_offset, s);
+        }
     }
     if (dtype == REPRO_BF16) {
         if (dh % 8) return (int)cudaErrorInvalidValue;
@@ -522,10 +582,14 @@ extern "C" int repro_flash_attention_fwd(
         const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
                    *bv = static_cast<const bf16*>(v);
         bf16* bo = static_cast<bf16*>(o);
-        return dh <= 64 ? tc::launch<64>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale, causal,
-                                         window, q_offset, s)
-                        : tc::launch<128>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale,
-                                          causal, window, q_offset, s);
+        switch (head_dim_tile(dh)) {
+            case 64: return tc::launch<64>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale,
+                                           causal, window, q_offset, s);
+            case 128: return tc::launch<128>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale,
+                                             causal, window, q_offset, s);
+            default: return tc::launch<256>(bq, bk, bv, bo, lse, B, Sq, Sk, H, KV, dh, st, scale,
+                                            causal, window, q_offset, s);
+        }
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -64,14 +64,26 @@
 //    tiles, chip_smoke.py logs it).
 //  * Tiles wholly above the causal diagonal or left of the window are never
 //    loaded; only tiles that cross the diagonal, the window's edge, Sq or Sk
-//    are masked element by element.  dh up to 64 runs a 64-wide tile, up to
-//    128 a 128-wide one, zero-padded (dh=120's tail is never written).
+//    are masked element by element.  dh runs in the narrowest of a 64, 128
+//    or 256 wide tile, zero-padded (dh=120's tail is never written).
+//  * dh 256 (gemma-7b): dk and dv for all 256 columns would take 256 f32 a
+//    thread, more than the 255 registers.  So each tile has two blocks
+//    (grid y, `col_parts`), each owning one half of the output columns of
+//    dk and dv (of dq in the dq kernel): both compute S and dP over all 256
+//    columns from shared memory and accumulate only their own half.  Each
+//    output column is written by exactly one block: still no atomics,
+//    still deterministic, the same sums in the same order as a 256-wide
+//    accumulator would take.  The price: S and dP are computed twice, (8 +
+//    8) dh_pad FLOP a pair in dk/dv and (8 + 4) in dq, 28 x 256 against the
+//    10 dh needed; shared memory (133 KiB dk/dv, 198 KiB dq) leaves one block
+//    of 4 warps an SM.
 //
 // f32: `simt::dkdv_kernel` and `simt::dq_kernel`, f32 FMAs on the CUDA cores
 // (67 TFLOP/s peak), tiles staged in shared memory as f32, P and dS through
 // shared memory.  No model path runs attention in f32 on the card, and it
 // meets the f32 tolerance (1e-4), so this path keeps the first version's
-// design.
+// design; at dh 256 its dk/dv kernel owns half of the columns as the bf16
+// one does, and both take one block an SM (213 and 204 KiB of tiles).
 //
 // Both: `delta_kernel` first (delta [B,H,Sq] f32, one warp per row).  q, k,
 // v, o and do are read in their [B, S, heads, dh] layout through the strides
@@ -163,6 +175,12 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t 
     }
 }
 
+// output column parts of the dk/dv kernel: at dh 256 its 64 + 64 f32 a
+// thread of dk and dv for all 256 columns would leave no registers, so each
+// block owns half of them (and computes S and dP over all of them)
+template <int DHP>
+__host__ __device__ constexpr int col_parts() { return DHP > 128 ? 2 : 1; }
+
 namespace dkdv {
 
 constexpr int BK = 64;  // keys per block
@@ -179,7 +197,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
             const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
             int Sq, int Sk, int H, int rep, int dh, const Strides st,
             float scale, int causal, int window, int q_offset) {
-    constexpr int LD = DHP + 4, NJ = DHP / 64;
+    constexpr int PARTS = col_parts<DHP>();
+    constexpr int LD = DHP + 4, NJ = DHP / PARTS / 64;  // this block's float4 column groups
     extern __shared__ float4 smem4[];
     float* Ks = reinterpret_cast<float*>(smem4);  // [BK][LD]
     float* Vs = Ks + BK * LD;                       // [BK][LD]
@@ -191,7 +210,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     float* del_s = lse_s + BQ;                      // [BQ]
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int k0 = blockIdx.x * BK;  // key tile 0 first: under a causal mask it sees the most rows
+    // key tile 0 first: under a causal mask it sees the most rows
+    const int k0 = blockIdx.x / PARTS * BK, c0 = blockIdx.x % PARTS * (DHP / PARTS);
     const int g = blockIdx.y, b = blockIdx.z;
     const float* kb = k + b * st.v[3] + g * st.v[5];
     const float* vb = v + b * st.v[6] + g * st.v[8];
@@ -279,7 +299,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
             }
             __syncthreads();
 
-            // dv[key][d] += sum_q P dO, dk[key][d] += sum_q dS Q: keys ty + 16 i, columns tx * 4 + 64 j
+            // dv[key][d] += sum_q P dO, dk[key][d] += sum_q dS Q: keys ty + 16 i, columns c0 + tx * 4 + 64 j
 #pragma unroll 2
             for (int qq = 0; qq < BQ; qq += 4) {
                 float4 pk[4], sk[4];
@@ -293,9 +313,9 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
 #pragma unroll
                     for (int j = 0; j < NJ; ++j) {
                         const float4 w = *reinterpret_cast<const float4*>(
-                            &dOs[(qq + u) * LD + tx * 4 + 64 * j]);
+                            &dOs[(qq + u) * LD + c0 + tx * 4 + 64 * j]);
                         const float4 x = *reinterpret_cast<const float4*>(
-                            &Qs[(qq + u) * LD + tx * 4 + 64 * j]);
+                            &Qs[(qq + u) * LD + c0 + tx * 4 + 64 * j]);
 #pragma unroll
                         for (int i = 0; i < 4; ++i) {
                             const float pu = comp(pk[i], u), su = comp(sk[i], u);
@@ -322,7 +342,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
         float* vrow = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-            const int d = tx * 4 + 64 * j;
+            const int d = c0 + tx * 4 + 64 * j;
             if (d >= dh) continue;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
@@ -344,8 +364,9 @@ constexpr int LDP = BK + 4;
 template <int DHP>
 constexpr int smem_floats() { return (2 * BQ + 2 * BK) * (DHP + 4) + BQ * LDP; }
 
+// 256 wide its tiles take 204 KiB of shared memory: one block an SM
 template <int DHP>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, DHP > 128 ? 1 : 2)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           const float* __restrict__ dO, const float* __restrict__ lse,
           const float* __restrict__ delta, float* __restrict__ dq,
@@ -498,7 +519,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
     if (err != cudaSuccess) return err;
     if (Sk > 0) {
-        dim3 grid((Sk + dkdv::BK - 1) / dkdv::BK, KV, B);
+        dim3 grid((Sk + dkdv::BK - 1) / dkdv::BK * col_parts<DHP>(), KV, B);
         dkdv::dkdv_kernel<DHP><<<grid, NT, smem_kv, stream>>>(
             q, k, v, dO, lse, delta, dk, dv, Sq, Sk, H, H / KV, dh, st, scale, causal,
             window, q_offset);
@@ -522,6 +543,13 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 namespace tc {
 
 constexpr int NT = 128;  // 4 warps of 16 rows (keys in dk/dv, q rows in dq)
+
+// output column parts of the dk/dv and dq kernels, the blocks' grid y: at dh
+// 256 a thread's dk and dv (or dq and the S and dP fragments) for all 256
+// columns would not fit its 255 registers, so each block owns half of the
+// columns and computes S and dP over all of them
+template <int DHP>
+__host__ __device__ constexpr int col_parts() { return DHP > 128 ? 2 : 1; }
 
 // acc[n] += sum over t of (hi[t] + lo[t]) B_t, n over the NO 8-column tiles,
 // with B_t rows [16 t, 16 t + 16) of a shared bf16 tile of row stride LDS,
@@ -550,30 +578,6 @@ __device__ __forceinline__ void product_into(float (&acc)[NO][4], const uint32_t
         for (int e = 0; e < 4; ++e) {
             acc[n][e] += part[0][e];
             acc[n + 1][e] += part[1][e];
-        }
-    }
-}
-
-// c[j] = A B_j^T for the NS 8-row n-tiles j: A 16 rows by KS 16-column
-// k-steps of a shared bf16 tile read by `ldmatrix` from `a` (this lane's
-// address of k-step 0), B_j rows [8 j, 8 j + 8) of another read from `b`
-// (this lane's address of n-tile 0, k-step 0), both at row stride LDS
-template <int KS, int NS, int LDS, int UNROLL = KS>
-__device__ __forceinline__ void mma_abt(float (&c)[NS][4], uint32_t a, uint32_t b) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll UNROLL
-    for (int ks = 0; ks < KS; ++ks) {
-        uint32_t af[4];
-        ldsm4(af, a + 32 * ks);
-#pragma unroll
-        for (int j = 0; j < NS; j += 2) {  // n-tiles j and j + 1: b0, b1 of j, then of j + 1
-            uint32_t bf[4];
-            ldsm4(bf, b + 2 * (j * 8 * LDS + ks * 16));
-            mma_bf16(c[j], af, bf[0], bf[1]);
-            mma_bf16(c[j + 1], af, bf[2], bf[3]);
         }
     }
 }
@@ -611,7 +615,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
             float scale, int causal, int window, int q_offset) {
     constexpr int LDS = bf16_lds<DHP>();
     constexpr int KS = DHP / 16;  // k-steps (over dh) of S^T and dP^T
-    constexpr int NO = DHP / 8;   // n-tiles (8 columns) of dk and dv
+    constexpr int DOUT = DHP / col_parts<DHP>();  // this block's columns of dk and dv
+    constexpr int NO = DOUT / 8;  // their n-tiles (8 columns)
     constexpr int QH = q_rows<DHP>();
     constexpr int NS = QH / 8;    // n-tiles (8 q rows) of S^T and dP^T
     constexpr int TILE = BQ * LDS;
@@ -628,6 +633,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     // causal mask sees the most rows, is scheduled first
     const int g = blockIdx.x % KV, b = (blockIdx.x / KV) % B, kt = blockIdx.x / (KV * B);
     const int k0 = kt * BK, rep = H / KV;
+    const int c0 = col_parts<DHP>() > 1 ? blockIdx.y * DOUT : 0;  // this block's first column
 
     // rows that can see a key of [k0, k0 + BK): qpos >= k0 (causal) and
     // qpos < k0 + BK - 1 + window (window), qpos = q_offset + row
@@ -678,7 +684,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     const uint32_t ka_addr = smem_addr(Ks + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
     const uint32_t va_addr = ka_addr + 2 * BK * LDS;
     const uint32_t b_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8);
-    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8);
+    // the products' B operands start at this block's first column
+    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8 + c0);
 
     if (n_steps > 0) {
         // group 0: K, V and the first step
@@ -764,7 +771,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
         bf16* vrow = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17];
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
-            const int d = n * 8 + kq;
+            const int d = c0 + n * 8 + kq;
             if (d >= dh) continue;
             *reinterpret_cast<__nv_bfloat162*>(krow + d) =
                 __floats2bfloat162_rn(acc_k[n][2 * hr] * scale, acc_k[n][2 * hr + 1] * scale);
@@ -794,7 +801,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           float scale, int causal, int window, int q_offset) {
     constexpr int LDS = bf16_lds<DHP>();
     constexpr int KS = DHP / 16;  // k-steps (over dh) of S and dP
-    constexpr int NO = DHP / 8;   // n-tiles (8 columns) of dq
+    constexpr int DOUT = DHP / col_parts<DHP>();  // this block's columns of dq
+    constexpr int NO = DOUT / 8;  // their n-tiles (8 columns)
     constexpr int NS = BK / 8;    // n-tiles (8 keys) of S and dP
     constexpr int TILE = BK * LDS;
     extern __shared__ uint4 smem_tc[];
@@ -810,6 +818,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     const int qt = (Sq + BQ - 1) / BQ - 1 - blockIdx.x / (H * B);
     const int g = h / (H / KV);
     const int q0 = qt * BQ, qa0 = q_offset + q0;
+    const int c0 = col_parts<DHP>() > 1 ? blockIdx.y * DOUT : 0;  // this block's first column
     const bf16* kb = k + b * st.v[3] + g * st.v[5];
     const bf16* vb = v + b * st.v[6] + g * st.v[8];
 
@@ -851,7 +860,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     const uint32_t qa_addr = smem_addr(Qs + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
     const uint32_t oa_addr = qa_addr + 2 * BQ * LDS;
     const uint32_t b_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8);
-    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8);
+    // the product's B operand starts at this block's first column
+    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8 + c0);
     for (int it = 0; it < n_tiles; ++it) {
         const int k0 = (kt_begin + it) * BK;
         const uint32_t k_st = smem_addr(Ks + (it & 1) * TILE), v_st = smem_addr(Vs + (it & 1) * TILE);
@@ -867,8 +877,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 
         // S = Q K^T and dP = dO V^T: s[j] holds keys k0 + 8 j + kq (+1) of rows r_lo ([0..1]) and r_lo + 8 ([2..3])
         float s[NS][4], dp[NS][4];
-        mma_abt<KS, NS, LDS>(s, qa_addr, k_st + b_lane);
-        mma_abt<KS, NS, LDS>(dp, oa_addr, v_st + b_lane);
+        mma_abt<KS, NS, LDS, (DHP > 128 ? 8 : KS)>(s, qa_addr, k_st + b_lane);
+        mma_abt<KS, NS, LDS, (DHP > 128 ? 8 : KS)>(dp, oa_addr, v_st + b_lane);
 
         // dS = P (dP - delta) into dp, P = exp(S scale - lse)
         const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qa0) ||
@@ -902,7 +912,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         bf16* qrow = dq + b * st.v[18] + (int64_t)row * st.v[19] + h * st.v[20];
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
-            const int d = n * 8 + kq;
+            const int d = c0 + n * 8 + kq;
             if (d < dh)
                 *reinterpret_cast<__nv_bfloat162*>(qrow + d) =
                     __floats2bfloat162_rn(acc[n][2 * hr] * scale, acc[n][2 * hr + 1] * scale);
@@ -926,7 +936,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
     if (err != cudaSuccess) return err;
     if (Sk > 0) {
         const unsigned blocks = (unsigned)((Sk + dkdv::BK - 1) / dkdv::BK) * KV * B;
-        dkdv::dkdv_kernel<DHP><<<blocks, NT, smem_kv, stream>>>(
+        dkdv::dkdv_kernel<DHP><<<dim3(blocks, col_parts<DHP>()), NT, smem_kv, stream>>>(
             q, k, v, dO, lse, delta, dk, dv, B, Sq, Sk, H, KV, dh, st, scale, causal, window,
             q_offset);
         err = cudaGetLastError();
@@ -938,7 +948,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
     if (err != cudaSuccess) return err;
     const unsigned blocks = (unsigned)((Sq + dq::BQ - 1) / dq::BQ) * H * B;
-    dq::dq_kernel<DHP><<<blocks, NT, smem_q, stream>>>(
+    dq::dq_kernel<DHP><<<dim3(blocks, col_parts<DHP>()), NT, smem_q, stream>>>(
         q, k, v, dO, lse, delta, dq, B, Sq, Sk, H, KV, dh, st, scale, causal, window, q_offset);
     return cudaGetLastError();
 }
@@ -948,11 +958,16 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
 }  // namespace
 
 // Dynamic shared memory of one block of the bf16 dk/dv kernel (which = 0) or
-// the bf16 dq kernel (which = 1) at head dim dh, in bytes: the kernels of
-// every model path (the f32 kernels' is `simt::*::smem_floats` * 4).
+// the bf16 dq kernel (which = 1) at head dim dh, in bytes (0 where no kernel
+// takes dh): the kernels of every model path (the f32 kernels' is
+// `simt::*::smem_floats` * 4).
 extern "C" int repro_flash_attention_bwd_smem_bytes(int which, int dh) {
-    if (which == 0) return dh <= 64 ? tc::dkdv::smem_bytes<64>() : tc::dkdv::smem_bytes<128>();
-    return dh <= 64 ? tc::dq::smem_bytes<64>() : tc::dq::smem_bytes<128>();
+    switch (head_dim_tile(dh)) {
+        case 64: return which == 0 ? tc::dkdv::smem_bytes<64>() : tc::dq::smem_bytes<64>();
+        case 128: return which == 0 ? tc::dkdv::smem_bytes<128>() : tc::dq::smem_bytes<128>();
+        case 256: return which == 0 ? tc::dkdv::smem_bytes<256>() : tc::dq::smem_bytes<256>();
+        default: return 0;
+    }
 }
 
 // Tiles of the bf16 kernels: keys per block of the dk/dv kernel (which = 0),
@@ -962,13 +977,25 @@ extern "C" int repro_flash_attention_bwd_tile(int which) {
     return which == 0 ? tc::dkdv::BK : which == 1 ? tc::dq::BQ : tc::dkdv::BQ;
 }
 
+// Blocks that share one tile of the bf16 dk/dv and dq kernels at head dim dh,
+// each owning a part of the output columns and computing S and dP over all of
+// them: 1 up to 128, 2 above (0 where no kernel takes dh).
+extern "C" int repro_flash_attention_bwd_col_parts(int dh) {
+    switch (head_dim_tile(dh)) {
+        case 64: return tc::col_parts<64>();
+        case 128: return tc::col_parts<128>();
+        case 256: return tc::col_parts<256>();
+        default: return 0;
+    }
+}
+
 // q, o, do [B,Sq,H,dh]; k, v [B,Sk,KV,dh]; lse [B,H,Sq] f32 contiguous (the
 // forward's); delta [B,H,Sq] f32 scratch; dq [B,Sq,H,dh], dk and dv
 // [B,Sk,KV,dh] outputs.  strides: 24 int64 in elements, (batch, seq, head) of
 // q, k, v, do, dk, dv, dq, o in that order.  dtype: 0 = f32, 1 = bf16; rows
-// start on 16-byte boundaries; in bf16 dh is a multiple of 8.  window <= 0
-// means no window.  device is the CUDA ordinal of the tensors and the stream.  Returns
-// cudaError_t.
+// start on 16-byte boundaries; in bf16 dh is a multiple of 8; dh is at most
+// 256.  window <= 0 means no window.  device is the CUDA ordinal of the
+// tensors and the stream.  Returns cudaError_t.
 extern "C" int repro_flash_attention_bwd(
         const void* q, const void* k, const void* v, const void* o, const void* dO,
         const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype,
@@ -977,31 +1004,41 @@ extern "C" int repro_flash_attention_bwd(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     Strides st;
     for (int i = 0; i < 24; ++i) st.v[i] = strides[i];
-    if (dh <= 0 || dh > 128 || dh % 4 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+    if (dh <= 0 || dh > REPRO_MAX_HEAD_DIM || dh % 4 || KV <= 0 || H % KV)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own
     if (err != cudaSuccess) return (int)err;
     if (Sq <= 0 || B <= 0) return (int)cudaSuccess;
     if (dtype == REPRO_F32) {
         auto c = [](const void* p) { return static_cast<const float*>(p); };
         auto m = [](void* p) { return static_cast<float*>(p); };
-        return dh <= 64
-            ? (int)simt::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
-                                           m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
-                                           window, q_offset, s)
-            : (int)simt::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
-                                            m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
-                                            window, q_offset, s);
+        switch (head_dim_tile(dh)) {
+            case 64: return simt::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                             m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale,
+                                             causal, window, q_offset, s);
+            case 128: return simt::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                               m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale,
+                                               causal, window, q_offset, s);
+            default: return simt::launch<256>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                              m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale,
+                                              causal, window, q_offset, s);
+        }
     }
     if (dtype == REPRO_BF16) {
         if (dh % 8) return (int)cudaErrorInvalidValue;
         auto c = [](const void* p) { return static_cast<const bf16*>(p); };
         auto m = [](void* p) { return static_cast<bf16*>(p); };
-        return dh <= 64
-            ? (int)tc::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq), m(dk), m(dv),
-                                  B, Sq, Sk, H, KV, dh, st, scale, causal, window, q_offset, s)
-            : (int)tc::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq), m(dk),
-                                   m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal, window,
-                                   q_offset, s);
+        switch (head_dim_tile(dh)) {
+            case 64: return tc::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                           m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
+                                           window, q_offset, s);
+            case 128: return tc::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                             m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale,
+                                             causal, window, q_offset, s);
+            default: return tc::launch<256>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                            m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
+                                            window, q_offset, s);
+        }
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -25,6 +25,8 @@ KERNEL = CudaKernel("decode_attention", {
     "repro_decode_max_rep": [],
     "repro_decode_attention_smem_bytes": [_I, _I],
 })
+# the widest head dim this kernel is instantiated for (tiles 64, 128, 256 wide)
+MAX_HEAD_DIM = 256
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *,
@@ -43,7 +45,7 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
             or k_cache.shape[3] != dh or h % kvh):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
                          f"v {tuple(v_cache.shape)}")
-    check_head_dim(dh, q.dtype)
+    check_head_dim(dh, q.dtype, MAX_HEAD_DIM)
     if valid_mask.dtype not in (torch.bool, torch.uint8) or valid_mask.shape != (b, c):
         raise ValueError(f"valid_mask must be bool/uint8 [{b},{c}], got "
                          f"{valid_mask.dtype} {tuple(valid_mask.shape)}")

@@ -21,17 +21,20 @@ KERNEL = CudaKernel("flash_attention", {
     "repro_flash_attention_smem_bytes": [_I, _I],
     "repro_flash_attention_kv_tile": [_I],
     "repro_flash_attention_q_tile": [_I],
+    "repro_flash_attention_col_parts": [_I],
 })
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the widest head dim this kernel is instantiated for (tiles 64, 128, 256 wide)
+MAX_HEAD_DIM = 256
 
 
-def check_head_dim(dh: int, dtype: torch.dtype) -> None:
-    """Head dims the kernels take: up to 128, whole 16-byte chunks of a row
-    (multiples of 8 in bf16, of 4 in f32: 64, 120, 128, ...)."""
+def check_head_dim(dh: int, dtype: torch.dtype, limit: int) -> None:
+    """Head dims a kernel takes: up to its ``limit``, whole 16-byte chunks of a
+    row (multiples of 8 in bf16, of 4 in f32: 64, 120, 128, 256, ...)."""
     per16 = 16 // dtype.itemsize
-    if dh <= 0 or dh > 128 or dh % per16:
-        raise ValueError(f"head dim {dh} is not supported by the CUDA kernels in {dtype} "
-                         f"(a multiple of {per16}, at most 128)")
+    if dh <= 0 or dh > limit or dh % per16:
+        raise ValueError(f"head dim {dh} is not supported by the CUDA kernel in {dtype} "
+                         f"(a multiple of {per16}, at most {limit})")
 
 
 def check_rows(name: str, t: torch.Tensor) -> None:
@@ -63,7 +66,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
-    check_head_dim(dh, q.dtype)
+    check_head_dim(dh, q.dtype, MAX_HEAD_DIM)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)

@@ -23,7 +23,10 @@ KERNEL = CudaKernel("flash_attention_bwd", {
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 7 + [_P, _F, _I, _I, _I, _I, _P],
     "repro_flash_attention_bwd_smem_bytes": [_I, _I],
     "repro_flash_attention_bwd_tile": [_I],
+    "repro_flash_attention_bwd_col_parts": [_I],
 })
+# the widest head dim these kernels are instantiated for (tiles 64, 128, 256 wide)
+MAX_HEAD_DIM = 256
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -50,7 +53,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{tuple(lse.shape)} strides {lse.stride()}")
     if len({t.device for t in (q, k, v, o, do, lse)}) != 1:
         raise ValueError("q, k, v, o, do and lse must be on one device")
-    check_head_dim(dh, q.dtype)
+    check_head_dim(dh, q.dtype, MAX_HEAD_DIM)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)

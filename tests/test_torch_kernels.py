@@ -14,6 +14,7 @@ import jax
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pl_decode
 from repro.kernels.flash_attention import flash_attention as pl_flash
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import ops
@@ -52,6 +53,8 @@ def _j(*arrs):
     (2, 64, 64, 4, 4, 16, False, None, 16, 16, 0),
     (2, 128, 128, 4, 1, 32, True, 48, 32, 32, 0),
     (1, 32, 96, 4, 2, 16, True, 40, 16, 32, 64),     # chunked prefill: q_offset
+    (1, 64, 64, 2, 2, 256, True, None, 16, 32, 0),   # gemma-7b's head dim
+    (1, 96, 96, 4, 2, 256, True, 40, 32, 16, 0),     # dh 256, GQA and a window
 ])
 def test_plain_mha_matches_jax(b, sq, sk, h, kv, dh, causal, window, bq, bk, q_offset):
     q, k, v = _qkv(b, sq, sk, h, kv, dh)
@@ -65,9 +68,11 @@ def test_plain_mha_matches_jax(b, sq, sk, h, kv, dh, causal, window, bq, bk, q_o
     np.testing.assert_allclose(got, np.asarray(pallas), atol=ATOL)
 
 
-@pytest.mark.parametrize("valid_len", [37, 100, 256])
-def test_plain_decode_matches_jax(valid_len):
-    b, c, h, kv, dh = 2, 256, 8, 2, 64
+@pytest.mark.parametrize("valid_len,dh", [
+    pytest.param(37, 64, id="37"), pytest.param(100, 64, id="100"),
+    pytest.param(256, 64, id="256"), pytest.param(100, 256, id="100-dh256")])
+def test_plain_decode_matches_jax(valid_len, dh):
+    b, c, h, kv = 2, 256, 8, 2
     rng = np.random.default_rng(1)
     q = (rng.standard_normal((b, 1, h, dh)) * 0.5).astype(np.float32)
     kc = (rng.standard_normal((b, c, kv, dh)) * 0.5).astype(np.float32)
@@ -125,7 +130,9 @@ def _mha_rounding_p(q, k, v, p_rounding, *, window=None, block_k=64):
     """Causal attention computed as the bf16 CUDA flash kernel computes it:
     KV tiles of ``block_k`` keys, scores, softmax statistics and sums in f32,
     and P rounded by ``p_rounding`` before P.V.  Products of two bf16 values
-    are exact in f32, so the tensor cores' products are the f32 ones here."""
+    are exact in f32, so the tensor cores' products are the f32 ones here.
+    At dh 256 the kernel gives each half of the output columns to its own
+    warp, both computing the same S: every element's sums are the ones here."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     q5 = q.reshape(b, s, kvh, h // kvh, dh).float()
@@ -161,7 +168,8 @@ def _p_bf16_once(p):
     return (p.bfloat16().float(),)
 
 
-@pytest.mark.parametrize("dh,window", [(128, None), (120, None), (128, 100)])
+@pytest.mark.parametrize("dh,window", [(128, None), (120, None), (128, 100), (256, None),
+                                       (256, 100)])
 def test_flash_kernel_p_split_holds_the_bf16_tolerance(dh, window):
     """The bf16 flash kernel splits P into a bf16 high and low part before
     P.V; that keeps its output within one bf16 ulp of ``ref.mha``
@@ -181,7 +189,9 @@ def _mha_bwd_rounding(q, k, v, o, lse, do, roundings, *, window=None):
     ``["dk"]`` and ``["dq"]`` before its product; the dk/dv kernel forms dS
     from P as the dv product takes it (hi + lo).  Products of two bf16 values
     are exact in f32, so the tensor cores' products are the f32 ones here,
-    up to the order of summation."""
+    up to the order of summation.  At dh 256 each half of the output columns
+    has its own block, both computing the same S and dP over all 256: every
+    element's sums are the ones here."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -202,7 +212,8 @@ def _mha_bwd_rounding(q, k, v, o, lse, do, roundings, *, window=None):
     return (dq.reshape(b, s, h, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
-@pytest.mark.parametrize("dh,window", [(128, None), (120, None), (128, 100), (120, 100)])
+@pytest.mark.parametrize("dh,window", [(128, None), (120, None), (128, 100), (120, 100),
+                                       (256, None), (256, 100)])
 def test_flash_bwd_kernel_p_and_ds_split_holds_the_bf16_tolerance(dh, window):
     """The bf16 backward kernels split P (in dv) and dS (in dk and dq) into a
     bf16 high and low part before each product; that keeps dq, dk and dv
@@ -289,6 +300,8 @@ _BWD_CASES = [
     (2, 50, 50, 8, 2, 16, True, 17, 16, 32, 0),       # ragged and a window
     (1, 32, 96, 4, 2, 16, True, 40, 16, 32, 64),      # q_offset
     (2, 40, 72, 4, 2, 8, False, None, 16, 16, 0),     # not causal, Sq != Sk
+    (1, 64, 64, 4, 2, 256, True, None, 16, 32, 0),    # gemma-7b's head dim
+    (1, 32, 96, 2, 2, 256, True, 40, 16, 32, 64),     # dh 256, q_offset and a window
 ]
 
 
@@ -383,3 +396,59 @@ def test_bwd_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfab.flash_attention_bwd(q, k, v, o, lse, o)
     assert ops.launch_counts()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_head_dim_limit_of_the_wrappers(dtype):
+    """Every wrapper takes head dims up to its kernel's widest tile, 256, in
+    whole 16-byte chunks of a row, and refuses the next chunk."""
+    per16 = 16 // dtype.itemsize
+    for mod in (tfa, tfab, tda):
+        assert mod.MAX_HEAD_DIM == 256
+        for dh in (per16, 64, 120, 128, 128 + per16, 192, 256):
+            tfa.check_head_dim(dh, dtype, mod.MAX_HEAD_DIM)
+        for dh in (0, 256 + per16, 512, 36 if dtype == torch.bfloat16 else 130):
+            with pytest.raises(ValueError, match="head dim"):
+                tfa.check_head_dim(dh, dtype, mod.MAX_HEAD_DIM)
+    with pytest.raises(ValueError, match="at most 128"):
+        tfa.check_head_dim(256, dtype, 128)
+
+
+def _upper_half_zeroed(t):
+    t = t.clone()
+    t[..., 128:] = 0
+    return t
+
+
+@pytest.mark.parametrize("kind", ["flash", "decode", "bwd"])
+def test_bf16_tolerance_rejects_the_faults_of_a_column_split(kind):
+    """What the 256-wide kernels' column split could get wrong, at gemma-7b's
+    dh 256 and rep 1: the output's columns 128-255 never written (zero), or S
+    computed from the first 128 dims only.  Both fail the tolerance the
+    kernels are held to (``tolerance_ratio``, ``grad_tolerance_ratio``)."""
+    q, k, v = _bf16(*_qkv(1, 256, 256, 4, 4, 256, seed=7))
+    half = _upper_half_zeroed
+    if kind == "flash":
+        want = tref.mha(q, k, v)
+        faults = [half(want), tref.mha(half(q), k, v, scale=256 ** -0.5)]
+        ratio = tref.tolerance_ratio
+    elif kind == "decode":
+        q1, valid = q[:, -1:], torch.ones((1, 256), dtype=torch.bool)
+        want = tref.decode_attention(q1, k, v, valid)
+        faults = [half(want), tref.decode_attention(half(q1), k, v, valid, scale=256 ** -0.5)]
+        ratio = tref.tolerance_ratio
+    else:
+        do = _bf16(_qkv(1, 256, 256, 4, 4, 256, seed=8)[0])[0]
+        o, lse = tref.mha_fwd_lse(q, k, v)
+        want = tref.mha_bwd(q, k, v, o, lse, do)
+        # dq, dk and dv with their upper columns dropped, and the gradients of
+        # attention whose S sees only the first 128 dims
+        s_half = tref.mha_bwd(half(q), k, v, *tref.mha_fwd_lse(half(q), k, v,
+                                                                scale=256 ** -0.5),
+                              do, scale=256 ** -0.5)
+        for i in range(3):
+            assert tref.grad_tolerance_ratio(half(want[i]), want[i]) > 1, i
+        assert max(tref.grad_tolerance_ratio(g, w) for g, w in zip(s_half, want)) > 1
+        return
+    for fault in faults:
+        assert ratio(fault, want) > 1

@@ -62,6 +62,18 @@ def _randn(shape, dtype, dev, gen, scale=0.5):
     (2, 512, 512, 32, 8, 128, torch.bfloat16, True, None, 0),    # llama3-8b heads
     (2, 200, 200, 8, 2, 64, torch.bfloat16, False, None, 0),     # not causal
     (1, 130, 257, 8, 2, 120, torch.bfloat16, False, None, 0),    # not causal, Sq != Sk
+    # the 256-wide tiles (gemma-7b: 16 heads on 16 kv heads, dh 256): 8 warps,
+    # two to a row group, each owning 128 output columns
+    (1, 256, 256, 16, 16, 256, torch.bfloat16, True, None, 0),
+    (2, 1000, 1000, 8, 2, 256, torch.bfloat16, True, None, 0),   # ragged S, GQA
+    (1, 512, 512, 8, 2, 256, torch.bfloat16, True, 100, 0),      # window
+    (1, 100, 333, 8, 2, 256, torch.bfloat16, True, 90, 233),     # q_offset and window
+    (1, 4097, 4097, 4, 4, 256, torch.bfloat16, True, None, 0),
+    (1, 130, 257, 8, 2, 192, torch.bfloat16, False, None, 0),    # dh 192 zero-padded
+    (1, 65, 65, 8, 2, 136, torch.bfloat16, True, None, 0),       # just past 128
+    (1, 300, 300, 4, 4, 256, torch.float32, True, None, 0),
+    (1, 200, 200, 8, 2, 256, torch.float32, True, 40, 0),
+    (1, 64, 320, 4, 1, 256, torch.float32, True, None, 256),     # q_offset, rep 4
 ])
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, window,
                                     q_offset):
@@ -79,7 +91,7 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, wi
 
 
 @pytest.mark.parametrize("dtype,s,dh", [(torch.float32, 128, 64), (torch.bfloat16, 300, 128),
-                                         (torch.bfloat16, 200, 120)])
+                                         (torch.bfloat16, 200, 120), (torch.bfloat16, 300, 256)])
 def test_flash_kernel_reads_strided_views(dev, dtype, s, dh):
     """q/k/v sliced out of a fused [B,S,H+2KV,dh] tensor: no copy needed."""
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -123,6 +135,17 @@ _BWD_CASES = [
     (1, 257, 257, 16, 2, 64, torch.bfloat16, True, None, 0),      # rep 8
     (2, 300, 300, 8, 2, 128, torch.bfloat16, True, None, 0),      # B = 2
     (1, 200, 200, 4, 2, 64, torch.bfloat16, False, 50, 0),        # window, not causal
+    # 256 wide: two blocks a tile, each owning 128 columns of dk/dv (dq)
+    (1, 256, 256, 16, 16, 256, torch.bfloat16, True, None, 0),    # gemma-7b heads
+    (1, 1000, 1000, 8, 2, 256, torch.bfloat16, True, None, 0),    # ragged, GQA
+    (1, 700, 700, 8, 2, 256, torch.bfloat16, True, 100, 0),       # window binds
+    (2, 130, 400, 8, 2, 256, torch.bfloat16, True, 150, 270),     # q_offset and window
+    (1, 4097, 4097, 4, 4, 256, torch.bfloat16, True, None, 0),
+    (1, 130, 257, 8, 2, 192, torch.bfloat16, False, None, 0),     # dh 192, not causal
+    (1, 129, 129, 4, 1, 136, torch.bfloat16, True, None, 0),      # just past 128, rep 4
+    (1, 300, 300, 4, 4, 256, torch.float32, True, 77, 0),
+    (1, 100, 333, 8, 2, 256, torch.float32, True, None, 233),     # q_offset, GQA
+    (2, 200, 200, 4, 2, 256, torch.float32, False, None, 0),      # not causal
 ]
 
 
@@ -152,7 +175,7 @@ def test_flash_bwd_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal
 
 
 @pytest.mark.parametrize("dtype,s,dh", [(torch.float32, 128, 64), (torch.bfloat16, 300, 128),
-                                         (torch.bfloat16, 200, 120)])
+                                         (torch.bfloat16, 200, 120), (torch.bfloat16, 300, 256)])
 def test_flash_bwd_kernel_reads_strided_views(dev, dtype, s, dh):
     """q/k/v sliced out of a fused [B,S,H+2KV,dh] tensor and do out of a wider
     one: no copy needed."""
@@ -194,7 +217,8 @@ def test_flash_bwd_kernel_rejects_planted_faults(dev, dtype):
 
 @pytest.mark.parametrize("b,s,h,kv,dh,dtype,window", [
     (1, 1000, 32, 8, 120, torch.bfloat16, None), (1, 300, 8, 2, 128, torch.bfloat16, 77),
-    (2, 129, 4, 4, 64, torch.float32, None), (1, 200, 8, 2, 120, torch.float32, 40)])
+    (2, 129, 4, 4, 64, torch.float32, None), (1, 200, 8, 2, 120, torch.float32, 40),
+    (1, 300, 16, 16, 256, torch.bfloat16, None), (1, 200, 8, 2, 256, torch.float32, 40)])
 def test_flash_kernel_lse_matches_plain(dev, b, s, h, kv, dh, dtype, window):
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (_randn((b, s, n, dh), dtype, dev, gen) for n in (h, kv, kv))
@@ -271,6 +295,15 @@ def _mask(kind, b, c, dev, gen):
     (2, 333, 8, 2, 64, torch.bfloat16, "prefix"),
     (2, 4096, 32, 8, 128, torch.bfloat16, "tail"),
     (1, 600, 16, 1, 128, torch.float32, "holes"),
+    # 256 wide: a warp load covers one bf16 row; in f32 a lane loads two pieces of it
+    (8, 4096, 16, 16, 256, torch.bfloat16, "prefix"),   # gemma-7b, rep 1
+    (2, 4100, 16, 16, 256, torch.bfloat16, "holes"),
+    (2, 1000, 32, 8, 256, torch.bfloat16, "holes"),     # rep 4
+    (1, 700, 16, 1, 256, torch.bfloat16, "tail"),       # rep 16
+    (2, 513, 8, 8, 192, torch.bfloat16, "all"),         # dh 192 zero-padded
+    (3, 300, 8, 2, 256, torch.float32, "holes"),
+    (2, 777, 64, 8, 256, torch.float32, "prefix"),      # rep 8
+    (1, 600, 16, 1, 256, torch.float32, "tail"),        # rep 16
 ])
 def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -303,9 +336,15 @@ def test_decode_kernel_reads_strided_caches(dev, dtype):
 
 
 def test_kernels_refuse_unsupported_inputs(dev):
-    q = torch.zeros((1, 64, 4, 256), device=dev)
+    # one 16-byte chunk past the widest tile (256): refused by every wrapper
+    q = torch.zeros((1, 64, 4, 264), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
+    lse = torch.zeros((1, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tfab.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="head dim"):
+        tda.decode_attention(q[:, :1], q, q, torch.ones((1, 64), dtype=torch.bool, device=dev))
     with pytest.raises(ValueError):
         tfa.flash_attention(q.half(), q.half(), q.half())
     q1 = torch.zeros((1, 1, 4, 64), device=dev)

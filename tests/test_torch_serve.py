@@ -95,7 +95,12 @@ def test_prefill_matches_jax_prefill(yi):
 
 
 @pytest.mark.parametrize("arch,b,s", [("yi_9b", 8, 12), ("llama3_8b", 2, 12),
-                                      ("yi_9b", 2, 1024)])
+                                      ("yi_9b", 2, 1024),
+                                      # GeGLU, tied embeddings, head dim 32 on d_model 64
+                                      ("gemma_7b", 2, 12), ("gemma_7b", 2, 1024),
+                                      # the paper's Table 3 models and mistral-large
+                                      ("llama_80b", 2, 12), ("gpt_80b", 2, 12),
+                                      ("mistral_large_123b", 2, 12), ("llama_80b", 1, 1024)])
 def test_prefill_matches_jax(arch, b, s, monkeypatch):
     jcfg, tcfg, jparams, tparams = _pair(arch)
     toks = _tokens(b, s, tcfg.vocab_size)
@@ -142,6 +147,20 @@ def test_decode_matches_jax(yi, cap, monkeypatch):
     # capacity >= 4096 takes the flash-decode branch, once per layer and step
     assert spy.calls == (tcfg.n_layers * 12 if cap >= 4096 else 0)
     assert state[0]["slot_pos"][:, :12].tolist() == [list(range(12))] * tcfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["yi_9b", "h2o_danube_3_4b", "mamba2_370m", "gemma_7b"])
+def test_decode_matches_forward(arch):
+    """The twin of tests/test_models.py's: the port's cached decode, token by
+    token, gives the port's teacher-forced forward logits at every position
+    (atol 2e-3, as there), and that forward gives the JAX package's."""
+    jcfg, tcfg, jparams, tparams = _pair(arch)
+    toks = _tokens(2, 12, tcfg.vocab_size, seed=5)
+    want, _ = T.lm_forward(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+    fwd, _ = tf.lm_forward(tparams, {"tokens": torch.from_numpy(toks).long()}, tcfg)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(want), atol=ATOL)
+    got, _ = _port_decode(tcfg, tparams, toks, toks.shape[1])
+    np.testing.assert_allclose(got, fwd.numpy(), atol=2e-3)
 
 
 def test_swa_ring_decode_matches_jax():

@@ -229,31 +229,40 @@ def test_cross_entropy_matches_jax():
         np.testing.assert_allclose(g.item(), float(w), rtol=1e-6)
 
 
-@pytest.mark.parametrize("seq", [S, 1024])
-def test_lm_loss_and_its_gradient_match_jax(reference, seq):
+@pytest.mark.parametrize("arch,seq", [
+    pytest.param("yi_9b", S, id=str(S)), pytest.param("yi_9b", 1024, id="1024"),
+    # GeGLU, tied embeddings (the unembedding's gradient adds to the embedding's)
+    # and a head dim (32) that is not d_model / heads (16)
+    pytest.param("gemma_7b", S, id=f"gemma_7b-{S}"),
+    pytest.param("gemma_7b", 1024, id="gemma_7b-1024")])
+def test_lm_loss_and_its_gradient_match_jax(reference, arch, seq):
     """One device, no fabric.  At S=1024 attention takes the flash path: the
     port's ``ops.mha`` autograd function (``ref.mha_bwd`` on the CPU) against
     the JAX package's custom VJP."""
     import jax
     import jax.numpy as jnp
 
+    from repro.configs.base import get_config as jax_config
     from repro.models import transformer as T
     from repro.parallel.sharding import _path_str
-    cfg = reference["cfg"]
-    if seq == S:
+    cfg = jax_config(arch, smoke=True).replace(dtype="float32")
+    if arch == "yi_9b" and seq == S:
         batch = reference["batch"]
     else:
         rng = np.random.default_rng(4)
-        batch = {k: rng.integers(0, cfg.vocab_size, (1, seq)).astype(np.int32)
+        rows = B if seq == S else 1
+        batch = {k: rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)
                  for k in ("tokens", "targets")}
     jparams = jax.tree_util.tree_map(jnp.asarray, T.init_lm(jax.random.PRNGKey(0), cfg))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (jloss, jm), jg = jax.value_and_grad(lambda p: T.lm_loss(p, jb, cfg), has_aux=True)(jparams)
-    params = bridge.from_numpy(reference["params"], "cpu", "float32")
+    flat = {_path_str(p): np.asarray(x)
+            for p, x in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    params = bridge.from_numpy(flat, "cpu", "float32")
     for t in leaves(params):
         t.requires_grad_()
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-    loss, m = tf.lm_loss(params, tbatch, CFG)
+    loss, m = tf.lm_loss(params, tbatch, get_config(arch, smoke=True).replace(dtype="float32"))
     loss.backward()
     assert abs(loss.item() - float(jloss)) < 1e-4
     assert abs(m["ce"].item() - float(jm["ce"])) < 1e-4
