@@ -7,12 +7,12 @@ Run from the root of the repository.  Phases, in order; any failure raises
 and the script exits non-zero without printing a result:
 
  1. device: name, count, and ``nvidia-smi`` name and power limit;
- 2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+ 2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     nvcc (one process per source, started together), with registers, shared
     memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel,
-    in the flash backward's kernels, in any pass of the SSD scan or in any
-    256-wide instantiation fails, as does a missing bf16 tensor-core flash,
-    dk/dv or dq kernel (dh 64, 128 and 256);
+    in the flash backward's kernels, in any pass of the SSD scan or of its
+    backward or in any 256-wide instantiation fails, as does a missing bf16
+    tensor-core flash, dk/dv or dq kernel (dh 64, 128 and 256);
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
@@ -86,9 +86,22 @@ and the script exits non-zero without printing a result:
 12. llama-80b (the paper's Table 3 model) prefill at full width (d=8192, 64
     heads on 8 kv heads, d_ff 28672) on 4 of its 96 layers, B=1, S=4096, as
     phase 4;
-13. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
+13. jamba-v0.1-52b (Mamba-2 and attention 7:1, MoE on every other layer)
+    prefill at full width on 8 of its 32 layers (one whole period), B=1,
+    S=4096: 7 SSD launches and 1 flash launch, each held against the plain
+    version; the logits of the 8 layers through the kernels against the
+    plain versions routed as the kernels routed (the plain router's own
+    choices there differ from the kernels' in at most 1 %), and two planted
+    faults (every chunk's entering state dropped, the kv heads shifted)
+    must not match (the last KV tile dropped is reported; free routing's
+    flips and the comparison over the tokens routed alike too);
+14. jamba decode on the same weights: B=8, capacity 4096, (a) and
+    (b), one flash-decode launch a step held against the plain version, and
+    the 8-layer teacher-forced logits against the prefill's and the plain
+    version's over the positions routed alike;
+15. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
     mamba2-370m, deepseek-moe-16b and gemma-7b;
-14. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
+16. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
     weights from seed 0) through ``make_train_step`` as ``repro_torch.launch.train`` sets it up
     on an NCCL group of one process, B=1, S=4096, four AdamW steps on one
     fixed ``synth_batch``: the loss must fall at every step, the flash
@@ -99,14 +112,27 @@ and the script exits non-zero without printing a result:
     fault in the backward must not; step time, tokens/s, the model-FLOP
     share of the bf16 peak, peak memory and the device's busy share of one
     profiled step;
-15. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
+17. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
     at B=2, S=4096, with the model-FLOP share over the active parameters,
     and the first step's ``moe_aux`` held to the aux of the plain forward on
     the same parameters;
-16. train: gemma-7b at full width on 8 of its 28 layers (its whole training
-    state does not fit the card), B=1, S=4096, the same way.
+18. train: gemma-7b at full width on 8 of its 28 layers (its whole training
+    state does not fit the card), B=1, S=4096, the same way;
+19. train: mamba2-370m at full width and depth (48 layers), B=1, S=4096, the
+    same way: the SSD scan and its backward launch once per layer and step,
+    each launch is held against its plain version, and at depth 2 the
+    gradients with a planted fault in the backward (ddt without the decays'
+    term) must not match; the model-FLOP share counts 6 N T only (the scan's
+    FLOPs are not counted).
 
-The kernel phase also runs each attention kernel's 256-wide instantiation
+The kernel phase also holds the SSD scan's backward kernel to
+``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
+(G=2, a ragged S, h_init, jamba's H=128 and N=16, a chunk of 16) by
+``ref.ssd_grad_tolerance_ratio`` <= 1 on every gradient, with four planted
+faults that must read > 1 (a carried state cotangent dropped at a segment
+boundary, the intra-chunk term of du dropped, ddt without the decays'
+gradient, dB from one head of each group), and times it.  It also runs each
+attention kernel's 256-wide instantiation
 at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
 B=8 and a full 4096-slot cache), held to its plain version, with two planted
 faults of its column split (the output's columns 128-255 zeroed, S from the
@@ -157,7 +183,7 @@ FLASH_BF16_MAX_REGISTERS = 240
 # Q's fragments in registers would add 64: the build fails above this count.
 FLASH_BF16_256_MAX_REGISTERS = 200
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
-               "ssd_scan": 0}
+               "ssd_scan": 0, "ssd_scan_bwd": 0}
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
 FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 # Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
@@ -181,6 +207,14 @@ PAPER_ARCH, PAPER_LAYERS = "llama_80b", 4
 GEMMA_ATTN = (16, 16, 256)  # heads, kv heads, head dim
 # The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order.
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
+# The CUDA kernels of one ssd_scan_bwd call (csrc/ssd_scan_bwd.cu), in launch order.
+SSD_BWD_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_chunk_kernel",
+                  "ssd_bwd_group_kernel", "ssd_bwd_da_kernel")
+# SSM training (phase 19): mamba2-370m at full width and depth.  The hybrid
+# family (phases 13 and 14): jamba-v0.1-52b at full width on HYBRID_LAYERS of
+# its 32 (one period of the 1:7 pattern with its 4 MoE layers: 13.27 B
+# parameters, 26.5 GB in bf16; all 32 layers, ~103 GB, do not fit the card).
+SSM_TRAIN_ARCH, HYBRID_ARCH, HYBRID_LAYERS = "mamba2_370m", "jamba_v0_1_52b", 8
 
 
 def log(*a):
@@ -441,6 +475,19 @@ def phase_build():
         raise AssertionError(f"[build] ssd scan: passes missing from the ptxas log {missing}, "
                              f"spilling {spills}")
     log(f"[build] ssd scan: all {len(SSD_PASSES)} passes built, no spills")
+    ssdb = ops.KERNELS["ssd_scan_bwd"].resources()
+    missing = [k for k in SSD_BWD_PASSES if not any(k in fn for fn in ssdb)]
+    spills = {fn: res for fn, res in ssdb.items() if res["spill_stores"]}
+    if missing or spills:
+        raise AssertionError(f"[build] ssd scan backward: passes missing from the ptxas log "
+                             f"{missing}, spilling {spills}")
+    ssdb_lib = ops.KERNELS["ssd_scan_bwd"].lib()
+    log("[build] ssd scan backward: all {} passes built, no spills; {}; shared memory per "
+        "block: local {} B, chunk {} B".format(
+            len(SSD_BWD_PASSES), "; ".join(
+                f"{k} {res['registers']} registers" for k in SSD_BWD_PASSES
+                for fn, res in ssdb.items() if k in fn),
+            ssdb_lib.repro_ssd_scan_bwd_smem_bytes(0), ssdb_lib.repro_ssd_scan_bwd_smem_bytes(1)))
     bwd = ops.KERNELS["flash_attention_bwd"].resources()
     missing = [k for k in FLASH_BWD_PASSES if not any(k in fn for fn in bwd)]
     spills = {fn: res for fn, res in bwd.items() if res["spill_stores"]}
@@ -935,15 +982,18 @@ def recorded_routing(routes: list):
 
 
 @contextlib.contextmanager
-def replayed_routing(routes: list):
+def replayed_routing(routes: list, own: list = None):
     """Route the MoE layers, in the order they run, to the experts of
     ``routes`` (as ``recorded_routing`` recorded them), with the gates taken
-    from this run's own probabilities (a swap only this script makes)."""
+    from this run's own probabilities (a swap only this script makes).
+    ``own``: where given, each layer's own choice is appended to it."""
     from repro_torch.models import moe
     topk, replay = moe.router_topk, iter(routes)
 
     def replaying(logits, m, generator=None):
-        _, _, probs = topk(logits, m, generator)
+        _, mine, probs = topk(logits, m, generator)
+        if own is not None:
+            own.append(mine)
         idx = next(replay)
         vals = probs.gather(-1, idx)
         return vals / vals.sum(-1, keepdim=True).clamp(min=1e-9), idx, probs
@@ -1018,18 +1068,91 @@ def moe_prefill_depth2(cfg2, p2, tokens, tag: str) -> dict:
             "prefill_depth2_shifted_heads": shifted, "prefill_depth2_tile_dropped": dropped}
 
 
+def hybrid_prefill_check(cfg8, p8, tokens, tag: str) -> dict:
+    """One whole period of a hybrid (Mamba-2, attention and MoE layers): the
+    logits through the kernels against the plain versions routed as the
+    kernels routed.  Unlike attention, the scan carries a token whose
+    routing flipped into the state of every later token, so comparing over
+    the tokens routed alike (``moe_prefill_depth2``) still compares tokens
+    that a flip upstream moved; it is reported.  The flips held to
+    ``MOE_FLIP_LIMIT`` are the plain router's own choices in the replayed
+    run against the kernels' (the kernels' arithmetic at each MoE layer,
+    with no flip upstream).  The planted faults run on the plain versions
+    routed as the kernels routed too: every chunk's entering state dropped
+    and the kv heads shifted must not match; the last KV tile dropped is
+    reported (it moves the last 64 positions of one attention layer of 8,
+    within the kernels' own difference here; each flash launch is held to
+    its plain version above)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tf
+
+    def logits():
+        return tf.lm_forward(p8, {"tokens": tokens}, cfg8)[0]
+    r_got, r_plain, r_own = [], [], []
+    with recorded_routing(r_got):
+        got = logits()
+    with plain_ops(), recorded_routing(r_plain):
+        plain = logits()
+    flips_free, agree = routing_agreement(cfg8, r_got, r_plain)
+    rel_alike = position_rel_rms(got[agree], plain[agree])
+    del plain
+    with plain_ops(), replayed_routing(r_got, r_own):
+        want = logits()
+    flips, _ = routing_agreement(cfg8, r_own, r_got)
+    rel = position_rel_rms(got, want)
+    del got
+    tile = flash_tile()
+    faults = {}
+    for key, ctx in (("chunks_independent", lambda: swapped_ops(ssd=ssd_chunks_independent)),
+                     ("shifted_heads", shifted_heads_ops),
+                     ("tile_dropped", lambda: swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
+                         q, k, v, kv_valid_len=k.shape[1] - tile, **kw)))):
+        with plain_ops(), ctx(), replayed_routing(r_got):
+            faults[key] = position_rel_rms(logits(), want)
+    log(f"[{tag}] {cfg8.n_layers} layers, full width, {tokens.shape[1]} positions, the plain "
+        f"versions routed as the kernels routed: (token, k) choices of the plain router that "
+        f"the kernels did not make {100 * flips:.4f} % (limit {100 * MOE_FLIP_LIMIT:.0f} %); "
+        f"worst position's relative RMS of the logits, kernels vs plain {rel:.3g} (limit "
+        f"{MODEL_LIMIT}); controls on the plain versions: every chunk's entering state "
+        f"dropped {faults['chunks_independent']:.3g}, kv heads shifted "
+        f"{faults['shifted_heads']:.3g} (each must exceed the limit), last {tile}-key tile "
+        f"dropped {faults['tile_dropped']:.3g} (reported)")
+    log(f"[{tag}] routed freely (reported): choices that differ {100 * flips_free:.4f} %, "
+        f"{int(agree.sum())} positions route alike at every MoE layer, worst relative RMS over "
+        f"those {rel_alike:.3g}")
+    if not (flips <= MOE_FLIP_LIMIT and rel <= MODEL_LIMIT
+            < min(faults["chunks_independent"], faults["shifted_heads"])):
+        raise AssertionError(f"hybrid prefill check: flips {flips}, kernels {rel}, controls "
+                             f"{faults}")
+    return {"prefill_period_replayed_flips": flips, "prefill_period_rel_rms": rel,
+            "prefill_period_chunks_independent": faults["chunks_independent"],
+            "prefill_period_shifted_heads": faults["shifted_heads"],
+            "prefill_period_tile_dropped": faults["tile_dropped"],
+            "prefill_period_free_flips": flips_free,
+            "prefill_period_free_positions_alike": int(agree.sum()),
+            "prefill_period_free_rel_rms_alike": rel_alike}
+
+
 def prefill_flops(cfg, s: int) -> tuple:
     """(needed, executed) model FLOPs of a B=1 prefill: the projections,
     causal attention, dense FFNs, the last position's logits and, in an MoE
     model, the router, the routed experts (the K a token chooses; executed:
-    every expert's buffer padded to its capacity) and shared experts.
+    every expert's buffer padded to its capacity) and shared experts; a
+    Mamba-2 layer's in- and out-projections (its scan is not counted).
     Derived from the shapes, not measured."""
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.moe import moe_capacity
-    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    d = cfg.d_model
+    n_attn, n_ssm = n_mixers(cfg)
     n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
-    common = cfg.n_layers * (2 * s * d * (2 * h + 2 * kv) * dh + 4 * h * dh * s * (s + 1) // 2)
-    common += (cfg.n_layers - n_moe) * 2 * s * 3 * d * cfg.d_ff + 2 * d * padded_vocab(cfg)
+    common = (cfg.n_layers - n_moe) * 2 * s * 3 * d * cfg.d_ff + 2 * d * padded_vocab(cfg)
+    if n_attn:
+        h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        common += n_attn * (2 * s * d * (2 * h + 2 * kv) * dh + 4 * h * dh * s * (s + 1) // 2)
+    if n_ssm:
+        e = cfg.ssm.expand * d
+        heads, gn = e // cfg.ssm.head_dim, cfg.ssm.n_groups * cfg.ssm.state_dim
+        common += n_ssm * (2 * s * d * (2 * e + 2 * gn + heads) + 2 * s * e * d)
     if not n_moe:
         return common, common
     m = cfg.moe
@@ -1041,7 +1164,12 @@ def prefill_flops(cfg, s: int) -> tuple:
 
 
 def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
-    """Prefill at B=1 S=4096; the result's keys start with ``prefix``."""
+    """Prefill at B=1 S=4096; the result's keys start with ``prefix``.  Each
+    attention layer launches the flash kernel once, each Mamba-2 layer the
+    SSD scan.  The check of the logits is at depth 2 (a dense model; an MoE
+    one with its routing recorded), or over one whole period of a hybrid's
+    pattern (its faults: every chunk's entering state dropped, the last KV
+    tile dropped)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as tf
@@ -1050,6 +1178,8 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
     gen = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (1, 4096), generator=gen, device="cuda")
     step = make_prefill_step(ServeSetup(cfg=cfg), (1, 1), params)
+    n_attn, n_ssm = n_mixers(cfg)
+    want_counts = {**NO_LAUNCHES, "flash_attention": n_attn, "ssd_scan": n_ssm}
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1059,12 +1189,13 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = ops.launch_counts()
-        if counts != {**NO_LAUNCHES, "flash_attention": cfg.n_layers}:
-            raise AssertionError(f"prefill launches {counts}, want {cfg.n_layers} flash")
+        if counts != want_counts:
+            raise AssertionError(f"prefill launches {counts}, want {want_counts}")
     if logits.shape != (1, 1, padded_vocab(cfg)) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite/shaped")
     log(f"[{tag}] {cfg.name} {cfg.n_layers} layers B=1 S=4096: {times[0]:.1f} ms first, "
-        f"{times[1]:.1f} ms second; flash launches {counts['flash_attention']}")
+        f"{times[1]:.1f} ms second; flash launches {counts['flash_attention']}"
+        + (f", ssd launches {counts['ssd_scan']}" if n_ssm else ""))
     busy, dev = device_profile(lambda: step(params, {"tokens": tokens}), f"{tag} B=1 S=4096")
     if dev:
         needed, executed = prefill_flops(cfg, tokens.shape[1])
@@ -1072,20 +1203,34 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
         log(f"[{tag}] model FLOPs, derived from the shapes, not measured: {needed / 1e12:.2f} T "
             f"needed, {executed / 1e12:.2f} T executed"
             + (" (each expert's buffer padded to its capacity)" if cfg.moe else "")
+            + ("; the SSD scan's FLOPs not counted" if n_ssm else "")
             + f"; at the device time {dev_ms:.2f} ms, {needed / dev_ms / 1e9:.1f} TFLOP/s "
             f"needed, {100 * needed / (dev_ms / 1e3) / PEAK_BF16_FLOPS:.1f} % of the bf16 peak")
+        for label, keys in (("flash", ("flash_fwd_kernel",)), ("ssd", SSD_PASSES)):
+            part = sum(v for key, v in dev.items() if any(k in key for k in keys))
+            if part:
+                log(f"[{tag}] {label} kernels {part:.2f} ms of {dev_ms:.2f} ms device time "
+                    f"({100 * part / dev_ms:.1f} %)")
 
     # every launch of a full prefill, held against the plain version on its own inputs
     ratios = []
     with checked_ops(ratios):
         step(params, {"tokens": tokens})
-    log(f"[{tag}] {cfg.n_layers} layers: each flash launch against ref.mha on the same inputs: "
-        f"worst {max(ratios):.3f} of the tolerance over {len(ratios)} launches")
-    if len(ratios) != cfg.n_layers or not max(ratios) <= 1:
-        raise AssertionError(f"prefill: a flash launch disagrees with ref.mha: {ratios}")
-    out = {"flash_launches": counts["flash_attention"], "prefill_calls": 1,
-           "prefill_ms": times[1], "prefill_first_ms": times[0],
-           "prefill_device_busy": busy, "prefill_flash_worst_ratio": max(ratios)}
+    log(f"[{tag}] {cfg.n_layers} layers: each launch against its plain version on the same "
+        f"inputs (flash: ref.mha, ssd: ref.ssd_chunked): worst {max(ratios):.4f} of the "
+        f"tolerance over {len(ratios)} launches")
+    if len(ratios) != n_attn + n_ssm or not max(ratios) <= 1:
+        raise AssertionError(f"prefill: a launch disagrees with its plain version: {ratios}")
+    out = {"flash_launches": counts["flash_attention"], "ssd_launches": counts["ssd_scan"],
+           "prefill_calls": 1, "prefill_ms": times[1], "prefill_first_ms": times[0],
+           "prefill_device_busy": busy, "prefill_worst_ratio": max(ratios)}
+    if dev:
+        out.update(prefill_device_ms=sum(dev.values()), prefill_model_flops=needed)
+
+    if n_ssm:  # a hybrid: one whole period of its pattern, routed as the kernels routed
+        out.update(hybrid_prefill_check(cfg.replace(n_layers=len(tf.period_spec(cfg))),
+                                        _first_periods(params, 1), tokens, tag))
+        return {prefix + k: v for k, v in out.items()}
 
     # depth 2, full width: logits at every position through the kernels, the
     # plain versions and two planted faults
@@ -1120,11 +1265,14 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
 
 
 def fill_cache(state, n: int, seed: int) -> None:
-    """Random K/V in the first ``n`` slots of every layer, as if ``n`` tokens
-    had been decoded, and every later slot empty."""
+    """Random K/V in the first ``n`` slots of every attention layer, as if
+    ``n`` tokens had been decoded, and every later slot empty (a Mamba-2
+    layer's state keeps what it has)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for c in state:
+        if "k" not in c:
+            continue
         c["k"][:, :, :n].normal_(generator=gen)
         c["v"][:, :, :n].normal_(generator=gen)
         c["slot_pos"].fill_(-1)
@@ -1134,8 +1282,9 @@ def fill_cache(state, n: int, seed: int) -> None:
 def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_tokens=None):
     """``n`` steps of ``step`` from position ``first``, teacher-forced on the
     columns of ``forced_tokens`` while they last, then greedy; each step must
-    launch the flash-decode kernel once per layer.  ``state`` is updated in
-    place.  Returns (seconds, the logits of each step, decode launches)."""
+    launch the flash-decode kernel once per attention layer.  ``state`` is
+    updated in place.  Returns (seconds, the logits of each step, decode
+    launches)."""
     import torch
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
@@ -1151,8 +1300,9 @@ def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_token
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    if counts != {**NO_LAUNCHES, "decode_attention": cfg.n_layers * n}:
-        raise AssertionError(f"decode launches {counts}, want {cfg.n_layers * n} decode")
+    n_attn = n_mixers(cfg)[0]
+    if counts != {**NO_LAUNCHES, "decode_attention": n_attn * n}:
+        raise AssertionError(f"decode launches {counts}, want {n_attn * n} decode")
     if not torch.isfinite(logits).all():
         raise AssertionError("decode logits not finite")
     return secs, out, counts["decode_attention"]
@@ -1262,20 +1412,23 @@ def decode_floor_ms(cfg, params, state, n_valid: int) -> float:
     """The least device time of one decode step: every parameter read once
     (all of them: at one token a group every expert of an MoE layer gets a
     buffer) but an untied embedding table, of which a step gathers B rows (a
-    tied one is read whole as the unembedding), and the K/V of the
-    ``n_valid`` valid slots of every layer's cache, at the card's memory
-    rate."""
+    tied one is read whole as the unembedding), the K/V of the ``n_valid``
+    valid slots of every attention layer's cache, and every Mamba-2 layer's
+    conv window and state, at the card's memory rate."""
     from repro_torch.tree import leaves
     weights = sum(t.numel() * t.element_size() for t in leaves(params))
     if not cfg.tie_embeddings:
         weights -= params["embed"].numel() * params["embed"].element_size()
     kv = sum(c[name][:, :, :n_valid].numel() * c[name].element_size()
-             for c in state for name in ("k", "v"))
-    return (weights + kv) / PEAK_HBM_BYTES * 1e3
+             for c in state if "k" in c for name in ("k", "v"))
+    ssm = sum(c[name].numel() * c[name].element_size()
+              for c in state if "state" in c for name in ("conv", "state"))
+    return (weights + kv + ssm) / PEAK_HBM_BYTES * 1e3
 
 
-def moe_decode_depth2(cfg, params, prompt, cap: int) -> dict:
-    """Depth 2, full width: the teacher-forced decode logits through the
+def moe_decode_depth2(cfg, params, prompt, cap: int, n_layers: int = 2) -> dict:
+    """Depth 2 (or the ``n_layers`` of a hybrid's whole period), full width:
+    the teacher-forced decode logits through the
     kernel against the plain version's (flips held to ``MOE_FLIP_LIMIT``)
     and against the prefill's of the same prompt (at 8 tokens no expert of
     deepseek-moe-16b overflows its capacity of 8, in decode or in prefill,
@@ -1287,18 +1440,19 @@ def moe_decode_depth2(cfg, params, prompt, cap: int) -> dict:
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.serve.step import ServeSetup, init_serve_state
-    cfg2 = cfg.replace(n_layers=2)
-    p2 = _first_periods(params, 2)
+    cfg2 = cfg.replace(n_layers=n_layers)
+    p2 = _first_periods(params, n_layers // len(tf.period_spec(cfg)))
     b, n = prompt.shape
+    n_moe = sum(cfg2.layer_has_moe(i) for i in range(n_layers))
 
     def forced(ctx=None):
         routes = []
         with recorded_routing(routes), (ctx or contextlib.nullcontext()):
             st = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, cap)
             logits = [tf.decode_step(p2, st, prompt[:, t:t + 1], t, cfg2)[0] for t in range(n)]
-        # one [B,1,K] a layer and step, in step order: the routes of each layer over the steps
-        return torch.cat(logits, 1), [torch.cat(routes[i::cfg2.n_layers], 1)
-                                      for i in range(cfg2.n_layers)]
+        # one [B,1,K] an MoE layer and step, in step order: the routes of each
+        # MoE layer over the steps
+        return torch.cat(logits, 1), [torch.cat(routes[i::n_moe], 1) for i in range(n_moe)]
     got, r_got = forced()
     plain, r_plain = forced(plain_ops())
     r_pre = []
@@ -1310,7 +1464,8 @@ def moe_decode_depth2(cfg, params, prompt, cap: int) -> dict:
     e_plain = position_rel_rms(got[agree_plain], plain[agree_plain])
     e_pre = position_rel_rms(got[agree_pre], pre[agree_pre])
     shifted = position_rel_rms(forced(shifted_heads_ops())[0][agree_plain], plain[agree_plain])
-    log(f"[moe decode] depth 2, full width, {b}x{n} teacher-forced positions: routed choices "
+    log(f"[moe decode] {n_layers} layers, full width, {b}x{n} teacher-forced positions: routed "
+        f"choices "
         f"that differ from the plain version's {100 * flips_plain:.3f} % (limit "
         f"{100 * MOE_FLIP_LIMIT:.0f} %), from the prefill's {100 * flips_pre:.3f} % (reported); "
         f"worst relative RMS of the logits, kernel vs plain over the {int(agree_plain.sum())} "
@@ -1377,8 +1532,10 @@ def phase_decode_ab(cfg, params, tag: str) -> dict:
                     f"{key}{label}_launches": launches, f"{key}{label}_steps": n})
     log(f"[{tag}] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
         f"prefill of the prompt: worst position's relative RMS {deep:.3g} (reported, not checked)")
-    if cfg.moe:
-        out.update(moe_decode_depth2(cfg, params, prompt, cap))
+    n_attn, n_ssm = n_mixers(cfg)
+    if cfg.moe:  # a hybrid's check takes one whole period of its pattern
+        out.update(moe_decode_depth2(cfg, params, prompt, cap,
+                                     len(tf.period_spec(cfg)) if n_ssm else 2))
     else:
         e_plain, e_pre, shifted = dense_decode_depth2(cfg, params, prompt, cap, tag)
         out.update({f"{key}depth2_rel_rms": e_plain, f"{key}depth2_vs_prefill": e_pre,
@@ -1389,7 +1546,7 @@ def phase_decode_ab(cfg, params, tag: str) -> dict:
     log(f"[{tag}] full context: each decode launch of one step against "
         f"ref.decode_attention on the same inputs: worst {max(ratios):.3f} of the tolerance "
         f"over {len(ratios)} launches")
-    if len(ratios) != cfg.n_layers or not max(ratios) <= 1:
+    if len(ratios) != n_attn or not max(ratios) <= 1:
         raise AssertionError(f"{tag}: a launch disagrees with ref.decode_attention: {ratios}")
     return {**out, f"{key}vs_prefill": deep, f"{key}worst_ratio": max(ratios)}
 
@@ -1497,7 +1654,8 @@ def phase_ssd_kernel():
             (1, 1000, 32, 64, 1, 128, 64, False, False),    # ragged S, masked by the kernel
             (1, 1000, 32, 64, 1, 128, 64, False, True),     # ragged S, zero-padded by the caller
             (1, 4000, 32, 64, 1, 128, 64, False, False),    # ragged, inside the last segment
-            (1, 2048, 32, 64, 1, 128, 64, True, False)]:    # h_init
+            (1, 2048, 32, 64, 1, 128, 64, True, False),     # h_init
+            (1, 4096, 128, 64, 1, 16, 64, False, False)]:   # jamba's mixer (generic passes)
         x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, p, g, n, h_init=h_init)
         y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk, h_init=h0)
         if padded:
@@ -1572,6 +1730,180 @@ def phase_ssd_kernel():
             "pass_device_ms": pass_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_TF32_FLOPS > nbytes / PEAK_HBM_BYTES
             else "bytes",
+            "shape": f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"}
+
+
+def ssd_bwd_drop_carried(x, dt, a, bm, cm, chunk, dy, dst, h_init, at):
+    """A planted fault: the state cotangent carried out of chunk ``at`` into
+    chunk ``at`` - 1 dropped (a segment boundary of the backward kernel,
+    whose segments are chunks): the chunks before ``at`` get the gradients
+    of a zero cotangent on the state leaving them."""
+    import torch
+    from repro_torch.kernels import ref
+    cut = at * chunk
+    head = [t[:, :cut] for t in (x, dt)] + [a] + [t[:, :cut] for t in (bm, cm)]
+    tail = [t[:, cut:] for t in (x, dt)] + [a] + [t[:, cut:] for t in (bm, cm)]
+    _, st = ref.ssd_chunked(*head, chunk, h_init=h_init)
+    g1 = ref.ssd_chunked_bwd(*head, chunk, dy[:, :cut], torch.zeros_like(dst), h_init=h_init)
+    g2 = ref.ssd_chunked_bwd(*tail, chunk, dy[:, cut:], dst, h_init=st)
+    cat = lambda i: torch.cat([g1[i], g2[i]], 1)  # noqa: E731
+    return cat(0), cat(1), g1[2] + g2[2], cat(3), cat(4), g1[5]
+
+
+def ssd_bwd_drop_intra_du(x, dt, a, bm, cm, chunk, dy, dst, h_init, at):
+    """A planted fault: chunk ``at``'s intra-chunk term of du, sum_{i>=j}
+    (C_i . B_j) e^{cs_i - cs_j} dy_i, dropped from dx = dt du and from the
+    x . du of ddt."""
+    import torch
+    from repro_torch.kernels import ref
+    g = list(ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init))
+    sl = slice(at * chunk, (at + 1) * chunk)
+    rep = x.shape[2] // bm.shape[2]
+    bh, ch = (t[:, sl].repeat_interleave(rep, 2) for t in (bm, cm))
+    cs = torch.cumsum(dt[:, sl] * a, 1)                                    # [B,L,H]
+    low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))[None, :, :, None]
+    diff = torch.where(low, cs[:, :, None] - cs[:, None, :], 0.0)          # [B,i,j,H]
+    w = torch.where(low, torch.exp(diff), 0.0) * torch.einsum("bihn,bjhn->bijh", ch, bh)
+    du = torch.einsum("bijh,bihp->bjhp", w, dy[:, sl])
+    g[0] = g[0].clone()
+    g[1] = g[1].clone()
+    g[0][:, sl] -= dt[:, sl, :, None] * du
+    g[1][:, sl] -= (x[:, sl] * du).sum(-1)
+    return tuple(g)
+
+
+def ssd_bwd_drop_decay_grad(x, dt, a, bm, cm, chunk, dy, dst, h_init):
+    """A planted fault: ddt without the decays' term a d(dA), x . du only
+    (du = dx / dt)."""
+    from repro_torch.kernels import ref
+    g = list(ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init))
+    g[1] = (x * g[0]).sum(-1) / dt
+    return tuple(g)
+
+
+def ssd_bwd_one_head_per_group(x, dt, a, bm, cm, chunk, dy, dst, h_init):
+    """A planted fault: dB and dC from the first head of each group only,
+    not summed over the group's heads."""
+    from repro_torch.kernels import ref
+    g = list(ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init))
+    rep = x.shape[2] // bm.shape[2]
+    per_head = ref.ssd_chunked_bwd(x, dt, a, bm.repeat_interleave(rep, 2),
+                                   cm.repeat_interleave(rep, 2), chunk, dy, dst, h_init=h_init)
+    g[3], g[4] = per_head[3][:, :, ::rep], per_head[4][:, :, ::rep]
+    return tuple(g)
+
+
+def ssd_bwd_bound(b, s, h, p, g, n, chunk, h_init: bool) -> tuple:
+    """(FLOPs, bytes) the SSD backward needs, derived from the shapes: each
+    input (x, dt, a, B, C, dy, d(final state), h_init) read once and each
+    gradient written once, f32; the products: C B^T once per group and chunk
+    and dy u^T per head (causal halves), the intra-chunk du, dB and dC
+    (causal halves), and per head and chunk the entering state recomputed,
+    the local state cotangent, G B, G^T u and S^T dy (2 L P N each)."""
+    nc, L = -(-s // chunk), chunk
+    flops = b * nc * (g * L * (L + 1) * n
+                      + h * (2 * L * (L + 1) * p + 2 * L * (L + 1) * n + 10 * L * p * n))
+    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n + b * h * p * n + 2 * h
+                  + (2 * b * h * p * n if h_init else 0))
+    return flops, nbytes
+
+
+def hold_ssd_bwd(label: str, got, want) -> tuple:
+    """The backward kernel's gradients against the plain version's by
+    ``ref.ssd_grad_tolerance_ratio``; returns (max_abs_err, worst ratio)."""
+    from repro_torch.kernels import ref
+    ratios = ref.ssd_grad_ratios(got, want)
+    err = max(max_err(gt, w) for gt, w in zip(got, want) if w is not None)
+    worst = max(ratios.values())
+    log(f"{label}: " + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+        + f" of the tolerance (worst {worst:.4f}); max_abs_err {err:.3g}")
+    if not worst <= 1:
+        raise AssertionError(f"{label}: the backward kernel disagrees with its plain version")
+    return err, worst
+
+
+def phase_ssd_bwd_kernel():
+    """The SSD backward kernel against ``ref.ssd_chunked_bwd`` at mamba2-370m's
+    training shape and its edge cases, four planted faults, times and the
+    bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan_bwd as tssdb
+    worst, worst_ratio = 0.0, 0.0
+
+    def case(b, s, h, p, g, n, chunk, h_init=False, seed=0):
+        x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, p, g, n, seed=seed, h_init=h_init)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        dst = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        return (x, dt, a, bm, cm), dy, dst, h0
+
+    for b, s, h, p, g, n, chunk, h_init in [
+            (1, 4096, 8, 64, 2, 128, 64, False),     # G=2: 4 heads a group
+            (1, 4000, 32, 64, 1, 128, 64, False),    # ragged S inside the last segment
+            (1, 2048, 32, 64, 1, 128, 64, True),     # h_init: dh_init held too
+            (1, 4096, 128, 64, 1, 16, 64, False),    # jamba-v0.1-52b's mixer: H=128, N=16
+            (1, 2048, 32, 64, 1, 128, 16, False)]:   # a chunk of 16
+        ins, dy, dst, h0 = case(b, s, h, p, g, n, chunk, h_init)
+        got = tssdb.ssd_scan_bwd(*ins, chunk, dy, dst, h_init=h0)
+        want = ref.ssd_chunked_bwd(*ins, chunk, dy, dst, h_init=h0)
+        err, ratio = hold_ssd_bwd(f"[ssd bwd] B={b} S={s} H={h} P={p} G={g} N={n} "
+                                  f"chunk={chunk}{' h_init' if h_init else ''}", got, want)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        del got, want
+
+    # the main path's shape: one layer of the mamba2-370m train step
+    b, s, h, p, g, n, chunk = 1, 4096, 32, 64, 1, 128, 64
+    ins, dy, dst, _ = case(b, s, h, p, g, n, chunk, seed=1)
+    got = tssdb.ssd_scan_bwd(*ins, chunk, dy, dst)
+    want = ref.ssd_chunked_bwd(*ins, chunk, dy, dst)
+    err, ratio = hold_ssd_bwd(f"[ssd bwd] main shape B={b} S={s} H={h} P={p} G={g} N={n} "
+                              f"chunk={chunk}, strided x, B, C", got, want)
+    worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    del got
+    at = s // chunk // 2
+    keep = ref.SSD_GRAD_KEEP
+
+    def ctrl(label, fault, i):
+        name = ref.SSD_GRAD_NAMES[i]
+        return control(f"[ssd bwd] control: plain with {label}, on {name}", fault[i], want[i],
+                       ratio_fn=lambda f, w: ref.ssd_grad_tolerance_ratio(f, w, keep[name]))
+    args = (*ins, chunk, dy, dst, None)
+    ctrls = [ctrl(f"the state cotangent carried into chunk {at - 1} from chunk {at} dropped "
+                  f"(a segment boundary)", ssd_bwd_drop_carried(*args, at), 0),
+             ctrl(f"chunk {at}'s intra-chunk term of du dropped",
+                  ssd_bwd_drop_intra_du(*args, at), 0),
+             ctrl("ddt without the decays' gradient", ssd_bwd_drop_decay_grad(*args), 1),
+             ctrl(f"dB from one head of each group of {h // g}",
+                  ssd_bwd_one_head_per_group(*args), 3)]
+    del want
+    torch.cuda.empty_cache()
+    t = timings(lambda: tssdb.ssd_scan_bwd(*ins, chunk, dy, dst),
+                lambda: ref.ssd_chunked_bwd(*ins, chunk, dy, dst), None, 12)
+    passes = device_ms_by_kernel(lambda: tssdb.ssd_scan_bwd(*ins, chunk, dy, dst), 12)
+    pass_ms = {k: sum(v for key, v in passes.items() if k in key) for k in SSD_BWD_PASSES}
+    log("[ssd bwd] device ms per call by pass: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items()))
+    flops, nbytes = ssd_bwd_bound(b, s, h, p, g, n, chunk, False)
+    # f32 operands: the card's peak for them is the TF32 tensor cores
+    t.update(bound(flops, nbytes, PEAK_TF32_FLOPS))
+    dev_ms = t["device_ms"] or t["ms"]
+    log(f"[ssd bwd] {t['ms']:.3f} ms kernel, {t['plain_ms']:.3f} ms plain (CUDA events; device "
+        f"time {t['device_ms']} / {t['plain_device_ms']}); no library call computes the SSD "
+        f"scan's gradient; bound {t['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP: "
+        f"{flops / PEAK_TF32_FLOPS * 1e3:.4f} ms at the TF32 peak; {nbytes / 1e6:.1f} MB: "
+        f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms), {100 * t['bound_ms'] / dev_ms:.1f} % of the "
+        f"bound (device time); {flops / dev_ms / 1e9:.1f} TFLOP/s needed on the CUDA cores "
+        f"(f32 FMAs; {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s is their peak)")
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:85",
+            "max_abs_err": worst,
+            "tolerance": "1e-5 + 1e-4 max|plain| per (batch, head) for dx, ddt; per (batch, "
+                         "group) for dB, dC; per head for da, dh_init (f32)",
+            "tolerance_ratio": worst_ratio, "control_ratio": min(ctrls), **t,
+            "library_note": "none: no PyTorch call computes the SSD scan or its gradient",
+            "pass_device_ms": pass_ms,
             "shape": f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"}
 
 
@@ -1733,15 +2065,23 @@ def phase_mamba_decode(cfg, params):
             "mamba_decode_depth2_vs_faulty_prefill": e_fault}
 
 
-def checked_train_ops(fwd: list, bwd: list):
+def checked_train_ops(fwd: list, bwd: list, ssd_fwd: list, ssd_bwd: list):
     """The training path's kernels with every launch held against its plain
-    version on its own inputs.  The forward appends (o's ``tolerance_ratio``
-    with the absolute term scaled by max(1, max |v|), lse's
-    ``lse_tolerance_ratio``, o's unscaled ``tolerance_ratio``); the backward
-    (the worst ``head_rel_rms`` of dq, dk and dv, their worst
-    ``grad_tolerance_ratio``).  The unscaled ratios are reported only."""
+    version on its own inputs.  The flash forward appends (o's
+    ``tolerance_ratio`` with the absolute term scaled by max(1, max |v|),
+    lse's ``lse_tolerance_ratio``, o's unscaled ``tolerance_ratio``); the
+    flash backward (the worst ``head_rel_rms`` of dq, dk and dv, their worst
+    ``grad_tolerance_ratio``); the SSD forward the worse of y's and the
+    final state's ``ssd_tolerance_ratio``; the SSD backward (the worst
+    ``ssd_grad_tolerance_ratio`` with the absolute term scaled by the
+    cotangents' largest |value|, the unscaled one).  Inside a model the
+    loss is a mean over thousands of tokens and the scan's gradients are far
+    below the kernels' absolute term, so that term scales with them: the
+    gradient is linear in its cotangents.  The unscaled ratios are reported
+    only."""
     from repro_torch.kernels import ops, ref
     kernel_fwd, kernel_bwd = ops.mha_fwd, ops.mha_bwd
+    kernel_ssd_fwd, kernel_ssd_bwd = ops.ssd_fwd, ops.ssd_bwd
 
     def checked_fwd(q, k, v, **kw):
         o, lse = kernel_fwd(q, k, v, **kw)
@@ -1756,12 +2096,29 @@ def checked_train_ops(fwd: list, bwd: list):
         bwd.append((max(ref.head_rel_rms(g, w) for g, w in zip(got, want)),
                     max(ref.grad_tolerance_ratio(g, w) for g, w in zip(got, want))))
         return got
-    return swapped_ops(mha_fwd=checked_fwd, mha_bwd=checked_bwd)
+
+    def checked_ssd_fwd(*args, **kw):
+        y, st = kernel_ssd_fwd(*args, **kw)
+        y_w, st_w = ref.ssd_chunked(*args, **kw)
+        ssd_fwd.append(max(ref.ssd_tolerance_ratio(y, y_w),
+                           ref.ssd_tolerance_ratio(st, st_w, head_dim=1)))
+        return y, st
+
+    def checked_ssd_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=None):
+        got = kernel_ssd_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init)
+        want = ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init)
+        scale = max(dy.abs().max().item(), dst.abs().max().item())
+        ssd_bwd.append((max(ref.ssd_grad_ratios(got, want, atol_scale=scale).values()),
+                        max(ref.ssd_grad_ratios(got, want).values())))
+        return got
+    return swapped_ops(mha_fwd=checked_fwd, mha_bwd=checked_bwd, ssd_fwd=checked_ssd_fwd,
+                       ssd_bwd=checked_ssd_bwd)
 
 
 def plain_train_ops():
     from repro_torch.kernels import ref
-    return swapped_ops(mha_fwd=ref.mha_fwd_lse, mha_bwd=ref.mha_bwd)
+    return swapped_ops(mha_fwd=ref.mha_fwd_lse, mha_bwd=ref.mha_bwd, ssd_fwd=ref.ssd_chunked,
+                       ssd_bwd=ref.ssd_chunked_bwd)
 
 
 def faulty_bwd_ops():
@@ -1769,7 +2126,8 @@ def faulty_bwd_ops():
     of each kv head's group only (the loop over the group's heads stops
     after one), dq right.  Where each kv head serves one query head
     (gemma-7b) that is no fault: there dk and dv lose their columns from half
-    the head dim on (a column split's fault)."""
+    the head dim on (a column split's fault).  The SSD scan's backward: ddt
+    without the decays' gradient (``ssd_bwd_drop_decay_grad``)."""
     import torch
     from repro_torch.kernels import ref
 
@@ -1783,7 +2141,8 @@ def faulty_bwd_ops():
         lse1 = lse.reshape(b, kvh, h // kvh, -1)[:, :, 0].contiguous()
         _, dk, dv = ref.mha_bwd(first(q), k, v, first(o), lse1, first(do), **kw)
         return dq, dk, dv
-    return swapped_ops(mha_fwd=ref.mha_fwd_lse, mha_bwd=bwd)
+    return swapped_ops(mha_fwd=ref.mha_fwd_lse, mha_bwd=bwd, ssd_fwd=ref.ssd_chunked,
+                       ssd_bwd=lambda *a, h_init=None: ssd_bwd_drop_decay_grad(*a, h_init))
 
 
 def leaf_rel_rms(got, want) -> dict:
@@ -1792,6 +2151,12 @@ def leaf_rel_rms(got, want) -> dict:
     g, w = bridge.flatten(got), bridge.flatten(want)
     return {k: ((g[k].float() - w[k].float()).pow(2).mean().sqrt()
                 / w[k].float().pow(2).mean().sqrt()).item() for k in w}
+
+
+def n_mixers(cfg) -> tuple:
+    """(attention layers, Mamba-2 layers) of a configuration."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    return kinds.count("attn"), kinds.count("mamba")
 
 
 def active_params(cfg, n_params: int) -> int:
@@ -1836,16 +2201,21 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
     step = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))
     n_params = tf.param_count(params)
     torch.cuda.synchronize()
+    n_attn, n_ssm = n_mixers(cfg)
+    mixer = (f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, dh {cfg.resolved_head_dim}" if n_attn
+             else f"Mamba-2: {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSD heads of "
+                  f"P={cfg.ssm.head_dim}, N={cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}")
     log(f"[{tag}] {cfg.name} {n_params / 1e9:.3f} B params ({depth}, d={cfg.d_model},"
-        f" {cfg.n_heads} heads, kv {cfg.n_kv_heads}, dh {cfg.resolved_head_dim}, remat "
+        f" {mixer}, remat "
         f"{cfg.remat!r}), bf16 with f32 AdamW moments (with the gradients "
         f"{n_params * 12 / 1e9:.1f} GB), initialised on the card from seed 0 in "
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB; "
         f"NCCL group of {torch.distributed.get_world_size()}, mesh {mesh_axes(mesh)}, "
         f"fabric {step.fabric.kind}; lr {TRAIN_LR}, warmup {TRAIN_WARMUP} step")
     batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=batch_size), 0, device=dev)
-    per_step = {**NO_LAUNCHES, "flash_attention": cfg.n_layers * (2 if cfg.remat == "full" else 1),
-                "flash_attention_bwd": cfg.n_layers}
+    fwd_runs = 2 if cfg.remat == "full" else 1
+    per_step = {**NO_LAUNCHES, "flash_attention": n_attn * fwd_runs, "flash_attention_bwd": n_attn,
+                "ssd_scan": n_ssm * fwd_runs, "ssd_scan_bwd": n_ssm}
     n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
     if n_moe:
         # the aux loss of the model's forward on the initial parameters (one
@@ -1890,45 +2260,63 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(times[1:])
     tokens = TRAIN_SEQ * batch_size
-    s, h, dh = TRAIN_SEQ, cfg.n_heads, cfg.resolved_head_dim
+    s = TRAIN_SEQ
     n_active = active_params(cfg, n_params)
     dense_flops = 6 * n_active * tokens
     # causal QK^T and PV, x3 for the backward
-    attn_flops = 3 * 4 * cfg.n_layers * h * dh * s * (s + 1) // 2 * batch_size
+    attn_flops = (3 * 4 * n_attn * cfg.n_heads * cfg.resolved_head_dim * s * (s + 1) // 2
+                  * batch_size if n_attn else 0)
     mfu = (dense_flops + attn_flops) / (step_ms / 1e3) / PEAK_BF16_FLOPS
     log(f"[{tag}] step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
         f"{times[0]:.1f} ms), {tokens / step_ms * 1e3:.1f} tokens/s; model FLOPs "
         f"{(dense_flops + attn_flops) / 1e12:.2f} T a step (6 N T = {dense_flops / 1e12:.2f} T "
         f"with N = {n_active} active of {n_params}, T = {tokens}; causal attention "
-        f"12 L H dh S(S+1)/2 B = "
-        f"{attn_flops / 1e12:.3f} T): {100 * mfu:.2f} % of the bf16 peak; peak memory "
+        f"12 L H dh S(S+1)/2 B = {attn_flops / 1e12:.3f} T"
+        + ("; the SSD scan's FLOPs are not counted" if n_ssm else "")
+        + f"): {100 * mfu:.2f} % of the bf16 peak; peak memory "
         f"{peak / 2**30:.2f} GiB; launches a step {per_step}")
     busy, dev_ms = device_profile(lambda: step(params, opt, ef, batch), "train step", top=8)
     shares = {}
     if dev_ms:
         tot = sum(dev_ms.values())
-        for label, keys in (("flash bwd", FLASH_BWD_PASSES), ("flash fwd", ("flash_fwd_kernel",))):
+        for label, keys in (("flash bwd", FLASH_BWD_PASSES), ("flash fwd", ("flash_fwd_kernel",)),
+                            ("ssd bwd", SSD_BWD_PASSES), ("ssd fwd", SSD_PASSES)):
             shares[label] = sum(v for key, v in dev_ms.items() if any(k in key for k in keys))
-            log(f"[{tag}] profiled step: {label} {shares[label]:.2f} ms of {tot:.2f} ms device "
-                f"time ({100 * shares[label] / tot:.1f} %)")
+            if shares[label]:
+                log(f"[{tag}] profiled step: {label} {shares[label]:.2f} ms of {tot:.2f} ms "
+                    f"device time ({100 * shares[label] / tot:.1f} %)")
 
-    # every flash launch of one step (gradients only), held against the plain version
-    fwd, bwd = [], []
-    with checked_train_ops(fwd, bwd):
+    # every kernel launch of one step (gradients only), held against the plain version
+    fwd, bwd, sfwd, sbwd = [], [], [], []
+    with checked_train_ops(fwd, bwd, sfwd, sbwd):
         grads, _ = step.grads_fn(params, batch)
     del grads
-    worst_fwd = [max(r[i] for r in fwd) for i in range(3)]
-    worst_bwd = [max(r[i] for r in bwd) for i in range(2)]
-    log(f"[{tag}] one step's launches against the plain versions on their own inputs: forward "
-        f"over {len(fwd)}: o {worst_fwd[0]:.3f} of the tolerance with its absolute term scaled "
-        f"by max(1, max|v|) (unscaled {worst_fwd[2]:.3f}, reported), lse {worst_fwd[1]:.4f}; "
-        f"backward over {len(bwd)}: worst (batch, head) relative RMS of dq, dk, dv "
-        f"{worst_bwd[0]:.3g} (limit {ref.HEAD_RMS_LIMIT:.4g}; grad_tolerance_ratio "
-        f"{worst_bwd[1]:.3g}, reported: the gradients lie below its absolute term)")
-    if len(bwd) != cfg.n_layers or not (worst_fwd[0] <= 1 and worst_fwd[1] <= 1
-                                        and worst_bwd[0] <= ref.HEAD_RMS_LIMIT):
-        raise AssertionError(f"train: a flash launch disagrees with its plain version: "
-                             f"{fwd} {bwd}")
+    ok = len(bwd) == n_attn and len(sbwd) == n_ssm and len(sfwd) == n_ssm
+    if n_attn:
+        worst_fwd = [max(r[i] for r in fwd) for i in range(3)]
+        worst_bwd = [max(r[i] for r in bwd) for i in range(2)]
+        log(f"[{tag}] one step's launches against the plain versions on their own inputs: "
+            f"forward over {len(fwd)}: o {worst_fwd[0]:.3f} of the tolerance with its absolute "
+            f"term scaled by max(1, max|v|) (unscaled {worst_fwd[2]:.3f}, reported), lse "
+            f"{worst_fwd[1]:.4f}; backward over {len(bwd)}: worst (batch, head) relative RMS of "
+            f"dq, dk, dv {worst_bwd[0]:.3g} (limit {ref.HEAD_RMS_LIMIT:.4g}; "
+            f"grad_tolerance_ratio {worst_bwd[1]:.3g}, reported: the gradients lie below its "
+            f"absolute term)")
+        ok = ok and worst_fwd[0] <= 1 and worst_fwd[1] <= 1 and worst_bwd[0] <= ref.HEAD_RMS_LIMIT
+    else:
+        worst_fwd, worst_bwd = [None] * 3, [None] * 2
+    worst_sfwd = max(sfwd) if sfwd else None
+    worst_sbwd = [max(r[i] for r in sbwd) for i in range(2)] if sbwd else [None, None]
+    if n_ssm:
+        log(f"[{tag}] one step's SSD launches against the plain versions on their own inputs: "
+            f"forward over {len(sfwd)}: {worst_sfwd:.4f} of the tolerance; backward over "
+            f"{len(sbwd)}: {worst_sbwd[0]:.4f} of ssd_grad_tolerance_ratio with its absolute "
+            f"term scaled by the cotangents' largest |value| (unscaled {worst_sbwd[1]:.3g}, "
+            f"reported: the gradients lie below its absolute term)")
+        ok = ok and worst_sfwd <= 1 and worst_sbwd[0] <= 1
+    if not ok:
+        raise AssertionError(f"train: a kernel launch disagrees with its plain version: "
+                             f"{fwd} {bwd} {sfwd} {sbwd}")
 
     # depth 2, full width: every leaf's gradient through the kernels against the
     # gradient through the plain versions and through a planted fault
@@ -1957,7 +2345,8 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
     with faulty_bwd_ops():
         fault = leaf_rel_rms(step2.grads_fn(p2, batch)[0], want)
     worst_leaf = max(rel, key=rel.get)
-    fault_label = ("dk/dv from one head of each group" if cfg.n_heads > cfg.n_kv_heads
+    fault_label = ("ddt without the decays' gradient" if not n_attn
+                   else "dk/dv from one head of each group" if cfg.n_heads > cfg.n_kv_heads
                    else "dk/dv columns from dh/2 on dropped")
     log(f"[{tag}] depth 2, full width, per-leaf relative RMS of the gradient, kernels vs plain: "
         f"worst {rel[worst_leaf]:.3g} ({worst_leaf}; limit {MODEL_LIMIT}); control, {fault_label}: "
@@ -1980,7 +2369,9 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
             "train_launches_per_step": per_step, "train_launches": total,
             "train_fwd_o_scaled_ratio": worst_fwd[0], "train_fwd_lse_ratio": worst_fwd[1],
             "train_fwd_o_unscaled_ratio": worst_fwd[2], "train_bwd_head_rel_rms": worst_bwd[0],
-            "train_bwd_grad_tolerance_ratio": worst_bwd[1],
+            "train_bwd_grad_tolerance_ratio": worst_bwd[1], "train_ssd_fwd_ratio": worst_sfwd,
+            "train_ssd_bwd_scaled_ratio": worst_sbwd[0],
+            "train_ssd_bwd_unscaled_ratio": worst_sbwd[1],
             "train_depth2_grad_rel_rms": max(rel.values()),
             "train_depth2_fault_rel_rms": max(fault.values()),
             "train_depth2_grad_rel_rms_routing_replayed":
@@ -2007,7 +2398,8 @@ def run() -> int:
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-    kernels = [phase_flash(), phase_flash_bwd(), phase_decode_kernel(), phase_ssd_kernel()]
+    kernels = [phase_flash(), phase_flash_bwd(), phase_decode_kernel(), phase_ssd_kernel(),
+               phase_ssd_bwd_kernel()]
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
@@ -2074,6 +2466,24 @@ def run() -> int:
     del params
     torch.cuda.empty_cache()
 
+    full = get_config(HYBRID_ARCH)
+    cfg = full.replace(n_layers=HYBRID_LAYERS)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] {cfg.name} {HYBRID_LAYERS} of its {full.n_layers} layers (one period: "
+        f"{', '.join(f'{k}+{f}' for k, f in tf.period_spec(cfg))}): depth cut, full width "
+        f"(d={cfg.d_model}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSD heads of "
+        f"P={cfg.ssm.head_dim}, N={cfg.ssm.state_dim}; {cfg.n_heads} attention heads on "
+        f"{cfg.n_kv_heads} kv heads; {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of width "
+        f"{cfg.moe.d_expert}); {tf.param_count(params) / 1e9:.3f} B params bf16 (f32 SSM, norm "
+        f"and router leaves) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    hybrid_pre = phase_prefill(cfg, params, tag="jamba prefill", prefix="jamba_")
+    hybrid_dec = phase_decode_ab(cfg, params, "jamba decode")
+    del params
+    torch.cuda.empty_cache()
+
     for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH, GEMMA_ARCH):
         out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
         if not torch.isfinite(out["logits"]).all():
@@ -2087,14 +2497,19 @@ def run() -> int:
               phase_train(MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, tag="moe train").items()}
     gemma_tr = {f"gemma_{k}": v for k, v in
                 phase_train(GEMMA_ARCH, 1, tag="gemma train", n_layers=GEMMA_TRAIN_LAYERS).items()}
+    ssm_tr = {f"mamba_{k}": v for k, v in phase_train(SSM_TRAIN_ARCH, 1, tag="mamba train").items()}
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
     paper_prefill = f"llama-80b prefill ({PAPER_LAYERS} of 96 layers)"
+    ssm_train = f"{ssm_tr['mamba_train_arch']} train"
+    hybrid_prefill = f"jamba-v0.1-52b prefill ({HYBRID_LAYERS} of 32 layers)"
+    hybrid_decode = f"jamba-v0.1-52b decode ({HYBRID_LAYERS} of 32 layers)"
     kernels[0]["launches_by_path"] = {
         "llama3-8b prefill": pre["flash_launches"],
         "deepseek-moe-16b prefill": moe_pre["moe_flash_launches"],
         paper_prefill: paper_pre["llama80b_flash_launches"],
+        hybrid_prefill: hybrid_pre["jamba_flash_launches"],
         dense_train: tr["train_launches"]["flash_attention"],
         moe_train: moe_tr["moe_train_launches"]["flash_attention"]}
     kernels[1]["launches_by_path"] = {
@@ -2103,7 +2518,9 @@ def run() -> int:
     kernels[2]["launches_by_path"] = {
         "llama3-8b decode": dec["decode_launches"],
         "deepseek-moe-16b decode (a)": moe_dec["moe_decode_a_launches"],
-        "deepseek-moe-16b decode (b)": moe_dec["moe_decode_b_launches"]}
+        "deepseek-moe-16b decode (b)": moe_dec["moe_decode_b_launches"],
+        hybrid_decode + " (a)": hybrid_dec["jamba_decode_a_launches"],
+        hybrid_decode + " (b)": hybrid_dec["jamba_decode_b_launches"]}
     # the 256-wide instantiations: launched by the gemma-7b paths only
     kernels[0]["dh256"]["launches_by_path"] = {
         "gemma-7b prefill": gemma_pre["gemma_flash_launches"],
@@ -2113,13 +2530,18 @@ def run() -> int:
     kernels[2]["dh256"]["launches_by_path"] = {
         "gemma-7b decode (a)": gemma_dec["gemma_decode_a_launches"],
         "gemma-7b decode (b)": gemma_dec["gemma_decode_b_launches"]}
-    kernels[3]["launches_by_path"] = {"mamba2-370m prefill": mpre["ssd_launches"]}
+    kernels[3]["launches_by_path"] = {"mamba2-370m prefill": mpre["ssd_launches"],
+                                      ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan"],
+                                      hybrid_prefill: hybrid_pre["jamba_ssd_launches"]}
+    kernels[4]["launches_by_path"] = {ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan_bwd"]}
+    kernels[4].update(launches=ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
+                      launches_per_step=ssm_tr["mamba_train_launches_per_step"]["ssd_scan_bwd"])
     kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
                       launches_per_step=tr["train_launches_per_step"]["flash_attention_bwd"])
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
-                    **gemma_pre, **gemma_dec, **paper_pre, **tr, **moe_tr, **gemma_tr,
-                    "card": smi}))
+                    **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec, **tr,
+                    **moe_tr, **gemma_tr, **ssm_tr, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

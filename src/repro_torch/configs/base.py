@@ -116,7 +116,7 @@ class ModelConfig:
 
 
 # the models of the paper's Table 3 simulations, as in ``repro.configs.base``
-# (the zoo's ASSIGNED_ARCHS waits for its hybrid, VLM and audio families)
+# (the zoo's ASSIGNED_ARCHS waits for its VLM and audio families)
 PAPER_ARCHS = ("llama3_8b", "deepseek_v3_16b", "llama_80b", "gpt_80b")
 
 

@@ -8,7 +8,9 @@ Where an input of ``mha`` needs a gradient, ``mha`` is an autograd function:
 its forward (``mha_fwd``) also keeps the rows' log-sum-exp, and its backward
 (``mha_bwd``) launches the backward kernel, or runs ``ref.mha_bwd`` on CPU
 tensors.  Without a gradient it takes the serving route, which writes no
-log-sum-exp.
+log-sum-exp.  ``ssd`` likewise: with a gradient its forward is ``ssd_fwd``
+and its backward ``ssd_bwd`` (the SSD backward kernel, or
+``ref.ssd_chunked_bwd`` on CPU tensors), which recomputes from the inputs.
 """
 from __future__ import annotations
 
@@ -21,9 +23,11 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssdb
 
 KERNELS = {"flash_attention": _fa.KERNEL, "flash_attention_bwd": _fab.KERNEL,
-           "decode_attention": _da.KERNEL, "ssd_scan": _ssd.KERNEL}
+           "decode_attention": _da.KERNEL, "ssd_scan": _ssd.KERNEL,
+           "ssd_scan_bwd": _ssdb.KERNEL}
 
 
 def _route(t) -> str:
@@ -101,17 +105,49 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] 
 def ssd(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
     """Mamba-2 SSD chunked scan (see ``ref.ssd_chunked`` for shapes).
 
-    Returns (y [B,S,H,P], final state [B,H,P,N]), f32.  On the card it has no
-    gradient yet: SSM training waits for a CUDA SSD backward kernel.
+    Returns (y [B,S,H,P], final state [B,H,P,N]), f32.  Where an input needs
+    a gradient it is an autograd function over ``ssd_fwd`` and ``ssd_bwd``;
+    h_init, when given, gets its gradient too.
     """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, b_mat, c_mat, h_init)):
+        return _SSDScan.apply(x, dt, a, b_mat, c_mat, chunk, h_init)
+    return ssd_fwd(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
+
+
+def ssd_fwd(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
+    """The SSD scan's forward: (y, final state)."""
     if _route(x) == "cuda":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, dt, a, b_mat, c_mat, h_init)):
-            raise NotImplementedError("the SSD scan has no backward kernel yet: SSM training "
-                                      "waits for it (ROADMAP.md, Queue 2: CUDA SSD backward "
-                                      "kernel)")
         return _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
     return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
+
+
+def ssd_bwd(x, dt, a, b_mat, c_mat, chunk: int, dy, dstate, h_init=None):
+    """Gradients (dx, ddt, da, db, dc, dh_init) of the SSD scan from the
+    cotangents of y and the final state; dh_init is None where h_init is."""
+    if _route(x) == "cuda":
+        return _ssdb.ssd_scan_bwd(x, dt, a, b_mat, c_mat, chunk, dy, dstate, h_init=h_init)
+    return ref.ssd_chunked_bwd(x, dt, a, b_mat, c_mat, chunk, dy, dstate, h_init=h_init)
+
+
+class _SSDScan(torch.autograd.Function):
+    """``ssd`` with a gradient: forward and backward through ``ssd_fwd`` and
+    ``ssd_bwd``, looked up when called.  It saves the inputs only, as the
+    JAX package's custom VJP does, and the backward recomputes from them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, chunk, h_init):
+        y, st = ssd_fwd(x, dt, a, b_mat, c_mat, chunk, h_init=h_init)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, h_init)
+        ctx.chunk = chunk
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b_mat, c_mat, h_init = ctx.saved_tensors
+        dx, ddt, da, db, dc, dh0 = ssd_bwd(x, dt, a, b_mat, c_mat, ctx.chunk, dy.contiguous(),
+                                           dstate.contiguous(), h_init=h_init)
+        return dx, ddt, da, db, dc, None, dh0
 
 
 def launch_counts() -> dict:

@@ -6,9 +6,10 @@ Counterpart of ``repro.kernels.ref`` and of ``repro.models.ssm.ssd_chunked``.
 and ``mha_bwd`` is the blocked backward that recomputes P from it (the JAX
 package's ``_mha_bwd_blocks``); ``decode_attention`` is the blocked flash-decode of
 one query token over a cache; ``ssd_chunked`` is the Mamba-2 SSD chunked
-scan.  The CPU path runs these, and the tests and ``chip_smoke.py`` hold
-the CUDA kernels in ``flash_attention.py``, ``flash_attention_bwd.py``,
-``decode_attention.py`` and ``ssd_scan.py`` against them.
+scan and ``ssd_chunked_bwd`` its gradient.  The CPU path runs these, and
+the tests and ``chip_smoke.py`` hold the CUDA kernels in
+``flash_attention.py``, ``flash_attention_bwd.py``, ``decode_attention.py``,
+``ssd_scan.py`` and ``ssd_scan_bwd.py`` against them.
 
 Conventions
   q        [B, Sq, H, dh]
@@ -396,3 +397,58 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
     in_decay = torch.exp(dA_cs).movedim(2, 3)  # [B,NC,L,H]: decay from chunk start to l
     y = y + torch.einsum("bclhn,bchpn->bclhp", cc, prev_states) * in_decay[..., None]
     return y.reshape(bsz, nc * chunk, h, p)[:, :s], prev
+
+
+def ssd_chunked_bwd(x, dt, a, b_mat, c_mat, chunk: int, dy, dstate, h_init=None):
+    """Gradients of ``ssd_chunked`` from the cotangents of its outputs, dy
+    [B,S,H,P] and dstate [B,H,P,N]: (dx, ddt, da, db, dc, dh_init), f32, in
+    the shapes of the inputs; dh_init is None where h_init is.  Autograd
+    through the plain forward, which zero-pads a ragged S (dt = 0 on the
+    padding): the gradients come back cut to S."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        ins = [t.detach().to(f32).requires_grad_() for t in (x, dt, a, b_mat, c_mat)]
+        if h_init is not None:
+            ins.append(h_init.detach().to(f32).requires_grad_())
+        y, st = ssd_chunked(*ins[:5], chunk, h_init=ins[5] if h_init is not None else None)
+        grads = torch.autograd.grad((y, st), ins, (dy.to(f32), dstate.to(f32)))
+    return (*grads[:5], grads[5] if h_init is not None else None)
+
+
+# What the SSD backward kernel is held to against ``ssd_chunked_bwd``: as the
+# forward, 1e-5 + 1e-4 of the largest |value| of a slice (1e-4 is the JAX
+# package's gradient tolerance, tests/test_kernels.py), the maxima taken per
+# (batch, head) for dx and ddt, per (batch, group) for dB and dC, and per
+# head for da and dh_init.  ddt is a sum of terms that cancel (the decays'
+# gradient), so a bound relative to each element would be meaningless there.
+SSD_GRAD_ATOL = 1e-5
+SSD_GRAD_RTOL = 1e-4
+SSD_GRAD_NAMES = ("dx", "ddt", "da", "db", "dc", "dh_init")
+SSD_GRAD_KEEP = {"dx": (0, 2), "ddt": (0, 2), "da": (0,), "db": (0, 2), "dc": (0, 2),
+                 "dh_init": (1,)}
+
+
+def ssd_grad_tolerance_ratio(got: torch.Tensor, want: torch.Tensor, keep,
+                             atol_scale: float = 1.0) -> float:
+    """max |got - want| / (SSD_GRAD_ATOL * atol_scale + SSD_GRAD_RTOL * max
+    |want|), both maxima taken over every dim but those in ``keep``
+    (``SSD_GRAD_KEEP`` gives them for each gradient).  At most 1 where
+    ``got`` agrees.  ``atol_scale`` scales the absolute term with the
+    cotangents' size (the gradient is linear in them): inside a model,
+    whose loss is a mean over thousands of tokens, the caller passes their
+    largest |value|."""
+    if got.shape != want.shape:
+        raise ValueError(f"shapes {tuple(got.shape)} and {tuple(want.shape)} differ")
+    w = want.float()
+    d = (got.float() - w).abs()
+    other = [i for i in range(w.dim()) if i not in keep]
+    if other:
+        w, d = w.abs().amax(dim=other), d.amax(dim=other)
+    return (d / (SSD_GRAD_ATOL * atol_scale + SSD_GRAD_RTOL * w.abs())).max().item()
+
+
+def ssd_grad_ratios(got, want, atol_scale: float = 1.0) -> dict:
+    """{name: ssd_grad_tolerance_ratio} of two tuples (dx, ddt, da, db, dc,
+    dh_init) as ``ssd_chunked_bwd`` returns them; a None dh_init is left out."""
+    return {name: ssd_grad_tolerance_ratio(g, w, SSD_GRAD_KEEP[name], atol_scale)
+            for name, g, w in zip(SSD_GRAD_NAMES, got, want) if w is not None}

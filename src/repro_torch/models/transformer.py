@@ -1,5 +1,5 @@
 """Decoder LM: init, forward, loss and cached decode (port of
-``repro.models.transformer``: the dense, SSM and MoE families).
+``repro.models.transformer``: the dense, SSM, MoE and hybrid families).
 
 Parameters are a plain dict in the JAX package's tree layout:
 ``{"embed", "layers": [one dict per period position], "final_norm",
@@ -33,22 +33,23 @@ ParamFn = Optional[Callable[[Any], Any]]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The ported families are dense decoders, pure-SSM (Mamba-2) models and
-    MoE decoders (attention layers and a ``MoEConfig``); other families
-    raise and name their item of the roadmap."""
-    todo = {"moe": "item 6, hybrid", "hybrid": "item 6, hybrid",
-            "vlm": "item 7, remaining families", "audio": "item 7, remaining families"}
-    attn_only = cfg.ssm is None and set(cfg.pattern) == {"attn"}
+    """The ported families are dense decoders, pure-SSM (Mamba-2) models, MoE
+    decoders (attention layers and a ``MoEConfig``) and hybrids (a pattern of
+    attention and Mamba-2 layers, MoE optional); other families raise and
+    name their item of the roadmap."""
+    kinds = set(cfg.pattern)
+    attn_only = cfg.ssm is None and kinds == {"attn"}
     ported = ((cfg.family == "dense" and attn_only and not cfg.moe)
               or (cfg.family == "moe" and attn_only and cfg.moe is not None)
-              or (cfg.family == "ssm" and cfg.ssm is not None and set(cfg.pattern) == {"mamba"}
-                  and not cfg.moe))
+              or (cfg.family == "ssm" and cfg.ssm is not None and kinds == {"mamba"}
+                  and not cfg.moe)
+              or (cfg.family == "hybrid" and cfg.ssm is not None
+                  and kinds <= {"attn", "mamba"}))
     if cfg.family == "moe" and cfg.moe is None:
         raise NotImplementedError(f"{cfg.name}: family 'moe' needs a MoEConfig (cfg.moe)")
     if not ported or cfg.encoder or cfg.frontend:
-        item = todo.get(cfg.family, "item 7, remaining families")
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP.md, Queue 1: {item})")
+                                  f"(ROADMAP.md, Queue 1: item 7, remaining families)")
 
 
 def period_spec(cfg: ModelConfig) -> Tuple[Tuple[str, Optional[str]], ...]:

@@ -13,7 +13,7 @@ from repro_torch.configs import PAPER_ARCHS, get_config
 
 PORTED = ("llama3_8b", "yi_9b", "h2o_danube_3_4b", "gemma_7b", "mistral_large_123b",
           "llama_80b", "gpt_80b", "mamba2_370m", "deepseek_moe_16b", "granite_moe_1b_a400m",
-          "deepseek_v3_16b")
+          "deepseek_v3_16b", "jamba_v0_1_52b")
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["CONFIG", "SMOKE"])

@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels import ssd_scan_bwd as tssdb
 
 ATOL = 1e-5
 
@@ -249,8 +250,13 @@ def test_ops_on_cpu_tensors_launch_nothing():
     y, st = ops.ssd(x, dt, a, bm, bm, 8)
     y_w, st_w = tref.ssd_chunked(x, dt, a, bm, bm, 8)
     assert torch.equal(y, y_w) and torch.equal(st, st_w)
+    xg = x.clone().requires_grad_()
+    y, st = ops.ssd(xg, dt, a, bm, bm, 8)
+    (y.sum() + st.sum()).backward()
+    dx_w = tref.ssd_chunked_bwd(x, dt, a, bm, bm, 8, torch.ones_like(y), torch.ones_like(st))[0]
+    assert torch.equal(xg.grad, dx_w)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "decode_attention": 0, "ssd_scan": 0}
+                                   "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_ops_decode_attention_on_cpu_keeps_its_gradient():
@@ -290,6 +296,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssd(*(t.to("meta") for t in (x, dt, a, bm, bm)), 8)
     assert ops.launch_counts()["ssd_scan"] == 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, bm, 8, x, torch.zeros(1, 2, 4, 8))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ssd_bwd(*(t.to("meta") for t in (x, dt, a, bm, bm)), 8, x.to("meta"),
+                    torch.zeros(1, 2, 4, 8, device="meta"))
+    assert ops.launch_counts()["ssd_scan_bwd"] == 0
 
 
 # causal, a binding window, GQA (rep 4 and 1), q_offset, ragged S and Sq != Sk

@@ -14,7 +14,9 @@ bf16).  tests/test_torch_kernels.py shows that this bf16 tolerance rejects a
 dropped KV tile or cache split.  The SSD scan (f32) is held to
 ``ref.ssd_tolerance_ratio`` <= 1: 1e-5 + 1e-4 of each (batch, head)'s
 largest |value|, which tests/test_torch_ssm.py shows rejects a dropped
-state or intra-chunk term.
+state or intra-chunk term; its backward to ``ref.ssd_grad_tolerance_ratio``
+<= 1 on each gradient (the same form, the maxima per (batch, head), per
+(batch, group) or per head).
 """
 import pytest
 import torch
@@ -24,6 +26,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels import ssd_scan_bwd as tssdb
 
 pytestmark = pytest.mark.cuda
 
@@ -246,10 +249,19 @@ def test_ops_mha_trains_through_the_kernels(dev):
 
 
 def test_ops_ssd_on_the_card_has_no_gradient_yet(dev):
+    """Gradients through ``ops.ssd`` on the card launch the forward and the
+    backward kernel once each, and match the plain backward (h_init too)."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    x, dt, a, bm, cm, _ = _ssd_case(1, 64, 4, 16, 1, 8, dev, gen)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        ops.ssd(x.requires_grad_(), dt, a, bm, cm, 16)
+    x, dt, a, bm, cm, h0 = _ssd_case(1, 200, 4, 16, 2, 8, dev, gen, h_init=True)
+    ins = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, h0)]
+    ops.reset_launch_counts()
+    y, st = ops.ssd(*ins[:5], 16, h_init=ins[5])
+    (y.sin().sum() + st.cos().sum()).backward()
+    assert ops.launch_counts()["ssd_scan"] == 1 and ops.launch_counts()["ssd_scan_bwd"] == 1
+    want = ref.ssd_chunked_bwd(x, dt, a, bm, cm, 16, y.detach().cos(), -st.detach().sin(),
+                               h_init=h0)
+    ratios = ref.ssd_grad_ratios([t.grad for t in ins], want)
+    assert len(ratios) == 6 and max(ratios.values()) <= 1, ratios
 
 
 def test_ops_decode_attention_on_the_card_has_no_gradient(dev):
@@ -371,7 +383,8 @@ def _ssd_case(b, s, h, p, g, n, dev, gen, h_init=False):
     return x, dt, a, bm, cm, h0
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", [
+# the forward's and the backward's cases
+_SSD_CASES = [
     (2, 64, 4, 16, 2, 8, 8, False),        # tests/test_kernels.py's shapes
     (2, 64, 4, 16, 2, 8, 32, True),        # h_init
     (1, 512, 8, 64, 1, 128, 64, False),    # mamba2-370m's head and state
@@ -384,7 +397,11 @@ def _ssd_case(b, s, h, p, g, n, dev, gen, h_init=False):
     (1, 4096, 8, 64, 2, 128, 64, True),    # G=2: one C B^T per group shared by 4 heads
     (1, 2050, 4, 40, 2, 24, 32, True),     # P, N not multiples of 16, a 2-position chunk
     (1, 999, 3, 6, 1, 10, 12, True),       # rows not 16-byte aligned: 4-byte copies
-])
+    (1, 4096, 128, 64, 1, 16, 64, False),  # jamba-v0.1-52b's mixer: H=128, N=16
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_CASES)
 def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
     gen = torch.Generator(device=dev).manual_seed(3)
     x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
@@ -428,6 +445,63 @@ def test_ssd_kernel_refuses_unsupported_inputs(dev):
         tssd.ssd_scan(x.bfloat16(), dt, a, bm, cm, 16)
     with pytest.raises(ValueError, match="shapes"):
         tssd.ssd_scan(x, dt, a[:3], bm, cm, 16)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_CASES)
+def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dst = torch.randn((b, h, p, n), generator=gen, device=dev)
+    before = tssdb.KERNEL.launches
+    got = tssdb.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h0)
+    torch.cuda.synchronize()
+    assert tssdb.KERNEL.launches == before + 1
+    want = ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h0)
+    for gt, wt in zip(got, want):
+        assert (gt is None) == (wt is None)
+        if gt is not None:
+            assert gt.shape == wt.shape
+    ratios = ref.ssd_grad_ratios(got, want)
+    assert max(ratios.values()) <= 1, ratios
+
+
+def test_ssd_bwd_kernel_reads_strided_views(dev):
+    """x, B and C sliced out of one conv output [B,S,channels], as ssm_apply
+    does, and a dy that is a slice too."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, s, h, p, g, n = 1, 256, 4, 32, 1, 64
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen, device=dev)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev) - 3)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    dy = torch.randn((b, s, h, 2 * p), generator=gen, device=dev)[..., :p]
+    dst = torch.randn((b, h, p, n), generator=gen, device=dev)
+    assert not x.is_contiguous() and not dy.is_contiguous()
+    got = tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 32, dy, dst)
+    want = ref.ssd_chunked_bwd(*(t.contiguous() for t in (x, dt, a, bm, cm)), 32,
+                               dy.contiguous(), dst)
+    assert max(ref.ssd_grad_ratios(got, want).values()) <= 1
+
+
+def test_ssd_bwd_kernel_refuses_unsupported_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, dt, a, bm, cm, _ = _ssd_case(1, 64, 4, 16, 1, 8, dev, gen)
+    dy, dst = torch.zeros_like(x), torch.zeros((1, 4, 16, 8), device=dev)
+    with pytest.raises(ValueError, match="chunk"):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 128, dy, dst)
+    with pytest.raises(ValueError, match="chunk"):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 10, dy, dst)
+    with pytest.raises(ValueError):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 16, dy.bfloat16(), dst)
+    with pytest.raises(ValueError, match="shapes"):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 16, dy, dst[:, :3])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 16, dy.cpu(), dst)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssdb.ssd_scan_bwd(x, dt, a, bm, cm, 16, dy.transpose(2, 3), dst)
 
 
 def test_ops_ssd_on_the_card_never_runs_the_plain_version(dev, monkeypatch):

@@ -1,13 +1,14 @@
-"""The port's Mamba-2 serving path against the JAX package's, on the CPU.
+"""The port's Mamba-2 serving and training path against the JAX package's,
+on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 weights are made by ``repro.models.transformer.init_lm`` and bridged to the
 port with ``repro_torch.bridge``.  f32 throughout.  Tolerances: the plain
 SSD scan against the JAX oracle 1e-5 (the JAX package's kernel tolerance)
 and against the Pallas kernel in interpret mode 5e-4 (what
-tests/test_kernels.py holds the Pallas kernel to); blocks, prefill and
-decode 1e-4 (tests/test_serve.py); decode against forward 2e-3
-(tests/test_models.py).
+tests/test_kernels.py holds the Pallas kernel to); the scan's gradients
+1e-4 (tests/test_kernels.py); blocks, prefill and decode 1e-4
+(tests/test_serve.py); decode against forward 2e-3 (tests/test_models.py).
 """
 import jax
 import jax.numpy as jnp
@@ -290,27 +291,253 @@ def test_serve_main_runs_mamba_on_cpu(capsys):
 
 
 def test_hybrid_and_moe_still_raise():
-    """The hybrid family still raises; an MoE config now initialises and runs
-    (forward and decode), and a family="moe" config without a MoEConfig
-    still raises and names MoE."""
-    jamba = get_config("mamba2_370m", smoke=True).replace(family="hybrid",
-                                                          layer_pattern=("mamba", "attn"))
-    with pytest.raises(NotImplementedError, match="item 6, hybrid"):
-        tf.init_lm(jamba, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_decode_state(jamba, 1, 8, device="cpu")
+    """The hybrid family now initialises and runs (forward and decode), as
+    does an MoE config; a family="moe" config without a MoEConfig still
+    raises and names MoE, and the VLM and audio families still raise and
+    name their roadmap item."""
+    hybrid = get_config("mamba2_370m", smoke=True).replace(family="hybrid",
+                                                           layer_pattern=("mamba", "attn"),
+                                                           n_heads=4, n_kv_heads=4)
+    params = tf.init_lm(hybrid, device="cpu")
+    assert set(params["layers"][1]["mixer"]) == {"wq", "wk", "wv", "wo"}
+    tokens = torch.randint(0, hybrid.vocab_size, (2, 6),
+                           generator=torch.Generator().manual_seed(0))
+    logits, _ = tf.lm_forward(params, {"tokens": tokens}, hybrid)
+    assert torch.isfinite(logits).all()
+    state = tf.init_decode_state(hybrid, 2, 8, device="cpu")
+    logits, _ = tf.decode_step(params, state, tokens[:, :1], 0, hybrid)
+    assert logits.shape[:2] == (2, 1) and torch.isfinite(logits).all()
     dense = get_config("llama3_8b", smoke=True)
+    for family in ("vlm", "audio"):
+        with pytest.raises(NotImplementedError, match="item 7, remaining families"):
+            tf.init_lm(dense.replace(family=family), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.init_decode_state(dense.replace(family=family), 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         tf.init_lm(dense.replace(family="moe"), device="cpu")
     moe = dense.replace(family="moe", moe=MoEConfig(n_experts=4, top_k=2))
     params = tf.init_lm(moe, device="cpu")
     assert params["layers"][0]["ffn"]["w_gate"].shape == (moe.n_layers, 4, moe.d_model, moe.d_ff)
-    tokens = torch.randint(0, moe.vocab_size, (2, 6), generator=torch.Generator().manual_seed(0))
     logits, aux = tf.lm_forward(params, {"tokens": tokens}, moe)
     assert torch.isfinite(logits).all() and aux.item() > 0
     state = tf.init_decode_state(moe, 2, 8, device="cpu")
     logits, _ = tf.decode_step(params, state, tokens[:, :1], 0, moe)
     assert logits.shape[:2] == (2, 1) and torch.isfinite(logits).all()
+
+
+# ---- the scan's gradient ----
+
+def test_ops_ssd_gradients_match_jax():
+    """The twin of tests/test_kernels.py::test_pallas_ssd_grads_match_oracle:
+    the same shapes, inputs of the same kind and the same loss; the
+    gradients through the port's ``ops.ssd`` autograd function on the CPU
+    (``ref.ssd_chunked_bwd``, never a launch) against the Pallas kernel's
+    custom VJP in interpret mode and ``jax.grad`` of the oracle."""
+    b, s, h, p, g, n, chunk = 1, 32, 4, 16, 2, 8, 16
+    x, dt, a, bm, cm, _ = _ssd_inputs(b, s, h, p, g, n, seed=8, model_scale=False)
+
+    def loss(fn):
+        def f(*args):
+            y, st = fn(*args)
+            return jnp.sum(jnp.sin(y)) + jnp.sum(jnp.cos(st))
+        return f
+    want_pl = jax.grad(loss(lambda *o: pl_ssd(*o, chunk, interpret=True)),
+                       argnums=(0, 1, 2, 3, 4))(*_j(x, dt, a, bm, cm))
+    want = jax.grad(loss(lambda *o: jssm.ssd_chunked(*o, chunk)),
+                    argnums=(0, 1, 2, 3, 4))(*_j(x, dt, a, bm, cm))
+    ins = [t.requires_grad_() for t in _t(x, dt, a, bm, cm)]
+    ops.reset_launch_counts()
+    y, st = ops.ssd(*ins, chunk)
+    (y.sin().sum() + st.cos().sum()).backward()
+    assert ops.launch_counts()["ssd_scan"] == ops.launch_counts()["ssd_scan_bwd"] == 0
+    for t, w1, w2 in zip(ins, want_pl, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w1), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w2), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", [
+    (2, 64, 4, 16, 2, 8, 16, True),      # h_init and its cotangent
+    (1, 50, 4, 8, 1, 16, 16, True),      # ragged S, h_init
+    (2, 37, 6, 8, 3, 8, 8, False),       # ragged S, G=3
+])
+def test_plain_ssd_bwd_matches_jax_vjp(b, s, h, p, g, n, chunk, h_init):
+    """``ref.ssd_chunked_bwd`` against ``jax.vjp`` of the JAX oracle, with a
+    cotangent on the final state; a ragged S against the oracle on inputs
+    zero-padded to a chunk multiple (dy zero on the padding), cut back."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(b, s, h, p, g, n, h_init=h_init, seed=9)
+    rng = np.random.default_rng(10)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dst = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    pad = (-s) % chunk
+    padded = [np.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2)) for t in (x, dt, bm, cm, dy)]
+    args = _j(padded[0], padded[1], a, padded[2], padded[3]) + ([jnp.asarray(h0)] if h_init
+                                                                 else [])
+    _, vjp = jax.vjp(lambda *o: jssm.ssd_chunked(*o[:5], chunk, h_init=o[5] if h_init else None),
+                     *args)
+    want = vjp((jnp.asarray(padded[4]), jnp.asarray(dst)))
+    got = tref.ssd_chunked_bwd(*_t(x, dt, a, bm, cm), chunk, *_t(dy, dst), h_init=_t(h0)[0])
+    assert (got[5] is None) == (not h_init)
+    for i, (gt, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        if w.ndim >= 2 and i != 5:  # the sequence-long gradients: cut the padding
+            w = w[:, :s]
+        np.testing.assert_allclose(gt.numpy(), w, atol=1e-4, rtol=1e-4)
+
+
+def _ssd_bwd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, dy, dst, h_init=None,
+                         drop=None):
+    """The backward's segment decomposition (csrc/ssd_scan_bwd.cu, with
+    segments of one chunk there), built from the plain versions: the state
+    entering each segment by the forward's combine; each segment's local
+    state cotangent (its own dy alone, from a zero cotangent: what its
+    entering state gets from inside it) and total decay; the reverse
+    combine, cot(k-1) = decay(k) cot(k) + local(k) from cot(last) = dst,
+    which gives the cotangent leaving each segment and dh_init; then each
+    segment's gradients from its entering state and the cotangent leaving
+    it.  ``drop``: a planted fault, the cotangent carried out of segment
+    ``drop`` + 1 into segment ``drop`` dropped."""
+    s, seg = x.shape[1], seg_chunks * chunk
+    cuts = [(i, min(s, i + seg)) for i in range(0, s, seg)]
+    part = lambda t, lo, hi: t[:, lo:hi]  # noqa: E731
+    _, entering = _ssd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, h_init=h_init,
+                                   entering_only=True)
+    zero = torch.zeros_like(dst)
+    local, decay = [], []
+    for lo, hi in cuts:
+        args = [part(t, lo, hi) for t in (x, dt)] + [a] + [part(t, lo, hi) for t in (bm, cm)]
+        local.append(tref.ssd_chunked_bwd(*args, chunk, part(dy, lo, hi), zero,
+                                          h_init=zero)[5])
+        decay.append(torch.exp((dt[:, lo:hi] * a).sum(1)))
+    cot = [None] * len(cuts)
+    cot[-1] = dst
+    for k in range(len(cuts) - 1, 0, -1):
+        carried = decay[k][..., None, None] * cot[k] + local[k]
+        cot[k - 1] = zero if k - 1 == drop else carried
+    grads = [tref.ssd_chunked_bwd(*[part(t, lo, hi) for t in (x, dt)], a,
+                                  *[part(t, lo, hi) for t in (bm, cm)], chunk,
+                                  part(dy, lo, hi), cot[k], h_init=entering[k])
+             for k, (lo, hi) in enumerate(cuts)]
+    dh0 = decay[0][..., None, None] * cot[0] + local[0]
+    cat = lambda i: torch.cat([gr[i] for gr in grads], 1)  # noqa: E731
+    return (cat(0), cat(1), sum(gr[2] for gr in grads), cat(3), cat(4),
+            dh0 if h_init is not None else None)
+
+
+@pytest.mark.parametrize("s,chunk,seg_chunks,h_init", [
+    (512, 32, 4, False),       # four whole segments
+    (500, 32, 3, True),        # ragged last chunk inside a short last segment, h_init
+    (300, 16, 1, True),        # segments of one chunk, as the kernel has them
+])
+def test_ssd_bwd_segment_decomposition_matches_autograd(s, chunk, seg_chunks, h_init):
+    """The algebra of the backward kernel's passes (entering states, local
+    cotangents, the reverse combine, per-segment gradients) against the
+    autograd of ``ref.ssd_chunked`` over the whole sequence, within the
+    tolerance the kernel is held to; a cotangent dropped at a segment
+    boundary fails it."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(2, s, 4, 16, 2, 32, h_init=h_init, seed=11)
+    rng = np.random.default_rng(12)
+    dy, dst = _t(rng.standard_normal((2, s, 4, 16)).astype(np.float32),
+                 rng.standard_normal((2, 4, 16, 32)).astype(np.float32))
+    args = _t(x, dt, a, bm, cm)
+    h0 = _t(h0)[0]
+    want = tref.ssd_chunked_bwd(*args, chunk, dy, dst, h_init=h0)
+    got = _ssd_bwd_by_segments(*args, chunk, seg_chunks, dy, dst, h_init=h0)
+    ratios = tref.ssd_grad_ratios(got, want)
+    assert len(ratios) == (6 if h_init else 5) and max(ratios.values()) <= 1, ratios
+    bad = _ssd_bwd_by_segments(*args, chunk, seg_chunks, dy, dst, h_init=h0, drop=1)
+    assert tref.ssd_grad_ratios(bad, want)["dx"] > 1
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the root of the repository, whose planted faults
+    the SSD backward kernel's checks on the card must see."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ssd_grad_tolerance_rejects_planted_faults():
+    """The bound the SSD backward kernel is held to admits the JAX oracle's
+    gradients (another summation order) and rejects each of the four faults
+    that chip_smoke.py plants on the card: a carried state cotangent dropped
+    at a chunk boundary, one chunk's intra-chunk term of du dropped, ddt
+    without the decays' gradient, dB from one head of each group.  Each
+    fault moves only the gradients it names."""
+    cs = _chip_smoke()
+    b, s, h, p, g, n, chunk = 1, 256, 8, 16, 2, 16, 32
+    x, dt, a, bm, cm, _ = _ssd_inputs(b, s, h, p, g, n, seed=13)
+    rng = np.random.default_rng(14)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dst = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    args = (*_t(x, dt, a, bm, cm), chunk, *_t(dy, dst), None)
+    want = tref.ssd_chunked_bwd(*args[:-1])
+    _, vjp = jax.vjp(lambda *o: jssm.ssd_chunked(*o, chunk), *_j(x, dt, a, bm, cm))
+    jgrads = [torch.from_numpy(np.array(w)) for w in vjp(tuple(_j(dy, dst)))] + [None]
+    assert max(tref.ssd_grad_ratios(jgrads, want).values()) <= 1
+    at = s // chunk // 2
+    for fault, hit in ((cs.ssd_bwd_drop_carried(*args, at), {"dx", "ddt", "da", "db"}),
+                       (cs.ssd_bwd_drop_intra_du(*args, at), {"dx", "ddt"}),
+                       (cs.ssd_bwd_drop_decay_grad(*args), {"ddt"}),
+                       (cs.ssd_bwd_one_head_per_group(*args), {"db", "dc"})):
+        ratios = tref.ssd_grad_ratios(fault, want)
+        assert {k for k, v in ratios.items() if v > 1} == hit, ratios
+
+
+def _da_one_chunk(x, dt, a, bm, cm, dy, kernel_form: bool):
+    """da of sequences of one chunk each, from a zero state and with no
+    cotangent on the final state, so that d(dA) is the intra-chunk term
+    alone, with M = (C B^T) o (dy x^T) dt_j o e^{cs_i - cs_j}.  As
+    csrc/ssd_scan_bwd.cu takes it (``kernel_form``): cs scanned in f64 and
+    kept as an f32 hi + lo pair for the exponents, and d(dA)_k the sum of M
+    over the pairs with j < k <= i.  Otherwise: an f32 cs, and d(dA) the
+    reverse cumulative sum of rowsum(M) - colsum(M), diagonal included."""
+    dA = dt * a
+    if kernel_form:
+        c64 = torch.cumsum(dA.double(), 1)
+        hi = c64.float()
+        lo = (c64 - hi.double()).float()
+        ex = (hi[:, :, None] - hi[:, None, :]) + (lo[:, :, None] - lo[:, None, :])
+    else:
+        cs = torch.cumsum(dA, 1)
+        ex = cs[:, :, None] - cs[:, None, :]
+    L = x.shape[1]
+    low = torch.tril(torch.ones(L, L, dtype=torch.bool), -1 if kernel_form else 0)[None, ..., None]
+    e = torch.where(low, torch.exp(torch.where(low, ex, 0.0)), 0.0)       # [B,i,j,H]
+    cb = torch.einsum("bin,bjn->bij", cm[:, :, 0], bm[:, :, 0])[..., None]
+    m = cb * torch.einsum("bihp,bjhp->bijh", dy, x) * dt[:, None] * e
+    if kernel_form:
+        pre = torch.cumsum(m, 2) - m  # each row's exclusive prefix over j
+        dda = torch.stack([pre[:, k:, k].sum(1) for k in range(L)], 1)
+    else:
+        dda = torch.flip(torch.cumsum(torch.flip(m.sum(2) - m.sum(1), [1]), 1), [1])
+    return (dt * dda).sum((0, 1))
+
+
+def test_ssd_bwd_decay_gradient_holds_the_tolerance_where_cumsum_differences_do_not():
+    """At jamba's fastest decays (a = -(100..107), dt = softplus(z - 3): cs
+    reaches a few hundred within a chunk of 64), the backward kernel's way
+    of taking da (see ``_da_one_chunk``) stays within
+    ``ref.ssd_grad_tolerance_ratio`` of the plain backward; the difference
+    of two cumulative sums with an f32 cs does not (on an H100 the kernel
+    read 6.6 that way, then 1.2 with the straddling sums alone)."""
+    rng = np.random.default_rng(15)
+    b, L, h, p, n = 256, 64, 8, 16, 16
+    x, dy = (torch.from_numpy(rng.standard_normal((b, L, h, p)).astype(np.float32))
+             for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, L, h)).astype(np.float32)) - 3)
+    a = -torch.arange(100, 100 + h, dtype=torch.float32)
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, L, 1, n)).astype(np.float32))
+              for _ in range(2))
+    want = tref.ssd_chunked_bwd(x, dt, a, bm, cm, L, dy, torch.zeros(b, h, p, n))[2]
+    ratio = {form: tref.ssd_grad_tolerance_ratio(_da_one_chunk(x, dt, a, bm, cm, dy, form),
+                                                 want, (0,))
+             for form in (True, False)}
+    assert ratio[True] <= 1 < ratio[False], ratio
 
 
 def _tf32(t):
@@ -390,14 +617,16 @@ def test_ssd_kernel_3xtf32_holds_the_tolerance_where_tf32_does_not(seed):
     assert once > 1, once
 
 
-def _ssd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, h_init=None, drop=None):
+def _ssd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, h_init=None, drop=None,
+                     entering_only=False):
     """The kernel's segment-parallel scan, built from ``ref.ssd_chunked``:
     each segment of ``seg_chunks`` chunks is scanned from a zero state (its
     local state) with its total decay exp(sum of dA); the combine gives each
     segment its entering state (segment 0: h_init or 0; then entering(k+1) =
     local(k) + decay(k) * entering(k)); the outputs are each segment scanned
     again from its entering state.  ``drop``: a planted fault, the state
-    entering that segment dropped from its outputs."""
+    entering that segment dropped from its outputs.  ``entering_only``:
+    (None, the state entering each segment and the final state)."""
     s, seg = x.shape[1], seg_chunks * chunk
     cuts = [(i, min(s, i + seg)) for i in range(0, s, seg)]
     part = lambda t, lo, hi: t[:, lo:hi]  # noqa: E731
@@ -410,6 +639,8 @@ def _ssd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, h_init=None, drop=None
     entering = [torch.zeros_like(local[0]) if h_init is None else h_init]
     for k in range(len(cuts)):
         entering.append(local[k] + decay[k][..., None, None] * entering[k])
+    if entering_only:
+        return None, entering
     ys = [tref.ssd_chunked(*(part(t, lo, hi) for t in (x, dt)), a,
                            *(part(t, lo, hi) for t in (bm, cm)), chunk,
                            h_init=None if k == drop else entering[k])[0]

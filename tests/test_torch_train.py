@@ -234,11 +234,16 @@ def test_cross_entropy_matches_jax():
     # GeGLU, tied embeddings (the unembedding's gradient adds to the embedding's)
     # and a head dim (32) that is not d_model / heads (16)
     pytest.param("gemma_7b", S, id=f"gemma_7b-{S}"),
-    pytest.param("gemma_7b", 1024, id="gemma_7b-1024")])
+    pytest.param("gemma_7b", 1024, id="gemma_7b-1024"),
+    # the Mamba-2 scan's gradient through the port's ``ops.ssd`` autograd
+    # function: S over five chunks of 8, and a ragged S
+    pytest.param("mamba2_370m", 40, id="mamba2_370m-40"),
+    pytest.param("mamba2_370m", 37, id="mamba2_370m-37")])
 def test_lm_loss_and_its_gradient_match_jax(reference, arch, seq):
     """One device, no fabric.  At S=1024 attention takes the flash path: the
     port's ``ops.mha`` autograd function (``ref.mha_bwd`` on the CPU) against
-    the JAX package's custom VJP."""
+    the JAX package's custom VJP; mamba2-370m's scan goes through ``ops.ssd``'s
+    (``ref.ssd_chunked_bwd``) against ``jax.grad`` through the oracle."""
     import jax
     import jax.numpy as jnp
 
@@ -250,7 +255,7 @@ def test_lm_loss_and_its_gradient_match_jax(reference, arch, seq):
         batch = reference["batch"]
     else:
         rng = np.random.default_rng(4)
-        rows = B if seq == S else 1
+        rows = B if seq in (S, 40, 37) else 1
         batch = {k: rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)
                  for k in ("tokens", "targets")}
     jparams = jax.tree_util.tree_map(jnp.asarray, T.init_lm(jax.random.PRNGKey(0), cfg))
@@ -346,6 +351,21 @@ def test_train_main_runs_on_cpu(capsys, monkeypatch):
     assert np.isfinite(loss)
     assert "step    1 loss" in capsys.readouterr().out
     assert [(o.lr, o.warmup_steps) for o in seen] == [(1e-3, 10)]
+
+
+def test_train_main_trains_mamba_on_cpu(capsys):
+    """``launch.train.main`` trains mamba2-370m's smoke configuration (gradients through
+    ``ops.ssd``'s autograd function) and its loss falls over 20 steps."""
+    try:
+        launch_train.main(["--arch", "mamba2_370m", "--smoke", "--device", "cpu", "--steps",
+                           "20", "--batch", "8", "--seq", "32", "--lr", "1e-2"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    losses = [float(line.split()[3]) for line in capsys.readouterr().out.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 5 and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0] - 0.05, losses
 
 
 @pytest.mark.parametrize("flags,word", [(["--plane-report"], "control plane"),
