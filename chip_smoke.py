@@ -127,11 +127,13 @@ and the script exits non-zero without printing a result:
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
-(G=2, a ragged S, h_init, jamba's H=128 and N=16, a chunk of 16) by
-``ref.ssd_grad_tolerance_ratio`` <= 1 on every gradient, with four planted
-faults that must read > 1 (a carried state cotangent dropped at a segment
-boundary, the intra-chunk term of du dropped, ddt without the decays'
-gradient, dB from one head of each group), and times it.  It also runs each
+(G=2, a ragged S, h_init, jamba's H=128 and N=16 with a = -(1..128), with
+and without h_init, a chunk of 16) by ``ref.ssd_grad_tolerance_ratio`` <= 1
+on every gradient, with four planted faults that must read > 1 (a carried
+state cotangent dropped at a segment boundary, the intra-chunk term of du
+dropped, ddt without the decays' gradient, dB from one head of each
+group); two calls on the same inputs must give bit-identical gradients;
+and it times the kernel and each of its passes.  It also runs each
 attention kernel's 256-wide instantiation
 at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
 B=8 and a full 4096-slot cache), held to its plain version, with two planted
@@ -159,7 +161,6 @@ SRC = ROOT / "src"
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor cores: the peak for f32 operands
-PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores (printed as a note)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 # Kernels are held to ref.tolerance_ratio <= 1 (bf16: 1e-5 + 2^-7 |plain|,
 # one bf16 ulp of each element; f32: 1e-5).  Whole models are held to the
@@ -485,8 +486,8 @@ def phase_build():
     log("[build] ssd scan backward: all {} passes built, no spills; {}; shared memory per "
         "block: local {} B, chunk {} B".format(
             len(SSD_BWD_PASSES), "; ".join(
-                f"{k} {res['registers']} registers" for k in SSD_BWD_PASSES
-                for fn, res in ssdb.items() if k in fn),
+                f"{k} {res['registers']} registers, {res['spill_stores']} B spilled"
+                for k in SSD_BWD_PASSES for fn, res in ssdb.items() if k in fn),
             ssdb_lib.repro_ssd_scan_bwd_smem_bytes(0), ssdb_lib.repro_ssd_scan_bwd_smem_bytes(1)))
     bwd = ops.KERNELS["flash_attention_bwd"].resources()
     missing = [k for k in FLASH_BWD_PASSES if not any(k in fn for fn in bwd)]
@@ -1808,6 +1809,28 @@ def ssd_bwd_bound(b, s, h, p, g, n, chunk, h_init: bool) -> tuple:
     return flops, nbytes
 
 
+def ssd_bwd_executed_flops(b, s, h, p, g, n, chunk) -> int:
+    """Derived, not measured: the FLOPs the SSD backward's mma.sync tiles run
+    on the tensor cores (csrc/ssd_scan_bwd.cu: 16 x 8 x 8 tiles, each
+    product three times for 3xTF32): pass 1's local state and cotangent and
+    C B^T once per group and chunk; pass 3's nine products per (b, h,
+    chunk), causal tiles only, N in steps of 32 columns."""
+    nc, up8 = -(-s // chunk), lambda v: -(-v // 8) * 8
+    l8, p_t = up8(chunk) // 8, -(-p // 8)
+    local = 2 * -(-p // 16) * l8 * -(-n // 8)
+    cb = 8 * (up8(n) // 8) * 4
+    steps = [min(32, n - nb) for nb in range(0, n, 32)]
+    chunk_tiles = 0
+    for r0 in range(0, chunk, 16):
+        below, above = l8 - r0 // 8, min(l8, r0 // 8 + 2)  # k-steps i >= j0; j <= i0 + 15
+        chunk_tiles += min(r0 // 8 + 2, l8) * p_t + below * p_t
+        for cols in steps:
+            n_t = -(-cols // 8)
+            chunk_tiles += up8(cols) // 8 * p_t + (2 * p_t + below + above) * n_t
+    mma = b * nc * (g * cb + h * (local + chunk_tiles))
+    return 3 * 2 * 16 * 8 * 8 * mma
+
+
 def hold_ssd_bwd(label: str, got, want) -> tuple:
     """The backward kernel's gradients against the plain version's by
     ``ref.ssd_grad_tolerance_ratio``; returns (max_abs_err, worst ratio)."""
@@ -1843,12 +1866,14 @@ def phase_ssd_bwd_kernel():
             (1, 4000, 32, 64, 1, 128, 64, False),    # ragged S inside the last segment
             (1, 2048, 32, 64, 1, 128, 64, True),     # h_init: dh_init held too
             (1, 4096, 128, 64, 1, 16, 64, False),    # jamba-v0.1-52b's mixer: H=128, N=16
+            (1, 4096, 128, 64, 1, 16, 64, True),     # the same with h_init
             (1, 2048, 32, 64, 1, 128, 16, False)]:   # a chunk of 16
         ins, dy, dst, h0 = case(b, s, h, p, g, n, chunk, h_init)
         got = tssdb.ssd_scan_bwd(*ins, chunk, dy, dst, h_init=h0)
         want = ref.ssd_chunked_bwd(*ins, chunk, dy, dst, h_init=h0)
         err, ratio = hold_ssd_bwd(f"[ssd bwd] B={b} S={s} H={h} P={p} G={g} N={n} "
-                                  f"chunk={chunk}{' h_init' if h_init else ''}", got, want)
+                                  f"chunk={chunk}{' h_init' if h_init else ''}"
+                                  f"{f', a = -(1..{h})' if h == 128 else ''}", got, want)
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
         del got, want
 
@@ -1860,7 +1885,13 @@ def phase_ssd_bwd_kernel():
     err, ratio = hold_ssd_bwd(f"[ssd bwd] main shape B={b} S={s} H={h} P={p} G={g} N={n} "
                               f"chunk={chunk}, strided x, B, C", got, want)
     worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-    del got
+    again = tssdb.ssd_scan_bwd(*ins, chunk, dy, dst)
+    differ = [name for name, u, v in zip(ref.SSD_GRAD_NAMES, got, again)
+              if u is not None and not torch.equal(u, v)]
+    log(f"[ssd bwd] the same inputs twice: {'bit-identical gradients' if not differ else differ}")
+    if differ:
+        raise AssertionError(f"[ssd bwd] two calls on the same inputs differ in {differ}")
+    del got, again
     at = s // chunk // 2
     keep = ref.SSD_GRAD_KEEP
 
@@ -1893,8 +1924,13 @@ def phase_ssd_bwd_kernel():
         f"scan's gradient; bound {t['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP: "
         f"{flops / PEAK_TF32_FLOPS * 1e3:.4f} ms at the TF32 peak; {nbytes / 1e6:.1f} MB: "
         f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms), {100 * t['bound_ms'] / dev_ms:.1f} % of the "
-        f"bound (device time); {flops / dev_ms / 1e9:.1f} TFLOP/s needed on the CUDA cores "
-        f"(f32 FMAs; {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s is their peak)")
+        f"bound (device time); {flops / dev_ms / 1e9:.1f} TFLOP/s of needed work, "
+        f"{100 * flops / dev_ms / 1e9 / (PEAK_TF32_FLOPS / 1e12):.2f} % of the TF32 tensor-core "
+        f"peak ({PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s)")
+    executed = ssd_bwd_executed_flops(b, s, h, p, g, n, chunk)
+    log(f"[ssd bwd] derived from the kernel's tiles, not measured: {executed / 1e9:.1f} GFLOP on "
+        f"the tensor cores in 3xTF32 ({executed / PEAK_TF32_FLOPS * 1e3:.4f} ms at the TF32 "
+        f"peak), {executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
     return {"name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:85",

@@ -47,10 +47,11 @@
 // state products of pass B rather than reading a state per chunk ([B, 512,
 // H, P, N] f32, 537 MB each way).
 //
-// Products: mma.sync m16n8k8 TF32 with f32 accumulation.  Plain TF32 (10
-// mantissa bits) misses the tolerance the kernel is held to by ~5x, so each
-// f32 operand is split into a TF32 high part and a low part (x - hi), and a
-// product is lo.hi + hi.lo + hi.hi (about 2^-20 relative).  Decays, the
+// Products: mma.sync m16n8k8 TF32 with f32 accumulation (tf32.cuh, shared
+// with the backward).  Plain TF32 (10 mantissa bits) misses the tolerance
+// the kernel is held to by ~5x, so each f32 operand is split into a TF32
+// high part and a low part (x - hi), and a product is lo.hi + hi.lo +
+// hi.hi (about 2^-20 relative).  Decays, the
 // scans and dt stay f32 on the CUDA cores.  Each warp owns fixed 16-row
 // tiles of every product; operands come from shared memory, whose row
 // strides keep fragment loads free of bank conflicts.  Tiles of the next
@@ -74,7 +75,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -113,98 +114,6 @@ struct Shape {
     bool vec;  // every x, B and C row starts on a 16-byte boundary and P, N % 4 == 0
 };
 
-__device__ __forceinline__ void zero_smem(float* p, int n) {
-    for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
-        *reinterpret_cast<float4*>(p + i) = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// Rows [0, MAX_L) of a tile of `cols` floats a row from global rows at
-// `src`, `ld` floats apart, into shared rows `lds` floats apart; rows >=
-// `valid` are zero-filled.  Columns >= cols are left as they are (zero).
-__device__ __forceinline__ void load_tile(float* dst, int lds, const float* src, int64_t ld,
-                                          int valid, int cols, bool vec) {
-    if (vec) {
-        const int per = cols >> 2;
-        for (int i = threadIdx.x; i < MAX_L * per; i += blockDim.x) {
-            const int r = i / per, c = (i - r * per) * 4;
-            const bool ok = r < valid;
-            cp_async16(smem_addr(dst + r * lds + c), ok ? src + r * ld + c : src, ok);
-        }
-    } else {
-        for (int i = threadIdx.x; i < MAX_L * cols; i += blockDim.x) {
-            const int r = i / cols, c = i - r * cols;
-            const bool ok = r < valid;
-            cp_async4(smem_addr(dst + r * lds + c), ok ? src + r * ld + c : src, ok);
-        }
-    }
-}
-
-// load_tile for COLS columns (a multiple of 4), 16-byte copies and NTH
-// threads, all known to the compiler: no division in the address of a copy.
-template <int COLS, int NTH>
-__device__ __forceinline__ void load_rows(float* dst, int lds, const float* src, int64_t ld,
-                                          int valid) {
-    constexpr int PER = COLS / 4;
-    static_assert(MAX_L * PER % NTH == 0, "whole rounds of copies");
-#pragma unroll
-    for (int k = 0; k < MAX_L * PER / NTH; ++k) {
-        const int i = threadIdx.x + k * NTH, r = i / PER, c = (i % PER) * 4;
-        const bool ok = r < valid;
-        cp_async16(smem_addr(dst + r * lds + c), ok ? src + r * ld + c : src, ok);
-    }
-}
-
-// `n` floats (a multiple of 4, 16-byte aligned at both ends) global -> shared.
-__device__ __forceinline__ void load_flat(float* dst, const float* src, int n) {
-    for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
-        cp_async16(smem_addr(dst + i), src + i, true);
-}
-
-// ---- 3xTF32 products on the tensor cores ----
-
-// An operand fragment split into TF32 high and low parts: hi is x with the
-// 13 mantissa bits that TF32 lacks cleared (truncated, so within one TF32
-// ulp of x), lo = x - hi (exact in f32), of which the tensor cores read the
-// TF32 bits.  Two instructions a value; a product is then within ~2^-20 of
-// the f32 one.
-template <int K>
-struct Frag {
-    uint32_t hi[K], lo[K];
-    __device__ __forceinline__ void set(int i, float x) {
-        hi[i] = __float_as_uint(x) & 0xffffe000u;
-        lo[i] = __float_as_uint(x - __uint_as_float(hi[i]));
-    }
-    __device__ __forceinline__ void set2(int i, int j, float2 v) {
-        set(i, v.x);
-        set(j, v.y);
-    }
-};
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b for a 16x8 A fragment and an 8x8 B fragment, small terms first.
-// With g = lane / 4 and t = lane % 4: A holds (row, k) (g, t), (g+8, t),
-// (g, t+4), (g+8, t+4); B holds (k, col) (t, g), (t+4, g); d holds (g, 2t),
-// (g, 2t+1), (g+8, 2t), (g+8, 2t+1).  A sum over k may take its terms in
-// any order, so every product here gives the fragment's k = t and t + 4 the
-// tile's k = 2t and 2t + 1: one 8-byte load where the tile's rows run along
-// k.
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-    mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
-    mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
-    mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
-}
-
 // ---- pass A: C B^T per (b, group, chunk); cs, dt, wd per (b, head, chunk) ----
 
 __global__ void __launch_bounds__(NT)
@@ -220,8 +129,8 @@ ssd_cb_kernel(const float* __restrict__ dt, const float* __restrict__ a,
 
     zero_smem(Cs, SMEM_A);
     __syncthreads();
-    load_tile(Cs, LD_K, cm + b * sd.cb + g * sd.cg + s0 * sd.cs, sd.cs, valid, sh.N, sh.vec);
-    load_tile(Bs, LD_K, bm + b * sd.bb + g * sd.bg + s0 * sd.bs, sd.bs, valid, sh.N, sh.vec);
+    load_tile<MAX_L>(Cs, LD_K, cm + b * sd.cb + g * sd.cg + s0 * sd.cs, sd.cs, valid, sh.N, sh.vec);
+    load_tile<MAX_L>(Bs, LD_K, bm + b * sd.bb + g * sd.bg + s0 * sd.bs, sd.bs, valid, sh.N, sh.vec);
     cp_async_commit();
 
     // While the tiles load: per head of the group, the inclusive scan of dA
@@ -359,13 +268,13 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
         float* Bs = stage0 + ((c - c_begin) & 1) * STAGE_B;
         const int s0 = c * sh.L, valid = min(sh.L, sh.S - s0);
         if (FULL) {
-            load_rows<MAX_N, NT>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid);
-            load_rows<MAX_P, NT>(Bs + MAX_L * LD_B, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs,
-                                 valid);
+            load_rows<MAX_L, MAX_N, NT>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid);
+            load_rows<MAX_L, MAX_P, NT>(Bs + MAX_L * LD_B, LD_X, xbase + (int64_t)s0 * sd.xs,
+                                        sd.xs, valid);
         } else {
-            load_tile(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid, sh.N, sh.vec);
-            load_tile(Bs + MAX_L * LD_B, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid, sh.P,
-                      sh.vec);
+            load_tile<MAX_L>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid, sh.N, sh.vec);
+            load_tile<MAX_L>(Bs + MAX_L * LD_B, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid,
+                             sh.P, sh.vec);
         }
         load_flat(Bs + MAX_L * LD_B + MAX_L * LD_X, cdbase + (int64_t)c * CD, CD);
         cp_async_commit();
@@ -448,21 +357,21 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ bm,
         float* Bs = Cs + MAX_L * LD_K;
         float* Xs = Bs + MAX_L * LD_B;
         if (FULL) {
-            load_rows<MAX_N, NT_D>(Cs, LD_K, cbase + (int64_t)s0 * sd.cs, sd.cs, valid);
-            load_rows<MAX_N, NT_D>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid);
-            load_rows<MAX_P, NT_D>(Xs, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid);
+            load_rows<MAX_L, MAX_N, NT_D>(Cs, LD_K, cbase + (int64_t)s0 * sd.cs, sd.cs, valid);
+            load_rows<MAX_L, MAX_N, NT_D>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid);
+            load_rows<MAX_L, MAX_P, NT_D>(Xs, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid);
         } else {
-            load_tile(Cs, LD_K, cbase + (int64_t)s0 * sd.cs, sd.cs, valid, N, sh.vec);
-            load_tile(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid, N, sh.vec);
-            load_tile(Xs, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid, P, sh.vec);
+            load_tile<MAX_L>(Cs, LD_K, cbase + (int64_t)s0 * sd.cs, sd.cs, valid, N, sh.vec);
+            load_tile<MAX_L>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid, N, sh.vec);
+            load_tile<MAX_L>(Xs, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid, P, sh.vec);
         }
         load_flat(Xs + MAX_L * LD_X, cdbase + (int64_t)c * CD, CD);
     };
     auto fetch_cb = [&](int c) {
         if (FULL)
-            load_rows<MAX_L, NT_D>(CBs, LD_W, cbbase + (int64_t)c * L * L, L, L);
+            load_rows<MAX_L, MAX_L, NT_D>(CBs, LD_W, cbbase + (int64_t)c * L * L, L, L);
         else
-            load_tile(CBs, LD_W, cbbase + (int64_t)c * L * L, L, L, L, true);
+            load_tile<MAX_L>(CBs, LD_W, cbbase + (int64_t)c * L * L, L, L, L, true);
     };
 
     zero_smem(stage0, SMEM_D);

@@ -248,7 +248,7 @@ def test_ops_mha_trains_through_the_kernels(dev):
         assert ref.grad_tolerance_ratio(g, w) <= 1
 
 
-def test_ops_ssd_on_the_card_has_no_gradient_yet(dev):
+def test_ops_ssd_on_the_card_launches_both_kernels_and_matches_plain(dev):
     """Gradients through ``ops.ssd`` on the card launch the forward and the
     backward kernel once each, and match the plain backward (h_init too)."""
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -447,7 +447,12 @@ def test_ssd_kernel_refuses_unsupported_inputs(dev):
         tssd.ssd_scan(x, dt, a[:3], bm, cm, 16)
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_CASES)
+# and the backward's own: jamba's mixer with h_init, a = -(1..128), where da
+# was the hardest gradient to hold (dh_init held there too)
+_SSD_BWD_CASES = _SSD_CASES + [(1, 4096, 128, 64, 1, 16, 64, True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_BWD_CASES)
 def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
     gen = torch.Generator(device=dev).manual_seed(7)
     x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
@@ -464,6 +469,22 @@ def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
             assert gt.shape == wt.shape
     ratios = ref.ssd_grad_ratios(got, want)
     assert max(ratios.values()) <= 1, ratios
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(1, 4096, 32, 64, 1, 128, 64),
+                                                 (1, 4096, 128, 64, 1, 16, 64)])
+def test_ssd_bwd_kernel_gives_the_same_gradients_every_call(dev, b, s, h, p, g, n, chunk):
+    """Two calls on the same inputs give bit-identical gradients: every sum
+    across blocks is taken in a fixed order, with no atomics (mamba2-370m's
+    training shape, and jamba's mixer with h_init)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init=h == 128)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dst = torch.randn((b, h, p, n), generator=gen, device=dev)
+    first = tssdb.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h0)
+    second = tssdb.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h0)
+    for name, u, v in zip(ref.SSD_GRAD_NAMES, first, second):
+        assert (u is None and v is None) or torch.equal(u, v), name
 
 
 def test_ssd_bwd_kernel_reads_strided_views(dev):

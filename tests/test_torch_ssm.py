@@ -617,6 +617,126 @@ def test_ssd_kernel_3xtf32_holds_the_tolerance_where_tf32_does_not(seed):
     assert once > 1, once
 
 
+# The matrix products of csrc/ssd_scan_bwd.cu, by the names _ssd_bwd_as_the_kernel gives them.
+_SSD_BWD_PRODUCTS = ("local", "cb", "q", "du_intra", "du_inter", "db_inter", "db_intra",
+                     "dc_inter", "dc_intra")
+
+
+def _ssd_bwd_as_the_kernel(x, dt, a, bm, cm, chunk, dy, dst, h_init, parts, plain=()):
+    """The SSD scan's gradient computed as csrc/ssd_scan_bwd.cu computes it,
+    every matrix product's operands split by ``parts`` (those named in
+    ``plain`` rounded once to TF32 instead).  Pass 1: per head and chunk the
+    local state (dt e^{cs_last - cs} x)^T B and cotangent (e^{cs} dy)^T C
+    ("local"), and C B^T once per group and chunk ("cb"), shared by the
+    group's heads; pass 2: the states entering and the cotangents leaving
+    each chunk; pass 3: Q = dy x^T ("q"), Mq = Q dt_j E, M = (C B^T) o Mq,
+    A = (C B^T) o E, du = A^T dy ("du_intra") + (e^{cs_last - cs_j} B) G^T
+    ("du_inter"), dB = (dt e^{cs_last - cs} x) G ("db_inter") + Mq^T C
+    ("db_intra"), dC = (e^{cs} dy) S ("dc_inter") + Mq B ("dc_intra"), and
+    the decays' gradient as straddling sums with cs scanned in f64 and kept
+    as an f32 hi + lo pair (``_da_one_chunk``).  A factor that scales an
+    operand's rows is applied before the split; decays, sums and dt stay
+    f32."""
+    def tc(name, spec, u, v):
+        return _tc(spec, u, v, _tf32_once if name in plain else parts)
+
+    bsz, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    x, dt, bm, cm, dy = (tref._pad_to(t, chunk, 1)[0] for t in (x, dt, bm, cm, dy))
+    nc, rep, L = x.shape[1] // chunk, h // g, chunk
+    xc, dyc = (t.reshape(bsz, nc, L, h, p).movedim(3, 2) for t in (x, dy))   # [B,NC,H,L,P]
+    dtc = dt.reshape(bsz, nc, L, h).movedim(3, 2)                             # [B,NC,H,L]
+    bg, cg = (t.reshape(bsz, nc, L, g, n).movedim(3, 2) for t in (bm, cm))   # [B,NC,G,L,N]
+    bc, cc = bg.repeat_interleave(rep, 2), cg.repeat_interleave(rep, 2)
+    c64 = torch.cumsum((dtc * a[:, None]).double(), -1)
+    hi = c64.float()
+    lo = (c64 - hi.double()).float()
+    low = torch.tril(torch.ones(L, L, dtype=torch.bool))
+    ex = (hi[..., :, None] - hi[..., None, :]) + (lo[..., :, None] - lo[..., None, :])
+    e = torch.where(low, torch.exp(torch.where(low, ex, 0.0)), 0.0)
+    ein = torch.exp(hi)
+    eout = torch.exp((hi[..., -1:] - hi) + (lo[..., -1:] - lo))
+    wout = dtc * eout
+    dec = torch.exp(hi[..., -1])[..., None, None]                             # [B,NC,H,1,1]
+    local_st = tc("local", "bchjp,bchjn->bchpn", xc * wout[..., None], bc)
+    local_ct = tc("local", "bchip,bchin->bchpn", dyc * ein[..., None], cc)
+    cb = tc("cb", "bcgin,bcgjn->bcgij", cg, bg).repeat_interleave(rep, 2)
+    st, ct = torch.empty_like(local_st), torch.empty_like(local_ct)
+    carry = torch.zeros(bsz, h, p, n) if h_init is None else h_init
+    for c in range(nc):
+        st[:, c] = carry
+        carry = local_st[:, c] + dec[:, c] * carry
+    carry = dst
+    for c in range(nc - 1, -1, -1):
+        ct[:, c] = carry
+        carry = dec[:, c] * carry + local_ct[:, c]
+    mq = torch.where(low, tc("q", "bchip,bchjp->bchij", dyc, xc) * dtc[..., None, :] * e, 0.0)
+    m = torch.where(torch.tril(low, -1), cb * mq, 0.0)
+    du = (tc("du_intra", "bchij,bchip->bchjp", cb * e, dyc)
+          + tc("du_inter", "bchjn,bchpn->bchjp", bc * eout[..., None], ct))
+    ug = tc("db_inter", "bchjp,bchpn->bchjn", xc * wout[..., None], ct)
+    dbh = ug + tc("db_intra", "bchij,bchin->bchjn", mq, cc)
+    ys = tc("dc_inter", "bchip,bchpn->bchin", dyc * ein[..., None], st)
+    dch = ys + tc("dc_intra", "bchij,bchjn->bchin", mq, bc)
+    pre = torch.cumsum(m, -1) - m  # each row's exclusive prefix over j
+    dda = (torch.stack([pre[..., k:, k].sum(-1) for k in range(L)], -1)
+           + torch.flip(torch.cumsum(torch.flip((cc * ys).sum(-1), [-1]), -1), [-1])
+           + torch.cumsum((bc * ug).sum(-1), -1) - (bc * ug).sum(-1)
+           + dec[..., 0] * (ct * st).sum((-1, -2))[..., None])
+    ddt = (xc * du).sum(-1) + a[:, None] * dda
+    def seq(t):  # [B,NC,H or G,L,...] -> [B,S,H or G,...]
+        return t.movedim(2, 3).reshape(bsz, nc * L, *t.shape[2:3], *t.shape[4:])[:, :s]
+
+    def grp(t):  # per head -> summed over each group's heads
+        return seq(t.reshape(bsz, nc, g, rep, L, n).sum(3))
+
+    return (seq(dtc[..., None] * du), seq(ddt), (dtc * dda).sum((0, 1, 3)), grp(dbh), grp(dch),
+            None if h_init is None else carry)
+
+
+def _ssd_bwd_case(head: str):
+    """Inputs, cotangents and the plain backward's gradients at mamba2-370m's
+    head (P=64, N=128, chunk 64) or at jamba's (P=64, N=16, chunk 64) with
+    its fastest decays, a = -(121..128) of jamba's -(1..128); h_init given,
+    so that all six gradients are held."""
+    n = 128 if head == "mamba" else 16
+    h = 4 if head == "mamba" else 8
+    x, dt, a, bm, cm, h0 = _ssd_inputs(1, 512, h, 64, 1, n, h_init=True, seed=21)
+    if head == "jamba":
+        a = -np.arange(129 - h, 129, dtype=np.float32)
+    rng = np.random.default_rng(22)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dst = rng.standard_normal(h0.shape).astype(np.float32)
+    args = (*_t(x, dt, a, bm, cm), 64, *_t(dy, dst, h0))
+    return args, tref.ssd_chunked_bwd(*args[:-1], h_init=args[-1])
+
+
+@pytest.mark.parametrize("head", ["mamba", "jamba"])
+def test_ssd_bwd_kernel_3xtf32_holds_the_tolerance_where_tf32_does_not(head):
+    """The backward kernel's products in 3xTF32, in its passes and with its
+    decays' gradient (``_ssd_bwd_as_the_kernel``), stay within
+    ``ref.ssd_grad_tolerance_ratio`` <= 1 of the plain backward on all six
+    gradients, at mamba2-370m's head and at jamba's fastest decays (at most
+    0.05, on da); with every product in plain TF32 the worst gradient reads
+    far past it (16.7 on da at mamba's head, 19.4 on ddt at jamba's)."""
+    args, want = _ssd_bwd_case(head)
+    split = tref.ssd_grad_ratios(_ssd_bwd_as_the_kernel(*args, _tf32_hi_lo), want)
+    once = tref.ssd_grad_ratios(_ssd_bwd_as_the_kernel(*args, _tf32_once), want)
+    assert len(split) == 6 and max(split.values()) <= 1, split
+    assert max(once.values()) > 1, once
+
+
+@pytest.mark.parametrize("product", _SSD_BWD_PRODUCTS)
+def test_ssd_bwd_kernel_needs_3xtf32_in_every_product(product):
+    """At mamba2-370m's head no product of the backward kernel may drop to
+    plain TF32: that one product rounded once to TF32, the others in 3xTF32,
+    takes some gradient past the tolerance (2.0 to 13.6 times it)."""
+    args, want = _ssd_bwd_case("mamba")
+    ratios = tref.ssd_grad_ratios(_ssd_bwd_as_the_kernel(*args, _tf32_hi_lo, plain=(product,)),
+                                  want)
+    assert max(ratios.values()) > 1, ratios
+
+
 def _ssd_by_segments(x, dt, a, bm, cm, chunk, seg_chunks, h_init=None, drop=None,
                      entering_only=False):
     """The kernel's segment-parallel scan, built from ``ref.ssd_chunked``:
