@@ -99,9 +99,32 @@ and the script exits non-zero without printing a result:
     (b), one flash-decode launch a step held against the plain version, and
     the 8-layer teacher-forced logits against the prefill's and the plain
     version's over the positions routed alike;
-15. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
-    mamba2-370m, deepseek-moe-16b and gemma-7b;
-16. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
+15. paligemma-3b (the VLM: 18 layers, 8 heads on one kv head at dh 256,
+    GeGLU, tied vocab 257216) prefill at full width and depth, B=1, 256
+    patches [1, 256, 1152] from a seeded generator and 3840 text tokens
+    (S=4096): its 18 flash launches (the 256-wide instantiation at rep 8)
+    each held against the plain version; the depth-2 logits at every text
+    position against the plain versions', and two planted faults (the last
+    KV tile dropped, the 256-row prefix block made causal) must not match;
+16. paligemma-3b decode as phase 11 (text only from an empty cache, as the
+    serve driver decodes it): every flash-decode launch of a step held,
+    the depth-2 teacher-forced logits against the plain version's (a
+    planted fault: the first cache slot dropped; shifting the kv heads is
+    no fault with one kv head);
+17. seamless-m4t-medium (the audio encoder-decoder: a 12-layer encoder over
+    1024 frames, a 12-layer decoder of 16 heads on 16 at dh 64 with
+    cross-attention) prefill at full width and depth, B=1, S=4096 over 1024
+    frames: its 12 flash launches (the decoder's; the encoder's non-causal
+    attention and the cross-attention are plain sdpa, as in the JAX
+    package) each held; at depth 2 (2 encoder and 2 decoder layers) the
+    logits against the plain versions', the last KV tile dropped must not
+    match and the frames + 1 must move them;
+18. seamless-m4t-medium decode as phase 11 over ``init_cross_state`` of
+    1024 frames a sequence: the depth-2 teacher-forced logits against the
+    plain version's and the prefill's with the same frames;
+19. serve: ``repro_torch.launch.serve.main`` at full width, llama3-8b,
+    mamba2-370m, deepseek-moe-16b, gemma-7b and paligemma-3b;
+20. train: h2o-danube-3-4b at full width and depth (24 layers, bf16, random
     weights from seed 0) through ``make_train_step`` as ``repro_torch.launch.train`` sets it up
     on an NCCL group of one process, B=1, S=4096, four AdamW steps on one
     fixed ``synth_batch``: the loss must fall at every step, the flash
@@ -112,18 +135,24 @@ and the script exits non-zero without printing a result:
     fault in the backward must not; step time, tokens/s, the model-FLOP
     share of the bf16 peak, peak memory and the device's busy share of one
     profiled step;
-17. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
+21. train: granite-moe-1b-a400m (24 layers, 32 experts, top-8) the same way
     at B=2, S=4096, with the model-FLOP share over the active parameters,
     and the first step's ``moe_aux`` held to the aux of the plain forward on
     the same parameters;
-18. train: gemma-7b at full width on 8 of its 28 layers (its whole training
+22. train: gemma-7b at full width on 8 of its 28 layers (its whole training
     state does not fit the card), B=1, S=4096, the same way;
-19. train: mamba2-370m at full width and depth (48 layers), B=1, S=4096, the
+23. train: mamba2-370m at full width and depth (48 layers), B=1, S=4096, the
     same way: the SSD scan and its backward launch once per layer and step,
     each launch is held against its plain version, and at depth 2 the
     gradients with a planted fault in the backward (ddt without the decays'
     term) must not match; the model-FLOP share counts 6 N T only (the scan's
-    FLOPs are not counted).
+    FLOPs are not counted);
+24. train: paligemma-3b at full width and depth, B=1, 3840 text tokens after
+    256 patches, the same way (its model FLOPs: 3x the forward's, the patch
+    projection, the prefix block and the logits of the text positions);
+25. train: seamless-m4t-medium at full width and depth of both stacks, B=2,
+    S=4096 over 1024 frames a sequence, the same way (its model FLOPs count
+    the encoder and the cross-attention).
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -138,7 +167,13 @@ attention kernel's 256-wide instantiation
 at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
 B=8 and a full 4096-slot cache), held to its plain version, with two planted
 faults of its column split (the output's columns 128-255 zeroed, S from the
-first 128 dims only) that must fail the same check.
+first 128 dims only) that must fail the same check.  And it runs the three
+attention kernels at paligemma-3b's shapes (8 heads on one kv head, dh 256)
+and seamless-m4t-medium's decoder's (16 on 16, dh 64): flash at B=1 S=4096,
+its backward at the training step's B=1 and B=2, flash-decode at B=8 and a
+full 4096-slot cache, each held to its plain version with a planted fault
+that must fail the same check, and timed beside the bound, the plain
+version and SDPA.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one JSON
 line with every kernel's numbers (and its launches in each path that ran
@@ -216,6 +251,13 @@ SSD_BWD_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_chunk_
 # its 32 (one period of the 1:7 pattern with its 4 MoE layers: 13.27 B
 # parameters, 26.5 GB in bf16; all 32 layers, ~103 GB, do not fit the card).
 SSM_TRAIN_ARCH, HYBRID_ARCH, HYBRID_LAYERS = "mamba2_370m", "jamba_v0_1_52b", 8
+# The VLM and audio families (phases 15-18, 24 and 25), at full width and depth:
+# paligemma-3b (2.51 B parameters; 8 heads on ONE kv head at dh 256, a prefix of
+# 256 projected patches) and seamless-m4t-medium (0.98 B; a 12-layer encoder
+# over 1024 frames, a 12-layer decoder of 16 heads on 16 at dh 64 with
+# cross-attention), trained at B=1 and B=AUDIO_TRAIN_BATCH.
+VLM_ARCH, AUDIO_ARCH, AUDIO_TRAIN_BATCH = "paligemma_3b", "seamless_m4t_medium", 2
+VLM_ATTN, AUDIO_ATTN = (8, 1, 256), (16, 16, 64)  # heads, kv heads, head dim
 
 
 def log(*a):
@@ -573,7 +615,8 @@ def phase_flash():
     t = flash_times(q, k, v, "[flash]")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:36", "dh256": flash_256(),
+            "replaces": "src/repro/kernels/flash_attention.py:36",
+            "dh256": flash_at("[flash dh256]", 1, 4096, *GEMMA_ATTN, 21),
             "max_abs_err": worst, "tolerance": "1e-5 + 2^-7 |plain| (bf16)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
             "library_tolerance_ratio": lib_ratio, **t,
@@ -704,98 +747,125 @@ def decode_times(q, kc, vc, valid, tag: str) -> dict:
     return t
 
 
-def flash_256() -> dict:
-    """The bf16 flash kernel at gemma-7b's prefill shape (B=1 S=4096, 16 heads
-    on 16 kv heads, dh 256, causal): held to ``ref.mha``; two planted faults
-    of its column split (the output's columns 128-255 zeroed, S from the first
-    128 dims only) must fail the same check; times beside the bound, the
-    plain version and SDPA."""
+def flash_at(tag: str, b, s, h, kv, dh, seed) -> dict:
+    """The bf16 flash kernel at one model's prefill shape (causal): held to
+    ``ref.mha``; planted faults must fail the same check: the last KV tile
+    dropped and, at dh 256, the two of its column split (the output's columns
+    128-255 zeroed, S from the first 128 dims only); times beside the bound,
+    the plain version and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    b, s, (h, kv, dh) = 1, 4096, GEMMA_ATTN
     shape = f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"
-    q, k, v = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=21)
+    q, k, v = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=seed)
     want = ref.mha(q, k, v, causal=True)
     got = fa.flash_attention(q, k, v, causal=True)
-    err, ratio = hold(f"[flash dh256] gemma-7b shape {shape}", got, want)
-    ctrl = min(control("[flash dh256] control: the kernel's output with columns 128-255 zeroed",
-                       upper_half_zeroed(got), want),
-               control("[flash dh256] control: plain with S from the first 128 dims only",
-                       ref.mha(upper_half_zeroed(q), k, v, causal=True, scale=dh ** -0.5), want))
+    err, ratio = hold(f"{tag} {shape}", got, want)
+    tile = flash_tile()
+    faults = [(f"plain with the last {tile}-key tile dropped",
+               ref.mha(q, k, v, causal=True, kv_valid_len=s - tile))]
+    if dh == 256:
+        faults += [("the kernel's output with columns 128-255 zeroed", upper_half_zeroed(got)),
+                   ("plain with S from the first 128 dims only",
+                    ref.mha(upper_half_zeroed(q), k, v, causal=True, scale=dh ** -0.5))]
+    ctrl = min(control(f"{tag} control: {label}", fault, want) for label, fault in faults)
     return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio, "control_ratio": ctrl,
-            **flash_times(q, k, v, "[flash dh256]")}
+            **flash_times(q, k, v, tag)}
 
 
-def flash_bwd_256() -> dict:
-    """The bf16 flash backward at gemma-7b's training shape (B=1 S=4096, 16
-    heads on 16 kv heads, dh 256, causal): dq, dk and dv held to
-    ``ref.mha_bwd``; the planted faults of its column split (each gradient's
-    columns 128-255 zeroed; the gradients of attention whose S sees the
-    first 128 dims only) must fail the same check; times beside the bound,
-    the plain version and SDPA's backward."""
+def flash_bwd_at(tag: str, b, s, h, kv, dh, seed) -> dict:
+    """The bf16 flash backward at one model's training shape (causal): the
+    forward's o and lse, then dq, dk and dv held to ``ref.mha_bwd`` by
+    ``ref.grad_tolerance_ratio``; the three planted faults of
+    ``flash_bwd_faults`` and, at dh 256, those of its column split (each
+    gradient's columns 128-255 zeroed; the gradients of attention whose S
+    sees the first 128 dims only) must fail it; times beside the bound, the
+    plain version and SDPA's backward."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ref
-    b, s, (h, kv, dh) = 1, 4096, GEMMA_ATTN
     shape = f"B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal"
-    q, k, v = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=22)
-    do = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=32)[0]
+    q, k, v = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=seed)
+    do = flash_case(b, s, h, kv, dh, torch.bfloat16, seed=seed + 10)[0]
     o, lse = fa.flash_attention(q, k, v, return_lse=True)
     o_w, lse_w = ref.mha_fwd_lse(q, k, v)
-    hold(f"[flash bwd dh256] {shape}: forward o", o, o_w)
+    hold(f"{tag} {shape}: forward o", o, o_w)
     lse_ratio = ref.lse_tolerance_ratio(lse, lse_w)
-    log(f"[flash bwd dh256] forward lse {lse_ratio:.4f} of the tolerance")
+    log(f"{tag} forward lse {lse_ratio:.4f} of the tolerance")
     if not lse_ratio <= 1:
-        raise AssertionError("[flash bwd dh256] the forward's lse disagrees with ref.mha_fwd_lse")
+        raise AssertionError(f"{tag} the forward's lse disagrees with ref.mha_fwd_lse")
     got = fab.flash_attention_bwd(q, k, v, o, lse, do)
     want = ref.mha_bwd(q, k, v, o, lse, do)
     worst, worst_ratio = 0.0, 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err, ratio = hold(f"[flash bwd dh256] gemma-7b shape {shape}: {name}", g, w,
-                          ref.grad_tolerance_ratio)
+        err, ratio = hold(f"{tag} {shape}: {name}", g, w, ref.grad_tolerance_ratio)
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-    ctrl = min(control(f"[flash bwd dh256] control: the kernel's {name} with columns 128-255 "
-                       f"zeroed", upper_half_zeroed(g), w, ref.grad_tolerance_ratio)
-               for name, g, w in zip(("dq", "dk", "dv"), got, want))
+    faults = flash_bwd_faults(q, k, v, o, lse, do, want)
+    if dh == 256:
+        faults += [(f"the kernel's {name} with columns 128-255 zeroed", upper_half_zeroed(g), w)
+                   for name, g, w in zip(("dq", "dk", "dv"), got, want)]
     del got
-    qh = upper_half_zeroed(q)
-    s_half = ref.mha_bwd(qh, k, v, *ref.mha_fwd_lse(qh, k, v, scale=dh ** -0.5), do,
-                         scale=dh ** -0.5)
-    s_ratio = max(ref.grad_tolerance_ratio(g, w) for g, w in zip(s_half, want))
-    log(f"[flash bwd dh256] control: plain with S from the first 128 dims only: worst of dq, dk, "
-        f"dv {s_ratio:.1f} x the tolerance (must exceed 1)")
-    if not s_ratio > 1:
-        raise AssertionError("[flash bwd dh256]: the tolerance does not see S from 128 dims")
-    del s_half, want
+    ctrl = min(control(f"{tag} control: {label}", fault, w, ref.grad_tolerance_ratio)
+               for label, fault, w in faults)
+    del faults
+    if dh == 256:
+        qh = upper_half_zeroed(q)
+        s_half = ref.mha_bwd(qh, k, v, *ref.mha_fwd_lse(qh, k, v, scale=dh ** -0.5), do,
+                             scale=dh ** -0.5)
+        s_ratio = max(ref.grad_tolerance_ratio(g, w) for g, w in zip(s_half, want))
+        log(f"{tag} control: plain with S from the first 128 dims only: worst of dq, dk, dv "
+            f"{s_ratio:.1f} x the tolerance (must exceed 1)")
+        if not s_ratio > 1:
+            raise AssertionError(f"{tag} the tolerance does not see S from 128 dims")
+        ctrl = min(ctrl, s_ratio)
+        del s_half
+    del want
     return {"shape": shape, "max_abs_err": worst, "tolerance_ratio": worst_ratio,
-            "control_ratio": min(ctrl, s_ratio), "forward_lse_tolerance_ratio": lse_ratio,
-            **flash_bwd_times(q, k, v, o, lse, do, "[flash bwd dh256]")}
+            "control_ratio": ctrl, "forward_lse_tolerance_ratio": lse_ratio,
+            **flash_bwd_times(q, k, v, o, lse, do, tag)}
 
 
-def decode_256() -> dict:
-    """The bf16 flash-decode kernel at gemma-7b's decode shape (B=8, a full
-    4096-slot cache, 16 heads on 16 kv heads, dh 256): held to
-    ``ref.decode_attention``; the output's columns 128-255 zeroed and S from
-    the first 128 dims only must fail the same check; times beside the
-    bound, the plain version and SDPA."""
+def decode_at(tag: str, b, c, h, kv, dh, seed) -> dict:
+    """The bf16 flash-decode kernel at one model's decode shape (a full cache
+    of ``c`` slots): held to ``ref.decode_attention``; planted faults must
+    fail the same check: one split dropped and, at dh 256, the output's
+    columns 128-255 zeroed and S from the first 128 dims only; times beside
+    the bound, the plain version and SDPA."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
-    b, c, (h, kv, dh) = 8, 4096, GEMMA_ATTN
     shape = f"B={b} C={c} H={h} KV={kv} dh={dh} bf16, all slots valid"
-    q, kc, vc, valid = decode_inputs(b, c, h, kv, dh, torch.bfloat16, "all", seed=23)
+    q, kc, vc, valid = decode_inputs(b, c, h, kv, dh, torch.bfloat16, "all", seed=seed)
     want = ref.decode_attention(q, kc, vc, valid)
     got = da.decode_attention(q, kc, vc, valid)
-    err, ratio = hold(f"[decode dh256] gemma-7b shape {shape}", got, want)
-    ctrl = min(control("[decode dh256] control: the kernel's output with columns 128-255 zeroed",
-                       upper_half_zeroed(got), want),
-               control("[decode dh256] control: plain with S from the first 128 dims only",
-                       ref.decode_attention(upper_half_zeroed(q), kc, vc, valid,
-                                            scale=dh ** -0.5), want))
+    err, ratio = hold(f"{tag} {shape}", got, want)
+    split = decode_split()
+    dropped = valid.clone()
+    dropped[:, c // 2:c // 2 + split] = False
+    faults = [(f"plain with one {split}-slot split dropped",
+               ref.decode_attention(q, kc, vc, dropped))]
+    if dh == 256:
+        faults += [("the kernel's output with columns 128-255 zeroed", upper_half_zeroed(got)),
+                   ("plain with S from the first 128 dims only",
+                    ref.decode_attention(upper_half_zeroed(q), kc, vc, valid, scale=dh ** -0.5))]
+    ctrl = min(control(f"{tag} control: {label}", fault, want) for label, fault in faults)
     return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio, "control_ratio": ctrl,
-            **decode_times(q, kc, vc, valid, "[decode dh256]")}
+            **decode_times(q, kc, vc, valid, tag)}
+
+
+def phase_family_kernels(kernels: list) -> None:
+    """The three attention kernels at the VLM's and the audio decoder's
+    shapes: flash at their prefill (B=1, S=4096), its backward at their
+    training step (B=1 and B=2, S=4096), flash-decode at B=8 and a full
+    4096-slot cache; each entry of ``kernels`` gains a "paligemma" and a
+    "seamless" entry."""
+    for name, attn_shape, train_b, seed in (("paligemma", VLM_ATTN, 1, 41),
+                                            ("seamless", AUDIO_ATTN, AUDIO_TRAIN_BATCH, 51)):
+        kernels[0][name] = flash_at(f"[flash {name}]", 1, 4096, *attn_shape, seed)
+        kernels[1][name] = flash_bwd_at(f"[flash bwd {name}]", train_b, 4096, *attn_shape,
+                                        seed + 1)
+        kernels[2][name] = decode_at(f"[decode {name}]", 8, 4096, *attn_shape, seed + 2)
 
 
 def flash_bwd_faults(q, k, v, o, lse, do, want):
@@ -889,7 +959,8 @@ def phase_flash_bwd():
     t = flash_bwd_times(q, k, v, o, lse, do, "[flash bwd]")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:140", "dh256": flash_bwd_256(),
+            "replaces": "src/repro/kernels/flash_attention.py:140",
+            "dh256": flash_bwd_at("[flash bwd dh256]", 1, 4096, *GEMMA_ATTN, 22),
             "max_abs_err": worst,
             "tolerance": "dq, dk, dv: 1e-5 + 2^-7 |plain| (bf16), 1e-4 (f32)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
@@ -950,7 +1021,8 @@ def phase_decode_kernel():
     t = decode_times(q, kc, vc, valid, "[decode]")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:29", "dh256": decode_256(),
+            "replaces": "src/repro/kernels/decode_attention.py:29",
+            "dh256": decode_at("[decode dh256]", 8, 4096, *GEMMA_ATTN, 23),
             "max_abs_err": worst, "tolerance": "1e-5 + 2^-7 |plain| (bf16)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl,
             "library_tolerance_ratio": lib_ratio, **t,
@@ -958,10 +1030,75 @@ def phase_decode_kernel():
 
 
 def _first_periods(params, n: int):
-    """The same weights cut to the first ``n`` periods (views, no copies)."""
+    """The same weights cut to the first ``n`` periods (views, no copies), an
+    encoder's stack too."""
     def cut(t):
         return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
-    return dict(params, layers=[cut(lp) for lp in params["layers"]])
+    out = dict(params, layers=[cut(lp) for lp in params["layers"]])
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"],
+                              layers=[cut(lp) for lp in params["encoder"]["layers"]])
+    return out
+
+
+def depth_cut(cfg, params, n: int) -> tuple:
+    """(the configuration, the same weights) cut to ``n`` layers, an
+    encoder-decoder's encoder to ``n`` layers too."""
+    import dataclasses
+    cut = cfg.replace(n_layers=n)
+    if cfg.encoder is not None:
+        cut = cut.replace(encoder=dataclasses.replace(cfg.encoder, n_layers=n))
+    return cut, _first_periods(params, n)
+
+
+def family_batch(cfg, b: int, s: int, gen) -> dict:
+    """Tokens on the card from ``gen`` and, after them, a VLM's patches or an
+    encoder-decoder's frames [B, n_tokens, d_embed] (f32 normal, as
+    ``synth_batch`` makes them).  A VLM's ``s`` positions count its patches:
+    its text is ``s`` less them."""
+    import torch
+    n_text = s - cfg.frontend.n_tokens if cfg.family == "vlm" else s
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, n_text), generator=gen,
+                                     device="cuda")}
+    extra = {"vlm": "patches", "audio": "frames"}.get(cfg.family)
+    if extra:
+        batch[extra] = torch.randn((b, cfg.frontend.n_tokens, cfg.frontend.d_embed),
+                                   generator=gen, device="cuda")
+    return batch
+
+
+@contextlib.contextmanager
+def causal_prefix_sdpa():
+    """A planted fault of the prefix-LM: the prefix block's bidirectional
+    sdpa made causal (a swap only this script makes, as ``swapped_ops``).
+    Only a VLM's prefix block calls ``sdpa`` without a mask on the flash
+    path."""
+    from repro_torch.models import attention as attn
+    sdpa = attn.sdpa
+
+    def causal(q, k, v, *, mask=None, scale=None):
+        if mask is None:
+            mask = attn.make_mask(q.shape[1], k.shape[1], causal=True, window=None,
+                                  device=q.device)
+        return sdpa(q, k, v, mask=mask, scale=scale)
+    attn.sdpa = causal
+    try:
+        yield
+    finally:
+        attn.sdpa = sdpa
+
+
+def first_slot_dropped_ops():
+    """A planted fault of decode: every step's first cache slot masked off
+    (where one kv head serves every query head, shifting the kv heads is no
+    fault)."""
+    from repro_torch.kernels import ref
+
+    def dec(q, kc, vc, valid, **kw):
+        valid = valid.clone()
+        valid[:, 0] = False
+        return ref.decode_attention(q, kc, vc, valid, **kw)
+    return swapped_ops(mha=ref.mha, decode_attention=dec, ssd=ref.ssd_chunked)
 
 
 @contextlib.contextmanager
@@ -1134,28 +1271,50 @@ def hybrid_prefill_check(cfg8, p8, tokens, tag: str) -> dict:
             "prefill_period_free_rel_rms_alike": rel_alike}
 
 
-def prefill_flops(cfg, s: int) -> tuple:
-    """(needed, executed) model FLOPs of a B=1 prefill: the projections,
-    causal attention, dense FFNs, the last position's logits and, in an MoE
-    model, the router, the routed experts (the K a token chooses; executed:
-    every expert's buffer padded to its capacity) and shared experts; a
-    Mamba-2 layer's in- and out-projections (its scan is not counted).
-    Derived from the shapes, not measured."""
+def prefill_flops(cfg, s: int, logit_positions: int = 1) -> tuple:
+    """(needed, executed) model FLOPs of a B=1 forward over ``s`` decoder
+    positions (a VLM's patches among them): the projections, causal
+    attention, dense FFNs, the logits of the last ``logit_positions``
+    positions (a prefill's one) and, in an MoE model, the router, the routed
+    experts (the K a token chooses; executed: every expert's buffer padded to
+    its capacity) and shared experts; a Mamba-2 layer's in- and
+    out-projections (its scan is not counted).  A VLM adds its patch
+    projection and the pairs above the diagonal of its prefix block
+    (executed: the whole block again, in the prefix's sdpa); an
+    encoder-decoder its frame projection, its encoder's layers (non-causal
+    attention over the frames) and each decoder layer's cross-attention (q
+    and output projections, K/V projections of the encoder's output,
+    attention over the frames).  Derived from the shapes, not measured."""
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.moe import moe_capacity
     d = cfg.d_model
     n_attn, n_ssm = n_mixers(cfg)
     n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
-    common = (cfg.n_layers - n_moe) * 2 * s * 3 * d * cfg.d_ff + 2 * d * padded_vocab(cfg)
+    common = ((cfg.n_layers - n_moe) * 2 * s * 3 * d * cfg.d_ff
+              + 2 * d * padded_vocab(cfg) * logit_positions)
+    prefix_extra = 0
     if n_attn:
         h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         common += n_attn * (2 * s * d * (2 * h + 2 * kv) * dh + 4 * h * dh * s * (s + 1) // 2)
+    if cfg.frontend is not None:
+        t = cfg.frontend.n_tokens
+        common += 2 * t * cfg.frontend.d_embed * d
+        if cfg.family == "vlm":
+            common += n_attn * 4 * h * dh * t * (t - 1) // 2
+            prefix_extra = n_attn * 4 * h * dh * t * t
+        if cfg.encoder is not None:
+            e = cfg.encoder
+            eh, ekv, edh = e.n_heads, e.n_kv_heads, e.d_model // e.n_heads
+            common += e.n_layers * (2 * t * e.d_model * (2 * eh + 2 * ekv) * edh
+                                    + 4 * eh * edh * t * t + 2 * t * 3 * e.d_model * e.d_ff)
+            common += n_attn * (2 * s * d * 2 * h * dh + 2 * t * d * 2 * kv * dh
+                                + 4 * h * dh * s * t)
     if n_ssm:
         e = cfg.ssm.expand * d
         heads, gn = e // cfg.ssm.head_dim, cfg.ssm.n_groups * cfg.ssm.state_dim
         common += n_ssm * (2 * s * d * (2 * e + 2 * gn + heads) + 2 * s * e * d)
     if not n_moe:
-        return common, common
+        return common, common + prefix_extra
     m = cfg.moe
     de = m.d_expert if m.d_expert is not None else cfg.d_ff
     common += n_moe * (2 * s * d * m.n_experts + 2 * s * 3 * d * de * m.n_shared_experts)
@@ -1165,19 +1324,23 @@ def prefill_flops(cfg, s: int) -> tuple:
 
 
 def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
-    """Prefill at B=1 S=4096; the result's keys start with ``prefix``.  Each
-    attention layer launches the flash kernel once, each Mamba-2 layer the
-    SSD scan.  The check of the logits is at depth 2 (a dense model; an MoE
-    one with its routing recorded), or over one whole period of a hybrid's
-    pattern (its faults: every chunk's entering state dropped, the last KV
-    tile dropped)."""
+    """Prefill at B=1 S=4096 (a VLM: 256 patches and 3840 text tokens; an
+    encoder-decoder: 4096 decoder tokens over 1024 frames); the result's keys
+    start with ``prefix``.  Each decoder attention layer launches the flash
+    kernel once, each Mamba-2 layer the SSD scan (an encoder's non-causal
+    attention and the cross-attention are plain, as in the JAX package).
+    The check of the logits is at depth 2 (a dense, VLM or encoder-decoder
+    model, the encoder cut to 2 layers too; an MoE one with its routing
+    recorded), or over one whole period of a hybrid's pattern (its faults:
+    every chunk's entering state dropped, the last KV tile dropped)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import padded_vocab
     from repro_torch.serve.step import ServeSetup, make_prefill_step
     gen = torch.Generator(device="cuda").manual_seed(3)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 4096), generator=gen, device="cuda")
+    batch = family_batch(cfg, 1, 4096, gen)
+    tokens = batch["tokens"]
     step = make_prefill_step(ServeSetup(cfg=cfg), (1, 1), params)
     n_attn, n_ssm = n_mixers(cfg)
     want_counts = {**NO_LAUNCHES, "flash_attention": n_attn, "ssd_scan": n_ssm}
@@ -1186,7 +1349,7 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        logits = step(params, {"tokens": tokens})
+        logits = step(params, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = ops.launch_counts()
@@ -1194,17 +1357,19 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
             raise AssertionError(f"prefill launches {counts}, want {want_counts}")
     if logits.shape != (1, 1, padded_vocab(cfg)) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite/shaped")
-    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers B=1 S=4096: {times[0]:.1f} ms first, "
-        f"{times[1]:.1f} ms second; flash launches {counts['flash_attention']}"
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers B=1 S=4096 ({inputs}): {times[0]:.1f} ms "
+        f"first, {times[1]:.1f} ms second; flash launches {counts['flash_attention']}"
         + (f", ssd launches {counts['ssd_scan']}" if n_ssm else ""))
-    busy, dev = device_profile(lambda: step(params, {"tokens": tokens}), f"{tag} B=1 S=4096")
+    busy, dev = device_profile(lambda: step(params, batch), f"{tag} B=1 S=4096")
     if dev:
-        needed, executed = prefill_flops(cfg, tokens.shape[1])
+        needed, executed = prefill_flops(cfg, 4096)
         dev_ms = sum(dev.values())
         log(f"[{tag}] model FLOPs, derived from the shapes, not measured: {needed / 1e12:.2f} T "
             f"needed, {executed / 1e12:.2f} T executed"
             + (" (each expert's buffer padded to its capacity)" if cfg.moe else "")
             + ("; the SSD scan's FLOPs not counted" if n_ssm else "")
+            + ("; the prefix block's sdpa again" if cfg.family == "vlm" else "")
             + f"; at the device time {dev_ms:.2f} ms, {needed / dev_ms / 1e9:.1f} TFLOP/s "
             f"needed, {100 * needed / (dev_ms / 1e3) / PEAK_BF16_FLOPS:.1f} % of the bf16 peak")
         for label, keys in (("flash", ("flash_fwd_kernel",)), ("ssd", SSD_PASSES)):
@@ -1216,7 +1381,7 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
     # every launch of a full prefill, held against the plain version on its own inputs
     ratios = []
     with checked_ops(ratios):
-        step(params, {"tokens": tokens})
+        step(params, batch)
     log(f"[{tag}] {cfg.n_layers} layers: each launch against its plain version on the same "
         f"inputs (flash: ref.mha, ssd: ref.ssd_chunked): worst {max(ratios):.4f} of the "
         f"tolerance over {len(ratios)} launches")
@@ -1233,35 +1398,47 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
                                         _first_periods(params, 1), tokens, tag))
         return {prefix + k: v for k, v in out.items()}
 
-    # depth 2, full width: logits at every position through the kernels, the
-    # plain versions and two planted faults
-    cfg2 = cfg.replace(n_layers=2)
-    p2 = _first_periods(params, 2)
+    # depth 2, full width: logits at every (text) position through the
+    # kernels, the plain versions and planted faults
+    cfg2, p2 = depth_cut(cfg, params, 2)
     if cfg.moe:
         out.update(moe_prefill_depth2(cfg2, p2, tokens, tag))
         return {prefix + k: v for k, v in out.items()}
 
-    def all_logits():
-        return tf.lm_forward(p2, {"tokens": tokens}, cfg2)[0]
+    def all_logits(b=batch):
+        return tf.lm_forward(p2, b, cfg2)[0]
     got = all_logits()
     with plain_ops():
         want = all_logits()
     rel = position_rel_rms(got, want)
-    del got
-    with shifted_heads_ops():
-        shifted = position_rel_rms(all_logits(), want)
     tile = flash_tile()
-    with swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
-            q, k, v, kv_valid_len=k.shape[1] - tile, **kw)):
-        dropped = position_rel_rms(all_logits(), want)
-    log(f"[{tag}] depth 2, full width, all 4096 positions, worst position's relative RMS "
-        f"of the logits: kernels vs plain {rel:.3g} (limit {MODEL_LIMIT}); controls: "
-        f"heads shifted {shifted:.3g}, last {tile}-key tile dropped {dropped:.3g} "
-        f"(both must exceed the limit)")
-    if not rel <= MODEL_LIMIT < min(shifted, dropped):
-        raise AssertionError(f"depth-2 prefill: kernels {rel}, controls {shifted}, {dropped}")
-    out.update({"prefill_depth2_rel_rms": rel, "prefill_depth2_shifted_heads": shifted,
-                "prefill_depth2_tile_dropped": dropped})
+    faults = {"tile_dropped": (f"last {tile}-key tile dropped", lambda: swapped_ops(
+        mha=lambda q, k, v, **kw: ref.mha(q, k, v, kv_valid_len=k.shape[1] - tile, **kw)))}
+    if cfg.n_kv_heads > 1:  # with one kv head, shifting the kv heads is the identity
+        faults["shifted_heads"] = ("heads shifted", shifted_heads_ops)
+    if cfg.family == "vlm":
+        faults["prefix_causal"] = (f"the {cfg.frontend.n_tokens}-row prefix block causal",
+                                   causal_prefix_sdpa)
+    ctrl = {}
+    for key, (_, ctx) in faults.items():
+        with ctx():
+            ctrl[key] = position_rel_rms(all_logits(), want)
+    frames = None
+    if cfg.encoder is not None:  # the encoder reaches the logits
+        frames = position_rel_rms(all_logits(dict(batch, frames=batch["frames"] + 1.0)), got)
+    del got
+    log(f"[{tag}] depth 2{' (and 2 encoder layers)' if cfg.encoder else ''}, full width, all "
+        f"{want.shape[1]} text positions, worst position's relative RMS of the logits: kernels "
+        f"vs plain {rel:.3g} (limit {MODEL_LIMIT}); controls: "
+        + ", ".join(f"{label} {ctrl[k]:.3g}" for k, (label, _) in faults.items())
+        + " (each must exceed the limit)"
+        + (f"; the frames + 1 against the kernels' own logits {frames:.3g} (must exceed the "
+           f"limit: the encoder reaches the logits)" if frames is not None else ""))
+    if not (rel <= MODEL_LIMIT < min(ctrl.values())
+            and (frames is None or frames > MODEL_LIMIT)):
+        raise AssertionError(f"depth-2 prefill: kernels {rel}, controls {ctrl}, frames {frames}")
+    out.update({"prefill_depth2_rel_rms": rel, "prefill_depth2_frames_moved": frames,
+                **{f"prefill_depth2_{k}": v for k, v in ctrl.items()}})
     return {prefix + k: v for k, v in out.items()}
 
 
@@ -1280,12 +1457,13 @@ def fill_cache(state, n: int, seed: int) -> None:
         c["slot_pos"][:, :n] = torch.arange(n, dtype=c["slot_pos"].dtype, device="cuda")
 
 
-def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_tokens=None):
+def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_tokens=None,
+                 cross=None):
     """``n`` steps of ``step`` from position ``first``, teacher-forced on the
     columns of ``forced_tokens`` while they last, then greedy; each step must
-    launch the flash-decode kernel once per attention layer.  ``state`` is
-    updated in place.  Returns (seconds, the logits of each step, decode
-    launches)."""
+    launch the flash-decode kernel once per (self-)attention layer.  ``state``
+    is updated in place; an encoder-decoder's steps take ``cross``.  Returns
+    (seconds, the logits of each step, decode launches)."""
     import torch
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
@@ -1295,7 +1473,7 @@ def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_token
     for i in range(n):
         if forced_tokens is not None and i < forced_tokens.shape[1]:
             tok = forced_tokens[:, i:i + 1]
-        logits, _ = step(params, state, tok, first + i)
+        logits, _ = step(params, state, tok, first + i, cross)
         out.append(logits)
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
@@ -1309,36 +1487,45 @@ def decode_steps(cfg, step, params, state, first: int, n: int, tok, forced_token
     return secs, out, counts["decode_attention"]
 
 
-def dense_decode_depth2(cfg, params, prompt, cap: int, tag: str) -> tuple:
+def dense_decode_depth2(cfg, params, prompt, cap: int, tag: str, frames=None) -> tuple:
     """Depth 2, full width: the cache built token by token through the
     kernel must give the logits of every teacher-forced position that the
-    plain version and the prefill give; a planted fault (heads shifted) must
-    not.  Returns (vs plain, vs prefill, the fault's)."""
+    plain version and the prefill give (an encoder-decoder's over the cross
+    state of ``frames``, its encoder cut to 2 layers too; a VLM's text-only
+    decode has no prefill to match: its prefill always has patches); a
+    planted fault (heads shifted; with one kv head, the first cache slot
+    dropped) must not.  Returns (vs plain, vs prefill or None, the fault's)."""
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.serve.step import ServeSetup, init_serve_state
-    cfg2 = cfg.replace(n_layers=2)
-    p2 = _first_periods(params, 2)
+    cfg2, p2 = depth_cut(cfg, params, 2)
     b, n = prompt.shape
+    cross = None
+    if frames is not None:
+        cross = tf.init_cross_state(p2, tf.encode(p2, frames, cfg2), cfg2)
 
     def forced_logits():
         st = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, cap)
         out = []
         for t in range(n):
-            lg, st = tf.decode_step(p2, st, prompt[:, t:t + 1], t, cfg2)
+            lg, st = tf.decode_step(p2, st, prompt[:, t:t + 1], t, cfg2, cross_state=cross)
             out.append(lg)
         return torch.cat(out, 1)
     got = forced_logits()
     with plain_ops():
         plain = forced_logits()
-    with shifted_heads_ops():
+    fault = "heads shifted" if cfg.n_kv_heads > 1 else "first cache slot dropped"
+    with (shifted_heads_ops() if cfg.n_kv_heads > 1 else first_slot_dropped_ops()):
         shifted = position_rel_rms(forced_logits(), plain)
-    pre, _ = tf.lm_forward(p2, {"tokens": prompt}, cfg2)
-    e_plain, e_pre = position_rel_rms(got, plain), position_rel_rms(got, pre)
+    e_plain, e_pre = position_rel_rms(got, plain), None
+    if cfg.family != "vlm":
+        batch = {"tokens": prompt} if frames is None else {"tokens": prompt, "frames": frames}
+        e_pre = position_rel_rms(got, tf.lm_forward(p2, batch, cfg2)[0])
     log(f"[{tag}] depth 2, full width, {b}x{n} positions, worst position's relative "
-        f"RMS of the logits: kernel vs plain {e_plain:.3g}, vs prefill {e_pre:.3g} (limit "
-        f"{MODEL_LIMIT}); control: heads shifted {shifted:.3g} (must exceed the limit)")
-    if not (e_plain <= MODEL_LIMIT and e_pre <= MODEL_LIMIT < shifted):
+        f"RMS of the logits: kernel vs plain {e_plain:.3g}, vs prefill "
+        f"{'none (text-only decode)' if e_pre is None else f'{e_pre:.3g}'} (limit "
+        f"{MODEL_LIMIT}); control: {fault} {shifted:.3g} (must exceed the limit)")
+    if not (e_plain <= MODEL_LIMIT and (e_pre or 0.0) <= MODEL_LIMIT < shifted):
         raise AssertionError(f"depth-2 decode: {e_plain} / {e_pre}, control {shifted}")
     return e_plain, e_pre, shifted
 
@@ -1409,17 +1596,22 @@ def phase_decode(cfg, params):
             "full_context_decode_worst_ratio": max(ratios)}
 
 
-def decode_floor_ms(cfg, params, state, n_valid: int) -> float:
+def decode_floor_ms(cfg, params, state, n_valid: int, cross=None) -> float:
     """The least device time of one decode step: every parameter read once
     (all of them: at one token a group every expert of an MoE layer gets a
     buffer) but an untied embedding table, of which a step gathers B rows (a
-    tied one is read whole as the unembedding), the K/V of the ``n_valid``
-    valid slots of every attention layer's cache, and every Mamba-2 layer's
-    conv window and state, at the card's memory rate."""
+    tied one is read whole as the unembedding), and an encoder-decoder's
+    encoder and frame projection, which decode does not run; the K/V of the
+    ``n_valid`` valid slots of every attention layer's cache, the cross
+    state, and every Mamba-2 layer's conv window and state, at the card's
+    memory rate."""
     from repro_torch.tree import leaves
-    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    unread = [params[k] for k in ("encoder", "frontend_proj") if k in params]
     if not cfg.tie_embeddings:
-        weights -= params["embed"].numel() * params["embed"].element_size()
+        unread.append(params["embed"])
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    weights -= sum(t.numel() * t.element_size() for t in leaves(unread))
+    weights += sum(t.numel() * t.element_size() for t in leaves(cross or []))
     kv = sum(c[name][:, :, :n_valid].numel() * c[name].element_size()
              for c in state if "k" in c for name in ("k", "v"))
     ssm = sum(c[name].numel() * c[name].element_size()
@@ -1489,8 +1681,11 @@ def phase_decode_ab(cfg, params, tag: str) -> dict:
     from an empty cache, (b) 16 steps with the cache filled to 4064 slots;
     host ms a step, device ms a step (profiler, two steps) beside the floor
     of the bytes a step must read, a depth-2 check (routed for an MoE model),
-    and each decode launch of one step held against the plain version.  Log
-    lines start with ``[tag]``, result keys with its words joined by _."""
+    and each decode launch of one step held against the plain version.  An
+    encoder-decoder decodes over ``init_cross_state`` of 1024 frames a
+    sequence (a seeded draw after the prompt) through its whole encoder; a
+    VLM decodes text only from an empty cache, as the serve driver does.
+    Log lines start with ``[tag]``, result keys with its words joined by _."""
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.serve.step import ServeSetup, init_serve_state, make_decode_step
@@ -1501,49 +1696,63 @@ def phase_decode_ab(cfg, params, tag: str) -> dict:
     step = make_decode_step(setup, (1, 1), params, batch=b, capacity=cap)
     gen = torch.Generator(device="cuda").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, (b, n_forced), generator=gen, device="cuda")
+    frames = cross = None
+    if cfg.encoder is not None:
+        frames = torch.randn((b, cfg.frontend.n_tokens, cfg.frontend.d_embed), generator=gen,
+                             device="cuda")
+        cross = tf.init_cross_state(params, tf.encode(params, frames, cfg), cfg)
+        log(f"[{tag}] cross state of {tuple(frames.shape)} frames through the "
+            f"{cfg.encoder.n_layers}-layer encoder: {len(cross)} x "
+            f"{tuple(cross[0]['k'].shape)} K and V")
     steps = n_forced + n_gen
-    out, tok = {}, None
+    out, tok, deep = {}, None, None
     for label, first, n, forced in (("a", 0, steps, prompt), ("b", cap - 32, 16, None)):
         if label == "b":
             fill_cache(state, first, seed=5)
-        secs, logits, launches = decode_steps(cfg, step, params, state, first, n, tok, forced)
+        secs, logits, launches = decode_steps(cfg, step, params, state, first, n, tok, forced,
+                                              cross)
         tok = logits[-1].argmax(-1)
-        if label == "a":
-            want, _ = tf.lm_forward(params, {"tokens": prompt}, cfg)
+        if label == "a" and cfg.family != "vlm":
+            batch = {"tokens": prompt} if frames is None else {"tokens": prompt, "frames": frames}
+            want, _ = tf.lm_forward(params, batch, cfg)
             deep = position_rel_rms(torch.cat(logits[:n_forced], 1), want)
             del want
         filled = first + n + 1
         busy, dev = device_profile(lambda: decode_steps(cfg, step, params, state, first + n, 2,
-                                                        tok),
+                                                        tok, cross=cross),
                                    f"{tag} 2 steps B={b} cap={cap}, {filled} filled slots")
         dev_ms = sum(dev.values()) / 2 if dev else None
         kernel_ms = sum(ms for k_, ms in dev.items() if "decode_partial_kernel" in k_
                         or "decode_combine_kernel" in k_) / 2
-        floor = decode_floor_ms(cfg, params, state, filled)
+        floor = decode_floor_ms(cfg, params, state, filled, cross)
         log(f"[{tag}] ({label}) {cfg.name} B={b} cap={cap}, from {first} filled slots: {n} "
             f"steps, {secs / n * 1e3:.2f} ms/step (host), {b * n / secs:.1f} tok/s; device "
             f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms/step (flash-decode "
-            f"{kernel_ms:.3f} ms), floor {floor:.3f} ms/step (every weight and the valid K/V "
-            f"read once at {PEAK_HBM_BYTES / 1e12:.2f} TB/s); decode launches {launches}")
+            f"{kernel_ms:.3f} ms), floor {floor:.3f} ms/step (every weight and the valid K/V"
+            f"{' and the cross state' if cross else ''} read once at "
+            f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s); decode launches {launches}")
         out.update({f"{key}{label}_ms_per_step": secs / n * 1e3,
                     f"{key}{label}_tok_s": b * n / secs,
                     f"{key}{label}_device_ms_per_step": dev_ms,
                     f"{key}{label}_flash_decode_device_ms_per_step": kernel_ms,
                     f"{key}{label}_floor_ms": floor, f"{key}{label}_device_busy": busy,
                     f"{key}{label}_launches": launches, f"{key}{label}_steps": n})
-    log(f"[{tag}] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
-        f"prefill of the prompt: worst position's relative RMS {deep:.3g} (reported, not checked)")
+    if deep is not None:
+        log(f"[{tag}] {cfg.n_layers} layers, {b}x{n_forced} teacher-forced positions vs the "
+            f"prefill of the prompt: worst position's relative RMS {deep:.3g} (reported, not "
+            f"checked)")
     n_attn, n_ssm = n_mixers(cfg)
     if cfg.moe:  # a hybrid's check takes one whole period of its pattern
         out.update(moe_decode_depth2(cfg, params, prompt, cap,
                                      len(tf.period_spec(cfg)) if n_ssm else 2))
     else:
-        e_plain, e_pre, shifted = dense_decode_depth2(cfg, params, prompt, cap, tag)
+        e_plain, e_pre, fault = dense_decode_depth2(cfg, params, prompt, cap, tag, frames)
+        fault_key = "shifted_heads" if cfg.n_kv_heads > 1 else "first_slot_dropped"
         out.update({f"{key}depth2_rel_rms": e_plain, f"{key}depth2_vs_prefill": e_pre,
-                    f"{key}depth2_shifted_heads": shifted})
+                    f"{key}depth2_{fault_key}": fault})
     ratios = []
     with checked_ops(ratios):
-        step(params, state, tok, cap - 32 + 18)
+        step(params, state, tok, cap - 32 + 18, cross)
     log(f"[{tag}] full context: each decode launch of one step against "
         f"ref.decode_attention on the same inputs: worst {max(ratios):.3f} of the tolerance "
         f"over {len(ratios)} launches")
@@ -2190,7 +2399,10 @@ def leaf_rel_rms(got, want) -> dict:
 
 
 def n_mixers(cfg) -> tuple:
-    """(attention layers, Mamba-2 layers) of a configuration."""
+    """(attention layers, Mamba-2 layers) of a configuration's decoder stack:
+    the layers that launch the flash kernel and the SSD scan (an encoder's
+    non-causal attention and the cross-attention are plain sdpa; their FLOPs
+    are in ``prefill_flops``)."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     return kinds.count("attn"), kinds.count("mamba")
 
@@ -2198,7 +2410,9 @@ def n_mixers(cfg) -> tuple:
 def active_params(cfg, n_params: int) -> int:
     """Parameters a token runs through: all of them for a dense model; for
     an MoE model less the routed experts it is not sent to (E - K of each
-    MoE layer's E)."""
+    MoE layer's E).  A model with a frontend (a VLM's patches, an
+    encoder-decoder's frames) runs parts of itself over other positions:
+    its training FLOPs come from ``prefill_flops`` instead."""
     if cfg.moe is None:
         return n_params
     m = cfg.moe
@@ -2208,10 +2422,11 @@ def active_params(cfg, n_params: int) -> int:
 
 
 def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
-                n_layers: int = 0):
-    """Training steps of ``arch`` at B=``batch_size``, S=TRAIN_SEQ, at full
-    width and depth, or on its first ``n_layers`` layers where given; log
-    lines start with ``[tag]``."""
+                n_layers: int = 0, seq: int = TRAIN_SEQ):
+    """Training steps of ``arch`` at B=``batch_size``, ``seq`` text tokens a
+    sequence (a VLM's patches and an encoder-decoder's frames besides, from
+    ``synth_batch``), at full width and depth, or on its first ``n_layers``
+    layers where given; log lines start with ``[tag]``."""
     import statistics
 
     import torch
@@ -2248,7 +2463,7 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB; "
         f"NCCL group of {torch.distributed.get_world_size()}, mesh {mesh_axes(mesh)}, "
         f"fabric {step.fabric.kind}; lr {TRAIN_LR}, warmup {TRAIN_WARMUP} step")
-    batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=batch_size), 0, device=dev)
+    batch = synth_batch(cfg, DataConfig(seq_len=seq, global_batch=batch_size), 0, device=dev)
     fwd_runs = 2 if cfg.remat == "full" else 1
     per_step = {**NO_LAUNCHES, "flash_attention": n_attn * fwd_runs, "flash_attention_bwd": n_attn,
                 "ssd_scan": n_ssm * fwd_runs, "ssd_scan_bwd": n_ssm}
@@ -2295,19 +2510,30 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
             raise AssertionError(f"train: moe_aux {aux0}, plain forward {aux_plain}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(times[1:])
-    tokens = TRAIN_SEQ * batch_size
-    s = TRAIN_SEQ
+    tokens = seq * batch_size
+    s = seq
     n_active = active_params(cfg, n_params)
-    dense_flops = 6 * n_active * tokens
-    # causal QK^T and PV, x3 for the backward
-    attn_flops = (3 * 4 * n_attn * cfg.n_heads * cfg.resolved_head_dim * s * (s + 1) // 2
-                  * batch_size if n_attn else 0)
+    if cfg.frontend is None:
+        dense_flops = 6 * n_active * tokens
+        # causal QK^T and PV, x3 for the backward
+        attn_flops = (3 * 4 * n_attn * cfg.n_heads * cfg.resolved_head_dim * s * (s + 1) // 2
+                      * batch_size if n_attn else 0)
+        flops_text = (f"6 N T = {dense_flops / 1e12:.2f} T with N = {n_active} active of "
+                      f"{n_params}, T = {tokens}; causal attention 12 L H dh S(S+1)/2 B = "
+                      f"{attn_flops / 1e12:.3f} T")
+    else:
+        # a VLM's patches and an encoder-decoder's encoder and cross-attention:
+        # 3x the forward's FLOPs with the logits of every text position
+        positions = seq + (cfg.frontend.n_tokens if cfg.family == "vlm" else 0)
+        dense_flops, attn_flops = 3 * prefill_flops(cfg, positions, seq)[0] * batch_size, 0
+        flops_text = (f"3x the forward's, {dense_flops / 3 / batch_size / 1e12:.3f} T a "
+                      f"sequence of {positions} decoder positions"
+                      + (f" over {cfg.frontend.n_tokens} frames" if cfg.encoder else "")
+                      + f" with the logits of its {seq} text positions, x B = {batch_size}")
     mfu = (dense_flops + attn_flops) / (step_ms / 1e3) / PEAK_BF16_FLOPS
     log(f"[{tag}] step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
-        f"{times[0]:.1f} ms), {tokens / step_ms * 1e3:.1f} tokens/s; model FLOPs "
-        f"{(dense_flops + attn_flops) / 1e12:.2f} T a step (6 N T = {dense_flops / 1e12:.2f} T "
-        f"with N = {n_active} active of {n_params}, T = {tokens}; causal attention "
-        f"12 L H dh S(S+1)/2 B = {attn_flops / 1e12:.3f} T"
+        f"{times[0]:.1f} ms), {tokens / step_ms * 1e3:.1f} text tokens/s; model FLOPs "
+        f"{(dense_flops + attn_flops) / 1e12:.2f} T a step ({flops_text}"
         + ("; the SSD scan's FLOPs are not counted" if n_ssm else "")
         + f"): {100 * mfu:.2f} % of the bf16 peak; peak memory "
         f"{peak / 2**30:.2f} GiB; launches a step {per_step}")
@@ -2356,8 +2582,7 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
 
     # depth 2, full width: every leaf's gradient through the kernels against the
     # gradient through the plain versions and through a planted fault
-    cfg2 = cfg.replace(n_layers=2)
-    p2 = _first_periods(params, 2)
+    cfg2, p2 = depth_cut(cfg, params, 2)
     step2 = make_train_step(TrainSetup(cfg=cfg2), mesh, tf.init_lm(cfg2, device="meta"))
     routes = []
     with recorded_routing(routes):
@@ -2395,7 +2620,7 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
     torch.distributed.destroy_process_group()
     return {"train_arch": cfg.name, "train_layers": cfg.n_layers, "train_depth": depth,
             "train_params": n_params, "train_active_params": n_active,
-            "train_batch": batch_size, "train_seq": TRAIN_SEQ, "train_moe_aux_step1": aux0,
+            "train_batch": batch_size, "train_seq": seq, "train_moe_aux_step1": aux0,
             "train_moe_aux_plain_forward": aux_plain if n_moe else None,
             "train_remat": cfg.remat, "train_lr": TRAIN_LR, "train_warmup": TRAIN_WARMUP,
             "train_losses": losses, "train_step_ms": step_ms, "train_step_times_ms": times,
@@ -2436,6 +2661,7 @@ def run() -> int:
     phase_build()
     kernels = [phase_flash(), phase_flash_bwd(), phase_decode_kernel(), phase_ssd_kernel(),
                phase_ssd_bwd_kernel()]
+    phase_family_kernels(kernels)
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
@@ -2520,7 +2746,35 @@ def run() -> int:
     del params
     torch.cuda.empty_cache()
 
-    for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH, GEMMA_ARCH):
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] {cfg.name} {tf.param_count(params) / 1e9:.3f} B params bf16 ({cfg.n_layers} "
+        f"layers, {cfg.n_heads} heads on {cfg.n_kv_heads} kv head at dh "
+        f"{cfg.resolved_head_dim}, GeGLU, tied vocab {cfg.vocab_size}, a prefix of "
+        f"{cfg.frontend.n_tokens} patches of {cfg.frontend.d_embed}) in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    vlm_pre = phase_prefill(cfg, params, tag="paligemma prefill", prefix="paligemma_")
+    vlm_dec = phase_decode_ab(cfg, params, "paligemma decode")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config(AUDIO_ARCH)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] {cfg.name} {tf.param_count(params) / 1e9:.3f} B params bf16 "
+        f"({cfg.encoder.n_layers}-layer encoder over {cfg.frontend.n_tokens} frames of "
+        f"{cfg.frontend.d_embed}, {cfg.n_layers}-layer decoder with cross-attention, "
+        f"{cfg.n_heads} heads on {cfg.n_kv_heads} kv heads at dh {cfg.resolved_head_dim}) in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    audio_pre = phase_prefill(cfg, params, tag="seamless prefill", prefix="seamless_")
+    audio_dec = phase_decode_ab(cfg, params, "seamless decode")
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH, GEMMA_ARCH, VLM_ARCH):
         out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
         if not torch.isfinite(out["logits"]).all():
             raise AssertionError(f"serve entry point, {arch}: logits not finite")
@@ -2534,6 +2788,11 @@ def run() -> int:
     gemma_tr = {f"gemma_{k}": v for k, v in
                 phase_train(GEMMA_ARCH, 1, tag="gemma train", n_layers=GEMMA_TRAIN_LAYERS).items()}
     ssm_tr = {f"mamba_{k}": v for k, v in phase_train(SSM_TRAIN_ARCH, 1, tag="mamba train").items()}
+    n_patches = get_config(VLM_ARCH).frontend.n_tokens
+    vlm_tr = {f"paligemma_{k}": v for k, v in
+              phase_train(VLM_ARCH, 1, tag="paligemma train", seq=TRAIN_SEQ - n_patches).items()}
+    audio_tr = {f"seamless_{k}": v for k, v in
+                phase_train(AUDIO_ARCH, AUDIO_TRAIN_BATCH, tag="seamless train").items()}
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -2541,31 +2800,43 @@ def run() -> int:
     ssm_train = f"{ssm_tr['mamba_train_arch']} train"
     hybrid_prefill = f"jamba-v0.1-52b prefill ({HYBRID_LAYERS} of 32 layers)"
     hybrid_decode = f"jamba-v0.1-52b decode ({HYBRID_LAYERS} of 32 layers)"
+    vlm_train = f"{vlm_tr['paligemma_train_arch']} train"
+    audio_train = f"{audio_tr['seamless_train_arch']} train"
     kernels[0]["launches_by_path"] = {
         "llama3-8b prefill": pre["flash_launches"],
         "deepseek-moe-16b prefill": moe_pre["moe_flash_launches"],
         paper_prefill: paper_pre["llama80b_flash_launches"],
         hybrid_prefill: hybrid_pre["jamba_flash_launches"],
+        "seamless-m4t-medium prefill": audio_pre["seamless_flash_launches"],
         dense_train: tr["train_launches"]["flash_attention"],
-        moe_train: moe_tr["moe_train_launches"]["flash_attention"]}
+        moe_train: moe_tr["moe_train_launches"]["flash_attention"],
+        audio_train: audio_tr["seamless_train_launches"]["flash_attention"]}
     kernels[1]["launches_by_path"] = {
         dense_train: tr["train_launches"]["flash_attention_bwd"],
-        moe_train: moe_tr["moe_train_launches"]["flash_attention_bwd"]}
+        moe_train: moe_tr["moe_train_launches"]["flash_attention_bwd"],
+        audio_train: audio_tr["seamless_train_launches"]["flash_attention_bwd"]}
     kernels[2]["launches_by_path"] = {
         "llama3-8b decode": dec["decode_launches"],
         "deepseek-moe-16b decode (a)": moe_dec["moe_decode_a_launches"],
         "deepseek-moe-16b decode (b)": moe_dec["moe_decode_b_launches"],
         hybrid_decode + " (a)": hybrid_dec["jamba_decode_a_launches"],
-        hybrid_decode + " (b)": hybrid_dec["jamba_decode_b_launches"]}
-    # the 256-wide instantiations: launched by the gemma-7b paths only
+        hybrid_decode + " (b)": hybrid_dec["jamba_decode_b_launches"],
+        "seamless-m4t-medium decode (a)": audio_dec["seamless_decode_a_launches"],
+        "seamless-m4t-medium decode (b)": audio_dec["seamless_decode_b_launches"]}
+    # the 256-wide instantiations: launched by the gemma-7b and paligemma-3b paths
     kernels[0]["dh256"]["launches_by_path"] = {
         "gemma-7b prefill": gemma_pre["gemma_flash_launches"],
-        gemma_train: gemma_tr["gemma_train_launches"]["flash_attention"]}
+        "paligemma-3b prefill": vlm_pre["paligemma_flash_launches"],
+        gemma_train: gemma_tr["gemma_train_launches"]["flash_attention"],
+        vlm_train: vlm_tr["paligemma_train_launches"]["flash_attention"]}
     kernels[1]["dh256"]["launches_by_path"] = {
-        gemma_train: gemma_tr["gemma_train_launches"]["flash_attention_bwd"]}
+        gemma_train: gemma_tr["gemma_train_launches"]["flash_attention_bwd"],
+        vlm_train: vlm_tr["paligemma_train_launches"]["flash_attention_bwd"]}
     kernels[2]["dh256"]["launches_by_path"] = {
         "gemma-7b decode (a)": gemma_dec["gemma_decode_a_launches"],
-        "gemma-7b decode (b)": gemma_dec["gemma_decode_b_launches"]}
+        "gemma-7b decode (b)": gemma_dec["gemma_decode_b_launches"],
+        "paligemma-3b decode (a)": vlm_dec["paligemma_decode_a_launches"],
+        "paligemma-3b decode (b)": vlm_dec["paligemma_decode_b_launches"]}
     kernels[3]["launches_by_path"] = {"mamba2-370m prefill": mpre["ssd_launches"],
                                       ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan"],
                                       hybrid_prefill: hybrid_pre["jamba_ssd_launches"]}
@@ -2576,8 +2847,9 @@ def run() -> int:
                       launches_per_step=tr["train_launches_per_step"]["flash_attention_bwd"])
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
-                    **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec, **tr,
-                    **moe_tr, **gemma_tr, **ssm_tr, "card": smi}))
+                    **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
+                    **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
+                    **ssm_tr, **vlm_tr, **audio_tr, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -1,7 +1,8 @@
 """Parameters to and from a flat dict of numpy arrays keyed by path string.
 
 Keys are spelled as the JAX package's parameter paths (``embed``,
-``layers/0/mixer/wq``, ``layers/0/ffn/w_gate``, ``final_norm``, ``unembed``):
+``layers/0/mixer/wq``, ``layers/0/ffn/w_gate``, ``final_norm``, ``unembed``,
+``frontend_proj``, ``encoder/layers/0/mixer/wq``):
 a numeric segment is an index into a list (the period positions), any other
 segment a dict key.  So a tree flattened on the JAX side hands over one to
 one; this module itself never sees JAX.
@@ -33,10 +34,10 @@ def _listify(node):
     return node
 
 
-# Leaves the JAX package keeps in f32 whatever the model's dtype, of the
-# families ported so far: the norm scales, the MoE router and the SSM's conv,
-# decay and skip parameters.
-F32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "norm_w", "router",
+# Leaves the JAX package keeps in f32 whatever the model's dtype: the norm
+# scales (the cross-attention's pre-norm ``norm_x`` too), the MoE router and
+# the SSM's conv, decay and skip parameters.
+F32_LEAVES = frozenset({"norm1", "norm2", "norm_x", "final_norm", "norm_w", "router",
                         "conv_w", "conv_b", "a_log", "dt_bias", "d_skip"})
 
 

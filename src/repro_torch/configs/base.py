@@ -115,8 +115,21 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the models of the paper's Table 3 simulations, as in ``repro.configs.base``
-# (the zoo's ASSIGNED_ARCHS waits for its VLM and audio families)
+# the model zoo and the models of the paper's Table 3 simulations, as in
+# ``repro.configs.base``
+ASSIGNED_ARCHS = (
+    "deepseek_moe_16b",
+    "granite_moe_1b_a400m",
+    "gemma_7b",
+    "mistral_large_123b",
+    "yi_9b",
+    "h2o_danube_3_4b",
+    "paligemma_3b",
+    "mamba2_370m",
+    "seamless_m4t_medium",
+    "jamba_v0_1_52b",
+)
+
 PAPER_ARCHS = ("llama3_8b", "deepseek_v3_16b", "llama_80b", "gpt_80b")
 
 

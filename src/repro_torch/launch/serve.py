@@ -6,7 +6,10 @@
 Runs on one CUDA device unless ``--device cpu`` is given; if CUDA is asked
 for and absent it raises rather than running on the CPU.  Port of
 ``repro.launch.serve`` on a 1x1 mesh: ``--mesh`` other than 1x1,
-``--context-shard`` and ``--plane-report`` are refused.
+``--context-shard`` and ``--plane-report`` are refused.  A VLM (paligemma-3b)
+decodes text only from an empty cache, as there; an encoder-decoder
+(seamless-m4t-medium) is refused, because this driver has no frames to
+encode and passes no cross state (the reference's crashes on it).
 """
 from __future__ import annotations
 
@@ -65,6 +68,12 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: its decode needs the cross state "
+            f"(tf.init_cross_state of encoded frames), which this driver, like the JAX "
+            f"package's, neither makes nor passes; drive serve.step.make_decode_step with "
+            f"cross=tf.init_cross_state(params, tf.encode(params, frames, cfg), cfg)")
     params = tf.init_lm(cfg, seed=0, device=device)
     cap = args.prompt_len + args.gen
     setup = ServeSetup(cfg=cfg)

@@ -1,5 +1,5 @@
-"""GQA attention: full-sequence (prefill) and cached decode (port of
-``repro.models.attention``).
+"""GQA attention: full-sequence (prefill, encoder, cross-attention) and
+cached decode (port of ``repro.models.attention``).
 
 Projections keep the JAX layout: wq/wk/wv [d, heads, dh], wo [H, dh, d].
 At ``FLASH_MIN_SEQ`` tokens and above, prefill goes through ``ops.mha``
@@ -77,22 +77,23 @@ def make_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
 def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
               window: Optional[int] = None, context=None, mask=None,
               prefix_len: int = 0):
-    """Full-sequence self-attention (prefill).
+    """Full-sequence attention (train, prefill, encoder, cross-attention).
 
-    x [B,S,D]; mask: optional explicit [.,.,Sq,Sk] bool mask (forces sdpa).
+    x [B,S,D]; context [B,Sk,D] for cross-attention (no rope, no mask: the
+    plain sdpa over the source, as in the JAX package) or None (self);
+    mask: optional explicit [.,.,Sq,Sk] bool mask (forces sdpa).
     prefix_len: prefix-LM semantics, composed as causal flash over the whole
     sequence plus a small full sdpa over the prefix block.
     """
-    if context is not None:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(ROADMAP.md, Queue 1: remaining families)")
+    src = context if context is not None else x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    q = rope_apply(q, positions, cfg.rope_theta)
-    k = rope_apply(k, positions, cfg.rope_theta)
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if context is None:  # rope only for self-attention
+        q = rope_apply(q, positions, cfg.rope_theta)
+        k = rope_apply(k, positions, cfg.rope_theta)
 
-    if mask is None and causal and x.shape[1] >= FLASH_MIN_SEQ:
+    if mask is None and context is None and causal and x.shape[1] >= FLASH_MIN_SEQ:
         out = ops.mha(q, k, v, causal=True, window=window)
         if prefix_len:
             pre = sdpa(q[:, :prefix_len],
@@ -103,12 +104,12 @@ def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
 
     k = _repeat_kv(k, cfg.n_heads)
     v = _repeat_kv(v, cfg.n_heads)
-    if mask is None and (causal or window is not None):
-        s = x.shape[1]
-        mask = make_mask(s, s, causal=causal, window=window, device=x.device)
+    if mask is None and context is None and (causal or window is not None):
+        sq, sk = x.shape[1], src.shape[1]
+        mask = make_mask(sq, sk, causal=causal, window=window, device=x.device)
         if prefix_len:
-            qi = torch.arange(s, device=x.device)[:, None]
-            ki = torch.arange(s, device=x.device)[None, :]
+            qi = torch.arange(sq, device=x.device)[:, None]
+            ki = torch.arange(sk, device=x.device)[None, :]
             mask = mask | ((qi < prefix_len) & (ki < prefix_len))[None, None]
     out = sdpa(q, k, v, mask=mask)
     return torch.einsum("bqhd,hdk->bqk", out, p["wo"])
@@ -132,11 +133,16 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
     Full cache: slot = pos.  SWA ring cache: slot = pos % capacity.
     The cache is updated IN PLACE (its k, v and slot_pos tensors are written
     at the slot), unlike the JAX package, which returns new arrays.
+    cross_kv: {"k", "v"} [B,Sk,KV,dh] of ``precompute_cross_kv``: cross-attention
+    over the cached encoder K/V (plain sdpa, no rope, no mask); ``cache`` is
+    returned unchanged.
     Returns (out [B,1,D], cache).
     """
     if cross_kv is not None:
-        raise NotImplementedError("cross-attention decode is not ported yet "
-                                  "(ROADMAP.md, Queue 1: remaining families)")
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        out = sdpa(q, _repeat_kv(cross_kv["k"], cfg.n_heads),
+                   _repeat_kv(cross_kv["v"], cfg.n_heads))
+        return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache
     if ctx is not None:
         raise NotImplementedError("context-parallel decode is not ported yet "
                                   "(ROADMAP.md, Queue 1: fabric and rail-sharded serving)")
@@ -167,3 +173,12 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
         v = _repeat_kv(cache["v"], cfg.n_heads)
         out = sdpa(q, k, v, mask=valid[None, None, None, :])
     return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache
+
+
+def precompute_cross_kv(p, context, cfg: ModelConfig):
+    """The encoder-side K/V [B,Sk,KV,dh] of one cross-attention block, made
+    once a request (encoder-decoder decode)."""
+    return {
+        "k": torch.einsum("bsd,dhk->bshk", context, p["wk"]),
+        "v": torch.einsum("bsd,dhk->bshk", context, p["wv"]),
+    }

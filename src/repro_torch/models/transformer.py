@@ -1,18 +1,24 @@
-"""Decoder LM: init, forward, loss and cached decode (port of
-``repro.models.transformer``: the dense, SSM, MoE and hybrid families).
+"""LM stacks: init, forward, loss and cached decode (port of
+``repro.models.transformer``: the dense, SSM, MoE and hybrid families, the
+VLM prefix-LM over stubbed patch embeddings and the audio encoder-decoder
+over stubbed frame embeddings).
 
 Parameters are a plain dict in the JAX package's tree layout:
 ``{"embed", "layers": [one dict per period position], "final_norm",
-"unembed"}``, with every layer leaf stacked ``[n_periods, ...]``.  The JAX
+"unembed"}``, with every layer leaf stacked ``[n_periods, ...]``; a model
+with a frontend adds ``frontend_proj`` [d_embed, d], an encoder-decoder
+``encoder = {"layers", "final_norm"}`` and, on every decoder layer, the
+cross-attention block ``cross`` with its pre-norm ``norm_x``.  The JAX
 package scans over periods; here a Python loop walks them.
 
 ``layer_param_fn`` is the FSDP hook: the trainer stores parameter shards and
 passes a gather function that ``stack_apply`` calls on each period's
 parameters inside the period's body, so each period's weights are gathered
 just in time and autograd sends the gradients back through the gather's
-transpose.  With ``remat="full"`` the body runs under
-``torch.utils.checkpoint``, so the backward gathers again, as the JAX
-package's scan under ``jax.checkpoint`` does.
+transpose; ``layer_param_fn_enc`` is the same hook for the encoder's stack.
+With ``remat="full"`` the body runs under ``torch.utils.checkpoint``, so the
+backward gathers again, as the JAX package's scan under ``jax.checkpoint``
+does.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import EncoderConfig, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -33,23 +39,43 @@ ParamFn = Optional[Callable[[Any], Any]]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The ported families are dense decoders, pure-SSM (Mamba-2) models, MoE
-    decoders (attention layers and a ``MoEConfig``) and hybrids (a pattern of
-    attention and Mamba-2 layers, MoE optional); other families raise and
-    name their item of the roadmap."""
+    """The families are dense decoders, pure-SSM (Mamba-2) models, MoE
+    decoders (attention layers and a ``MoEConfig``), hybrids (a pattern of
+    attention and Mamba-2 layers, MoE optional), the VLM prefix-LM (a dense
+    decoder with a patch ``FrontendConfig``) and the audio encoder-decoder
+    (a dense decoder with an ``EncoderConfig`` over a frame frontend).  A
+    family without the sub-config it needs, or a layout no configuration of
+    the zoo has, raises."""
     kinds = set(cfg.pattern)
     attn_only = cfg.ssm is None and kinds == {"attn"}
-    ported = ((cfg.family == "dense" and attn_only and not cfg.moe)
-              or (cfg.family == "moe" and attn_only and cfg.moe is not None)
-              or (cfg.family == "ssm" and cfg.ssm is not None and kinds == {"mamba"}
-                  and not cfg.moe)
-              or (cfg.family == "hybrid" and cfg.ssm is not None
-                  and kinds <= {"attn", "mamba"}))
-    if cfg.family == "moe" and cfg.moe is None:
-        raise NotImplementedError(f"{cfg.name}: family 'moe' needs a MoEConfig (cfg.moe)")
-    if not ported or cfg.encoder or cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP.md, Queue 1: item 7, remaining families)")
+    needs = {"moe": ("a MoEConfig (cfg.moe)", cfg.moe is not None),
+             "vlm": ("a FrontendConfig (cfg.frontend)", cfg.frontend is not None),
+             "audio": ("an EncoderConfig (cfg.encoder) and a FrontendConfig (cfg.frontend)",
+                       cfg.encoder is not None and cfg.frontend is not None)}
+    if cfg.family in needs and not needs[cfg.family][1]:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} needs "
+                                  f"{needs[cfg.family][0]}")
+    dense = attn_only and not cfg.moe
+    layout = {"dense": dense, "moe": attn_only, "vlm": dense, "audio": dense,
+              "ssm": cfg.ssm is not None and kinds == {"mamba"} and not cfg.moe,
+              "hybrid": cfg.ssm is not None and kinds <= {"attn", "mamba"}}
+    extras = ((cfg.frontend is not None) == (cfg.family in ("vlm", "audio"))
+              and (cfg.encoder is not None) == (cfg.family == "audio"))
+    if not (layout.get(cfg.family, False) and extras):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} with layers {sorted(kinds)}, "
+                                  f"moe {cfg.moe is not None}, ssm {cfg.ssm is not None}, "
+                                  f"frontend {cfg.frontend is not None} and encoder "
+                                  f"{cfg.encoder is not None} is a layout no configuration of "
+                                  f"the model zoo has")
+
+
+def _enc_cfg(e: EncoderConfig, base: ModelConfig) -> ModelConfig:
+    """The encoder seen as a dense ModelConfig, for reuse of the layers (its
+    head dim is d_model / n_heads)."""
+    return base.replace(name=base.name + "-enc", family="dense", n_layers=e.n_layers,
+                        d_model=e.d_model, n_heads=e.n_heads, n_kv_heads=e.n_kv_heads,
+                        d_ff=e.d_ff, moe=None, ssm=None, layer_pattern=None, frontend=None,
+                        encoder=None, head_dim=None)
 
 
 def period_spec(cfg: ModelConfig) -> Tuple[Tuple[str, Optional[str]], ...]:
@@ -75,6 +101,32 @@ def n_periods(cfg: ModelConfig) -> int:
     return cfg.n_layers // plen
 
 
+def _init_stack(cfg: ModelConfig, dtype, gen, device, *, cross: bool) -> list:
+    """One dict a period position, leaves stacked [n_periods, ...]; with
+    ``cross``, each layer's cross-attention block and its pre-norm."""
+    d, np_ = cfg.d_model, n_periods(cfg)
+    layers = []
+    for kind, ffn in period_spec(cfg):
+        lp = {"norm1": torch.zeros((np_, d), dtype=torch.float32, device=device)}
+        if kind == "attn":
+            lp["mixer"] = stacked_init(attn.attn_shapes(cfg), np_, dtype, gen, device)
+        else:
+            lp["mixer"] = ssm_mod.ssm_init(cfg, np_, dtype, gen, device)
+        if cross:
+            lp["norm_x"] = torch.zeros((np_, d), dtype=torch.float32, device=device)
+            lp["cross"] = stacked_init(attn.attn_shapes(cfg), np_, dtype, gen, device)
+        if ffn is not None:
+            lp["norm2"] = torch.zeros((np_, d), dtype=torch.float32, device=device)
+        if ffn == "moe":
+            lp["ffn"] = moe_mod.moe_init(cfg, np_, dtype, gen, device)
+        elif ffn == "dense":
+            lp["ffn"] = stacked_init({"w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
+                                      "w_down": ((cfg.d_ff, d), cfg.d_ff)},
+                                     np_, dtype, gen, device)
+        layers.append(lp)
+    return layers
+
+
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random parameters from a seeded generator on ``device``.
 
@@ -89,31 +141,20 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     device = torch.device(device)
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
-    d, np_ = cfg.d_model, n_periods(cfg)
-    vp = padded_vocab(cfg)
-    layers = []
-    for kind, ffn in period_spec(cfg):
-        lp = {"norm1": torch.zeros((np_, d), dtype=torch.float32, device=device)}
-        if kind == "attn":
-            lp["mixer"] = stacked_init(attn.attn_shapes(cfg), np_, dtype, gen, device)
-        else:
-            lp["mixer"] = ssm_mod.ssm_init(cfg, np_, dtype, gen, device)
-        if ffn is not None:
-            lp["norm2"] = torch.zeros((np_, d), dtype=torch.float32, device=device)
-        if ffn == "moe":
-            lp["ffn"] = moe_mod.moe_init(cfg, np_, dtype, gen, device)
-        elif ffn == "dense":
-            lp["ffn"] = stacked_init({"w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
-                                      "w_down": ((cfg.d_ff, d), cfg.d_ff)},
-                                     np_, dtype, gen, device)
-        layers.append(lp)
+    d, vp = cfg.d_model, padded_vocab(cfg)
     params = {
         "embed": dense_init((vp, d), dtype, gen, device, in_axis_size=d),
-        "layers": layers,
+        "layers": _init_stack(cfg, dtype, gen, device, cross=cfg.family == "audio"),
         "final_norm": rms_norm_init(d, device),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init((d, vp), dtype, gen, device)
+    if cfg.frontend is not None:
+        params["frontend_proj"] = dense_init((cfg.frontend.d_embed, d), dtype, gen, device)
+    if cfg.encoder is not None:
+        ecfg = _enc_cfg(cfg.encoder, cfg)
+        params["encoder"] = {"layers": _init_stack(ecfg, dtype, gen, device, cross=False),
+                             "final_norm": rms_norm_init(ecfg.d_model, device)}
     return params
 
 
@@ -136,8 +177,9 @@ def _period(tree, p: int):
 
 
 def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
-                    mask=None, prefix_len: int = 0):
-    """One layer.  Returns (x, the MoE layer's aux loss, or None)."""
+                    mask=None, enc_out=None, prefix_len: int = 0):
+    """One layer; a layer with a ``cross`` block attends to ``enc_out``
+    after its self-attention.  Returns (x, the MoE layer's aux loss, or None)."""
     kind, ffn = spec
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind == "attn":
@@ -146,6 +188,9 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
     else:
         h = ssm_mod.ssm_apply(lp["mixer"], h, cfg)
     x = x + h
+    if "cross" in lp:
+        h = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        x = x + attn.attention(lp["cross"], h, positions, cfg, context=enc_out)
     aux = None
     if ffn is not None:
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
@@ -158,7 +203,8 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
 
 
 def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
-                mask=None, prefix_len: int = 0, layer_param_fn: ParamFn = None):
+                mask=None, enc_out=None, prefix_len: int = 0,
+                layer_param_fn: ParamFn = None):
     """Run the period stack over x [B,S,D].  Returns (x, the sum of the MoE
     layers' aux losses over periods and positions).
 
@@ -177,7 +223,7 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
         auxs = []
         for pos, spec in enumerate(specs):
             h, a = _apply_sublayer(pp[pos], h, positions, cfg, spec, causal=causal, mask=mask,
-                                   prefix_len=prefix_len)
+                                   enc_out=enc_out, prefix_len=prefix_len)
             if a is not None:
                 auxs.append(a)
         return h, auxs
@@ -201,22 +247,53 @@ def unembed(params, x, cfg: ModelConfig):
     return torch.einsum("...d,dv->...v", x, params["unembed"])
 
 
+def _prefix_inputs(params, batch, cfg: ModelConfig):
+    """The input embeddings [B,S_total,D] and the prefix length: a VLM's
+    patches [B,T,d_embed], cast to the embeddings' dtype and projected, in
+    front of the text's."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.family != "vlm":
+        return x, 0
+    pre = torch.einsum("bte,ed->btd", batch["patches"].to(x.dtype), params["frontend_proj"])
+    return torch.cat([pre, x], dim=1), pre.shape[1]
+
+
+def encode(params, frames, cfg: ModelConfig, *, layer_param_fn: ParamFn = None):
+    """The audio encoder over stubbed frame embeddings [B,T,d_embed]:
+    projected, non-causal layers, final norm -> [B,T,D]."""
+    ecfg = _enc_cfg(cfg.encoder, cfg)
+    x = torch.einsum("bte,ed->btd", frames.to(getattr(torch, cfg.dtype)),
+                     params["frontend_proj"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _ = stack_apply(params["encoder"]["layers"], x, positions, ecfg, causal=False,
+                       layer_param_fn=layer_param_fn)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
 def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
-               hidden: bool = False, layer_param_fn: ParamFn = None):
+               hidden: bool = False, layer_param_fn: ParamFn = None,
+               layer_param_fn_enc: ParamFn = None):
     """Teacher-forced forward.  Returns (logits, moe_aux) like the JAX package.
 
-    batch: {"tokens" [B,S]}.  last_only: logits of the final position only.
+    batch: {"tokens" [B,S]}, with "patches" (vlm) or "frames" (audio).
+    Logits (or hidden states) are of the text positions only.
+    last_only: logits of the final position only.
     hidden: the final (normed) hidden states [B,S,D] in place of the logits,
     for a caller that applies ``unembed`` to a few positions at a time.
-    layer_param_fn: see ``stack_apply``.
+    layer_param_fn, layer_param_fn_enc: see ``stack_apply``, for the decoder's
+    and the encoder's stack.
     """
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    enc_out = None
+    if cfg.family == "audio":
+        enc_out = encode(params, batch["frames"], cfg, layer_param_fn=layer_param_fn_enc)
+    x, n_prefix = _prefix_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux = stack_apply(params["layers"], x, positions, cfg, causal=True,
-                         layer_param_fn=layer_param_fn)
+    x, aux = stack_apply(params["layers"], x, positions, cfg, causal=True, enc_out=enc_out,
+                         prefix_len=n_prefix, layer_param_fn=layer_param_fn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
     out = x if hidden else unembed(params, x, cfg)
@@ -224,9 +301,10 @@ def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, layer_param_fn: ParamFn = None,
-            aux_weight: float = 0.01):
+            layer_param_fn_enc: ParamFn = None, aux_weight: float = 0.01):
     """(loss, {"ce", "moe_aux"}) for a teacher-forced batch with "targets"."""
-    logits, aux = lm_forward(params, batch, cfg, layer_param_fn=layer_param_fn)
+    logits, aux = lm_forward(params, batch, cfg, layer_param_fn=layer_param_fn,
+                             layer_param_fn_enc=layer_param_fn_enc)
     loss, ce = cross_entropy(logits, batch["targets"], cfg.vocab_size)
     return loss + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
@@ -254,12 +332,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda"
     return caches
 
 
-def decode_step(params, state, token, pos: int, cfg: ModelConfig):
+def init_cross_state(params, enc_out, cfg: ModelConfig):
+    """Each decoder layer's cross-attention K/V over the encoder output
+    ``enc_out`` [B,Sk,D]: one dict a period position, leaves stacked
+    [n_periods, B, Sk, KV, dh] like ``init_decode_state``'s."""
+    out = []
+    for lp in params["layers"]:
+        per = [attn.precompute_cross_kv(_period(lp["cross"], p), enc_out, cfg)
+               for p in range(n_periods(cfg))]
+        out.append({k: torch.stack([c[k] for c in per]) for k in ("k", "v")})
+    return out
+
+
+def decode_step(params, state, token, pos: int, cfg: ModelConfig, *, cross_state=None):
     """One decode step.  token [B,1] integer, pos the absolute position (int).
 
-    ``state`` is updated in place and returned.  Returns (logits [B,1,V], state).
+    ``state`` is updated in place and returned.  An encoder-decoder model
+    takes ``cross_state`` (``init_cross_state`` of the encoded frames).
+    Returns (logits [B,1,V], state).
     """
     _check_family(cfg)
+    if cfg.encoder is not None and cross_state is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: decode_step needs cross_state "
+                         f"= init_cross_state(params, encode(params, frames, cfg), cfg)")
     x = params["embed"][token]
     specs = period_spec(cfg)
     for p in range(n_periods(cfg)):
@@ -272,6 +367,11 @@ def decode_step(params, state, token, pos: int, cfg: ModelConfig):
             else:
                 z, _ = ssm_mod.ssm_decode(lp["mixer"], z, _period(state[i], p), cfg)
             x = x + z
+            if "cross" in lp:
+                z = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+                z, _ = attn.decode_attention(lp["cross"], z, pos, None, cfg,
+                                             cross_kv=_period(cross_state[i], p))
+                x = x + z
             if ffn is not None:
                 z = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 if ffn == "moe":  # B groups of one token; the aux loss is not used
@@ -284,5 +384,6 @@ def decode_step(params, state, token, pos: int, cfg: ModelConfig):
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int):
-    """Last-token logits of the whole prompt (the caches are built by decode)."""
+    """Last-token logits of the whole prompt, with the batch's patches or
+    frames (the caches are built by decode)."""
     return lm_forward(params, batch, cfg, last_only=True)

@@ -40,18 +40,21 @@ def init_serve_state(setup: ServeSetup, mesh, params, batch: int, capacity: int)
 
 
 def make_decode_step(setup: ServeSetup, mesh, params_tpl, *, batch: int, capacity: int):
-    """decode(params, state, token, pos) -> (logits [B,1,V], state updated in place)."""
+    """decode(params, state, token, pos, cross=None) -> (logits [B,1,V], state
+    updated in place); an encoder-decoder passes ``cross``, the
+    ``tf.init_cross_state`` of its encoded frames."""
     _check_one_device(setup, mesh)
     cfg = setup.cfg
 
-    def step(params, state, token, pos: int):
-        return tf.decode_step(params, state, token, pos, cfg)
+    def step(params, state, token, pos: int, cross=None):
+        return tf.decode_step(params, state, token, pos, cfg, cross_state=cross)
 
     return step
 
 
 def make_prefill_step(setup: ServeSetup, mesh, params_tpl):
-    """prefill(params, batch) -> last-token logits [B,1,V] (forward only)."""
+    """prefill(params, batch) -> last-token logits [B,1,V] (forward only); the
+    batch carries a VLM's "patches" or an encoder-decoder's "frames"."""
     _check_one_device(setup, mesh)
     cfg = setup.cfg
 

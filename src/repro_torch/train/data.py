@@ -1,8 +1,8 @@
 """Deterministic synthetic token batches (port of ``repro.train.data``).
 
 The same numpy generator and formula as the JAX package, so both packages
-see the same tokens for a (seed, step).  The vlm and audio branches are not
-ported (ROADMAP.md, Queue 1: remaining families).
+see the same tokens, and the same patches (vlm) or frames (audio), for a
+(seed, step).
 """
 from __future__ import annotations
 
@@ -23,11 +23,15 @@ class DataConfig:
 
 
 def synth_batch(cfg: ModelConfig, dc: DataConfig, step: int, device="cuda") -> Dict:
-    """Global batch for one step (deterministic in (seed, step))."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg.family} batches are not ported yet "
-                                  f"(ROADMAP.md, Queue 1: remaining families)")
+    """Global batch for one step (deterministic in (seed, step)); a VLM's
+    "patches" and an encoder-decoder's "frames" [B, n_tokens, d_embed] are
+    f32 normal draws from the same generator, after the tokens."""
     rng = np.random.default_rng(dc.seed * 1_000_003 + step)
     toks = rng.integers(0, cfg.vocab_size, (dc.global_batch, dc.seq_len + 1), dtype=np.int32)
     toks = torch.from_numpy(toks).to(device)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    extra = {"vlm": "patches", "audio": "frames"}.get(cfg.family)
+    if extra:
+        shape = (dc.global_batch, cfg.frontend.n_tokens, cfg.frontend.d_embed)
+        batch[extra] = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+    return batch

@@ -3,7 +3,8 @@
 Photonic mode (the paper's system): parameters are stored FSDP-sharded along
 each leaf's rail-divisible dim over the rail axes ("pod", "data"); the
 top-level leaves are ring-all-gathered once a step and each period's layer
-leaves just in time inside the period's body (phase "DP AllGather").
+leaves (of the decoder's stack and of an encoder's) just in time inside the
+period's body (phase "DP AllGather").
 Autograd through the gathers sends the gradients back over the ring
 reduce-scatter (phase "DP ReduceScatter").  Scalars (loss, metrics, the
 gradient norm) are management traffic: ``dist.all_reduce`` outside the
@@ -117,18 +118,35 @@ def shard_tree(tree, fd_tree, index: int, n: int):
 
 def _autograd_leaves(stored, gbuf):
     """Leaves for autograd that view the stored shards, one per period for
-    the stacked layer leaves, each with ``.grad`` set to a view of the
-    gradient buffers, so that the backward accumulates in place into them
-    (autograd through a slice of a stacked leaf would make a zero gradient
-    of the whole stack for every period)."""
+    the stacked layer leaves (``layers`` and ``encoder/layers``), each with
+    ``.grad`` set to a view of the gradient buffers, so that the backward
+    accumulates in place into them (autograd through a slice of a stacked
+    leaf would make a zero gradient of the whole stack for every period)."""
     def leaf(t, g):
         x = t.detach().requires_grad_()
         x.grad = g
         return x
-    work = {k: tree_map(leaf, v, gbuf[k]) for k, v in stored.items() if k != "layers"}
-    work["layers"] = tree_map(lambda t, g: [leaf(t[p], g[p]) for p in range(t.shape[0])],
-                              stored["layers"], gbuf["layers"])
-    return work
+
+    def walk(node, g, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, g[k], k) for k, v in node.items()}
+        if key == "layers":
+            return tree_map(lambda t, gt: [leaf(t[p], gt[p]) for p in range(t.shape[0])],
+                            node, g)
+        return leaf(node, g)
+    return walk(stored, gbuf)
+
+
+def _split_stacks(tree):
+    """(the tree without its layer stacks, {path: stack}): the stacks of the
+    decoder (``layers``) and of an encoder (``encoder/layers``), which stay
+    stored and are gathered one period at a time."""
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    stacks = {"layers": tree["layers"]}
+    if "encoder" in tree:
+        top["encoder"] = {k: v for k, v in tree["encoder"].items() if k != "layers"}
+        stacks["encoder"] = tree["encoder"]["layers"]
+    return top, stacks
 
 
 def make_train_step(setup: TrainSetup, mesh, params_tpl):
@@ -146,15 +164,21 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
     fab = fabric_of(setup, mesh)
     n_dp = math.prod(mesh_axes(mesh)[a] for a in dp_axes_of(mesh))
     fd_tree, _ = meta_trees(params_tpl, rails=fab.axes, n_rails=fab.n_shards)
-    top_keys = [k for k in params_tpl if k != "layers"]
+    fd_top, fd_stacks = _split_stacks(fd_tree)
 
     def gfn(period_params):
-        return _gather_with_meta(period_params, fd_tree["layers"], fab, dim_off=-1)
+        return _gather_with_meta(period_params, fd_stacks["layers"], fab, dim_off=-1)
+
+    def gfn_enc(period_params):
+        return _gather_with_meta(period_params, fd_stacks["encoder"], fab, dim_off=-1)
 
     def loss_fn(work, batch):
-        top = _gather_with_meta({k: work[k] for k in top_keys},
-                                {k: fd_tree[k] for k in top_keys}, fab)
-        loss, m = tf.lm_loss(dict(top, layers=work["layers"]), batch, cfg, layer_param_fn=gfn)
+        top, stacks = _split_stacks(work)
+        params = dict(_gather_with_meta(top, fd_top, fab), layers=stacks["layers"])
+        if "encoder" in stacks:
+            params["encoder"] = dict(params["encoder"], layers=stacks["encoder"])
+        loss, m = tf.lm_loss(params, batch, cfg, layer_param_fn=gfn,
+                             layer_param_fn_enc=gfn_enc if "encoder" in stacks else None)
         return loss / n_dp, m
 
     def local_batch(batch):

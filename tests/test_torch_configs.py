@@ -9,11 +9,11 @@ import dataclasses
 import pytest
 
 from repro.configs import base as jbase
-from repro_torch.configs import PAPER_ARCHS, get_config
+from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ARCHS, get_config
 
 PORTED = ("llama3_8b", "yi_9b", "h2o_danube_3_4b", "gemma_7b", "mistral_large_123b",
           "llama_80b", "gpt_80b", "mamba2_370m", "deepseek_moe_16b", "granite_moe_1b_a400m",
-          "deepseek_v3_16b", "jamba_v0_1_52b")
+          "deepseek_v3_16b", "jamba_v0_1_52b", "paligemma_3b", "seamless_m4t_medium")
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["CONFIG", "SMOKE"])
@@ -28,6 +28,12 @@ def test_ported_configs_equal_jax(arch, smoke):
 
 def test_paper_archs_match_jax():
     assert PAPER_ARCHS == jbase.PAPER_ARCHS
+
+
+def test_assigned_archs_match_jax():
+    """The model zoo, every member of which the port now has."""
+    assert ASSIGNED_ARCHS == jbase.ASSIGNED_ARCHS
+    assert set(ASSIGNED_ARCHS) <= set(PORTED)
 
 
 @pytest.mark.parametrize("arch", PAPER_ARCHS)

@@ -77,6 +77,12 @@ def _randn(shape, dtype, dev, gen, scale=0.5):
     (1, 300, 300, 4, 4, 256, torch.float32, True, None, 0),
     (1, 200, 200, 8, 2, 256, torch.float32, True, 40, 0),
     (1, 64, 320, 4, 1, 256, torch.float32, True, None, 256),     # q_offset, rep 4
+    # paligemma-3b: 8 heads on ONE kv head at dh 256 (rep 8); seamless-m4t-medium's
+    # decoder: 16 heads on 16 at dh 64; both at their prefill's S=4096
+    (1, 4096, 4096, 8, 1, 256, torch.bfloat16, True, None, 0),
+    (1, 1000, 1000, 8, 1, 256, torch.bfloat16, True, None, 0),   # ragged S, rep 8
+    (1, 100, 333, 8, 1, 256, torch.bfloat16, True, 90, 233),     # window and q_offset, rep 8
+    (1, 4096, 4096, 16, 16, 64, torch.bfloat16, True, None, 0),
 ])
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, window,
                                     q_offset):
@@ -149,6 +155,12 @@ _BWD_CASES = [
     (1, 300, 300, 4, 4, 256, torch.float32, True, 77, 0),
     (1, 100, 333, 8, 2, 256, torch.float32, True, None, 233),     # q_offset, GQA
     (2, 200, 200, 4, 2, 256, torch.float32, False, None, 0),      # not causal
+    # paligemma-3b (8 heads on one kv head, dh 256) and seamless-m4t-medium's
+    # decoder (16 on 16, dh 64) at their training shape, S=4096
+    (1, 4096, 4096, 8, 1, 256, torch.bfloat16, True, None, 0),
+    (1, 1000, 1000, 8, 1, 256, torch.bfloat16, True, None, 0),    # ragged S, rep 8
+    (1, 100, 333, 8, 1, 256, torch.bfloat16, True, 90, 233),      # window and q_offset, rep 8
+    (1, 4096, 4096, 16, 16, 64, torch.bfloat16, True, None, 0),
 ]
 
 
@@ -316,6 +328,12 @@ def _mask(kind, b, c, dev, gen):
     (3, 300, 8, 2, 256, torch.float32, "holes"),
     (2, 777, 64, 8, 256, torch.float32, "prefix"),      # rep 8
     (1, 600, 16, 1, 256, torch.float32, "tail"),        # rep 16
+    # paligemma-3b (rep 8 in bf16 at dh 256) and seamless-m4t-medium's decoder
+    # (rep 1 at dh 64) at B=8 and a full 4096-slot cache
+    (8, 4096, 8, 1, 256, torch.bfloat16, "all"),
+    (2, 4100, 8, 1, 256, torch.bfloat16, "holes"),      # ragged C, rep 8
+    (8, 4096, 8, 1, 256, torch.bfloat16, "prefix"),
+    (8, 4096, 16, 16, 64, torch.bfloat16, "all"),
 ])
 def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     gen = torch.Generator(device=dev).manual_seed(2)

@@ -293,8 +293,8 @@ def test_serve_main_runs_mamba_on_cpu(capsys):
 def test_hybrid_and_moe_still_raise():
     """The hybrid family now initialises and runs (forward and decode), as
     does an MoE config; a family="moe" config without a MoEConfig still
-    raises and names MoE, and the VLM and audio families still raise and
-    name their roadmap item."""
+    raises and names MoE, and a "vlm" or "audio" config without its frontend
+    (and encoder) raises and names the sub-config it needs."""
     hybrid = get_config("mamba2_370m", smoke=True).replace(family="hybrid",
                                                            layer_pattern=("mamba", "attn"),
                                                            n_heads=4, n_kv_heads=4)
@@ -308,10 +308,10 @@ def test_hybrid_and_moe_still_raise():
     logits, _ = tf.decode_step(params, state, tokens[:, :1], 0, hybrid)
     assert logits.shape[:2] == (2, 1) and torch.isfinite(logits).all()
     dense = get_config("llama3_8b", smoke=True)
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="item 7, remaining families"):
+    for family, needs in (("vlm", "needs a FrontendConfig"), ("audio", "needs an EncoderConfig")):
+        with pytest.raises(NotImplementedError, match=needs):
             tf.init_lm(dense.replace(family=family), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=needs):
             tf.init_decode_state(dense.replace(family=family), 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         tf.init_lm(dense.replace(family="moe"), device="cpu")
