@@ -152,7 +152,22 @@ and the script exits non-zero without printing a result:
     projection, the prefix block and the logits of the text positions);
 25. train: seamless-m4t-medium at full width and depth of both stacks, B=2,
     S=4096 over 1024 frames a sequence, the same way (its model FLOPs count
-    the encoder and the cross-attention).
+    the encoder and the cross-attention);
+26. the rest of training: (a) mamba2-370m at full width and depth through
+    ``repro_torch.launch.train.main`` (B=1, S=4096, lr 3e-3): 4 steps
+    straight, then 2 steps with ``--ckpt`` (a temporary directory) and
+    ``--resume`` to 4; the resumed last loss must be the straight run's
+    within 1e-4 relative, and a restore with the optimizer's step reset to
+    0 must not; bytes a save and the save and restore seconds; (b)
+    h2o-danube-3-4b under remat "dots" as phase 20 (the flash forward
+    launches twice a layer a step):
+    its first loss equal to phase 20's within 1e-6, one step's gradients
+    against remat "none"'s within 1e-3 per leaf, and a lower peak; (c)
+    granite-moe-1b-a400m (B=2, S=4096) under HSDP with int8 error feedback
+    on a pod axis of one: the first loss as plain FSDP's within 1e-6, the
+    gradient norm moved by (0, 2 %], the error feedback non-zero and within
+    half a scale of each leaf; the exchange's time and the error feedback's
+    bytes; int8 codes over NCCL (a ring hop to the rank itself).
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -186,6 +201,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -258,6 +274,14 @@ SSM_TRAIN_ARCH, HYBRID_ARCH, HYBRID_LAYERS = "mamba2_370m", "jamba_v0_1_52b", 8
 # cross-attention), trained at B=1 and B=AUDIO_TRAIN_BATCH.
 VLM_ARCH, AUDIO_ARCH, AUDIO_TRAIN_BATCH = "paligemma_3b", "seamless_m4t_medium", 2
 VLM_ATTN, AUDIO_ATTN = (8, 1, 256), (16, 16, 64)  # heads, kv heads, head dim
+# The rest of training (phase 26): a run resumed from its checkpoint ends at
+# the uninterrupted run's loss within CKPT_RTOL; HSDP's int8 exchange moves
+# the gradient norm by at most HSDP_GN_RTOL (the JAX package's tolerance for
+# it, tests/test_train_step.py:60).  The checkpointed run takes the driver's
+# AdamW (warmup 10) at CKPT_LR: at the driver's default 3e-4 four steps move
+# mamba2-370m's loss by 5e-4 relative on an H100, and the control (the
+# optimizer's step reset) read 1.3e-4, too near the limit to tell a fault.
+CKPT_RTOL, HSDP_GN_RTOL, CKPT_LR = 1e-4, 0.02, 3e-3
 
 
 def log(*a):
@@ -2422,11 +2446,12 @@ def active_params(cfg, n_params: int) -> int:
 
 
 def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
-                n_layers: int = 0, seq: int = TRAIN_SEQ):
+                n_layers: int = 0, seq: int = TRAIN_SEQ, remat: str = ""):
     """Training steps of ``arch`` at B=``batch_size``, ``seq`` text tokens a
     sequence (a VLM's patches and an encoder-decoder's frames besides, from
     ``synth_batch``), at full width and depth, or on its first ``n_layers``
-    layers where given; log lines start with ``[tag]``."""
+    layers where given, under the configuration's remat policy or ``remat``;
+    log lines start with ``[tag]``."""
     import statistics
 
     import torch
@@ -2439,6 +2464,8 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
     from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step, mesh_axes
     dev = torch.device("cuda")
     cfg = get_config(arch)
+    if remat:
+        cfg = cfg.replace(remat=remat)
     depth = f"{cfg.n_layers} layers"
     if n_layers:
         depth = f"{n_layers} of {cfg.n_layers} layers: depth cut, full width"
@@ -2464,7 +2491,8 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
         f"NCCL group of {torch.distributed.get_world_size()}, mesh {mesh_axes(mesh)}, "
         f"fabric {step.fabric.kind}; lr {TRAIN_LR}, warmup {TRAIN_WARMUP} step")
     batch = synth_batch(cfg, DataConfig(seq_len=seq, global_batch=batch_size), 0, device=dev)
-    fwd_runs = 2 if cfg.remat == "full" else 1
+    # "full" and "dots" both run the body's forward again in the backward
+    fwd_runs = 2 if cfg.remat in ("full", "dots") else 1
     per_step = {**NO_LAUNCHES, "flash_attention": n_attn * fwd_runs, "flash_attention_bwd": n_attn,
                 "ssd_scan": n_ssm * fwd_runs, "ssd_scan_bwd": n_ssm}
     n_moe = sum(cfg.layer_has_moe(i) for i in range(cfg.n_layers))
@@ -2553,7 +2581,7 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
     with checked_train_ops(fwd, bwd, sfwd, sbwd):
         grads, _ = step.grads_fn(params, batch)
     del grads
-    ok = len(bwd) == n_attn and len(sbwd) == n_ssm and len(sfwd) == n_ssm
+    ok = len(bwd) == n_attn and len(sbwd) == n_ssm and len(sfwd) == n_ssm * fwd_runs
     if n_attn:
         worst_fwd = [max(r[i] for r in fwd) for i in range(3)]
         worst_bwd = [max(r[i] for r in bwd) for i in range(2)]
@@ -2637,6 +2665,232 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
             "train_depth2_fault_rel_rms": max(fault.values()),
             "train_depth2_grad_rel_rms_routing_replayed":
                 rel_replayed and max(rel_replayed.values())}
+
+
+def _timed(timed: list, fn):
+    """``fn`` with the seconds of each call (device work included) appended
+    to ``timed``."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def phase_checkpoint_resume() -> dict:
+    """(a) mamba2-370m at full width and depth through ``launch.train.main``
+    (B=1, S=TRAIN_SEQ, the driver's AdamW: lr CKPT_LR, warmup 10, a new
+    ``synth_batch`` every step): 4 steps straight, then 2 steps with
+    ``--ckpt D`` and 4 with ``--ckpt D --resume``; the resumed run's last
+    loss must be the straight run's within CKPT_RTOL, and a restore with the
+    optimizer's step reset to 0 (the control) must land beyond it."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import TrainSetup, make_train_step
+    dev = torch.device("cuda")
+    cfg = get_config(SSM_TRAIN_ARCH)
+    args = ["--arch", SSM_TRAIN_ARCH, "--batch", "1", "--seq", str(TRAIN_SEQ), "--lr", str(CKPT_LR)]
+    straight = launch_train.main(args + ["--steps", "4"])
+    torch.cuda.empty_cache()
+    saves, restores = [], []
+    save, restore = ckpt.save, ckpt.restore
+    ckpt.save, ckpt.restore = _timed(saves, save), _timed(restores, restore)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            d = os.path.join(tmp, "ck")
+            ops.reset_launch_counts()
+            launch_train.main(args + ["--steps", "2", "--ckpt", d])
+            counts = ops.launch_counts()
+            nbytes = sum(f.stat().st_size for f in Path(d).iterdir())
+            # the control: the same restore with the optimizer's step reset to 0
+            mesh = launch_train.make_mesh({"data": 1}, dev)
+            setup = TrainSetup(cfg=cfg, opt=OptConfig(lr=CKPT_LR, warmup_steps=10))
+            tpl = tf.init_lm(cfg, device="meta")
+            params, opt, ef, extra = ckpt.restore(d, setup, mesh, tpl, dev)
+            opt["step"] = 0
+            step = make_train_step(setup, mesh, tpl)
+            dc = DataConfig(seq_len=TRAIN_SEQ, global_batch=1)
+            for i in range(extra["step"], 4):
+                params, opt, ef, m = step(params, opt, ef, synth_batch(cfg, dc, i, device=dev))
+            control = float(m["loss"])
+            del params, opt, ef, step
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            resumed = launch_train.main(args + ["--steps", "4", "--ckpt", d, "--resume"])
+            counts = {k: counts[k] + v for k, v in ops.launch_counts().items()}
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+    rel, rel_control = (abs(x - straight) / abs(straight) for x in (resumed, control))
+    log(f"[ckpt] {cfg.name} through launch.train.main, B=1 S={TRAIN_SEQ}, lr {CKPT_LR}: 4 steps "
+        f"straight, last "
+        f"loss {straight:.6f}; 2 steps + --ckpt, then --resume to 4: {resumed:.6f} (relative "
+        f"difference {rel:.3g}, limit {CKPT_RTOL}; bit-equal {resumed == straight}); control, "
+        f"the optimizer's step reset to 0: {control:.6f} ({rel_control:.3g}, must exceed the "
+        f"limit); {nbytes / 1e9:.3f} GB a save ({len(saves)} saves: "
+        f"{', '.join(f'{t:.2f}' for t in saves)} s; {len(restores)} restores: "
+        f"{', '.join(f'{t:.2f}' for t in restores)} s); launches {counts}")
+    want = {**NO_LAUNCHES, "ssd_scan": 4 * cfg.n_layers, "ssd_scan_bwd": 4 * cfg.n_layers}
+    if not (rel <= CKPT_RTOL < rel_control and counts == want):
+        raise AssertionError(f"checkpoint resume: straight {straight}, resumed {resumed}, "
+                             f"control {control}, launches {counts} (want {want})")
+    return {"ckpt_arch": cfg.name, "ckpt_loss_straight": straight, "ckpt_loss_resumed": resumed,
+            "ckpt_loss_control": control, "ckpt_bit_equal": resumed == straight,
+            "ckpt_bytes": nbytes, "ckpt_save_s": saves, "ckpt_restore_s": restores,
+            "ckpt_launches": counts}
+
+
+def phase_remat_dots(tr: dict) -> dict:
+    """(b) h2o-danube-3-4b at full width and depth under remat "dots": the
+    training phase again (``phase_train``, whose flash forward now launches
+    twice a layer a step), its first loss against remat "none"'s (``tr``,
+    the training phase's) and its peak below it; then one step's gradients
+    of both policies on the same parameters and batch, leaf by leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step
+    from repro_torch.tree import leaves
+    dots = {f"dots_{k}": v for k, v in
+            phase_train(TRAIN_ARCH, 1, tag="dots train", remat="dots").items()}
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    launch_train.init_distributed(dev)
+    mesh = launch_train.make_mesh({"data": 1}, dev)
+    params, _, _ = init_sharded_state(TrainSetup(cfg=cfg), mesh, seed=0, device=dev)
+    batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=1), 0, device=dev)
+    grads = {}
+    for remat in ("none", "dots"):
+        c = cfg.replace(remat=remat)
+        grads[remat] = make_train_step(TrainSetup(cfg=c), mesh, tf.init_lm(c, device="meta")
+                                       ).grads_fn(params, batch)[0]
+    rel = leaf_rel_rms(grads["dots"], grads["none"])
+    bit_equal = all(torch.equal(a, b) for a, b in zip(leaves(grads["dots"]),
+                                                      leaves(grads["none"])))
+    del params, grads
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    loss_rel = abs(dots["dots_train_losses"][0] - tr["train_losses"][0]) / tr["train_losses"][0]
+    worst = max(rel, key=rel.get)
+    log(f"[dots] {cfg.name} remat 'dots' against 'none': step-1 loss "
+        f"{dots['dots_train_losses'][0]:.6f} / {tr['train_losses'][0]:.6f} (relative "
+        f"{loss_rel:.3g}, limit 1e-6); one step's gradients, worst leaf relative RMS "
+        f"{rel[worst]:.3g} ({worst}; limit 1e-3), bit-equal {bit_equal}; peak "
+        f"{dots['dots_train_peak_bytes'] / 2**30:.2f} GiB / {tr['train_peak_bytes'] / 2**30:.2f} "
+        f"GiB; step {dots['dots_train_step_ms']:.1f} / {tr['train_step_ms']:.1f} ms")
+    if not (loss_rel <= 1e-6 and rel[worst] <= 1e-3
+            and dots["dots_train_peak_bytes"] < tr["train_peak_bytes"]):
+        raise AssertionError(f"remat dots: loss {loss_rel}, gradients {rel[worst]}, peak "
+                             f"{dots['dots_train_peak_bytes']} vs {tr['train_peak_bytes']}")
+    return {**dots, "dots_loss_rel": loss_rel, "dots_grad_rel_rms": rel[worst],
+            "dots_grads_bit_equal": bit_equal}
+
+
+def phase_hsdp_compress() -> dict:
+    """(c) granite-moe-1b-a400m at full width and depth, B=MOE_TRAIN_BATCH,
+    S=TRAIN_SEQ: one step of plain FSDP, then HSDP with int8 error feedback
+    on mesh {"pod": 1, "data": 1} (the exchange quantizes at one pod, as the
+    JAX package's does).  The loss is the same; the gradient norm moves by
+    more than 0 and at most HSDP_GN_RTOL; the error feedback is non-zero and
+    within scale/2 of each leaf (f32 rounding: + 2^-16 scale).  At one pod
+    the ring carries nothing, so a ring hop of int8 codes to this rank
+    itself shows that NCCL carries them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fabric import _hops
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import TrainSetup, ef_init, init_sharded_state, make_train_step
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_TRAIN_ARCH)
+    launch_train.init_distributed(dev)
+    batch = synth_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=MOE_TRAIN_BATCH), 0,
+                        device=dev)
+    tpl = tf.init_lm(cfg, device="meta")
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    runs = {}
+    for label, axes, kw in (("fsdp", {"data": 1}, {}),
+                            ("hsdp", {"pod": 1, "data": 1},
+                             {"hsdp": True, "compress_pod_grads": True})):
+        setup = TrainSetup(cfg=cfg, opt=opt_cfg, **kw)
+        mesh = launch_train.make_mesh(axes, dev)
+        params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=dev)
+        step = make_train_step(setup, mesh, tpl)
+        if label == "hsdp":
+            # the exchange alone on one step's gradients: its bound and its time
+            grads, _ = step.grads_fn(params, batch)
+            xs = [g.float() for g in leaves(grads)]  # x = g + ef, ef = 0
+            step.pod_sync(grads, ef)
+            over = max((e.abs().max() / (x.abs().max().clamp(min=1e-12) / 127.0)).item()
+                       for x, e in zip(xs, leaves(ef)))
+            nonzero = sum(int(e.count_nonzero()) for e in leaves(ef))
+            del xs
+            ms = time_ms(lambda: step.pod_sync(grads, ef), 5)
+            dev_ms = device_ms(lambda: step.pod_sync(grads, ef), 5)
+            del grads
+            ef = ef_init(setup, params)
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+        params, opt, ef, m = step(params, opt, ef, batch)
+        runs[label] = (float(m["loss"]), float(m["grad_norm"]))
+        if label == "hsdp":
+            counts = ops.launch_counts()
+            ef_bytes = sum(e.numel() * e.element_size() for e in leaves(ef))
+            ef_nonzero_step = sum(int(e.count_nonzero()) for e in leaves(ef))
+        del params, opt, ef, step
+        torch.cuda.empty_cache()
+    codes = torch.randint(-127, 128, (1 << 20,), dtype=torch.int8, device=dev)
+    got = torch.empty_like(codes)
+    _hops([(codes, 0, got, 0)], torch.distributed.group.WORLD)
+    int8_hop = bool(torch.equal(got, codes))
+    torch.distributed.destroy_process_group()
+    loss_rel = abs(runs["hsdp"][0] - runs["fsdp"][0]) / runs["fsdp"][0]
+    gn_rel = abs(runs["hsdp"][1] - runs["fsdp"][1]) / runs["fsdp"][1]
+    log(f"[hsdp] {cfg.name} B={MOE_TRAIN_BATCH} S={TRAIN_SEQ}, HSDP + int8 error feedback on "
+        f"mesh pod 1 x data 1 against FSDP: step-1 loss {runs['hsdp'][0]:.6f} / "
+        f"{runs['fsdp'][0]:.6f} (relative {loss_rel:.3g}, limit 1e-6); grad_norm "
+        f"{runs['hsdp'][1]:.6f} / {runs['fsdp'][1]:.6f} (relative {gn_rel:.4g}, must be in (0, "
+        f"{HSDP_GN_RTOL}]); ef {ef_bytes / 1e9:.2f} GB, {nonzero} non-zero after the exchange "
+        f"({ef_nonzero_step} after the step), worst |ef| / scale {over:.6f} (limit "
+        f"{0.5 + 2 ** -16:.6f}); the exchange {ms:.2f} ms a step (events), "
+        f"{dev_ms if dev_ms is None else f'{dev_ms:.2f}'} ms device; launches {counts}; a ring "
+        f"hop of 1 MiB of int8 codes over NCCL to this rank, equal: {int8_hop}")
+    if not (loss_rel <= 1e-6 and 0 < gn_rel <= HSDP_GN_RTOL and nonzero > 0
+            and ef_nonzero_step > 0 and over <= 0.5 + 2 ** -16 and int8_hop):
+        raise AssertionError(f"hsdp: runs {runs}, ef non-zero {nonzero}, |ef|/scale {over}")
+    return {"hsdp_arch": cfg.name, "hsdp_loss": runs["hsdp"][0], "hsdp_fsdp_loss": runs["fsdp"][0],
+            "hsdp_grad_norm": runs["hsdp"][1], "hsdp_fsdp_grad_norm": runs["fsdp"][1],
+            "hsdp_grad_norm_rel": gn_rel, "hsdp_ef_bytes": ef_bytes, "hsdp_ef_nonzero": nonzero,
+            "hsdp_ef_over_scale": over, "hsdp_exchange_ms": ms, "hsdp_exchange_device_ms": dev_ms,
+            "hsdp_launches": counts, "hsdp_nccl_int8_hop": int8_hop}
+
+
+def phase_rest_of_training(tr: dict) -> dict:
+    """The rest of training: (a) checkpoint and resume, (b) remat "dots",
+    (c) HSDP with int8 error feedback."""
+    t0 = time.perf_counter()
+    out = {**phase_checkpoint_resume(), **phase_remat_dots(tr), **phase_hsdp_compress()}
+    out["rest_of_training_s"] = time.perf_counter() - t0
+    log(f"[rest of training] ok in {out['rest_of_training_s']:.1f} s")
+    return out
 
 
 def run() -> int:
@@ -2793,6 +3047,7 @@ def run() -> int:
               phase_train(VLM_ARCH, 1, tag="paligemma train", seq=TRAIN_SEQ - n_patches).items()}
     audio_tr = {f"seamless_{k}": v for k, v in
                 phase_train(AUDIO_ARCH, AUDIO_TRAIN_BATCH, tag="seamless train").items()}
+    rest = phase_rest_of_training(tr)
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -2802,6 +3057,9 @@ def run() -> int:
     hybrid_decode = f"jamba-v0.1-52b decode ({HYBRID_LAYERS} of 32 layers)"
     vlm_train = f"{vlm_tr['paligemma_train_arch']} train"
     audio_train = f"{audio_tr['seamless_train_arch']} train"
+    dots_train = f"{tr['train_arch']} train, remat dots"
+    hsdp_train = f"{rest['hsdp_arch']} train, HSDP + int8 error feedback (one step)"
+    ckpt_train = f"{rest['ckpt_arch']} train through the driver, checkpoint and resume"
     kernels[0]["launches_by_path"] = {
         "llama3-8b prefill": pre["flash_launches"],
         "deepseek-moe-16b prefill": moe_pre["moe_flash_launches"],
@@ -2810,11 +3068,15 @@ def run() -> int:
         "seamless-m4t-medium prefill": audio_pre["seamless_flash_launches"],
         dense_train: tr["train_launches"]["flash_attention"],
         moe_train: moe_tr["moe_train_launches"]["flash_attention"],
-        audio_train: audio_tr["seamless_train_launches"]["flash_attention"]}
+        audio_train: audio_tr["seamless_train_launches"]["flash_attention"],
+        dots_train: rest["dots_train_launches"]["flash_attention"],
+        hsdp_train: rest["hsdp_launches"]["flash_attention"]}
     kernels[1]["launches_by_path"] = {
         dense_train: tr["train_launches"]["flash_attention_bwd"],
         moe_train: moe_tr["moe_train_launches"]["flash_attention_bwd"],
-        audio_train: audio_tr["seamless_train_launches"]["flash_attention_bwd"]}
+        audio_train: audio_tr["seamless_train_launches"]["flash_attention_bwd"],
+        dots_train: rest["dots_train_launches"]["flash_attention_bwd"],
+        hsdp_train: rest["hsdp_launches"]["flash_attention_bwd"]}
     kernels[2]["launches_by_path"] = {
         "llama3-8b decode": dec["decode_launches"],
         "deepseek-moe-16b decode (a)": moe_dec["moe_decode_a_launches"],
@@ -2839,8 +3101,10 @@ def run() -> int:
         "paligemma-3b decode (b)": vlm_dec["paligemma_decode_b_launches"]}
     kernels[3]["launches_by_path"] = {"mamba2-370m prefill": mpre["ssd_launches"],
                                       ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan"],
-                                      hybrid_prefill: hybrid_pre["jamba_ssd_launches"]}
-    kernels[4]["launches_by_path"] = {ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan_bwd"]}
+                                      hybrid_prefill: hybrid_pre["jamba_ssd_launches"],
+                                      ckpt_train: rest["ckpt_launches"]["ssd_scan"]}
+    kernels[4]["launches_by_path"] = {ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
+                                      ckpt_train: rest["ckpt_launches"]["ssd_scan_bwd"]}
     kernels[4].update(launches=ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
                       launches_per_step=ssm_tr["mamba_train_launches_per_step"]["ssd_scan_bwd"])
     kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
@@ -2849,7 +3113,7 @@ def run() -> int:
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
                     **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
                     **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
-                    **ssm_tr, **vlm_tr, **audio_tr, "card": smi}))
+                    **ssm_tr, **vlm_tr, **audio_tr, **rest, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

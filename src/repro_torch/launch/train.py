@@ -1,9 +1,11 @@
-"""Training driver: FSDP over photonic rails (or EPS) with synthetic data.
+"""Training driver: FSDP (or HSDP) over photonic rails (or EPS) with
+synthetic data, checkpointing and restart on another mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi_9b --smoke \
-        --device cpu --steps 4 --mesh 1x1 --batch 8 --seq 32
+        --device cpu --steps 4 --mesh 1x1 --batch 8 --seq 32 --ckpt ck --ckpt-every 2
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch yi_9b --smoke --device cpu --mesh 4x1 --batch 8 --seq 32
+        --arch yi_9b --smoke --device cpu --mesh 2x2x1 --batch 8 --seq 32 \
+        --hsdp --compress --ckpt ck --resume
 
 Port of ``repro.launch.train``.  ``--mesh`` is DxM or PxDxM (pod, data,
 model) as there; the port has no tensor parallelism, so M must be 1, and the
@@ -11,9 +13,13 @@ product is the world size.  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
 set) it joins that group; otherwise it forms a group of one process itself.
 Runs on CUDA with NCCL unless ``--device cpu`` is given (gloo); if CUDA is
 asked for and absent it raises rather than running on the CPU.
-``--lr`` is AdamW's peak learning rate, as there.  The reference's flags
-that the port has not ported yet are refused by name with the ROADMAP item
-that ports each (``UNPORTED_FLAGS``), before any process group is formed.
+``--lr`` is AdamW's peak learning rate; ``--hsdp`` and ``--compress``
+select HSDP and its int8 pod exchange; ``--ckpt DIR`` saves there at the
+end (and every ``--ckpt-every`` steps), and with ``--resume`` restores from
+it, re-sharded for this mesh, and continues from its step: all as there,
+in the same checkpoint format.  The reference's flags that the port has not
+ported yet are refused by name with the ROADMAP item that ports each
+(``UNPORTED_FLAGS``), before any process group is formed.
 """
 from __future__ import annotations
 
@@ -30,17 +36,13 @@ from repro_torch.configs.base import get_config
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.train.data import DataConfig, synth_batch
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step
 
 
 # The reference launcher's flags the port refuses: flag -> what ports it.
 UNPORTED_FLAGS = {
-    "--hsdp": "ROADMAP.md, Queue 1 item 4: HSDP with int8 error feedback",
-    "--compress": "ROADMAP.md, Queue 1 item 4: HSDP with int8 error feedback",
-    "--ckpt": "ROADMAP.md, Queue 1 item 4: train/checkpoint.py",
-    "--ckpt-every": "ROADMAP.md, Queue 1 item 4: train/checkpoint.py",
-    "--resume": "ROADMAP.md, Queue 1 item 4: train/checkpoint.py",
     "--plane-report": "ROADMAP.md, Queue 1 item 3: control plane and simulator",
     "--ocs-latency": "ROADMAP.md, Queue 1 item 3: control plane and simulator",
 }
@@ -53,7 +55,8 @@ def parse_mesh(s: str) -> dict:
         raise ValueError(f"--mesh {s}: DxM or PxDxM")
     if dims[-1] != 1:
         raise ValueError(f"--mesh {s}: the port has no tensor parallelism (model axis "
-                         f"{dims[-1]}); it waits for ROADMAP.md, Queue 1: training")
+                         f"{dims[-1]}); it waits for ROADMAP.md, Queue 1 item 4: tensor "
+                         f"parallelism")
     return dict(zip(("data",) if len(dims) == 2 else ("pod", "data"), dims[:-1]))
 
 
@@ -84,10 +87,15 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--mesh", default="1x1")
     ap.add_argument("--fabric", default="photonic", choices=["photonic", "eps"])
+    ap.add_argument("--hsdp", action="store_true")
+    ap.add_argument("--compress", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     for flag in UNPORTED_FLAGS:  # taken with or without a value, then refused
         ap.add_argument(flag, nargs="?", const=True, default=None)
@@ -105,21 +113,41 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     init_distributed(device)
     mesh = make_mesh(axes, device)
-    setup = TrainSetup(cfg=cfg, fabric=args.fabric, accum=args.accum,
+    setup = TrainSetup(cfg=cfg, fabric=args.fabric, hsdp=args.hsdp,
+                       compress_pod_grads=args.compress, accum=args.accum,
                        opt=OptConfig(lr=args.lr, warmup_steps=10))
     dc = DataConfig(seq_len=args.seq, global_batch=args.batch)
-    params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=device)
-    step_fn = make_train_step(setup, mesh, tf.init_lm(cfg, device="meta"))
+    tpl = tf.init_lm(cfg, device="meta")
+    rank0 = dist.get_rank() == 0
+    start = 0
+    if args.resume and args.ckpt:
+        params, opt, ef, extra = ckpt.restore(args.ckpt, setup, mesh, tpl, device)
+        start = int(extra.get("step", 0))
+        if rank0:
+            print(f"resumed from step {start}", flush=True)
+    else:
+        params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=device)
+    step_fn = make_train_step(setup, mesh, tpl)
+
+    def save(n: int):
+        ckpt.save(args.ckpt, params, opt, ef, fd_tree=step_fn.fd_tree, fabric=step_fn.fabric,
+                  extra={"step": n})
 
     t0 = time.time()
-    for step in range(args.steps):
+    m = None
+    for step in range(start, args.steps):
         batch = synth_batch(cfg, dc, step, device=device)
         params, opt, ef, m = step_fn(params, opt, ef, batch)
-        if dist.get_rank() == 0 and (step % 5 == 0 or step == args.steps - 1):
+        if rank0 and (step % 5 == 0 or step == args.steps - 1):
             print(f"step {step:4d} loss {float(m['loss']):.4f} ce {float(m['ce']):.4f} "
                   f"gnorm {float(m['grad_norm']):.3f} ({time.time() - t0:.1f}s)", flush=True)
-    return float(m["loss"])
-
+        if args.ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
+            if rank0:
+                print(f"checkpointed @ {step + 1}", flush=True)
+    if args.ckpt:
+        save(args.steps)
+    return float(m["loss"]) if m is not None else math.nan
 
 if __name__ == "__main__":
     main()

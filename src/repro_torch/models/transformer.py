@@ -18,7 +18,8 @@ just in time and autograd sends the gradients back through the gather's
 transpose; ``layer_param_fn_enc`` is the same hook for the encoder's stack.
 With ``remat="full"`` the body runs under ``torch.utils.checkpoint``, so the
 backward gathers again, as the JAX package's scan under ``jax.checkpoint``
-does.
+does; ``remat="dots"`` keeps the outputs of the products without batch
+dimensions as well (``save_dots``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import EncoderConfig, ModelConfig
 from repro_torch.models import attention as attn
@@ -202,6 +204,30 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
     return x, aux
 
 
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_dots(ctx, op, *args, **kwargs):
+    """The policy of remat "dots" (the JAX package's
+    ``checkpoint_dots_with_no_batch_dims``): save the outputs of products
+    without batch dimensions (the projections ``bsd,dhk->bshk`` and
+    ``bqhd,hdk->bqk``, the MLP's, the SSM's and the router's in and out
+    products) and recompute everything else in the backward (norms, RoPE,
+    the flash forward, MoE's batched expert products ``ecd,edf->ecf``, the
+    FSDP gathers).  ``torch.einsum`` lowers a product without batch dims to
+    ``bmm`` with batch size 1 and a batched one to ``bmm`` with batch E, so
+    the op alone cannot tell them apart: the leading dim can.  A kernel
+    launched through ctypes inside an autograd function is invisible here
+    and runs again in the recompute, as under "full"."""
+    if op in _NO_BATCH_PRODUCTS or (op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(save_dots)
+
+
 def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
                 mask=None, enc_out=None, prefix_len: int = 0,
                 layer_param_fn: ParamFn = None):
@@ -211,11 +237,12 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
     ``layer_param_fn`` maps one period's parameters (a list over the period's
     positions) to the ones the layers use, inside the period's body.
     ``cfg.remat``: "none" keeps every activation for the backward; "full"
-    keeps each period's input only and runs the body again in the backward.
+    keeps each period's input only and runs the body again in the backward;
+    "dots" keeps the outputs of the products without batch dims besides
+    (``save_dots``) and recomputes the rest.
     """
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(f"remat {cfg.remat!r} is not ported yet (ROADMAP.md, "
-                                  "Queue 1: training, remat='dots')")
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
     specs = period_spec(cfg)
 
     def body(h, per_params):
@@ -233,6 +260,8 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
         per = [_period(lp, p) for lp in layers]
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, auxs = checkpoint(body, x, per, use_reentrant=False)
+        elif cfg.remat == "dots" and torch.is_grad_enabled():
+            x, auxs = checkpoint(body, x, per, use_reentrant=False, context_fn=_dots_contexts)
         else:
             x, auxs = body(x, per)
         for a in auxs:

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import bridge
 from repro_torch.configs import get_config
@@ -267,12 +268,13 @@ def test_lm_forward_loss_and_gradients_match_jax(pair):
         assert _rel_rms(grads[path], want) <= GRAD_RTOL, (arch, path)
 
 
-def test_remat_full_gives_the_same_loss_and_gradients(pair):
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_full_gives_the_same_loss_and_gradients(pair, remat):
     _, _, tcfg, _, tparams = pair
     b = {k: torch.from_numpy(_tokens(2, 16, tcfg.vocab_size, seed=s))
          for k, s in (("tokens", 1), ("targets", 2))}
     out = []
-    for cfg in (tcfg, tcfg.replace(remat="full")):
+    for cfg in (tcfg, tcfg.replace(remat=remat)):
         params = tree_map(lambda t: t.clone().requires_grad_(), tparams)
         loss, m = tf.lm_loss(params, b, cfg)
         loss.backward()
@@ -280,6 +282,99 @@ def test_remat_full_gives_the_same_loss_and_gradients(pair):
     assert out[0][:2] == out[1][:2]
     for g0, g1 in zip(out[0][2], out[1][2]):
         assert torch.equal(g0, g1)
+
+
+class _Products(TorchDispatchMode):
+    """Counts the products run inside the layers (``_apply_sublayer``), by
+    phase and kind: "none" (``mm``, ``addmm``, ``bmm`` with batch 1) or
+    "batched" (``bmm`` with batch > 1)."""
+
+    def __init__(self):
+        super().__init__()
+        self.phase, self.in_layer = "forward", 0
+        self.counts = {(p, k): 0 for p in ("forward", "backward") for k in ("none", "batched")}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.in_layer:
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+                self.counts[self.phase, "none"] += 1
+            elif func == torch.ops.aten.bmm.default:
+                self.counts[self.phase, "none" if args[0].shape[0] == 1 else "batched"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _saved_bytes(params, batch, cfg, monkeypatch) -> int:
+    """Bytes held for the backward after the forward: the activations that
+    autograd saves outside a checkpointed body (``saved_tensors_hooks``),
+    parameters left out, and the outputs that remat "dots" keeps (the
+    policy's MUST_SAVE decisions in the forward)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    skip = {t.untyped_storage().data_ptr() for t in leaves(params)}
+    seen, kept = {}, [0]
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+    policy = tf.save_dots
+
+    def counting(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        if out == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            kept[0] += ctx.op_output.untyped_storage().nbytes()
+        return out
+    monkeypatch.setattr(tf, "save_dots", counting)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = tf.lm_loss(params, batch, cfg)
+    loss.backward()
+    return sum(seen.values()) + kept[0]
+
+
+def test_remat_dots_recomputes_exactly_the_batched_products(pair, monkeypatch):
+    """Under "dots" the backward re-runs no product without batch dims of the
+    forward (the projections, the router: ``bmm`` with batch 1) and every
+    batched one (the experts' ``ecd,edf->ecf``, attention, dispatch); under
+    "full" it re-runs both, under "none" neither (the recompute's early stop,
+    which skips a body's last products that no backward needs, is off).  The
+    bytes kept for the backward order as full < dots < none."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    _, _, tcfg, _, tparams = pair
+    b = {k: torch.from_numpy(_tokens(2, 16, tcfg.vocab_size, seed=s))
+         for k, s in (("tokens", 1), ("targets", 2))}
+    sub = tf._apply_sublayer
+    counts, saved = {}, {}
+    for remat in ("none", "full", "dots"):
+        mode = _Products()
+
+        def tracked(*a, **kw):
+            mode.in_layer += 1
+            try:
+                return sub(*a, **kw)
+            finally:
+                mode.in_layer -= 1
+        cfg = tcfg.replace(remat=remat)
+        params = tree_map(lambda t: t.clone().requires_grad_(), tparams)
+        with monkeypatch.context() as mp:
+            mp.setattr(tf, "_apply_sublayer", tracked)
+            with mode, set_checkpoint_early_stop(False):
+                loss, _ = tf.lm_loss(params, b, cfg)
+                mode.phase = "backward"
+                loss.backward()
+        counts[remat] = mode.counts
+        with monkeypatch.context() as mp:
+            saved[remat] = _saved_bytes(tree_map(lambda t: t.clone().requires_grad_(), tparams),
+                                        b, cfg, mp)
+    fwd = {k: counts["none"]["forward", k] for k in ("none", "batched")}
+    assert fwd["none"] > 0 and fwd["batched"] > 0
+    assert counts["none"]["backward", "none"] == 0 == counts["none"]["backward", "batched"]
+    assert counts["full"]["backward", "none"] == fwd["none"]
+    assert counts["full"]["backward", "batched"] == fwd["batched"]
+    assert counts["dots"]["backward", "none"] == 0
+    assert counts["dots"]["backward", "batched"] == fwd["batched"]
+    assert saved["full"] < saved["dots"] < saved["none"], saved
+    with pytest.raises(ValueError, match="remat"):
+        tf.lm_loss(tparams, b, tcfg.replace(remat="some"))
 
 
 def test_decode_matches_jax_forward_when_nothing_drops():
