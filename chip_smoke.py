@@ -167,7 +167,28 @@ and the script exits non-zero without printing a result:
     on a pod axis of one: the first loss as plain FSDP's within 1e-6, the
     gradient norm moved by (0, 2 %], the error feedback non-zero and within
     half a scale of each leaf; the exchange's time and the error feedback's
-    bytes; int8 codes over NCCL (a ring hop to the rank itself).
+    bytes; int8 codes over NCCL (a ring hop to the rank itself);
+27. tensor and expert parallelism: (a) the training phases 20-26 ran
+    through the model axis's code at model size 1 (phase 20's mesh has a
+    model dim of one, the driver's too): every train step they made had a
+    model axis of one that launched no collective, and each phase's launches
+    a step (held there to the counts they had before the model axis) and
+    step time are printed beside each other; (b) one full-width layer each
+    of h2o-danube-3-4b (attention and MLP), granite-moe-1b-a400m (attention
+    and its MoE, B=2), mamba2-370m (the SSD mixer) and paligemma-3b
+    (attention: one query head on the replicated kv head at dh 256), S=4096:
+    the whole layer's blocks, forward and backward through the kernels,
+    against the sum of the shares of 8 model ranks run in turn at their
+    local shapes through the same kernels (``SequentialModelAxis``, a
+    stand-in for ``parallel.tensor.ModelAxis``; every launch of the shares
+    held to its plain version as the training phase holds its launches):
+    the output, the input's gradient and every leaf's gradient within
+    MODEL_LIMIT relative RMS, 8 launches of each kernel of the block, and
+    three planted faults that must fail (a rank's partial dropped;
+    paligemma's replicated wk/wv gradients not summed over the axis, and
+    summed 8 times); then each kernel at the local shapes against its plain
+    version and timed beside its bound, the plain version and SDPA.  The
+    model axis's collectives themselves run on gloo in the tests.
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -1860,6 +1881,17 @@ def hold_ssd(label: str, y, st, y_want, st_want) -> tuple:
     return err, ratio
 
 
+def ssd_fwd_bound(b, s, h, p, g, n, chunk) -> tuple:
+    """(FLOPs, bytes) the SSD scan needs, derived from the shapes: each input
+    read once and each output written once (f32); the least operations, C
+    B^T once per group and chunk (causal halves), the state read and the
+    state update."""
+    nc, L = -(-s // chunk), chunk
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + b * h * p * n + h)
+    flops = b * nc * (g * L * (L + 1) * n + h * (L * (L + 1) * p + 4 * L * n * p))
+    return flops, nbytes
+
+
 def ssd_executed_flops(b, s, h, p, g, n, chunk) -> int:
     """Derived, not measured: the FLOPs the SSD kernel's mma.sync tiles run on
     the tensor cores (csrc/ssd_scan.cu: 16 x 8 x 8 tiles, causal tiles of C
@@ -1936,12 +1968,7 @@ def phase_ssd_kernel():
     pass_ms = {k: sum(v for key, v in passes.items() if k in key) for k in SSD_PASSES}
     log("[ssd] device ms per call by pass: "
         + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items()))
-    nc, L = s // chunk, chunk
-    # bytes: each input read once, each output written once (f32)
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + b * h * p * n + h)
-    # least operations: C B^T once per group and chunk, causal halves, the
-    # state read and the state update
-    flops = b * nc * (g * L * (L + 1) * n + h * (L * (L + 1) * p + 4 * L * n * p))
+    flops, nbytes = ssd_fwd_bound(b, s, h, p, g, n, chunk)
     executed = ssd_executed_flops(b, s, h, p, g, n, chunk)
     # f32 operands: the card's peak for them is the TF32 tensor cores
     bound_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
@@ -2471,7 +2498,7 @@ def phase_train(arch: str = TRAIN_ARCH, batch_size: int = 1, tag: str = "train",
         depth = f"{n_layers} of {cfg.n_layers} layers: depth cut, full width"
         cfg = cfg.replace(n_layers=n_layers)
     launch_train.init_distributed(dev)
-    mesh = launch_train.make_mesh({"data": 1}, dev)
+    mesh = launch_train.make_mesh(launch_train.parse_mesh("1x1"), dev)  # data 1, model 1
     setup = TrainSetup(cfg=cfg, opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2892,6 +2919,378 @@ def phase_rest_of_training(tr: dict) -> dict:
     log(f"[rest of training] ok in {out['rest_of_training_s']:.1f} s")
     return out
 
+# Phase 27 (b): each rank's share of one full-width layer at the local shapes
+# of a model axis of TP_SIZE ranks, the ranks in turn in one process.
+# (configuration, the layer's blocks, batch).  At 8 ranks: danube's attention
+# runs 4 query heads on 1 kv head at dh 120 and its MLP 1280 of 10240
+# columns; granite's MoE 4 of 32 experts and its attention 2 heads on 1 kv
+# head at dh 64; mamba2-370m's mixer 4 SSD heads on its one B/C group;
+# paligemma's attention 1 query head on its one (replicated) kv head at dh 256.
+TP_SIZE = 8
+TP_LAYERS = (("h2o_danube_3_4b", ("attn", "mlp"), 1),
+             ("granite_moe_1b_a400m", ("attn", "moe"), MOE_TRAIN_BATCH),
+             ("mamba2_370m", ("ssm",), 1),
+             ("paligemma_3b", ("attn",), 1))
+# The sum of the shares against the whole layer: the relative RMS of the
+# output, of the input's gradient and of each leaf's gradient, held to the
+# limit the training phases hold depth-2 gradients to (MODEL_LIMIT).  Each
+# rank's partial is rounded to bf16 before the sum, as the real axis's
+# all-reduce sums it, and the input's gradient adds 3 M bf16 partials (q, k
+# and v of each rank) where the whole layer adds 3: one bf16 ulp (2^-7) is
+# no bound for that sum (it reads 0.0075 at 8 ranks on an H100).  A
+# rank's partial dropped reads ~1/sqrt(M), a replicated kv leaf's gradient
+# from one rank ~1 - 1/M, summed M times M - 1.
+TP_LIMIT = MODEL_LIMIT
+
+
+class SequentialModelAxis:
+    """A stand-in for ``parallel.tensor.ModelAxis`` that runs the ranks of a
+    model axis in turn in one process, on one autograd graph: ``copy`` and
+    ``reduce`` are the identity (the caller adds the ranks' partials where
+    ``reduce`` would, and autograd sums the gradients of what each rank read
+    where ``copy``'s all-reduce would); ``gather_leaf`` concatenates every
+    rank's shard of the leaf (views of one tensor).  A sum mid-pass
+    (``all_sum``) cannot run in turn: the SSD mixer's share is composed by
+    ``tp_layer_sum`` instead.  Planted faults of the gradients' collectives:
+    ``unsummed`` (ids of replicated leaves whose partial gradients a rank
+    other than 0 does not send: not summed over the axis), ``summed_m``
+    (ids of leaves whose gradient reaches them M times over: summed over the
+    axis once too often)."""
+
+    def __init__(self, size: int, rank: int, shards: dict, unsummed=(), summed_m=()):
+        self.size, self.rank, self.shards = size, rank, shards
+        self.unsummed, self.summed_m = set(unsummed), set(summed_m)
+        self.active, self.launches = True, 0
+
+    def block(self, n: int):
+        b = n // self.size
+        return self.rank * b, (self.rank + 1) * b
+
+    def copy(self, x):
+        if id(x) in self.unsummed and self.rank > 0:
+            return x.detach()
+        return _scaled_grad(x, self.size) if id(x) in self.summed_m else x
+
+    def reduce(self, x):
+        return x
+
+    def gather_leaf(self, x, dim: int):
+        import torch
+        parts, td = self.shards[id(x)]
+        if td != dim:
+            raise AssertionError(f"gather_leaf on dim {dim} of a leaf split on {td}")
+        return torch.cat(parts, dim)
+
+    def _in_one_pass(self, *a, **kw):
+        raise AssertionError("the ranks run in turn: no collective can run mid-pass")
+    all_sum = gather_last = max = gather = _in_one_pass
+
+
+def _scaled_grad(x, k: int):
+    """x, whose gradient is multiplied by ``k`` on its way back."""
+    import torch
+
+    class Scaled(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * k
+    return Scaled.apply(x)
+
+
+def tp_layer_leaves(cfg, kinds, seed: int) -> dict:
+    """{block: {leaf: tensor}} of one full-width layer from ``seed``, bf16
+    (the router and the SSM's conv, decay, skip and norm leaves f32), each a
+    leaf that keeps its gradient."""
+    import torch
+    from repro_torch.models import transformer as tf
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    (lp,) = tf._init_stack(cfg.replace(n_layers=1), torch.bfloat16, gen, torch.device("cuda"),
+                           cross=False)
+    out = {"attn": lp["mixer"]} if "attn" in kinds else {"ssm": lp["mixer"]}
+    if "mlp" in kinds or "moe" in kinds:
+        out["mlp" if "mlp" in kinds else "moe"] = lp["ffn"]
+
+    def leaf(t):
+        return {k: leaf(v) for k, v in t.items()} if isinstance(t, dict) else \
+            t[0].clone().requires_grad_()
+    return {k: leaf(v) for k, v in out.items()}
+
+
+def tp_shares(kind: str, full: dict, size: int, **faults) -> list:
+    """[(this rank's leaves, its ``SequentialModelAxis``)] of one block:
+    each leaf split on its TP dim by the sharding rules at ``size`` (views
+    of the whole leaf), or the whole leaf where it is replicated over the
+    axis.  ``faults`` name leaves of ``full`` for the stand-in's faults."""
+    from repro_torch.parallel import sharding as sh
+    prefix = {"attn": "mixer/", "ssm": "mixer/", "mlp": "ffn/", "moe": "ffn/"}[kind]
+    split, shards = {}, {}
+    for name, t in full.items():
+        td = sh.tp_dim(prefix + name, tuple(t.shape), size)
+        if td is not None:
+            split[name] = t.chunk(size, td)
+            for part in split[name]:
+                shards[id(part)] = (split[name], td)
+    ids = {k: [id(full[n]) for n in v] for k, v in faults.items()}
+    return [({n: split[n][r] if n in split else t for n, t in full.items()},
+             SequentialModelAxis(size, r, shards, **ids)) for r in range(size)]
+
+
+def tp_block(kind: str, cfg, p, h, tp=None):
+    """One block of the layer on its input h [B,S,D]: whole, or (attention
+    and the MLP, given ``tp``) one rank's share."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import mlp_apply
+    import torch
+    if kind == "attn":
+        prefix = cfg.frontend.n_tokens if cfg.family == "vlm" else 0
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        return attn.attention(p, h, positions, cfg, causal=True, window=cfg.sliding_window,
+                              prefix_len=prefix, tp=tp)
+    if kind == "mlp":
+        return mlp_apply(p, h, cfg.mlp_act, tp=tp)
+    if kind == "moe":
+        return moe_mod.moe_apply(p, h, cfg)[0]
+    return ssm_mod.ssm_apply(p, h, cfg)
+
+
+def tp_layer_sum(kind: str, cfg, shares: list, h, drop=None):
+    """The block's output as the model axis computes it, from every rank's
+    share run in turn: the partials summed where ``reduce`` would sum them
+    (rank ``drop``'s left out: a planted fault).  The replicated parts run
+    once, as one rank runs them: MoE's routing (``moe_route``, over the
+    router gathered); the SSD mixer's sum of squares of the gated norm,
+    whose all-reduce sits mid-pass, is summed over the ranks' shares
+    between ``ssm_gated`` and ``gated_norm_out`` (``ssm_apply``'s own
+    composition)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.parallel import sharding as sh
+    keep = [r for r in range(len(shares)) if r != drop]
+    tp0, d = shares[0][1], cfg.d_model
+    if kind == "attn":
+        split = sh.model_dim("wq", (d, cfg.n_heads, cfg.resolved_head_dim), tp0) == 1
+    elif kind == "mlp":
+        split = sh.model_dim("w_gate", (d, cfg.d_ff), tp0) is not None
+    else:
+        split = moe_mod.expert_parallel(cfg, tp0) if kind == "moe" else \
+            ssm_mod.shard_mixer(shares[0][0], cfg, tp0)[1]
+    if not split:  # a block that runs replicated has no partials to sum
+        raise AssertionError(f"{cfg.name} {kind}: does not split over {tp0.size} ranks")
+    if kind in ("attn", "mlp"):
+        return torch.stack([tp_block(kind, cfg, shares[r][0], h, shares[r][1])
+                            for r in keep]).sum(0)
+    if kind == "moe":
+        route, _ = moe_mod.moe_route(shares[0][0], h, cfg, tp=shares[0][1])
+        parts = [moe_mod.moe_experts(shares[r][0], h, route, cfg, shares[r][1]) for r in keep]
+        return torch.stack(parts).sum(0).to(h.dtype)
+    mixed = [ssm_mod.shard_mixer(p, cfg, tp)[0] for p, tp in shares]
+    vs = [ssm_mod.ssm_gated(p, h, cfg) for p in mixed]
+    ss = torch.stack([v.square().sum(-1, keepdim=True) for v in vs]).sum(0)
+    d_inner = ssm_mod.ssm_dims(cfg)[0]
+    return torch.stack([ssm_mod.gated_norm_out(mixed[r], vs[r], ss, d_inner, cfg.norm_eps,
+                                               h.dtype) for r in keep]).sum(0)
+
+
+def tp_grads(out, g, h, full: dict) -> dict:
+    """{"out", "dx", leaf: gradient} of one run, the leaves' and h's
+    gradients cleared after."""
+    out.backward(g)
+    res = {"out": out.detach(), "dx": h.grad.clone()}
+    res.update({k: t.grad.clone() for k, t in full.items()})
+    h.grad = None
+    for t in full.values():
+        t.grad = None
+    return res
+
+
+def tp_rel_rms(got: dict, want: dict) -> dict:
+    return {k: ((got[k].float() - w.float()).pow(2).mean().sqrt()
+                / w.float().pow(2).mean().sqrt().clamp(min=1e-30)).item()
+            for k, w in want.items()}
+
+
+def tp_local_kernels(kernels: list) -> None:
+    """The kernels at the shares' local shapes, each held to its plain
+    version with the planted faults of its kernel phase and timed beside
+    its bound, the plain version and SDPA: flash forward and backward at
+    danube's (B=1, 4 heads on 1 kv head, dh 120), granite's (B=2, 2 on 1,
+    dh 64) and paligemma's (B=1, 1 on 1, dh 256); the SSD scan and its
+    backward at mamba2-370m's (B=1, 4 heads on 1 group)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as tssd
+    from repro_torch.kernels import ssd_scan_bwd as tssdb
+    for name, (b, h, kv, dh), seed in (("danube", (1, 4, 1, 120), 61),
+                                       ("granite", (MOE_TRAIN_BATCH, 2, 1, 64), 63),
+                                       ("paligemma", (1, 1, 1, 256), 65)):
+        kernels[0].setdefault("tp_local", {})[name] = flash_at(
+            f"[tp flash {name}]", b, TRAIN_SEQ, h, kv, dh, seed)
+        kernels[1].setdefault("tp_local", {})[name] = flash_bwd_at(
+            f"[tp flash bwd {name}]", b, TRAIN_SEQ, h, kv, dh, seed + 1)
+    b, s, h, p, g, n, chunk = 1, TRAIN_SEQ, 32 // TP_SIZE, 64, 1, 128, 64
+    shape = f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"
+    x, dt, a, bm, cm, _ = ssd_inputs(b, s, h, p, g, n, seed=67)
+    y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
+    err, ratio = hold_ssd(f"[tp ssd] {shape}", *tssd.ssd_scan(x, dt, a, bm, cm, chunk),
+                          y_w, st_w)
+    at = s // chunk // 2
+    ctrl = control(f"[tp ssd] control: plain with the state entering chunk {at} dropped",
+                   ssd_drop_entering_state(x, dt, a, bm, cm, chunk, at)[0], y_w,
+                   ratio_fn=ref.ssd_tolerance_ratio)
+    t = timings(lambda: tssd.ssd_scan(x, dt, a, bm, cm, chunk),
+                lambda: ref.ssd_chunked(x, dt, a, bm, cm, chunk), None, 12)
+    t.update(bound(*ssd_fwd_bound(b, s, h, p, g, n, chunk), PEAK_TF32_FLOPS))
+    log(f"[tp ssd] {t['ms']:.4f} ms kernel (device {t['device_ms']}), {t['plain_ms']:.3f} ms "
+        f"plain; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    kernels[3]["tp_local"] = {"mamba": {"shape": shape, "max_abs_err": err,
+                                        "tolerance_ratio": ratio, "control_ratio": ctrl, **t}}
+    gen = torch.Generator(device="cuda").manual_seed(68)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    dst = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    got = tssdb.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy, dst)
+    want = ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst)
+    err, ratio = hold_ssd_bwd(f"[tp ssd bwd] {shape}", got, want)
+    keep = ref.SSD_GRAD_KEEP
+    ctrl = control(f"[tp ssd bwd] control: plain with dB from one head of each group of {h}, "
+                   f"on db", ssd_bwd_one_head_per_group(x, dt, a, bm, cm, chunk, dy, dst,
+                                                        None)[3], want[3],
+                   ratio_fn=lambda f, w: ref.ssd_grad_tolerance_ratio(f, w, keep["db"]))
+    del got, want
+    t = timings(lambda: tssdb.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy, dst),
+                lambda: ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst), None, 12)
+    t.update(bound(*ssd_bwd_bound(b, s, h, p, g, n, chunk, False), PEAK_TF32_FLOPS))
+    log(f"[tp ssd bwd] {t['ms']:.4f} ms kernel (device {t['device_ms']}), {t['plain_ms']:.3f} "
+        f"ms plain; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    kernels[4]["tp_local"] = {"mamba": {"shape": shape, "max_abs_err": err,
+                                        "tolerance_ratio": ratio, "control_ratio": ctrl, **t}}
+
+
+def phase_tp_shares(kernels: list) -> dict:
+    """Phase 27 (b): for each layer of ``TP_LAYERS`` at full width, the whole
+    layer's blocks (forward and backward, through the kernels) against the
+    sum of the TP_SIZE ranks' shares run in turn at their local shapes
+    through the same kernels (``tp_layer_sum``), every kernel launch of the
+    shares held to its plain version (``checked_train_ops``); the output,
+    the input's and every leaf's gradient to TP_LIMIT; the planted faults
+    (a rank's partial dropped; paligemma's replicated kv leaves' gradients
+    not summed over the axis, and summed M times) must exceed it.  Then the
+    kernels at the local shapes, timed (``tp_local_kernels``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    out = {"tp_size": TP_SIZE, "tp_launches": dict(NO_LAUNCHES), "tp_layers": {}}
+    for arch, kinds, b in TP_LAYERS:
+        cfg = get_config(arch)
+        leaves_by_block = tp_layer_leaves(cfg, kinds, seed=27)
+        for kind in kinds:
+            full = leaves_by_block[kind]
+            gen = torch.Generator(device="cuda").manual_seed(271)
+            h = torch.randn((b, TRAIN_SEQ, cfg.d_model), generator=gen, device="cuda",
+                            dtype=torch.bfloat16).requires_grad_()
+            g = torch.randn((b, TRAIN_SEQ, cfg.d_model), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            whole = tp_grads(tp_block(kind, cfg, full, h), g, h, full)
+            fwd, bwd, sfwd, sbwd = [], [], [], []
+            ops.reset_launch_counts()
+            with checked_train_ops(fwd, bwd, sfwd, sbwd):
+                shared = tp_grads(tp_layer_sum(kind, cfg, tp_shares(kind, full, TP_SIZE), h),
+                                  g, h, full)
+            counts = ops.launch_counts()
+            out["tp_launches"] = {k: out["tp_launches"][k] + v for k, v in counts.items()}
+            rel = tp_rel_rms(shared, whole)
+            del shared
+            faults = {f"rank {TP_SIZE - 1}'s partial dropped": dict(drop=TP_SIZE - 1)}
+            replicated = [n for n in ("wk", "wv") if kind == "attn"
+                          and cfg.n_kv_heads % TP_SIZE and n in full]
+            if replicated:
+                faults["the replicated wk/wv's gradients not summed over the axis"] = dict(
+                    faults=dict(unsummed=replicated))
+                faults["the replicated wk/wv's gradients summed M times"] = dict(
+                    faults=dict(summed_m=replicated))
+            ctrl = {}
+            for label, f in faults.items():
+                run = tp_layer_sum(kind, cfg, tp_shares(kind, full, TP_SIZE, **f.get("faults", {})),
+                                   h, drop=f.get("drop"))
+                ctrl[label] = max(tp_rel_rms(tp_grads(run, g, h, full), whole).values())
+            checks = {"flash forward o (scaled)": max((r[0] for r in fwd), default=None),
+                      "flash backward head RMS": max((r[0] for r in bwd), default=None),
+                      "ssd forward": max(sfwd, default=None),
+                      "ssd backward (scaled)": max((r[0] for r in sbwd), default=None)}
+            worst = max(rel, key=rel.get)
+            tag = f"[tp] {cfg.name} {kind}"
+            log(f"{tag}: {TP_SIZE} ranks' shares summed against the whole layer at B={b} "
+                f"S={TRAIN_SEQ}: relative RMS worst {rel[worst]:.3g} ({worst}; out "
+                f"{rel['out']:.3g}, dx {rel['dx']:.3g}; limit {TP_LIMIT:.4g}); launches {counts}; "
+                f"each launch against its plain version: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in checks.items() if v is not None)
+                + "; controls: " + ", ".join(f"{k} {v:.3g}" for k, v in ctrl.items()))
+            want_launches = {**NO_LAUNCHES, **({"flash_attention": TP_SIZE,
+                                                "flash_attention_bwd": TP_SIZE}
+                                               if kind == "attn" else {}),
+                             **({"ssd_scan": TP_SIZE, "ssd_scan_bwd": TP_SIZE}
+                                if kind == "ssm" else {})}
+            kernel_ok = all(v is None or v <= (ref.HEAD_RMS_LIMIT if "head" in k else 1)
+                            for k, v in checks.items())
+            if not (rel[worst] <= TP_LIMIT and min(ctrl.values()) > TP_LIMIT
+                    and counts == want_launches and kernel_ok):
+                raise AssertionError(f"{tag}: shares {rel}, controls {ctrl}, launches {counts} "
+                                     f"(want {want_launches}), kernels {checks}")
+            out["tp_layers"][f"{cfg.name} {kind}"] = {
+                "batch": b, "rel_rms": rel, "controls": ctrl, "launches": counts,
+                "kernel_ratios": checks}
+            del full, h, g, whole
+        del leaves_by_block
+        torch.cuda.empty_cache()
+    tp_local_kernels(kernels)
+    out["tp_s"] = time.perf_counter() - t0
+    log(f"[tp] phase 27 (b) ok in {out['tp_s']:.1f} s; launches at the local shapes "
+        f"{out['tp_launches']}")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_steps(steps: list):
+    """Every train step made inside, by the phases and by
+    ``launch.train.main`` alike, appended to ``steps``."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as st
+    make = st.make_train_step
+
+    def recording(*a, **kw):
+        steps.append(make(*a, **kw))
+        return steps[-1]
+    st.make_train_step = launch_train.make_train_step = recording
+    try:
+        yield
+    finally:
+        st.make_train_step = launch_train.make_train_step = make
+
+
+def phase_tp_at_one(runs: dict, steps: list) -> dict:
+    """Phase 27 (a): the training phases ran through the model axis's code
+    at model size 1.  Each step's launches a step were held to the same
+    counts as before it in its phase; here every step made had a model axis
+    of one that launched no collective, and each phase's launches a step and
+    step time are printed for the parent's to be read beside them."""
+    axes = [(s.model.size, s.model.launches) for s in steps]
+    for tag, r in runs.items():
+        log(f"[tp at 1] {tag}: launches a step {r['launches']}, step {r['step_ms']:.1f} ms")
+    log(f"[tp at 1] {len(steps)} train steps made: model-axis sizes {sorted({a for a, _ in axes})},"
+        f" model-axis collectives launched {sum(n for _, n in axes)}")
+    if not steps or any(a != 1 or n for a, n in axes):
+        raise AssertionError(f"phase 27 (a): model axes {axes}")
+    return {"tp_at_one_steps": len(steps), "tp_at_one_collectives": 0,
+            "tp_at_one_runs": runs}
+
 
 def run() -> int:
     import torch
@@ -3036,18 +3435,29 @@ def run() -> int:
         torch.cuda.empty_cache()
     log(f"[serve] ok; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
-    tr = phase_train()
-    moe_tr = {f"moe_{k}": v for k, v in
-              phase_train(MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, tag="moe train").items()}
-    gemma_tr = {f"gemma_{k}": v for k, v in
-                phase_train(GEMMA_ARCH, 1, tag="gemma train", n_layers=GEMMA_TRAIN_LAYERS).items()}
-    ssm_tr = {f"mamba_{k}": v for k, v in phase_train(SSM_TRAIN_ARCH, 1, tag="mamba train").items()}
-    n_patches = get_config(VLM_ARCH).frontend.n_tokens
-    vlm_tr = {f"paligemma_{k}": v for k, v in
-              phase_train(VLM_ARCH, 1, tag="paligemma train", seq=TRAIN_SEQ - n_patches).items()}
-    audio_tr = {f"seamless_{k}": v for k, v in
-                phase_train(AUDIO_ARCH, AUDIO_TRAIN_BATCH, tag="seamless train").items()}
-    rest = phase_rest_of_training(tr)
+    steps = []
+    with recorded_steps(steps):
+        tr = phase_train()
+        moe_tr = {f"moe_{k}": v for k, v in
+                  phase_train(MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, tag="moe train").items()}
+        gemma_tr = {f"gemma_{k}": v for k, v in phase_train(
+            GEMMA_ARCH, 1, tag="gemma train", n_layers=GEMMA_TRAIN_LAYERS).items()}
+        ssm_tr = {f"mamba_{k}": v for k, v in
+                  phase_train(SSM_TRAIN_ARCH, 1, tag="mamba train").items()}
+        n_patches = get_config(VLM_ARCH).frontend.n_tokens
+        vlm_tr = {f"paligemma_{k}": v for k, v in phase_train(
+            VLM_ARCH, 1, tag="paligemma train", seq=TRAIN_SEQ - n_patches).items()}
+        audio_tr = {f"seamless_{k}": v for k, v in
+                    phase_train(AUDIO_ARCH, AUDIO_TRAIN_BATCH, tag="seamless train").items()}
+        rest = phase_rest_of_training(tr)
+    # phase 27: (a) the training phases above at model size 1; (b) the shares
+    # of a model axis of TP_SIZE at full width
+    at_one = phase_tp_at_one({
+        f"{r[p + 'train_arch']} train{' (remat dots)' if p == 'dots_' else ''}": {
+            "launches": r[p + "train_launches_per_step"], "step_ms": r[p + "train_step_ms"]}
+        for p, r in (("", tr), ("moe_", moe_tr), ("gemma_", gemma_tr), ("mamba_", ssm_tr),
+                     ("paligemma_", vlm_tr), ("seamless_", audio_tr), ("dots_", rest))}, steps)
+    tp = {**at_one, **phase_tp_shares(kernels)}
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -3105,6 +3515,10 @@ def run() -> int:
                                       ckpt_train: rest["ckpt_launches"]["ssd_scan"]}
     kernels[4]["launches_by_path"] = {ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
                                       ckpt_train: rest["ckpt_launches"]["ssd_scan_bwd"]}
+    tp_path = f"phase 27 shares of {TP_SIZE} model ranks, four full-width layers"
+    for kernel, launches in zip(kernels, tp["tp_launches"].values()):
+        if launches:
+            kernel["launches_by_path"][tp_path] = launches
     kernels[4].update(launches=ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
                       launches_per_step=ssm_tr["mamba_train_launches_per_step"]["ssd_scan_bwd"])
     kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
@@ -3113,7 +3527,7 @@ def run() -> int:
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
                     **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
                     **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
-                    **ssm_tr, **vlm_tr, **audio_tr, **rest, "card": smi}))
+                    **ssm_tr, **vlm_tr, **audio_tr, **rest, **tp, "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -93,19 +93,22 @@ def to_numpy(params) -> dict:
     return out
 
 
-def shards_from_numpy(tree: dict, index: int, n_rails: int, device, dtype=None) -> dict:
+def shards_from_numpy(tree: dict, index: int, n_rails: int, device, dtype=None, *,
+                      model_index: int = 0, model_size: int = 1) -> dict:
     """Global {path: array} (e.g. the JAX package's ``init_lm``) -> the port's
-    stored FSDP shards of rail rank ``index`` of ``n_rails`` (flat index,
-    major axis first), by the port's sharding rules (``model_size=1``).
-    ``to_numpy`` of the gathered parameters gives the global arrays back."""
+    stored shards of rail rank ``index`` of ``n_rails`` (flat index, major
+    axis first) and model rank ``model_index`` of ``model_size``, by the
+    port's sharding rules.  ``to_numpy`` of the gathered parameters gives
+    the global arrays back."""
     out = {}
     for path, arr in tree.items():
         arr = np.asarray(arr)
         stacked = path.startswith("layers") or "/layers/" in path
-        _, fd, _ = sharding.leaf_spec(path, arr.shape, n_rails=n_rails, rail_axes=("data",),
-                                      model_size=1, stacked=stacked)
-        if fd is not None and n_rails > 1:
-            size = arr.shape[fd] // n_rails
-            arr = np.take(arr, np.arange(index * size, (index + 1) * size), axis=fd)
+        _, fd, td = sharding.leaf_spec(path, arr.shape, n_rails=n_rails, rail_axes=("data",),
+                                       model_size=model_size, stacked=stacked)
+        for dim, i, n in ((td, model_index, model_size), (fd, index, n_rails)):
+            if dim is not None and n > 1:
+                size = arr.shape[dim] // n
+                arr = np.take(arr, np.arange(i * size, (i + 1) * size), axis=dim)
         out[path] = arr
     return from_numpy(out, device, dtype)

@@ -1,14 +1,15 @@
 """End-to-end training with a restart on another mesh (twin of
-``examples/train_end_to_end.py``): phase 1 trains on mesh 4x1 and
-checkpoints; phase 2 restores that checkpoint re-sharded onto 2x2x1 (pod,
-data, model: hierarchical FSDP over two pods) and trains on to the end.
+``examples/train_end_to_end.py``): phase 1 trains on mesh 4x2 (data 4,
+model 2) and checkpoints; phase 2 restores that checkpoint re-sharded onto
+2x2x2 (pod, data, model: hierarchical FSDP over two pods, tensor and expert
+parallelism over two) and trains on to the end.
 
     PYTHONPATH=src python -m repro_torch.launch.end_to_end --tiny --device cpu
-    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.end_to_end --tiny \
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.end_to_end --tiny \
         --device cpu --ckpt ck
 
-Without ``torchrun`` it spawns four ranks itself, which meet on a free
-localhost port (gloo with ``--device cpu``, else NCCL on four cards).
+Without ``torchrun`` it spawns eight ranks itself, which meet on a free
+localhost port (gloo with ``--device cpu``, else NCCL on eight cards).
 ``--tiny`` runs yi-9b's smoke configuration at S=64 for at most 40 steps;
 without it, granite-moe-1b-a400m's smoke configuration at S=256.  The
 checkpoint goes to ``--ckpt`` (required under ``torchrun``), by default a
@@ -27,7 +28,7 @@ import torch.multiprocessing as mp
 
 from repro_torch.launch.train import main as train_main
 
-WORLD = 4
+WORLD = 8
 
 
 def phases(steps: int, tiny: bool, ckpt: str, device: str):
@@ -39,19 +40,19 @@ def phases(steps: int, tiny: bool, ckpt: str, device: str):
         arch = ["--arch", "granite_moe_1b_a400m", "--smoke", "--seq", "256", "--batch", "16"]
     half = steps // 2
     common = arch + ["--lr", "1e-3", "--ckpt", ckpt, "--device", device]
-    return (common + ["--steps", str(half), "--mesh", "4x1", "--ckpt-every", str(half)],
-            common + ["--steps", str(steps), "--mesh", "2x2x1", "--resume"])
+    return (common + ["--steps", str(half), "--mesh", "4x2", "--ckpt-every", str(half)],
+            common + ["--steps", str(steps), "--mesh", "2x2x2", "--resume"])
 
 
 def run(first, second) -> float:
     """Both phases in this rank; returns the final loss."""
     rank0 = int(os.environ["RANK"]) == 0
     if rank0:
-        print(f"=== phase 1: {first[first.index('--steps') + 1]} steps on mesh 4x1 "
+        print(f"=== phase 1: {first[first.index('--steps') + 1]} steps on mesh 4x2 "
               f"(checkpoint at end) ===", flush=True)
     train_main(first)
     if rank0:
-        print("=== phase 2: simulate node loss -> elastic restart on 2x2x1 ===", flush=True)
+        print("=== phase 2: simulate node loss -> elastic restart on 2x2x2 ===", flush=True)
     loss = train_main(second)
     if rank0:
         print(f"trained {second[second.index('--steps') + 1]} steps across a mesh change; "

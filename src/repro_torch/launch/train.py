@@ -1,15 +1,16 @@
-"""Training driver: FSDP (or HSDP) over photonic rails (or EPS) with
-synthetic data, checkpointing and restart on another mesh.
+"""Training driver: FSDP (or HSDP) over photonic rails (or EPS), tensor and
+expert parallelism over the model axis, with synthetic data, checkpointing
+and restart on another mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi_9b --smoke \
         --device cpu --steps 4 --mesh 1x1 --batch 8 --seq 32 --ckpt ck --ckpt-every 2
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch yi_9b --smoke --device cpu --mesh 2x2x1 --batch 8 --seq 32 \
+        --arch yi_9b --smoke --device cpu --mesh 2x1x2 --batch 8 --seq 32 \
         --hsdp --compress --ckpt ck --resume
 
 Port of ``repro.launch.train``.  ``--mesh`` is DxM or PxDxM (pod, data,
-model) as there; the port has no tensor parallelism, so M must be 1, and the
-product is the world size.  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
+model) as there, and the product is the world size; M > 1 is the model axis
+of tensor and expert parallelism.  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
 set) it joins that group; otherwise it forms a group of one process itself.
 Runs on CUDA with NCCL unless ``--device cpu`` is given (gloo); if CUDA is
 asked for and absent it raises rather than running on the CPU.
@@ -49,15 +50,12 @@ UNPORTED_FLAGS = {
 
 
 def parse_mesh(s: str) -> dict:
-    """"DxM" or "PxDxM" -> {axis: size} of the rail axes; M must be 1."""
+    """"DxM" or "PxDxM" -> {axis: size}, the mesh's dims in order (pod,
+    data, model)."""
     dims = tuple(int(x) for x in s.lower().split("x"))
-    if len(dims) not in (2, 3):
+    if len(dims) not in (2, 3) or min(dims) < 1:
         raise ValueError(f"--mesh {s}: DxM or PxDxM")
-    if dims[-1] != 1:
-        raise ValueError(f"--mesh {s}: the port has no tensor parallelism (model axis "
-                         f"{dims[-1]}); it waits for ROADMAP.md, Queue 1 item 4: tensor "
-                         f"parallelism")
-    return dict(zip(("data",) if len(dims) == 2 else ("pod", "data"), dims[:-1]))
+    return dict(zip(("data", "model") if len(dims) == 2 else ("pod", "data", "model"), dims))
 
 
 def init_distributed(device: torch.device) -> None:
@@ -131,7 +129,7 @@ def main(argv=None):
 
     def save(n: int):
         ckpt.save(args.ckpt, params, opt, ef, fd_tree=step_fn.fd_tree, fabric=step_fn.fabric,
-                  extra={"step": n})
+                  td_tree=step_fn.td_tree, model=step_fn.model, extra={"step": n})
 
     t0 = time.time()
     m = None

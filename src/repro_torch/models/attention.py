@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import rope_apply
+from repro_torch.parallel import sharding as sh
 
 # sequences at or above this length take the flash path (never materialises
 # [Sq,Sk]); below it the plain sdpa runs
@@ -76,7 +77,7 @@ def make_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
 
 def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
               window: Optional[int] = None, context=None, mask=None,
-              prefix_len: int = 0):
+              prefix_len: int = 0, tp=None):
     """Full-sequence attention (train, prefill, encoder, cross-attention).
 
     x [B,S,D]; context [B,Sk,D] for cross-attention (no rope, no mask: the
@@ -84,11 +85,19 @@ def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
     mask: optional explicit [.,.,Sq,Sk] bool mask (forces sdpa).
     prefix_len: prefix-LM semantics, composed as causal flash over the whole
     sequence plus a small full sdpa over the prefix block.
+    tp: the model axis (``parallel.tensor.ModelAxis``); ``p`` then holds this
+    rank's shards of the leaves (``shard_heads``).
     """
+    if tp is not None and tp.active:
+        p, x, context, reduce = shard_heads(p, x, context, cfg, tp)
+        out = attention(p, x, positions, cfg, causal=causal, window=window, context=context,
+                        mask=mask, prefix_len=prefix_len)
+        return reduce(out)
     src = context if context is not None else x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    n_heads = q.shape[2]
     if context is None:  # rope only for self-attention
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
@@ -97,13 +106,13 @@ def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
         out = ops.mha(q, k, v, causal=True, window=window)
         if prefix_len:
             pre = sdpa(q[:, :prefix_len],
-                       _repeat_kv(k[:, :prefix_len], cfg.n_heads),
-                       _repeat_kv(v[:, :prefix_len], cfg.n_heads))
+                       _repeat_kv(k[:, :prefix_len], n_heads),
+                       _repeat_kv(v[:, :prefix_len], n_heads))
             out = torch.cat([pre.to(out.dtype), out[:, prefix_len:]], dim=1)
         return torch.einsum("bqhd,hdk->bqk", out, p["wo"])
 
-    k = _repeat_kv(k, cfg.n_heads)
-    v = _repeat_kv(v, cfg.n_heads)
+    k = _repeat_kv(k, n_heads)
+    v = _repeat_kv(v, n_heads)
     if mask is None and context is None and (causal or window is not None):
         sq, sk = x.shape[1], src.shape[1]
         mask = make_mask(sq, sk, causal=causal, window=window, device=x.device)
@@ -113,6 +122,43 @@ def attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
             mask = mask | ((qi < prefix_len) & (ki < prefix_len))[None, None]
     out = sdpa(q, k, v, mask=mask)
     return torch.einsum("bqhd,hdk->bqk", out, p["wo"])
+
+
+def shard_heads(p, x, context, cfg: ModelConfig, tp):
+    """(leaves, x, context, reduce) of this rank's share of an attention
+    block on the model axis ``tp``, whose leaves ``p`` are this rank's
+    shards by the sharding rules.
+
+    Where the query heads split over the axis (wq on its heads, wo on its
+    rows), x and the context enter through ``copy``, the rank runs its H/M
+    heads and the partial output leaves through ``reduce``.  Its kv heads
+    are its shard of wk/wv where the kv heads split too; otherwise wk/wv are
+    replicated (Megatron-style KV replication) and the rank takes the kv
+    heads its query heads read, through ``copy``, so that their partial
+    gradients are summed over the axis.  Where the heads do not split (wq
+    and wo fall back to the head dim, which cannot be partitioned) the
+    leaves are gathered (``gather_leaf``) and the block runs replicated.
+    """
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if sh.model_dim("wq", (d, h, dh), tp) != 1:
+        full = dict(p)
+        for name, shape in (("wq", (d, h, dh)), ("wo", (h, dh, d))):
+            td = sh.model_dim(name, shape, tp)
+            if td is not None:
+                full[name] = tp.gather_leaf(p[name], td)
+        return full, x, context, lambda out: out
+    hl = h // tp.size
+    local = dict(p)
+    if sh.model_dim("wk", (d, kv, dh), tp) is None:
+        rep = h // kv
+        first, last = tp.rank * hl // rep, ((tp.rank + 1) * hl - 1) // rep
+        if hl % rep == 0 or rep % hl == 0:  # a contiguous run of kv heads, each read alike
+            heads = slice(first, last + 1)
+        else:  # a kv head for each query head
+            heads = torch.arange(tp.rank * hl, (tp.rank + 1) * hl, device=x.device) // rep
+        for name in ("wk", "wv"):
+            local[name] = tp.copy(p[name])[:, heads]
+    return (local, tp.copy(x), None if context is None else tp.copy(context), tp.reduce)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device="cuda"):

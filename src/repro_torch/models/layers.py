@@ -80,8 +80,15 @@ def rope_apply(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def mlp_apply(p, x, act: str = "swiglu"):
-    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU."""
+def mlp_apply(p, x, act: str = "swiglu", tp=None):
+    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU.
+
+    With a model axis ``tp``, ``p`` holds this rank's d_ff shard (w_gate and
+    w_up column-parallel, w_down row-parallel): x enters through ``copy``
+    and the partial output leaves through ``reduce``.
+    """
+    if tp is not None:
+        return tp.reduce(mlp_apply(p, tp.copy(x), act))
     g = torch.einsum("...d,df->...f", x, p["w_gate"])
     u = torch.einsum("...d,df->...f", x, p["w_up"])
     if act == "geglu":
@@ -91,11 +98,15 @@ def mlp_apply(p, x, act: str = "swiglu"):
     return torch.einsum("...f,fd->...d", g * u, p["w_down"])
 
 
-def cross_entropy(logits, targets, vocab_size: int, z_loss: float = 1e-4):
+def cross_entropy(logits, targets, vocab_size: int, z_loss: float = 1e-4, tp=None):
     """Token CE with padded-vocab masking and z-loss, in f32.  logits [..., Vp].
 
     Returns (mean of ce + z_loss * lse^2, mean ce), as the JAX package does.
+    With a model axis ``tp`` the logits are this rank's vocab slice
+    (``vocab_parallel_cross_entropy``).
     """
+    if tp is not None:
+        return vocab_parallel_cross_entropy(logits, targets, vocab_size, z_loss, tp)
     lg = logits.to(torch.float32)
     vp = lg.shape[-1]
     if vp > vocab_size:
@@ -104,5 +115,29 @@ def cross_entropy(logits, targets, vocab_size: int, z_loss: float = 1e-4):
         lg = lg + neg
     lse = torch.logsumexp(lg, dim=-1)
     gold = lg.gather(-1, targets[..., None].long())[..., 0]
+    ce = lse - gold
+    return (ce + z_loss * lse.square()).mean(), ce.mean()
+
+
+def vocab_parallel_cross_entropy(logits, targets, vocab_size: int, z_loss: float, tp):
+    """``cross_entropy`` over logits [..., Vp / M] of this rank's vocab slice
+    (rows ``tp.block(Vp)``): the max (outside the gradient), the sum of
+    exps and the target's logit are summed over the model axis, whose ranks
+    then hold the same loss.  The padded-vocab mask sits at each rank's
+    offset.  Each rank's logits get their own slice of the gradient, so the
+    sums leave through ``reduce``."""
+    lg = logits.to(torch.float32)
+    vl = lg.shape[-1]
+    lo, hi = tp.block(vl * tp.size)
+    if hi > vocab_size:
+        neg = torch.zeros((vl,), dtype=torch.float32, device=lg.device)
+        neg[max(vocab_size - lo, 0):] = -1e9
+        lg = lg + neg
+    m = tp.max(lg.detach().amax(-1))
+    lse = torch.log(tp.reduce(torch.exp(lg - m[..., None]).sum(-1))) + m
+    t = targets.long() - lo
+    mine = (t >= 0) & (t < vl)
+    gold = lg.gather(-1, t.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(mine, gold, torch.zeros_like(gold)))
     ce = lse - gold
     return (ce + z_loss * lse.square()).mean(), ce.mean()

@@ -14,8 +14,15 @@ over K in f32.
 
 The router is a softmax over E in f32, top-k, with the gates renormalised
 over the chosen experts; shared experts always run.  A Switch-style
-load-balance loss is returned beside the output.  Expert parallelism is not
-ported (no model path of the JAX package passes its ``ep_axis``).
+load-balance loss is returned beside the output.
+
+Expert parallelism (EP) on a model axis: the routed experts are sharded on
+their expert dim and the router on its expert columns.  The tokens are
+replicated over the axis, so the router's leaf is gathered and the routing
+and its aux loss run on every rank as at one rank; each rank dispatches only
+the choices routed to its E/M experts, and the partial combine leaves
+through ``reduce``.  No all-to-all is needed (the JAX package's manual
+``ep_axis`` all-to-all is on no model path).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import mlp_apply, stacked_init
+from repro_torch.parallel import sharding as sh
 
 
 def moe_capacity(moe: MoEConfig, tokens_per_group: int) -> int:
@@ -152,23 +160,65 @@ def gather_combine(buf, idx, pos, fits, gates):
     return (rows.reshape(g, t, k, d).to(torch.float32) * w).sum(2)
 
 
-def moe_apply(p, x, cfg: ModelConfig, *,
-              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN.  x [G,T,D] grouped tokens -> (y [G,T,D], aux loss, a scalar)."""
+def expert_parallel(cfg: ModelConfig, tp) -> bool:
+    """Whether the routed experts split over the model axis ``tp`` (EP)."""
     moe = cfg.moe
-    g, t, d = x.shape
-    capacity = moe_capacity(moe, t)
-    logits = torch.einsum("gtd,de->gte", x.to(torch.float32), p["router"].to(torch.float32))
+    de = moe.d_expert if moe.d_expert is not None else cfg.d_ff
+    return sh.model_dim("ffn/w_gate", (moe.n_experts, cfg.d_model, de), tp) is not None
+
+
+def moe_route(p, x, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None, tp=None):
+    """The routing of x [G,T,D]: ((gates, idx, pos, fits) [G,T,K], aux loss).
+    On a model axis it runs replicated, over the router's leaf gathered
+    where it splits (``gather_leaf``: each rank's gradient of it is whole)."""
+    moe = cfg.moe
+    router = p["router"]
+    if sh.model_dim("ffn/router", (cfg.d_model, moe.n_experts), tp) is not None:
+        router = tp.gather_leaf(router, 1)
+    logits = torch.einsum("gtd,de->gte", x.to(torch.float32), router.to(torch.float32))
     gates, idx, probs = router_topk(logits, moe, generator)
     aux = load_balance_loss(probs, idx, moe)
     pos = choice_positions(idx, moe.n_experts)
-    fits = pos < capacity
+    return (gates, idx, pos, pos < moe_capacity(moe, x.shape[1])), aux
 
-    buf = scatter_dispatch(x, idx, pos, fits, moe.n_experts, capacity)
-    ebuf = buf.transpose(0, 1).reshape(moe.n_experts, g * capacity, d)
+
+def moe_experts(p, x, route, cfg: ModelConfig, tp=None):
+    """The routed experts' combine y [G,T,D] in f32 for the routing
+    ``route``.  Under EP (``tp``) ``p`` holds this rank's E/M experts: the
+    rank dispatches only the choices routed to them (the others do not fit
+    here), x and the gates enter through ``copy`` and y is partial."""
+    gates, idx, pos, fits = route
+    g, t, d = x.shape
+    n_local, capacity = cfg.moe.n_experts, moe_capacity(cfg.moe, t)
+    if tp is not None:
+        lo, hi = tp.block(n_local)
+        n_local, x, gates = hi - lo, tp.copy(x), tp.copy(gates)
+        fits = fits & (idx >= lo) & (idx < hi)
+        idx = (idx - lo).clamp(0, n_local - 1)
+    buf = scatter_dispatch(x, idx, pos, fits, n_local, capacity)
+    ebuf = buf.transpose(0, 1).reshape(n_local, g * capacity, d)
     h = _expert_ffn(p, ebuf, cfg.mlp_act)
-    h = h.reshape(moe.n_experts, g, capacity, d).transpose(0, 1)  # [G,E,C,D]
-    y = gather_combine(h, idx, pos, fits, gates).to(x.dtype)
+    h = h.reshape(n_local, g, capacity, d).transpose(0, 1)  # [G,E,C,D]
+    return gather_combine(h, idx, pos, fits, gates)
+
+
+def moe_apply(p, x, cfg: ModelConfig, *,
+              generator: Optional[torch.Generator] = None,
+              tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN.  x [G,T,D] grouped tokens -> (y [G,T,D], aux loss, a scalar).
+
+    tp: the model axis; ``p`` then holds this rank's shards of the leaves.
+    """
+    moe = cfg.moe
+    route, aux = moe_route(p, x, cfg, generator=generator, tp=tp)
+    if expert_parallel(cfg, tp):
+        y = tp.reduce(moe_experts(p, x, route, cfg, tp))
+    else:
+        y = moe_experts(p, x, route, cfg)
+    y = y.to(x.dtype)
     if moe.n_shared_experts:
-        y = y + mlp_apply(p["shared"], x, cfg.mlp_act)
+        de = moe.d_expert if moe.d_expert is not None else cfg.d_ff
+        split = sh.model_dim("ffn/shared/w_gate", (cfg.d_model, de * moe.n_shared_experts),
+                             tp) is not None
+        y = y + mlp_apply(p["shared"], x, cfg.mlp_act, tp=tp if split else None)
     return y, aux

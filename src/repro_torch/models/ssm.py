@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.parallel import sharding as sh
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -84,14 +85,18 @@ def _causal_conv(xbc, conv_w, conv_b):
     return F.silu(out + conv_b[None, None, :])
 
 
-def ssm_apply(p, x, cfg: ModelConfig, *, h_init=None):
-    """Full-sequence Mamba-2 block (prefill). x [B,S,D] -> [B,S,D]."""
+def ssm_gated(p, x, cfg: ModelConfig, *, h_init=None):
+    """The block up to its gated norm: y * silu(z) [B,S,d_inner] in f32, of
+    the heads that ``p`` holds (all of them, or one rank's share from
+    ``shard_mixer``: their count is a_log's, their groups' w_in's)."""
     s_cfg = cfg.ssm
-    d_inner, h, pdim, n = ssm_dims(cfg)
-    g = s_cfg.n_groups
+    pdim, n = s_cfg.head_dim, s_cfg.state_dim
+    h = p["a_log"].shape[-1]
+    d_inner = h * pdim
+    g = (p["w_in"].shape[-1] - 2 * d_inner - h) // (2 * n)
     f32 = torch.float32
     proj = torch.einsum("bsd,de->bse", x, p["w_in"])
-    z, xbc, dt = _split_proj(proj, cfg)
+    z, xbc, dt = torch.split(proj, [d_inner, d_inner + 2 * g * n, h], dim=-1)
     xbc = _causal_conv(xbc.to(f32), p["conv_w"], p["conv_b"])
     xin, b_mat, c_mat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
     bsz, s, _ = x.shape
@@ -105,8 +110,88 @@ def ssm_apply(p, x, cfg: ModelConfig, *, h_init=None):
     y, _ = ops.ssd(xin, dt, a, b_mat, c_mat, s_cfg.chunk_size, h_init=h_init)
     y = y + p["d_skip"][None, None, :, None] * xin
     y = y.reshape(bsz, s, d_inner)
-    y = rms_norm(y * F.silu(z.to(f32)), p["norm_w"], cfg.norm_eps)
+    return y * F.silu(z.to(f32))
+
+
+def gated_norm_out(p, v, sum_sq, n: int, eps: float, dtype):
+    """The gated RMSNorm of v = y * silu(z) over the whole d_inner (``n``),
+    from its sum of squares ``sum_sq`` [B,S,1] over all of it, then w_out
+    (this rank's rows of it): [B,S,D], partial where v is a share."""
+    y = v * torch.rsqrt(sum_sq / n + eps)
+    y = y * (1.0 + p["norm_w"].to(torch.float32))
+    return torch.einsum("bse,ed->bsd", y.to(dtype), p["w_out"])
+
+
+def ssm_apply(p, x, cfg: ModelConfig, *, h_init=None, tp=None):
+    """Full-sequence Mamba-2 block (prefill). x [B,S,D] -> [B,S,D].
+
+    tp: the model axis; ``p`` then holds this rank's shards of the leaves
+    and the rank runs its share of the SSD heads (``shard_mixer``).  The
+    gated norm's sum of squares is summed over the axis (``all_sum``) and
+    the partial output leaves through ``reduce``."""
+    if tp is not None and tp.active:
+        p, split = shard_mixer(p, cfg, tp)
+        if not split:
+            return ssm_apply(p, x, cfg, h_init=h_init)
+        v = ssm_gated(p, tp.copy(x), cfg, h_init=h_init)
+        ss = tp.all_sum(v.square().sum(-1, keepdim=True))
+        return tp.reduce(gated_norm_out(p, v, ss, ssm_dims(cfg)[0], cfg.norm_eps, x.dtype))
+    v = ssm_gated(p, x, cfg, h_init=h_init)
+    y = rms_norm(v, p["norm_w"], cfg.norm_eps)
     return torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"])
+
+
+def mixer_columns(cfg: ModelConfig, size: int, rank: int, device=None) -> dict:
+    """The columns of w_in and of the conv channels (w and b), and the rows
+    of d_inner (norm_w), that rank ``rank`` of ``size`` reads when the SSD
+    heads split over a model axis: its z, x and dt columns and the B/C
+    columns of the groups its heads read ({leaf: index tensor})."""
+    d_inner, h, pdim, n = ssm_dims(cfg)
+    g = cfg.ssm.n_groups
+    hl, hpg = h // size, h // g
+    if not (hl % hpg == 0 or hpg % hl == 0):
+        raise NotImplementedError(f"{cfg.name}: {hl} SSD heads a rank over groups of {hpg}")
+    g0, g1 = rank * hl // hpg, ((rank + 1) * hl - 1) // hpg + 1
+    ar = lambda lo, hi: torch.arange(lo, hi, device=device)  # noqa: E731
+    rows = ar(rank * hl * pdim, (rank + 1) * hl * pdim)
+    bc = ar(g0 * n, g1 * n)
+    conv = torch.cat([rows, d_inner + bc, d_inner + g * n + bc])
+    return {"w_in": torch.cat([rows, d_inner + conv, 2 * d_inner + 2 * g * n
+                               + ar(rank * hl, (rank + 1) * hl)]),
+            "conv_w": conv, "conv_b": conv, "norm_w": rows}
+
+
+def shard_mixer(p, cfg: ModelConfig, tp):
+    """(leaves, split) of this rank's share of a Mamba-2 block on the model
+    axis ``tp``, whose leaves ``p`` are this rank's shards.
+
+    Where the SSD heads split (a_log, dt_bias, d_skip on their heads, w_out
+    on its rows), the rank keeps those shards.  w_in and conv_w are stored
+    in even column blocks that do not line up with the [z | x | B | C | dt]
+    segments, so they are gathered over the axis (``gather_leaf``) and the
+    rank takes its z, x and dt columns and the B/C columns of its heads'
+    groups (``mixer_columns``), as it does of the replicated conv_b and
+    norm_w; each of these enters through ``copy``, so that the partial
+    gradients of the columns several ranks read are summed over the axis.
+    Where the heads do not split, every sharded leaf is gathered and the
+    block runs replicated (split False)."""
+    d, (d_inner, h, _, n) = cfg.d_model, ssm_dims(cfg)
+    conv_ch = d_inner + 2 * cfg.ssm.n_groups * n
+    shapes = {"w_in": (d, 2 * d_inner + 2 * cfg.ssm.n_groups * n + h),
+              "conv_w": (cfg.ssm.conv_width, conv_ch), "conv_b": (conv_ch,),
+              "w_out": (d_inner, d), "norm_w": (d_inner,), "a_log": (h,), "dt_bias": (h,),
+              "d_skip": (h,)}
+    split = sh.model_dim("a_log", (h,), tp) == 0
+    out = dict(p)
+    cols = mixer_columns(cfg, tp.size, tp.rank, p["w_in"].device) if split else {}
+    for name, shape in shapes.items():
+        td = sh.model_dim(name, shape, tp)
+        if name in cols:
+            leaf = p[name] if td is None else tp.gather_leaf(p[name], td)
+            out[name] = tp.copy(leaf).index_select(leaf.dim() - 1, cols[name])
+        elif td is not None and not split:
+            out[name] = tp.gather_leaf(p[name], td)
+    return out, split
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,13 @@ With ``remat="full"`` the body runs under ``torch.utils.checkpoint``, so the
 backward gathers again, as the JAX package's scan under ``jax.checkpoint``
 does; ``remat="dots"`` keeps the outputs of the products without batch
 dimensions as well (``save_dots``).
+
+``tp`` is the model axis (``parallel.tensor.ModelAxis``, tensor and expert
+parallelism): the parameters the layers see are then this rank's shards by
+the sharding rules, and each layer runs its share (``attention.shard_heads``,
+``ssm.shard_mixer``, ``moe_apply``'s experts, the MLP's d_ff); the embedding
+and the logits are vocab-parallel.  Without it (or at size 1) every layer
+runs whole.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (cross_entropy, dense_init, mlp_apply, padded_vocab,
                                        rms_norm, rms_norm_init, stacked_init)
+from repro_torch.parallel import sharding as sh
 
 ParamFn = Optional[Callable[[Any], Any]]
 
@@ -179,27 +187,28 @@ def _period(tree, p: int):
 
 
 def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
-                    mask=None, enc_out=None, prefix_len: int = 0):
+                    mask=None, enc_out=None, prefix_len: int = 0, tp=None):
     """One layer; a layer with a ``cross`` block attends to ``enc_out``
     after its self-attention.  Returns (x, the MoE layer's aux loss, or None)."""
     kind, ffn = spec
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind == "attn":
         h = attn.attention(lp["mixer"], h, positions, cfg, causal=causal,
-                           window=cfg.sliding_window, mask=mask, prefix_len=prefix_len)
+                           window=cfg.sliding_window, mask=mask, prefix_len=prefix_len, tp=tp)
     else:
-        h = ssm_mod.ssm_apply(lp["mixer"], h, cfg)
+        h = ssm_mod.ssm_apply(lp["mixer"], h, cfg, tp=tp)
     x = x + h
     if "cross" in lp:
         h = rms_norm(x, lp["norm_x"], cfg.norm_eps)
-        x = x + attn.attention(lp["cross"], h, positions, cfg, context=enc_out)
+        x = x + attn.attention(lp["cross"], h, positions, cfg, context=enc_out, tp=tp)
     aux = None
     if ffn is not None:
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
         if ffn == "moe":
-            h, aux = moe_mod.moe_apply(lp["ffn"], h, cfg)
+            h, aux = moe_mod.moe_apply(lp["ffn"], h, cfg, tp=tp)
         else:
-            h = mlp_apply(lp["ffn"], h, cfg.mlp_act)
+            split = sh.model_dim("w_gate", (cfg.d_model, cfg.d_ff), tp) is not None
+            h = mlp_apply(lp["ffn"], h, cfg.mlp_act, tp=tp if split else None)
         x = x + h
     return x, aux
 
@@ -230,7 +239,7 @@ def _dots_contexts():
 
 def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
                 mask=None, enc_out=None, prefix_len: int = 0,
-                layer_param_fn: ParamFn = None):
+                layer_param_fn: ParamFn = None, tp=None):
     """Run the period stack over x [B,S,D].  Returns (x, the sum of the MoE
     layers' aux losses over periods and positions).
 
@@ -239,7 +248,7 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
     ``cfg.remat``: "none" keeps every activation for the backward; "full"
     keeps each period's input only and runs the body again in the backward;
     "dots" keeps the outputs of the products without batch dims besides
-    (``save_dots``) and recomputes the rest.
+    (``save_dots``) and recomputes the rest.  ``tp``: the model axis.
     """
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
@@ -250,7 +259,7 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
         auxs = []
         for pos, spec in enumerate(specs):
             h, a = _apply_sublayer(pp[pos], h, positions, cfg, spec, causal=causal, mask=mask,
-                                   enc_out=enc_out, prefix_len=prefix_len)
+                                   enc_out=enc_out, prefix_len=prefix_len, tp=tp)
             if a is not None:
                 auxs.append(a)
         return h, auxs
@@ -269,39 +278,74 @@ def stack_apply(layers, x, positions, cfg: ModelConfig, *, causal: bool = True,
     return x, total
 
 
-def unembed(params, x, cfg: ModelConfig):
-    """Logits of final hidden states x [..., D] -> [..., padded vocab]."""
+def vocab_axis(cfg: ModelConfig, tp):
+    """``tp`` where the vocab splits over it (embed on its rows, unembed on
+    its columns), else None."""
+    split = sh.model_dim("embed", (padded_vocab(cfg), cfg.d_model), tp) is not None
+    return tp if split else None
+
+
+def embed_lookup(params, tokens, cfg: ModelConfig, tp=None):
+    """The token embeddings [..., D]; over a vocab split by the model axis,
+    each rank looks up the tokens of its rows (the others read 0) and the
+    sum leaves through ``reduce``."""
+    tp = vocab_axis(cfg, tp)
+    if tp is None:
+        return params["embed"][tokens]
+    table = params["embed"]
+    lo, hi = tp.block(table.shape[0] * tp.size)
+    mine = (tokens >= lo) & (tokens < hi)
+    x = table[(tokens - lo).clamp(0, hi - lo - 1)]
+    return tp.reduce(torch.where(mine[..., None], x, torch.zeros_like(x)))
+
+
+def unembed(params, x, cfg: ModelConfig, tp=None):
+    """Logits of final hidden states x [..., D] -> [..., padded vocab]; over
+    a vocab split by the model axis ``tp``, this rank's slice of them (x
+    enters through ``copy``)."""
+    tp = vocab_axis(cfg, tp)
+    if tp is not None:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         return torch.einsum("...d,vd->...v", x, params["embed"])
     return torch.einsum("...d,dv->...v", x, params["unembed"])
 
 
-def _prefix_inputs(params, batch, cfg: ModelConfig):
+def frontend(params, feats, cfg: ModelConfig, dtype, tp=None):
+    """A frontend's features [B,T,d_embed] (patches or frames), cast to
+    ``dtype`` and projected to [B,T,D]; where ``frontend_proj``'s output
+    columns split over the model axis, each rank projects its columns and
+    they are gathered (``gather_last``)."""
+    x = torch.einsum("bte,ed->btd", feats.to(dtype), params["frontend_proj"])
+    split = sh.model_dim("frontend_proj", (cfg.frontend.d_embed, cfg.d_model), tp) is not None
+    return tp.gather_last(x) if split else x
+
+
+def _prefix_inputs(params, batch, cfg: ModelConfig, tp=None):
     """The input embeddings [B,S_total,D] and the prefix length: a VLM's
     patches [B,T,d_embed], cast to the embeddings' dtype and projected, in
     front of the text's."""
-    x = params["embed"][batch["tokens"]]
+    x = embed_lookup(params, batch["tokens"], cfg, tp)
     if cfg.family != "vlm":
         return x, 0
-    pre = torch.einsum("bte,ed->btd", batch["patches"].to(x.dtype), params["frontend_proj"])
+    pre = frontend(params, batch["patches"], cfg, x.dtype, tp)
     return torch.cat([pre, x], dim=1), pre.shape[1]
 
 
-def encode(params, frames, cfg: ModelConfig, *, layer_param_fn: ParamFn = None):
+def encode(params, frames, cfg: ModelConfig, *, layer_param_fn: ParamFn = None, tp=None):
     """The audio encoder over stubbed frame embeddings [B,T,d_embed]:
     projected, non-causal layers, final norm -> [B,T,D]."""
     ecfg = _enc_cfg(cfg.encoder, cfg)
-    x = torch.einsum("bte,ed->btd", frames.to(getattr(torch, cfg.dtype)),
-                     params["frontend_proj"])
+    x = frontend(params, frames, cfg, getattr(torch, cfg.dtype), tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _ = stack_apply(params["encoder"]["layers"], x, positions, ecfg, causal=False,
-                       layer_param_fn=layer_param_fn)
+                       layer_param_fn=layer_param_fn, tp=tp)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
 def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
                hidden: bool = False, layer_param_fn: ParamFn = None,
-               layer_param_fn_enc: ParamFn = None):
+               layer_param_fn_enc: ParamFn = None, tp=None):
     """Teacher-forced forward.  Returns (logits, moe_aux) like the JAX package.
 
     batch: {"tokens" [B,S]}, with "patches" (vlm) or "frames" (audio).
@@ -311,30 +355,34 @@ def lm_forward(params, batch, cfg: ModelConfig, *, last_only: bool = False,
     for a caller that applies ``unembed`` to a few positions at a time.
     layer_param_fn, layer_param_fn_enc: see ``stack_apply``, for the decoder's
     and the encoder's stack.
+    tp: the model axis; the logits are then this rank's vocab slice where
+    the vocab splits over it (``vocab_axis``).
     """
     _check_family(cfg)
     enc_out = None
     if cfg.family == "audio":
-        enc_out = encode(params, batch["frames"], cfg, layer_param_fn=layer_param_fn_enc)
-    x, n_prefix = _prefix_inputs(params, batch, cfg)
+        enc_out = encode(params, batch["frames"], cfg, layer_param_fn=layer_param_fn_enc, tp=tp)
+    x, n_prefix = _prefix_inputs(params, batch, cfg, tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = stack_apply(params["layers"], x, positions, cfg, causal=True, enc_out=enc_out,
-                         prefix_len=n_prefix, layer_param_fn=layer_param_fn)
+                         prefix_len=n_prefix, layer_param_fn=layer_param_fn, tp=tp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
-    out = x if hidden else unembed(params, x, cfg)
+    out = x if hidden else unembed(params, x, cfg, tp)
     return out, aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, layer_param_fn: ParamFn = None,
-            layer_param_fn_enc: ParamFn = None, aux_weight: float = 0.01):
-    """(loss, {"ce", "moe_aux"}) for a teacher-forced batch with "targets"."""
+            layer_param_fn_enc: ParamFn = None, aux_weight: float = 0.01, tp=None):
+    """(loss, {"ce", "moe_aux"}) for a teacher-forced batch with "targets";
+    over a model axis ``tp`` the cross-entropy is vocab-parallel, and every
+    rank of the axis holds the same loss."""
     logits, aux = lm_forward(params, batch, cfg, layer_param_fn=layer_param_fn,
-                             layer_param_fn_enc=layer_param_fn_enc)
-    loss, ce = cross_entropy(logits, batch["targets"], cfg.vocab_size)
+                             layer_param_fn_enc=layer_param_fn_enc, tp=tp)
+    loss, ce = cross_entropy(logits, batch["targets"], cfg.vocab_size, tp=vocab_axis(cfg, tp))
     return loss + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 

@@ -1,12 +1,13 @@
-"""Per-leaf FSDP sharding rules (port of the rules in ``repro.parallel.sharding``).
+"""Per-leaf sharding rules (port of the rules in ``repro.parallel.sharding``).
 
 Each parameter leaf is stored FSDP-sharded over the rail axes along its
-largest rail-divisible dim, excluding its TP dim; stacked layer leaves carry
-a leading [n_periods] dim that is never sharded.  The port has no tensor
-parallelism: callers pass ``model_size=1``, which still names a TP dim for
-each rule (every size divides 1) and keeps it out of FSDP, so on a mesh
-whose ``model`` axis is larger the JAX package may pick other FSDP dims.
-Parity with it is held on gathered, global tensors, never on shards.
+largest rail-divisible dim, excluding its TP dim, and sharded over the
+scale-up ``model`` axis along its TP dim: the first candidate of its rule
+that the model size divides, else it is replicated over ``model``.  Stacked
+layer leaves carry a leading [n_periods] dim that is never sharded.  The
+train step passes the mesh's real model size, so every leaf gets the JAX
+package's (spec, FSDP dim, TP dim); ``parallel.tensor`` and the layers do
+the model axis's compute.
 """
 from __future__ import annotations
 
@@ -106,3 +107,13 @@ def _walk(params, fn, _path=()):
     pstr = _path_str(_path)
     stacked = pstr.startswith("layers") or "/layers/" in pstr
     return fn(pstr, params, stacked)
+
+
+def model_dim(pstr: str, shape, tp) -> Optional[int]:
+    """The TP dim of an unstacked leaf of GLOBAL ``shape`` on the model axis
+    ``tp`` (a ``parallel.tensor.ModelAxis``, or None); None where the axis
+    partitions nothing or the leaf is replicated over it.  The layers ask
+    this to know what their leaves hold."""
+    if tp is None or tp.size == 1:
+        return None
+    return tp_dim(pstr, shape, tp.size)

@@ -10,11 +10,12 @@ bf16 widened to f32 (lossless); and ``manifest.json``:
 leaf's own (``bfloat16`` for a widened leaf), and leaves are listed in the
 JAX flattening order (dict keys sorted).
 
-``restore`` shards every global array for this rank by the FSDP dims of the
-TARGET setup and mesh, which may differ from those it was saved under
-(elastic reshard: ("data",) of 4 -> ("pod", "data") of 2 x 2, FSDP <->
-HSDP).  Writes go to ``<dir>.tmp`` and then ``os.replace``, so a crash
-mid-save never corrupts the previous checkpoint.
+``restore`` shards every global array for this rank by the FSDP and TP dims
+of the TARGET setup and mesh, which may differ from those it was saved under
+(elastic reshard: ("data", "model") of 4 x 2 -> ("pod", "data", "model") of
+2 x 2 x 2, FSDP <-> HSDP, a model axis of another size).  Writes go to
+``<dir>.tmp`` and then ``os.replace``, so a crash mid-save never corrupts the
+previous checkpoint.
 """
 from __future__ import annotations
 
@@ -66,10 +67,13 @@ def manifest_records(params, opt, ef):
     return [(name, key, leaf) for name in _TREES for key, leaf in _keyed(trees[name])]
 
 
-def save(ckpt_dir: str, params, opt, ef, *, fd_tree, fabric, extra: Optional[Dict] = None):
+def save(ckpt_dir: str, params, opt, ef, *, fd_tree, fabric, td_tree=None, model=None,
+         extra: Optional[Dict] = None):
     """Write the global arrays of this rank's stored shards (parameters,
     AdamW moments, error feedback: ``fd_tree`` and ``fabric`` are the train
-    step's).  Every rank gathers each leaf in turn (a collective); rank 0
+    step's, and on a model axis its ``td_tree`` and ``model`` too).  Every
+    rank gathers each leaf in turn over the rails and the model axis (a
+    collective); rank 0
     writes it, so no rank holds more than one global leaf at a time.  Under
     HSDP each pod has its own ``ef``: pod 0's is written, as the reference
     writes the one replica its ``device_get`` reads."""
@@ -80,12 +84,14 @@ def save(ckpt_dir: str, params, opt, ef, *, fd_tree, fabric, extra: Optional[Dic
             shutil.rmtree(tmp)
         os.makedirs(tmp)
     fds = dict(_keyed(fd_tree))
+    tds = dict(_keyed(td_tree)) if td_tree is not None else {}
     manifest: Dict[str, Any] = {"leaves": [], "extra": extra or {}}
     for name, key, leaf in manifest_records(params, opt, ef):
         if isinstance(leaf, int):  # the optimizer's step
             arr, dtype = np.asarray(leaf, dtype=np.int32), "int32"
         else:
-            full = st.gather_tree(leaf, fds[key[5:] if name == "opt" else key], fabric)
+            pkey = key[5:] if name == "opt" else key
+            full = st.gather_tree(leaf, fds[pkey], fabric, tds.get(pkey), model)
             dtype = str(full.dtype).removeprefix("torch.")
             arr = full.detach().to("cpu", torch.float32 if full.dtype == torch.bfloat16
                                    else full.dtype).numpy() if rank0 else None
@@ -118,22 +124,29 @@ def restore(ckpt_dir: str, setup: st.TrainSetup, mesh, params_tpl, device
         manifest = json.load(f)
     recs = {(r["tree"], r["key"]): r for r in manifest["leaves"]}
     fab = st.fabric_of(setup, mesh)
-    fd_tree, _ = st.meta_trees(params_tpl, rails=fab.axes, n_rails=fab.n_shards)
-    fds = dict(_keyed(fd_tree))
+    model = st.ModelAxis.from_mesh(mesh)
+    fd_tree, td_tree = st.meta_trees(params_tpl, rails=fab.axes, n_rails=fab.n_shards,
+                                     model_size=st.model_size_of(mesh))
+    fds, tds = dict(_keyed(fd_tree)), dict(_keyed(td_tree))
     index, n = fab.axis_index(), fab.n_shards
 
-    def load(tree: str, key: str, fd) -> torch.Tensor:
+    def block(arr, dim, i: int, k: int):
+        size = arr.shape[dim] // k
+        return arr[(slice(None),) * dim + (slice(i * size, (i + 1) * size),)]
+
+    def load(tree: str, key: str, fd, td) -> torch.Tensor:
         rec = recs[(tree, key)]
         arr = np.load(os.path.join(ckpt_dir, rec["file"]), mmap_mode="r")
+        if td is not None and model.active:
+            arr = block(arr, td, model.rank, model.size)
         if fd is not None and n > 1:
-            size = arr.shape[fd] // n
-            arr = arr[(slice(None),) * fd + (slice(index * size, (index + 1) * size),)]
+            arr = block(arr, fd, index, n)
         return torch.from_numpy(np.array(arr)).to(device).to(getattr(torch, rec["dtype"]))
 
     keys = _keystr_tree(params_tpl)
 
     def place(tree: str, prefix: str = ""):
-        return tree_map(lambda k: load(tree, prefix + k, fds[k]), keys)
+        return tree_map(lambda k: load(tree, prefix + k, fds[k], tds[k]), keys)
 
     params = place("params")
     opt = {"m": place("opt", "['m']"), "v": place("opt", "['v']"),

@@ -19,12 +19,19 @@ the pods after the data reduce-scatter: a ring AllReduce on a fabric of the
 pod axis, or, with ``compress_pod_grads``, an int8 exchange with error
 feedback (``compressed_pod_allreduce``).
 
+Tensor and expert parallelism: a ``model`` dim of the mesh (the scale-up
+domain, native collectives, never the rails) shards each leaf along its TP
+dim as well (``parallel.sharding``), so after the rail gather a rank holds
+its TP shard and the layers run Megatron-style over ``parallel.tensor``'s
+conjugate functions.  The ranks of one model group take the same batch
+slice and hold the same loss.
+
 Each rank differentiates its LOCAL loss / n_dp: no collective other than the
-gathers sits on the differentiated path, so the cross-rank sum happens
-exactly once, in the reduce-scatter (and, under HSDP, the pod sum).
-Gradients of rail-replicated leaves (no rail-divisible dim) are then
-ring-all-reduced.  All sharding metadata is derived once from the GLOBAL
-parameter template, never from local shards.
+gathers and the model axis's conjugates sits on the differentiated path, so
+the cross-rank sum happens exactly once, in the reduce-scatter (and, under
+HSDP, the pod sum).  Gradients of rail-replicated leaves (no rail-divisible
+dim) are then ring-all-reduced.  All sharding metadata is derived once from
+the GLOBAL parameter template, never from local shards.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.fabric import Fabric
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.tensor import ModelAxis
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 from repro_torch.tree import leaves, tree_map
 
@@ -65,7 +73,12 @@ def dp_axes_of(mesh) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
 
 
-def meta_trees(params_tpl, *, rails, n_rails: int, model_size: int = 1):
+def model_size_of(mesh) -> int:
+    """The size of the mesh's ``model`` dim; 1 where it has none."""
+    return mesh_axes(mesh).get(sh.MODEL_AXIS, 1)
+
+
+def meta_trees(params_tpl, *, rails, n_rails: int, model_size: int):
     """(fd_tree, td_tree) of per-leaf FSDP/TP dims over the global template."""
     specs = sh._walk(params_tpl, lambda pstr, leaf, st: sh.leaf_spec(
         pstr, leaf.shape, n_rails=n_rails, rail_axes=rails, model_size=model_size,
@@ -101,15 +114,16 @@ def fabric_of(setup: TrainSetup, mesh) -> Fabric:
 
 
 @torch.no_grad()
-def compressed_pod_allreduce(grads, ef, fab: Fabric, pod_fab: Fabric):
+def compressed_pod_allreduce(grads, ef, fab: Fabric, pod_fab: Fabric, model: ModelAxis = None):
     """int8 + error-feedback sum of the gradients over the pods (port of
     ``repro.train.step.compressed_pod_allreduce``); returns the summed
     gradients and updates ``ef`` in place.
 
     Each leaf: x = g + ef; one scale per leaf and pod from the largest |x|
-    over the WHOLE leaf (the reference's data axis stays GSPMD-auto inside
-    its pod-manual ``shard_map``, so its max spans the data shards: here an
-    all-reduce MAX over ``fab``, one for every leaf at once); q = round(x /
+    over the WHOLE leaf (the reference's data and model axes stay
+    GSPMD-auto inside its pod-manual ``shard_map``, so its max spans the
+    data and model shards: here an all-reduce MAX over ``fab`` and
+    ``model``, one for every leaf at once); q = round(x /
     scale) in int8, half to even as ``jnp.round``; q and the scale
     ring-all-gathered over the pods and summed as q * scale; ef = x - q *
     scale.  The wire carries int8, 4x fewer bytes than f32.
@@ -117,6 +131,8 @@ def compressed_pod_allreduce(grads, ef, fab: Fabric, pod_fab: Fabric):
     for g, e in zip(leaves(grads), leaves(ef)):
         e.add_(g)  # x, in place of ef: no f32 copy of the gradients
     amax = fab.pmax(torch.stack([e.abs().max() for e in leaves(ef)]))
+    if model is not None:
+        amax = model.max(amax)
     out = []
     for x, a, g in zip(leaves(ef), amax, leaves(grads)):
         scale = torch.clamp(a, min=1e-12) / 127.0
@@ -129,20 +145,29 @@ def compressed_pod_allreduce(grads, ef, fab: Fabric, pod_fab: Fabric):
     return tree_map(lambda _: next(it), grads)
 
 
-def gather_tree(tree, fd_tree, fab: Fabric):
-    """Stored shards (parameters, gradients, optimizer moments) -> global tensors."""
+def gather_tree(tree, fd_tree, fab: Fabric, td_tree=None, model: ModelAxis = None):
+    """Stored shards (parameters, gradients, optimizer moments) -> global
+    tensors: over the rails, then over the model axis along each leaf's TP
+    dim (``td_tree``)."""
     with torch.no_grad():
-        return _gather_with_meta(tree, fd_tree, fab)
+        tree = _gather_with_meta(tree, fd_tree, fab)
+        if model is None or not model.active:
+            return tree
+        return tree_map(lambda t, td: t if td is None else model.gather(t, td), tree, td_tree)
 
 
-def shard_tree(tree, fd_tree, index: int, n: int):
-    """Global tensors -> this rank's shards (copies, so the globals can go)."""
-    def one(t, fd):
-        if fd is None or n == 1:
-            return t
-        size = t.shape[fd] // n
-        return t.narrow(fd, index * size, size).clone()
-    return tree_map(one, tree, fd_tree)
+def shard_tree(tree, fd_tree, td_tree, index: int, n: int, model: ModelAxis):
+    """Global tensors -> this rank's shards (copies, so the globals can go):
+    its block of each leaf's TP dim on the model axis and of its FSDP dim
+    (rail index ``index`` of ``n``)."""
+    def one(t, fd, td):
+        out = t
+        for dim, i, k in ((td, model.rank, model.size), (fd, index, n)):
+            if dim is not None and k > 1:
+                size = out.shape[dim] // k
+                out = out.narrow(dim, i * size, size)
+        return t if out is t else out.clone()
+    return tree_map(one, tree, fd_tree, td_tree)
 
 
 def _autograd_leaves(stored, gbuf):
@@ -182,21 +207,26 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
     """step(params, opt, ef, batch) -> (params, opt, ef, metrics), updating
     the stored shards and the optimizer state in place.
 
-    ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with dims ("data",) or
-    ("pod", "data"); ``params_tpl`` a tree of the GLOBAL parameters (real or
-    on the meta device), which fixes the sharding metadata once.  The step
-    takes the global batch and trains on this rank's slice of it (flat rail
-    index, major axis first).  ``step.grads_fn(params, batch)`` returns the
-    gradients of the stored shards and the metrics without the update.
+    ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with dims ("data",),
+    ("pod", "data"), ("data", "model") or ("pod", "data", "model") (the
+    order of ``init_device_mesh``); ``params_tpl`` a tree of the GLOBAL
+    parameters (real or on the meta device), which fixes the sharding
+    metadata once.  The step takes the global batch and trains on this
+    rank's slice of it (flat data-parallel index, major axis first; the
+    ranks of one model group take the same slice).
+    ``step.grads_fn(params, batch)`` returns the gradients of the stored
+    shards and the metrics without the update.
     """
     cfg = setup.cfg
     fab = fabric_of(setup, mesh)
+    tp = ModelAxis.from_mesh(mesh)
     # every data-parallel axis: the batch slice and the loss's sum span them
     dp_fab = Fabric.from_mesh(mesh, dp_axes_of(mesh), setup.fabric)
     pod_fab = Fabric.from_mesh(mesh, ("pod",), setup.fabric) \
         if setup.hsdp and "pod" in mesh_axes(mesh) else None
     n_dp = dp_fab.n_shards
-    fd_tree, _ = meta_trees(params_tpl, rails=fab.axes, n_rails=fab.n_shards)
+    fd_tree, td_tree = meta_trees(params_tpl, rails=fab.axes, n_rails=fab.n_shards,
+                                  model_size=model_size_of(mesh))
     fd_top, fd_stacks = _split_stacks(fd_tree)
 
     def gfn(period_params):
@@ -211,7 +241,8 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
         if "encoder" in stacks:
             params["encoder"] = dict(params["encoder"], layers=stacks["encoder"])
         loss, m = tf.lm_loss(params, batch, cfg, layer_param_fn=gfn,
-                             layer_param_fn_enc=gfn_enc if "encoder" in stacks else None)
+                             layer_param_fn_enc=gfn_enc if "encoder" in stacks else None,
+                             tp=tp if tp.active else None)
         return loss / n_dp, m
 
     def local_batch(batch):
@@ -250,17 +281,27 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
         if pod_fab is None:
             return grads, ef
         if setup.compress_pod_grads:
-            return compressed_pod_allreduce(grads, ef, fab, pod_fab), ef
+            return compressed_pod_allreduce(grads, ef, fab, pod_fab, tp), ef
         return tree_map(pod_fab.all_reduce, grads), ef
 
     def global_norm(grads):
         """Squares of the sharded leaves summed over the rails, of the
-        replicated ones counted once (after the pod sync, so pods agree)."""
-        pairs = list(zip(leaves(grads), leaves(fd_tree)))
-        zero = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device)
-        sharded = sum((g.float().square().sum() for g, fd in pairs if fd is not None), zero)
-        replicated = sum((g.float().square().sum() for g, fd in pairs if fd is None), zero)
-        return torch.sqrt(_psum(sharded, fab) + replicated)
+        replicated ones counted once (after the pod sync, so pods agree);
+        on a model axis, of the model-sharded leaves summed over it too."""
+        # (squares, rail-sharded, model-sharded) of each leaf, paired by key
+        parts = leaves(tree_map(lambda g, fd, td: (g.float().square().sum(), fd is not None,
+                                                   td is not None and tp.active),
+                                grads, fd_tree, td_tree))
+        zero = torch.zeros((), dtype=torch.float32, device=parts[0][0].device)
+
+        def total(rails: bool, model: bool):
+            return sum((q for q, r, m in parts if r == rails and m == model), zero)
+        if not tp.active:
+            return torch.sqrt(_psum(total(True, False), fab) + total(False, False))
+        both, model_only = tp.reduce(torch.stack([total(True, True),
+                                                  total(False, True)])).unbind()
+        return torch.sqrt(_psum(both + total(True, False), fab) + model_only
+                          + total(False, False))
 
     def step(params, opt, ef, batch):
         grads, metrics = grads_fn(params, batch)
@@ -272,6 +313,8 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
     step.pod_sync = pod_sync
     step.fabric = fab
     step.fd_tree = fd_tree
+    step.td_tree = td_tree
+    step.model = tp
     return step
 
 
@@ -281,8 +324,10 @@ def init_sharded_state(setup: TrainSetup, mesh, *, seed: int = 0, device="cuda")
     zeros of the same shapes under HSDP with compression, else ``{}``."""
     fab = fabric_of(setup, mesh)
     params = tf.init_lm(setup.cfg, seed=seed, device=device)
-    fd_tree, _ = meta_trees(params, rails=fab.axes, n_rails=fab.n_shards)
-    params = shard_tree(params, fd_tree, fab.axis_index(), fab.n_shards)
+    fd_tree, td_tree = meta_trees(params, rails=fab.axes, n_rails=fab.n_shards,
+                                  model_size=model_size_of(mesh))
+    params = shard_tree(params, fd_tree, td_tree, fab.axis_index(), fab.n_shards,
+                        ModelAxis.from_mesh(mesh))
     return params, adamw_init(params), ef_init(setup, params)
 
 

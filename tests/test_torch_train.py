@@ -109,6 +109,12 @@ def _rank_main(rank, world, store, tmp):
         losses.append(float(m["loss"]))
     out["losses"] = np.array(losses)
     out.update(_exchange_rank())
+    # the driver on a model axis of two: tensor and expert parallelism
+    loss = launch_train.main(["--arch", "yi_9b", "--smoke", "--device", "cpu", "--mesh", "2x2",
+                              "--steps", "2", "--batch", "4", "--seq", "16"])
+    losses = [None] * world
+    dist.all_gather_object(losses, loss)
+    out["main_2x2/losses"] = np.array(losses)
     if rank == 0:
         np.savez(os.path.join(tmp, "out.npz"), **out)
     dist.destroy_process_group()
@@ -531,7 +537,7 @@ def test_train_main_runs_hsdp_with_compression(capsys):
 
 
 @pytest.mark.parametrize("flags,word", [(["--plane-report"], "control plane"),
-                                        (["--mesh", "2x2"], "tensor parallelism"),
+                                        (["--mesh", "2x0"], "DxM or PxDxM"),
                                         (["--mesh", "4x1"], "needs 4 processes"),
                                         (["--ocs-latency", "0.05"], "item 3: control plane")])
 def test_train_main_refuses_unported_options(flags, word, capsys):
@@ -547,8 +553,15 @@ def test_train_main_refuses_unported_options(flags, word, capsys):
         assert not formed
 
 
-def test_unported_setups_raise():
-    """What the port still refuses: a model axis (tensor parallelism)."""
-    for mesh in ("2x2", "1x2x2"):
-        with pytest.raises(ValueError, match="tensor parallelism"):
-            launch_train.parse_mesh(mesh)
+@pytest.mark.parametrize("mesh,axes", [("2x2", {"data": 2, "model": 2}),
+                                       ("1x2x2", {"pod": 1, "data": 2, "model": 2})])
+def test_model_axis_meshes_parse(mesh, axes):
+    """A model axis (tensor and expert parallelism) parses to its dim."""
+    assert launch_train.parse_mesh(mesh) == axes
+
+
+def test_train_main_trains_on_a_model_axis(port):
+    """``launch.train.main --mesh 2x2`` on the four gloo ranks: data 2 x
+    model 2, two steps; every rank reports the same loss."""
+    losses = port["main_2x2/losses"]
+    assert np.isfinite(losses).all() and len(set(losses.tolist())) == 1, losses
