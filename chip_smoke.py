@@ -188,7 +188,34 @@ and the script exits non-zero without printing a result:
     paligemma's replicated wk/wv gradients not summed over the axis, and
     summed 8 times); then each kernel at the local shapes against its plain
     version and timed beside its bound, the plain version and SDPA.  The
-    model axis's collectives themselves run on gloo in the tests.
+    model axis's collectives themselves run on gloo in the tests;
+28. rail-sharded serving: (a) phase 19's driver runs served through a
+    one-rank ``DeviceMesh`` and launched no rail or model-axis collective
+    (the port's fabric and model axis counted) and each step launched the
+    parent's kernels at capacity 32 (none); (b), right after phase 5 on its
+    weights, llama3-8b context-sharded at world size 1 (one shard, offset
+    0), B=1, a 32768-slot cache (4.3 GB of K/V) filled to 32000 slots, 16
+    steps timed: the flash-decode stats variant must launch once a layer a
+    step, each launch of one step is held to the plain stats
+    (``ref.stats_tolerance_ratio``) and the logits to the batch-sharded
+    path's (the decode kernel) on the same cache within MODEL_LIMIT; (c) one
+    full-width llama3-8b attention block over a 32768-slot cache as 8 rail
+    shards of 4096 slots run in turn at positions 20000 (shards 5-7 hold no
+    valid slot) and 32767: each shard's ``context_local_stats`` through the
+    stats kernel, the port's ``merge_decode_stats`` over the stacked shards,
+    held to the plain whole-cache decode by ``ref.tolerance_ratio`` <= 1,
+    with three planted faults that must read > 1 (a shard's stats dropped,
+    the merge without its rescale, every shard placed and written at shard
+    0's offset); (d) one full-width decode layer each of llama3-8b
+    (attention, 4 query heads on 1 kv head a rank, B=8, C=4096, and the
+    MLP), deepseek-moe-16b (MoE, EP), mamba2-370m (the mixer's decode over
+    the conv channels and state of the rank's heads) and paligemma-3b
+    (attention, one query head on the replicated kv head, dh 256) as the
+    shares of 8 model ranks run in turn (``SequentialModelAxis``), summed
+    and held to the whole layer within MODEL_LIMIT, a rank's partial dropped
+    must fail; then the decode kernel at the attention shares' local shapes
+    and the stats variant at (c)'s, timed beside the bound, the plain
+    version and SDPA.
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -256,7 +283,7 @@ FLASH_BF16_MAX_REGISTERS = 240
 # Q's fragments in registers would add 64: the build fails above this count.
 FLASH_BF16_256_MAX_REGISTERS = 200
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
-               "ssd_scan": 0, "ssd_scan_bwd": 0}
+               "decode_attention_stats": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
 FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 # Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
@@ -469,7 +496,8 @@ def shifted_heads_ops():
 def checked_ops(ratios: list):
     """The kernels, with every launch's output held against the plain version
     on the same inputs; each launch appends its tolerance ratio (for the SSD
-    scan the worse of y's and the final state's)."""
+    scan the worse of y's and the final state's, for flash-decode's stats
+    ``ref.stats_tolerance_ratio``: m, l, and acc / l as the output)."""
     from repro_torch.kernels import ops, ref
     mha, dec, ssd = ops.mha, ops.decode_attention, ops.ssd
 
@@ -480,7 +508,9 @@ def checked_ops(ratios: list):
 
     def checked_dec(q, kc, vc, valid, **kw):
         out = dec(q, kc, vc, valid, **kw)
-        ratios.append(ref.tolerance_ratio(out, ref.decode_attention(q, kc, vc, valid, **kw)))
+        want = ref.decode_attention(q, kc, vc, valid, **kw)
+        ratios.append(ref.stats_tolerance_ratio(out, want, q.dtype) if kw.get("return_stats")
+                      else ref.tolerance_ratio(out, want))
         return out
 
     def checked_ssd(*args, **kw):
@@ -3021,22 +3051,32 @@ def tp_layer_leaves(cfg, kinds, seed: int) -> dict:
 
 
 def tp_shares(kind: str, full: dict, size: int, **faults) -> list:
-    """[(this rank's leaves, its ``SequentialModelAxis``)] of one block:
-    each leaf split on its TP dim by the sharding rules at ``size`` (views
-    of the whole leaf), or the whole leaf where it is replicated over the
-    axis.  ``faults`` name leaves of ``full`` for the stand-in's faults."""
+    """[(this rank's leaves, its ``SequentialModelAxis``)] of one block,
+    whose leaves may nest (MoE's shared experts): each leaf split on its TP
+    dim by the sharding rules at ``size`` (views of the whole leaf), or the
+    whole leaf where it is replicated over the axis.  ``faults`` name
+    top-level leaves of ``full`` for the stand-in's faults."""
     from repro_torch.parallel import sharding as sh
     prefix = {"attn": "mixer/", "ssm": "mixer/", "mlp": "ffn/", "moe": "ffn/"}[kind]
     split, shards = {}, {}
-    for name, t in full.items():
-        td = sh.tp_dim(prefix + name, tuple(t.shape), size)
-        if td is not None:
-            split[name] = t.chunk(size, td)
-            for part in split[name]:
-                shards[id(part)] = (split[name], td)
+
+    def walk(tree, path):
+        for name, t in tree.items():
+            if isinstance(t, dict):
+                walk(t, f"{path}{name}/")
+                continue
+            td = sh.tp_dim(path + name, tuple(t.shape), size)
+            if td is not None:
+                split[id(t)] = t.chunk(size, td)
+                for part in split[id(t)]:
+                    shards[id(part)] = (split[id(t)], td)
+    walk(full, prefix)
+
+    def rank(tree, r):
+        return {k: rank(t, r) if isinstance(t, dict) else split[id(t)][r] if id(t) in split
+                else t for k, t in tree.items()}
     ids = {k: [id(full[n]) for n in v] for k, v in faults.items()}
-    return [({n: split[n][r] if n in split else t for n, t in full.items()},
-             SequentialModelAxis(size, r, shards, **ids)) for r in range(size)]
+    return [(rank(full, r), SequentialModelAxis(size, r, shards, **ids)) for r in range(size)]
 
 
 def tp_block(kind: str, cfg, p, h, tp=None):
@@ -3292,6 +3332,446 @@ def phase_tp_at_one(runs: dict, steps: list) -> dict:
             "tp_at_one_runs": runs}
 
 
+# Phase 28: rail-sharded serving.  (b) llama3-8b's context-sharded decode at
+# world size 1 on a CTX_CAP-slot cache filled to CTX_FILL slots (4.3 GB of
+# bf16 K/V), CTX_STEPS steps timed; (c) one attention block's 32768-slot
+# cache as RAIL_SHARDS rail shards run in turn, at RAIL_POSITIONS (at 20000
+# shards 5-7 own no valid slot); (d) one full-width decode layer each as
+# the shares of TP_SIZE model ranks, at B=SERVE_TP_BATCH on a
+# SERVE_TP_CAP-slot cache holding SERVE_TP_POS tokens.
+CTX_CAP, CTX_FILL, CTX_STEPS = 32768, 32000, 16
+RAIL_SHARDS, RAIL_POSITIONS = 8, (20000, 32767)
+SERVE_TP_LAYERS = (("llama3_8b", ("attn", "mlp")), (MOE_ARCH, ("moe",)),
+                   ("mamba2_370m", ("ssm",)), (VLM_ARCH, ("attn",)))
+SERVE_TP_BATCH, SERVE_TP_CAP, SERVE_TP_POS = 8, 4096, 4000
+# the collectives of the port's fabric and model axis, counted in phase 28 (a)
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single", "batch_isend_irecv")
+
+
+class _CountingDist:
+    """``torch.distributed`` with the calls of ``COLLECTIVES`` counted."""
+
+    def __init__(self, real, counts: dict):
+        self._real, self._counts = real, counts
+
+    def __getattr__(self, name):
+        attr = getattr(self._real, name)
+        if name not in COLLECTIVES:
+            return attr
+
+        def counted(*a, **kw):
+            self._counts[name] = self._counts.get(name, 0) + 1
+            return attr(*a, **kw)
+        return counted
+
+
+@contextlib.contextmanager
+def counted_collectives(counts: dict):
+    """Every collective that the rails' ``Fabric`` or the ``ModelAxis``
+    launches inside, counted by name into ``counts``."""
+    from repro_torch import fabric
+    from repro_torch.parallel import tensor
+    saved = fabric.dist, tensor.dist
+    fabric.dist = tensor.dist = _CountingDist(saved[0], counts)
+    try:
+        yield counts
+    finally:
+        fabric.dist, tensor.dist = saved
+
+
+@contextlib.contextmanager
+def recorded_decode_steps(made: list):
+    """Every decode step that ``launch.serve.main`` makes inside, with the
+    type of its mesh, appended to ``made``."""
+    from repro_torch.launch import serve as launch_serve
+    make = launch_serve.make_decode_step
+
+    def recording(setup, mesh, *a, **kw):
+        made.append((type(mesh).__name__, make(setup, mesh, *a, **kw)))
+        return made[-1][1]
+    launch_serve.make_decode_step = recording
+    try:
+        yield
+    finally:
+        launch_serve.make_decode_step = make
+
+
+def phase_serve_at_one(archs, made: list, collectives: dict, launches: dict) -> dict:
+    """Phase 28 (a): phase 19's driver runs served through a one-rank
+    ``DeviceMesh`` (its steps' rail fabric of one shard, no model axis),
+    launched no rail or model-axis collective, and each launched a step what
+    the parent's 1 x 1 path launches at its capacity of 32 slots: nothing
+    (below DECODE_KERNEL_MIN_CAPACITY both take the plain sdpa)."""
+    meshes = sorted({m for m, _ in made})
+    shards = sorted({st.fabric.n_shards for _, st in made})
+    models = sorted({0 if st.model is None else st.model.size for _, st in made})
+    for arch in archs:
+        log(f"[serve at 1] {arch}: launches a step {launches[arch]}")
+    log(f"[serve at 1] {len(made)} decode steps made on {meshes}, rail shards {shards}, model "
+        f"axes {models} (0: none); rail and model-axis collectives launched {collectives}")
+    if (meshes != ["DeviceMesh"] or shards != [1] or models != [0] or collectives
+            or any(v != NO_LAUNCHES for v in launches.values())):
+        raise AssertionError(f"phase 28 (a): meshes {meshes}, shards {shards}, model axes "
+                             f"{models}, collectives {collectives}, launches {launches}")
+    return {"serve_at_one_steps": len(made), "serve_at_one_collectives": 0,
+            "serve_at_one_launches_per_step": launches}
+
+
+class StackedShards:
+    """The rails of context-parallel decode as a leading dim of the stats:
+    ``pmax`` and ``all_reduce`` over dim 0, in place of the fabric's
+    collectives, for shards run in turn on one card."""
+
+    @staticmethod
+    def pmax(x):
+        return x.amax(0, keepdim=True).expand_as(x)
+
+    @staticmethod
+    def all_reduce(x):
+        return x.sum(0, keepdim=True).expand_as(x)
+
+
+def phase_context_decode(cfg, params) -> dict:
+    """Phase 28 (b): llama3-8b at full width and depth, B=1, context-sharded
+    at world size 1 (one rail shard, offset 0) through ``make_decode_step`` on
+    a one-rank ``DeviceMesh``: the stats variant launches once a layer a
+    step, each launch of one step is held to the plain stats, and the logits
+    to the batch-sharded path's (the decode kernel) on the same cache."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serve.step import ServeSetup, init_serve_state, make_decode_step
+    dev, b = torch.device("cuda"), 1
+    t0 = time.perf_counter()
+    launch_train.init_distributed(dev)
+    try:
+        mesh = launch_train.make_mesh({"data": 1, "model": 1}, dev)
+        setup = ServeSetup(cfg=cfg, context_shard=True)
+        state = init_serve_state(setup, mesh, params, b, CTX_CAP)
+        step = make_decode_step(setup, mesh, params, batch=b, capacity=CTX_CAP)
+        kv_gb = sum(c[k].numel() * c[k].element_size() for c in state for k in ("k", "v")) / 1e9
+        fill_cache(state, CTX_FILL, seed=28)
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        for i in range(CTX_STEPS):
+            logits, _ = step(params, state, tok, CTX_FILL + i)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        want = {**NO_LAUNCHES, "decode_attention_stats": cfg.n_layers * CTX_STEPS}
+        if counts != want or not torch.isfinite(logits).all():
+            raise AssertionError(f"context decode: launches {counts}, want {want}")
+        pos = CTX_FILL + CTX_STEPS
+        busy, devk = device_profile(lambda: step(params, state, tok, pos),
+                                    f"context decode one step B={b} cap={CTX_CAP}, {pos + 1} "
+                                    f"filled slots")
+        stats_ms = sum(ms for k, ms in devk.items() if "decode_partial_kernel" in k
+                       or "decode_stats_combine_kernel" in k)
+        ratios = []
+        with checked_ops(ratios):
+            got, _ = step(params, state, tok, pos)
+        batch = make_decode_step(ServeSetup(cfg=cfg), mesh, params, batch=b, capacity=CTX_CAP)
+        ops.reset_launch_counts()
+        ref_logits, _ = batch(params, state, tok, pos)
+        batch_counts = ops.launch_counts()
+        rel = position_rel_rms(got, ref_logits)
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"[serve ctx] {cfg.name} B={b}, context-sharded at world size 1, {CTX_CAP} slots "
+        f"({kv_gb:.2f} GB of K/V) filled to {CTX_FILL}: {CTX_STEPS} steps in "
+        f"{secs * 1e3:.1f} ms, {secs / CTX_STEPS * 1e3:.2f} ms/step; launches {counts}; device "
+        f"busy {busy}, stats kernels {stats_ms:.3f} ms of a step; each stats launch of one step "
+        f"against the plain stats: worst {max(ratios):.3f} of the tolerance over {len(ratios)}; "
+        f"logits against the batch-sharded path's (launches {batch_counts}) on the same cache: "
+        f"worst position's relative RMS {rel:.3g} (limit {MODEL_LIMIT})")
+    if (len(ratios) != cfg.n_layers or not max(ratios) <= 1 or not rel <= MODEL_LIMIT
+            or batch_counts != {**NO_LAUNCHES, "decode_attention": cfg.n_layers}):
+        raise AssertionError(f"context decode: stats ratios {ratios}, logits {rel}, batch-sharded "
+                             f"launches {batch_counts}")
+    return {"ctx_stats_launches": counts["decode_attention_stats"], "ctx_steps": CTX_STEPS,
+            "ctx_ms_per_step": secs / CTX_STEPS * 1e3, "ctx_kv_gb": kv_gb,
+            "ctx_device_busy": busy, "ctx_stats_device_ms_per_step": stats_ms,
+            "ctx_stats_worst_ratio": max(ratios), "ctx_vs_batch_sharded_rel_rms": rel,
+            "ctx_s": time.perf_counter() - t0}
+
+
+def rail_shard_caches(k, v, pos: int, n: int, index_of=lambda i: i) -> list:
+    """The caches of ``n`` rail shards of a whole cache k, v [B,C,KV,dh]
+    holding positions 0 .. pos - 1: each shard's slots placed where
+    ``attention.context_slot`` puts them for shard ``index_of(i)``."""
+    import torch
+    from repro_torch.models import attention as attn
+    b, c, kv, dh = k.shape
+    local, glob = c // n, torch.arange(c, device=k.device)
+    out = []
+    for i in range(n):
+        owned, slot = attn.context_slot(glob, local, index_of(i), n, None)
+        src, dst = glob[owned], slot[owned]
+        sc = {"k": k.new_zeros((b, local, kv, dh)), "v": v.new_zeros((b, local, kv, dh)),
+              "slot_pos": torch.full((local,), -1, dtype=torch.int32, device=k.device)}
+        sc["k"][:, dst], sc["v"][:, dst] = k[:, src], v[:, src]
+        sc["slot_pos"][dst] = torch.where(src < pos, src, -1).to(torch.int32)
+        out.append(sc)
+    return out
+
+
+def phase_rail_shards(cfg, params) -> dict:
+    """Phase 28 (c): one full-width llama3-8b attention block (layer 0 of
+    phase 4's weights) at B=1 over a CTX_CAP-slot cache as RAIL_SHARDS
+    shards, run in turn: each shard's ``context_local_stats`` through the
+    stats kernel (every launch held to the plain stats), the port's
+    ``merge_decode_stats`` over the stacked shards (``StackedShards`` for
+    pmax and all_reduce), held to the plain whole-cache decode by
+    ``ref.tolerance_ratio``; three planted faults must read > 1."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    p = tf._period(params["layers"][0], 0)["mixer"]
+    b, n, c = 1, RAIL_SHARDS, CTX_CAP
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(280)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, c, kv, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, c, kv, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for pos in RAIL_POSITIONS:
+        tag = f"[serve rails] pos {pos}"
+        with torch.no_grad():
+            q, k_new, v_new = attn.decode_qkv(p, x, pos, cfg)
+        wk, wv = k.clone(), v.clone()
+        wk[:, pos], wv[:, pos] = k_new[:, 0], v_new[:, 0]
+        valid = (torch.arange(c, device="cuda") <= pos)[None, :]
+        want = ref.decode_attention(q, wk, wv, valid)
+
+        def merged(index_of=lambda i: i, drop=None, rescale=True):
+            stats = [attn.context_local_stats(q, k_new, v_new, pos, sc, index_of(i), n, None)
+                     for i, sc in enumerate(rail_shard_caches(k, v, pos, n, index_of))]
+            acc, m, l = (torch.stack([t for i, t in enumerate(ts) if i != drop])
+                         for ts in zip(*stats))
+            if not rescale:  # a planted fault: the split-K merge without exp(m - m_g)
+                o = (acc.sum(0) / l.sum(0)[..., None]).flatten(-3, -2).unsqueeze(-3)
+            else:
+                o = attn.merge_decode_stats(acc, m, l, StackedShards)[0]
+            return o.to(q.dtype), m
+        ratios = []
+        ops.reset_launch_counts()
+        with checked_ops(ratios):
+            got, m = merged()
+        counts = ops.launch_counts()
+        empty = [bool((m[i] <= ref.NEG_INF / 2).all()) for i in range(n)]
+        err, ratio = hold(f"{tag}: {n} shards of {c // n} slots merged against the plain "
+                          f"whole-cache decode (shards without a valid slot: "
+                          f"{[i for i, e in enumerate(empty) if e]})", got, want)
+        live = [i for i, e in enumerate(empty) if not e]
+        ctrl = {"a shard's stats dropped": control(f"{tag} control: shard {live[1]}'s stats "
+                                                   f"dropped", merged(drop=live[1])[0], want),
+                "merged without the rescale": control(f"{tag} control: merged without "
+                                                      f"exp(m - m_g)",
+                                                      merged(rescale=False)[0], want),
+                "the owner's offset ignored": control(f"{tag} control: every shard placed and "
+                                                      f"written at shard 0's offset",
+                                                      merged(index_of=lambda i: 0)[0], want)}
+        want_empty = [i * (c // n) > pos for i in range(n)]
+        if (counts != {**NO_LAUNCHES, "decode_attention_stats": n} or empty != want_empty
+                or not max(ratios) <= 1):
+            raise AssertionError(f"{tag}: launches {counts}, empty shards {empty} (want "
+                                 f"{want_empty}), stats ratios {ratios}")
+        log(f"{tag}: each shard's stats launch against the plain stats: worst "
+            f"{max(ratios):.3f} of the tolerance")
+        out[pos] = {"max_abs_err": err, "tolerance_ratio": ratio, "stats_worst_ratio": max(ratios),
+                    "empty_shards": [i for i, e in enumerate(empty) if e], "controls": ctrl}
+    secs = time.perf_counter() - t0
+    log(f"[serve rails] ok in {secs:.1f} s")
+    return {"rails": out, "rails_s": secs}
+
+
+def serve_block_sum(kind: str, cfg, full: dict, x, pos: int, cache, drop=None):
+    """(the whole block's decode output, the sum of TP_SIZE ranks' shares,
+    the sum without rank ``drop``): attention and the MLP through their
+    ``tp=`` path, MoE through ``moe_apply(tp=)`` (the routing replicated,
+    the router gathered), the SSD mixer as ``ssm_decode`` composes it (its
+    norm's sum of squares summed over the shares between
+    ``ssm_decode_gated`` and ``gated_norm_out``).  Each rank's cache is
+    this rank's part of ``cache`` (its kv heads, or its conv channels and
+    SSD heads), cut before the whole block writes it."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import mlp_apply
+    shares = tp_shares(kind, full, TP_SIZE)
+    parts = []
+    if kind == "attn":
+        caches = [{k: cache[k][:, :, attn.kv_heads(cfg, tp, x.device)].clone()
+                   if k != "slot_pos" else cache[k].clone() for k in cache} for _, tp in shares]
+        whole, _ = attn.decode_attention(full, x, pos, cache, cfg, window=cfg.sliding_window)
+        parts = [attn.decode_attention(p, x, pos, c, cfg, window=cfg.sliding_window, tp=tp)[0]
+                 for (p, tp), c in zip(shares, caches)]
+    elif kind == "mlp":
+        whole = mlp_apply(full, x, cfg.mlp_act)
+        parts = [mlp_apply(p, x, cfg.mlp_act, tp=tp) for p, tp in shares]
+    elif kind == "moe":
+        whole = moe_mod.moe_apply(full, x, cfg)[0]
+        parts = [moe_mod.moe_apply(p, x, cfg, tp=tp)[0] for p, tp in shares]
+    else:
+        hl = ssm_mod.ssm_dims(cfg)[1] // TP_SIZE
+        caches = [{"conv": cache["conv"][..., ssm_mod.mixer_columns(cfg, TP_SIZE, r,
+                                                                    x.device)["conv_w"]],
+                   "state": cache["state"][:, r * hl:(r + 1) * hl].clone()}
+                  for r in range(TP_SIZE)]
+        whole, _ = ssm_mod.ssm_decode(full, x, cache, cfg)
+        mixed = [ssm_mod.shard_mixer(p, cfg, tp)[0] for p, tp in shares]
+        vs = [ssm_mod.ssm_decode_gated(m, x, c, cfg) for m, c in zip(mixed, caches)]
+        ss = torch.stack([v.square().sum(-1, keepdim=True) for v in vs]).sum(0)
+        d_inner = ssm_mod.ssm_dims(cfg)[0]
+        parts = [ssm_mod.gated_norm_out(m, v, ss, d_inner, cfg.norm_eps, x.dtype)
+                 for m, v in zip(mixed, vs)]
+        state = torch.cat([c["state"] for c in caches], 1)
+        rel = tp_rel_rms({"state": state}, {"state": cache["state"]})["state"]
+        log(f"[serve tp] {cfg.name} ssm: the ranks' new states against the whole's heads: "
+            f"relative RMS {rel:.3g} (limit {MODEL_LIMIT})")
+        if not rel <= MODEL_LIMIT:
+            raise AssertionError(f"{cfg.name} ssm: the ranks' states are not the whole's heads")
+    parts = torch.stack([t.float() for t in parts])
+    keep = [r for r in range(TP_SIZE) if r != drop]
+    return whole, parts.sum(0), parts[keep].sum(0)
+
+
+def phase_serve_model_axis(kernels: list) -> dict:
+    """Phase 28 (d): one full-width decode layer each of ``SERVE_TP_LAYERS``
+    as TP_SIZE model ranks' shares run in turn at their local shapes
+    (``SequentialModelAxis``), summed and held to the whole layer within
+    MODEL_LIMIT relative RMS, a rank's partial dropped must fail; every
+    decode launch of the shares held to its plain version.  Then the decode
+    kernel at the attention shares' local shapes and the stats variant at
+    phase 28 (c)'s, timed beside the bound, the plain version and SDPA."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    b, c, pos = SERVE_TP_BATCH, SERVE_TP_CAP, SERVE_TP_POS
+    out = {"serve_tp_layers": {}}
+    for arch, kinds in SERVE_TP_LAYERS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(282)
+        with torch.no_grad():
+            (lp,) = tf._init_stack(cfg.replace(n_layers=1), torch.bfloat16, gen,
+                                   torch.device("cuda"), cross=False)
+        blocks = {"attn": lp["mixer"], "ssm": lp["mixer"], "mlp": lp.get("ffn"),
+                  "moe": lp.get("ffn")}
+
+        def first(t):
+            return {k: first(v) for k, v in t.items()} if isinstance(t, dict) else t[0]
+        x = torch.randn((b, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        for kind in kinds:
+            full = first(blocks[kind])
+            cache = None
+            if kind == "attn":
+                kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+                cache = {n: torch.randn((b, c, kv, dh), generator=gen, device="cuda")
+                         .to(torch.bfloat16) for n in ("k", "v")}
+                cache["slot_pos"] = torch.where(torch.arange(c, device="cuda") < pos,
+                                                torch.arange(c, device="cuda"), -1).int()
+            elif kind == "ssm":
+                cache = ssm_mod.init_ssm_cache(cfg, b, "cuda")
+                for t in cache.values():
+                    t.normal_(generator=gen)
+            ratios = []
+            ops.reset_launch_counts()
+            with torch.no_grad(), checked_ops(ratios):
+                whole, summed, dropped = serve_block_sum(kind, cfg, full, x, pos, cache,
+                                                         drop=TP_SIZE - 1)
+            counts = ops.launch_counts()
+            rel = tp_rel_rms({"out": summed}, {"out": whole})["out"]
+            ctrl = tp_rel_rms({"out": dropped}, {"out": whole})["out"]
+            want = {**NO_LAUNCHES, **({"decode_attention": 1 + TP_SIZE} if kind == "attn"
+                                      else {})}
+            tag = f"[serve tp] {cfg.name} {kind}"
+            log(f"{tag}: {TP_SIZE} ranks' shares summed against the whole layer at B={b}"
+                f"{f' C={c} pos {pos}' if kind == 'attn' else ''}: relative RMS {rel:.3g} "
+                f"(limit {MODEL_LIMIT}); control: rank {TP_SIZE - 1}'s partial dropped "
+                f"{ctrl:.3g}; launches {counts}"
+                + (f"; each decode launch against its plain version: worst "
+                   f"{max(ratios):.3f}" if ratios else ""))
+            if not (rel <= MODEL_LIMIT < ctrl and counts == want
+                    and (not ratios or max(ratios) <= 1)):
+                raise AssertionError(f"{tag}: shares {rel}, control {ctrl}, launches {counts} "
+                                     f"(want {want}), decode ratios {ratios}")
+            out["serve_tp_layers"][f"{cfg.name} {kind}"] = {
+                "batch": b, "rel_rms": rel, "control": ctrl, "launches": counts,
+                "decode_worst_ratio": max(ratios) if ratios else None}
+            del full, cache, whole, summed, dropped
+        del lp, blocks
+        torch.cuda.empty_cache()
+    llama, pali = get_config("llama3_8b"), get_config(VLM_ARCH)
+    kernels[2]["serve_tp_local"] = {
+        name: decode_at(f"[serve tp decode {name}]", b, c, cfg.n_heads // TP_SIZE,
+                        max(cfg.n_kv_heads // TP_SIZE, 1), cfg.resolved_head_dim, seed)
+        for name, cfg, seed in (("llama3-8b", llama, 283), ("paligemma-3b", pali, 284))}
+    kernels[5].update(stats_at("[stats]", 1, CTX_CAP // RAIL_SHARDS, llama.n_heads,
+                               llama.n_kv_heads, llama.resolved_head_dim, 285))
+    out["serve_tp_s"] = time.perf_counter() - t0
+    log(f"[serve tp] phase 28 (d) ok in {out['serve_tp_s']:.1f} s")
+    return out
+
+
+def stats_at(tag: str, b, c, h, kv, dh, seed) -> dict:
+    """The flash-decode stats variant at one rail shard's shape (bf16, all
+    slots valid): held to ``ref.decode_attention(return_stats=True)`` by
+    ``ref.stats_tolerance_ratio``, also with its first split empty; a split
+    dropped must fail; times beside the bound, the plain version and SDPA
+    (the normalised output: no PyTorch call returns the unnormalised
+    stats)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    shape = f"B={b} C={c} H={h} KV={kv} dh={dh} bf16, all slots valid"
+    q, kc, vc, valid = decode_inputs(b, c, h, kv, dh, torch.bfloat16, "all", seed=seed)
+    want = ref.decode_attention(q, kc, vc, valid, return_stats=True)
+    got = da.decode_attention_stats(q, kc, vc, valid)
+    ratio = ref.stats_tolerance_ratio(got, want, q.dtype)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    split = decode_split()
+    first_empty = valid.clone()
+    first_empty[:, :split] = False
+    ratio_empty = ref.stats_tolerance_ratio(
+        da.decode_attention_stats(q, kc, vc, first_empty),
+        ref.decode_attention(q, kc, vc, first_empty, return_stats=True), q.dtype)
+    dropped = valid.clone()
+    dropped[:, c // 2:c // 2 + split] = False
+    ctrl = ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, dropped,
+                                                               return_stats=True), q.dtype)
+    log(f"{tag} {shape}: max_abs_err {err:.3g} (acc, m, l), {ratio:.3f} of the tolerance; "
+        f"first {split}-slot split empty {ratio_empty:.3f}; control: plain with one split "
+        f"dropped {ctrl:.1f} (must exceed 1)")
+    if not (ratio <= 1 and ratio_empty <= 1 and ctrl > 1):
+        raise AssertionError(f"{tag}: stats {ratio}, empty split {ratio_empty}, control {ctrl}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    am = valid[:, None, None, :]
+    t = timings(lambda: da.decode_attention_stats(q, kc, vc, valid),
+                lambda: ref.decode_attention(q, kc, vc, valid, return_stats=True),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                       enable_gqa=True), 40)
+    n_valid = int(valid.sum().item())
+    nbytes = 2 * n_valid * kv * dh * 2 + 2 * b * h * dh + 4 * b * h * (dh + 2) + b * c
+    t.update(bound(4 * n_valid * h * dh, nbytes))
+    log(f"{tag} {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms "
+        f"sdpa (CUDA events; device time {t['device_ms']} / {t['plain_device_ms']} / "
+        f"{t['library_device_ms']}), bound {t['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio,
+            "empty_split_ratio": ratio_empty, "control_ratio": ctrl, **t}
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3315,6 +3795,11 @@ def run() -> int:
     kernels = [phase_flash(), phase_flash_bwd(), phase_decode_kernel(), phase_ssd_kernel(),
                phase_ssd_bwd_kernel()]
     phase_family_kernels(kernels)
+    kernels.append({"name": "decode_attention_stats", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                    "replaces": "src/repro/kernels/decode_attention.py:29",
+                    "tolerance": "ref.stats_tolerance_ratio: m and l 1e-5 + 1e-4 |plain|, "
+                                 "acc / l 1e-5 + 2^-7 |plain| (bf16)"})
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
@@ -3324,6 +3809,9 @@ def run() -> int:
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     pre = phase_prefill(cfg, params)
     dec = phase_decode(cfg, params)
+    # phase 28 (b) and (c) on the same weights
+    ctx = phase_context_decode(cfg, params)
+    rails = phase_rail_shards(cfg, params)
     kernels[0].update(launches=pre["flash_launches"],
                       launches_per_step=pre["flash_launches"] / pre["prefill_calls"])
     kernels[2].update(launches=dec["decode_launches"],
@@ -3427,13 +3915,21 @@ def run() -> int:
     del params
     torch.cuda.empty_cache()
 
-    for arch in ("llama3_8b", "mamba2_370m", MOE_ARCH, GEMMA_ARCH, VLM_ARCH):
-        out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12", "--gen", "20"])
-        if not torch.isfinite(out["logits"]).all():
-            raise AssertionError(f"serve entry point, {arch}: logits not finite")
-        del out
-        torch.cuda.empty_cache()
+    from repro_torch.kernels import ops
+    serve_archs = ("llama3_8b", "mamba2_370m", MOE_ARCH, GEMMA_ARCH, VLM_ARCH)
+    made, collectives, serve_launches = [], {}, {}
+    with counted_collectives(collectives), recorded_decode_steps(made):
+        for arch in serve_archs:
+            ops.reset_launch_counts()
+            out = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "12",
+                              "--gen", "20"])
+            serve_launches[arch] = {k: n / 32 for k, n in ops.launch_counts().items()}
+            if not torch.isfinite(out["logits"]).all():
+                raise AssertionError(f"serve entry point, {arch}: logits not finite")
+            del out
+            torch.cuda.empty_cache()
     log(f"[serve] ok; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    at_one_serve = phase_serve_at_one(serve_archs, made, collectives, serve_launches)
 
     steps = []
     with recorded_steps(steps):
@@ -3458,6 +3954,7 @@ def run() -> int:
         for p, r in (("", tr), ("moe_", moe_tr), ("gemma_", gemma_tr), ("mamba_", ssm_tr),
                      ("paligemma_", vlm_tr), ("seamless_", audio_tr), ("dots_", rest))}, steps)
     tp = {**at_one, **phase_tp_shares(kernels)}
+    serve_tp = phase_serve_model_axis(kernels)
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -3516,18 +4013,25 @@ def run() -> int:
     kernels[4]["launches_by_path"] = {ssm_train: ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
                                       ckpt_train: rest["ckpt_launches"]["ssd_scan_bwd"]}
     tp_path = f"phase 27 shares of {TP_SIZE} model ranks, four full-width layers"
-    for kernel, launches in zip(kernels, tp["tp_launches"].values()):
-        if launches:
-            kernel["launches_by_path"][tp_path] = launches
+    for kernel in kernels:
+        if tp["tp_launches"][kernel["name"]]:
+            kernel["launches_by_path"][tp_path] = tp["tp_launches"][kernel["name"]]
     kernels[4].update(launches=ssm_tr["mamba_train_launches"]["ssd_scan_bwd"],
                       launches_per_step=ssm_tr["mamba_train_launches_per_step"]["ssd_scan_bwd"])
     kernels[1].update(launches=tr["train_launches"]["flash_attention_bwd"],
                       launches_per_step=tr["train_launches_per_step"]["flash_attention_bwd"])
+    ctx_path = f"llama3-8b context-sharded decode, {CTX_CAP} slots"
+    kernels[5].update(launches=ctx["ctx_stats_launches"],
+                      launches_per_step=ctx["ctx_stats_launches"] / ctx["ctx_steps"],
+                      launches_by_path={ctx_path: ctx["ctx_stats_launches"]})
+    kernels[2]["launches_by_path"][f"phase 28 (d) shares of {TP_SIZE} model ranks"] = sum(
+        r["launches"]["decode_attention"] for r in serve_tp["serve_tp_layers"].values())
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
                     **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
                     **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
-                    **ssm_tr, **vlm_tr, **audio_tr, **rest, **tp, "card": smi}))
+                    **ssm_tr, **vlm_tr, **audio_tr, **rest, **tp, **at_one_serve, **ctx,
+                    **rails, **serve_tp, "card": smi}, default=str))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -131,6 +131,19 @@ class CudaKernel:
         return rows
 
 
+class KernelEntry:
+    """Another entry point of a ``CudaKernel``'s library, with a launch count
+    of its own; the library is built and loaded once, by that kernel."""
+
+    def __init__(self, name: str, kernel: CudaKernel):
+        self.name, self.kernel = name, kernel
+        self.launches = 0
+
+    @property
+    def source(self) -> Path:
+        return self.kernel.source
+
+
 def build_all(kernels) -> float:
     """Build every kernel's source in parallel (one nvcc each); seconds taken."""
     t0 = time.perf_counter()

@@ -35,6 +35,13 @@
 //    blocks per split, each reading the split's K/V.
 // A split with no valid slot contributes (acc, m, l) = (0, NEG_INF, 0);
 // if no slot at all is valid the output is 0.
+//
+// The stats variant (`repro_decode_attention_stats`) runs the same pass 1
+// and a second pass that writes the merged (acc [B,KV,R,dh], m, l [B,KV,R])
+// in f32 without dividing acc by l: the partials of one shard of a cache
+// that context-parallel decode merges over the rails (the plain version's
+// `return_stats=True`).  A shard with no valid slot gives (0, NEG_INF, 0),
+// whose weight exp(NEG_INF - m_global) is 0 in any merge with a valid slot.
 #include "common.cuh"
 
 namespace {
@@ -294,6 +301,86 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc_p,
     }
 }
 
+// Threads of a stats-combine block: CP groups of 64, each summing every
+// CP-th split, so a long cache (128 splits at 32768 slots) is not one
+// serial loop of dependent loads.
+constexpr int CT = 512;
+constexpr int CP = CT / 64;
+
+// The max (MAX) or the sum of v over the block's threads, in every thread.
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, v, off);
+        v = MAX ? fmaxf(v, o) : v + o;
+    }
+    __syncthreads();  // red may still be read by the previous reduction
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    v = lane < CT / 32 ? red[lane] : (MAX ? REPRO_NEG_INF : 0.f);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, v, off);
+        v = MAX ? fmaxf(v, o) : v + o;
+    }
+    return v;
+}
+
+// acc[b, g, r, :], m[b, g, r], l[b, g, r] = the partials merged over the
+// splits with the split-K rescale, unnormalised (f32)
+__global__ void __launch_bounds__(CT)
+decode_stats_combine_kernel(const float* __restrict__ acc_p, const float* __restrict__ m_p,
+                            const float* __restrict__ l_p, float* __restrict__ acc,
+                            float* __restrict__ m, float* __restrict__ l, int rep, int dh,
+                            int nsplit) {
+    __shared__ float red[CT / 32];
+    __shared__ float part[CP][REPRO_MAX_HEAD_DIM];
+    const int r = blockIdx.x, g = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+    const int64_t base = (int64_t)(b * gridDim.y + g) * nsplit;
+    const int64_t row = (int64_t)(b * gridDim.y + g) * rep + r;
+    float mx = REPRO_NEG_INF;
+    for (int s = tid; s < nsplit; s += CT) mx = fmaxf(mx, m_p[(base + s) * rep + r]);
+    const float mg = block_reduce<true>(mx, red);
+    float ls = 0.f;
+    for (int s = tid; s < nsplit; s += CT)
+        ls += l_p[(base + s) * rep + r] * expf(m_p[(base + s) * rep + r] - mg);
+    ls = block_reduce<false>(ls, red);
+    if (tid == 0) {
+        m[row] = mg;
+        l[row] = ls;
+    }
+    // group q sums the splits q, q + CP, ...; its lane c the columns c, c + 64, ...
+    const int q = tid / 64, c = tid % 64;
+    float a[REPRO_MAX_HEAD_DIM / 64] = {};
+    for (int s = q; s < nsplit; s += CP) {
+        const int64_t i = (base + s) * rep + r;
+        const float w = expf(m_p[i] - mg);
+#pragma unroll
+        for (int k = 0; k < REPRO_MAX_HEAD_DIM / 64; ++k)
+            if (c + 64 * k < dh) a[k] += acc_p[i * dh + c + 64 * k] * w;
+    }
+#pragma unroll
+    for (int k = 0; k < REPRO_MAX_HEAD_DIM / 64; ++k)
+        if (c + 64 * k < dh) part[q][c + 64 * k] = a[k];
+    __syncthreads();
+    for (int d = tid; d < dh; d += CT) {
+        float t = 0.f;
+#pragma unroll
+        for (int k = 0; k < CP; ++k) t += part[k][d];
+        acc[row * dh + d] = t;
+    }
+}
+
+// Where pass 2 writes: the normalised output (out, its batch and head
+// strides), or, where acc is set, the merged stats (acc, m, l).
+struct Outputs {
+    void* out;
+    int64_t osb, osh;
+    float *acc, *m, *l;
+};
+
 // query heads per pass-1 block for a bundle of rep: 2, 4 or 8 (rep 1, as
 // gemma-7b's 16 heads on 16 kv heads, runs the 2-head kernel with one head
 // live)
@@ -305,7 +392,7 @@ int heads_per_block(int rep) {
 
 template <typename T, int DHP, int R>
 cudaError_t launch_r(const void* q, const void* kc, const void* vc, const void* valid,
-                     void* out, float* acc_p, float* m_p, float* l_p, int B, int C, int H,
+                     const Outputs& o, float* acc_p, float* m_p, float* l_p, int B, int C, int H,
                      int KV, int dh, const int64_t* st, float scale, cudaStream_t stream) {
     const int rep = H / KV;
     const int nsplit = (C + SPLIT - 1) / SPLIT;
@@ -316,23 +403,65 @@ cudaError_t launch_r(const void* q, const void* kc, const void* vc, const void* 
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    decode_combine_kernel<T><<<dim3(rep, KV, B), 128, 0, stream>>>(
-        acc_p, m_p, l_p, static_cast<T*>(out), rep, dh, nsplit, st[10], st[11]);
+    if (o.acc != nullptr)
+        decode_stats_combine_kernel<<<dim3(rep, KV, B), CT, 0, stream>>>(
+            acc_p, m_p, l_p, o.acc, o.m, o.l, rep, dh, nsplit);
+    else
+        decode_combine_kernel<T><<<dim3(rep, KV, B), 128, 0, stream>>>(
+            acc_p, m_p, l_p, static_cast<T*>(o.out), rep, dh, nsplit, o.osb, o.osh);
     return cudaGetLastError();
 }
 
 template <typename T, int DHP>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const void* valid,
-                   void* out, float* acc_p, float* m_p, float* l_p, int B, int C, int H,
+                   const Outputs& o, float* acc_p, float* m_p, float* l_p, int B, int C, int H,
                    int KV, int dh, const int64_t* st, float scale, cudaStream_t stream) {
     switch (heads_per_block(H / KV)) {
-        case 2: return launch_r<T, DHP, 2>(q, kc, vc, valid, out, acc_p, m_p, l_p, B, C, H, KV,
+        case 2: return launch_r<T, DHP, 2>(q, kc, vc, valid, o, acc_p, m_p, l_p, B, C, H, KV,
                                            dh, st, scale, stream);
-        case 4: return launch_r<T, DHP, 4>(q, kc, vc, valid, out, acc_p, m_p, l_p, B, C, H, KV,
+        case 4: return launch_r<T, DHP, 4>(q, kc, vc, valid, o, acc_p, m_p, l_p, B, C, H, KV,
                                            dh, st, scale, stream);
-        default: return launch_r<T, DHP, 8>(q, kc, vc, valid, out, acc_p, m_p, l_p, B, C, H,
+        default: return launch_r<T, DHP, 8>(q, kc, vc, valid, o, acc_p, m_p, l_p, B, C, H,
                                             KV, dh, st, scale, stream);
     }
+}
+
+// Checks the shapes, then runs both passes for the dtype and head-dim tile.
+cudaError_t run(const void* q, const void* kc, const void* vc, const void* valid,
+                const Outputs& o, void* acc_p, void* m_p, void* l_p, int dtype, int B, int C,
+                int H, int KV, int dh, const int64_t* st, float scale, int device,
+                cudaStream_t s) {
+    if (dh <= 0 || dh > REPRO_MAX_HEAD_DIM || dh % 4 || H % KV || H / KV > 2 * MAXR ||
+        C <= 0 || (dtype == REPRO_BF16 && dh % 8))
+        return cudaErrorInvalidValue;
+    if (B <= 0) return cudaSuccess;
+    cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own
+    if (err != cudaSuccess) return err;
+    float* a = static_cast<float*>(acc_p);
+    float* m = static_cast<float*>(m_p);
+    float* l = static_cast<float*>(l_p);
+    if (dtype == REPRO_F32) {
+        switch (head_dim_tile(dh)) {
+            case 64: return launch<float, 64>(q, kc, vc, valid, o, a, m, l, B, C, H, KV, dh, st,
+                                              scale, s);
+            case 128: return launch<float, 128>(q, kc, vc, valid, o, a, m, l, B, C, H, KV, dh,
+                                                st, scale, s);
+            default: return launch<float, 256>(q, kc, vc, valid, o, a, m, l, B, C, H, KV, dh,
+                                               st, scale, s);
+        }
+    }
+    if (dtype == REPRO_BF16) {
+        using bf16 = __nv_bfloat16;
+        switch (head_dim_tile(dh)) {
+            case 64: return launch<bf16, 64>(q, kc, vc, valid, o, a, m, l, B, C, H, KV, dh, st,
+                                             scale, s);
+            case 128: return launch<bf16, 128>(q, kc, vc, valid, o, a, m, l, B, C, H, KV, dh,
+                                               st, scale, s);
+            default: return launch<bf16, 256>(q, kc, vc, valid, o, a, m, l, B, C, H, KV, dh,
+                                              st, scale, s);
+        }
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -363,37 +492,24 @@ extern "C" int repro_decode_attention_fwd(
         int64_t qsb, int64_t qsh, int64_t ksb, int64_t ksc, int64_t ksh,
         int64_t vsb, int64_t vsc, int64_t vsh, int64_t msb, int64_t msc,
         int64_t osb, int64_t osh, float scale, int device, void* stream) {
-    const int64_t st[12] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc, osb, osh};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dh <= 0 || dh > REPRO_MAX_HEAD_DIM || dh % 4 || H % KV || H / KV > repro_decode_max_rep() ||
-        C <= 0 || (dtype == REPRO_BF16 && dh % 8))
-        return (int)cudaErrorInvalidValue;
-    if (B <= 0) return (int)cudaSuccess;
-    cudaError_t err = cudaSetDevice(device);  // this library's runtime keeps its own
-    if (err != cudaSuccess) return (int)err;
-    float* a = static_cast<float*>(acc_p);
-    float* m = static_cast<float*>(m_p);
-    float* l = static_cast<float*>(l_p);
-    if (dtype == REPRO_F32) {
-        switch (head_dim_tile(dh)) {
-            case 64: return launch<float, 64>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh, st,
-                                              scale, s);
-            case 128: return launch<float, 128>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
-                                                st, scale, s);
-            default: return launch<float, 256>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
-                                               st, scale, s);
-        }
-    }
-    if (dtype == REPRO_BF16) {
-        using bf16 = __nv_bfloat16;
-        switch (head_dim_tile(dh)) {
-            case 64: return launch<bf16, 64>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh, st,
-                                             scale, s);
-            case 128: return launch<bf16, 128>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
-                                               st, scale, s);
-            default: return launch<bf16, 256>(q, kc, vc, valid, out, a, m, l, B, C, H, KV, dh,
-                                              st, scale, s);
-        }
-    }
-    return (int)cudaErrorInvalidValue;
+    const int64_t st[10] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc};
+    const Outputs o = {out, osb, osh, nullptr, nullptr, nullptr};
+    return (int)run(q, kc, vc, valid, o, acc_p, m_p, l_p, dtype, B, C, H, KV, dh, st, scale,
+                    device, static_cast<cudaStream_t>(stream));
+}
+
+// The stats variant: the inputs, strides and scratch of
+// repro_decode_attention_fwd; in place of out, acc [B,KV,rep,dh], m and l
+// [B,KV,rep], contiguous f32, the merged unnormalised partials.
+extern "C" int repro_decode_attention_stats(
+        const void* q, const void* kc, const void* vc, const void* valid, void* acc,
+        void* m, void* l, void* acc_p, void* m_p, void* l_p, int dtype, int B, int C, int H,
+        int KV, int dh, int64_t qsb, int64_t qsh, int64_t ksb, int64_t ksc, int64_t ksh,
+        int64_t vsb, int64_t vsc, int64_t vsh, int64_t msb, int64_t msc, float scale,
+        int device, void* stream) {
+    const int64_t st[10] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc};
+    const Outputs o = {nullptr, 0, 0, static_cast<float*>(acc), static_cast<float*>(m),
+                       static_cast<float*>(l)};
+    return (int)run(q, kc, vc, valid, o, acc_p, m_p, l_p, dtype, B, C, H, KV, dh, st, scale,
+                    device, static_cast<cudaStream_t>(stream));
 }

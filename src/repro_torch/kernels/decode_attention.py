@@ -6,6 +6,12 @@ Counterpart of ``repro.kernels.decode_attention`` (the Pallas TPU kernel
 the output and the f32 partials.  It takes a ragged cache length itself,
 so there is no fallback.  ``ops.decode_attention`` sends CPU tensors to
 ``ref.decode_attention``.
+
+``decode_attention_stats`` is the variant that context-parallel decode
+runs on each shard of a cache: the same first pass, then a second that
+writes the merged unnormalised ``(acc, m, l)`` in f32 (the plain version's
+``return_stats=True``).  It is an entry point of the same library with a
+launch count of its own (``STATS``).
 """
 from __future__ import annotations
 
@@ -14,24 +20,25 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_cuda_tensor
+from repro_torch.kernels._build import CudaKernel, KernelEntry, check_cuda_tensor
 from repro_torch.kernels.flash_attention import DTYPES, check_head_dim, check_rows
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("decode_attention", {
     "repro_decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
+    "repro_decode_attention_stats": [_P] * 10 + [_I] * 6 + [_L] * 10 + [_F, _I, _P],
     "repro_decode_num_splits": [_I],
     "repro_decode_split": [],
     "repro_decode_max_rep": [],
     "repro_decode_attention_smem_bytes": [_I, _I],
 })
+STATS = KernelEntry("decode_attention_stats", KERNEL)
 # the widest head dim this kernel is instantiated for (tiles 64, 128, 256 wide)
 MAX_HEAD_DIM = 256
 
 
-def decode_attention(q, k_cache, v_cache, valid_mask, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """CUDA kernel.  q [B,1,H,dh]; caches [B,C,KV,dh]; valid [B,C] bool -> [B,1,H,dh]."""
+def _checked(q, k_cache, v_cache, valid_mask):
+    """The checks of both entry points: (uint8 mask, rep, splits)."""
     if q.dtype not in DTYPES:
         raise ValueError(f"decode_attention takes {list(DTYPES)}, got {q.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
@@ -52,21 +59,33 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
     if valid_mask.device != q.device or k_cache.device != q.device \
             or v_cache.device != q.device:
         raise ValueError("all inputs must be on one device")
-    mask = valid_mask.view(torch.uint8)
-    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     lib = KERNEL.lib()
     rep = h // kvh
     if rep > lib.repro_decode_max_rep():
         raise ValueError(f"{rep} query heads per kv head; the kernel takes at most "
                          f"{lib.repro_decode_max_rep()}")
-    nsplit = lib.repro_decode_num_splits(c)
-    f32 = torch.float32
-    acc_p = torch.empty((b, kvh, nsplit, rep, dh), dtype=f32, device=q.device)
-    m_p = torch.empty((b, kvh, nsplit, rep), dtype=f32, device=q.device)
-    l_p = torch.empty((b, kvh, nsplit, rep), dtype=f32, device=q.device)
+    return valid_mask.view(torch.uint8), rep, lib.repro_decode_num_splits(c)
+
+
+def _partials(q, kvh, nsplit, rep):
+    """f32 scratch of pass 1: acc_p [B,KV,nsplit,rep,dh], m_p and l_p."""
+    b, dh, f32 = q.shape[0], q.shape[3], torch.float32
+    return (torch.empty((b, kvh, nsplit, rep, dh), dtype=f32, device=q.device),
+            torch.empty((b, kvh, nsplit, rep), dtype=f32, device=q.device),
+            torch.empty((b, kvh, nsplit, rep), dtype=f32, device=q.device))
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """CUDA kernel.  q [B,1,H,dh]; caches [B,C,KV,dh]; valid [B,C] bool -> [B,1,H,dh]."""
+    mask, rep, nsplit = _checked(q, k_cache, v_cache, valid_mask)
+    b, _, h, dh = q.shape
+    c, kvh = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    acc_p, m_p, l_p = _partials(q, kvh, nsplit, rep)
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.repro_decode_attention_fwd(
+    err = KERNEL.lib().repro_decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
         out.data_ptr(), acc_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
         DTYPES[q.dtype], b, c, h, kvh, dh,
@@ -76,3 +95,28 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
     KERNEL.check(err)
     KERNEL.launches += 1
     return out
+
+
+def decode_attention_stats(q, k_cache, v_cache, valid_mask, *,
+                           scale: Optional[float] = None):
+    """CUDA kernel, stats variant.  The inputs of ``decode_attention`` ->
+    (acc [B,KV,R,dh], m [B,KV,R], l [B,KV,R]) f32, unnormalised, R = H / KV."""
+    mask, rep, nsplit = _checked(q, k_cache, v_cache, valid_mask)
+    b, _, h, dh = q.shape
+    c, kvh = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    acc_p, m_p, l_p = _partials(q, kvh, nsplit, rep)
+    f32 = torch.float32
+    acc = torch.empty((b, kvh, rep, dh), dtype=f32, device=q.device)
+    m = torch.empty((b, kvh, rep), dtype=f32, device=q.device)
+    l = torch.empty((b, kvh, rep), dtype=f32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = KERNEL.lib().repro_decode_attention_stats(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc_p.data_ptr(), m_p.data_ptr(),
+        l_p.data_ptr(), DTYPES[q.dtype], b, c, h, kvh, dh,
+        q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
+        *mask.stride(), scale, q.device.index or 0, stream)
+    KERNEL.check(err)
+    STATS.launches += 1
+    return acc, m, l

@@ -25,9 +25,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import ssd_scan_bwd as _ssdb
 
+# the libraries, one a source, each built once
 KERNELS = {"flash_attention": _fa.KERNEL, "flash_attention_bwd": _fab.KERNEL,
            "decode_attention": _da.KERNEL, "ssd_scan": _ssd.KERNEL,
            "ssd_scan_bwd": _ssdb.KERNEL}
+# what is counted: every library's kernel and flash-decode's stats variant
+COUNTED = {**KERNELS, "decode_attention_stats": _da.STATS}
 
 
 def _route(t) -> str:
@@ -87,9 +90,13 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None):
-    """Flash-decode.  q [B,1,H,dh], caches [B,C,KV,dh], valid [B,C].
+def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None,
+                     return_stats: bool = False):
+    """Flash-decode.  q [B,1,H,dh], caches [B,C,KV,dh], valid [B,C] -> [B,1,H,dh].
 
+    ``return_stats=True`` returns the unnormalised (acc [B,KV,R,dh], m
+    [B,KV,R], l [B,KV,R]) in f32 instead, mergeable over the shards of a
+    cache (on the card: the kernel's stats variant).
     On the card it has no gradient: no path of the port differentiates
     decode, so a CUDA input that needs one is refused rather than given none.
     """
@@ -98,8 +105,11 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] 
             raise NotImplementedError("flash-decode has no backward kernel: a CUDA input that "
                                       "needs a gradient is refused (ROADMAP.md, Queue 2 item "
                                       "D: decode backward)")
+        if return_stats:
+            return _da.decode_attention_stats(q, k_cache, v_cache, valid_mask, scale=scale)
         return _da.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
-    return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
+    return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale,
+                                return_stats=return_stats)
 
 
 def ssd(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):
@@ -152,9 +162,9 @@ class _SSDScan(torch.autograd.Function):
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last ``reset_launch_counts``."""
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.launches for name, k in COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
+    for k in COUNTED.values():
         k.launches = 0

@@ -306,6 +306,41 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+# What the stats of a decode pass are held to: m is the largest score, an
+# f32 sum in another order; l is compared at the plain version's m (l
+# exp(m - m_plain), the mass a merge sees), so each score's rounding enters
+# once.  Each may differ by STATS_RTOL of its value (~1700 f32 ulps);
+# dropping one 256-slot split of 4096 moves l by ~6 %.
+STATS_RTOL = 1e-4
+
+
+def stats_tolerance_ratio(got, want, dtype) -> float:
+    """(acc, m, l) of a decode stats pass against the plain version's: the
+    worst of m's and l's (at the plain m) |difference| / (ATOL + STATS_RTOL
+    |plain|) and ``tolerance_ratio`` of acc / l in ``dtype`` (q's), the
+    output the plain decode gives.  A row the plain version finds empty (m = NEG_INF:
+    no valid slot) must be empty in ``got`` too, whatever its acc and l
+    (its weight in a merge with any valid slot is exp(NEG_INF - m) = 0).
+    At most 1 where ``got`` agrees."""
+    (acc, m, l), (acc_w, m_w, l_w) = got, want
+    if acc.shape != acc_w.shape or m.shape != m_w.shape or l.shape != l_w.shape:
+        raise ValueError(f"shapes {tuple(acc.shape)} and {tuple(acc_w.shape)} differ")
+    live = m_w > NEG_INF / 2
+    if bool(((m > NEG_INF / 2) != live).any()):
+        return float("inf")
+    if not bool(live.any()):
+        return 0.0
+
+    def rel(a, b):
+        return ((a - b).abs() / (ATOL + STATS_RTOL * b.abs()))[live].max().item()
+
+    def norm(a, s):
+        return (a / torch.clamp(s, min=1e-30)[..., None])[live].to(dtype)
+    l_at = l.float() * torch.exp(torch.where(live, m.float() - m_w.float(), 0.0))
+    return max(rel(m.float(), m_w.float()), rel(l_at, l_w.float()),
+               tolerance_ratio(norm(acc.float(), l.float()), norm(acc_w.float(), l_w.float())))
+
+
 
 # What the SSD kernel is held to against ``ssd_chunked``.  Both compute in
 # f32 but sum in other orders (the kernel takes decays as differences of

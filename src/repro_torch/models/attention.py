@@ -8,6 +8,13 @@ At ``FLASH_MIN_SEQ`` tokens and above, prefill goes through ``ops.mha``
 ``ops.decode_attention`` (the flash-decode kernel).  Both thresholds are the
 JAX package's, so the port launches its kernels exactly where the reference
 reaches its Pallas kernels.
+
+Context-parallel decode (a cache sharded along its slots over the rails)
+runs in two parts: ``context_local_stats`` writes the new token where this
+shard owns its slot and computes the shard's unnormalised flash-decode
+stats through ``ops.decode_attention(return_stats=True)`` at any capacity
+(the kernel's stats variant on the card), and ``merge_decode_stats`` merges
+them over the rails (flash-decoding's split-K combine).
 """
 from __future__ import annotations
 
@@ -140,30 +147,59 @@ def shard_heads(p, x, context, cfg: ModelConfig, tp):
     leaves are gathered (``gather_leaf``) and the block runs replicated.
     """
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    if sh.model_dim("wq", (d, h, dh), tp) != 1:
+    if not heads_split(cfg, tp):
         full = dict(p)
         for name, shape in (("wq", (d, h, dh)), ("wo", (h, dh, d))):
             td = sh.model_dim(name, shape, tp)
             if td is not None:
                 full[name] = tp.gather_leaf(p[name], td)
         return full, x, context, lambda out: out
-    hl = h // tp.size
     local = dict(p)
     if sh.model_dim("wk", (d, kv, dh), tp) is None:
-        rep = h // kv
-        first, last = tp.rank * hl // rep, ((tp.rank + 1) * hl - 1) // rep
-        if hl % rep == 0 or rep % hl == 0:  # a contiguous run of kv heads, each read alike
-            heads = slice(first, last + 1)
-        else:  # a kv head for each query head
-            heads = torch.arange(tp.rank * hl, (tp.rank + 1) * hl, device=x.device) // rep
+        heads = kv_heads(cfg, tp, x.device)
         for name in ("wk", "wv"):
             local[name] = tp.copy(p[name])[:, heads]
     return (local, tp.copy(x), None if context is None else tp.copy(context), tp.reduce)
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device="cuda"):
+def heads_split(cfg: ModelConfig, tp) -> bool:
+    """Whether the query heads split over the model axis ``tp``."""
+    shape = (cfg.d_model, cfg.n_heads, cfg.resolved_head_dim)
+    return sh.model_dim("wq", shape, tp) == 1
+
+
+def kv_heads(cfg: ModelConfig, tp, device=None):
+    """The kv heads (of all ``cfg.n_kv_heads``) that this rank's query heads
+    read on the model axis ``tp``: all of them where the query heads do not
+    split; the rank's block where the kv heads split too; else, with wk/wv
+    replicated, a contiguous run (a slice) or one kv head for each query
+    head (an index tensor)."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if tp is None or not tp.active or not heads_split(cfg, tp):
+        return slice(None)
+    if sh.model_dim("wk", (d, kv, dh), tp) is not None:
+        return slice(*tp.block(kv))
+    hl, rep = h // tp.size, h // kv
+    first, last = tp.rank * hl // rep, ((tp.rank + 1) * hl - 1) // rep
+    if hl % rep == 0 or rep % hl == 0:  # a contiguous run of kv heads, each read alike
+        return slice(first, last + 1)
+    return torch.arange(tp.rank * hl, (tp.rank + 1) * hl, device=device) // rep
+
+
+def n_kv_heads(cfg: ModelConfig, tp=None) -> int:
+    """How many kv heads a rank's cache holds on the model axis ``tp``."""
+    heads = kv_heads(cfg, tp)
+    if isinstance(heads, slice):
+        return len(range(cfg.n_kv_heads)[heads])
+    return heads.numel()
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device="cuda",
+                  n_kv: Optional[int] = None):
+    """Empty K/V [B, capacity, KV, dh] (``n_kv`` kv heads where given: a
+    model-axis rank's) and the absolute position of each slot."""
     dh = cfg.resolved_head_dim
-    shape = (batch, capacity, cfg.n_kv_heads, dh)
+    shape = (batch, capacity, cfg.n_kv_heads if n_kv is None else n_kv, dh)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -173,7 +209,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device="cu
 
 
 def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
-                     window: Optional[int] = None, cross_kv=None, ctx=None):
+                     window: Optional[int] = None, cross_kv=None, ctx=None, tp=None):
     """One-token attention.  x [B,1,D]; pos the absolute position (a Python int).
 
     Full cache: slot = pos.  SWA ring cache: slot = pos % capacity.
@@ -182,43 +218,113 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
     cross_kv: {"k", "v"} [B,Sk,KV,dh] of ``precompute_cross_kv``: cross-attention
     over the cached encoder K/V (plain sdpa, no rope, no mask); ``cache`` is
     returned unchanged.
+    ctx: {"fabric": the rails' ``Fabric``, "index": this shard's index on
+    it} for context-parallel decode: the cache holds this shard's slots,
+    contiguous ones of the whole cache's (``context_slot``), and the
+    shards' stats are merged over the rails (``merge_decode_stats``).
+    tp: the model axis; ``p`` then holds this rank's shards of the leaves,
+    the rank runs its query heads (``shard_heads``), its cache holds the kv
+    heads they read (``kv_heads``; so does ``cross_kv``, given whole) and
+    the partial output leaves through ``reduce``.
     Returns (out [B,1,D], cache).
     """
+    if tp is not None and tp.active:
+        p, x, _, reduce = shard_heads(p, x, None, cfg, tp)
+        if cross_kv is not None:
+            heads = kv_heads(cfg, tp, x.device)
+            cross_kv = {k: v[:, :, heads] for k, v in cross_kv.items()}
+        out, cache = decode_attention(p, x, pos, cache, cfg, window=window, cross_kv=cross_kv,
+                                      ctx=ctx)
+        return reduce(out), cache
     if cross_kv is not None:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-        out = sdpa(q, _repeat_kv(cross_kv["k"], cfg.n_heads),
-                   _repeat_kv(cross_kv["v"], cfg.n_heads))
+        out = sdpa(q, _repeat_kv(cross_kv["k"], q.shape[2]),
+                   _repeat_kv(cross_kv["v"], q.shape[2]))
         return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache
-    if ctx is not None:
-        raise NotImplementedError("context-parallel decode is not ported yet "
-                                  "(ROADMAP.md, Queue 1: fabric and rail-sharded serving)")
     pos = int(pos)
     capacity = cache["k"].shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q = rope_apply(q, posv, cfg.rope_theta)
-    k_new = rope_apply(k_new, posv, cfg.rope_theta)
+    q, k_new, v_new = decode_qkv(p, x, pos, cfg)
+    if ctx is not None:
+        fab = ctx["fabric"]
+        stats = context_local_stats(q, k_new, v_new, pos, cache, ctx["index"], fab.n_shards,
+                                    window)
+        out = merge_decode_stats(*stats, fab).to(q.dtype)
+        return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache
 
     slot = pos if window is None else pos % capacity
     cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    slot_pos = cache["slot_pos"]
-    slot_pos[slot] = pos
-
-    valid = (slot_pos >= 0) & (slot_pos <= pos)
-    if window is not None:
-        valid &= slot_pos > pos - window
+    cache["slot_pos"][slot] = pos
+    valid = _valid_slots(cache["slot_pos"], pos, window)
 
     if capacity >= DECODE_KERNEL_MIN_CAPACITY:  # no repeat_kv
         vm = valid[None, :].expand(q.shape[0], capacity)
         out = ops.decode_attention(q, cache["k"], cache["v"], vm)
     else:
-        k = _repeat_kv(cache["k"], cfg.n_heads)
-        v = _repeat_kv(cache["v"], cfg.n_heads)
+        k = _repeat_kv(cache["k"], q.shape[2])
+        v = _repeat_kv(cache["v"], q.shape[2])
         out = sdpa(q, k, v, mask=valid[None, None, None, :])
     return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache
+
+
+def decode_qkv(p, x, pos: int, cfg: ModelConfig):
+    """q [B,1,H,dh] and the new token's k, v [B,1,KV,dh] at position
+    ``pos``, rope applied to q and k."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    return rope_apply(q, posv, cfg.rope_theta), rope_apply(k_new, posv, cfg.rope_theta), v_new
+
+
+def _valid_slots(slot_pos, pos: int, window: Optional[int]):
+    """[C] bool: the slots holding a position the query at ``pos`` sees."""
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid &= slot_pos > pos - window
+    return valid
+
+
+def context_slot(pos, local_cap: int, index: int, n: int, window: Optional[int]):
+    """(owned, local slot) of position ``pos`` (an int or an integer tensor)
+    on shard ``index`` of ``n``, each holding ``local_cap`` contiguous slots
+    of a cache of ``n * local_cap``: the cache's slot is pos, or pos modulo
+    its slots on a sliding window's ring, and its owner is slot //
+    local_cap.  The reference takes the offset from the step's capacity,
+    not the cache's own slots, and writes without the ring (ROADMAP Queue
+    3); this gives the unsharded decode's slots."""
+    slot = pos if window is None else pos % (n * local_cap)
+    return slot // local_cap == index, slot - index * local_cap
+
+
+def context_local_stats(q, k_new, v_new, pos: int, cache, index: int, n: int,
+                        window: Optional[int]):
+    """The local part of context-parallel decode on shard ``index`` of
+    ``n``: the new token's K/V [B,1,KV,dh] written where this shard owns its
+    slot, then the shard's unnormalised stats (acc [B,KV,R,dh], m, l
+    [B,KV,R], f32) of q [B,1,H,dh] over its valid slots."""
+    owned, slot = context_slot(pos, cache["k"].shape[1], index, n, window)
+    if owned:
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        cache["slot_pos"][slot] = pos
+    valid = _valid_slots(cache["slot_pos"], pos, window)
+    vm = valid[None, :].expand(q.shape[0], valid.shape[0])
+    return ops.decode_attention(q, cache["k"], cache["v"], vm, return_stats=True)
+
+
+def merge_decode_stats(acc, m, l, fab):
+    """The shards' stats merged over the rails ``fab`` (anything with
+    ``pmax`` and ``all_reduce``): m_g = max m, then l and acc rescaled by
+    exp(m - m_g) and summed, as the JAX package's split-K combine does.
+    Returns the attention output [..., B,1,H,dh] in f32 (heads (KV,
+    R)-major; leading dims as the stats')."""
+    m_g = fab.pmax(m)
+    scale = torch.exp(m - m_g)
+    l_g = fab.all_reduce(l * scale)
+    acc_g = fab.all_reduce(acc * scale[..., None])
+    out = acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+    return out.flatten(-3, -2).unsqueeze(-3)
 
 
 def precompute_cross_kv(p, context, cfg: ModelConfig):

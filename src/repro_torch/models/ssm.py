@@ -69,11 +69,6 @@ def ssm_init(cfg: ModelConfig, n_periods: int, dtype, gen: torch.Generator, devi
     return out
 
 
-def _split_proj(proj, cfg: ModelConfig):
-    d_inner, h, _, n = ssm_dims(cfg)
-    return torch.split(proj, [d_inner, d_inner + 2 * cfg.ssm.n_groups * n, h], dim=-1)
-
-
 def _causal_conv(xbc, conv_w, conv_b):
     """Depthwise causal conv over the sequence, in f32. xbc [B,S,C], conv_w [W,C].
 
@@ -199,10 +194,16 @@ def shard_mixer(p, cfg: ModelConfig, tp):
 # ---------------------------------------------------------------------------
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+def init_ssm_cache(cfg: ModelConfig, batch: int, device="cuda", tp=None) -> dict:
+    """Zero conv window [B, W-1, conv channels] and SSM state [B, H, P, N]
+    (f32); on a model axis ``tp`` where the SSD heads split, the channels of
+    ``mixer_columns`` and the heads of this rank."""
     s = cfg.ssm
     d_inner, h, pdim, n = ssm_dims(cfg)
     conv_ch = d_inner + 2 * s.n_groups * n
+    if tp is not None and tp.active and sh.model_dim("a_log", (h,), tp) == 0:
+        conv_ch = mixer_columns(cfg, tp.size, tp.rank)["conv_w"].numel()
+        h //= tp.size
     f32 = torch.float32
     return {
         "conv": torch.zeros((batch, s.conv_width - 1, conv_ch), dtype=f32, device=device),
@@ -210,17 +211,38 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
     }
 
 
-def ssm_decode(p, x, cache, cfg: ModelConfig):
+def ssm_decode(p, x, cache, cfg: ModelConfig, tp=None):
     """Single-token recurrent step. x [B,1,D] -> (y [B,1,D], cache).
 
     The cache is updated in place (the JAX package returns a new one) and
-    returned."""
-    s_cfg = cfg.ssm
-    d_inner, h, pdim, n = ssm_dims(cfg)
-    g = s_cfg.n_groups
+    returned.  tp: the model axis; ``p`` then holds this rank's shards and
+    the cache its heads' (``init_ssm_cache``): the rank steps its heads
+    (``shard_mixer``), the gated norm's sum of squares is summed over the
+    axis (``all_sum``) and the partial output leaves through ``reduce``."""
+    if tp is not None and tp.active:
+        p, split = shard_mixer(p, cfg, tp)
+        if not split:
+            return ssm_decode(p, x, cache, cfg)
+        v = ssm_decode_gated(p, tp.copy(x), cache, cfg)
+        ss = tp.all_sum(v.square().sum(-1, keepdim=True))
+        return tp.reduce(gated_norm_out(p, v, ss, ssm_dims(cfg)[0], cfg.norm_eps,
+                                        x.dtype)), cache
+    v = ssm_decode_gated(p, x, cache, cfg)
+    y = rms_norm(v, p["norm_w"], cfg.norm_eps)
+    return torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"]), cache
+
+
+def ssm_decode_gated(p, x, cache, cfg: ModelConfig):
+    """The recurrent step up to the gated norm: y * silu(z) [B,1,d_inner]
+    in f32, of the heads that ``p`` holds (their count is a_log's, their
+    groups' w_in's, as in ``ssm_gated``); the cache is updated in place."""
+    pdim, n = cfg.ssm.head_dim, cfg.ssm.state_dim
+    h = p["a_log"].shape[-1]
+    d_inner = h * pdim
+    g = (p["w_in"].shape[-1] - 2 * d_inner - h) // (2 * n)
     f32 = torch.float32
     proj = torch.einsum("bsd,de->bse", x, p["w_in"])[:, 0]  # [B, E]
-    z, xbc, dt = _split_proj(proj, cfg)
+    z, xbc, dt = torch.split(proj, [d_inner, d_inner + 2 * g * n, h], dim=-1)
 
     # conv ring: window = [cache, current]
     win = torch.cat([cache["conv"], xbc[:, None, :].to(f32)], dim=1)  # [B, W, C]
@@ -239,9 +261,7 @@ def ssm_decode(p, x, cache, cfg: ModelConfig):
                  + torch.einsum("bh,bhp,bhn->bhpn", dt, xin, b_mat))
     y = torch.einsum("bhn,bhpn->bhp", c_mat, new_state)
     y = y + p["d_skip"][None, :, None] * xin
-    y = y.reshape(bsz, d_inner)
-    y = rms_norm(y * F.silu(z.to(f32)), p["norm_w"], cfg.norm_eps)
-    out = torch.einsum("be,ed->bd", y.to(x.dtype), p["w_out"])[:, None, :]
+    y = y.reshape(bsz, 1, d_inner)
     cache["conv"].copy_(win[:, 1:])
     cache["state"].copy_(new_state)
-    return out, cache
+    return y * F.silu(z.to(f32))[:, None, :]

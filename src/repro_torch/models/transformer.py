@@ -207,10 +207,15 @@ def _apply_sublayer(lp, x, positions, cfg: ModelConfig, spec, *, causal: bool,
         if ffn == "moe":
             h, aux = moe_mod.moe_apply(lp["ffn"], h, cfg, tp=tp)
         else:
-            split = sh.model_dim("w_gate", (cfg.d_model, cfg.d_ff), tp) is not None
-            h = mlp_apply(lp["ffn"], h, cfg.mlp_act, tp=tp if split else None)
+            h = _dense_ffn(lp["ffn"], h, cfg, tp)
         x = x + h
     return x, aux
+
+
+def _dense_ffn(p, x, cfg: ModelConfig, tp=None):
+    """The dense MLP, over its d_ff shard where d_ff splits over ``tp``."""
+    split = sh.model_dim("w_gate", (cfg.d_model, cfg.d_ff), tp) is not None
+    return mlp_apply(p, x, cfg.mlp_act, tp=tp if split else None)
 
 
 _NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -386,12 +391,17 @@ def lm_loss(params, batch, cfg: ModelConfig, *, layer_param_fn: ParamFn = None,
     return loss + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
+def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda", *,
+                      tp=None, context_shards: int = 1):
     """Per-period-position caches, leaves stacked [n_periods, ...].
 
     An attention position keeps a KV cache; a sliding-window architecture a
     ring cache of ``min(capacity, sliding_window)`` slots.  A Mamba position
     keeps its conv window and SSM state, whatever the capacity.
+    ``context_shards``: a shard's cache of context-parallel decode, 1/n of
+    each attention cache's slots (the cache's own, after the window).
+    ``tp``: a model-axis rank's, the kv heads, conv channels and SSD heads
+    of its share.
     """
     _check_family(cfg)
     np_ = n_periods(cfg)
@@ -402,9 +412,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, device="cuda"
             cap = capacity
             if cfg.sliding_window is not None:
                 cap = min(capacity, cfg.sliding_window)
-            one = attn.init_kv_cache(cfg, batch, cap, dtype, device)
+            if cap % context_shards:
+                raise ValueError(f"{cap} cache slots do not split over {context_shards} shards")
+            one = attn.init_kv_cache(cfg, batch, cap // context_shards, dtype, device,
+                                     n_kv=attn.n_kv_heads(cfg, tp))
         else:
-            one = ssm_mod.init_ssm_cache(cfg, batch, device)
+            one = ssm_mod.init_ssm_cache(cfg, batch, device, tp=tp)
         caches.append({k: v[None].repeat((np_,) + (1,) * v.dim()) for k, v in one.items()})
     return caches
 
@@ -421,43 +434,53 @@ def init_cross_state(params, enc_out, cfg: ModelConfig):
     return out
 
 
-def decode_step(params, state, token, pos: int, cfg: ModelConfig, *, cross_state=None):
+def decode_step(params, state, token, pos: int, cfg: ModelConfig, *, cross_state=None,
+                layer_param_fn: ParamFn = None, ctx=None, tp=None):
     """One decode step.  token [B,1] integer, pos the absolute position (int).
 
     ``state`` is updated in place and returned.  An encoder-decoder model
     takes ``cross_state`` (``init_cross_state`` of the encoded frames).
+    ``layer_param_fn``: the FSDP hook of ``stack_apply``, called on each
+    period's parameters.  ``ctx``: context-parallel decode over the rails
+    (``attention.decode_attention``).  ``tp``: the model axis; every rank
+    gets the whole logits (its vocab slices gathered).
     Returns (logits [B,1,V], state).
     """
     _check_family(cfg)
     if cfg.encoder is not None and cross_state is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: decode_step needs cross_state "
                          f"= init_cross_state(params, encode(params, frames, cfg), cfg)")
-    x = params["embed"][token]
+    x = embed_lookup(params, token, cfg, tp)
     specs = period_spec(cfg)
     for p in range(n_periods(cfg)):
+        pp = [_period(lp, p) for lp in params["layers"]]
+        if layer_param_fn is not None:
+            pp = layer_param_fn(pp)
         for i, (kind, ffn) in enumerate(specs):
-            lp = _period(params["layers"][i], p)
+            lp = pp[i]
             z = rms_norm(x, lp["norm1"], cfg.norm_eps)
             if kind == "attn":
                 z, _ = attn.decode_attention(lp["mixer"], z, pos, _period(state[i], p), cfg,
-                                             window=cfg.sliding_window)
+                                             window=cfg.sliding_window, ctx=ctx, tp=tp)
             else:
-                z, _ = ssm_mod.ssm_decode(lp["mixer"], z, _period(state[i], p), cfg)
+                z, _ = ssm_mod.ssm_decode(lp["mixer"], z, _period(state[i], p), cfg, tp=tp)
             x = x + z
             if "cross" in lp:
                 z = rms_norm(x, lp["norm_x"], cfg.norm_eps)
                 z, _ = attn.decode_attention(lp["cross"], z, pos, None, cfg,
-                                             cross_kv=_period(cross_state[i], p))
+                                             cross_kv=_period(cross_state[i], p), tp=tp)
                 x = x + z
             if ffn is not None:
                 z = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 if ffn == "moe":  # B groups of one token; the aux loss is not used
-                    z, _ = moe_mod.moe_apply(lp["ffn"], z, cfg)
+                    z, _ = moe_mod.moe_apply(lp["ffn"], z, cfg, tp=tp)
                 else:
-                    z = mlp_apply(lp["ffn"], z, cfg.mlp_act)
+                    z = _dense_ffn(lp["ffn"], z, cfg, tp)
                 x = x + z
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params, x, cfg), state
+    logits = unembed(params, x, cfg, tp)
+    vtp = vocab_axis(cfg, tp)
+    return (logits if vtp is None else vtp.gather_last(logits)), state
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int):

@@ -322,13 +322,19 @@ def init_sharded_state(setup: TrainSetup, mesh, *, seed: int = 0, device="cuda")
     """(params, opt, ef): this rank's shards of ``init_lm(cfg, seed)``, f32
     AdamW moments of the same shapes, and the error-feedback state: f32
     zeros of the same shapes under HSDP with compression, else ``{}``."""
-    fab = fabric_of(setup, mesh)
-    params = tf.init_lm(setup.cfg, seed=seed, device=device)
+    params = init_sharded_params(setup.cfg, mesh, fabric_of(setup, mesh), seed=seed,
+                                 device=device)
+    return params, adamw_init(params), ef_init(setup, params)
+
+
+def init_sharded_params(cfg: ModelConfig, mesh, fab: Fabric, *, seed: int = 0, device="cuda"):
+    """This rank's shards of ``init_lm(cfg, seed)``: FSDP over the rails of
+    ``fab``, TP on the mesh's model axis."""
+    params = tf.init_lm(cfg, seed=seed, device=device)
     fd_tree, td_tree = meta_trees(params, rails=fab.axes, n_rails=fab.n_shards,
                                   model_size=model_size_of(mesh))
-    params = shard_tree(params, fd_tree, td_tree, fab.axis_index(), fab.n_shards,
-                        ModelAxis.from_mesh(mesh))
-    return params, adamw_init(params), ef_init(setup, params)
+    return shard_tree(params, fd_tree, td_tree, fab.axis_index(), fab.n_shards,
+                      ModelAxis.from_mesh(mesh))
 
 
 def ef_init(setup: TrainSetup, params):

@@ -255,8 +255,12 @@ def test_ops_on_cpu_tensors_launch_nothing():
     (y.sum() + st.sum()).backward()
     dx_w = tref.ssd_chunked_bwd(x, dt, a, bm, bm, 8, torch.ones_like(y), torch.ones_like(st))[0]
     assert torch.equal(xg.grad, dx_w)
+    stats = ops.decode_attention(dq, k, v, valid, return_stats=True)
+    for got, want in zip(stats, tref.decode_attention(dq, k, v, valid, return_stats=True)):
+        assert torch.equal(got, want)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                                   "decode_attention": 0, "decode_attention_stats": 0,
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_ops_decode_attention_on_cpu_keeps_its_gradient():

@@ -365,6 +365,65 @@ def test_decode_kernel_reads_strided_caches(dev, dtype):
     assert ref.tolerance_ratio(got, want) <= 1
 
 
+def _stats_mask(kind, b, c, dev, gen):
+    """_mask's kinds, and a shard with no valid slot ("empty") or whose
+    first 256-slot split has none ("split0")."""
+    if kind == "empty":
+        return torch.zeros((b, c), dtype=torch.bool, device=dev)
+    if kind == "split0":
+        return (torch.arange(c, device=dev) >= 256)[None, :].expand(b, c)
+    return _mask(kind, b, c, dev, gen)
+
+
+@pytest.mark.parametrize("b,c,h,kv,dh,dtype,kind", [
+    (1, 4096, 32, 8, 128, torch.bfloat16, "all"),      # llama3-8b's shard of 8 rails
+    (2, 4100, 32, 8, 128, torch.bfloat16, "holes"),    # ragged C
+    (1, 4096, 4, 1, 128, torch.bfloat16, "prefix"),    # a model rank's share
+    (1, 4096, 32, 8, 128, torch.bfloat16, "split0"),
+    (1, 4096, 32, 8, 128, torch.bfloat16, "empty"),
+    (3, 300, 8, 2, 64, torch.float32, "holes"),
+    (1, 700, 16, 1, 256, torch.bfloat16, "tail"),
+    (2, 1000, 8, 8, 256, torch.float32, "prefix"),
+])
+def test_decode_stats_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
+    """The stats variant against ``ref.decode_attention(return_stats=True)``
+    by ``ref.stats_tolerance_ratio`` (m, l, and acc / l as the output); it
+    counts its own launches, through ``ops`` too."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _randn((b, 1, h, dh), dtype, dev, gen)
+    kc = _randn((b, c, kv, dh), dtype, dev, gen)
+    vc = _randn((b, c, kv, dh), dtype, dev, gen)
+    valid = _stats_mask(kind, b, c, dev, gen)
+    before, fwd = tda.STATS.launches, tda.KERNEL.launches
+    got = ops.decode_attention(q, kc, vc, valid, return_stats=True)
+    torch.cuda.synchronize()
+    assert (tda.STATS.launches, tda.KERNEL.launches) == (before + 1, fwd)
+    assert [t.shape for t in got] == [(b, kv, h // kv, dh), (b, kv, h // kv), (b, kv, h // kv)]
+    want = ref.decode_attention(q, kc, vc, valid, return_stats=True)
+    assert ref.stats_tolerance_ratio(got, want, dtype) <= 1
+    if kind == "empty":
+        assert bool((got[1] <= ref.NEG_INF / 2).all()) and bool((got[2] == 0).all())
+
+
+def test_decode_stats_kernel_rejects_a_dropped_split(dev):
+    """A planted fault, emulated in the plain version: one 256-slot split of
+    4096 dropped reads > 1."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = _randn((1, 1, 32, 128), torch.bfloat16, dev, gen)
+    kc = _randn((1, 4096, 8, 128), torch.bfloat16, dev, gen)
+    vc = _randn((1, 4096, 8, 128), torch.bfloat16, dev, gen)
+    valid = torch.ones((1, 4096), dtype=torch.bool, device=dev)
+    got = tda.decode_attention_stats(q, kc, vc, valid)
+    dropped = valid.clone()
+    dropped[:, 1024:1280] = False
+    assert ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, valid,
+                                                               return_stats=True),
+                                     torch.bfloat16) <= 1
+    assert ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, dropped,
+                                                               return_stats=True),
+                                     torch.bfloat16) > 1
+
+
 def test_kernels_refuse_unsupported_inputs(dev):
     # one 16-byte chunk past the widest tile (256): refused by every wrapper
     q = torch.zeros((1, 64, 4, 264), device=dev)

@@ -181,9 +181,8 @@ def test_serve_main_runs_on_cpu(capsys):
     assert "served 2 seqs x 9 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,word", [(["--mesh", "4x2"], "--mesh"),
-                                        (["--context-shard"], "--context-shard"),
-                                        (["--plane-report"], "--plane-report")])
+@pytest.mark.parametrize("flags,word", [(["--plane-report"], "--plane-report"),
+                                        (["--ocs-latency", "0.01"], "--ocs-latency")])
 def test_serve_main_refuses_unported_options(flags, word, capsys):
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", "llama3_8b", "--smoke", "--device", "cpu", *flags])
@@ -197,11 +196,28 @@ def test_serve_main_never_falls_back_to_cpu(monkeypatch):
         launch_serve.main(["--arch", "llama3_8b", "--smoke"])
 
 
+class _FourRails:
+    """A mesh's shape without its process groups: 4 rails, a model axis of 1."""
+    mesh_dim_names, shape = ("data", "model"), (4, 1)
+
+    def size(self, i: int) -> int:
+        return self.shape[i]
+
+    def get_group(self, name):
+        return None
+
+
 def test_sharded_serving_and_other_families_raise(yi):
     _, tcfg, _, tparams = yi
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decode_step(ServeSetup(cfg=tcfg), (4, 2), tparams, batch=8, capacity=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prefill_step(ServeSetup(cfg=tcfg, context_shard=True), (1, 1), tparams)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 2b"):
+        make_decode_step(ServeSetup(cfg=tcfg, weight_resident=True), (1, 1), tparams, batch=8,
+                         capacity=16)
+    with pytest.raises(ValueError, match="a tuple is one device"):
+        make_prefill_step(ServeSetup(cfg=tcfg), (4, 2), tparams)
+    for fn in (lambda: make_decode_step(ServeSetup(cfg=tcfg), _FourRails(), tparams, batch=6,
+                                        capacity=16),
+               lambda: init_serve_state(ServeSetup(cfg=tcfg), _FourRails(), tparams, 6, 16)):
+        with pytest.raises(ValueError, match="batch 6 does not split over 4 rails"):
+            fn()
     with pytest.raises(NotImplementedError, match="MoE"):
         tf.init_lm(tcfg.replace(family="moe"), device="cpu")
