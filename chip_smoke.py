@@ -216,6 +216,34 @@ and the script exits non-zero without printing a result:
     must fail; then the decode kernel at the attention shares' local shapes
     and the stats variant at (c)'s, timed beside the bound, the plain
     version and SDPA.
+29. the pipeline (``parallel.pipeline``): h2o-danube-3-4b at full width
+    and depth (24 periods), PIPE_MICRO microbatches of one sequence of
+    PIPE_SEQ tokens (4 x 4096 do not fit: GPipe keeps every microbatch's
+    activations); (a) ``make_pipeline_train_step`` on a one-rank pipe group
+    over NCCL: 4 SGD steps timed, their losses, peak memory, and the flash
+    forward and backward launches a step (one a layer a microbatch);
+    (b) the gradients at the initial weights as PIPE_STAGES stages of 6
+    periods run in turn (``pipeline.LocalPipe``, a local hand-off in place
+    of the shift): loss and every gradient leaf bit-equal to (a)'s, and
+    three planted faults of the hand-off (``pipe_faults``: a microbatch's
+    activations lost, a cotangent not shifted back, a shift by +2) must move
+    some leaf by more than PIPE_LIMIT relative RMS; (c) (a)'s gradients
+    against ``lm_loss``'s (aux weight 0) over the whole batch through the
+    same kernels, within PIPE_LIMIT relative RMS per leaf;
+30. calibration: ``profiling.microbench.run_suite`` at the full
+    configurations' shapes (``smoke=False``, 5 repeats): every kernel case
+    through its CUDA kernel, its last output held to the plain version on
+    the same inputs (``measure_case`` raises where a case did not launch
+    its kernel once a call or disagrees: ``ref.tolerance_ratio``, or
+    ``ref.ssd_tolerance_ratio``, at most 1), and a planted fault (a flash
+    case's output without its last query row) that must raise; the
+    depth-differenced step phases of llama3-8b, deepseek-moe-16b and
+    mamba2-370m and the one-rank sharded train step, timed by their kernels'
+    time (torch.profiler), with the wall time and the card's busy share
+    printed beside it; no skipped record but the JAX package's by-design
+    ones (CALIB_BY_DESIGN); the fitted table (achieved FLOP/s, effective
+    MFU and HBM efficiency against ``PROFILES["h100"]``) printed, the
+    artifact and table written under build/.
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -330,6 +358,21 @@ VLM_ATTN, AUDIO_ATTN = (8, 1, 256), (16, 16, 64)  # heads, kv heads, head dim
 # mamba2-370m's loss by 5e-4 relative on an H100, and the control (the
 # optimizer's step reset) read 1.3e-4, too near the limit to tell a fault.
 CKPT_RTOL, HSDP_GN_RTOL, CKPT_LR = 1e-4, 0.02, 3e-3
+# The pipeline (phase 29): h2o-danube-3-4b at full width and depth (24
+# periods) as PIPE_STAGES stages of 6, PIPE_MICRO microbatches of one
+# sequence of PIPE_SEQ tokens, SGD at PIPE_LR.  GPipe keeps every
+# microbatch's activations until its backward: at 4 x 2048 the step peaks at
+# 61.4 GiB on an H100 80GB (46 of them activations), so 4 x 4096 does not
+# fit.  Its gradients are held to lm_loss's over the whole batch through the
+# same kernels within PIPE_LIMIT relative RMS per leaf (bf16 gradients
+# summed over the microbatches against one product over all their tokens),
+# and the planted faults of the stages' hand-off must exceed it.
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ, PIPE_LR, PIPE_LIMIT = 4, 4, 2048, 0.1, MODEL_LIMIT
+# Calibration (phase 30): the suite's timings and fitted table, in the JAX
+# package's formats, under build/ (gitignored); the skips the JAX package
+# makes by design, the only ones allowed.
+CALIB_DIR = ROOT / "build"
+CALIB_BY_DESIGN = ("non-positive depth difference", "non-positive step-minus-fwd")
 
 
 def log(*a):
@@ -3772,6 +3815,235 @@ def stats_at(tag: str, b, c, h, kv, dh, seed) -> dict:
             "empty_split_ratio": ratio_empty, "control_ratio": ctrl, **t}
 
 
+def pipe_faults(n: int) -> dict:
+    """``LocalPipe`` hand-offs, each with a planted fault: microbatch 0's
+    activations lost on the way from stage 0 to stage 1; stage 1 keeping
+    its own input cotangent instead of receiving stage 2's; every forward
+    hand-off two stages on instead of one."""
+    import torch
+    from repro_torch.parallel.pipeline import LocalPipe
+
+    class Faulty(LocalPipe):
+        def __init__(self, fault: str):
+            super().__init__(n)
+            self.fault, self.ticks = fault, 0
+
+        def shift(self, xs, delta):
+            if delta > 0:
+                self.ticks += 1
+                if self.fault == "shift_by_two":
+                    return super().shift(xs, 2)
+            out = super().shift(xs, delta)
+            if self.fault == "microbatch_dropped" and delta > 0 and self.ticks == 2:
+                out[1] = torch.zeros_like(out[1])
+            if self.fault == "cotangent_not_shifted" and delta < 0:
+                out[1] = xs[1]
+            return out
+    return {f: Faulty(f) for f in ("microbatch_dropped", "cotangent_not_shifted",
+                                   "shift_by_two")}
+
+
+def stages_joined(grads: list) -> dict:
+    """{path: tensor} of the whole tree from the stages' trees in stage
+    order: the layer leaves' rows concatenated, the others stage 0's."""
+    import torch
+    from repro_torch import bridge
+    flats = [bridge.flatten(g) for g in grads]
+    return {p: torch.cat([f[p] for f in flats]) if p.startswith("layers") else v
+            for p, v in flats[0].items()}
+
+
+def phase_pipeline() -> dict:
+    """Phase 29: the GPipe pipeline on h2o-danube-3-4b (see the docstring)."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import pipeline
+    from repro_torch.train.step import autograd_leaves
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    launch_train.init_distributed(dev)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    step = pipeline.make_pipeline_train_step(cfg, mesh, pipe_axis="pipe", n_micro=PIPE_MICRO,
+                                             lr=PIPE_LR)
+    params = tf.init_lm(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (PIPE_MICRO, PIPE_SEQ), generator=gen,
+                              device=dev) for k in ("tokens", "targets")}
+    tag = (f"[pipeline] {cfg.name} {cfg.n_layers} layers, {PIPE_MICRO} microbatches of 1 x "
+           f"{PIPE_SEQ}")
+    # (a)'s gradients at the initial parameters: what (b) and (c) are held to
+    grads_a, loss_a = step.grads_fn(params, batch)
+    want = stages_joined([grads_a])
+    del grads_a
+    # (b) the stages in turn, a local hand-off in place of the shift
+    trees = [pipeline.stage_params(params, s, PIPE_STAGES) for s in range(PIPE_STAGES)]
+
+    def local(pipe):
+        grads, loss = pipeline.pipeline_grads(trees, batch, cfg, pipe=pipe, n_micro=PIPE_MICRO)
+        return loss[0], stages_joined(grads)
+    loss_b, got = local(pipeline.LocalPipe(PIPE_STAGES))
+    unequal = [p for p, w in want.items() if not torch.equal(got[p], w)]
+    worst_b = max(leaf_rel_rms(got, want).values())
+    del got
+    log(f"{tag} (b) {PIPE_STAGES} stages in turn: loss {float(loss_b):.6f} against (a)'s "
+        f"{float(loss_a):.6f} ({'bit-equal' if torch.equal(loss_b, loss_a) else 'differs'}); "
+        f"{len(want) - len(unequal)} of {len(want)} gradient leaves bit-equal (worst relative "
+        f"RMS {worst_b:.3g})")
+    if unequal or not torch.equal(loss_b, loss_a):
+        raise AssertionError(f"phase 29 (b): loss {float(loss_b)} against {float(loss_a)}, "
+                             f"leaves not bit-equal {unequal[:5]}")
+    faults = {}
+    for name, pipe in pipe_faults(PIPE_STAGES).items():
+        _, got = local(pipe)
+        faults[name] = max(leaf_rel_rms(got, want).values())
+        del got
+    log(f"{tag} (b) planted faults, worst leaf's relative RMS (must exceed {PIPE_LIMIT}; nan "
+        "or inf: gradients no longer finite): " + ", ".join(f"{k} {v:.3g}"
+                                                          for k, v in faults.items()))
+    if any(math.isfinite(v) and v <= PIPE_LIMIT for v in faults.values()):
+        raise AssertionError(f"phase 29 (b): a planted fault passed: {faults}")
+    del trees
+    # (c) against lm_loss (aux weight 0) over the whole batch, the same kernels
+    gbuf = tree_map(torch.zeros_like, params)
+    loss_c, _ = tf.lm_loss(autograd_leaves(params, gbuf), batch, cfg, aux_weight=0.0)
+    loss_c.backward()
+    rel_c = leaf_rel_rms(stages_joined([gbuf]), want)
+    worst_c = max(rel_c, key=rel_c.get)
+    del gbuf, want
+    log(f"{tag} (c) against lm_loss over the whole batch: loss {float(loss_c):.6f} (|diff| "
+        f"{abs(float(loss_c) - float(loss_a)):.3g}); worst leaf {worst_c} {rel_c[worst_c]:.4g} "
+        f"relative RMS, median {statistics.median(rel_c.values()):.4g} (limit {PIPE_LIMIT})")
+    if not all(math.isfinite(v) and v <= PIPE_LIMIT for v in rel_c.values()) or \
+            not abs(float(loss_c) - float(loss_a)) <= 1e-3:
+        raise AssertionError(f"phase 29 (c): {worst_c} {rel_c[worst_c]}, loss {float(loss_c)} "
+                             f"against {float(loss_a)}")
+    # (a) the step through its entry point, timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want_launches = n_mixers(cfg)[0] * PIPE_MICRO
+    step_ms = statistics.median(times[1:])
+    tokens = PIPE_MICRO * PIPE_SEQ
+    log(f"{tag} (a) one-rank pipe group over NCCL: losses {[round(x, 4) for x in losses]} (SGD "
+        f"lr {PIPE_LR}); step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+        f"{times[0]:.1f}), {tokens / step_ms * 1e3:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; flash launches a step {per_step['flash_attention']:g} forward, "
+        f"{per_step['flash_attention_bwd']:g} backward (expected {want_launches} each)")
+    if losses[0] != float(loss_a) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 29 (a): losses {losses}, grads_fn's {float(loss_a)}")
+    if per_step["flash_attention"] != want_launches or \
+            per_step["flash_attention_bwd"] != want_launches:
+        raise AssertionError(f"phase 29 (a): launches a step {per_step}")
+    busy, dev = device_profile(lambda: step(params, batch), f"{tag} (a) one step", top=10)
+    del params
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out = {"pipe_arch": cfg.name, "pipe_micro": PIPE_MICRO, "pipe_seq": PIPE_SEQ,
+           "pipe_stages_b": PIPE_STAGES, "pipe_losses": losses, "pipe_step_ms": step_ms,
+           "pipe_step_times_ms": times, "pipe_tokens_per_s": tokens / step_ms * 1e3,
+           "pipe_peak_gib": peak / 2**30, "pipe_launches": launches, "pipe_busy": busy,
+           "pipe_device_ms": sum(dev.values()) if dev else None,
+           "pipe_launches_per_step": per_step, "pipe_b_bit_equal": True,
+           "pipe_b_worst_rel_rms": worst_b, "pipe_fault_rel_rms": faults,
+           "pipe_c_worst_leaf": worst_c, "pipe_c_worst_rel_rms": rel_c[worst_c],
+           "pipe_c_median_rel_rms": statistics.median(rel_c.values()),
+           "pipe_c_loss_diff": abs(float(loss_c) - float(loss_a)),
+           "pipe_s": time.perf_counter() - t_phase}
+    log(f"[pipeline] phase 29 ok in {out['pipe_s']:.1f} s")
+    return out
+
+
+def phase_calibration() -> dict:
+    """Phase 30: the calibration suite at the full configurations' shapes on
+    the card (see the docstring)."""
+    from repro_torch.analysis.calibrate import CalibrationTable
+    from repro_torch.kernels import ops
+    from repro_torch.launch.calibrate import table_lines
+    from repro_torch.profiling import microbench as mb
+    t_phase = time.perf_counter()
+    cases = mb.kernel_cases(smoke=False)
+
+    def phase_times(msg: str):
+        if msg.startswith("phase"):
+            log(f"[calib] {msg}")
+    ops.reset_launch_counts()
+    art = mb.run_suite(device="cuda", smoke=False, repeats=5, target_gpu="h100",
+                       progress=phase_times)
+    launches = ops.launch_counts()
+    skipped = [(r.key, r.shape_class, r.skip_reason) for r in art.records if r.skipped]
+    bad = [s for s in skipped if s[2] not in CALIB_BY_DESIGN]
+    for key, (dev_s, wall_s) in art.provenance["phase_seconds"].items():
+        log(f"[calib] {key}: kernels {dev_s * 1e3:.4f} ms, wall {wall_s * 1e3:.4f} ms, "
+            f"busy {100 * dev_s / wall_s:.1f} %")
+    log(f"[calib] kernel cases' worst tolerance ratio against the plain versions: "
+        f"{art.provenance['max_tolerance_ratio']}")
+    # planted fault: one flash case whose output loses its last query row
+    case = next(c for c in cases if c.key == "flash_attention")
+
+    def dropped_row(device, make=case.make):
+        fn, args = make(device)
+
+        def dropped(*a):
+            out = fn(*a).clone()
+            out[:, -1] = 0.0
+            return out
+        return dropped, args
+    planted = mb.BenchCase(case.key, case.shape_class, case.shape, dropped_row, case.plain,
+                           case.ratio)
+    try:
+        mb.measure_case(planted, "cuda", repeats=1, warmup=0, trim=0)
+    except RuntimeError as e:
+        if "disagrees" not in str(e):
+            raise
+        log(f"[calib] planted fault (last query row dropped) {case.shape}: raised: {e}")
+    else:
+        raise AssertionError("phase 30: a flash case without its last query row passed "
+                             "measure_case's check")
+    CALIB_DIR.mkdir(exist_ok=True)
+    art.save(str(CALIB_DIR / "CALIB_h100_timings.json"))
+    table = CalibrationTable.fit(art)
+    table.save(str(CALIB_DIR / "CALIB_h100_table.json"))
+    for line in table_lines(table):
+        log(f"[calib] {line}")
+    log(f"[calib] {len(art.records)} records ({sum(r.valid for r in art.records)} valid), "
+        f"{len(cases)} kernel cases; skipped by design {skipped}; launches {launches}; "
+        f"-> {CALIB_DIR}/CALIB_h100_{{timings,table}}.json")
+    if bad:
+        raise AssertionError(f"phase 30: skips {bad} beside the by-design ones")
+    out = {"calib_records": len(art.records), "calib_valid": sum(r.valid for r in art.records),
+           "calib_skipped": skipped, "calib_launches": launches,
+           "calib_max_tolerance_ratio": art.provenance["max_tolerance_ratio"],
+           "calib_provenance": art.provenance,
+           "calib_samples": [[r.key, r.shape_class, r.shape, r.flops, r.bytes_accessed,
+                              r.t_mean_s, r.t_min_s] for r in art.records],
+           "calib_table": [[e.key, e.shape_class, e.n_samples, e.achieved_flops_per_s,
+                            e.eff_mfu, e.eff_hbm, e.rms_rel_err] for e in table.entries],
+           "calib_s": time.perf_counter() - t_phase}
+    log(f"[calib] phase 30 ok in {out['calib_s']:.1f} s")
+    return out
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3955,6 +4227,8 @@ def run() -> int:
                      ("paligemma_", vlm_tr), ("seamless_", audio_tr), ("dots_", rest))}, steps)
     tp = {**at_one, **phase_tp_shares(kernels)}
     serve_tp = phase_serve_model_axis(kernels)
+    pipe = phase_pipeline()
+    calib = phase_calibration()
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -4026,12 +4300,19 @@ def run() -> int:
                       launches_by_path={ctx_path: ctx["ctx_stats_launches"]})
     kernels[2]["launches_by_path"][f"phase 28 (d) shares of {TP_SIZE} model ranks"] = sum(
         r["launches"]["decode_attention"] for r in serve_tp["serve_tp_layers"].values())
+    pipe_path = (f"{pipe['pipe_arch']} pipeline, {PIPE_MICRO} microbatches of 1 x {PIPE_SEQ}, "
+                 f"{TRAIN_STEPS} steps (phase 29 (a))")
+    for kernel in kernels:
+        for path, counts in ((pipe_path, pipe["pipe_launches"]),
+                             ("calibration suite (phase 30)", calib["calib_launches"])):
+            if counts[kernel["name"]]:
+                kernel["launches_by_path"][path] = counts[kernel["name"]]
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
                     **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
                     **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
                     **ssm_tr, **vlm_tr, **audio_tr, **rest, **tp, **at_one_serve, **ctx,
-                    **rails, **serve_tp, "card": smi}, default=str))
+                    **rails, **serve_tp, **pipe, **calib, "card": smi}, default=str))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -111,8 +111,42 @@ class ModelConfig:
     def layer_has_moe(self, i: int) -> bool:
         return self.moe is not None and (i % self.moe.moe_every) == (self.moe.moe_every - 1)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when long-context decode (long_500k) is supported."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# input shapes (the assigned shape set of the LM family), as in
+# ``repro.configs.base``
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+ASSIGNED_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES = {s.name: s for s in ASSIGNED_SHAPES}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell is applicable, with a reason if not."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, "pure full-attention arch: long_500k needs sub-quadratic attention"
+    return True, ""
 
 
 # the model zoo and the models of the paper's Table 3 simulations, as in

@@ -2,7 +2,10 @@
 
 A CPU tensor goes to the plain version in ``ref``; a CUDA tensor launches
 the hand-written kernel or raises.  There is no switch and no fallback: a
-CUDA tensor never reaches the plain version through these functions.
+CUDA tensor never reaches the plain version through these functions.  A
+tensor on the "meta" device (shapes only, nothing computed) takes the plain
+version too, so that ``analysis.cost`` counts the same work whichever
+implementation runs on the card; any other device raises.
 
 Where an input of ``mha`` needs a gradient, ``mha`` is an autograd function:
 its forward (``mha_fwd``) also keeps the rows' log-sum-exp, and its backward
@@ -34,7 +37,7 @@ COUNTED = {**KERNELS, "decode_attention_stats": _da.STATS}
 
 
 def _route(t) -> str:
-    if t.device.type in ("cpu", "cuda"):
+    if t.device.type in ("cpu", "cuda", "meta"):
         return t.device.type
     raise ValueError(f"no kernel for device {t.device}")
 

@@ -170,7 +170,7 @@ def shard_tree(tree, fd_tree, td_tree, index: int, n: int, model: ModelAxis):
     return tree_map(one, tree, fd_tree, td_tree)
 
 
-def _autograd_leaves(stored, gbuf):
+def autograd_leaves(stored, gbuf):
     """Leaves for autograd that view the stored shards, one per period for
     the stacked layer leaves (``layers`` and ``encoder/layers``), each with
     ``.grad`` set to a view of the gradient buffers, so that the backward
@@ -256,7 +256,7 @@ def make_train_step(setup: TrainSetup, mesh, params_tpl):
     def grads_fn(stored, batch):
         local = local_batch(batch)
         gbuf = tree_map(torch.zeros_like, stored)
-        work = _autograd_leaves(stored, gbuf)
+        work = autograd_leaves(stored, gbuf)
         acc = tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32), stored) \
             if setup.accum > 1 else None
         bm = local["tokens"].shape[0] // setup.accum

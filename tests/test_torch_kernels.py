@@ -285,26 +285,36 @@ def test_ops_decode_attention_on_cpu_keeps_its_gradient():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+class _Elsewhere:
+    """A tensor's stand-in on a device that has neither a kernel nor a plain
+    route (a CPU-only build of torch makes no tensor on such a device)."""
+
+    device = torch.device("xpu")
+    requires_grad = False
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """The CUDA wrappers never run the plain version: a CPU tensor raises."""
+    """The CUDA wrappers never run the plain version: a CPU tensor raises.
+    ``ops`` routes CPU and meta tensors to the plain versions, CUDA tensors
+    to the kernels, and refuses any other device."""
     q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 16))
+    other = _Elsewhere()
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="no kernel"):
-        ops.mha(q.to("meta"), k.to("meta"), v.to("meta"))
+        ops.mha(other, other, other)
     assert ops.launch_counts()["flash_attention"] == 0
     x, dt = torch.randn(1, 16, 2, 4), torch.rand(1, 16, 2)
     a, bm = -torch.arange(1.0, 3.0), torch.randn(1, 16, 1, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tssd.ssd_scan(x, dt, a, bm, bm, 8)
     with pytest.raises(ValueError, match="no kernel"):
-        ops.ssd(*(t.to("meta") for t in (x, dt, a, bm, bm)), 8)
+        ops.ssd(other, other, other, other, other, 8)
     assert ops.launch_counts()["ssd_scan"] == 0
     with pytest.raises(ValueError, match="CUDA tensor"):
         tssdb.ssd_scan_bwd(x, dt, a, bm, bm, 8, x, torch.zeros(1, 2, 4, 8))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.ssd_bwd(*(t.to("meta") for t in (x, dt, a, bm, bm)), 8, x.to("meta"),
-                    torch.zeros(1, 2, 4, 8, device="meta"))
+        ops.ssd_bwd(other, other, other, other, other, 8, other, other)
     assert ops.launch_counts()["ssd_scan_bwd"] == 0
 
 
