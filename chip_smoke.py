@@ -243,7 +243,35 @@ and the script exits non-zero without printing a result:
     printed beside it; no skipped record but the JAX package's by-design
     ones (CALIB_BY_DESIGN); the fitted table (achieved FLOP/s, effective
     MFU and HBM efficiency against ``PROFILES["h100"]``) printed, the
-    artifact and table written under build/.
+    artifact and table written under build/; and the step phase (llama3-8b
+    at full width, 4 layers) must dispatch no ``aten.select_backward``: it
+    differentiates one leaf a period, as the train step does;
+31. weight-resident decode (``ServeSetup(weight_resident=True)``) on
+    phase 5's llama3-8b weights, B=8, capacity 4096, 8 teacher-forced and 8
+    greedy steps: (a) on the one-device mesh (1, 1), where the resident
+    step runs every product over the rails' one rank (``RailShard`` on
+    whole shards; its combines counted and required), its logits and
+    caches bit-equal to the gathered step's, 32 flash-decode launches a
+    step as there, ms a step (host clock), device ms a step (profiler) and
+    the busy share of both; (b) the same steps as 8 rail ranks in turn
+    (``SequentialRails``: every product from each rank's shard, the partial
+    sums added in rank order, the output slices concatenated), teacher-forced
+    on (a)'s tokens, held to (a) within MODEL_LIMIT, with two planted faults
+    that must exceed it (one rank's partials dropped, the output slices
+    gathered in another order); (c) the rail bytes a step at 8 rails of the
+    resident path ((b)'s ranks) and of the gathered path (every sharded leaf
+    gathered by the same ranks), each equal to ``rail_bytes_by_fsdp_dims``,
+    and their ratio: a count of the ops each path runs at the fabric's ring
+    counts, not traffic measured on the card (no fabric spans one card);
+32. the control plane over the H100 calibration: (a) ``python -m
+    repro_torch.launch.train`` on full-width h2o-danube-3-4b, mesh 1x1, 2
+    steps, with ``--plane-report --ocs-latency 0.01``, as a subprocess on
+    the card: exit 0 and the report printed; (b) llama3-8b's job on the
+    16x16 and 2x16x16 meshes at OCS latencies of 1, 10, 50 and 100 ms:
+    ``mesh_plane_profile``'s modeled step, its overhead over native EPS and
+    its reconfigurations with the flat h100 MFU (equal to PLANE_PINNED, the
+    JAX package's simulator's numbers) and with phase 30's fitted table
+    (``SimParams(calibration=)``).
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -373,6 +401,17 @@ PIPE_STAGES, PIPE_MICRO, PIPE_SEQ, PIPE_LR, PIPE_LIMIT = 4, 4, 2048, 0.1, MODEL_
 # makes by design, the only ones allowed.
 CALIB_DIR = ROOT / "build"
 CALIB_BY_DESIGN = ("non-positive depth difference", "non-positive step-minus-fwd")
+# The control plane (phase 32): llama3-8b's training job on the paper's
+# meshes, through ``sim.opus_sim.mesh_plane_profile`` at each OCS latency.
+# Its flat-MFU numbers on the h100 profile, (modeled step s, overhead over
+# native EPS, reconfigurations), are the JAX package's simulator's, pinned
+# here and held to it on the CPU (tests/test_torch_plane.py).
+PLANE_ARCH, PLANE_BATCH, PLANE_SEQ = "llama3_8b", 256, 4096
+PLANE_MESHES = {"16x16": {"data": 16, "model": 16},
+                "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+PLANE_LATENCIES = (0.001, 0.01, 0.05, 0.1)
+PLANE_PINNED = {("16x16", lat): (0.509753, 0.000785, 0) for lat in PLANE_LATENCIES}
+PLANE_PINNED.update({("2x16x16", lat): (0.295473, 0.001356, 0) for lat in PLANE_LATENCIES})
 
 
 def log(*a):
@@ -3074,6 +3113,70 @@ def _scaled_grad(x, k: int):
     return Scaled.apply(x)
 
 
+class SequentialRails:
+    """A stand-in for ``parallel.resident.Rails`` that runs ``n`` rail ranks
+    in turn in one process (a card holds one rank): a stored leaf is the
+    GLOBAL one, each rank's shard a view of it along its FSDP dim; each
+    product runs once a rank on that rank's shard, the partial sums are
+    added in rank order and the output slices concatenated.  ``sent`` counts
+    the bytes each rank would send over a ring of ``n`` (``fabric``'s ring
+    counts, not traffic).  Planted faults: ``drop`` leaves one rank's partial
+    sums out; ``order`` gathers the ranks' output slices in another order."""
+
+    def __init__(self, n: int, *, drop=None, order=None):
+        self.n, self.drop = n, drop
+        self.order = list(range(n)) if order is None else list(order)
+        self.sent = 0
+
+    def ranks(self):
+        return list(range(self.n))
+
+    def parts(self, leaf, dim: int):
+        return list(leaf.chunk(self.n, dim))
+
+    def rows(self) -> "_AllRows":
+        return _AllRows(self)
+
+    def reduce(self, partials):
+        from repro_torch.fabric import all_reduce_bytes
+        total = None
+        for r, p in enumerate(partials):
+            if r != self.drop:
+                total = p if total is None else total + p
+        self.sent += all_reduce_bytes(partials[0].numel(), partials[0].element_size(),
+                                      (self.n,))
+        return total
+
+    def join(self, parts, dim: int):
+        import torch
+        from repro_torch.fabric import gather_bytes
+        self.sent += gather_bytes(parts[0].numel() * parts[0].element_size(), (self.n,))
+        return torch.cat([parts[i] for i in self.order], dim)
+
+    def gather_leaf(self, leaf, dim: int):
+        from repro_torch.fabric import gather_bytes
+        self.sent += gather_bytes(leaf.numel() * leaf.element_size() // self.n, (self.n,))
+        return leaf
+
+
+class _AllRows:
+    """``SequentialRails``' rows: its caches hold every rank's rows, so a
+    mixer takes them all; ``gather`` counts what each rank would send of
+    its 1/n of them."""
+
+    def __init__(self, rails: SequentialRails):
+        self.rails = rails
+
+    def local(self, t):
+        return t
+
+    def gather(self, t):
+        from repro_torch.fabric import gather_bytes
+        self.rails.sent += gather_bytes(t.numel() * t.element_size() // self.rails.n,
+                                        (self.rails.n,))
+        return t
+
+
 def tp_layer_leaves(cfg, kinds, seed: int) -> dict:
     """{block: {leaf: tensor}} of one full-width layer from ``seed``, bf16
     (the router and the SSM's conv, decay, skip and norm leaves f32), each a
@@ -3459,6 +3562,66 @@ def phase_serve_at_one(archs, made: list, collectives: dict, launches: dict) -> 
                              f"{models}, collectives {collectives}, launches {launches}")
     return {"serve_at_one_steps": len(made), "serve_at_one_collectives": 0,
             "serve_at_one_launches_per_step": launches}
+
+
+# Weight-resident decode (phase 31): the einsum each resident leaf of a dense
+# decoder meets, and the one it meets tied (gemma's embedding as the head).
+RESIDENT_EQS = {"wq": "bsd,dhk->bshk", "wk": "bsd,dhk->bshk", "wv": "bsd,dhk->bshk",
+                "wo": "bqhd,hdk->bqk", "w_gate": "bsd,df->bsf", "w_up": "bsd,df->bsf",
+                "w_down": "bsf,fd->bsd", "unembed": "bsd,dv->bsv"}
+
+
+def rail_bytes_by_fsdp_dims(cfg, batch: int, n: int, resident: bool) -> int:
+    """The bytes each rank sends over a ring of ``n`` rails (model axis 1) in
+    one decode step of a dense decoder (attention and MLP) of ``batch``
+    rows, by its leaves' FSDP dims (``parallel.sharding.fsdp_dim``) and the
+    fabric's ring counts.  Gathered: every sharded leaf, (n - 1) shards.
+    Resident: each product's activation, all-reduced where the leaf's FSDP
+    letter is contracted, else its slices gathered; the embedding's lookup
+    (all-reduced on its rows, gathered on its columns); the small leaves
+    gathered; each attention block's outputs of the rank's rows gathered."""
+    import torch
+
+    from repro_torch.fabric import all_reduce_bytes, gather_bytes
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.resident import RESIDENT_LEAVES
+    from repro_torch.train import step as st
+    from repro_torch.tree import leaves
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: the count covers a dense decoder")
+    tpl = tf.init_lm(cfg, device="meta")
+    paths = sh._walk(tpl, lambda pstr, leaf, stacked: (pstr, leaf, stacked))
+    fds, _ = st.meta_trees(tpl, rails=("data",), n_rails=n, model_size=1)
+    el = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    total = 0
+    for (pstr, leaf, stacked), fd in zip(leaves(paths), leaves(fds)):
+        name = pstr.split("/")[-1]
+        if fd is None or pstr.startswith("encoder") or name == "frontend_proj":
+            continue
+        periods = leaf.shape[0] if stacked else 1
+        shape = leaf.shape[1:] if stacked else leaf.shape
+        fd -= 1 if stacked else 0
+        leaf_bytes = leaf.numel() // periods * leaf.element_size()
+        if not resident or name not in RESIDENT_LEAVES:
+            total += periods * gather_bytes(leaf_bytes // n, (n,))
+            continue
+        uses = [RESIDENT_EQS[name]] if name in RESIDENT_EQS else []
+        if name == "embed":
+            uses = ["lookup"] + (["bsd,vd->bsv"] if cfg.tie_embeddings else [])
+        for eq in uses:
+            if eq == "lookup":
+                out, cut = batch * shape[1], fd == 1
+            else:
+                ins, outs = eq.split("->")
+                ws = ins.split(",")[1]
+                out = batch * math.prod(s for c, s in zip(ws, shape) if c in outs)
+                cut = ws[fd] in outs
+            total += periods * (gather_bytes(out // n * el, (n,)) if cut
+                                else all_reduce_bytes(out, el, (n,)))
+    n_attn = sum(kind == "attn" for kind, _ in tf.period_spec(cfg)) * tf.n_periods(cfg)
+    rows = batch // n * cfg.n_heads * cfg.resolved_head_dim * el
+    return total + (n_attn * gather_bytes(rows, (n,)) if resident else 0)
 
 
 class StackedShards:
@@ -3977,6 +4140,7 @@ def phase_pipeline() -> dict:
 def phase_calibration() -> dict:
     """Phase 30: the calibration suite at the full configurations' shapes on
     the card (see the docstring)."""
+    import torch
     from repro_torch.analysis.calibrate import CalibrationTable
     from repro_torch.kernels import ops
     from repro_torch.launch.calibrate import table_lines
@@ -4020,6 +4184,18 @@ def phase_calibration() -> dict:
     else:
         raise AssertionError("phase 30: a flash case without its last query row passed "
                              "measure_case's check")
+    # the step phase differentiates one leaf a period: no zero-filled stack
+    from repro_torch.configs import get_config
+    fn, args = mb.step_phase(get_config("llama3_8b"), 4, device="cuda")
+    with mb.OpRecord() as rec:
+        fn(*args)
+    torch.cuda.synchronize()
+    n_select = rec.ops["aten.select_backward"]
+    log(f"[calib] step phase, llama3-8b at 4 layers: {sum(rec.ops.values())} aten ops, "
+        f"{n_select} aten.select_backward, {rec.allocated / 2**30:.2f} GiB allocated")
+    if n_select:
+        raise AssertionError(f"phase 30: the step phase ran {n_select} select_backward")
+    del fn, args
     CALIB_DIR.mkdir(exist_ok=True)
     art.save(str(CALIB_DIR / "CALIB_h100_timings.json"))
     table = CalibrationTable.fit(art)
@@ -4039,8 +4215,187 @@ def phase_calibration() -> dict:
                               r.t_mean_s, r.t_min_s] for r in art.records],
            "calib_table": [[e.key, e.shape_class, e.n_samples, e.achieved_flops_per_s,
                             e.eff_mfu, e.eff_hbm, e.rms_rel_err] for e in table.entries],
+           "calib_step_select_backward": n_select,
            "calib_s": time.perf_counter() - t_phase}
     log(f"[calib] phase 30 ok in {out['calib_s']:.1f} s")
+    return out
+
+
+RESIDENT_RAILS = 8  # phase 31 (b) and (c): rail ranks run in turn
+
+
+def phase_resident_decode(cfg, params) -> dict:
+    """Phase 31: weight-resident decode at full width (see the docstring)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import resident as res
+    from repro_torch.serve.step import (ServeSetup, init_serve_state, make_decode_step,
+                                        resident_decode_step)
+    from repro_torch.train import step as st
+    t_phase = time.perf_counter()
+    b, cap, n_forced, n_gen = 8, 4096, 8, 8
+    steps, n_attn = n_forced + n_gen, n_mixers(cfg)[0]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (b, n_forced), generator=gen, device="cuda")
+
+    # (a) the one-device mesh: the resident step's products over one rail rank
+    runs = {}
+    for label, resident in (("gathered", False), ("resident", True)):
+        setup = ServeSetup(cfg=cfg, weight_resident=resident)
+        step = make_decode_step(setup, (1, 1), params, batch=b, capacity=cap)
+        state = init_serve_state(setup, (1, 1), params, b, cap)
+        secs, out, launches = decode_steps(cfg, step, params, state, 0, steps, None,
+                                           forced_tokens=prompt)
+        combines = step.rails.combines if resident else None
+        tok = out[-1].argmax(-1)
+        dev = device_ms(lambda: step(params, state, tok, steps), 3)
+        runs[label] = {"logits": torch.cat(out, 1), "state": state, "launches": launches,
+                       "ms": secs / steps * 1e3, "device_ms": dev,
+                       "launches_per_step": launches / steps,
+                       "combines_per_step": None if combines is None else combines / steps}
+    a, g = runs["resident"], runs["gathered"]
+    logits_equal = torch.equal(a["logits"], g["logits"])
+    caches_equal = all(torch.equal(x, y) for ca, cg in zip(a["state"], g["state"])
+                       for x, y in zip(ca.values(), cg.values()))
+    for label, r in runs.items():
+        busy = r["device_ms"] / r["ms"] if r["device_ms"] else None
+        r["busy"] = busy
+        log(f"[resident] (a) {label} step on (1, 1), llama3-8b B={b} cap={cap}: "
+            f"{r['ms']:.2f} ms a step (host), {r['device_ms']} ms device a step, busy "
+            f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}; flash-decode "
+            f"launches a step {r['launches_per_step']:g}; rail combines a step "
+            f"{r['combines_per_step']}")
+    log(f"[resident] (a) logits bit-equal {logits_equal}, caches bit-equal {caches_equal}")
+    if not (logits_equal and caches_equal and a["launches_per_step"] == n_attn
+            == g["launches_per_step"] and a["combines_per_step"]):
+        raise AssertionError("phase 31 (a): the resident step on (1, 1) is not the "
+                             "gathered step's, or ran no product over the rails")
+
+    # (b) 8 rail ranks in turn, teacher-forced on (a)'s tokens
+    fd, _ = st.meta_trees(params, rails=("data",), n_rails=RESIDENT_RAILS, model_size=1)
+    fd_top, fd_stacks = st._split_stacks(fd)
+    forced = torch.cat([prompt] + [a["logits"][:, i:i + 1].argmax(-1)
+                                   for i in range(n_forced - 1, steps - 1)], 1)
+
+    def rails_run(rails, n: int):
+        step = resident_decode_step(cfg, rails, fd_top, fd_stacks, rows=rails.rows())
+        state = tf.init_decode_state(cfg, b, cap, "cuda")
+        secs, out, launches = decode_steps(cfg, step, params, state, 0, n, None,
+                                           forced_tokens=forced[:, :n])
+        return torch.cat(out, 1), secs / n * 1e3, launches
+    got, ms_b, launches_b = rails_run(SequentialRails(RESIDENT_RAILS), steps)
+    e_b = position_rel_rms(got, a["logits"])
+    n_fault = 2
+    faults = {"rank 3's partial sums dropped": SequentialRails(RESIDENT_RAILS, drop=3),
+              "output slices gathered in another order": SequentialRails(
+                  RESIDENT_RAILS, order=[1, 0] + list(range(2, RESIDENT_RAILS)))}
+    fault_err = {k: position_rel_rms(rails_run(r, n_fault)[0], a["logits"][:, :n_fault])
+                 for k, r in faults.items()}
+    log(f"[resident] (b) {RESIDENT_RAILS} rail ranks in turn, {cfg.n_layers} layers, "
+        f"{steps} steps teacher-forced on (a)'s tokens ({ms_b:.1f} ms a step, {launches_b} "
+        f"flash-decode launches): worst "
+        f"position's relative RMS of the logits against (a) {e_b:.4g} (limit {MODEL_LIMIT}); "
+        f"planted faults (must exceed it): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in fault_err.items()))
+    if not (e_b <= MODEL_LIMIT and min(fault_err.values()) > MODEL_LIMIT):
+        raise AssertionError(f"phase 31 (b): {e_b}, faults {fault_err}")
+
+    # (c) the bytes a step each path would send over 8 rails (a count of its ops)
+    rails = SequentialRails(RESIDENT_RAILS)
+    step = resident_decode_step(cfg, rails, fd_top, fd_stacks, rows=rails.rows())
+    state = tf.init_decode_state(cfg, b, cap, "cuda")
+    step(params, state, prompt[:, :1], 0)
+    gathered = SequentialRails(RESIDENT_RAILS)
+    top = {k: params[k] for k in ("embed", "unembed", "final_norm") if k in params}
+    gp = dict(res.place(top, {k: fd_top[k] for k in top}, gathered, resident=False),
+              layers=params["layers"])
+    with torch.no_grad():
+        tf.decode_step(gp, tf.init_decode_state(cfg, b, cap, "cuda"), prompt[:, :1], 0, cfg,
+                       layer_param_fn=lambda per: res.place(per, fd_stacks["layers"], gathered,
+                                                            dim_off=-1, resident=False))
+    want = {True: rail_bytes_by_fsdp_dims(cfg, b, RESIDENT_RAILS, True),
+            False: rail_bytes_by_fsdp_dims(cfg, b, RESIDENT_RAILS, False)}
+    log(f"[resident] (c) rail bytes a step (one token a row, B={b}) each rank would send at "
+        f"{RESIDENT_RAILS} rails: resident {rails.sent} (by the FSDP dims {want[True]}), "
+        f"gathered {gathered.sent} (by the FSDP dims {want[False]}); gathered / resident "
+        f"{gathered.sent / rails.sent:.1f}")
+    if rails.sent != want[True] or gathered.sent != want[False]:
+        raise AssertionError("phase 31 (c): a path's rail bytes differ from its count")
+    out = {"resident_ms_per_step": a["ms"], "resident_device_ms_per_step": a["device_ms"],
+           "resident_busy": a["busy"], "resident_gathered_ms_per_step": g["ms"],
+           "resident_gathered_device_ms_per_step": g["device_ms"],
+           "resident_decode_launches": a["launches"],
+           "resident_launches_per_step": a["launches_per_step"],
+           "resident_combines_per_step": a["combines_per_step"],
+           "resident_rails_decode_launches": launches_b,
+           "resident_rails_rel_rms": e_b, "resident_rails_ms_per_step": ms_b,
+           "resident_faults": fault_err, "resident_rail_bytes": rails.sent,
+           "gathered_rail_bytes": gathered.sent, "resident_s": time.perf_counter() - t_phase}
+    log(f"[resident] phase 31 ok in {out['resident_s']:.1f} s")
+    return out
+
+
+def plane_point(cfg, axes: dict, ocs: float, table):
+    """(modeled step s, overhead over native EPS, reconfigurations) of
+    ``cfg``'s training job on a mesh of ``axes`` at OCS latency ``ocs``, as
+    ``sim.opus_sim.mesh_plane_profile`` maps it (TP the model axis, FSDP
+    data x pod) on the h100 profile, under the calibration ``table`` (None:
+    the flat MFU)."""
+    from repro_torch.core import phases as ph
+    from repro_torch.sim.opus_sim import SimParams, simulate
+    from repro_torch.sim.workload import build
+    tp, dp = axes.get("model", 1), axes.get("data", 1) * axes.get("pod", 1)
+    job = ph.JobConfig(model=cfg, tp=tp, fsdp=dp, global_batch=max(PLANE_BATCH, dp),
+                       seq_len=PLANE_SEQ)
+    wl = build(job, "h100")
+    native = simulate(wl, SimParams(mode="native", calibration=table)).step_time
+    r = simulate(wl, SimParams(mode="opus_prov", ocs_latency=ocs, calibration=table))
+    return r.step_time, r.step_time / native - 1, r.n_reconfigs
+
+
+def phase_plane(smi: str) -> dict:
+    """Phase 32: the control plane over the H100 calibration (see the
+    docstring)."""
+    import torch
+    from repro_torch.analysis.calibrate import CalibrationTable
+    from repro_torch.configs import get_config
+    from repro_torch.sim.opus_sim import mesh_plane_profile
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--mesh",
+           "1x1", "--steps", "2", "--batch", "1", "--seq", "1024", "--plane-report",
+           "--ocs-latency", "0.01"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    report = res.stdout[res.stdout.find("control plane report"):]
+    for line in res.stdout.strip().splitlines():
+        log(f"[plane] (a) {line}")
+    if res.returncode != 0 or not report.startswith(
+            "control plane report (TP=1 FSDP=1, OCS 10 ms):"):
+        raise AssertionError(f"phase 32 (a): the driver exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    cfg = get_config(PLANE_ARCH)
+    table = CalibrationTable.load(str(CALIB_DIR / "CALIB_h100_table.json"))
+    points = {}
+    for mesh, axes in PLANE_MESHES.items():
+        for ocs in PLANE_LATENCIES:
+            p = mesh_plane_profile(cfg, axes, global_batch=PLANE_BATCH, seq_len=PLANE_SEQ,
+                                   gpu="h100", ocs_latency=ocs)
+            flat = (p["modeled_step_s"], p["overhead_vs_native"], p["n_reconfigs"])
+            mine = plane_point(cfg, axes, ocs, None)
+            fitted = plane_point(cfg, axes, ocs, table)
+            log(f"[plane] (b) {PLANE_ARCH} {mesh} OCS {ocs * 1e3:g} ms: flat h100 MFU: step "
+                f"{flat[0]} s, {100 * flat[1]:.4f} % over native EPS, {flat[2]} reconfigs; "
+                f"H100 fitted table: step {fitted[0]:.6f} s, {100 * fitted[1]:.4f} % over "
+                f"native EPS, {fitted[2]} reconfigs ({smi})")
+            if flat != PLANE_PINNED[mesh, ocs] or (round(mine[0], 6), round(mine[1], 6),
+                                                   mine[2]) != flat:
+                raise AssertionError(f"phase 32 (b) {mesh} {ocs}: {flat} / {mine}, pinned "
+                                     f"{PLANE_PINNED[mesh, ocs]}")
+            points[f"{mesh} {ocs}"] = {"flat": flat, "fitted": fitted}
+    out = {"plane_report": report.strip().splitlines(), "plane_points": points,
+           "plane_s": time.perf_counter() - t_phase}
+    log(f"[plane] phase 32 ok in {out['plane_s']:.1f} s")
     return out
 
 
@@ -4084,6 +4439,7 @@ def run() -> int:
     # phase 28 (b) and (c) on the same weights
     ctx = phase_context_decode(cfg, params)
     rails = phase_rail_shards(cfg, params)
+    resident = phase_resident_decode(cfg, params)
     kernels[0].update(launches=pre["flash_launches"],
                       launches_per_step=pre["flash_launches"] / pre["prefill_calls"])
     kernels[2].update(launches=dec["decode_launches"],
@@ -4229,6 +4585,7 @@ def run() -> int:
     serve_tp = phase_serve_model_axis(kernels)
     pipe = phase_pipeline()
     calib = phase_calibration()
+    plane = phase_plane(smi)
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -4260,6 +4617,10 @@ def run() -> int:
         hsdp_train: rest["hsdp_launches"]["flash_attention_bwd"]}
     kernels[2]["launches_by_path"] = {
         "llama3-8b decode": dec["decode_launches"],
+        "llama3-8b weight-resident decode, one rail rank (phase 31 (a))":
+            resident["resident_decode_launches"],
+        f"llama3-8b weight-resident decode, {RESIDENT_RAILS} rail ranks in turn (phase 31 (b))":
+            resident["resident_rails_decode_launches"],
         "deepseek-moe-16b decode (a)": moe_dec["moe_decode_a_launches"],
         "deepseek-moe-16b decode (b)": moe_dec["moe_decode_b_launches"],
         hybrid_decode + " (a)": hybrid_dec["jamba_decode_a_launches"],
@@ -4312,7 +4673,8 @@ def run() -> int:
                     **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
                     **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
                     **ssm_tr, **vlm_tr, **audio_tr, **rest, **tp, **at_one_serve, **ctx,
-                    **rails, **serve_tp, **pipe, **calib, "card": smi}, default=str))
+                    **rails, **serve_tp, **pipe, **calib, **resident, **plane, "card": smi},
+                   default=str))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -1,5 +1,7 @@
 """Photonic-rail collectives over ``torch.distributed`` (port of
-``repro.core._fabric_rings``).
+``repro.core._fabric_rings``): the datapath.  The switches the control
+plane programs between phases (``FabricSpec``, the OCS and packet-switch
+backends) are modelled in ``repro_torch.core.fabric``, a module of its own.
 
 An optical circuit switch gives a *matching* between rail ports at any
 instant, so the only legal collectives are chains of point-to-point
@@ -19,15 +21,52 @@ the native collectives.  The gather is an autograd function whose backward
 is the reduce-scatter, and the other way round, so a loss differentiated
 through a gathered parameter sends its gradient back over the ring, as the
 JAX package's AD transpose does.  Every operation returns its input when the
-axis size is 1.
+axis size is 1.  Each ``Fabric`` counts the bytes this rank sends
+(``bytes_sent``), as a ring sends them: (n - 1) shards a gather, (n - 1)
+chunks of 1/n a reduce-scatter, both for a (padded) all-reduce or a max,
+the whole buffer n - 1 times a photonic all-to-all ((n - 1)/n of it a
+native one), the buffer once a shift.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+def gather_bytes(nbytes: int, sizes: Sequence[int]) -> int:
+    """Bytes a rank sends to all-gather its part of ``nbytes`` over axes of
+    ``sizes`` (major first; the gather runs the minor axis first)."""
+    sent = 0
+    for n in reversed(sizes):
+        sent += (n - 1) * nbytes
+        nbytes *= n
+    return sent
+
+
+def scatter_bytes(nbytes: int, sizes: Sequence[int]) -> int:
+    """Bytes a rank sends to reduce-scatter ``nbytes`` (major axis first)."""
+    sent = 0
+    for n in sizes:
+        nbytes //= n
+        sent += (n - 1) * nbytes
+    return sent
+
+
+def all_reduce_bytes(numel: int, element_size: int, sizes: Sequence[int]) -> int:
+    """Bytes a rank sends to all-reduce ``numel`` elements, axis by axis: a
+    ring reduce-scatter and all-gather of the buffer padded to n chunks."""
+    sent = 0
+    for n in sizes:
+        if n > 1:
+            sent += 2 * (n - 1) * -(-numel // n) * element_size
+    return sent
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
 
 
 def _hops(pairs, group):
@@ -147,12 +186,22 @@ class Fabric:
     kind: str = "photonic"  # "photonic" | "eps"
     bidirectional: bool = False  # both ring directions at once (halves)
     groups: tuple = ()
+    _sent: list = field(default_factory=lambda: [0], compare=False, repr=False)
 
     @classmethod
     def from_mesh(cls, mesh, axes, kind: str = "photonic", bidirectional: bool = False):
         """The fabric of ``axes`` of a ``torch.distributed`` ``DeviceMesh``."""
         return cls(tuple(axes), tuple(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes),
                    kind, bidirectional, tuple(mesh.get_group(a) for a in axes))
+
+    @property
+    def bytes_sent(self) -> int:
+        """The bytes this rank has sent over the fabric since it was made
+        (or since ``reset_bytes``)."""
+        return self._sent[0]
+
+    def reset_bytes(self) -> None:
+        self._sent[0] = 0
 
     @property
     def n_shards(self) -> int:
@@ -178,6 +227,7 @@ class Fabric:
         return _ReduceScatter.apply(x, self, axis)
 
     def _gather(self, x, axis):
+        self._sent[0] += gather_bytes(_nbytes(x), self.sizes)
         for group, n in self._axes(reverse=True):
             if n == 1:
                 continue
@@ -188,6 +238,7 @@ class Fabric:
         return x
 
     def _scatter(self, x, axis):
+        self._sent[0] += scatter_bytes(_nbytes(x), self.sizes)
         for group, n in self._axes():
             if n == 1:
                 continue
@@ -199,6 +250,7 @@ class Fabric:
 
     def all_reduce(self, x):
         """Flat, padded ring ReduceScatter then AllGather, axis by axis."""
+        self._sent[0] += all_reduce_bytes(x.numel(), x.element_size(), self.sizes)
         for group, n in self._axes():
             if n == 1:
                 continue
@@ -217,6 +269,7 @@ class Fabric:
 
     def pmax(self, x):
         """Max of a small statistic over every axis: management traffic."""
+        self._sent[0] += all_reduce_bytes(x.numel(), x.element_size(), self.sizes)
         x = x.clone()
         for group, n in self._axes():
             if n > 1:
@@ -230,7 +283,9 @@ class Fabric:
         if n == 1:
             return xstack
         if self.kind == "photonic":
+            self._sent[0] += (n - 1) * _nbytes(xstack)
             return _ring_all_to_all(xstack, group, n)
+        self._sent[0] += (n - 1) * _nbytes(xstack) // n
         out = torch.empty_like(xstack)
         dist.all_to_all_single(out, xstack.contiguous(), group=group)
         return out
@@ -240,6 +295,7 @@ class Fabric:
         n = self.sizes[axis_idx]
         if n == 1:
             return x
+        self._sent[0] += _nbytes(x)
         return _shift(x, self.groups[axis_idx], n, delta)
 
     def axis_index(self) -> int:

@@ -13,8 +13,8 @@ localhost port (gloo with ``--device cpu``, else NCCL on eight cards).
 ``--tiny`` runs yi-9b's smoke configuration at S=64 for at most 40 steps;
 without it, granite-moe-1b-a400m's smoke configuration at S=256.  The
 checkpoint goes to ``--ckpt`` (required under ``torchrun``), by default a
-temporary directory removed at the end.  The reference's ``--plane-report``
-of phase 2 waits for ROADMAP.md, Queue 1 item 3.
+temporary directory removed at the end.  Phase 2 ends with the control
+plane's report of its job (``--plane-report``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def phases(steps: int, tiny: bool, ckpt: str, device: str):
     half = steps // 2
     common = arch + ["--lr", "1e-3", "--ckpt", ckpt, "--device", device]
     return (common + ["--steps", str(half), "--mesh", "4x2", "--ckpt-every", str(half)],
-            common + ["--steps", str(steps), "--mesh", "2x2x2", "--resume"])
+            common + ["--steps", str(steps), "--mesh", "2x2x2", "--resume", "--plane-report"])
 
 
 def run(first, second) -> float:
@@ -57,6 +57,8 @@ def run(first, second) -> float:
     if rank0:
         print(f"trained {second[second.index('--steps') + 1]} steps across a mesh change; "
               f"final loss {loss:.4f}", flush=True)
+        print("(the control-plane report above replayed this job through the "
+              "real Shim/Controller/RailOrchestrator stack)", flush=True)
     dist.destroy_process_group()
     return loss
 

@@ -14,9 +14,10 @@ rails, or with ``--context-shard`` every attention cache along its slots;
 ``--fabric`` picks the photonic rings or the native collectives (eps).
 Rank 0 prints.  Runs on CUDA (NCCL) unless ``--device cpu`` is given
 (gloo); if CUDA is asked for and absent it raises rather than running on
-the CPU.  ``--plane-report`` and ``--ocs-latency`` are refused (ROADMAP
-Queue 1 item 3).  A VLM (paligemma-3b) decodes text only from an empty
-cache, as there; an encoder-decoder (seamless-m4t-medium) is refused,
+the CPU.  ``--plane-report`` replays the job through the control plane after
+serving, with the decode capacity as the sequence length: the train
+driver's ``plane_report`` (serve/train parity, as there).  A VLM
+(paligemma-3b) decodes text only from an empty cache, as there; an encoder-decoder (seamless-m4t-medium) is refused,
 because this driver has no frames to encode and passes no cross state (the
 reference's crashes on it).
 """
@@ -49,7 +50,8 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None):
-    from repro_torch.launch.train import UNPORTED_FLAGS, init_distributed, make_mesh, parse_mesh
+    from repro_torch.launch.train import (add_plane_flags, init_distributed, make_mesh,
+                                          parse_mesh, plane_report)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -60,13 +62,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--context-shard", action="store_true")
     ap.add_argument("--device", default="cuda")
-    for flag in UNPORTED_FLAGS:  # taken with or without a value, then refused
-        ap.add_argument(flag, nargs="?", const=True, default=None)
+    add_plane_flags(ap)
     args = ap.parse_args(argv)
 
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported; it waits for {item}")
     if args.prompt_len < 1 or args.gen < 1:
         ap.error("--prompt-len and --gen must be at least 1")
     try:
@@ -85,7 +83,12 @@ def main(argv=None):
     formed = not dist.is_initialized()
     init_distributed(device)
     try:
-        return _serve(args, cfg, make_mesh(axes, device), device)
+        mesh = make_mesh(axes, device)
+        out = _serve(args, cfg, mesh, device)
+        if args.plane_report:
+            out["plane"] = plane_report(cfg, mesh, args.batch, args.prompt_len + args.gen,
+                                        args.ocs_latency)
+        return out
     finally:
         if formed:  # a group of one formed here: gone with the run
             dist.destroy_process_group()

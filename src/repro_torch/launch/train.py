@@ -18,9 +18,10 @@ asked for and absent it raises rather than running on the CPU.
 select HSDP and its int8 pod exchange; ``--ckpt DIR`` saves there at the
 end (and every ``--ckpt-every`` steps), and with ``--resume`` restores from
 it, re-sharded for this mesh, and continues from its step: all as there,
-in the same checkpoint format.  The reference's flags that the port has not
-ported yet are refused by name with the ROADMAP item that ports each
-(``UNPORTED_FLAGS``), before any process group is formed.
+in the same checkpoint format.  ``--plane-report`` replays the job through
+the control plane after training (``plane_report``, the simulator's
+``mesh_plane_profile`` at ``--ocs-latency`` seconds a reconfiguration) and
+rank 0 prints its telemetry, as there.
 """
 from __future__ import annotations
 
@@ -40,13 +41,6 @@ from repro_torch.train.data import DataConfig, synth_batch
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step
-
-
-# The reference launcher's flags the port refuses: flag -> what ports it.
-UNPORTED_FLAGS = {
-    "--plane-report": "ROADMAP.md, Queue 1 item 3: control plane and simulator",
-    "--ocs-latency": "ROADMAP.md, Queue 1 item 3: control plane and simulator",
-}
 
 
 def parse_mesh(s: str) -> dict:
@@ -95,13 +89,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
-    for flag in UNPORTED_FLAGS:  # taken with or without a value, then refused
-        ap.add_argument(flag, nargs="?", const=True, default=None)
+    add_plane_flags(ap)
     args = ap.parse_args(argv)
 
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported; it waits for {item}")
     try:
         axes = parse_mesh(args.mesh)
     except ValueError as e:
@@ -145,7 +135,54 @@ def main(argv=None):
                 print(f"checkpointed @ {step + 1}", flush=True)
     if args.ckpt:
         save(args.steps)
+    if args.plane_report:
+        plane_report(cfg, mesh, args.batch, args.seq, args.ocs_latency)
     return float(m["loss"]) if m is not None else math.nan
+
+
+def add_plane_flags(ap: argparse.ArgumentParser) -> None:
+    """The drivers' ``--plane-report`` and ``--ocs-latency``, as the JAX
+    package's."""
+    ap.add_argument("--plane-report", action="store_true",
+                    help="after the run, replay this job's schedule through the real "
+                         "photonic control plane (repro_torch.core.plane) and print its "
+                         "telemetry")
+    ap.add_argument("--ocs-latency", type=float, default=0.05,
+                    help="OCS reconfiguration latency for --plane-report")
+
+
+def plane_report(cfg, mesh, global_batch: int, seq_len: int, ocs_latency: float):
+    """What the photonic control plane would do for this training job: one
+    simulated steady-state iteration through the real Shim / Controller /
+    RailOrchestrator stack (``sim.opus_sim.mesh_plane_profile``, the JAX
+    package's mesh -> JobConfig mapping).  ``mesh``: ``parse_mesh``'s dict
+    or a ``DeviceMesh``.  Rank 0 prints the JAX driver's lines; every rank
+    returns the profile."""
+    from repro_torch.sim.opus_sim import mesh_plane_profile
+    ax = dict(mesh) if isinstance(mesh, dict) else dict(zip(mesh.mesh_dim_names, mesh.shape))
+    p = mesh_plane_profile(cfg, ax, global_batch=global_batch, seq_len=seq_len,
+                           ocs_latency=ocs_latency)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return p
+    print(f"control plane report (TP={p['tp']} FSDP={p['fsdp']}, "
+          f"OCS {ocs_latency*1e3:.0f} ms):")
+    over = p["overhead_vs_native"]
+    print(f"  modeled step {p['modeled_step_s']:.4g}s "
+          + (f"({100*over:.2f}% over native EPS), " if over is not None
+             else "(TP-only: no scale-out traffic), ")
+          + f"{p['n_reconfigs']} reconfigs")
+    print(f"  {p['n_barriers']} barriers, {p['n_dispatches']} dispatches, "
+          f"{p['n_topo_writes']} topo_writes, "
+          f"{p['n_ports_programmed']} ports programmed")
+    rm = p["rail_mapping"]
+    ports = rm["ports_per_rail"]
+    span = f"port {ports[0]}" if len(ports) == 1 else f"ports {ports[0]}-{ports[-1]}"
+    print(f"  rail mapping: TP={rm['scale_up_ways']} on scale-up, "
+          f"{rm['scale_out_ranks']} scale-out rank"
+          f"{'' if rm['scale_out_ranks'] == 1 else 's'}/rail ({span}"
+          + (", rail-silent)" if rm["rail_silent"] else ")"))
+    return p
+
 
 if __name__ == "__main__":
     main()

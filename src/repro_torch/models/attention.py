@@ -209,7 +209,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device="cu
 
 
 def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
-                     window: Optional[int] = None, cross_kv=None, ctx=None, tp=None):
+                     window: Optional[int] = None, cross_kv=None, ctx=None, tp=None,
+                     rows=None):
     """One-token attention.  x [B,1,D]; pos the absolute position (a Python int).
 
     Full cache: slot = pos.  SWA ring cache: slot = pos % capacity.
@@ -226,6 +227,9 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
     the rank runs its query heads (``shard_heads``), its cache holds the kv
     heads they read (``kv_heads``; so does ``cross_kv``, given whole) and
     the partial output leaves through ``reduce``.
+    rows: weight-resident decode over a batch-sharded cache
+    (``parallel.resident.Rows``): x is the whole batch's, the cache holds
+    this rank's rows, whose outputs are gathered before ``wo``.
     Returns (out [B,1,D], cache).
     """
     if tp is not None and tp.active:
@@ -234,7 +238,7 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
             heads = kv_heads(cfg, tp, x.device)
             cross_kv = {k: v[:, :, heads] for k, v in cross_kv.items()}
         out, cache = decode_attention(p, x, pos, cache, cfg, window=window, cross_kv=cross_kv,
-                                      ctx=ctx)
+                                      ctx=ctx, rows=rows)
         return reduce(out), cache
     if cross_kv is not None:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -244,6 +248,8 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
     pos = int(pos)
     capacity = cache["k"].shape[1]
     q, k_new, v_new = decode_qkv(p, x, pos, cfg)
+    if rows is not None:
+        q, k_new, v_new = rows.local(q), rows.local(k_new), rows.local(v_new)
     if ctx is not None:
         fab = ctx["fabric"]
         stats = context_local_stats(q, k_new, v_new, pos, cache, ctx["index"], fab.n_shards,
@@ -264,6 +270,8 @@ def decode_attention(p, x, pos: int, cache, cfg: ModelConfig, *,
         k = _repeat_kv(cache["k"], q.shape[2])
         v = _repeat_kv(cache["v"], q.shape[2])
         out = sdpa(q, k, v, mask=valid[None, None, None, :])
+    if rows is not None:
+        out = rows.gather(out)
     return torch.einsum("bqhd,hdk->bqk", out, p["wo"]), cache
 
 

@@ -114,7 +114,7 @@ def cross_entropy(logits, targets, vocab_size: int, z_loss: float = 1e-4, tp=Non
         neg[vocab_size:] = -1e9
         lg = lg + neg
     lse = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, targets[..., None].long())[..., 0]
+    gold = lg.gather(-1, targets[..., None].long()).squeeze(-1)
     ce = lse - gold
     return (ce + z_loss * lse.square()).mean(), ce.mean()
 
@@ -137,7 +137,7 @@ def vocab_parallel_cross_entropy(logits, targets, vocab_size: int, z_loss: float
     lse = torch.log(tp.reduce(torch.exp(lg - m[..., None]).sum(-1))) + m
     t = targets.long() - lo
     mine = (t >= 0) & (t < vl)
-    gold = lg.gather(-1, t.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = lg.gather(-1, t.clamp(0, vl - 1)[..., None]).squeeze(-1)
     gold = tp.reduce(torch.where(mine, gold, torch.zeros_like(gold)))
     ce = lse - gold
     return (ce + z_loss * lse.square()).mean(), ce.mean()

@@ -211,37 +211,44 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device="cuda", tp=None) -> dict
     }
 
 
-def ssm_decode(p, x, cache, cfg: ModelConfig, tp=None):
+def ssm_decode(p, x, cache, cfg: ModelConfig, tp=None, rows=None):
     """Single-token recurrent step. x [B,1,D] -> (y [B,1,D], cache).
 
     The cache is updated in place (the JAX package returns a new one) and
     returned.  tp: the model axis; ``p`` then holds this rank's shards and
     the cache its heads' (``init_ssm_cache``): the rank steps its heads
     (``shard_mixer``), the gated norm's sum of squares is summed over the
-    axis (``all_sum``) and the partial output leaves through ``reduce``."""
+    axis (``all_sum``) and the partial output leaves through ``reduce``.
+    rows: weight-resident decode over a batch-sharded cache
+    (``parallel.resident.Rows``): x is the whole batch's, the cache holds
+    this rank's rows, whose outputs are gathered before the gated norm."""
     if tp is not None and tp.active:
         p, split = shard_mixer(p, cfg, tp)
         if not split:
-            return ssm_decode(p, x, cache, cfg)
-        v = ssm_decode_gated(p, tp.copy(x), cache, cfg)
+            return ssm_decode(p, x, cache, cfg, rows=rows)
+        v = ssm_decode_gated(p, tp.copy(x), cache, cfg, rows)
         ss = tp.all_sum(v.square().sum(-1, keepdim=True))
         return tp.reduce(gated_norm_out(p, v, ss, ssm_dims(cfg)[0], cfg.norm_eps,
                                         x.dtype)), cache
-    v = ssm_decode_gated(p, x, cache, cfg)
+    v = ssm_decode_gated(p, x, cache, cfg, rows)
     y = rms_norm(v, p["norm_w"], cfg.norm_eps)
     return torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"]), cache
 
 
-def ssm_decode_gated(p, x, cache, cfg: ModelConfig):
+def ssm_decode_gated(p, x, cache, cfg: ModelConfig, rows=None):
     """The recurrent step up to the gated norm: y * silu(z) [B,1,d_inner]
     in f32, of the heads that ``p`` holds (their count is a_log's, their
-    groups' w_in's, as in ``ssm_gated``); the cache is updated in place."""
+    groups' w_in's, as in ``ssm_gated``); the cache is updated in place.
+    ``rows``: the in-projection's rows of this rank's cache are stepped and
+    the whole batch's outputs gathered (``ssm_decode``)."""
     pdim, n = cfg.ssm.head_dim, cfg.ssm.state_dim
     h = p["a_log"].shape[-1]
     d_inner = h * pdim
     g = (p["w_in"].shape[-1] - 2 * d_inner - h) // (2 * n)
     f32 = torch.float32
     proj = torch.einsum("bsd,de->bse", x, p["w_in"])[:, 0]  # [B, E]
+    if rows is not None:
+        proj = rows.local(proj)
     z, xbc, dt = torch.split(proj, [d_inner, d_inner + 2 * g * n, h], dim=-1)
 
     # conv ring: window = [cache, current]
@@ -249,7 +256,7 @@ def ssm_decode_gated(p, x, cache, cfg: ModelConfig):
     conv_out = F.silu(torch.einsum("bwc,wc->bc", win, p["conv_w"]) + p["conv_b"])
 
     xin, b_mat, c_mat = torch.split(conv_out, [d_inner, g * n, g * n], dim=-1)
-    bsz = x.shape[0]
+    bsz = proj.shape[0]
     xin = xin.reshape(bsz, h, pdim)
     b_mat = b_mat.reshape(bsz, g, n).repeat_interleave(h // g, 1)
     c_mat = c_mat.reshape(bsz, g, n).repeat_interleave(h // g, 1)
@@ -264,4 +271,5 @@ def ssm_decode_gated(p, x, cache, cfg: ModelConfig):
     y = y.reshape(bsz, 1, d_inner)
     cache["conv"].copy_(win[:, 1:])
     cache["state"].copy_(new_state)
-    return y * F.silu(z.to(f32))[:, None, :]
+    out = y * F.silu(z.to(f32))[:, None, :]
+    return out if rows is None else rows.gather(out)

@@ -435,7 +435,7 @@ def init_cross_state(params, enc_out, cfg: ModelConfig):
 
 
 def decode_step(params, state, token, pos: int, cfg: ModelConfig, *, cross_state=None,
-                layer_param_fn: ParamFn = None, ctx=None, tp=None):
+                layer_param_fn: ParamFn = None, ctx=None, tp=None, rows=None):
     """One decode step.  token [B,1] integer, pos the absolute position (int).
 
     ``state`` is updated in place and returned.  An encoder-decoder model
@@ -443,7 +443,9 @@ def decode_step(params, state, token, pos: int, cfg: ModelConfig, *, cross_state
     ``layer_param_fn``: the FSDP hook of ``stack_apply``, called on each
     period's parameters.  ``ctx``: context-parallel decode over the rails
     (``attention.decode_attention``).  ``tp``: the model axis; every rank
-    gets the whole logits (its vocab slices gathered).
+    gets the whole logits (its vocab slices gathered).  ``rows``:
+    weight-resident decode over batch-sharded caches: each mixer steps this
+    rank's rows of the whole batch's token (``parallel.resident.Rows``).
     Returns (logits [B,1,V], state).
     """
     _check_family(cfg)
@@ -461,9 +463,11 @@ def decode_step(params, state, token, pos: int, cfg: ModelConfig, *, cross_state
             z = rms_norm(x, lp["norm1"], cfg.norm_eps)
             if kind == "attn":
                 z, _ = attn.decode_attention(lp["mixer"], z, pos, _period(state[i], p), cfg,
-                                             window=cfg.sliding_window, ctx=ctx, tp=tp)
+                                             window=cfg.sliding_window, ctx=ctx, tp=tp,
+                                             rows=rows)
             else:
-                z, _ = ssm_mod.ssm_decode(lp["mixer"], z, _period(state[i], p), cfg, tp=tp)
+                z, _ = ssm_mod.ssm_decode(lp["mixer"], z, _period(state[i], p), cfg, tp=tp,
+                                          rows=rows)
             x = x + z
             if "cross" in lp:
                 z = rms_norm(x, lp["norm_x"], cfg.norm_eps)

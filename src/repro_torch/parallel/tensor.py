@@ -22,7 +22,9 @@ on the CPU), never the photonic rail rings of ``fabric.py``.
                differentiated path (statistics, checkpoints)
 
 At size 1 every op returns its input and launches nothing.  ``launches``
-counts the collectives this object has run.
+counts the collectives this object has run.  Outside autograd ``copy`` is
+the identity; ``gather_leaf`` gathers a leaf that is held in parts (one with
+a ``local_map``) part by part.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ class ModelAxis:
 
     # -- the conjugate functions --
     def copy(self, x):
-        return _Copy.apply(x, self) if self.active else x
+        return _Copy.apply(x, self) if self.active and torch.is_grad_enabled() else x
 
     def reduce(self, x):
         return _Reduce.apply(x, self) if self.active else x
@@ -94,7 +96,11 @@ class ModelAxis:
         return _Gather.apply(x, self, x.dim() - 1) if self.active else x
 
     def gather_leaf(self, x, dim: int):
-        return _Gather.apply(x, self, dim) if self.active else x
+        if not self.active:
+            return x
+        if isinstance(x, torch.Tensor):
+            return _Gather.apply(x, self, dim)
+        return x.local_map(lambda t: self.gather(t, dim))
 
     @torch.no_grad()
     def max(self, x):

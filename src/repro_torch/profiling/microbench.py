@@ -50,10 +50,13 @@ import os
 import platform
 import subprocess
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis import memmodel
 from repro_torch.analysis.calibrate import TimingArtifact, TimingRecord
@@ -61,7 +64,8 @@ from repro_torch.analysis.cost import counted_flops, io_bytes
 from repro_torch.configs.base import ASSIGNED_ARCHS, ShapeConfig, get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as tf
-from repro_torch.tree import leaves, tree_map
+from repro_torch.train.step import period_leaves
+from repro_torch.tree import leaves
 
 #: catalog names the kernel shape classes are derived from
 CATALOG = ASSIGNED_ARCHS + ("llama3_8b", "llama_80b")
@@ -326,10 +330,11 @@ def _phase_call(dcfg, params, which: str, batch, device):
                 return tf.lm_loss(p_, b_, dcfg)[0]
         return fn, (params, batch), ShapeConfig("fwd", seq, bsz, "prefill")
     if which == "step":
+        # one leaf a period, as the train step differentiates
+        # (``train.step.period_leaves``): no zero gradient of the whole stack
         def fn(p_, b_):
             return torch.autograd.grad(tf.lm_loss(p_, b_, dcfg)[0], leaves(p_))
-        leaf_params = tree_map(lambda t: t.detach().requires_grad_(), params)
-        return fn, (leaf_params, batch), ShapeConfig("step", seq, bsz, "train")
+        return fn, (period_leaves(params), batch), ShapeConfig("step", seq, bsz, "train")
     if which == "prefill":
         def fn(p_, b_):
             with torch.no_grad():
@@ -346,6 +351,36 @@ def _phase_call(dcfg, params, which: str, batch, device):
 
 
 _PHASE_OF = {"fwd": "train_fwd", "prefill": "prefill", "decode": "decode"}
+
+
+def step_phase(cfg, depth: int, *, device="cuda", batch: int = 1, seq: int = 1024):
+    """(fn, args) of the gradient-step phase of ``cfg`` cut to ``depth``
+    layers, on the phase records' inputs (seed 0)."""
+    dcfg = cfg.replace(n_layers=depth)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = {k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=device)
+              for k in ("tokens", "targets")}
+    fn, args, _ = _phase_call(dcfg, tf.init_lm(dcfg, seed=0, device=device), "step", tokens,
+                              device)
+    return fn, args
+
+
+class OpRecord(TorchDispatchMode):
+    """The aten ops a call dispatches (``ops``, a Counter of names such as
+    "aten.select_backward") and the bytes of the tensors they return that
+    are not views (``allocated``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.allocated = Counter(), 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops[str(func.overloadpacket)] += 1
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor) and not t._is_view():
+                self.allocated += t.numel() * t.element_size()
+        return out
 
 
 def phase_records(configs: Sequence[str] = DEFAULT_PHASE_CONFIGS, *, device="cuda",

@@ -26,10 +26,20 @@ axis each rank's caches hold only the kv heads its query heads read and the
 conv channels and SSD heads of its share; the JAX package's cache specs
 name the rail axes only, so GSPMD keeps them whole over "model" there.
 
+Weight-resident decode (``weight_resident``, the reference's GSPMD
+weight-resident step): the same parameters and caches, but no weight
+crosses the rails.  Each matrix leaf stays on its stored shard and each
+product reduces or gathers an activation over the rails instead
+(``parallel.resident``); the step takes the whole batch's token, runs the
+products on every row, each mixer on this rank's cache rows, and returns
+this rank's rows' logits, as the gathered step does.  Prefill ignores the
+flag, as the reference's does.
+
 ``mesh``: a ``torch.distributed`` ``DeviceMesh`` with dims (data, model) or
 (pod, data, model), as ``launch.train.make_mesh`` builds it, or the tuple
-(1, 1): one device, no process group.  ``weight_resident`` (the reference's
-GSPMD weight-resident decode) is refused until ROADMAP Queue 1 item 2b.
+(1, 1): one device, no process group.  Where the rails have one rank the
+resident step runs its products over the one shard and is bit-equal to the
+gathered step.
 """
 from __future__ import annotations
 
@@ -41,11 +51,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.fabric import Fabric
 from repro_torch.models import transformer as tf
+from repro_torch.parallel import resident
 from repro_torch.parallel.tensor import ModelAxis
 from repro_torch.train import step as st
 from repro_torch.tree import tree_map
 
-_RESIDENT_ITEM = "ROADMAP.md, Queue 1 item 2b: weight-resident decode"
+#: the top-level leaves a decode step reads (the rest serve prefill)
+_DECODE_TOP = ("embed", "unembed", "final_norm")
 
 
 @dataclass(frozen=True)
@@ -54,19 +66,17 @@ class ServeSetup:
     fabric: str = "photonic"  # "photonic" | "eps"
     # batch >= n_dp: batch-shard the cache; else context-shard it (long_500k)
     context_shard: bool = False
-    # weights kept sharded in place, activation partials reduced over the
-    # rails (the reference's GSPMD fallback): not ported
+    # weight-resident decode: weights kept sharded in place, activation
+    # partials reduced (or slices gathered) over the rails
     weight_resident: bool = False
 
 
 class _Layout:
     """The rails' ``Fabric``, the model axis (None where it has one rank)
     and the FSDP dims of the global template (None where nothing is
-    gathered) of a setup on a mesh."""
+    gathered or kept resident) of a setup on a mesh."""
 
     def __init__(self, setup: ServeSetup, mesh, params_tpl=None):
-        if setup.weight_resident:
-            raise NotImplementedError(f"weight-resident decode is not ported ({_RESIDENT_ITEM})")
         if setup.fabric not in ("photonic", "eps"):
             raise ValueError(f"fabric {setup.fabric!r}: photonic or eps")
         self.fd_top = self.fd_stacks = None
@@ -75,14 +85,16 @@ class _Layout:
                 raise ValueError(f"mesh {mesh}: a tuple is one device, (1, 1); pass a "
                                  f"DeviceMesh of the processes (launch.train.make_mesh)")
             self.fab, self.tp = Fabric(("data",), (1,), setup.fabric), None
-            return
-        self.fab = Fabric.from_mesh(mesh, st.dp_axes_of(mesh), setup.fabric)
-        tp = ModelAxis.from_mesh(mesh)
-        self.tp = tp if tp.active else None
-        if self.fab.n_shards > 1 and params_tpl is not None:
+        else:
+            self.fab = Fabric.from_mesh(mesh, st.dp_axes_of(mesh), setup.fabric)
+            tp = ModelAxis.from_mesh(mesh)
+            self.tp = tp if tp.active else None
+        # one rail rank gathers nothing, but a resident step keeps its leaves
+        # on their (whole) shards all the same
+        if params_tpl is not None and (self.fab.n_shards > 1 or setup.weight_resident):
             fd_tree, _ = st.meta_trees(params_tpl, rails=self.fab.axes,
                                        n_rails=self.fab.n_shards,
-                                       model_size=st.model_size_of(mesh))
+                                       model_size=1 if self.tp is None else self.tp.size)
             self.fd_top, self.fd_stacks = st._split_stacks(fd_tree)
 
     @property
@@ -146,7 +158,10 @@ def make_decode_step(setup: ServeSetup, mesh, params_tpl, *, batch: int, capacit
     stored shards, ``state`` this rank's ``init_serve_state``; an
     encoder-decoder passes ``cross``, the ``tf.init_cross_state`` of its
     encoded frames over the whole batch and every head.  ``params_tpl`` is a
-    tree of the GLOBAL parameters (real or on the meta device)."""
+    tree of the GLOBAL parameters (real or on the meta device).  With
+    ``setup.weight_resident``, the step of ``resident_decode_step`` over this
+    rank's ``resident.Rails`` (one rank on (1, 1)), with the same signature
+    and outputs; its ``rails`` counts the combines it ran."""
     cfg = setup.cfg
     lay = _Layout(setup, mesh, params_tpl)
     ctx = None
@@ -157,6 +172,17 @@ def make_decode_step(setup: ServeSetup, mesh, params_tpl, *, batch: int, capacit
         ctx = {"fabric": lay.fab, "index": lay.fab.axis_index()}
     elif batch % lay.n:
         raise ValueError(f"batch {batch} does not split over {lay.n} rails")
+    if setup.weight_resident:
+        rails = resident.Rails(lay.fab)
+        rows = None if setup.context_shard else rails.rows()
+        inner = resident_decode_step(cfg, rails, lay.fd_top, lay.fd_stacks, ctx=ctx, tp=lay.tp,
+                                     rows=rows)
+
+        def step(params, state, token, pos: int, cross=None):
+            logits, state = inner(params, state, token, pos, cross)
+            return (logits if rows is None else rows.local(logits)), state
+        step.fabric, step.model, step.rails = lay.fab, lay.tp, rails
+        return step
 
     @torch.no_grad()
     def step(params, state, token, pos: int, cross=None):
@@ -172,10 +198,34 @@ def make_decode_step(setup: ServeSetup, mesh, params_tpl, *, batch: int, capacit
     return step
 
 
+def resident_decode_step(cfg: ModelConfig, rails, fd_top, fd_stacks, *, ctx=None, tp=None,
+                         rows=None):
+    """decode(stored, state, token, pos, cross=None) -> (the whole batch's
+    logits [B,1,V], state updated in place) with every matrix leaf resident
+    on the rails (``parallel.resident``): ``rails`` a ``Rails``, then
+    ``stored`` is this rank's shards, or another object with its methods
+    (``ranks``, ``parts``, ``reduce``, ``join``, ``gather_leaf``); ``fd_top`` and
+    ``fd_stacks`` the FSDP dims of ``st._split_stacks`` of the template at
+    ``rails.n`` rails; ``token`` and ``cross`` the whole batch's.  ``ctx``,
+    ``tp`` and ``rows`` go to ``tf.decode_step``."""
+    @torch.no_grad()
+    def step(stored, state, token, pos: int, cross=None):
+        top = {k: stored[k] for k in _DECODE_TOP if k in stored}
+        params = dict(resident.place(top, {k: fd_top[k] for k in top}, rails),
+                      layers=stored["layers"])
+
+        def gfn(period):
+            return resident.place(period, fd_stacks["layers"], rails, dim_off=-1)
+        return tf.decode_step(params, state, token, pos, cfg, cross_state=cross,
+                              layer_param_fn=gfn, ctx=ctx, tp=tp, rows=rows)
+    return step
+
+
 def make_prefill_step(setup: ServeSetup, mesh, params_tpl):
     """prefill(params, batch) -> last-token logits [B_local,1,V] of this
     rank's rows of the global batch (forward only); the batch carries a
-    VLM's "patches" or an encoder-decoder's "frames"."""
+    VLM's "patches" or an encoder-decoder's "frames".  The gathered prefill
+    whatever ``setup.weight_resident`` says."""
     cfg = setup.cfg
     lay = _Layout(setup, mesh, params_tpl)
     vtp = tf.vocab_axis(cfg, lay.tp)

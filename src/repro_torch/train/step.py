@@ -170,25 +170,35 @@ def shard_tree(tree, fd_tree, td_tree, index: int, n: int, model: ModelAxis):
     return tree_map(one, tree, fd_tree, td_tree)
 
 
+def split_periods(tree):
+    """The tree with each stacked layer leaf (of ``layers`` and
+    ``encoder/layers``) as a list of its periods' slices (views), which
+    ``tf.stack_apply`` reads as the stack."""
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if key == "layers":
+            return tree_map(lambda t: [t[p] for p in range(t.shape[0])], node)
+        return node
+    return walk(tree)
+
+
+def period_leaves(stored):
+    """Leaves for autograd that view ``stored``, one per period of each
+    stacked layer leaf (``split_periods``): autograd through a slice of a
+    stacked leaf would make a zero gradient of the whole stack for every
+    period, O(depth²) bytes a backward."""
+    return tree_map(lambda t: t.detach().requires_grad_(), split_periods(stored))
+
+
 def autograd_leaves(stored, gbuf):
-    """Leaves for autograd that view the stored shards, one per period for
-    the stacked layer leaves (``layers`` and ``encoder/layers``), each with
-    ``.grad`` set to a view of the gradient buffers, so that the backward
-    accumulates in place into them (autograd through a slice of a stacked
-    leaf would make a zero gradient of the whole stack for every period)."""
-    def leaf(t, g):
-        x = t.detach().requires_grad_()
+    """``period_leaves`` of the stored shards, each with ``.grad`` set to a
+    view of the gradient buffers, so that the backward accumulates in place
+    into them."""
+    def leaf(x, g):
         x.grad = g
         return x
-
-    def walk(node, g, key=""):
-        if isinstance(node, dict):
-            return {k: walk(v, g[k], k) for k, v in node.items()}
-        if key == "layers":
-            return tree_map(lambda t, gt: [leaf(t[p], gt[p]) for p in range(t.shape[0])],
-                            node, g)
-        return leaf(node, g)
-    return walk(stored, gbuf)
+    return tree_map(leaf, period_leaves(stored), split_periods(gbuf))
 
 
 def _split_stacks(tree):

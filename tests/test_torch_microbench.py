@@ -133,3 +133,67 @@ def test_driver_refuses_a_missing_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         launch_calibrate.main(["--repeats", "1"])
+
+
+
+# ---- the step phase differentiates one leaf a period (no zero-filled stacks) ----
+
+def _step_phase(depth, stacked=False):
+    """(gradients, OpRecord, the leaves differentiated) of the step phase of
+    llama3-8b smoke in f32 at B=2 S=256; ``stacked`` takes the gradient
+    over the stacked leaves of the same parameters, as the phase did before
+    (each period's slice a ``select_backward``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    cfg = get_config("llama3_8b", smoke=True).replace(dtype="float32")
+    fn, (params, batch) = mb.step_phase(cfg, depth, device="cpu", batch=2, seq=256)
+    if stacked:
+        params = tree_map(lambda t: t.detach().requires_grad_(),
+                          tf.init_lm(cfg.replace(n_layers=depth), seed=0, device="cpu"))
+    with mb.OpRecord() as rec:
+        grads = fn(params, batch)
+    return grads, rec, params
+
+
+@pytest.mark.parametrize("depth", [2, 4])
+def test_step_phase_gradients_equal_the_stacked_leaves(depth):
+    """The same gradients as through the stacked leaves, bit for bit (each
+    stacked leaf's gradient, split into its periods), and no
+    ``select_backward`` among the ops, where the stacked leaves run one a
+    period.  Deterministic algorithms: the CPU's embedding backward
+    otherwise sums in a thread-dependent order (~2e-9 run to run)."""
+    from repro_torch.train.step import split_periods
+    from repro_torch.tree import leaves, tree_map
+    torch.use_deterministic_algorithms(True)
+    try:
+        got, rec, _ = _step_phase(depth)
+        want, rec_stacked, stacked = _step_phase(depth, stacked=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    it = iter(want)
+    want_split = leaves(split_periods(tree_map(lambda _: next(it), stacked)))
+    assert len(got) == len(want_split) > len(want)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want_split)) == 0.0
+    assert rec.ops["aten.select_backward"] == 0
+    assert rec_stacked.ops["aten.select_backward"] == len(leaves(stacked["layers"])) * depth
+
+
+def test_step_phase_allocates_linearly_in_depth():
+    """The bytes the step phase allocates grow by the same amount a layer
+    from 2 to 4 layers as from 4 to 8 (within half a period's parameter
+    bytes); through the stacked leaves each layer adds a zero gradient of
+    the whole stack, and the second difference is ~12 periods' bytes."""
+    from repro_torch.tree import leaves
+
+    def per_layer(stacked):
+        alloc = {}
+        for depth in (2, 4, 8):
+            _, rec, params = _step_phase(depth, stacked)
+            alloc[depth] = rec.allocated
+            period = sum(t.numel() * t.element_size() for t in leaves(params["layers"])) / depth
+        return (alloc[4] - alloc[2]) / 2, (alloc[8] - alloc[4]) / 4, period
+    lo, hi, period = per_layer(False)
+    assert abs(hi - lo) < 0.5 * period, (lo, hi, period)
+    lo, hi, period = per_layer(True)
+    assert hi - lo > 8 * period, (lo, hi, period)

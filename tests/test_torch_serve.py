@@ -181,13 +181,22 @@ def test_serve_main_runs_on_cpu(capsys):
     assert "served 2 seqs x 9 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,word", [(["--plane-report"], "--plane-report"),
-                                        (["--ocs-latency", "0.01"], "--ocs-latency")])
+@pytest.mark.parametrize("flags,word", [(["--plane-report"], "OCS 50 ms"),
+                                        (["--plane-report", "--ocs-latency", "0.01"],
+                                         "OCS 10 ms")])
 def test_serve_main_refuses_unported_options(flags, word, capsys):
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", "llama3_8b", "--smoke", "--device", "cpu", *flags])
-    err = capsys.readouterr().err
-    assert word in err and "ROADMAP.md" in err
+    """``--plane-report`` and ``--ocs-latency``, refused until the control
+    plane was ported: after serving, the driver prints the report that the
+    JAX driver's ``plane_report`` prints for its mesh, with the decode
+    capacity as the sequence length (serve/train parity)."""
+    from test_torch_plane import jax_report
+    out = launch_serve.main(["--arch", "llama3_8b", "--smoke", "--device", "cpu", "--batch",
+                             "2", "--prompt-len", "5", "--gen", "4", *flags])
+    printed = capsys.readouterr().out
+    ocs = float(flags[-1]) if "--ocs-latency" in flags else 0.05
+    want, p = jax_report("llama3_8b", {"data": 1, "model": 1}, 2, 9, ocs)
+    assert word in printed and printed.endswith(want)
+    assert out["plane"] == p
 
 
 def test_serve_main_never_falls_back_to_cpu(monkeypatch):
@@ -209,14 +218,26 @@ class _FourRails:
 
 def test_sharded_serving_and_other_families_raise(yi):
     _, tcfg, _, tparams = yi
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 2b"):
-        make_decode_step(ServeSetup(cfg=tcfg, weight_resident=True), (1, 1), tparams, batch=8,
-                         capacity=16)
+    # the resident step on one device runs its products over the rails' one
+    # rank (``RailShard``), bit-equal to the gathered step, caches too
+    resident = ServeSetup(cfg=tcfg, weight_resident=True)
+    step = make_decode_step(resident, (1, 1), tparams, batch=2, capacity=16)
+    gathered = make_decode_step(ServeSetup(cfg=tcfg), (1, 1), tparams, batch=2, capacity=16)
+    states = [init_serve_state(s, (1, 1), tparams, 2, 16) for s in (resident, ServeSetup(cfg=tcfg))]
+    tok = torch.ones((2, 1), dtype=torch.long)
+    for pos in range(3):
+        got = step(tparams, states[0], tok, pos)[0]
+        want = gathered(tparams, states[1], tok, pos)[0]
+        assert torch.equal(got, want)
+        tok = want.argmax(-1)
+    assert all(torch.equal(x, y) for a, b in zip(*states) for x, y in zip(a.values(), b.values()))
+    assert step.rails.combines > 0 and not hasattr(gathered, "rails")
     with pytest.raises(ValueError, match="a tuple is one device"):
         make_prefill_step(ServeSetup(cfg=tcfg), (4, 2), tparams)
     for fn in (lambda: make_decode_step(ServeSetup(cfg=tcfg), _FourRails(), tparams, batch=6,
                                         capacity=16),
-               lambda: init_serve_state(ServeSetup(cfg=tcfg), _FourRails(), tparams, 6, 16)):
+               lambda: init_serve_state(ServeSetup(cfg=tcfg), _FourRails(), tparams, 6, 16),
+               lambda: make_decode_step(resident, _FourRails(), tparams, batch=6, capacity=16)):
         with pytest.raises(ValueError, match="batch 6 does not split over 4 rails"):
             fn()
     with pytest.raises(NotImplementedError, match="MoE"):

@@ -14,11 +14,21 @@ context-sharded decode of a sliding-window model is off (its offset comes
 from the step's capacity, not the cache's slots: ROADMAP Queue 3), the port
 is held to the unsharded decode and the JAX step's error is shown.  The
 driver runs under the 8 ranks as ``examples/serve_decode.py`` runs it, held
-to its own run on one process.  JAX is imported inside the fixtures only,
-so the spawned ranks never load it.
+to its own run on one process, and its ``--plane-report`` to the JAX
+driver's.  Weight-resident decode (``weight_resident``) runs every decode
+case again and is held to the gathered step's logits (and yi on mesh8 to
+the JAX package's resident step), seamless-m4t-medium's too over its cross
+state; each path's rail bytes of one step, read from the fabric's counter
+on a mesh of 8 rails, are held to the count its leaves' FSDP dims give
+(chip_smoke.py's ``rail_bytes_by_fsdp_dims``).  JAX is imported inside the
+fixtures only, so the spawned ranks never load it.
 """
+import importlib.util
+import io
 import json
 import os
+from contextlib import redirect_stdout
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,7 +48,8 @@ from repro_torch.serve.step import (ServeSetup, init_serve_state, make_decode_st
 ATOL = 1e-4
 WORLD, VOCAB = 8, 512  # every smoke configuration's (padded) vocabulary
 MESHES = {"4x2": ((4, 2), ("data", "model")), "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
-          "2x4": ((2, 4), ("data", "model")), "1x8": ((1, 8), ("data", "model"))}
+          "2x4": ((2, 4), ("data", "model")), "1x8": ((1, 8), ("data", "model")),
+          "8x1": ((8, 1), ("data", "model"))}
 # label -> (arch, mesh, fabric, context_shard, batch, steps, capacity)
 DECODES = {"yi/batch/4x2": ("yi_9b", "4x2", "photonic", False, 8, 12, 16),
            "yi/batch/2x2x2": ("yi_9b", "2x2x2", "photonic", False, 8, 12, 16),
@@ -51,6 +62,10 @@ DECODES = {"yi/batch/4x2": ("yi_9b", "4x2", "photonic", False, 8, 12, 16),
            "jamba/model/2x4": ("jamba_v0_1_52b", "2x4", "photonic", False, 4, 8, 16),
            "jamba/model/2x2x2": ("jamba_v0_1_52b", "2x2x2", "photonic", False, 4, 8, 16),
            "paligemma/model/2x4": ("paligemma_3b", "2x4", "photonic", False, 4, 8, 16)}
+# an encoder-decoder over its cross state: (arch, mesh, batch, steps, capacity, frames)
+CROSS_DECODE = ("seamless_m4t_medium", "4x2", 8, 6, 16, 8)
+# the rail bytes of one step, gathered and resident, on 8 rails: (arch, batch, capacity)
+BYTES = ("yi_9b", 8, 16)
 # the JAX package's sharded decode of each case that has a twin in tests/test_serve.py
 JAX_STEPS = {"yi/batch/4x2": "mesh8", "yi/batch/2x2x2": "mesh_pod", "yi/context/4x2": "mesh8",
              "mamba/context/4x2": "mesh8", "danube/context/4x2": "mesh8"}
@@ -64,7 +79,8 @@ DRIVER = {"yi": ["--arch", "yi_9b", "--batch", "8", "--prompt-len", "12", "--gen
                      "--gen", "16", "--context-shard"],
           "mamba": ["--arch", "mamba2_370m", "--batch", "8", "--prompt-len", "12",
                     "--gen", "20"]}
-ARCHS = sorted({a for a, *_ in DECODES.values()} | {a for a, *_ in PREFILLS.values()})
+ARCHS = sorted({a for a, *_ in DECODES.values()} | {a for a, *_ in PREFILLS.values()}
+               | {CROSS_DECODE[0]})
 
 
 def _port_cfg(arch: str):
@@ -87,11 +103,11 @@ def _shards(ref_params: dict, step) -> dict:
                                     model_size=1 if tp is None else tp.size)
 
 
-def _decode_rank(mesh, label, tmp) -> np.ndarray:
+def _decode_rank(mesh, label, tmp, resident: bool = False) -> np.ndarray:
     """The global batch's logits [B, steps, V] of one decode case."""
     arch, _, fabric, context, b, s, cap = DECODES[label]
     cfg = _port_cfg(arch)
-    setup = ServeSetup(cfg=cfg, fabric=fabric, context_shard=context)
+    setup = ServeSetup(cfg=cfg, fabric=fabric, context_shard=context, weight_resident=resident)
     step = make_decode_step(setup, mesh, tf.init_lm(cfg, device="meta"), batch=b, capacity=cap)
     params = _shards(dict(np.load(os.path.join(tmp, f"{arch}.npz"))), step)
     state = init_serve_state(setup, mesh, params, b, cap)
@@ -101,6 +117,46 @@ def _decode_rank(mesh, label, tmp) -> np.ndarray:
         lg, state = step(params, state, toks[:, t:t + 1], t)
         outs.append(lg[:, 0] if context else step.fabric.all_gather(lg[:, 0], 0))
     return torch.stack(outs, 1).numpy()
+
+
+def _cross_decode_rank(mesh, tmp, resident: bool) -> np.ndarray:
+    """seamless-m4t-medium's decode over the cross state of encoded frames
+    (the whole batch's, made from the global parameters on every rank)."""
+    arch, _, b, s, cap, n_frames = CROSS_DECODE
+    cfg = _port_cfg(arch)
+    ref_params = dict(np.load(os.path.join(tmp, f"{arch}.npz")))
+    frames = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, n_frames, cfg.frontend.d_embed)).astype(np.float32))
+    full = bridge.from_numpy(ref_params, "cpu", "float32")
+    cross = tf.init_cross_state(full, tf.encode(full, frames, cfg), cfg)
+    setup = ServeSetup(cfg=cfg, weight_resident=resident)
+    step = make_decode_step(setup, mesh, tf.init_lm(cfg, device="meta"), batch=b, capacity=cap)
+    params = _shards(ref_params, step)
+    state = init_serve_state(setup, mesh, params, b, cap)
+    toks = torch.from_numpy(_tokens(b, s)).long()
+    outs = []
+    for t in range(s):
+        lg, state = step(params, state, toks[:, t:t + 1], t, cross)
+        outs.append(step.fabric.all_gather(lg[:, 0], 0))
+    return torch.stack(outs, 1).numpy()
+
+
+def _bytes_rank(mesh, tmp) -> dict:
+    """Each path's bytes this rank sends over the rails in one decode step
+    (the fabric's counter), the gathered's and the resident's."""
+    arch, b, cap = BYTES
+    cfg = _port_cfg(arch)
+    out = {}
+    for resident in (False, True):
+        setup = ServeSetup(cfg=cfg, weight_resident=resident)
+        step = make_decode_step(setup, mesh, tf.init_lm(cfg, device="meta"), batch=b,
+                                capacity=cap)
+        params = _shards(dict(np.load(os.path.join(tmp, f"{arch}.npz"))), step)
+        state = init_serve_state(setup, mesh, params, b, cap)
+        step.fabric.reset_bytes()
+        step(params, state, torch.from_numpy(_tokens(b, 1)).long(), 0)
+        out[f"bytes/{'resident' if resident else 'gathered'}"] = step.fabric.bytes_sent
+    return out
 
 
 def _prefill_rank(mesh, label, tmp) -> np.ndarray:
@@ -148,14 +204,24 @@ def _rank_main(rank, world, store, tmp):
     out = {}
     for label, (_, mesh, *_) in DECODES.items():
         out[label] = _decode_rank(meshes[mesh], label, tmp)
+        out[f"{label}/resident"] = _decode_rank(meshes[mesh], label, tmp, resident=True)
+    for resident in (False, True):
+        out[f"cross/{resident}"] = _cross_decode_rank(meshes[CROSS_DECODE[1]], tmp, resident)
+    out.update(_bytes_rank(meshes["8x1"], tmp))
     for label, (_, mesh, *_) in PREFILLS.items():
         out[label] = _prefill_rank(meshes[mesh], label, tmp)
     out.update(_layout_rank(meshes["4x2"]))
     launch_serve.get_config = _f32_config
     for name, argv in DRIVER.items():
-        res = launch_serve.main(argv + ["--smoke", "--device", "cpu", "--mesh", "4x2"])
+        printed = io.StringIO()
+        with redirect_stdout(printed):
+            res = launch_serve.main(argv + ["--smoke", "--device", "cpu", "--mesh", "4x2",
+                                            "--plane-report"])
         out[f"driver/{name}/logits"] = res["logits"].numpy()
         out[f"driver/{name}/continuation"] = res["continuation"].numpy()
+        reports = [None] * world
+        dist.all_gather_object(reports, printed.getvalue())
+        out[f"driver/{name}/printed"] = np.array(reports)
     if rank == 0:
         np.savez(os.path.join(tmp, "out.npz"), **out)
     dist.destroy_process_group()
@@ -229,6 +295,18 @@ def _jax_references(tmp, rng, mesh8, mesh_pod) -> dict:
                 lg, st = dstep(sp, st, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
                 outs.append(np.asarray(lg[:, 0]))
         out[f"{label}/jax_step"] = np.stack(outs, 1)
+        if label != "yi/batch/4x2":
+            continue
+        with jax.set_mesh(mesh):  # the JAX package's weight-resident step (GSPMD)
+            sp, _, _ = jinit(JTrain(cfg=cfg, fabric=fabric), mesh, rng)
+            setup = JServe(cfg=cfg, fabric=fabric, weight_resident=True)
+            st = jinit_state(setup, mesh, sp, b, cap)
+            dstep = jax.jit(jdecode(setup, mesh, tpl, batch=b, capacity=cap))
+            outs = []
+            for t in range(s):
+                lg, st = dstep(sp, st, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+                outs.append(np.asarray(lg[:, 0]))
+        out[f"{label}/jax_resident"] = np.stack(outs, 1)
     for label, (arch, mesh, b, s) in PREFILLS.items():
         cfg, toks = cfgs[arch], jnp.asarray(_tokens(b, s))
         out[f"{label}/unsharded"] = np.asarray(
@@ -432,11 +510,98 @@ def test_context_slot_follows_the_ring():
     assert slot[owned].tolist() == [0, 1, 2, 3] * 3
 
 
-def test_weight_resident_is_refused_by_name():
+def test_weight_resident_is_refused_by_name(yi_params):
+    """``weight_resident``, refused until weight-resident decode was ported,
+    changes nothing but the decode step: ``init_serve_state`` lays out the
+    same caches and ``make_prefill_step`` runs the gathered prefill (the
+    reference's ignores the flag); a batch the rails do not divide still
+    raises."""
+    cfg, params = yi_params
+    resident, gathered = ServeSetup(cfg=cfg, weight_resident=True), ServeSetup(cfg=cfg)
+    for setup in (resident, ServeSetup(cfg=cfg, context_shard=True, weight_resident=True)):
+        plain = ServeSetup(cfg=cfg, context_shard=setup.context_shard)
+        got = init_serve_state(setup, (1, 1), params, 2, 16)
+        want = init_serve_state(plain, (1, 1), params, 2, 16)
+        assert [[v.shape for v in c.values()] for c in got] == \
+            [[v.shape for v in c.values()] for c in want]
+    toks = {"tokens": torch.from_numpy(_tokens(2, 12)).long()}
+    assert torch.equal(make_prefill_step(resident, (1, 1), params)(params, toks),
+                       make_prefill_step(gathered, (1, 1), params)(params, toks))
+    with pytest.raises(ValueError, match="batch 6 does not split over 8 rails"):
+        make_decode_step(resident, _EightRails(), params, batch=6, capacity=16)
+
+
+class _EightRails:
+    """A mesh's shape without its process groups: 8 rails, a model axis of 1."""
+    mesh_dim_names, shape = ("data", "model"), (8, 1)
+
+    def size(self, i: int) -> int:
+        return self.shape[i]
+
+    def get_group(self, name):
+        return None
+
+
+@pytest.fixture(scope="module")
+def yi_params():
     cfg = _port_cfg("yi_9b")
-    setup = ServeSetup(cfg=cfg, weight_resident=True)
-    for fn in (lambda: make_decode_step(setup, (1, 1), None, batch=1, capacity=16),
-               lambda: make_prefill_step(setup, (1, 1), None),
-               lambda: init_serve_state(setup, (1, 1), {"embed": torch.zeros(1)}, 1, 16)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-            fn()
+    return cfg, tf.init_lm(cfg, seed=0, device="cpu")
+
+
+# ---- weight-resident decode on the 8 ranks ----
+
+@pytest.mark.parametrize("label", list(DECODES))
+def test_resident_decode_matches_the_gathered_step(jax_run, port, label):
+    """Every decode case with the weights resident: the gathered step's
+    logits (and the JAX package's unsharded decode's), at atol 1e-4."""
+    _close(port[f"{label}/resident"], port[label])
+    _close(port[f"{label}/resident"], jax_run[f"{label}/unsharded"])
+
+
+def test_resident_decode_matches_the_jax_resident_step(jax_run, port):
+    """yi on (4, 2): the JAX package's ``make_decode_step(weight_resident=True)``
+    (its GSPMD step) on the same bridged parameters."""
+    _close(port["yi/batch/4x2/resident"], jax_run["yi/batch/4x2/jax_resident"])
+
+
+def test_resident_decode_over_a_cross_state(port):
+    """seamless-m4t-medium on (4, 2), the cross state of encoded frames
+    passed whole: the resident step gives the gathered step's logits."""
+    _close(port["cross/True"], port["cross/False"])
+    assert np.isfinite(port["cross/True"]).all()
+
+
+def test_rail_bytes_a_step_follow_the_fsdp_dims(port):
+    """yi smoke (f32) on 8 rails, B=8: the fabric's byte counter of one step
+    equals the count by the leaves' FSDP dims, for the gathered step (every
+    sharded leaf, 7/8 of it) and the resident one (activation partials and
+    slices, the small leaves, the attention rows); the resident moves less."""
+    cs = _chip_smoke()
+    arch, b, _ = BYTES
+    for path, resident in (("gathered", False), ("resident", True)):
+        assert int(port[f"bytes/{path}"]) == cs.rail_bytes_by_fsdp_dims(
+            _port_cfg(arch), b, 8, resident), path
+    assert int(port["bytes/resident"]) < int(port["bytes/gathered"])
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(DRIVER))
+def test_serve_driver_plane_report_on_8_ranks(port, name):
+    """``--plane-report`` under 8 ranks of ``--mesh 4x2``: rank 0 prints what
+    the JAX driver's ``plane_report`` prints for that mesh, with the decode
+    capacity as the sequence length; the other ranks print no report."""
+    from test_torch_plane import jax_report
+    argv = DRIVER[name]
+    batch = int(argv[argv.index("--batch") + 1])
+    cap = int(argv[argv.index("--prompt-len") + 1]) + int(argv[argv.index("--gen") + 1])
+    printed = [str(x) for x in port[f"driver/{name}/printed"]]
+    want, _ = jax_report(argv[1], {"data": 4, "model": 2}, batch, cap, 0.05)
+    assert printed[0].endswith(want)
+    assert all("control plane report" not in p for p in printed[1:])

@@ -12,7 +12,9 @@ other orders).  Parameters after a full step are not compared elementwise:
 AdamW's first step moves each by about lr * sign(g), and a near-zero
 gradient of either sign moves it by 2 lr.
 """
+import io
 import os
+from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
@@ -110,11 +112,16 @@ def _rank_main(rank, world, store, tmp):
     out["losses"] = np.array(losses)
     out.update(_exchange_rank())
     # the driver on a model axis of two: tensor and expert parallelism
-    loss = launch_train.main(["--arch", "yi_9b", "--smoke", "--device", "cpu", "--mesh", "2x2",
-                              "--steps", "2", "--batch", "4", "--seq", "16"])
-    losses = [None] * world
+    printed = io.StringIO()
+    with redirect_stdout(printed):
+        loss = launch_train.main(["--arch", "yi_9b", "--smoke", "--device", "cpu", "--mesh",
+                                  "2x2", "--steps", "2", "--batch", "4", "--seq", "16",
+                                  "--plane-report"])
+    losses, reports = [None] * world, [None] * world
     dist.all_gather_object(losses, loss)
+    dist.all_gather_object(reports, printed.getvalue())
     out["main_2x2/losses"] = np.array(losses)
+    out["main_2x2/printed"] = np.array(reports)
     if rank == 0:
         np.savez(os.path.join(tmp, "out.npz"), **out)
     dist.destroy_process_group()
@@ -536,21 +543,35 @@ def test_train_main_runs_hsdp_with_compression(capsys):
     assert np.isfinite(packed) and packed != plain
 
 
-@pytest.mark.parametrize("flags,word", [(["--plane-report"], "control plane"),
+@pytest.mark.parametrize("flags,word", [(["--plane-report"], "control plane report"),
                                         (["--mesh", "2x0"], "DxM or PxDxM"),
                                         (["--mesh", "4x1"], "needs 4 processes"),
-                                        (["--ocs-latency", "0.05"], "item 3: control plane")])
+                                        (["--plane-report", "--ocs-latency", "0.01"],
+                                         "OCS 10 ms")])
 def test_train_main_refuses_unported_options(flags, word, capsys):
+    """A mesh the driver cannot form is refused; ``--plane-report`` and
+    ``--ocs-latency``, refused until the control plane was ported, now print
+    the JAX driver's report of the job after training (one process, mesh
+    1x1)."""
+    argv = ["--arch", "yi_9b", "--smoke", "--device", "cpu", *flags]
+    plane = "--plane-report" in flags
     try:
-        with pytest.raises((SystemExit, ValueError)) as e:
-            launch_train.main(["--arch", "yi_9b", "--smoke", "--device", "cpu", *flags])
-        formed = dist.is_initialized()
+        if plane:
+            launch_train.main(argv + ["--steps", "1", "--batch", "2", "--seq", "8"])
+        else:
+            with pytest.raises((SystemExit, ValueError)) as e:
+                launch_train.main(argv)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    assert word in capsys.readouterr().err + str(e.value)
-    if flags[0] in launch_train.UNPORTED_FLAGS:  # refused before any process group forms
-        assert not formed
+    cap = capsys.readouterr()
+    if not plane:
+        assert word in cap.err + str(e.value)
+        return
+    from test_torch_plane import jax_report
+    ocs = float(flags[-1]) if "--ocs-latency" in flags else 0.05
+    want, _ = jax_report("yi_9b", {"data": 1, "model": 1}, 2, 8, ocs)
+    assert word in cap.out and cap.out.endswith(want)
 
 
 @pytest.mark.parametrize("mesh,axes", [("2x2", {"data": 2, "model": 2}),
@@ -565,3 +586,14 @@ def test_train_main_trains_on_a_model_axis(port):
     model 2, two steps; every rank reports the same loss."""
     losses = port["main_2x2/losses"]
     assert np.isfinite(losses).all() and len(set(losses.tolist())) == 1, losses
+
+
+def test_train_main_plane_report_on_4_ranks(port):
+    """``--plane-report`` under the four gloo ranks of ``--mesh 2x2``: rank
+    0 prints the report that the JAX driver's ``plane_report`` prints for
+    the same mesh and job; the other ranks print none."""
+    from test_torch_plane import jax_report
+    printed = [str(x) for x in port["main_2x2/printed"]]
+    want, _ = jax_report("yi_9b", {"data": 2, "model": 2}, 4, 16, 0.05)
+    assert printed[0].endswith(want)
+    assert all("control plane report" not in p for p in printed[1:])
