@@ -7,7 +7,7 @@ Run from the root of the repository.  Phases, in order; any failure raises
 and the script exits non-zero without printing a result:
 
  1. device: name, count, and ``nvidia-smi`` name and power limit;
- 2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+ 2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     nvcc (one process per source, started together), with registers, shared
     memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel,
     in the flash backward's kernels, in any pass of the SSD scan or of its
@@ -272,6 +272,30 @@ and the script exits non-zero without printing a result:
     its reconfigurations with the flat h100 MFU (equal to PLANE_PINNED, the
     JAX package's simulator's numbers) and with phase 30's fitted table
     (``SimParams(calibration=)``).
+33. the decode backward (``csrc/decode_attention_bwd.cu``): (a) the kernel
+    at llama3-8b's decode shape (B=8, a full 4096-slot cache, 32 heads on 8
+    kv heads, dh 128) and paligemma-3b's (8 on one, dh 256), a ragged cache
+    and f32 besides: dq, dk and dv held to the plain version's autograd by
+    ``ref.grad_tolerance_ratio`` <= 1, two planted faults (a split's dq
+    partial dropped, dk without the sum over a group's heads) that must
+    read > 1, two calls bit-identical, masked slots exact zeros; timed
+    beside its bound, the plain version and SDPA forward + backward;
+    (b) a decode step differentiated at full width on DECODE_GRAD_LAYERS
+    of llama3-8b's and of paligemma-3b's layers (right after their decode
+    phases): one forward and one backward launch a layer, every gradient
+    (parameters and caches) within MODEL_LIMIT of the plain version's, a
+    planted fault of the backward beyond it;
+34. the dry-run (``launch.dryrun``): (a) DRYRUN_CELLS on the 16x16 and
+    2x16x16 meshes on this machine's CPU (meta tensors over a fake process
+    group), each through the dry-run's command line in a process of its
+    own, all six at once, each status ok; (b) h2o-danube-3-4b training and
+    llama3-8b prefill at B=1 S=4096 on a (1, 1) mesh, dry-run in this
+    process (no process group outlives it) and then run on the card: the
+    predicted peak over ``torch.cuda.max_memory_allocated``
+    within FIT_BAND, the step no faster than the h100 roofline's bound;
+35. the simulator: ``sim_points`` (the cost model at 2,048 GPUs, the
+    planner's ``headline_points``, a small ``simulate_cluster`` and
+    ``simulate_fleet``) equal to SIM_PINNED, the JAX package's numbers.
 
 The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
@@ -306,6 +330,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -339,9 +364,12 @@ FLASH_BF16_MAX_REGISTERS = 240
 # Q's fragments in registers would add 64: the build fails above this count.
 FLASH_BF16_256_MAX_REGISTERS = 200
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
-               "decode_attention_stats": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+               "decode_attention_bwd": 0, "decode_attention_stats": 0, "ssd_scan": 0,
+               "ssd_scan_bwd": 0}
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
 FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+# The kernels of one decode_attention_bwd call (csrc/decode_attention_bwd.cu).
+DECODE_BWD_PASSES = ("decode_bwd_stats_kernel", "decode_bwd_kernel", "decode_bwd_dq_kernel")
 # Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
 # training state (bf16 parameters and gradients, f32 AdamW moments: 47.5 GB)
 # fits one 80 GB card, on one sequence of S=4096 (flash attention at S >=
@@ -660,7 +688,9 @@ def phase_build():
     # every 256-wide instantiation (flash forward, backward and decode, bf16 and f32)
     wide = {f"{name}: {fn}": res for name, k in ops.KERNELS.items()
             for fn, res in k.resources().items() if "Li256E" in fn}
-    if len(wide) != 12:  # forward 2, backward 4, decode pass 1: 2 dtypes x 3 bundle sizes
+    # forward 2, backward 4, decode pass 1: 2 dtypes x 3 bundle sizes; the
+    # decode backward's two passes: 2 dtypes x 5 bundle sizes each
+    if len(wide) != 32:
         raise AssertionError(f"[build] 256-wide instantiations in the ptxas log: {sorted(wide)}")
     for fn, res in sorted(wide.items()):
         log(f"[build] dh 256: {fn[:110]}: {res['registers']} registers, {res['static_smem']} B "
@@ -668,6 +698,16 @@ def phase_build():
     spills = {fn: res for fn, res in wide.items() if res["spill_stores"]}
     if spills:
         raise AssertionError(f"[build] 256-wide instantiations spilling: {spills}")
+    dbwd = ops.KERNELS["decode_attention_bwd"].resources()
+    missing = [k for k in DECODE_BWD_PASSES if not any(k in fn for fn in dbwd)]
+    spills = {fn: res for fn, res in dbwd.items() if res["spill_stores"]}
+    if missing or spills:
+        raise AssertionError(f"[build] decode backward: passes missing from the ptxas log "
+                             f"{missing}, spilling {spills}")
+    log(f"[build] decode backward: all {len(DECODE_BWD_PASSES)} passes built ({len(dbwd)} "
+        f"instantiations), no spills; registers "
+        f"{min(r['registers'] for r in dbwd.values())}-"
+        f"{max(r['registers'] for r in dbwd.values())}")
     ssd = ops.KERNELS["ssd_scan"].resources()
     missing = [k for k in SSD_PASSES if not any(k in fn for fn in ssd)]
     spills = {fn: res for fn, res in ssd.items() if res["spill_stores"]}
@@ -1009,6 +1049,40 @@ def decode_at(tag: str, b, c, h, kv, dh, seed) -> dict:
     ctrl = min(control(f"{tag} control: {label}", fault, want) for label, fault in faults)
     return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio, "control_ratio": ctrl,
             **decode_times(q, kc, vc, valid, tag)}
+
+
+def decode_bwd_parts(q, kc, vc, valid, do, scale=None):
+    """The plain backward of flash-decode, written out in f32: (q and do as
+    [B,KV,R,dh], P and dS [B,KV,R,C], the scale)."""
+    import torch
+    from repro_torch.kernels import ref
+    b, _, h, dh = q.shape
+    kv = kc.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    qr = q.reshape(b, kv, h // kv, dh).float()
+    dor = do.reshape(b, kv, h // kv, dh).float()
+    s = torch.einsum("bgrd,bcgd->bgrc", qr, kc.float()) * scale
+    p = torch.where(valid[:, None, None, :], s, ref.NEG_INF).softmax(-1)
+    dp = torch.einsum("bgrd,bcgd->bgrc", dor, vc.float())
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return qr, dor, p, ds, scale
+
+
+def decode_bwd_faults(q, kc, vc, valid, do, want, split: int):
+    """Two planted faults of the decode backward, emulated from the plain
+    version's P and dS: dq without the first ``split``-slot split's partial,
+    and, where a kv head has more than one query head, dk from the first
+    query head of each group only (the sum over the group's heads skipped).
+    Returns [(label, gradient, the plain version's)]."""
+    import torch
+    qr, _, _, ds, scale = decode_bwd_parts(q, kc, vc, valid, do)
+    part = torch.einsum("bgrc,bcgd->bgrd", ds[..., :split], kc[:, :split].float()) * scale
+    dq = (want[0].float() - part.reshape(want[0].shape)).to(want[0].dtype)
+    faults = [(f"dq without the first {split}-slot split's partial", dq, want[0])]
+    if qr.shape[2] > 1:
+        dk = (torch.einsum("bgc,bgd->bcgd", ds[:, :, 0], qr[:, :, 0]) * scale).to(want[1].dtype)
+        faults.append(("dk from each group's first query head only", dk, want[1]))
+    return faults
 
 
 def phase_family_kernels(kernels: list) -> None:
@@ -4399,6 +4473,451 @@ def phase_plane(smi: str) -> dict:
     return out
 
 
+# The decode backward (phase 33): the cache filled to DECODE_GRAD_FILLED of
+# its 4096 slots (random K/V, as a prefill leaves it), one decode step at
+# full width on DECODE_GRAD_LAYERS of the model's layers, its loss a fixed
+# random cotangent against the logits; gradients of every parameter leaf and
+# of the caches through the kernels held to those through the plain version
+# within MODEL_LIMIT relative RMS per leaf.
+DECODE_GRAD_LAYERS, DECODE_GRAD_FILLED = 2, 4064
+
+
+def decode_bwd_times(q, kc, vc, valid, do, tag: str) -> dict:
+    """The decode backward kernel, its plain version and the library's
+    yardstick (``scaled_dot_product_attention`` with one query and the
+    boolean mask, forward then backward through autograd): CUDA events and
+    device times, and the bound: K and V of the valid slots read once, dK
+    and dV of every slot written once (q, do and dq beside them), or ten
+    FLOPs a (valid slot, head, dim) at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention_bwd as dab
+    from repro_torch.kernels import ref
+    b, c, kv, dh = kc.shape
+    h, es = q.shape[2], kc.element_size()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, kc, vc))
+    dot, am = do.transpose(1, 2).contiguous(), valid[:, None, None, :]
+
+    def library():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+    t = timings(lambda: dab.decode_attention_bwd(q, kc, vc, valid, do),
+                lambda: ref.decode_attention_bwd(q, kc, vc, valid, do), library, 40)
+    n_valid = int(valid.sum().item())
+    nbytes = 2 * n_valid * kv * dh * es + 2 * b * c * kv * dh * es + 3 * b * h * dh * es + b * c
+    t.update(bound(10 * n_valid * h * dh, nbytes))
+    dev_ms = t["device_ms"] or t["ms"]
+    log(f"{tag} {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms "
+        f"sdpa forward + backward (CUDA events; device time {t['device_ms']} / "
+        f"{t['plain_device_ms']} / {t['library_device_ms']}), bound {t['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB); {nbytes / dev_ms / 1e6:.0f} GB/s achieved, "
+        f"{100 * t['bound_ms'] / dev_ms:.1f} % of the bound (device time)")
+    return t
+
+
+def decode_bwd_at(tag: str, b, c, h, kv, dh, dtype, kind, seed, timed: bool = False) -> dict:
+    """The decode backward kernel at one shape: dq, dk and dv held to the
+    plain version's autograd by ``ref.grad_tolerance_ratio``; its planted
+    faults (``decode_bwd_faults``) must fail the same check; a second call
+    on the same inputs must give bit-identical gradients (no atomics)."""
+    import torch
+    from repro_torch.kernels import decode_attention_bwd as dab
+    from repro_torch.kernels import ref
+    q, kc, vc, valid = decode_inputs(b, c, h, kv, dh, dtype, kind, seed=seed)
+    do = decode_inputs(b, 1, h, kv, dh, dtype, "all", seed=seed + 100)[0]
+    got = dab.decode_attention_bwd(q, kc, vc, valid, do)
+    want = ref.decode_attention_bwd(q, kc, vc, valid, do)
+    shape = f"B={b} C={c} H={h} KV={kv} dh={dh} {dtype} mask={kind}"
+    worst, worst_ratio = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, ratio = hold(f"{tag} {shape}: {name}", g, w, ref.grad_tolerance_ratio)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    again = dab.decode_attention_bwd(q, kc, vc, valid, do)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{tag} {shape}: two calls gave different gradients")
+    masked = ~valid
+    if got[1][masked].any() or got[2][masked].any():
+        raise AssertionError(f"{tag} {shape}: a masked slot's dk or dv is not zero")
+    faults = decode_bwd_faults(q, kc, vc, valid, do, want,
+                               dab.KERNEL.lib().repro_decode_bwd_split())
+    ctrl = min(control(f"{tag} control: {label}", f, w, ref.grad_tolerance_ratio)
+               for label, f, w in faults)
+    out = {"shape": shape, "max_abs_err": worst, "tolerance_ratio": worst_ratio,
+           "control_ratio": ctrl}
+    if timed:
+        out.update(decode_bwd_times(q, kc, vc, valid, do, tag))
+    return out
+
+
+def phase_decode_bwd_kernel() -> dict:
+    """Phase 33 (a): the decode backward kernel at llama3-8b's decode shape
+    (B=8, a full 4096-slot cache, 32 heads on 8 kv heads, dh 128) and
+    paligemma-3b's (8 heads on one kv head, dh 256), bf16, timed; a ragged
+    cache in bf16, a ragged mask in f32 and mistral-large-123b's 96 heads on
+    8 kv heads (12 a group, not a power of two: the kernel's block pads the
+    group to 16 heads, which must add nothing) besides."""
+    import torch
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    main = decode_bwd_at("[decode bwd]", 8, 4096, 32, 8, 128, bf16, "all", 61, timed=True)
+    vlm = decode_bwd_at("[decode bwd paligemma]", 8, 4096, *VLM_ATTN, bf16, "all", 62,
+                        timed=True)
+    edges = [decode_bwd_at("[decode bwd]", 8, 4100, 32, 8, 128, bf16, "holes", 63),
+             decode_bwd_at("[decode bwd]", 8, 4096, 32, 8, 128, torch.float32, "prefix", 64),
+             decode_bwd_at("[decode bwd mistral-large]", 8, 4096, 96, 8, 128, bf16, "holes",
+                           65)]
+    log(f"[decode bwd] phase 33 (a) ok in {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "decode_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention_bwd.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:75",
+            "tolerance": "dq, dk, dv: 1e-5 + 2^-7 |plain| (bf16), 1e-4 (f32)",
+            **main, "max_abs_err": max(r["max_abs_err"] for r in (main, *edges)),
+            "tolerance_ratio": max(r["tolerance_ratio"] for r in (main, *edges)),
+            "paligemma": vlm, "edges": edges}
+
+
+def decode_grad_run(cfg2, leaves, caches, state0, token, pos: int, seed: int):
+    """One decode step at ``pos`` through ``tf.decode_step`` with gradients:
+    ``leaves`` the parameter leaves (``train.step.period_leaves``),
+    ``caches`` one {"k", "v"} leaf pair a period position (stacked over the
+    periods), the state's other entries from ``state0``; returns
+    {name: gradient} of every leaf and cache for the loss sum(g * logits),
+    g standard normal from ``seed``."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves as tree_leaves
+    n = tf.n_periods(cfg2)
+    state = []
+    for c0, leaf in zip(state0, caches):
+        # one tensor a period: each period writes its slot into its own tensor
+        state.append({"k": [leaf["k"][p].clone() for p in range(n)],
+                      "v": [leaf["v"][p].clone() for p in range(n)],
+                      "slot_pos": c0["slot_pos"].clone()})
+    with torch.enable_grad():
+        logits, _ = tf.decode_step(leaves, state, token, pos, cfg2)
+        gen = torch.Generator(device=logits.device).manual_seed(seed)
+        g = torch.randn(logits.shape, generator=gen, device=logits.device)
+        loss = (logits.float() * g).sum()
+        params = tree_leaves(leaves)
+        kv = [t for c in caches for t in (c["k"], c["v"])]
+        grads = torch.autograd.grad(loss, params + kv, allow_unused=True)
+    names = [f"param {i}" for i in range(len(params))] + \
+        [f"cache {i // 2} {'kv'[i % 2]}" for i in range(len(kv))]
+    # a leaf decode never reads (one the prefill alone needs) has no gradient
+    return {k: g for k, g in zip(names, grads) if g is not None}
+
+
+def decode_grad_rel_rms(got: dict, want: dict) -> dict:
+    """{name: RMS of (got - want) over the RMS of want}; a leaf whose plain
+    gradient is all zero must be zero in ``got`` too."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"gradients of {sorted(got)} against {sorted(want)}")
+    out = {}
+    for k, w in want.items():
+        w, d = w.float(), got[k].float() - w.float()
+        rms = w.pow(2).mean().sqrt().item()
+        out[k] = (d.pow(2).mean().sqrt().item() / rms) if rms else (
+            0.0 if not d.any() else float("inf"))
+    return out
+
+
+def phase_decode_grad(cfg, params, tag: str) -> dict:
+    """Phase 33 (b): a decode step differentiated at full width (see
+    DECODE_GRAD_LAYERS): through the kernels (the flash-decode forward and
+    the decode backward, each launched once a layer), through the plain
+    version, and through a planted fault of the backward (dk from each
+    group's first query head only)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.step import ServeSetup, init_serve_state
+    from repro_torch.train.step import period_leaves
+    t_phase = time.perf_counter()
+    cfg2, p2 = depth_cut(cfg, params, DECODE_GRAD_LAYERS)
+    b, cap, pos = 8, 4096, DECODE_GRAD_FILLED
+    state0 = init_serve_state(ServeSetup(cfg=cfg2), (1, 1), p2, b, cap)
+    fill_cache(state0, pos, seed=71)
+    caches = [{k: c[k].detach().clone().requires_grad_() for k in ("k", "v")} for c in state0]
+    leaves = period_leaves(p2)
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+
+    def run():
+        return decode_grad_run(cfg2, leaves, caches, state0, token, pos, seed=73)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    kernel_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    want_counts = {**NO_LAUNCHES, "decode_attention": DECODE_GRAD_LAYERS,
+                   "decode_attention_bwd": DECODE_GRAD_LAYERS}
+    if counts != want_counts:
+        raise AssertionError(f"[{tag}] launches {counts}, want {want_counts}")
+    with swapped_ops(decode_attention=ref.decode_attention):
+        t0 = time.perf_counter()
+        want = run()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def faulty_bwd(q, kc, vc, valid, do, scale=None):
+        w = ref.decode_attention_bwd(q, kc, vc, valid, do, scale=scale)
+        return w[0], decode_bwd_faults(q, kc, vc, valid, do, w, 1)[1][1], w[2]
+    with swapped_ops(decode_attention_bwd=faulty_bwd):
+        fault = decode_grad_rel_rms(run(), want)
+    rel = decode_grad_rel_rms(got, want)
+    worst, worst_fault = max(rel.values()), max(fault.values())
+    log(f"[{tag}] decode step differentiated, {DECODE_GRAD_LAYERS} of {cfg.n_layers} layers at "
+        f"full width, B={b}, {pos} of {cap} slots filled: {len(rel)} gradients (every "
+        f"parameter leaf, the caches); worst relative RMS against the plain version "
+        f"{worst:.3g} ({max(rel, key=rel.get)}; limit {MODEL_LIMIT}); control: dk from each "
+        f"group's first query head {worst_fault:.3g} (must exceed the limit); launches "
+        f"{counts['decode_attention']} forward, {counts['decode_attention_bwd']} backward; "
+        f"forward + backward {kernel_ms:.1f} ms through the kernels, {plain_ms:.1f} ms plain "
+        f"(host clock, first call); in {time.perf_counter() - t_phase:.1f} s")
+    if not worst <= MODEL_LIMIT < worst_fault:
+        raise AssertionError(f"[{tag}] gradients {rel}, control {fault}")
+    return {f"{tag}_rel_rms": worst, f"{tag}_control": worst_fault,
+            f"{tag}_launches": counts["decode_attention_bwd"], f"{tag}_ms": kernel_ms,
+            f"{tag}_plain_ms": plain_ms, f"{tag}_s": time.perf_counter() - t_phase}
+
+
+# The dry-run (phase 34): (a) one cell of each shape kind on the paper's
+# meshes, on this machine's CPU (meta tensors over a fake process group),
+# each cell a ``python -m repro_torch.launch.dryrun`` process of its own and
+# all of them at once (one core each, so (a) takes about its slowest cell);
+# (b) two cells that fit one card on a (1, 1) mesh, whose predicted peak
+# bytes (the dry-run's memory fit) must lie within FIT_BAND of what the card
+# allocates running the same step (torch.cuda.max_memory_allocated).
+DRYRUN_CELLS = (("h2o_danube_3_4b", "train_4k"), ("mamba2_370m", "prefill_32k"),
+                ("yi_9b", "decode_32k"))
+FIT_BAND = (0.75, 1.25)
+
+
+def phase_dryrun(smi: str) -> dict:
+    """Phase 34 (see the docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import init_distributed, make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import ServeSetup, make_prefill_step
+    from repro_torch.train.step import TrainSetup, init_sharded_state, make_train_step
+    t_phase = time.perf_counter()
+    out = dryrun_cells()
+
+    # (b) the fit against the card: each cell dry-run, then run for real
+    fits = {}
+    for arch, shape in (("h2o_danube_3_4b", ShapeConfig("train_1x4k", 4096, 1, "train")),
+                        ("llama3_8b", ShapeConfig("prefill_1x4k", 4096, 1, "prefill"))):
+        rec = dryrun.cell_record(arch, shape, {"data": 1, "model": 1})
+        if torch.distributed.is_initialized():
+            raise AssertionError("phase 34: a process group outlived the dry-run's cell")
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(81)
+        tokens = torch.randint(0, cfg.vocab_size, (1, shape.seq_len + 1), generator=gen,
+                               device="cuda")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        if shape.kind == "train":
+            device = torch.device("cuda")
+            init_distributed(device)
+            try:
+                mesh = make_mesh({"data": 1, "model": 1}, device)
+                setup = TrainSetup(cfg=cfg.replace(remat="full"))
+                params, opt, ef = init_sharded_state(setup, mesh, seed=0, device=device)
+                step = make_train_step(setup, mesh, tf.init_lm(setup.cfg, device="meta"))
+                batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+                run_step = lambda: step(params, opt, ef, batch)  # noqa: E731
+                times = real_fit_steps(run_step)
+            finally:
+                torch.distributed.destroy_process_group()
+        else:
+            params = tf.init_lm(cfg, seed=0, device="cuda")
+            step = make_prefill_step(ServeSetup(cfg=cfg), (1, 1), params)
+            batch = {"tokens": tokens[:, :-1]}
+            times = real_fit_steps(lambda: step(params, batch))
+        peak = torch.cuda.max_memory_allocated() - base
+        del params, step
+        torch.cuda.empty_cache()
+        fit = rec["memory_analysis"]["peak_size"]
+        bound_ms = rec["roofline"]["step_bound"] * 1e3
+        ratio = fit / peak
+        step_ms = min(times)
+        log(f"[dryrun] (b) {arch} {shape.name} on (1, 1): predicted peak {fit / 2**30:.3f} GiB, "
+            f"the card's max_memory_allocated {peak / 2**30:.3f} GiB: ratio {ratio:.4f} (band "
+            f"{FIT_BAND}); step {step_ms:.1f} ms (fastest of {len(times)}) against the h100 "
+            f"roofline's step bound {bound_ms:.2f} ms ({rec['roofline']['bottleneck']}-bound; "
+            f"{smi})")
+        if not FIT_BAND[0] <= ratio <= FIT_BAND[1] or step_ms < bound_ms:
+            raise AssertionError(f"phase 34 (b) {arch}: fit {fit} against {peak}, step "
+                                 f"{step_ms} ms against the bound {bound_ms} ms")
+        fits[f"{arch} {shape.name}"] = {"predicted_peak_bytes": fit, "card_peak_bytes": peak,
+                                        "ratio": ratio, "step_ms": step_ms,
+                                        "step_bound_ms": bound_ms}
+    out.update(dryrun_fits=fits, dryrun_s=time.perf_counter() - t_phase)
+    log(f"[dryrun] phase 34 ok in {out['dryrun_s']:.1f} s")
+    return out
+
+
+def dryrun_cells() -> dict:
+    """Phase 34 (a): each of DRYRUN_CELLS on 16x16 and 2x16x16 through the
+    dry-run's command line, one process a cell, all at once; every cell
+    must exit 0 with status ok.  Returns their records' numbers."""
+    t0 = time.perf_counter()
+    out = {"dryrun_cells": {}}
+    cells_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(cells_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = []
+    try:
+        for mesh in ("16x16", "2x16x16"):
+            for arch, shape in DRYRUN_CELLS:
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                       "--shape", shape, "--out", str(cells_dir)]
+                cmd += ["--multi-pod"] if mesh == "2x16x16" else []
+                runs.append((mesh, arch, shape, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        for mesh, arch, shape, proc in runs:
+            said, _ = proc.communicate(timeout=300)
+            cell = f"{arch}__{shape}__{mesh}__photonic"
+            path = cells_dir / f"{cell}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+            if proc.returncode != 0 or rec["status"] != "ok":
+                raise AssertionError(f"phase 34 (a) {cell}: exit {proc.returncode}, status "
+                                     f"{rec['status']}: {said.strip()[-2000:]}")
+            r = rec["roofline"]
+            log(f"[dryrun] (a) {cell}: {rec['status']} (build {rec['t_build_s']} s, step "
+                f"{rec['t_step_s']} s on the CPU); {rec['corrected_flops'] / 1e12:.2f} TFLOP "
+                f"a rank, rail bytes {r['rail_bytes'] / 1e9:.3f} GB, scale-up "
+                f"{r['scaleup_bytes'] / 1e9:.3f} GB, fit "
+                f"{rec['memory_analysis']['peak_size'] / 2**30:.2f} GiB; h100 roofline "
+                f"{r['bottleneck']}-bound, step bound {r['step_bound'] * 1e3:.2f} ms")
+            out["dryrun_cells"][cell] = {k: rec[k] for k in (
+                "status", "corrected_flops", "collectives", "memory_analysis", "roofline")}
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["dryrun_cells_s"] = time.perf_counter() - t0
+    log(f"[dryrun] (a) {len(runs)} cells in {out['dryrun_cells_s']:.1f} s")
+    return out
+
+
+def real_fit_steps(fn, n: int = 3) -> list:
+    """ms of each of ``n`` calls of ``fn`` (host clock, synchronized), the
+    peak memory counted from the first."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+# The simulator (phase 35): the paper's cost and power comparison at 2,048
+# GPUs, the planner's two scale points, a cluster of four 448-GPU jobs and a
+# serving fleet of llama-80b replicas over OCS and packet rails, pinned to
+# the JAX package's numbers (held to it on the CPU by
+# tests/test_torch_sim_rest.py, which runs ``sim_points`` on both packages).
+SIM_PINNED = {
+    "bill": {"power_ratio": 24.180000000000003, "cost_ratio": 4.266666666666667},
+    "headline": {
+        "single_job_100k": {"n_gpus": 100000, "engine": "event", "modeled_step_s": 13.650094,
+                            "overhead_vs_native": 0.004346, "n_reconfigs": 6,
+                            "n_ports_programmed": 112500},
+        "week_trace_256": {"n_jobs": 256, "n_done": 256, "n_rejected": 0, "makespan_days": 7.2939,
+                           "mean_queueing_delay_s": 927.6953, "max_queueing_delay_s": 7809.1521,
+                           "peak_utilization": 1.0, "mean_overhead_vs_native": 0.082435,
+                           "n_reconfig_events": 18907520, "n_queued_programs": 79}},
+    "cluster": {"n_jobs": 4, "n_done": 4, "total_gpus": 1792, "makespan": 29.596462034713234,
+                "mean_overhead_vs_native": 0.09109031156667019,
+                "peak_utilization": 0.8888888888888888},
+    "fleet": {
+        "crossbar_ocs": {"n_requests": 911, "n_completed": 911, "throughput_rps": 15.19008,
+                         "p99_ttft_s": 0.884969, "peak_replicas": 19, "peak_gpus": 1216,
+                         "network_power_w": 1266.67, "rps_per_net_kw": 11.992168},
+        "packet": {"n_requests": 911, "n_completed": 911, "throughput_rps": 15.19008,
+                   "p99_ttft_s": 0.872376, "peak_replicas": 19, "peak_gpus": 1216,
+                   "network_power_w": 30628.0, "rps_per_net_kw": 0.495954}}}
+
+
+def sim_points(m) -> dict:
+    """Phase 35's numbers from the simulator modules in ``m`` (a namespace
+    with ``costmodel``, ``opus_sim``, ``planner``, ``cluster``, ``serving``,
+    ``traces``, ``phases`` and ``get_config``); the planner's wall clocks
+    left out."""
+    eps = m.opus_sim.SimParams(mode="native").fabric_spec()
+    ocs = m.opus_sim.SimParams(mode="opus_prov", ocs_latency=0.01).fabric_spec()
+    bill = m.costmodel.compare(2048, 8, eps, ocs=ocs)
+    head = m.planner.headline_points()
+    for point in head.values():
+        point.pop("wall_s")
+    specs = m.cluster.catalog_jobs(4, 64, mean_gap=2.0)
+    cl = m.cluster.simulate_cluster(specs, m.cluster.ClusterParams(n_ports=288,
+                                                                   ocs_latency=0.01)).summary()
+    job = m.phases.JobConfig(model=m.get_config("llama_80b"), tp=8, fsdp=8, pp=1,
+                             global_batch=64, seq_len=4096, n_microbatch=1)
+    pre = m.serving.PoolSpec(job, min_replicas=8, max_replicas=16, ref_prompt_tokens=2048)
+    dec = m.serving.PoolSpec(job, min_replicas=3, max_replicas=8, batch_slots=16)
+    trace = m.traces.TraceParams(duration_s=60.0, base_rate=14.0, diurnal_amp=0.4,
+                                 diurnal_period_s=60.0, bursts=((20.0, 10.0, 1.5),), seed=3)
+    fleet = {}
+    for backend in ("crossbar_ocs", "packet"):
+        f = m.serving.simulate_fleet(m.serving.FleetParams(n_ports=2048, backend=backend,
+                                                           ocs_latency=0.01),
+                                     pre, dec, trace).summary()
+        fleet[backend] = {k: f[k] for k in ("n_requests", "n_completed", "throughput_rps",
+                                            "p99_ttft_s", "peak_replicas", "peak_gpus",
+                                            "network_power_w", "rps_per_net_kw")}
+    return {"bill": {k: bill[k] for k in ("power_ratio", "cost_ratio")}, "headline": head,
+            "cluster": {k: cl[k] for k in ("n_jobs", "n_done", "total_gpus", "makespan",
+                                           "mean_overhead_vs_native", "peak_utilization")},
+            "fleet": fleet}
+
+
+def phase_sim(smi: str) -> dict:
+    """Phase 35 (see the docstring)."""
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.core import phases
+    from repro_torch.sim import cluster, costmodel, opus_sim, planner, serving, traces
+    t_phase = time.perf_counter()
+    got = sim_points(SimpleNamespace(costmodel=costmodel, opus_sim=opus_sim, planner=planner,
+                                     cluster=cluster, serving=serving, traces=traces,
+                                     phases=phases, get_config=get_config))
+    bill, ocs, pkt = got["bill"], got["fleet"]["crossbar_ocs"], got["fleet"]["packet"]
+    log(f"[sim] 2,048 GPUs, 8-GPU domains, 400G rails: OCS rails draw {bill['power_ratio']:.2f}x "
+        f"less power and cost {bill['cost_ratio']:.2f}x less than the packet fabric")
+    for name, point in got["headline"].items():
+        log(f"[sim] planner {name}: {point}")
+    log(f"[sim] cluster of 4 jobs: {got['cluster']}")
+    log(f"[sim] fleet: OCS {ocs}; packet {pkt}")
+    if not same_numbers(got, SIM_PINNED):
+        raise AssertionError(f"phase 35: {got} against the pinned {SIM_PINNED}")
+    out = {"sim_points": got, "sim_s": time.perf_counter() - t_phase}
+    log(f"[sim] phase 35 ok: every number equal to the JAX package's (pinned), in "
+        f"{out['sim_s']:.1f} s")
+    return out
+
+
+def same_numbers(a, b) -> bool:
+    """Equal records, floats to 1e-12 relative (another machine's libm)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_numbers(a[k], b[k]) for k in a)
+    if isinstance(a, float) and isinstance(b, float):
+        return math.isclose(a, b, rel_tol=1e-12, abs_tol=0.0)
+    return a == b and type(a) is type(b)
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4427,6 +4946,7 @@ def run() -> int:
                     "replaces": "src/repro/kernels/decode_attention.py:29",
                     "tolerance": "ref.stats_tolerance_ratio: m and l 1e-5 + 1e-4 |plain|, "
                                  "acc / l 1e-5 + 2^-7 |plain| (bf16)"})
+    kernels.append(phase_decode_bwd_kernel())  # phase 33 (a)
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
@@ -4440,6 +4960,7 @@ def run() -> int:
     ctx = phase_context_decode(cfg, params)
     rails = phase_rail_shards(cfg, params)
     resident = phase_resident_decode(cfg, params)
+    dgrad = phase_decode_grad(cfg, params, "decode grad")  # phase 33 (b)
     kernels[0].update(launches=pre["flash_launches"],
                       launches_per_step=pre["flash_launches"] / pre["prefill_calls"])
     kernels[2].update(launches=dec["decode_launches"],
@@ -4526,6 +5047,7 @@ def run() -> int:
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     vlm_pre = phase_prefill(cfg, params, tag="paligemma prefill", prefix="paligemma_")
     vlm_dec = phase_decode_ab(cfg, params, "paligemma decode")
+    vlm_dgrad = phase_decode_grad(cfg, params, "paligemma decode grad")  # phase 33 (b)
     del params
     torch.cuda.empty_cache()
 
@@ -4586,6 +5108,8 @@ def run() -> int:
     pipe = phase_pipeline()
     calib = phase_calibration()
     plane = phase_plane(smi)
+    dry = phase_dryrun(smi)
+    sim = phase_sim(smi)
     # each kernel's launches in each path that ran it (counts set to 0 just before the path)
     dense_train, moe_train = f"{tr['train_arch']} train", f"{moe_tr['moe_train_arch']} train"
     gemma_train = f"{gemma_tr['gemma_train_arch']} train ({gemma_tr['gemma_train_depth']})"
@@ -4668,12 +5192,22 @@ def run() -> int:
                              ("calibration suite (phase 30)", calib["calib_launches"])):
             if counts[kernel["name"]]:
                 kernel["launches_by_path"][path] = counts[kernel["name"]]
+    grad_path = f"a decode step differentiated ({DECODE_GRAD_LAYERS} layers, phase 33 (b))"
+    kernels[6].update(launches=dgrad["decode grad_launches"], launches_by_path={
+        f"llama3-8b {grad_path}": dgrad["decode grad_launches"],
+        f"paligemma-3b {grad_path}": vlm_dgrad["paligemma decode grad_launches"]})
+    kernels[6]["paligemma"]["launches"] = vlm_dgrad["paligemma decode grad_launches"]
+    # the differentiated steps' forward launches (one a layer, as the backward's)
+    kernels[2]["launches_by_path"][f"llama3-8b {grad_path}"] = dgrad["decode grad_launches"]
+    kernels[2]["dh256"]["launches_by_path"][f"paligemma-3b {grad_path}"] = \
+        vlm_dgrad["paligemma decode grad_launches"]
     log(f"[train] ok; whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, **pre, **dec, **mpre, **mdec, **moe_pre, **moe_dec,
                     **gemma_pre, **gemma_dec, **paper_pre, **hybrid_pre, **hybrid_dec,
                     **vlm_pre, **vlm_dec, **audio_pre, **audio_dec, **tr, **moe_tr, **gemma_tr,
                     **ssm_tr, **vlm_tr, **audio_tr, **rest, **tp, **at_one_serve, **ctx,
-                    **rails, **serve_tp, **pipe, **calib, **resident, **plane, "card": smi},
+                    **rails, **serve_tp, **pipe, **calib, **resident, **plane, **dgrad,
+                    **vlm_dgrad, **dry, **sim, "card": smi},
                    default=str))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

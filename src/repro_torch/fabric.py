@@ -25,7 +25,8 @@ axis size is 1.  Each ``Fabric`` counts the bytes this rank sends
 (``bytes_sent``), as a ring sends them: (n - 1) shards a gather, (n - 1)
 chunks of 1/n a reduce-scatter, both for a (padded) all-reduce or a max,
 the whole buffer n - 1 times a photonic all-to-all ((n - 1)/n of it a
-native one), the buffer once a shift.
+native one), the buffer once a shift; ``bytes_by_axis`` splits the count
+over the fabric's axes.
 """
 from __future__ import annotations
 
@@ -36,33 +37,48 @@ import torch
 import torch.distributed as dist
 
 
+def gather_bytes_by_axis(nbytes: int, sizes: Sequence[int]) -> list:
+    """Bytes a rank sends on each axis (in the order of ``sizes``, major
+    first) to all-gather its part of ``nbytes``; the gather runs the minor
+    axis first, so each axis moves the parts gathered before it."""
+    sent = [0] * len(sizes)
+    for i in reversed(range(len(sizes))):
+        sent[i] = (sizes[i] - 1) * nbytes
+        nbytes *= sizes[i]
+    return sent
+
+
 def gather_bytes(nbytes: int, sizes: Sequence[int]) -> int:
     """Bytes a rank sends to all-gather its part of ``nbytes`` over axes of
     ``sizes`` (major first; the gather runs the minor axis first)."""
-    sent = 0
-    for n in reversed(sizes):
-        sent += (n - 1) * nbytes
-        nbytes *= n
+    return sum(gather_bytes_by_axis(nbytes, sizes))
+
+
+def scatter_bytes_by_axis(nbytes: int, sizes: Sequence[int]) -> list:
+    """Bytes a rank sends on each axis to reduce-scatter ``nbytes`` (major
+    axis first)."""
+    sent = []
+    for n in sizes:
+        nbytes //= n
+        sent.append((n - 1) * nbytes)
     return sent
 
 
 def scatter_bytes(nbytes: int, sizes: Sequence[int]) -> int:
     """Bytes a rank sends to reduce-scatter ``nbytes`` (major axis first)."""
-    sent = 0
-    for n in sizes:
-        nbytes //= n
-        sent += (n - 1) * nbytes
-    return sent
+    return sum(scatter_bytes_by_axis(nbytes, sizes))
+
+
+def all_reduce_bytes_by_axis(numel: int, element_size: int, sizes: Sequence[int]) -> list:
+    """Bytes a rank sends on each axis to all-reduce ``numel`` elements: a
+    ring reduce-scatter and all-gather of the buffer padded to n chunks."""
+    return [2 * (n - 1) * -(-numel // n) * element_size if n > 1 else 0 for n in sizes]
 
 
 def all_reduce_bytes(numel: int, element_size: int, sizes: Sequence[int]) -> int:
     """Bytes a rank sends to all-reduce ``numel`` elements, axis by axis: a
     ring reduce-scatter and all-gather of the buffer padded to n chunks."""
-    sent = 0
-    for n in sizes:
-        if n > 1:
-            sent += 2 * (n - 1) * -(-numel // n) * element_size
-    return sent
+    return sum(all_reduce_bytes_by_axis(numel, element_size, sizes))
 
 
 def _nbytes(x) -> int:
@@ -186,7 +202,7 @@ class Fabric:
     kind: str = "photonic"  # "photonic" | "eps"
     bidirectional: bool = False  # both ring directions at once (halves)
     groups: tuple = ()
-    _sent: list = field(default_factory=lambda: [0], compare=False, repr=False)
+    _sent: dict = field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def from_mesh(cls, mesh, axes, kind: str = "photonic", bidirectional: bool = False):
@@ -197,11 +213,21 @@ class Fabric:
     @property
     def bytes_sent(self) -> int:
         """The bytes this rank has sent over the fabric since it was made
+        (or since ``reset_bytes``): the sum of ``bytes_by_axis``."""
+        return sum(self._sent.values())
+
+    @property
+    def bytes_by_axis(self) -> dict:
+        """{axis: bytes this rank has sent on it} since the fabric was made
         (or since ``reset_bytes``)."""
-        return self._sent[0]
+        return {a: self._sent.get(a, 0) for a in self.axes}
 
     def reset_bytes(self) -> None:
-        self._sent[0] = 0
+        self._sent.clear()
+
+    def _count(self, per_axis) -> None:
+        for a, n in zip(self.axes, per_axis):
+            self._sent[a] = self._sent.get(a, 0) + n
 
     @property
     def n_shards(self) -> int:
@@ -227,7 +253,7 @@ class Fabric:
         return _ReduceScatter.apply(x, self, axis)
 
     def _gather(self, x, axis):
-        self._sent[0] += gather_bytes(_nbytes(x), self.sizes)
+        self._count(gather_bytes_by_axis(_nbytes(x), self.sizes))
         for group, n in self._axes(reverse=True):
             if n == 1:
                 continue
@@ -238,7 +264,7 @@ class Fabric:
         return x
 
     def _scatter(self, x, axis):
-        self._sent[0] += scatter_bytes(_nbytes(x), self.sizes)
+        self._count(scatter_bytes_by_axis(_nbytes(x), self.sizes))
         for group, n in self._axes():
             if n == 1:
                 continue
@@ -250,7 +276,7 @@ class Fabric:
 
     def all_reduce(self, x):
         """Flat, padded ring ReduceScatter then AllGather, axis by axis."""
-        self._sent[0] += all_reduce_bytes(x.numel(), x.element_size(), self.sizes)
+        self._count(all_reduce_bytes_by_axis(x.numel(), x.element_size(), self.sizes))
         for group, n in self._axes():
             if n == 1:
                 continue
@@ -269,7 +295,7 @@ class Fabric:
 
     def pmax(self, x):
         """Max of a small statistic over every axis: management traffic."""
-        self._sent[0] += all_reduce_bytes(x.numel(), x.element_size(), self.sizes)
+        self._count(all_reduce_bytes_by_axis(x.numel(), x.element_size(), self.sizes))
         x = x.clone()
         for group, n in self._axes():
             if n > 1:
@@ -283,9 +309,9 @@ class Fabric:
         if n == 1:
             return xstack
         if self.kind == "photonic":
-            self._sent[0] += (n - 1) * _nbytes(xstack)
+            self._count([(n - 1) * _nbytes(xstack)])
             return _ring_all_to_all(xstack, group, n)
-        self._sent[0] += (n - 1) * _nbytes(xstack) // n
+        self._count([(n - 1) * _nbytes(xstack) // n])
         out = torch.empty_like(xstack)
         dist.all_to_all_single(out, xstack.contiguous(), group=group)
         return out
@@ -295,7 +321,7 @@ class Fabric:
         n = self.sizes[axis_idx]
         if n == 1:
             return x
-        self._sent[0] += _nbytes(x)
+        self._count([_nbytes(x) if a == self.axes[axis_idx] else 0 for a in self.axes])
         return _shift(x, self.groups[axis_idx], n, delta)
 
     def axis_index(self) -> int:

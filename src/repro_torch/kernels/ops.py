@@ -11,9 +11,11 @@ Where an input of ``mha`` needs a gradient, ``mha`` is an autograd function:
 its forward (``mha_fwd``) also keeps the rows' log-sum-exp, and its backward
 (``mha_bwd``) launches the backward kernel, or runs ``ref.mha_bwd`` on CPU
 tensors.  Without a gradient it takes the serving route, which writes no
-log-sum-exp.  ``ssd`` likewise: with a gradient its forward is ``ssd_fwd``
-and its backward ``ssd_bwd`` (the SSD backward kernel, or
-``ref.ssd_chunked_bwd`` on CPU tensors), which recomputes from the inputs.
+log-sum-exp.  ``ssd`` and ``decode_attention`` likewise, each with a
+backward that recomputes from the inputs: ``ssd_bwd`` (the SSD backward
+kernel, or ``ref.ssd_chunked_bwd`` on CPU tensors) and
+``decode_attention_bwd`` (the decode backward kernel, or
+``ref.decode_attention_bwd``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import decode_attention_bwd as _dab
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
@@ -30,8 +33,8 @@ from repro_torch.kernels import ssd_scan_bwd as _ssdb
 
 # the libraries, one a source, each built once
 KERNELS = {"flash_attention": _fa.KERNEL, "flash_attention_bwd": _fab.KERNEL,
-           "decode_attention": _da.KERNEL, "ssd_scan": _ssd.KERNEL,
-           "ssd_scan_bwd": _ssdb.KERNEL}
+           "decode_attention": _da.KERNEL, "decode_attention_bwd": _dab.KERNEL,
+           "ssd_scan": _ssd.KERNEL, "ssd_scan_bwd": _ssdb.KERNEL}
 # what is counted: every library's kernel and flash-decode's stats variant
 COUNTED = {**KERNELS, "decode_attention_stats": _da.STATS}
 
@@ -99,20 +102,59 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] 
 
     ``return_stats=True`` returns the unnormalised (acc [B,KV,R,dh], m
     [B,KV,R], l [B,KV,R]) in f32 instead, mergeable over the shards of a
-    cache (on the card: the kernel's stats variant).
-    On the card it has no gradient: no path of the port differentiates
-    decode, so a CUDA input that needs one is refused rather than given none.
+    cache (on the card: the kernel's stats variant).  Where q or a cache
+    needs a gradient the output is an autograd function over the forward and
+    ``decode_attention_bwd``; the stats variant has no gradient on the card
+    (no path differentiates it), so a CUDA input that needs one is refused.
     """
-    if _route(q) == "cuda":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
-            raise NotImplementedError("flash-decode has no backward kernel: a CUDA input that "
-                                      "needs a gradient is refused (ROADMAP.md, Queue 2 item "
-                                      "D: decode backward)")
-        if return_stats:
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache))
+    if return_stats:
+        if _route(q) == "cuda":
+            if grad:
+                raise NotImplementedError("the flash-decode stats variant has no backward: a "
+                                          "CUDA input that needs a gradient is refused")
             return _da.decode_attention_stats(q, k_cache, v_cache, valid_mask, scale=scale)
+        return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale,
+                                    return_stats=True)
+    if grad:
+        return _DecodeAttention.apply(q, k_cache, v_cache, valid_mask, scale)
+    return decode_attention_fwd(q, k_cache, v_cache, valid_mask, scale=scale)
+
+
+def decode_attention_fwd(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None):
+    """Flash-decode's output: the kernel, or the plain version off the card."""
+    if _route(q) == "cuda":
         return _da.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
-    return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale,
-                                return_stats=return_stats)
+    return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
+
+
+def decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, *,
+                         scale: Optional[float] = None):
+    """Gradients (dq, dk_cache, dv_cache) of flash-decode for the output's
+    cotangent ``do``."""
+    if _route(q) == "cuda":
+        return _dab.decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, scale=scale)
+    return ref.decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, scale=scale)
+
+
+class _DecodeAttention(torch.autograd.Function):
+    """``decode_attention`` with a gradient: forward and backward through
+    ``decode_attention_fwd`` and ``decode_attention_bwd``, looked up when
+    called.  It saves the inputs only, as the JAX package's custom VJP does,
+    and the backward recomputes from them; the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, valid_mask, scale):
+        ctx.save_for_backward(q, k_cache, v_cache, valid_mask)
+        ctx.scale = scale
+        return decode_attention_fwd(q, k_cache, v_cache, valid_mask, scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k_cache, v_cache, valid_mask = ctx.saved_tensors
+        dq, dk, dv = decode_attention_bwd(q, k_cache, v_cache, valid_mask, do.contiguous(),
+                                          scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def ssd(x, dt, a, b_mat, c_mat, chunk: int, h_init=None):

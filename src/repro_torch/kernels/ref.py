@@ -5,11 +5,12 @@ Counterpart of ``repro.kernels.ref`` and of ``repro.models.ssm.ssd_chunked``.
 [Sq, Sk] score matrix; ``mha_fwd_lse`` also returns the rows' log-sum-exp,
 and ``mha_bwd`` is the blocked backward that recomputes P from it (the JAX
 package's ``_mha_bwd_blocks``); ``decode_attention`` is the blocked flash-decode of
-one query token over a cache; ``ssd_chunked`` is the Mamba-2 SSD chunked
-scan and ``ssd_chunked_bwd`` its gradient.  The CPU path runs these, and
-the tests and ``chip_smoke.py`` hold the CUDA kernels in
-``flash_attention.py``, ``flash_attention_bwd.py``, ``decode_attention.py``,
-``ssd_scan.py`` and ``ssd_scan_bwd.py`` against them.
+one query token over a cache and ``decode_attention_bwd`` its gradient;
+``ssd_chunked`` is the Mamba-2 SSD chunked scan and ``ssd_chunked_bwd`` its
+gradient.  The CPU path runs these, and the tests and ``chip_smoke.py`` hold
+the CUDA kernels in ``flash_attention.py``, ``flash_attention_bwd.py``,
+``decode_attention.py``, ``decode_attention_bwd.py``, ``ssd_scan.py`` and
+``ssd_scan_bwd.py`` against them.
 
 Conventions
   q        [B, Sq, H, dh]
@@ -304,6 +305,17 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
         return acc, m, l
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, *,
+                         scale: Optional[float] = None):
+    """Gradients (dq, dk_cache, dv_cache) of ``decode_attention`` for the
+    output's cotangent ``do``: autograd through the plain forward, as the
+    JAX package's ``_decode_vjp_bwd`` recomputes through its oracle's VJP."""
+    with torch.enable_grad():
+        q_, k_, v_ = (t.detach().requires_grad_(True) for t in (q, k_cache, v_cache))
+        out = decode_attention(q_, k_, v_, valid_mask, scale=scale)
+        return torch.autograd.grad(out, (q_, k_, v_), do)
 
 
 # What the stats of a decode pass are held to: m is the largest score, an

@@ -22,7 +22,9 @@ on the CPU), never the photonic rail rings of ``fabric.py``.
                differentiated path (statistics, checkpoints)
 
 At size 1 every op returns its input and launches nothing.  ``launches``
-counts the collectives this object has run.  Outside autograd ``copy`` is
+counts the collectives this object has run and ``bytes_sent`` the bytes a
+rank sends for them, as their ring equivalents: 2 (n - 1) / n of the buffer
+an all-reduce, (n - 1) / n of the result an all-gather.  Outside autograd ``copy`` is
 the identity; ``gather_leaf`` gathers a leaf that is held in parts (one with
 a ``local_map``) part by part.
 """
@@ -43,6 +45,7 @@ class ModelAxis:
     def __init__(self, group=None, size: int = 1, rank: int = 0):
         self.group, self.size, self.rank = group, size, rank
         self.launches = 0
+        self.bytes_sent = 0
 
     @classmethod
     def from_mesh(cls, mesh) -> "ModelAxis":
@@ -69,6 +72,7 @@ class ModelAxis:
         x = x.contiguous().clone()
         dist.all_reduce(x, op=op, group=self.group)
         self.launches += 1
+        self.bytes_sent += 2 * (self.size - 1) * x.numel() * x.element_size() // self.size
         return x
 
     def _all_gather(self, x, dim: int):
@@ -76,6 +80,7 @@ class ModelAxis:
         full = moved.new_empty((self.size * moved.shape[0],) + moved.shape[1:])
         dist.all_gather_into_tensor(full, moved, group=self.group)
         self.launches += 1
+        self.bytes_sent += (self.size - 1) * moved.numel() * moved.element_size()
         return full.movedim(0, dim)
 
     def _slice(self, x, dim: int):

@@ -1,2 +1,3 @@
-"""The control-plane simulator (a copy of the JAX package's ``sim.workload``
-and ``sim.opus_sim``)."""
+"""The control-plane simulator: copies of the JAX package's jax-free
+``sim`` modules (``workload``, ``opus_sim``, ``traces``, ``network``,
+``costmodel``, ``cluster``, ``serving``, ``planner``, ``ops``)."""

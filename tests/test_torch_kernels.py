@@ -259,14 +259,15 @@ def test_ops_on_cpu_tensors_launch_nothing():
     for got, want in zip(stats, tref.decode_attention(dq, k, v, valid, return_stats=True)):
         assert torch.equal(got, want)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "decode_attention": 0, "decode_attention_stats": 0,
-                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
+                                   "decode_attention": 0, "decode_attention_bwd": 0,
+                                   "decode_attention_stats": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_ops_decode_attention_on_cpu_keeps_its_gradient():
-    """On CPU tensors ``ops.decode_attention`` is the plain version, whose
-    autograd gives the gradient of the JAX package's ``decode_attention``
-    (its custom VJP); on the card a gradient is refused
+    """On CPU tensors ``ops.decode_attention`` with a gradient is its
+    autograd function over the plain forward and ``ref.decode_attention_bwd``,
+    and gives the gradient of the JAX package's ``decode_attention`` (its
+    custom VJP); on the card the backward is the decode backward kernel
     (tests/test_torch_kernels_cuda.py)."""
     b, c, h, kv, dh = 2, 128, 8, 2, 16
     rng = np.random.default_rng(3)
@@ -278,11 +279,111 @@ def test_ops_decode_attention_on_cpu_keeps_its_gradient():
     tq, tk, tv = (t.requires_grad_() for t in _t(q, kc, vc))
     ops.reset_launch_counts()
     ops.decode_attention(tq, tk, tv, torch.from_numpy(valid)).backward(torch.from_numpy(dout))
-    assert ops.launch_counts()["decode_attention"] == 0
+    assert ops.launch_counts()["decode_attention"] == ops.launch_counts()[
+        "decode_attention_bwd"] == 0
     _, vjp = jax.vjp(lambda a, k_, v_: pl_decode(a, k_, v_, jnp.asarray(valid), block_k=64,
                                                   interpret=True), *_j(q, kc, vc))
     for got, want in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(dout))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_decode_grads_match_the_jax_custom_vjp():
+    """Twin of tests/test_kernels.py::test_pallas_decode_grads_match_ref: the
+    gradients of sum(sin(decode(q, k, v))) through ``ops.decode_attention``
+    (the autograd function, plain versions on the CPU) against the JAX
+    package's Pallas kernel (interpret mode, its custom VJP) and its oracle,
+    the cache valid up to slot 100 of 128; the bool mask gets no gradient."""
+    b, c, h, kv, dh = 1, 128, 4, 2, 32
+    rng = np.random.default_rng(7)
+    q = (rng.standard_normal((b, 1, h, dh)) * 0.5).astype(np.float32)
+    kc, vc = ((rng.standard_normal((b, c, kv, dh)) * 0.5).astype(np.float32)
+              for _ in range(2))
+    valid = np.repeat((np.arange(c) < 100)[None, :], b, 0)
+
+    def loss(fn):
+        return lambda q_, k_, v_: jnp.sum(jnp.sin(fn(q_, k_, v_)))
+
+    jv = jnp.asarray(valid)
+    g_pallas = jax.grad(loss(lambda q_, k_, v_: pl_decode(q_, k_, v_, jv, block_k=64,
+                                                          interpret=True)),
+                        argnums=(0, 1, 2))(*_j(q, kc, vc))
+    g_oracle = jax.grad(loss(lambda q_, k_, v_: jref.decode_attention(q_, k_, v_, jv)),
+                        argnums=(0, 1, 2))(*_j(q, kc, vc))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, kc, vc))
+    tvalid = torch.from_numpy(valid).requires_grad_(False)
+    ops.decode_attention(tq, tk, tv, tvalid).sin().sum().backward()
+    assert tvalid.grad is None
+    for got, want_p, want_o in zip((tq.grad, tk.grad, tv.grad), g_pallas, g_oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_p), atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_o), atol=1e-5)
+    assert not tk.grad[:, 100:].any() and not tv.grad[:, 100:].any()  # masked: exact zeros
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the root of the repository, whose planted faults
+    of the decode backward the kernel's checks on the card must see."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the decode backward kernel's cache split (csrc/decode_attention_bwd.cu, SPLIT)
+_DECODE_SPLIT = 256
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,kv,dh,kind", [
+    (2, 1000, 8, 2, 64, "prefix"), (1, 600, 8, 1, 256, "all"), (2, 513, 4, 4, 128, "holes"),
+    (1, 300, 24, 2, 64, "holes")])  # 12 heads a group, as mistral-large-123b's 96 on 8
+def test_decode_bwd_tolerance_rejects_planted_faults(dtype, b, c, h, kv, dh, kind):
+    """The written-out backward that chip_smoke.py plants its faults in is the
+    plain autograd's (P, dS; dq = scale dS k, dk = scale dS q summed over a
+    group's heads, dv = P do summed); the tolerance the decode backward
+    kernel is held to admits it and rejects each fault: the first split's dq
+    partial dropped, and dk from each group's first query head only."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(11)
+    q, do = ((rng.standard_normal((b, 1, h, dh)) * 0.5).astype(np.float32) for _ in range(2))
+    kc, vc = ((rng.standard_normal((b, c, kv, dh)) * 0.5).astype(np.float32) for _ in range(2))
+    if kind == "prefix":
+        valid = np.arange(c)[None, :] < rng.integers(1, c + 1, (b, 1))
+    elif kind == "holes":
+        valid = rng.random((b, c)) < 0.6
+        valid[:, 0] = True
+    else:
+        valid = np.ones((b, c), bool)
+    q, do, kc, vc = (torch.from_numpy(x).to(dtype) for x in (q, do, kc, vc))
+    valid = torch.from_numpy(valid)
+    want = tref.decode_attention_bwd(q, kc, vc, valid, do)
+    qr, dor, p, ds, scale = cs.decode_bwd_parts(q, kc, vc, valid, do)
+    rep = h // kv
+    written = (torch.einsum("bgrc,bcgd->bgrd", ds, kc.float()).reshape(b, 1, h, dh) * scale,
+               torch.einsum("bgrc,bgrd->bcgd", ds, qr) * scale,
+               torch.einsum("bgrc,bgrd->bcgd", p, dor))
+    for g, w in zip(written, want):
+        assert tref.grad_tolerance_ratio(g.to(dtype), w) <= 1
+    faults = cs.decode_bwd_faults(q, kc, vc, valid, do, want, _DECODE_SPLIT)
+    assert len(faults) == (2 if rep > 1 else 1)
+    for label, fault, w in faults:
+        assert tref.grad_tolerance_ratio(fault, w) > 1, label
+
+
+def test_decode_bwd_wrapper_refuses_cpu_tensors():
+    """The decode backward's CUDA wrapper never runs the plain version, and
+    ``ops.decode_attention_bwd`` refuses a device with no route."""
+    from repro_torch.kernels import decode_attention_bwd as tdab
+    q, k, v = _t(*_qkv(1, 1, 64, 4, 2, 16))
+    valid = torch.ones((1, 64), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tdab.decode_attention_bwd(q, k, v, valid, q)
+    other = _Elsewhere()
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.decode_attention_bwd(other, other, other, valid, other)
+    assert ops.launch_counts()["decode_attention_bwd"] == 0
 
 
 class _Elsewhere:

@@ -276,8 +276,30 @@ def test_ops_ssd_on_the_card_launches_both_kernels_and_matches_plain(dev):
     assert len(ratios) == 6 and max(ratios.values()) <= 1, ratios
 
 
-def test_ops_decode_attention_on_the_card_has_no_gradient(dev):
-    """A CUDA input that needs a gradient is refused, not given none."""
+def test_ops_decode_attention_trains_through_the_kernels(dev):
+    """With a gradient, ``ops.decode_attention`` launches the forward and the
+    decode backward kernel once each, and its gradients are the plain
+    version's autograd."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = _randn((2, 1, 8, 64), torch.bfloat16, dev, gen)
+    kc, vc = (_randn((2, 700, 2, 64), torch.bfloat16, dev, gen) for _ in range(2))
+    valid = _mask("prefix", 2, 700, dev, gen)
+    do = _randn((2, 1, 8, 64), torch.bfloat16, dev, gen)
+    ins = [t.clone().requires_grad_() for t in (q, kc, vc)]
+    ops.reset_launch_counts()
+    out = ops.decode_attention(*ins, valid)
+    out.backward(do)
+    counts = ops.launch_counts()
+    assert counts["decode_attention"] == 1 and counts["decode_attention_bwd"] == 1
+    assert ref.tolerance_ratio(out.detach(), ref.decode_attention(q, kc, vc, valid)) <= 1
+    want = ref.decode_attention_bwd(q, kc, vc, valid, do)
+    for name, g, w in zip(("dq", "dk", "dv"), (t.grad for t in ins), want):
+        assert ref.grad_tolerance_ratio(g, w) <= 1, name
+
+
+def test_ops_decode_stats_on_the_card_has_no_gradient(dev):
+    """The stats variant has no backward: a CUDA input that needs a gradient
+    is refused, not given none; without one the kernel runs."""
     gen = torch.Generator(device=dev).manual_seed(6)
     q = _randn((1, 1, 8, 64), torch.bfloat16, dev, gen)
     kc, vc = (_randn((1, 256, 2, 64), torch.bfloat16, dev, gen) for _ in range(2))
@@ -285,12 +307,12 @@ def test_ops_decode_attention_on_the_card_has_no_gradient(dev):
     for grad_of in range(3):
         args = [q, kc, vc]
         args[grad_of] = args[grad_of].clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match="Queue 2 item D"):
-            ops.decode_attention(*args, valid)
-    with torch.no_grad():  # serving: no gradient asked, the kernel runs
-        before = tda.KERNEL.launches
-        ops.decode_attention(q.requires_grad_(), kc, vc, valid)
-        assert tda.KERNEL.launches == before + 1
+        with pytest.raises(NotImplementedError, match="stats variant has no backward"):
+            ops.decode_attention(*args, valid, return_stats=True)
+    with torch.no_grad():
+        before = tda.STATS.launches
+        ops.decode_attention(q.requires_grad_(), kc, vc, valid, return_stats=True)
+        assert tda.STATS.launches == before + 1
 
 
 def _mask(kind, b, c, dev, gen):
@@ -422,6 +444,104 @@ def test_decode_stats_kernel_rejects_a_dropped_split(dev):
     assert ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, dropped,
                                                                return_stats=True),
                                      torch.bfloat16) > 1
+
+
+# bf16 and f32; dh 64, 128 (and 120 zero-padded) and 256; rep 1, 4, 8 and 16; a
+# ragged mask, a row with few valid slots, caches that are no multiple of the split
+_DECODE_BWD_CASES = [
+    (b, c, kv * rep, kv, dh, dtype, kind)
+    for dtype in (torch.bfloat16, torch.float32)
+    for dh, kv in ((64, 4), (128, 2), (256, 1))
+    for rep, c, kind in ((1, 1000, "prefix"), (4, 4096, "few"), (8, 777, "holes"))
+    for b in (2,)
+] + [
+    (8, 4096, 32, 8, 128, torch.bfloat16, "all"),     # llama3-8b's decode
+    (8, 4096, 8, 1, 256, torch.bfloat16, "all"),      # paligemma-3b's
+    (2, 4100, 32, 8, 120, torch.bfloat16, "holes"),   # dh 120, ragged C
+    (1, 300, 16, 1, 128, torch.bfloat16, "prefix"),   # rep 16
+    (1, 513, 32, 2, 256, torch.float32, "few"),       # rep 16, f32 at 256
+    (3, 255, 8, 2, 64, torch.float32, "tail"),        # one split, empty tiles
+    # rep not a power of two: the block's padding heads must give P = 0
+    (2, 4096, 96, 8, 128, torch.bfloat16, "holes"),   # rep 12, mistral-large's 96 on 8
+    (1, 513, 12, 1, 256, torch.bfloat16, "holes"),    # rep 12 at 256: a sweep of padding
+    (1, 1000, 12, 2, 256, torch.float32, "prefix"),   # rep 6, f32 at 256
+    (2, 777, 24, 8, 64, torch.bfloat16, "few"),       # rep 3
+]
+
+
+def _decode_bwd_mask(kind, b, c, dev, gen):
+    if kind == "few":  # each row sees a handful of slots, first among them
+        m = torch.rand((b, c), generator=gen, device=dev) < 4 / c
+        m[:, 0] = True
+        return m
+    return _mask(kind, b, c, dev, gen)
+
+
+@pytest.mark.parametrize("b,c,h,kv,dh,dtype,kind", _DECODE_BWD_CASES)
+def test_decode_bwd_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
+    """dq, dk and dv of the decode backward kernel against the plain
+    version's autograd within ``ref.grad_tolerance_ratio``; masked slots get
+    exact zeros."""
+    from repro_torch.kernels import decode_attention_bwd as tdab
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, do = (_randn((b, 1, h, dh), dtype, dev, gen) for _ in range(2))
+    kc, vc = (_randn((b, c, kv, dh), dtype, dev, gen) for _ in range(2))
+    valid = _decode_bwd_mask(kind, b, c, dev, gen)
+    before = tdab.KERNEL.launches
+    got = tdab.decode_attention_bwd(q, kc, vc, valid, do)
+    torch.cuda.synchronize()
+    assert tdab.KERNEL.launches == before + 1
+    want = ref.decode_attention_bwd(q, kc, vc, valid, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert ref.grad_tolerance_ratio(g, w) <= 1, name
+    masked = ~valid
+    assert not got[1][masked].any() and not got[2][masked].any()
+
+
+@pytest.mark.parametrize("dtype,h,kv,dh", [(torch.bfloat16, 32, 8, 128),
+                                           (torch.float32, 32, 8, 128),
+                                           (torch.bfloat16, 8, 1, 256),
+                                           (torch.bfloat16, 96, 8, 128)])
+def test_decode_bwd_kernel_rejects_planted_faults(dev, dtype, h, kv, dh):
+    """The tolerance sees one split's dq partial dropped and dk without the
+    sum over a group's query heads (chip_smoke.py's planted faults)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import decode_attention_bwd as tdab
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, do = (_randn((4, 1, h, dh), dtype, dev, gen) for _ in range(2))
+    kc, vc = (_randn((4, 2048, kv, dh), dtype, dev, gen) for _ in range(2))
+    valid = _mask("prefix", 4, 2048, dev, gen)
+    got = tdab.decode_attention_bwd(q, kc, vc, valid, do)
+    want = ref.decode_attention_bwd(q, kc, vc, valid, do)
+    for g, w in zip(got, want):
+        assert ref.grad_tolerance_ratio(g, w) <= 1
+    faults = cs.decode_bwd_faults(q, kc, vc, valid, do, want,
+                                  tdab.KERNEL.lib().repro_decode_bwd_split())
+    assert len(faults) == 2
+    for label, fault, w in faults:
+        assert ref.grad_tolerance_ratio(fault, w) > 1, label
+
+
+def test_decode_bwd_kernel_refuses_unsupported_inputs(dev):
+    from repro_torch.kernels import decode_attention_bwd as tdab
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = _randn((1, 1, 8, 64), torch.bfloat16, dev, gen)
+    kc, vc = (_randn((1, 256, 2, 64), torch.bfloat16, dev, gen) for _ in range(2))
+    valid = torch.ones((1, 256), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="q's shape"):
+        tdab.decode_attention_bwd(q, kc, vc, valid, q[:, :, :4])
+    with pytest.raises(ValueError, match="must be"):
+        tdab.decode_attention_bwd(q, kc, vc, valid, q.float())
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        q32 = _randn((1, 1, 64, 64), torch.bfloat16, dev, gen)
+        tdab.decode_attention_bwd(q32, kc, vc, valid, q32)
 
 
 def test_kernels_refuse_unsupported_inputs(dev):
