@@ -272,14 +272,21 @@ and the script exits non-zero without printing a result:
     its reconfigurations with the flat h100 MFU (equal to PLANE_PINNED, the
     JAX package's simulator's numbers) and with phase 30's fitted table
     (``SimParams(calibration=)``).
-33. the decode backward (``csrc/decode_attention_bwd.cu``): (a) the kernel
+33. the decode backward (``csrc/decode_attention_bwd.cu``, one pass over
+    the cache fed the forward's log-sum-exp and f32 output): (a) the kernel
     at llama3-8b's decode shape (B=8, a full 4096-slot cache, 32 heads on 8
     kv heads, dh 128) and paligemma-3b's (8 on one, dh 256), a ragged cache
     and f32 besides: dq, dk and dv held to the plain version's autograd by
-    ``ref.grad_tolerance_ratio`` <= 1, two planted faults (a split's dq
-    partial dropped, dk without the sum over a group's heads) that must
-    read > 1, two calls bit-identical, masked slots exact zeros; timed
-    beside its bound, the plain version and SDPA forward + backward;
+    ``ref.grad_tolerance_ratio`` <= 1 through both routes to the residuals
+    (the forward kernel's residual mode handed to the backward, and the
+    backward's wrapper alone), two planted faults (the first split's dq
+    partial dropped at the split the kernel takes, dk without the sum over
+    a group's heads) that must read > 1, two calls bit-identical, masked
+    slots exact zeros, the residual mode's rounded output the plain mode's
+    bit for bit; the backward given the residuals timed beside its bound,
+    the plain version and SDPA forward + backward, with its GB/s and the
+    bytes of its dq partials, and the forward's residual mode beside the
+    forward;
     (b) a decode step differentiated at full width on DECODE_GRAD_LAYERS
     of llama3-8b's and of paligemma-3b's layers (right after their decode
     phases): one forward and one backward launch a layer, every gradient
@@ -330,6 +337,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -369,7 +377,7 @@ NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
 FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 # The kernels of one decode_attention_bwd call (csrc/decode_attention_bwd.cu).
-DECODE_BWD_PASSES = ("decode_bwd_stats_kernel", "decode_bwd_kernel", "decode_bwd_dq_kernel")
+DECODE_BWD_PASSES = ("decode_bwd_kernel", "decode_bwd_dq_kernel")
 # Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
 # training state (bf16 parameters and gradients, f32 AdamW moments: 47.5 GB)
 # fits one 80 GB card, on one sequence of S=4096 (flash attention at S >=
@@ -689,8 +697,8 @@ def phase_build():
     wide = {f"{name}: {fn}": res for name, k in ops.KERNELS.items()
             for fn, res in k.resources().items() if "Li256E" in fn}
     # forward 2, backward 4, decode pass 1: 2 dtypes x 3 bundle sizes; the
-    # decode backward's two passes: 2 dtypes x 5 bundle sizes each
-    if len(wide) != 32:
+    # decode backward's one pass: 2 dtypes x 2 head paddings (8, 16)
+    if len(wide) != 16:
         raise AssertionError(f"[build] 256-wide instantiations in the ptxas log: {sorted(wide)}")
     for fn, res in sorted(wide.items()):
         log(f"[build] dh 256: {fn[:110]}: {res['registers']} registers, {res['static_smem']} B "
@@ -704,10 +712,20 @@ def phase_build():
     if missing or spills:
         raise AssertionError(f"[build] decode backward: passes missing from the ptxas log "
                              f"{missing}, spilling {spills}")
+    if len(dbwd) != 14:  # 2 dtypes x 3 head-dim tiles x 2 head paddings, the dq sum x 2
+        raise AssertionError(f"[build] decode backward instantiations: {sorted(dbwd)}")
+    dbwd_lib = ops.KERNELS["decode_attention_bwd"].lib()
+    regs = {}
+    for fn, res in dbwd.items():  # decode_bwd_kernel<T, head-dim tile, padded heads>
+        m = re.search(r"decode_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
+        if m:
+            regs[f"{'f32' if m[1] == 'f' else 'bf16'} {m[2]}/{m[3]}"] = res["registers"]
     log(f"[build] decode backward: all {len(DECODE_BWD_PASSES)} passes built ({len(dbwd)} "
-        f"instantiations), no spills; registers "
-        f"{min(r['registers'] for r in dbwd.values())}-"
-        f"{max(r['registers'] for r in dbwd.values())}")
+        f"instantiations), no spills; registers (dtype tile/heads) " + ", ".join(
+            f"{k} {v}" for k, v in sorted(regs.items())) + "; shared memory per block (bf16; "
+        "rep 4 and 16 at dh 128, rep 8 at 256): " + ", ".join(
+            str(dbwd_lib.repro_decode_bwd_smem_bytes(1, r, d))
+            for r, d in ((4, 128), (16, 128), (8, 256))) + " B")
     ssd = ops.KERNELS["ssd_scan"].resources()
     missing = [k for k in SSD_PASSES if not any(k in fn for fn in ssd)]
     spills = {fn: res for fn, res in ssd.items() if res["spill_stores"]}
@@ -4483,63 +4501,94 @@ DECODE_GRAD_LAYERS, DECODE_GRAD_FILLED = 2, 4064
 
 
 def decode_bwd_times(q, kc, vc, valid, do, tag: str) -> dict:
-    """The decode backward kernel, its plain version and the library's
-    yardstick (``scaled_dot_product_attention`` with one query and the
-    boolean mask, forward then backward through autograd): CUDA events and
-    device times, and the bound: K and V of the valid slots read once, dK
-    and dV of every slot written once (q, do and dq beside them), or ten
-    FLOPs a (valid slot, head, dim) at the bf16 peak."""
+    """The decode backward kernel given the forward's residuals (made once by
+    the forward kernel's residual mode, not timed with it), its plain
+    version and the library's yardstick (``scaled_dot_product_attention``
+    with one query and the boolean mask, forward then backward through
+    autograd): CUDA events and device times, and the bound: K and V of the
+    valid slots read once, dK and dV of every slot written once (q, do and
+    dq beside them), or ten FLOPs a (valid slot, head, dim) at the bf16
+    peak; the three-pass kernel before it had the same count, so the two
+    compare.  Beside it the bytes of the dq partials (written once, read
+    once) and the forward kernel's device time with and without its
+    residuals."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import decode_attention_bwd as dab
     from repro_torch.kernels import ref
     b, c, kv, dh = kc.shape
     h, es = q.shape[2], kc.element_size()
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, kc, vc))
     dot, am = do.transpose(1, 2).contiguous(), valid[:, None, None, :]
+    _, lse, o32 = da.decode_attention(q, kc, vc, valid, residuals=True)
 
     def library():
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
         return torch.autograd.grad(out, (qt, kt, vt), dot)
-    t = timings(lambda: dab.decode_attention_bwd(q, kc, vc, valid, do),
+    t = timings(lambda: dab.decode_attention_bwd(q, kc, vc, valid, do, lse=lse, o=o32),
                 lambda: ref.decode_attention_bwd(q, kc, vc, valid, do), library, 40)
     n_valid = int(valid.sum().item())
     nbytes = 2 * n_valid * kv * dh * es + 2 * b * c * kv * dh * es + 3 * b * h * dh * es + b * c
     t.update(bound(10 * n_valid * h * dh, nbytes))
+    lib = dab.KERNEL.lib()
+    split = lib.repro_decode_bwd_split(b, c, kv, dh)
+    nsplit = lib.repro_decode_bwd_num_splits(b, c, kv, dh)
+    t.update(split=split, dq_partial_bytes=b * kv * nsplit * (h // kv) * dh * 4,
+             fwd_device_ms=device_ms(lambda: da.decode_attention(q, kc, vc, valid), 40),
+             fwd_residuals_device_ms=device_ms(
+                 lambda: da.decode_attention(q, kc, vc, valid, residuals=True), 40))
     dev_ms = t["device_ms"] or t["ms"]
     log(f"{tag} {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms "
         f"sdpa forward + backward (CUDA events; device time {t['device_ms']} / "
         f"{t['plain_device_ms']} / {t['library_device_ms']}), bound {t['bound_ms']:.4f} ms "
         f"({nbytes / 1e6:.1f} MB); {nbytes / dev_ms / 1e6:.0f} GB/s achieved, "
-        f"{100 * t['bound_ms'] / dev_ms:.1f} % of the bound (device time)")
+        f"{100 * t['bound_ms'] / dev_ms:.1f} % of the bound (device time); {split}-slot splits, "
+        f"{b * kv * nsplit} blocks, dq partials {t['dq_partial_bytes'] / 1e6:.2f} MB written "
+        f"and read; forward {t['fwd_device_ms']} ms device, with its residuals "
+        f"{t['fwd_residuals_device_ms']} ms")
     return t
 
 
 def decode_bwd_at(tag: str, b, c, h, kv, dh, dtype, kind, seed, timed: bool = False) -> dict:
-    """The decode backward kernel at one shape: dq, dk and dv held to the
-    plain version's autograd by ``ref.grad_tolerance_ratio``; its planted
-    faults (``decode_bwd_faults``) must fail the same check; a second call
-    on the same inputs must give bit-identical gradients (no atomics)."""
+    """The decode backward kernel at one shape, through both routes to the
+    forward's residuals (``ops.decode_attention``'s autograd, whose forward
+    kernel keeps them, and the backward's wrapper alone): dq, dk and dv held
+    to the plain version's autograd by ``ref.grad_tolerance_ratio``; its
+    planted faults (``decode_bwd_faults``) must fail the same check; a
+    second call on the same inputs must give bit-identical gradients (no
+    atomics); the forward's rounded output with residuals must be the plain
+    mode's bit for bit."""
     import torch
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import decode_attention_bwd as dab
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     q, kc, vc, valid = decode_inputs(b, c, h, kv, dh, dtype, kind, seed=seed)
     do = decode_inputs(b, 1, h, kv, dh, dtype, "all", seed=seed + 100)[0]
-    got = dab.decode_attention_bwd(q, kc, vc, valid, do)
+    out, lse, o32 = da.decode_attention(q, kc, vc, valid, residuals=True)
+    if not torch.equal(out, da.decode_attention(q, kc, vc, valid)):
+        raise AssertionError(f"{tag}: the forward's output with residuals differs")
+    ins = [t.clone().requires_grad_() for t in (q, kc, vc)]
+    ops.decode_attention(*ins, valid).backward(do)
+    routes = {"autograd": tuple(t.grad for t in ins),
+              "wrapper": dab.decode_attention_bwd(q, kc, vc, valid, do)}
     want = ref.decode_attention_bwd(q, kc, vc, valid, do)
     shape = f"B={b} C={c} H={h} KV={kv} dh={dh} {dtype} mask={kind}"
     worst, worst_ratio = 0.0, 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err, ratio = hold(f"{tag} {shape}: {name}", g, w, ref.grad_tolerance_ratio)
-        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-    again = dab.decode_attention_bwd(q, kc, vc, valid, do)
+    for route, got in routes.items():
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, ratio = hold(f"{tag} {shape} ({route}): {name}", g, w,
+                              ref.grad_tolerance_ratio)
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    got = dab.decode_attention_bwd(q, kc, vc, valid, do, lse=lse, o=o32)
+    again = dab.decode_attention_bwd(q, kc, vc, valid, do, lse=lse, o=o32)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{tag} {shape}: two calls gave different gradients")
     masked = ~valid
     if got[1][masked].any() or got[2][masked].any():
         raise AssertionError(f"{tag} {shape}: a masked slot's dk or dv is not zero")
     faults = decode_bwd_faults(q, kc, vc, valid, do, want,
-                               dab.KERNEL.lib().repro_decode_bwd_split())
+                               dab.KERNEL.lib().repro_decode_bwd_split(b, c, kv, dh))
     ctrl = min(control(f"{tag} control: {label}", f, w, ref.grad_tolerance_ratio)
                for label, f, w in faults)
     out = {"shape": shape, "max_abs_err": worst, "tolerance_ratio": worst_ratio,
@@ -4660,8 +4709,8 @@ def phase_decode_grad(cfg, params, tag: str) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
 
-    def faulty_bwd(q, kc, vc, valid, do, scale=None):
-        w = ref.decode_attention_bwd(q, kc, vc, valid, do, scale=scale)
+    def faulty_bwd(q, kc, vc, valid, do, scale=None, lse=None, o=None):
+        w = ref.decode_attention_bwd(q, kc, vc, valid, do, scale=scale, lse=lse, o=o)
         return w[0], decode_bwd_faults(q, kc, vc, valid, do, w, 1)[1][1], w[2]
     with swapped_ops(decode_attention_bwd=faulty_bwd):
         fault = decode_grad_rel_rms(run(), want)

@@ -36,6 +36,12 @@
 // A split with no valid slot contributes (acc, m, l) = (0, NEG_INF, 0);
 // if no slot at all is valid the output is 0.
 //
+// With residuals (`lse`, `o32` set in `repro_decode_attention_fwd`, as the
+// autograd forward runs it) the combine pass also writes each head's
+// log-sum-exp m + log l and its output in f32 before the rounding to the
+// input type: the decode backward's P and delta = do . o come from them.
+// The rounded output is the same either way.
+//
 // The stats variant (`repro_decode_attention_stats`) runs the same pass 1
 // and a second pass that writes the merged (acc [B,KV,R,dh], m, l [B,KV,R])
 // in f32 without dividing acc by l: the partials of one shard of a cache
@@ -276,11 +282,14 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
 }
 
-// out[b, 0, g*rep + r, :] = merge over splits of the partials (split-K combine)
+// out[b, 0, g*rep + r, :] = merge over splits of the partials (split-K
+// combine); where lse is set, also lse[b, h] = m + log l and o32[b, h, :] =
+// the output in f32 (h = g*rep + r, both contiguous)
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ acc_p,
                                       const float* __restrict__ m_p,
                                       const float* __restrict__ l_p, T* __restrict__ out,
+                                      float* __restrict__ lse, float* __restrict__ o32,
                                       int rep, int dh, int nsplit, int64_t osb, int64_t osh) {
     const int r = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
     const int64_t base = (int64_t)(b * gridDim.y + g) * nsplit;
@@ -290,6 +299,8 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc_p,
     for (int s = 0; s < nsplit; ++s)
         l += l_p[(base + s) * rep + r] * expf(m_p[(base + s) * rep + r] - mg);
     l = fmaxf(l, 1e-30f);
+    const int64_t h = (int64_t)b * gridDim.y * rep + g * rep + r;
+    if (lse != nullptr && threadIdx.x == 0) lse[h] = mg + logf(l);
     T* orow = out + b * osb + (g * rep + r) * osh;
     for (int d = threadIdx.x; d < dh; d += blockDim.x) {
         float a = 0.f;
@@ -297,7 +308,9 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc_p,
             const int64_t i = (base + s) * rep + r;
             a += acc_p[i * dh + d] * expf(m_p[i] - mg);
         }
-        store1(orow + d, a / l);
+        const float o = a / l;
+        store1(orow + d, o);
+        if (o32 != nullptr) o32[h * dh + d] = o;
     }
 }
 
@@ -374,10 +387,12 @@ decode_stats_combine_kernel(const float* __restrict__ acc_p, const float* __rest
 }
 
 // Where pass 2 writes: the normalised output (out, its batch and head
-// strides), or, where acc is set, the merged stats (acc, m, l).
+// strides) and, where lse is set, the residuals (lse, o32); or, where acc
+// is set, the merged stats (acc, m, l).
 struct Outputs {
     void* out;
     int64_t osb, osh;
+    float *lse, *o32;
     float *acc, *m, *l;
 };
 
@@ -408,7 +423,8 @@ cudaError_t launch_r(const void* q, const void* kc, const void* vc, const void* 
             acc_p, m_p, l_p, o.acc, o.m, o.l, rep, dh, nsplit);
     else
         decode_combine_kernel<T><<<dim3(rep, KV, B), 128, 0, stream>>>(
-            acc_p, m_p, l_p, static_cast<T*>(o.out), rep, dh, nsplit, o.osb, o.osh);
+            acc_p, m_p, l_p, static_cast<T*>(o.out), o.lse, o.o32, rep, dh, nsplit, o.osb,
+            o.osh);
     return cudaGetLastError();
 }
 
@@ -484,16 +500,20 @@ extern "C" int repro_decode_attention_smem_bytes(int rep, int dh) {
 // (batch, slot), out (batch, head); the head dim is unit-stride and every
 // row starts on a 16-byte boundary; dh is a multiple of 8 (bf16) or 4
 // (f32), at most 256.  acc_p [B,KV,nsplit,rep,dh], m_p and l_p
-// [B,KV,nsplit,rep] are f32 scratch with nsplit = repro_decode_num_splits(C).  dtype: 0 = f32, 1 =
-// bf16.  device is the CUDA ordinal the tensors and the stream belong to.
+// [B,KV,nsplit,rep] are f32 scratch with nsplit = repro_decode_num_splits(C).
+// lse [B,H] and o32 [B,H,dh], contiguous f32, are the residuals of the
+// backward, written where lse is not null.  dtype: 0 = f32, 1 = bf16.
+// device is the CUDA ordinal the tensors and the stream belong to.
 extern "C" int repro_decode_attention_fwd(
         const void* q, const void* kc, const void* vc, const void* valid, void* out,
-        void* acc_p, void* m_p, void* l_p, int dtype, int B, int C, int H, int KV, int dh,
-        int64_t qsb, int64_t qsh, int64_t ksb, int64_t ksc, int64_t ksh,
-        int64_t vsb, int64_t vsc, int64_t vsh, int64_t msb, int64_t msc,
+        void* lse, void* o32, void* acc_p, void* m_p, void* l_p, int dtype, int B, int C,
+        int H, int KV, int dh, int64_t qsb, int64_t qsh, int64_t ksb, int64_t ksc,
+        int64_t ksh, int64_t vsb, int64_t vsc, int64_t vsh, int64_t msb, int64_t msc,
         int64_t osb, int64_t osh, float scale, int device, void* stream) {
     const int64_t st[10] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc};
-    const Outputs o = {out, osb, osh, nullptr, nullptr, nullptr};
+    const Outputs o = {out, osb, osh, static_cast<float*>(lse),
+                       lse != nullptr ? static_cast<float*>(o32) : nullptr,
+                       nullptr, nullptr, nullptr};
     return (int)run(q, kc, vc, valid, o, acc_p, m_p, l_p, dtype, B, C, H, KV, dh, st, scale,
                     device, static_cast<cudaStream_t>(stream));
 }
@@ -508,8 +528,8 @@ extern "C" int repro_decode_attention_stats(
         int64_t vsb, int64_t vsc, int64_t vsh, int64_t msb, int64_t msc, float scale,
         int device, void* stream) {
     const int64_t st[10] = {qsb, qsh, ksb, ksc, ksh, vsb, vsc, vsh, msb, msc};
-    const Outputs o = {nullptr, 0, 0, static_cast<float*>(acc), static_cast<float*>(m),
-                       static_cast<float*>(l)};
+    const Outputs o = {nullptr, 0, 0, nullptr, nullptr, static_cast<float*>(acc),
+                       static_cast<float*>(m), static_cast<float*>(l)};
     return (int)run(q, kc, vc, valid, o, acc_p, m_p, l_p, dtype, B, C, H, KV, dh, st, scale,
                     device, static_cast<cudaStream_t>(stream));
 }

@@ -7,6 +7,11 @@ the output and the f32 partials.  It takes a ragged cache length itself,
 so there is no fallback.  ``ops.decode_attention`` sends CPU tensors to
 ``ref.decode_attention``.
 
+With ``residuals=True`` (the autograd forward, ``ops``) the same launch
+also returns each head's log-sum-exp and its output in f32 before the
+rounding, which the decode backward kernel takes; the rounded output is
+the same.
+
 ``decode_attention_stats`` is the variant that context-parallel decode
 runs on each shard of a cache: the same first pass, then a second that
 writes the merged unnormalised ``(acc, m, l)`` in f32 (the plain version's
@@ -25,7 +30,7 @@ from repro_torch.kernels.flash_attention import DTYPES, check_head_dim, check_ro
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("decode_attention", {
-    "repro_decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
+    "repro_decode_attention_fwd": [_P] * 10 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
     "repro_decode_attention_stats": [_P] * 10 + [_I] * 6 + [_L] * 10 + [_F, _I, _P],
     "repro_decode_num_splits": [_I],
     "repro_decode_split": [],
@@ -75,26 +80,33 @@ def _partials(q, kvh, nsplit, rep):
             torch.empty((b, kvh, nsplit, rep), dtype=f32, device=q.device))
 
 
-def decode_attention(q, k_cache, v_cache, valid_mask, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """CUDA kernel.  q [B,1,H,dh]; caches [B,C,KV,dh]; valid [B,C] bool -> [B,1,H,dh]."""
+def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None,
+                     residuals: bool = False):
+    """CUDA kernel.  q [B,1,H,dh]; caches [B,C,KV,dh]; valid [B,C] bool -> [B,1,H,dh];
+    with ``residuals`` (out, lse [B,H], o_f32 [B,1,H,dh]), the last two f32."""
     mask, rep, nsplit = _checked(q, k_cache, v_cache, valid_mask)
     b, _, h, dh = q.shape
     c, kvh = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     acc_p, m_p, l_p = _partials(q, kvh, nsplit, rep)
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
+    lse = o32 = None
+    if residuals:
+        lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+        o32 = torch.empty((b, 1, h, dh), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = KERNEL.lib().repro_decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), acc_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
+        out.data_ptr(), lse.data_ptr() if residuals else None,
+        o32.data_ptr() if residuals else None, acc_p.data_ptr(), m_p.data_ptr(),
+        l_p.data_ptr(),
         DTYPES[q.dtype], b, c, h, kvh, dh,
         q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
         *mask.stride(), out.stride(0), out.stride(2),
         scale, q.device.index or 0, stream)
     KERNEL.check(err)
     KERNEL.launches += 1
-    return out
+    return (out, lse, o32) if residuals else out
 
 
 def decode_attention_stats(q, k_cache, v_cache, valid_mask, *,

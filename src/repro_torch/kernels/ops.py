@@ -11,11 +11,12 @@ Where an input of ``mha`` needs a gradient, ``mha`` is an autograd function:
 its forward (``mha_fwd``) also keeps the rows' log-sum-exp, and its backward
 (``mha_bwd``) launches the backward kernel, or runs ``ref.mha_bwd`` on CPU
 tensors.  Without a gradient it takes the serving route, which writes no
-log-sum-exp.  ``ssd`` and ``decode_attention`` likewise, each with a
-backward that recomputes from the inputs: ``ssd_bwd`` (the SSD backward
-kernel, or ``ref.ssd_chunked_bwd`` on CPU tensors) and
-``decode_attention_bwd`` (the decode backward kernel, or
-``ref.decode_attention_bwd``).
+log-sum-exp.  ``decode_attention`` likewise: its forward
+(``decode_attention_fwd`` with ``residuals=True``) keeps each head's
+log-sum-exp and f32 output, and its backward (``decode_attention_bwd``: the
+decode backward kernel, or ``ref.decode_attention_bwd``) takes them.
+``ssd`` has a backward that recomputes from the inputs: ``ssd_bwd`` (the
+SSD backward kernel, or ``ref.ssd_chunked_bwd`` on CPU tensors).
 """
 from __future__ import annotations
 
@@ -121,39 +122,51 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] 
     return decode_attention_fwd(q, k_cache, v_cache, valid_mask, scale=scale)
 
 
-def decode_attention_fwd(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None):
-    """Flash-decode's output: the kernel, or the plain version off the card."""
+def decode_attention_fwd(q, k_cache, v_cache, valid_mask, *, scale: Optional[float] = None,
+                         residuals: bool = False):
+    """Flash-decode's output: the kernel, or the plain version off the card.
+    With ``residuals`` (o, lse [B,H], o_f32 [B,1,H,dh]): the backward's."""
     if _route(q) == "cuda":
-        return _da.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
+        return _da.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale,
+                                    residuals=residuals)
+    if residuals:
+        return ref.decode_attention_fwd_lse(q, k_cache, v_cache, valid_mask, scale=scale)
     return ref.decode_attention(q, k_cache, v_cache, valid_mask, scale=scale)
 
 
 def decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, *,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None, lse=None, o=None):
     """Gradients (dq, dk_cache, dv_cache) of flash-decode for the output's
-    cotangent ``do``."""
+    cotangent ``do``, from ``decode_attention_fwd``'s residuals ``lse`` and
+    ``o`` (its f32 output) where given."""
     if _route(q) == "cuda":
-        return _dab.decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, scale=scale)
-    return ref.decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, scale=scale)
+        return _dab.decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, scale=scale,
+                                         lse=lse, o=o)
+    return ref.decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, scale=scale,
+                                    lse=lse, o=o)
 
 
 class _DecodeAttention(torch.autograd.Function):
     """``decode_attention`` with a gradient: forward and backward through
     ``decode_attention_fwd`` and ``decode_attention_bwd``, looked up when
-    called.  It saves the inputs only, as the JAX package's custom VJP does,
-    and the backward recomputes from them; the mask gets no gradient."""
+    called.  Where the JAX package's custom VJP saves the inputs only and
+    recomputes, this also saves the forward's log-sum-exp and f32 output
+    (B H (dh + 1) f32 values); the gradient is the same function.  The mask
+    gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k_cache, v_cache, valid_mask, scale):
-        ctx.save_for_backward(q, k_cache, v_cache, valid_mask)
+        o, lse, o32 = decode_attention_fwd(q, k_cache, v_cache, valid_mask, scale=scale,
+                                           residuals=True)
+        ctx.save_for_backward(q, k_cache, v_cache, valid_mask, lse, o32)
         ctx.scale = scale
-        return decode_attention_fwd(q, k_cache, v_cache, valid_mask, scale=scale)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k_cache, v_cache, valid_mask = ctx.saved_tensors
+        q, k_cache, v_cache, valid_mask, lse, o32 = ctx.saved_tensors
         dq, dk, dv = decode_attention_bwd(q, k_cache, v_cache, valid_mask, do.contiguous(),
-                                          scale=ctx.scale)
+                                          scale=ctx.scale, lse=lse, o=o32)
         return dq, dk, dv, None, None
 
 

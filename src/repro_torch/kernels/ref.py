@@ -5,7 +5,9 @@ Counterpart of ``repro.kernels.ref`` and of ``repro.models.ssm.ssd_chunked``.
 [Sq, Sk] score matrix; ``mha_fwd_lse`` also returns the rows' log-sum-exp,
 and ``mha_bwd`` is the blocked backward that recomputes P from it (the JAX
 package's ``_mha_bwd_blocks``); ``decode_attention`` is the blocked flash-decode of
-one query token over a cache and ``decode_attention_bwd`` its gradient;
+one query token over a cache, ``decode_attention_fwd_lse`` the same with
+its residuals (log-sum-exp and f32 output), and ``decode_attention_bwd`` its
+gradient;
 ``ssd_chunked`` is the Mamba-2 SSD chunked scan and ``ssd_chunked_bwd`` its
 gradient.  The CPU path runs these, and the tests and ``chip_smoke.py`` hold
 the CUDA kernels in ``flash_attention.py``, ``flash_attention_bwd.py``,
@@ -307,15 +309,54 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *,
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+def decode_attention_fwd_lse(q, k_cache, v_cache, valid_mask, *,
+                             scale: Optional[float] = None, block_k: int = 1024):
+    """``decode_attention`` that also returns its residuals: (o [B,1,H,dh] in
+    q's dtype, lse [B,H] = m + log(max(l, 1e-30)), o_f32 [B,1,H,dh] = acc /
+    max(l, 1e-30) before the rounding), the last two f32; head h = kv head
+    h // rep.  ``o`` is ``decode_attention``'s output bit for bit."""
+    b, _, h, dh = q.shape
+    acc, m, l = decode_attention(q, k_cache, v_cache, valid_mask, scale=scale,
+                                 block_k=block_k, return_stats=True)
+    lc = torch.clamp(l, min=1e-30)
+    o32 = (acc / lc[..., None]).reshape(b, 1, h, dh)
+    return o32.to(q.dtype), (m + torch.log(lc)).reshape(b, h), o32
+
+
 def decode_attention_bwd(q, k_cache, v_cache, valid_mask, do, *,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None, lse=None, o=None):
     """Gradients (dq, dk_cache, dv_cache) of ``decode_attention`` for the
-    output's cotangent ``do``: autograd through the plain forward, as the
-    JAX package's ``_decode_vjp_bwd`` recomputes through its oracle's VJP."""
-    with torch.enable_grad():
-        q_, k_, v_ = (t.detach().requires_grad_(True) for t in (q, k_cache, v_cache))
-        out = decode_attention(q_, k_, v_, valid_mask, scale=scale)
-        return torch.autograd.grad(out, (q_, k_, v_), do)
+    output's cotangent ``do``.
+
+    Without residuals: autograd through the plain forward, as the JAX
+    package's ``_decode_vjp_bwd`` recomputes through its oracle's VJP.  With
+    ``decode_attention_fwd_lse``'s ``lse`` and f32 output ``o``: the same
+    gradient written out, P = exp(scale s - lse) on the valid slots (0 on the
+    masked ones), delta = do . o, dS = P (dP - delta).  There a cache with no
+    valid slot gets zero gradients, where the autograd gives dv = do / C."""
+    if lse is None:
+        with torch.enable_grad():
+            q_, k_, v_ = (t.detach().requires_grad_(True) for t in (q, k_cache, v_cache))
+            out = decode_attention(q_, k_, v_, valid_mask, scale=scale)
+            return torch.autograd.grad(out, (q_, k_, v_), do)
+    b, _, h, dh = q.shape
+    kvh = k_cache.shape[2]
+    rep = h // kvh
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    f32 = torch.float32
+    qr = q.reshape(b, kvh, rep, dh).to(f32)
+    dor = do.reshape(b, kvh, rep, dh).to(f32)
+    kf, vf = k_cache.to(f32), v_cache.to(f32)
+    s = torch.einsum("bgrd,bcgd->bgrc", qr, kf) * scale
+    p = torch.exp(s - lse.to(f32).reshape(b, kvh, rep, 1))
+    p = torch.where(valid_mask.to(torch.bool)[:, None, None, :], p, 0.0)
+    dp = torch.einsum("bgrd,bcgd->bgrc", dor, vf)
+    delta = (dor * o.to(f32).reshape(b, kvh, rep, dh)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bgrc,bcgd->bgrd", ds, kf).reshape(b, 1, h, dh) * scale
+    dk = torch.einsum("bgrc,bgrd->bcgd", ds, qr) * scale
+    dv = torch.einsum("bgrc,bgrd->bcgd", p, dor)
+    return dq.to(q.dtype), dk.to(k_cache.dtype), dv.to(v_cache.dtype)
 
 
 # What the stats of a decode pass are held to: m is the largest score, an

@@ -319,6 +319,82 @@ def test_decode_grads_match_the_jax_custom_vjp():
     assert not tk.grad[:, 100:].any() and not tv.grad[:, 100:].any()  # masked: exact zeros
 
 
+def _residual_case(b, c, h, kv, dh, seed):
+    """f32 decode inputs, a ragged mask (slot 0 valid in every row) and the
+    output's cotangent."""
+    rng = np.random.default_rng(seed)
+    q, do = ((rng.standard_normal((b, 1, h, dh)) * 0.5).astype(np.float32) for _ in range(2))
+    kc, vc = ((rng.standard_normal((b, c, kv, dh)) * 0.5).astype(np.float32) for _ in range(2))
+    valid = rng.random((b, c)) < 0.6
+    valid[:, 0] = True
+    return q, kc, vc, valid, do
+
+
+@pytest.mark.parametrize("rep", [1, 4, 12])
+def test_plain_decode_fwd_lse_matches_jax_stats(rep):
+    """``ref.decode_attention_fwd_lse`` against the JAX package's
+    ``ref.decode_attention(return_stats=True)``: lse = m + log l and the f32
+    output acc / l, l clamped at 1e-30; a ragged mask and one batch row with
+    no valid slot.  Its rounded output is ``ref.decode_attention``'s bit for
+    bit."""
+    b, c, kv, dh = 3, 200, 2, 16
+    q, kc, vc, valid, _ = _residual_case(b, c, kv * rep, kv, dh, seed=21)
+    valid[-1] = False
+    tq, tk, tv, tm = _t(q, kc, vc, valid)
+    o, lse, o32 = tref.decode_attention_fwd_lse(tq, tk, tv, tm, block_k=64)
+    acc, m, l = (np.asarray(x) for x in jref.decode_attention(*_j(q, kc, vc, valid), block_k=64,
+                                                              return_stats=True))
+    lc = np.maximum(l, 1e-30)
+    assert lse.shape == (b, kv * rep) and o32.shape == o.shape == q.shape
+    assert lse.dtype == o32.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), (m + np.log(lc)).reshape(b, -1), atol=ATOL)
+    np.testing.assert_allclose(o32.numpy(), (acc / lc[..., None]).reshape(q.shape), atol=ATOL)
+    assert torch.equal(o, tref.decode_attention(tq, tk, tv, tm, block_k=64))
+
+
+@pytest.mark.parametrize("rep", [1, 4, 12])
+def test_plain_decode_bwd_from_residuals_matches_the_jax_custom_vjp(rep):
+    """``ref.decode_attention_bwd`` fed ``decode_attention_fwd_lse``'s lse and
+    f32 output against the JAX package's Pallas decode (interpret mode, its
+    custom VJP) on a ragged mask: masked slots get exact zeros.  A batch row
+    with no valid slot gets zero gradients (the JAX VJP gives dv = do / C
+    there, ROADMAP Queue 3), which the autograd route of the port matches."""
+    b, c, kv, dh = 3, 128, 2, 16
+    q, kc, vc, valid, do = _residual_case(b, c, kv * rep, kv, dh, seed=22)
+    valid[-1] = False
+    tq, tk, tv, tm, tdo = _t(q, kc, vc, valid, do)
+    _, lse, o32 = tref.decode_attention_fwd_lse(tq, tk, tv, tm)
+    got = tref.decode_attention_bwd(tq, tk, tv, tm, tdo, lse=lse, o=o32)
+    _, vjp = jax.vjp(lambda a, k_, v_: pl_decode(a, k_, v_, jnp.asarray(valid), block_k=64,
+                                                  interpret=True), *_j(q, kc, vc))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(do))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy()[:-1], w[:-1], atol=ATOL)
+        assert not g[-1].any()
+    assert not got[1][~tm].any() and not got[2][~tm].any()
+    autograd = tref.decode_attention_bwd(tq, tk, tv, tm, tdo)
+    np.testing.assert_allclose(autograd[2].numpy()[-1], want[2][-1], atol=ATOL)
+
+
+def test_ops_decode_attention_hands_its_residuals_to_the_backward(monkeypatch):
+    """The autograd forward of ``ops.decode_attention`` keeps the forward's
+    lse and f32 output, and its backward passes them to
+    ``ops.decode_attention_bwd`` (on the card: the one-pass kernel)."""
+    b, c, h, kv, dh = 2, 64, 8, 2, 16
+    q, kc, vc, valid, do = _residual_case(b, c, h, kv, dh, seed=23)
+    seen = {}
+
+    def bwd(*args, **kw):
+        seen.update(kw)
+        return tref.decode_attention_bwd(*args, **kw)
+    monkeypatch.setattr(ops, "decode_attention_bwd", bwd)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, kc, vc))
+    tm, tdo = _t(valid, do)
+    ops.decode_attention(tq, tk, tv, tm).backward(tdo)
+    _, lse, o32 = tref.decode_attention_fwd_lse(*_t(q, kc, vc, valid))
+    assert torch.equal(seen["lse"], lse) and torch.equal(seen["o"], o32)
+
+
 def _chip_smoke():
     """``chip_smoke.py`` at the root of the repository, whose planted faults
     of the decode backward the kernel's checks on the card must see."""
@@ -331,8 +407,24 @@ def _chip_smoke():
     return mod
 
 
-# the decode backward kernel's cache split (csrc/decode_attention_bwd.cu, SPLIT)
-_DECODE_SPLIT = 256
+def _decode_split(b, c, kv, dh):
+    """The decode backward kernel's cache split at a shape
+    (csrc/decode_attention_bwd.cu, ``split_for``): from 512 slots halved,
+    down to one stage (64 slots up to a 128-wide head tile, 32 at 256),
+    while the grid has fewer blocks than an H100 has SMs (132)."""
+    stage = 64 if dh <= 128 else 32
+    split = 512
+    while split > stage and b * kv * -(-c // split) < 132:
+        split //= 2
+    return split
+
+
+def test_decode_split_follows_the_shape():
+    """llama3-8b's decode takes 512-slot splits (512 blocks), paligemma-3b's
+    (one kv head, dh 256) 128 (256 blocks); small grids take one stage."""
+    assert _decode_split(8, 4096, 8, 128) == 512
+    assert _decode_split(8, 4096, 1, 256) == 128
+    assert _decode_split(2, 1000, 2, 64) == 64 and _decode_split(1, 600, 1, 256) == 32
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -366,7 +458,7 @@ def test_decode_bwd_tolerance_rejects_planted_faults(dtype, b, c, h, kv, dh, kin
                torch.einsum("bgrc,bgrd->bcgd", p, dor))
     for g, w in zip(written, want):
         assert tref.grad_tolerance_ratio(g.to(dtype), w) <= 1
-    faults = cs.decode_bwd_faults(q, kc, vc, valid, do, want, _DECODE_SPLIT)
+    faults = cs.decode_bwd_faults(q, kc, vc, valid, do, want, _decode_split(b, c, kv, dh))
     assert len(faults) == (2 if rep > 1 else 1)
     for label, fault, w in faults:
         assert tref.grad_tolerance_ratio(fault, w) > 1, label

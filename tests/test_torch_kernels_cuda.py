@@ -477,26 +477,97 @@ def _decode_bwd_mask(kind, b, c, dev, gen):
     return _mask(kind, b, c, dev, gen)
 
 
-@pytest.mark.parametrize("b,c,h,kv,dh,dtype,kind", _DECODE_BWD_CASES)
-def test_decode_bwd_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
-    """dq, dk and dv of the decode backward kernel against the plain
-    version's autograd within ``ref.grad_tolerance_ratio``; masked slots get
-    exact zeros."""
+def _decode_bwd_route(route, q, kc, vc, valid, do):
+    """The decode backward kernel's gradients by one route: "autograd"
+    (``ops.decode_attention``: the forward kernel keeps its residuals, the
+    backward takes them) or "wrapper" (the backward's wrapper alone, which
+    launches the forward kernel for them).  Each launches the forward and
+    the backward kernel once."""
     from repro_torch.kernels import decode_attention_bwd as tdab
+    before = (tda.KERNEL.launches, tdab.KERNEL.launches)
+    if route == "autograd":
+        ins = [t.clone().requires_grad_() for t in (q, kc, vc)]
+        ops.decode_attention(*ins, valid).backward(do)
+        got = tuple(t.grad for t in ins)
+    else:
+        got = tdab.decode_attention_bwd(q, kc, vc, valid, do)
+    torch.cuda.synchronize()
+    assert (tda.KERNEL.launches, tdab.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    return got
+
+
+@pytest.mark.parametrize("route", ["autograd", "wrapper"])
+@pytest.mark.parametrize("b,c,h,kv,dh,dtype,kind", _DECODE_BWD_CASES)
+def test_decode_bwd_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind, route):
+    """dq, dk and dv of the decode backward kernel, by both routes to the
+    forward's residuals, against the plain version's autograd within
+    ``ref.grad_tolerance_ratio``; masked slots get exact zeros."""
     gen = torch.Generator(device=dev).manual_seed(9)
     q, do = (_randn((b, 1, h, dh), dtype, dev, gen) for _ in range(2))
     kc, vc = (_randn((b, c, kv, dh), dtype, dev, gen) for _ in range(2))
     valid = _decode_bwd_mask(kind, b, c, dev, gen)
-    before = tdab.KERNEL.launches
-    got = tdab.decode_attention_bwd(q, kc, vc, valid, do)
-    torch.cuda.synchronize()
-    assert tdab.KERNEL.launches == before + 1
+    got = _decode_bwd_route(route, q, kc, vc, valid, do)
     want = ref.decode_attention_bwd(q, kc, vc, valid, do)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
         assert ref.grad_tolerance_ratio(g, w) <= 1, name
     masked = ~valid
     assert not got[1][masked].any() and not got[2][masked].any()
+
+
+@pytest.mark.parametrize("route", ["autograd", "wrapper"])
+@pytest.mark.parametrize("dtype,h,kv,dh", [(torch.bfloat16, 32, 8, 128),
+                                           (torch.float32, 8, 1, 256)])
+def test_decode_bwd_kernel_gives_a_masked_row_zeros(dev, dtype, h, kv, dh, route):
+    """A batch row with no valid slot gets dq = dk = dv = 0 (no NaN); the
+    other rows match the plain version's autograd."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, do = (_randn((3, 1, h, dh), dtype, dev, gen) for _ in range(2))
+    kc, vc = (_randn((3, 1000, kv, dh), dtype, dev, gen) for _ in range(2))
+    valid = _mask("holes", 3, 1000, dev, gen)
+    valid[1] = False
+    got = _decode_bwd_route(route, q, kc, vc, valid, do)
+    want = ref.decode_attention_bwd(q, kc, vc, valid, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert not g[1].any() and not g.isnan().any(), name
+        keep = torch.tensor([0, 2], device=dev)
+        assert ref.grad_tolerance_ratio(g[keep], w[keep]) <= 1, name
+
+
+@pytest.mark.parametrize("dtype,h,kv,dh", [(torch.bfloat16, 32, 8, 128),
+                                           (torch.bfloat16, 8, 1, 256),
+                                           (torch.float32, 24, 2, 64)])
+def test_decode_bwd_kernel_gives_the_same_gradients_every_call(dev, dtype, h, kv, dh):
+    """Two calls on the same inputs and residuals are bit-identical: the
+    splits' dq partials are summed in split order, with no atomics."""
+    from repro_torch.kernels import decode_attention_bwd as tdab
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, do = (_randn((8, 1, h, dh), dtype, dev, gen) for _ in range(2))
+    kc, vc = (_randn((8, 4096, kv, dh), dtype, dev, gen) for _ in range(2))
+    valid = _mask("prefix", 8, 4096, dev, gen)
+    _, lse, o32 = tda.decode_attention(q, kc, vc, valid, residuals=True)
+    first = tdab.decode_attention_bwd(q, kc, vc, valid, do, lse=lse, o=o32)
+    again = tdab.decode_attention_bwd(q, kc, vc, valid, do, lse=lse, o=o32)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("b,c,h,kv,dh,dtype,kind", [
+    (8, 4096, 32, 8, 128, torch.bfloat16, "all"), (8, 4096, 8, 1, 256, torch.bfloat16, "all"),
+    (2, 4100, 24, 8, 120, torch.bfloat16, "holes"), (3, 300, 8, 2, 64, torch.float32, "holes"),
+    (2, 777, 32, 2, 256, torch.float32, "few")])
+def test_decode_kernel_residuals_match_plain(dev, b, c, h, kv, dh, dtype, kind):
+    """The forward kernel's residual mode: its rounded output is the plain
+    mode's bit for bit; lse to ``ref.lse_tolerance_ratio`` and the f32 output
+    to ``ref.tolerance_ratio`` of ``ref.decode_attention_fwd_lse``'s."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q = _randn((b, 1, h, dh), dtype, dev, gen)
+    kc, vc = (_randn((b, c, kv, dh), dtype, dev, gen) for _ in range(2))
+    valid = _decode_bwd_mask(kind, b, c, dev, gen)
+    out, lse, o32 = tda.decode_attention(q, kc, vc, valid, residuals=True)
+    assert torch.equal(out, tda.decode_attention(q, kc, vc, valid))
+    _, want_lse, want_o32 = ref.decode_attention_fwd_lse(q, kc, vc, valid)
+    assert ref.lse_tolerance_ratio(lse, want_lse) <= 1
+    assert ref.tolerance_ratio(o32, want_o32) <= 1
 
 
 @pytest.mark.parametrize("dtype,h,kv,dh", [(torch.bfloat16, 32, 8, 128),
@@ -523,7 +594,7 @@ def test_decode_bwd_kernel_rejects_planted_faults(dev, dtype, h, kv, dh):
     for g, w in zip(got, want):
         assert ref.grad_tolerance_ratio(g, w) <= 1
     faults = cs.decode_bwd_faults(q, kc, vc, valid, do, want,
-                                  tdab.KERNEL.lib().repro_decode_bwd_split())
+                                  tdab.KERNEL.lib().repro_decode_bwd_split(4, 2048, kv, dh))
     assert len(faults) == 2
     for label, fault, w in faults:
         assert ref.grad_tolerance_ratio(fault, w) > 1, label
@@ -542,6 +613,11 @@ def test_decode_bwd_kernel_refuses_unsupported_inputs(dev):
     with pytest.raises(ValueError, match="query heads per kv head"):
         q32 = _randn((1, 1, 64, 64), torch.bfloat16, dev, gen)
         tdab.decode_attention_bwd(q32, kc, vc, valid, q32)
+    _, lse, o32 = tda.decode_attention(q, kc, vc, valid, residuals=True)
+    with pytest.raises(ValueError, match="give both or neither"):
+        tdab.decode_attention_bwd(q, kc, vc, valid, q, lse=lse)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        tdab.decode_attention_bwd(q, kc, vc, valid, q, lse=lse[:, :4], o=o32)
 
 
 def test_kernels_refuse_unsupported_inputs(dev):
