@@ -375,7 +375,7 @@ NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention
                "decode_attention_bwd": 0, "decode_attention_stats": 0, "ssd_scan": 0,
                "ssd_scan_bwd": 0}
 # The kernels of one flash_attention_bwd call (csrc/flash_attention_bwd.cu).
-FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "head_sum_kernel", "dq_kernel")
 # The kernels of one decode_attention_bwd call (csrc/decode_attention_bwd.cu).
 DECODE_BWD_PASSES = ("decode_bwd_kernel", "decode_bwd_dq_kernel")
 # Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
@@ -752,22 +752,37 @@ def phase_build():
     if missing or spills:
         raise AssertionError(f"[build] flash backward: kernels missing from the ptxas log "
                              f"{missing}, spilling {spills}")
-    tc_bwd = {fn: res for fn, res in bwd.items() if "2tc4dkdv11dkdv_kernel" in fn
-              or "2tc2dq9dq_kernel" in fn}
+    tc_bwd = {fn: res for fn, res in bwd.items() if "2wg11dkdv_kernel" in fn
+              or "2wg9dq_kernel" in fn}
     if len(tc_bwd) != 6:  # dk/dv and dq, each at dh 64, 128 and 256
-        raise AssertionError(f"[build] flash backward: bf16 tensor-core kernels in the ptxas "
+        raise AssertionError(f"[build] flash backward: bf16 wgmma kernels in the ptxas "
                              f"log: {sorted(tc_bwd)}")
-    log("[build] flash backward bf16 tensor-core kernels: " + "; ".join(
-        f"{fn[:48]}: {res['registers']} registers, {res['spill_stores']} B spilled"
-        for fn, res in sorted(tc_bwd.items())))
     bwd_lib = ops.KERNELS["flash_attention_bwd"].lib()
-    log(f"[build] flash backward: all {len(FLASH_BWD_PASSES)} kernels built, no spills; shared "
-        f"memory per bf16 block at dh=128: dk/dv "
-        f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 128)} B "
-        f"({bwd_lib.repro_flash_attention_bwd_tile(0)}-key tiles, "
-        f"{bwd_lib.repro_flash_attention_bwd_tile(2)}-row q steps), dq "
-        f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 128)} B "
-        f"({bwd_lib.repro_flash_attention_bwd_tile(1)}-row tiles)")
+    for fn, res in sorted(tc_bwd.items()):
+        dhp = int(re.search(r"ILi(\d+)E", fn).group(1))
+        which = 0 if "dkdv" in fn else 1
+        launch, producer, consumer, threads, blocks = (
+            bwd_lib.repro_flash_attention_bwd_regs(which, dhp, role) for role in range(5))
+        # setmaxnreg hands the producer warpgroup's registers to the consumers
+        # out of the block's launch allotment: a launch count other than the
+        # kernel's plan would leave the consumers waiting for registers
+        if res["registers"] != launch:
+            raise AssertionError(f"[build] flash backward {fn}: {res['registers']} registers "
+                                 f"at launch, the kernel plans on {launch}")
+        log(f"[build] flash backward {'dk/dv' if which == 0 else 'dq'} at dh {dhp}: "
+            f"{threads} threads, {blocks} block(s) an SM, {res['registers']} registers a thread "
+            f"at launch ({producer} for the producer warpgroup and {consumer} for each consumer "
+            f"warpgroup after setmaxnreg), {res['spill_stores']} B spilled, "
+            f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(which, dhp)} B of shared memory, "
+            f"{bwd_lib.repro_flash_attention_bwd_tile(3)} stages of "
+            f"{bwd_lib.repro_flash_attention_bwd_tile(2) if which == 0 else bwd_lib.repro_flash_attention_bwd_dq_tile(dhp, 1)}"
+            f"-row tiles by TMA")
+    log(f"[build] flash backward: all {len(FLASH_BWD_PASSES)} kernels built, no spills; "
+        f"{bwd_lib.repro_flash_attention_bwd_tile(0)}-key blocks (dk/dv), "
+        f"{bwd_lib.repro_flash_attention_bwd_tile(1)}-row blocks (dq); paligemma-3b's 8 heads "
+        f"on one kv head in {bwd_lib.repro_flash_attention_bwd_head_parts(1, 4096, 1, 8)} "
+        f"parts, danube's 4 on each of 8 in "
+        f"{bwd_lib.repro_flash_attention_bwd_head_parts(1, 4096, 8, 4)}")
     fa_lib, da_lib = ops.KERNELS["flash_attention"].lib(), ops.KERNELS["decode_attention"].lib()
     ssd_lib = ops.KERNELS["ssd_scan"].lib()
     log(f"[build] shared memory per block at dh=128: flash bf16 "
@@ -781,7 +796,8 @@ def phase_build():
         f"f32 {fa_lib.repro_flash_attention_smem_bytes(0, 256)} B; backward bf16 dk/dv "
         f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 256)} B, dq "
         f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 256)} B "
-        f"({bwd_lib.repro_flash_attention_bwd_col_parts(256)} blocks a tile, one a column half); "
+        f"({bwd_lib.repro_flash_attention_bwd_dq_tile(256, 0)}-row dq blocks, 64 rows a "
+        f"warpgroup, {bwd_lib.repro_flash_attention_bwd_dq_tile(256, 1)}-key steps); "
         f"decode pass 1 (rep=1) {da_lib.repro_decode_attention_smem_bytes(1, 256)} B")
 
 
@@ -930,7 +946,7 @@ def flash_bwd_times(q, k, v, o, lse, do, tag: str) -> dict:
     executed = flash_bwd_executed_flops(b, s, h, kv, dh)
     log(f"{tag} derived from the kernels' tiles, not measured: {executed / 1e9:.1f} GFLOP "
         f"on the tensor cores ({executed / flops:.2f}x the {flops / 1e9:.1f} needed: the dq pass "
-        f"recomputes S and dP, P and dS are split hi + lo, S and dP once for each column part), "
+        f"recomputes S and dP, P and dS are split hi + lo), "
         f"{executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
     return t
 
@@ -1118,43 +1134,55 @@ def phase_family_kernels(kernels: list) -> None:
 
 
 def flash_bwd_faults(q, k, v, o, lse, do, want):
-    """Three planted faults of the backward, emulated in the plain version:
-    one key tile's dk/dv dropped, one q tile's dq dropped, and one q tile's
-    share of every dk/dv dropped (its rows of do zeroed).  Returns
-    [(label, gradient, the plain version's)]."""
+    """The planted faults of the backward, emulated in the plain version: one
+    key tile's dk/dv dropped, one q tile's dq dropped, one q tile's share of
+    every dk/dv dropped (its rows of do zeroed) and, where the dk/dv pass
+    splits a group's query heads in parts, one part's share of dk and dv
+    dropped (its heads' do zeroed).  Tiles and parts from the library.
+    Returns [(label, gradient, the plain version's)]."""
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ref
     lib = fab.KERNEL.lib()
     bk, bq, step = (lib.repro_flash_attention_bwd_tile(i) for i in range(3))
-    s = q.shape[1]
+    b, s, h, _ = q.shape
+    kv = k.shape[2]
     dk, dq = want[1].clone(), want[0].clone()
     dk[:, s // 2:s // 2 + bk] = 0
     dq[:, s // 2:s // 2 + bq] = 0
     do_f = do.clone()
     do_f[:, s // 2:s // 2 + step] = 0
     _, dk_q, _ = ref.mha_bwd(q, k, v, o, lse, do_f, causal=True)
-    return [(f"one {bk}-key tile's dk dropped", dk, want[1]),
-            (f"one {bq}-row tile's dq dropped", dq, want[0]),
-            (f"one {step}-row q tile's share of every dk dropped", dk_q, want[1])]
+    faults = [(f"one {bk}-key tile's dk dropped", dk, want[1]),
+              (f"one {bq}-row tile's dq dropped", dq, want[0]),
+              (f"one {step}-row q tile's share of every dk dropped", dk_q, want[1])]
+    parts = lib.repro_flash_attention_bwd_head_parts(b, s, kv, h // kv)
+    if parts > 1:
+        per = h // kv // parts
+        do_p = do.unflatten(2, (kv, h // kv)).clone()
+        do_p[:, :, :, per:2 * per] = 0  # the second part of every group
+        _, dk_p, dv_p = ref.mha_bwd(q, k, v, o, lse, do_p.flatten(2, 3), causal=True)
+        faults += [(f"one of {parts} head parts' dk dropped", dk_p, want[1]),
+                   (f"one of {parts} head parts' dv dropped", dv_p, want[2])]
+    return faults
 
 
 def flash_bwd_executed_flops(b, s, h, kv, dh) -> int:
     """Derived, not measured: the tensor-core FLOPs of every whole tile pair
-    the bf16 backward kernels visit at a causal shape with no window (tile
-    sizes and column parts from the library, dh padded to the kernel's 64,
-    128 or 256): (4 parts + 8) dh_pad a (query, key) pair in dk/dv (S^T and
-    dP^T once for each column part, dv and dk each twice: P and dS split hi +
-    lo) and (4 parts + 4) dh_pad in dq (S and dP for each part, dq twice)."""
+    the bf16 backward kernels visit at a causal shape with no window (tiles
+    from the library, dh padded to the kernel's 64, 128 or 256): 12 dh_pad a
+    (query, key) pair in dk/dv (S^T and dP^T once, dv and dk each twice: P and
+    dS split hi + lo) and 8 dh_pad in dq (S and dP, dq twice), the dq pass
+    walking the key tiles of a whole block's rows with each of its
+    warpgroups."""
     from repro_torch.kernels import flash_attention_bwd as fab
     lib = fab.KERNEL.lib()
-    bk, bq_dq, bq_kv = (lib.repro_flash_attention_bwd_tile(i) for i in range(3))
-    parts = lib.repro_flash_attention_bwd_col_parts(dh)
+    bk, bq_kv = lib.repro_flash_attention_bwd_tile(0), lib.repro_flash_attention_bwd_tile(2)
+    rr, xr = (lib.repro_flash_attention_bwd_dq_tile(dh, i) for i in range(2))
     dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
     n_q = -(-s // bq_kv)
     kv_pairs = sum(n_q - (kt * bk) // bq_kv for kt in range(-(-s // bk))) * (h // kv)
-    dq_pairs = sum(-(-min(s, (qt + 1) * bq_dq) // bk) for qt in range(-(-s // bq_dq)))
-    return b * (kv * kv_pairs * bk * bq_kv * (4 * parts + 8)
-                + h * dq_pairs * bq_dq * bk * (4 * parts + 4)) * dhp
+    dq_pairs = sum(-(-min(s, (qt + 1) * rr) // xr) for qt in range(-(-s // rr))) * rr * xr
+    return b * (kv * kv_pairs * bk * bq_kv * 12 + h * dq_pairs * 8) * dhp
 
 
 def phase_flash_bwd():

@@ -15,84 +15,99 @@
 // KV=8, dh=120) the causal half of the five products is 322 GFLOP against
 // ~158 MB read and written: ~2000 FLOP a byte, far above the ~295 FLOP/B
 // ridge, so it is bound by operations (0.33 ms at the bf16 tensor-core
-// peak) and the products belong on the tensor cores.
+// peak), and the products belong on the tensor cores at their full rate:
+// `wgmma`, fed by TMA.
 //
-// bf16 (every model path): the tensor-core kernels `tc::dkdv_kernel` and
-// `tc::dq_kernel`, every product `mma.sync.m16n8k16` bf16 -> f32 with
-// operands from `ldmatrix` (`.trans` where the contraction runs over the
-// rows of a tile), as in the forward (flash_attention.cu; the building
-// blocks are in common.cuh).
+// bf16 (every model path): `wg::dkdv_kernel` and `wg::dq_kernel`, every
+// product a `wgmma` m64n64k16 or m64n32k16 bf16 -> f32 (hopper.cuh); a block is
+// one or two consumer warpgroups and a producer warpgroup.
+//  * Loads: one producer thread issues TMA loads (4-D tensor maps over [B, S,
+//    heads, dh] with the caller's strides, built on the host through the
+//    runtime's driver entry point, so the library needs no -lcuda) of 64-row
+//    tiles in 64-column panels, 128-byte swizzled as `wgmma`'s descriptors
+//    read them; columns past dh (dh 120 in a 128-wide tile) and rows past S
+//    arrive as zeros.  The block's resident tiles (K and V in dk/dv; q and do
+//    in dq) come once; the streamed ones go round a ring of two stages behind
+//    `mbarrier`s: q and do with their rows' lse and delta (1-D maps over the
+//    flat [B H Sq] arrays, 68 values from a 16-byte boundary, as TMA wants
+//    a box to start), or K and V.  Every shape the wrapper takes goes through
+//    TMA: rows start on 16-byte boundaries, so every stride is a multiple of
+//    16 bytes (a broadcast stride of 0 too).  `setmaxnreg` hands the producer
+//    warpgroup's registers to the consumers; the block's work is worked out
+//    after it, as a value live across `setmaxnreg` must fit the producer's
+//    24 registers (it spilled there).
 //  * P and dS are split into bf16 hi + lo in all three products that take
 //    them: dv = P^T_hi do + P^T_lo do, dk = dS^T_hi q + dS^T_lo q, dq = dS_hi
-//    k + dS_lo k.  Emulated on the CPU (tests/test_torch_kernels.py: B=1
-//    S=512 H=8 KV=2, dh 128 and 120, causal, window none and 100; products
-//    of two bf16 values are exact in f32), the split holds dq, dk and dv to
-//    one bf16 ulp (`ref.grad_tolerance_ratio` <= 1), and P or dS rounded once
-//    to bf16 (FlashAttention-2's choice) in any one of the three products
-//    misses it there; the test asserts both.  S, dP, P
-//    and dS live in f32 registers: the accumulator fragments of S and dP
-//    become the A fragments of the next products, so P and dS never touch
-//    shared memory.
+//    k + dS_lo k.  Emulated on the CPU (tests/test_torch_kernels.py), the
+//    split holds dq, dk and dv to one bf16 ulp (`ref.grad_tolerance_ratio` <=
+//    1), and P or dS rounded once to bf16 (FlashAttention-2's choice) in any
+//    one of the three products misses it there; the tests assert both, and
+//    that the order of sums below holds it too.  The accumulator of S^T (dP^T,
+//    S, dP) becomes the register A operand of the next product, as bf16 hi and
+//    lo: two `wgmma`s against one B operand read MN-major from shared memory.
 //  * The tensor cores add products into their f32 accumulator by
 //    truncation, not rounding.  dv of the first keys at S=4096 sums ~16K
-//    rows in one accumulator, ~2000 mma adds: where that sum cancels it
-//    drifted to 2.4 of the tolerance on an H100.  So the products of each step of q
-//    rows (dk/dv) or each key tile (dq) are summed from 0 in a fresh
-//    accumulator and added into the f32 registers by a rounding add
+//    rows in one accumulator: where that sum cancels it drifted to 2.4 of the
+//    tolerance on an H100.  So the products of each step (64 q rows in dk/dv,
+//    64 keys in dq) are summed from 0 in a fresh accumulator, one 64-column
+//    panel at a time, and added into the f32 registers by a rounding add
 //    (`product_into`).
-//  * `tc::dkdv_kernel`: one block of 4 warps per (64-key tile, kv head,
-//    batch), each warp owning 16 keys, key tile 0 (under a causal mask the
-//    one that sees the most rows) first.  The block walks the rep query
-//    heads of its group and, for each, the 32-row q tiles that can see a
-//    key of its tile, so GQA is summed inside the block, with no atomics.
-//    q and do tiles with their rows of lse and delta stream through two
-//    `cp.async` stages; K and V stay in shared memory and are read with
-//    `ldmatrix` for each step.  Key-major, per step of q rows: S^T = K Q^T,
-//    P^T split hi + lo, dv += P^T do; then dP^T = V do^T, dS^T = P^T (dP^T -
-//    delta) with P^T taken as hi + lo (2^-17 of P, below dS's own split), so
-//    the f32 P^T and dP^T are never live together, dk += dS^T q.
-//    Registers: dk and dv take 64 + 64 f32 a thread at dh=128, half of the
-//    255; with 32-row steps or a fully unrolled k-step loop ptxas (nvcc
-//    12.9) spills, so at dh=128 a step is 16 rows and the loop
-//    is unrolled by 4 (`q_rows`, `ks_unroll`), which ptxas keeps in 255
-//    registers with no spill.
-//  * Deterministic: no atomics, so the dq pass recomputes S and dP.  The
-//    tensor cores execute 12 dh_pad FLOP a (query, key) pair of every tile
-//    pair visited in dk/dv (S^T, dP^T, dv twice, dk twice) and 8 dh_pad in
-//    dq (S, dP, dq twice): 20 x 128 against the 10 dh that the function
-//    needs, ~698 GFLOP against 322 at the shape above (derived from the
-//    tiles, chip_smoke.py logs it).
+//  * `wg::dkdv_kernel`: a block per (64-key tile, kv head, batch, head part),
+//    key tile 0 (under a causal mask the one that sees the most rows) first,
+//    one block an SM.  Its two consumer warpgroups split the products, not
+//    the columns: warpgroup 0 forms S^T = K q^T, P^T (masked) and dv += P^T
+//    do, warpgroup 1 dP^T = V do^T, dS^T = P^T (dP^T - delta) and dk += dS^T
+//    q; P^T passes between them in f32 through two shared buffers behind
+//    named barriers.  Each holds one 64 x dh_pad f32 accumulator (128
+//    registers a thread at dh 256), and neither keeps a product's A
+//    fragments live across another product: that is what spilled when one
+//    warpgroup held dk, dv and P^T's hi and lo through dP^T.  12 dh_pad FLOP
+//    a (query, key) pair, no product formed twice.
+//  * GQA heads split across blocks: a group's rep query heads go in
+//    `head_parts` parts, the least divisor of rep that gives the pass
+//    TARGET_BLOCKS blocks (paligemma-3b's 8 heads on one kv head at S=4096:
+//    4 parts, 256 blocks; danube's 512 tiles: 1).  With more than one part
+//    each block writes f32 partials of dk and dv and `head_sum_kernel` sums
+//    them in part order and rounds once: no atomics, the same gradients bit
+//    for bit on every call.
+//  * `wg::dq_kernel`: a block per (q tile, head, batch), the longest causal
+//    tiles first; resident q and do, streamed K and V; S, dP, dS = P (dP -
+//    delta), dq += dS k, each consumer warpgroup owning 64 rows and all of
+//    dq's columns.  Up to dh 128 one warpgroup (64-row tiles, 64-key steps)
+//    and two blocks an SM; at dh 256 two warpgroups (128-row tiles: their
+//    resident q and do take 128 KiB, so 32-key steps), each with dq for all
+//    256 columns in 128 registers a thread beside S and dP (16 each).  8
+//    dh_pad FLOP a (query, key) pair, S and dP formed once.
+//  * Each warpgroup waits for its own products before it goes on; what
+//    overlaps the tensor cores' work is the other warpgroups' (the other
+//    half of a dk/dv block, the second dq block).  A schedule that issued the
+//    next step's scores before a step's products, measured on the card, was
+//    slower.
 //  * Tiles wholly above the causal diagonal or left of the window are never
 //    loaded; only tiles that cross the diagonal, the window's edge, Sq or Sk
-//    are masked element by element.  dh runs in the narrowest of a 64, 128
-//    or 256 wide tile, zero-padded (dh=120's tail is never written).
-//  * dh 256 (gemma-7b): dk and dv for all 256 columns would take 256 f32 a
-//    thread, more than the 255 registers.  So each tile has two blocks
-//    (grid y, `col_parts`), each owning one half of the output columns of
-//    dk and dv (of dq in the dq kernel): both compute S and dP over all 256
-//    columns from shared memory and accumulate only their own half.  Each
-//    output column is written by exactly one block: still no atomics,
-//    still deterministic, the same sums in the same order as a 256-wide
-//    accumulator would take.  The price: S and dP are computed twice, (8 +
-//    8) dh_pad FLOP a pair in dk/dv and (8 + 4) in dq, 28 x 256 against the
-//    10 dh needed; shared memory (133 KiB dk/dv, 198 KiB dq) leaves one block
-//    of 4 warps an SM.
+//    are masked element by element, by selects (with a branch an element the
+//    dk/dv pass was measured slower).  dh runs in the narrowest of a 64, 128
+//    or 256 wide tile (dh=120's tail is never written).  A row with no
+//    visible key gets dq = 0 (the plain version gives it the uniform P of its
+//    masked keys: such rows never occur on a causal path).
+//  * A wait of the producer that lasts ~10 s traps, so a pipeline fault ends
+//    the launch with an error rather than hanging the card.
 //
 // f32: `simt::dkdv_kernel` and `simt::dq_kernel`, f32 FMAs on the CUDA cores
 // (67 TFLOP/s peak), tiles staged in shared memory as f32, P and dS through
 // shared memory.  No model path runs attention in f32 on the card, and it
 // meets the f32 tolerance (1e-4), so this path keeps the first version's
-// design; at dh 256 its dk/dv kernel owns half of the columns as the bf16
-// one does, and both take one block an SM (213 and 204 KiB of tiles).
+// design; at dh 256 its dk/dv kernel owns half of the columns, and both
+// take one block an SM (213 and 204 KiB of tiles).
 //
 // Both: `delta_kernel` first (delta [B,H,Sq] f32, one warp per row).  q, k,
 // v, o and do are read in their [B, S, heads, dh] layout through the strides
-// given; ragged S and q_offset are masked here.  A row with no visible key
-// gets dq = 0 (the plain version gives it the uniform P of its masked keys:
-// such rows never occur on a causal path).
+// given; ragged S and q_offset are masked here.
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -122,6 +137,11 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 __device__ __forceinline__ bool visible(int key, int qpos, int Sk, int causal, int window) {
     return key < Sk && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
+}
+
+// The same with no short-circuit: a select, not a branch, in an unrolled loop
+__device__ __forceinline__ bool visible_sel(int key, int qpos, int Sk, int causal, int window) {
+    return (key < Sk) & (!causal | (key <= qpos)) & ((window <= 0) | (key > qpos - window));
 }
 
 // delta[(b * H + h) * Sq + i] = sum_d do[b,i,h,d] * o[b,i,h,d]; one warp per row
@@ -540,420 +560,623 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 
 }  // namespace simt
 
-namespace tc {
+namespace wg {
 
-constexpr int NT = 128;  // 4 warps of 16 rows (keys in dk/dv, q rows in dq)
+constexpr int ROWS = 64;   // rows of a warpgroup's resident tile: keys (dk/dv), q rows (dq); wgmma's M
+constexpr int XROWS = 64;  // rows of a streamed tile: q rows (dk/dv), keys (dq up to dh 128)
+constexpr int STAGES = 2;  // streamed tiles in flight
+constexpr int PANEL = ROWS * 128;  // bytes of one 64-column panel of a 64-row tile
+// The streamed q rows' lse and delta come by TMA from their flat [B H Sq]
+// arrays, in boxes that start on a 16-byte boundary: XROWS + 4 values from
+// the multiple of 4 at or below the tile's first, in a row of LROW.
+constexpr int LBOX = XROWS + 4, LROW = 96;
+// blocks the dk/dv pass aims at when it splits a group's query heads
+// (`head_parts`): about two for each of the card's 132 SMs
+constexpr int TARGET_BLOCKS = 256;
 
-// output column parts of the dk/dv and dq kernels, the blocks' grid y: at dh
-// 256 a thread's dk and dv (or dq and the S and dP fragments) for all 256
-// columns would not fit its 255 registers, so each block owns half of the
-// columns and computes S and dP over all of them
+// The dq pass's consumer warpgroups, each owning 64 q rows and all of dq's
+// columns: one up to dh 128, two at dh 256, where a block's resident q and
+// do (128 rows) leave room for streamed tiles of 32 keys only (`dq_keys`).
 template <int DHP>
-__host__ __device__ constexpr int col_parts() { return DHP > 128 ? 2 : 1; }
+__host__ __device__ constexpr int dq_groups() { return DHP > 128 ? 2 : 1; }
+template <int DHP>
+__host__ __device__ constexpr int dq_keys() { return DHP > 128 ? 32 : XROWS; }
 
-// acc[n] += sum over t of (hi[t] + lo[t]) B_t, n over the NO 8-column tiles,
-// with B_t rows [16 t, 16 t + 16) of a shared bf16 tile of row stride LDS,
-// read by `ldmatrix.trans` from `b` (this lane's shared address of row 0,
-// column 0).  The tensor cores add into their f32 accumulator by
-// truncation, so the 2 T products of each pair of tiles are summed from 0 in
-// a fresh accumulator and added into `acc` by a rounding f32 add: a sum over
-// thousands of rows in one mma accumulator drifts by several bf16 ulps
-// where it cancels.
-template <int NO, int T, int LDS>
-__device__ __forceinline__ void product_into(float (&acc)[NO][4], const uint32_t (&hi)[T][4],
-                                             const uint32_t (&lo)[T][4], uint32_t b) {
+// Threads, blocks an SM and registers a thread of the dk/dv pass (DQ false:
+// two consumer warpgroups, one forming S^T, P^T and dv, the other dP^T, dS^T
+// and dk) and of the dq pass: the consumer warpgroups, then a producer
+// warpgroup whose registers `setmaxnreg` hands to them.  The launch's
+// registers are the SM's 65536 shared by its blocks (ptxas gives each kernel
+// exactly that count, 8 a thread at a time).  Two blocks an SM where a block
+// has one consumer warpgroup (the dq pass up to dh 128), one elsewhere: the
+// dk/dv pass at dh 64 ran faster at two, but its consumers spilled in the 104
+// registers that left them.
+template <int DHP, bool DQ>
+struct Cfg {
+    static constexpr int NWG = DQ ? dq_groups<DHP>() : 2;  // consumer warpgroups
+    static constexpr int RROWS = DQ ? ROWS * NWG : ROWS;  // resident rows
+    static constexpr int XR = DQ ? dq_keys<DHP>() : XROWS;  // streamed rows
+    static constexpr int THREADS = 128 * (NWG + 1);
+    static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+    static constexpr int LAUNCH_REGS = (65536 / (MIN_BLOCKS * THREADS)) & ~7;
+    static constexpr int PRODUCER_REGS = 24;
+    static constexpr int SHARE = (LAUNCH_REGS * (NWG + 1) - PRODUCER_REGS) / NWG & ~7;
+    static constexpr int CONSUMER_REGS = SHARE < 240 ? SHARE : 240;
+};
+
+// Shared memory, offsets from a 1024-aligned base: the resident tiles R0, R1
+// (K, V in dk/dv; q, do in dq), STAGES pairs of streamed tiles X0, X1 (q, do;
+// K, V), in dk/dv the streamed q rows' lse and delta and two buffers of P^T
+// (f32, from the warpgroup that forms it to the one that forms dS^T), the
+// mbarriers.
+template <int DHP, bool DQ>
+struct Smem {
+    // bf16 tiles of DHP / 64 panels: resident, and streamed
+    static constexpr int TILE_R = Cfg<DHP, DQ>::RROWS * DHP * 2;
+    static constexpr int TILE = Cfg<DHP, DQ>::XR * DHP * 2;
+    static constexpr int R0 = 0, R1 = TILE_R, X = 2 * TILE_R;
+    static constexpr int L = X + 2 * STAGES * TILE;  // f32 [STAGES][LROW]
+    static constexpr int D = L + (DQ ? 0 : STAGES * LROW * 4);
+    static constexpr int P = D + (DQ ? 0 : STAGES * LROW * 4);  // f32 [2][ROWS * XROWS]
+    static constexpr int BAR = P + (DQ ? 0 : 2 * ROWS * XROWS * 4);  // resident, full, empty
+    static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + the base's alignment
+};
+static_assert(Smem<256, false>::BYTES <= 232448 && Smem<256, true>::BYTES <= 232448,
+              "one block fits an SM at dh 256");
+
+struct Params {
+    int B, Sq, Sk, H, KV, dh, parts;
+    float scale;
+    int causal, window, q_offset;
+    bf16* out0;     // dk (dk/dv), dq (dq)
+    bf16* out1;     // dv (dk/dv)
+    float* part0;   // dk/dv with parts > 1: f32 partials [parts, B, Sk, KV, dh] of dk
+    float* part1;   // and of dv
+    int64_t os0[3], os1[3];  // (batch, seq, head) strides of out0, out1
+};
+
+// A block's work: its resident rows from r0 (64 a consumer warpgroup) of head
+// rh, batch b; its streamed tiles, n_x tiles from x_begin for each of the
+// heads of its part `part` from h_first (dk/dv), or for one head (dq); kv
+// head g.
+struct Work {
+    int b, g, rh, part, r0, h_first, x_begin, n_x, n_steps;
+};
+
+template <int DHP, bool DQ>
+__device__ __forceinline__ Work block_work(const Params& p, int idx) {
+    constexpr int RR = Cfg<DHP, DQ>::RROWS, XR = Cfg<DHP, DQ>::XR;
+    Work w;
+    const int rep = p.H / p.KV;
+    if (!DQ) {
+        // kv heads, parts and batches fastest, key tiles in order: tile 0,
+        // which under a causal mask sees the most rows, first
+        w.g = w.rh = idx % p.KV;
+        idx /= p.KV;
+        w.part = idx % p.parts;
+        idx /= p.parts;
+        w.b = idx % p.B;
+        w.r0 = idx / p.B * ROWS;
+        const int n_heads = rep / p.parts;
+        w.h_first = w.g * rep + w.part * n_heads;
+        // rows that can see a key of [r0, r0 + 64): qpos >= r0 (causal) and
+        // qpos < r0 + 63 + window (window), qpos = q_offset + row
+        int i_lo = 0, i_hi = p.Sq;
+        if (p.causal) i_lo = max(0, w.r0 - p.q_offset);
+        if (p.window > 0) i_hi = min(p.Sq, w.r0 + ROWS - 1 + p.window - p.q_offset);
+        w.x_begin = i_lo / XROWS;
+        w.n_x = i_hi > i_lo ? (i_hi + XROWS - 1) / XROWS - w.x_begin : 0;
+        w.n_steps = n_heads * w.n_x;
+    } else {
+        // heads and batches fastest, q tiles longest causal first
+        w.rh = w.h_first = idx % p.H;
+        idx /= p.H;
+        w.b = idx % p.B;
+        w.r0 = ((p.Sq + RR - 1) / RR - 1 - idx / p.B) * RR;
+        w.g = w.rh / rep;
+        w.part = 0;
+        // keys [k_lo, k_hi) are the only ones any row of this tile can see
+        const int qa0 = p.q_offset + w.r0;
+        int k_lo = 0, k_hi = p.Sk;
+        if (p.causal) k_hi = min(p.Sk, qa0 + RR);
+        if (p.window > 0) k_lo = max(0, qa0 - p.window + 1);
+        w.x_begin = k_lo / XR;
+        w.n_x = max(0, (k_hi + XR - 1) / XR - w.x_begin);
+        w.n_steps = w.n_x;
+    }
+    return w;
+}
+
+// The producer: one thread loads the resident tiles, then keeps the
+// streamed tiles (with their rows' lse and delta in dk/dv) in flight.
+template <int DHP, bool DQ>
+__device__ __forceinline__ void produce(const CUtensorMap* map_r0, const CUtensorMap* map_r1,
+                                        const CUtensorMap* map_x0, const CUtensorMap* map_x1,
+                                        const CUtensorMap* map_lse,
+                                        const CUtensorMap* map_delta, const Params& p,
+                                        const Work& w, uint32_t base) {
+    using S = Smem<DHP, DQ>;
+    constexpr int PR = Cfg<DHP, DQ>::RROWS * 128, PX = Cfg<DHP, DQ>::XR * 128;  // panels
+    const uint32_t bar_res = base + S::BAR, bar_full = bar_res + 8;
+    const uint32_t bar_empty = bar_full + 8 * STAGES;
+    mbar_arrive_expect_tx(bar_res, 2 * S::TILE_R);
 #pragma unroll
-    for (int n = 0; n < NO; n += 2) {
-        float part[2][4] = {};
+    for (int pn = 0; pn < DHP / 64; ++pn) {
+        tma_load_4d(base + S::R0 + pn * PR, map_r0, bar_res, 64 * pn, w.r0, w.rh, w.b);
+        tma_load_4d(base + S::R1 + pn * PR, map_r1, bar_res, 64 * pn, w.r0, w.rh, w.b);
+    }
+    for (int it = 0; it < w.n_steps; ++it) {
+        const int s = it % STAGES;
+        mbar_wait_or_trap(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const int xh = DQ ? w.g : w.h_first + it / w.n_x;  // head of the streamed tile
+        const int x0 = (w.x_begin + it % w.n_x) * Cfg<DHP, DQ>::XR;
+        const uint32_t full = bar_full + 8 * s, xs = base + S::X + 2 * s * S::TILE;
+        mbar_arrive_expect_tx(full, 2 * S::TILE + (DQ ? 0 : 2 * LBOX * 4));
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-            uint32_t f[4];
-            ldsm4_trans(f, b + 2 * (t * 16 * LDS + n * 8));
-            mma_bf16(part[0], hi[t], f[0], f[1]);
-            mma_bf16(part[0], lo[t], f[0], f[1]);
-            mma_bf16(part[1], hi[t], f[2], f[3]);
-            mma_bf16(part[1], lo[t], f[2], f[3]);
+        for (int pn = 0; pn < DHP / 64; ++pn) {
+            tma_load_4d(xs + pn * PX, map_x0, full, 64 * pn, x0, xh, w.b);
+            tma_load_4d(xs + S::TILE + pn * PX, map_x1, full, 64 * pn, x0, xh, w.b);
         }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            acc[n][e] += part[0][e];
-            acc[n + 1][e] += part[1][e];
+        if (!DQ) {
+            // the rows' lse and delta; past Sq they belong to the next head
+            // (or read as zeros past the end), for rows that are masked
+            const int at = ((w.b * p.H + xh) * p.Sq + x0) & ~3;
+            tma_load_1d(base + S::L + s * LROW * 4, map_lse, full, at);
+            tma_load_1d(base + S::D + s * LROW * 4, map_delta, full, at);
         }
+    }
+    // the last stages released: a consumer that never got its tiles traps here
+    for (int it = max(0, w.n_steps - STAGES); it < w.n_steps; ++it)
+        mbar_wait_or_trap(bar_empty + 8 * (it % STAGES), (it / STAGES) & 1);
+}
+
+// c = A B^T over the DHP columns of two tiles, both K-major: A 64 rows of the
+// resident tile at `a` (its panels PA bytes apart), B the N rows of a
+// streamed one at `b` (panels PB apart); issued and committed
+template <int DHP, int N, int PA = PANEL, int PB = PANEL>
+__device__ __forceinline__ void scores(float (&c)[N / 8][4], uint32_t a, uint32_t b) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DHP / 16; ++ks) {
+        // each k-step's descriptors made as it is issued, not all up front
+        const uint64_t da = sw128_desc(opaque(a) + (ks / 4) * PA + (ks % 4) * 32);
+        const uint64_t db = sw128_desc(opaque(b) + (ks / 4) * PB + (ks % 4) * 32);
+        if constexpr (N == 64)
+            wgmma_m64n64_ss(c, da, db, ks > 0);
+        else
+            wgmma_m64n32_ss(c, da, db, ks > 0);
+    }
+    wgmma_commit();
+}
+
+// acc[c] += (hi + lo) B over the 16 KS rows of a streamed tile, B its
+// 64-column panel c from `b` (MN-major; panels PB bytes apart).  The tensor
+// cores add into their f32 accumulator by truncation, so the 2 KS products of
+// each panel are summed from 0 in a fresh accumulator and added into `acc` by
+// a rounding f32 add: a sum over thousands of rows in one accumulator drifts
+// by several bf16 ulps where it cancels.
+template <int NC, int KS = 4, int PB = PANEL>
+__device__ __forceinline__ void product_into(float (&acc)[NC][8][4], uint32_t (&hi)[KS][4],
+                                             uint32_t (&lo)[KS][4], uint32_t b) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+        float part[8][4];
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < KS; ++t) {
+            const uint64_t d = sw128_desc(opaque(b) + c * PB + t * 16 * 128);
+            wgmma_m64n64_rs_t(part, hi[t], d, t > 0);
+            wgmma_m64n64_rs_t(part, lo[t], d, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+        wgmma_hold(hi);
+        wgmma_hold(lo);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[c][j][e] += part[j][e];
+        wgmma_hold(acc[c]);  // the sum done here, before the next panel's products
     }
 }
 
-// the sum of the two bf16 pairs packed in x and y, as f32
-__device__ __forceinline__ float2 bf16x2_sum(uint32_t x, uint32_t y) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
-    return make_float2(a.x + b.x, a.y + b.y);
-}
+// Named barriers of the dk/dv pass's two consumer warpgroups: buffer i of P^T
+// written (P_FULL + i) and read (P_EMPTY + i); 0 is __syncthreads'.
+constexpr int P_FULL = 1, P_EMPTY = 3;
 
-namespace dkdv {
-
-constexpr int BK = 64;  // keys per block
-constexpr int BQ = 32;  // q rows per stage of the loop
-// q rows of S^T and dP^T in registers at a time, and the unrolling of the
-// k-step loop that forms them, by the tile width (see the note at the top)
-template <int DHP>
-__host__ __device__ constexpr int q_rows() { return DHP > 64 ? 16 : 32; }
-template <int DHP>
-__host__ __device__ constexpr int ks_unroll() { return DHP > 64 ? 4 : DHP / 16; }
-
-// K, V; two stages of q, do; two stages of lse, delta
-template <int DHP>
-constexpr int smem_bytes() {
-    return (2 * BK + 4 * BQ) * bf16_lds<DHP>() * (int)sizeof(bf16) + 4 * BQ * (int)sizeof(float);
-}
-
-template <int DHP>
-__global__ void __launch_bounds__(NT, 2)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dO, const float* __restrict__ lse,
-            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-            int B, int Sq, int Sk, int H, int KV, int dh, const Strides st,
-            float scale, int causal, int window, int q_offset) {
-    constexpr int LDS = bf16_lds<DHP>();
-    constexpr int KS = DHP / 16;  // k-steps (over dh) of S^T and dP^T
-    constexpr int DOUT = DHP / col_parts<DHP>();  // this block's columns of dk and dv
-    constexpr int NO = DOUT / 8;  // their n-tiles (8 columns)
-    constexpr int QH = q_rows<DHP>();
-    constexpr int NS = QH / 8;    // n-tiles (8 q rows) of S^T and dP^T
-    constexpr int TILE = BQ * LDS;
-    extern __shared__ uint4 smem_tc[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem_tc);        // [BK][LDS]
-    bf16* Vs = Ks + BK * LDS;                            // [BK][LDS]
-    bf16* Qs = Vs + BK * LDS;                            // [2][BQ][LDS]
-    bf16* dOs = Qs + 2 * TILE;                           // [2][BQ][LDS]
-    float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][BQ]: lse
-    float* Ds = Ls + 2 * BQ;                               // [2][BQ]: delta
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    // kv heads and batches fastest, key tiles in order: tile 0, which under a
-    // causal mask sees the most rows, is scheduled first
-    const int g = blockIdx.x % KV, b = (blockIdx.x / KV) % B, kt = blockIdx.x / (KV * B);
-    const int k0 = kt * BK, rep = H / KV;
-    const int c0 = col_parts<DHP>() > 1 ? blockIdx.y * DOUT : 0;  // this block's first column
-
-    // rows that can see a key of [k0, k0 + BK): qpos >= k0 (causal) and
-    // qpos < k0 + BK - 1 + window (window), qpos = q_offset + row
-    int i_lo = 0, i_hi = Sq;
-    if (causal) i_lo = max(0, k0 - q_offset);
-    if (window > 0) i_hi = min(Sq, k0 + BK - 1 + window - q_offset);
-    const int qt_begin = i_lo / BQ;
-    const int n_qt = i_hi > i_lo ? (i_hi + BQ - 1) / BQ - qt_begin : 0;
-    const int n_steps = rep * n_qt;  // (query head, q tile) steps
-
-    // this thread's keys: rows kr and kr + 8 of its warp's 16; columns kq, kq + 1 of a fragment
-    const int kr = warp * 16 + (lane >> 2), kq = 2 * (lane & 3);
-    // key k0 + kr + 8 hr is visible from the query positions [vis[2 hr], vis[2 hr + 1]]
-    // (causal: from itself; window: up to window - 1 after it; rows < Sq; none if >= Sk)
-    int vis[4];
+// Barriers set up by thread 0, then the producer warpgroup's registers go to
+// the consumers and its first thread produces.  Returns true for a consumer,
+// which then works out the block's work itself, false for the producer
+// warpgroup (whose threads are done); `base` is the 1024-aligned shared base.
+template <int DHP, bool DQ>
+__device__ __forceinline__ bool start_block(
+        const CUtensorMap* map_r0, const CUtensorMap* map_r1, const CUtensorMap* map_x0,
+        const CUtensorMap* map_x1, const CUtensorMap* map_lse, const CUtensorMap* map_delta,
+        const Params& p, uint32_t base) {
+    using C = Cfg<DHP, DQ>;
+    using S = Smem<DHP, DQ>;
+    if (threadIdx.x == 0) {
+        mbar_init(base + S::BAR, 1);
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-        const int key = k0 + kr + 8 * hr;
-        vis[2 * hr] = causal ? key : INT_MIN;
-        const int last = q_offset + Sq - 1;  // the last query position
-        vis[2 * hr + 1] = key >= Sk ? INT_MIN
-                          : window > 0 && window <= last ? min(last, key + window - 1) : last;
-    }
-    float acc_k[NO][4], acc_v[NO][4];
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-    // q, do, lse and delta of step (head g rep + r, q tile qt) into stage `stage`
-    auto load_step = [&](int r, int qt, int stage) {
-        const int h = g * rep + r, q0 = qt * BQ;
-        load_tile_bf16<DHP, BQ, NT>(Qs + stage * TILE, q + b * st.v[0] + h * st.v[2], st.v[1],
-                                    q0, Sq, dh, tid);
-        load_tile_bf16<DHP, BQ, NT>(dOs + stage * TILE, dO + b * st.v[9] + h * st.v[11],
-                                    st.v[10], q0, Sq, dh, tid);
-        if (tid < BQ) {
-            const bool ok = q0 + tid < Sq;
-            const int64_t at = ((int64_t)b * H + h) * Sq + q0 + tid;
-            cp_async4(smem_addr(Ls + stage * BQ + tid), ok ? lse + at : lse, ok);
-            cp_async4(smem_addr(Ds + stage * BQ + tid), ok ? delta + at : delta, ok);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(base + S::BAR + 8 + 8 * s, 1);
+            mbar_init(base + S::BAR + 8 * (1 + STAGES + s), 128 * C::NWG);
         }
-    };
-
-    // this lane's ldmatrix addresses in shared memory: A fragments of K and V
-    // (rows are keys), B fragments of q and do, row-major (rows along n) and
-    // transposed (rows along k), at row 0 of a stage
-    const uint32_t ka_addr = smem_addr(Ks + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
-    const uint32_t va_addr = ka_addr + 2 * BK * LDS;
-    const uint32_t b_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8);
-    // the products' B operands start at this block's first column
-    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8 + c0);
-
-    if (n_steps > 0) {
-        // group 0: K, V and the first step
-        load_tile_bf16<DHP, BK, NT>(Ks, k + b * st.v[3] + g * st.v[5], st.v[4], k0, Sk, dh, tid);
-        load_tile_bf16<DHP, BK, NT>(Vs, v + b * st.v[6] + g * st.v[8], st.v[7], k0, Sk, dh, tid);
-        load_step(0, qt_begin, 0);
-        cp_async_commit();
+        fence_barrier_init();
     }
+    __syncthreads();
+    if (threadIdx.x >= 128 * C::NWG) {
+        setmaxnreg_dec<C::PRODUCER_REGS>();
+        if (threadIdx.x == 128 * C::NWG) {
+            // the block's work worked out after the split, so that nothing
+            // but the barriers is live across `setmaxnreg`
+            const Work w = block_work<DHP, DQ>(p, blockIdx.x);
+            if (w.n_steps > 0)
+                produce<DHP, DQ>(map_r0, map_r1, map_x0, map_x1, map_lse, map_delta, p, w, base);
+        }
+        return false;
+    }
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    return true;
+}
 
-    for (int it = 0, r = 0, qt = qt_begin; it < n_steps; ++it) {
-        const int stage = it & 1;
-        const int q0 = qt * BQ, qa0 = q_offset + q0;
-        if (++qt == qt_begin + n_qt) qt = qt_begin, ++r;  // (r, qt) is now the next step
-        if (it + 1 < n_steps) load_step(r, qt, stage ^ 1);  // into the other stage
-        cp_async_commit();
-        cp_async_wait<1>();  // this step has landed
-        __syncthreads();
-
-        const uint32_t q_st = smem_addr(Qs + stage * TILE), do_st = smem_addr(dOs + stage * TILE);
-        const float* Lt = Ls + stage * BQ;
-        const float* Dt = Ds + stage * BQ;
-        const bool edge = q0 + BQ > Sq || k0 + BK > Sk || (causal && k0 + BK - 1 > qa0) ||
-                          (window > 0 && k0 <= qa0 + BQ - 1 - window);
-
-#pragma unroll 1
-        for (int hq = 0; hq < BQ; hq += QH) {
-            // fragments c[j] hold q rows hq + 8 j + kq (+1) of keys kr ([0..1]) and kr + 8 ([2..3])
-            const uint32_t b_off = b_lane + 2 * hq * LDS, r_off = r_lane + 2 * hq * LDS;
-            uint32_t hi[QH / 16][4], lo[QH / 16][4];
-            {
-                // S^T = K Q^T; P^T = exp(S^T scale - lse), 0 where masked, split hi + lo
-                float s[NS][4];
-                mma_abt<KS, NS, LDS, ks_unroll<DHP>()>(s, ka_addr, q_st + b_off);
+// One consumer warpgroup of the dk/dv pass: DV true forms S^T, P^T and dv;
+// false dP^T, dS^T and dk.  P^T passes from the first to the second through
+// two buffers in shared memory.
+template <int DHP, bool DV>
+__device__ __forceinline__ void dkdv_group(const Params& p, const Work& w, uint32_t base) {
+    using S = Smem<DHP, false>;
+    constexpr int NC = DHP / 64;  // 64-column panels of dk and dv
+    const int wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, tw = threadIdx.x & 127;
+    // this thread's keys: kr and kr + 8 of the tile; q rows kq, kq + 1 of each
+    // 8-row n-tile
+    const int kr = wl * 16 + (lane >> 2), kq = 2 * (lane & 3);
+    float acc[NC][8][4];
 #pragma unroll
-                for (int j = 0; j < NS; ++j) {
-                    const int qr = hq + 8 * j + kq;  // tile row of elements 0, 2; qr + 1 of 1, 3
-                    const float2 l2 = *reinterpret_cast<const float2*>(Lt + qr);
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+    const uint32_t bar_full = base + S::BAR + 8, bar_empty = bar_full + 8 * STAGES;
+    if (w.n_steps > 0) mbar_wait(base + S::BAR, 0);
+    for (int it = 0; it < w.n_steps; ++it) {
+        const int s = it % STAGES, pb = it & 1;
+        mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+        const uint32_t q_st = base + S::X + 2 * s * S::TILE, do_st = q_st + S::TILE;
+        const int xr0 = (w.x_begin + it % w.n_x) * XROWS;  // the q tile's first row
+        // the rows' lse and delta in their stage, `lo4` values in
+        const int lo4 = ((w.b * p.H + w.h_first + it / w.n_x) * p.Sq + xr0) & 3;
+        // this thread's 8 float4 of buffer pb of P^T, 128 threads apart
+        const uint32_t pt = base + S::P + (pb * (ROWS * XROWS / 4) + tw) * 16;
+        // S^T = K q^T (DV) or dP^T = V do^T
+        float sc[8][4];
+        scores<DHP, 64>(sc, base + (DV ? S::R0 : S::R1), DV ? q_st : do_st);
+        wgmma_wait<0>();
+        wgmma_hold(sc);
+        if (DV) {
+            // P^T = exp(S^T scale - lse); only tiles across the diagonal, the
+            // window's edge, Sq or Sk are masked element by element
+            const uint32_t Lt = base + S::L + (s * LROW + lo4) * 4;
+            const int qa0 = p.q_offset + xr0;
+            const bool edge = xr0 + XROWS > p.Sq || w.r0 + ROWS > p.Sk ||
+                              (p.causal && w.r0 + ROWS - 1 > qa0) ||
+                              (p.window > 0 && w.r0 <= qa0 + XROWS - 1 - p.window);
+            auto exp_tile = [&](auto masked) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int qr = 8 * j + kq;  // tile row of elements 0, 2; qr + 1 of 1, 3
+                    const float l0 = lds_f32(Lt + 4 * qr), l1 = lds_f32(Lt + 4 * qr + 4);
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
-                        float p = __expf(fmaf(s[j][e], scale, -((e & 1) ? l2.y : l2.x)));
-                        if (edge) {
-                            const int qpos = qa0 + qr + (e & 1);
-                            if (qpos < vis[e & 2] || qpos > vis[(e & 2) + 1]) p = 0.f;
-                        }
-                        s[j][e] = p;
+                        const float pv = __expf(fmaf(sc[j][e], p.scale, -((e & 1) ? l1 : l0)));
+                        const int qpos = qa0 + qr + (e & 1);
+                        sc[j][e] = !decltype(masked)::value ||
+                                           ((qr + (e & 1) + xr0 < p.Sq) &
+                                            visible_sel(w.r0 + kr + 4 * (e & 2), qpos, p.Sk,
+                                                        p.causal, p.window))
+                                       ? pv
+                                       : 0.f;
                     }
                 }
+            };
+            if (edge)
+                exp_tile(std::true_type{});
+            else
+                exp_tile(std::false_type{});
+            // P^T to the other warpgroup, once it has read this buffer's last one
+            if (it >= 2) named_sync(P_EMPTY + pb, 256);
 #pragma unroll
-                for (int t = 0; t < QH / 16; ++t) acc_to_a_split(s, t, hi[t], lo[t]);
+            for (int j = 0; j < 8; ++j)
+                sts_f32x4(pt + j * 128 * 16, sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+            named_arrive(P_FULL + pb, 256);
+        } else {
+            // dS^T = P^T (dP^T - delta)
+            const uint32_t Dt = base + S::D + (s * LROW + lo4) * 4;
+            named_sync(P_FULL + pb, 256);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float4 pv = lds_f32x4(pt + j * 128 * 16);
+                const float d0 = lds_f32(Dt + 4 * (8 * j + kq));
+                const float d1 = lds_f32(Dt + 4 * (8 * j + kq) + 4);
+                sc[j][0] = pv.x * (sc[j][0] - d0);
+                sc[j][1] = pv.y * (sc[j][1] - d1);
+                sc[j][2] = pv.z * (sc[j][2] - d0);
+                sc[j][3] = pv.w * (sc[j][3] - d1);
             }
-            // dv += P^T_hi dO + P^T_lo dO
-            product_into<NO, QH / 16, LDS>(acc_v, hi, lo, do_st + r_off);
-            {
-                // dP^T = V dO^T; dS^T = P^T (dP^T - delta) with P^T = hi + lo (the f32
-                // P^T is not kept: 2^-17 of it, below dS's own split), split hi + lo
-                float dp[NS][4];
-                mma_abt<KS, NS, LDS, ks_unroll<DHP>()>(dp, va_addr, do_st + b_off);
-#pragma unroll
-                for (int j = 0; j < NS; ++j) {
-                    const float2 d2 = *reinterpret_cast<const float2*>(Dt + hq + 8 * j + kq);
-#pragma unroll
-                    for (int hr = 0; hr < 2; ++hr) {
-                        const float2 p = bf16x2_sum(hi[j / 2][(j & 1) * 2 + hr],
-                                                    lo[j / 2][(j & 1) * 2 + hr]);
-                        dp[j][2 * hr] = p.x * (dp[j][2 * hr] - d2.x);
-                        dp[j][2 * hr + 1] = p.y * (dp[j][2 * hr + 1] - d2.y);
-                    }
-                }
-#pragma unroll
-                for (int t = 0; t < QH / 16; ++t) acc_to_a_split(dp, t, hi[t], lo[t]);
-            }
-            // dk += dS^T_hi Q + dS^T_lo Q
-            product_into<NO, QH / 16, LDS>(acc_k, hi, lo, q_st + r_off);
+            if (it + 2 < w.n_steps) named_arrive(P_EMPTY + pb, 256);
         }
-        __syncthreads();  // every warp is done with this stage before it is refilled
+        // dv += P^T_hi do + P^T_lo do, or dk += dS^T_hi q + dS^T_lo q, one
+        // 64-column panel at a time: the other warpgroup's products and
+        // transforms are what overlap this one's
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc_to_a_split(sc, t, hi[t], lo[t]);
+        product_into<NC>(acc, hi, lo, DV ? do_st : q_st);
+        mbar_arrive(bar_empty + 8 * s);
     }
 
+    // dv or dk: bf16, or f32 partials that `head_sum_kernel` sums where the
+    // group's heads are split in parts
+    const float mul = DV ? 1.f : p.scale;
+    const int64_t os_key = DV ? p.os1[1] : p.os0[1];
+    bf16* out = DV ? p.out1 + w.b * p.os1[0] + w.g * p.os1[2] : p.out0 + w.b * p.os0[0] + w.g * p.os0[2];
+    float* pout = (DV ? p.part1 : p.part0) +
+                  (((int64_t)w.part * p.B + w.b) * p.Sk * p.KV + w.g) * p.dh;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-        const int key = k0 + kr + 8 * hr;
-        if (key >= Sk) continue;
-        bf16* krow = dk + b * st.v[12] + (int64_t)key * st.v[13] + g * st.v[14];
-        bf16* vrow = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17];
+        const int key = w.r0 + kr + 8 * hr;
+        if (key >= p.Sk) continue;
+        if (p.parts == 1) {
+            bf16* orow = out + (int64_t)key * os_key;
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
-            const int d = c0 + n * 8 + kq;
-            if (d >= dh) continue;
-            *reinterpret_cast<__nv_bfloat162*>(krow + d) =
-                __floats2bfloat162_rn(acc_k[n][2 * hr] * scale, acc_k[n][2 * hr + 1] * scale);
-            *reinterpret_cast<__nv_bfloat162*>(vrow + d) =
-                __floats2bfloat162_rn(acc_v[n][2 * hr], acc_v[n][2 * hr + 1]);
+            for (int c = 0; c < NC; ++c)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int d = 64 * c + 8 * j + kq;
+                    if (d < p.dh)
+                        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+                            acc[c][j][2 * hr] * mul, acc[c][j][2 * hr + 1] * mul);
+                }
+        } else {
+            float* prow = pout + (int64_t)key * p.KV * p.dh;
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int d = 64 * c + 8 * j + kq;
+                    if (d < p.dh)
+                        *reinterpret_cast<float2*>(prow + d) =
+                            make_float2(acc[c][j][2 * hr], acc[c][j][2 * hr + 1]);
+                }
         }
     }
 }
 
-}  // namespace dkdv
-
-namespace dq {
-
-constexpr int BQ = 64;  // q rows per block
-constexpr int BK = 64;  // keys per KV tile
-
-// q, do; two stages of K and V
+// dk/dv (see the note at the top): the block owns 64 keys of one kv head
+// (resident K, V) and walks the q tiles of its part of the group's query
+// heads (streamed q, do, lse, delta).  Warpgroup 0 forms S^T, P^T and dv,
+// warpgroup 1 dP^T, dS^T and dk.
 template <int DHP>
-constexpr int smem_bytes() { return (2 * BQ + 4 * BK) * bf16_lds<DHP>() * (int)sizeof(bf16); }
+__global__ void __launch_bounds__(Cfg<DHP, false>::THREADS, Cfg<DHP, false>::MIN_BLOCKS)
+dkdv_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+            const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+            const __grid_constant__ CUtensorMap map_lse,
+            const __grid_constant__ CUtensorMap map_delta, const Params p) {
+    extern __shared__ uint8_t smem_wg[];
+    const uint32_t base = (smem_addr(smem_wg) + 1023) & ~1023u;
+    if (!start_block<DHP, false>(&map_k, &map_v, &map_q, &map_do, &map_lse, &map_delta, p, base))
+        return;
+    const Work w = block_work<DHP, false>(p, blockIdx.x);
+    if (threadIdx.x < 128)
+        dkdv_group<DHP, true>(p, w, base);
+    else
+        dkdv_group<DHP, false>(p, w, base);
+}
 
+// dq (see the note at the top): the block owns 64 q rows of one head for each
+// consumer warpgroup (resident q and do, with the rows' lse and delta in
+// registers) and walks key tiles (streamed K and V); warpgroup wg owns rows
+// [r0 + 64 wg, r0 + 64 wg + 64) and all of dq's columns.
 template <int DHP>
-__global__ void __launch_bounds__(NT, 2)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dO, const float* __restrict__ lse,
-          const float* __restrict__ delta, bf16* __restrict__ dq,
-          int B, int Sq, int Sk, int H, int KV, int dh, const Strides st,
-          float scale, int causal, int window, int q_offset) {
-    constexpr int LDS = bf16_lds<DHP>();
-    constexpr int KS = DHP / 16;  // k-steps (over dh) of S and dP
-    constexpr int DOUT = DHP / col_parts<DHP>();  // this block's columns of dq
-    constexpr int NO = DOUT / 8;  // their n-tiles (8 columns)
-    constexpr int NS = BK / 8;    // n-tiles (8 keys) of S and dP
-    constexpr int TILE = BK * LDS;
-    extern __shared__ uint4 smem_tc[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // [BQ][LDS]
-    bf16* dOs = Qs + BQ * LDS;                     // [BQ][LDS]
-    bf16* Ks = dOs + BQ * LDS;                     // [2][BK][LDS]
-    bf16* Vs = Ks + 2 * TILE;                      // [2][BK][LDS]
-
-    __builtin_assume(threadIdx.x < NT);
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    // heads and batches fastest, q tiles longest causal first
-    const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
-    const int qt = (Sq + BQ - 1) / BQ - 1 - blockIdx.x / (H * B);
-    const int g = h / (H / KV);
-    const int q0 = qt * BQ, qa0 = q_offset + q0;
-    const int c0 = col_parts<DHP>() > 1 ? blockIdx.y * DOUT : 0;  // this block's first column
-    const bf16* kb = k + b * st.v[3] + g * st.v[5];
-    const bf16* vb = v + b * st.v[6] + g * st.v[8];
-
-    // keys [k_lo, k_hi) are the only ones any row of this tile can see
-    int k_lo = 0, k_hi = Sk;
-    if (causal) k_hi = min(Sk, qa0 + BQ);
-    if (window > 0) k_lo = max(0, qa0 - window + 1);
-    const int kt_begin = k_lo / BK;
-    const int n_tiles = max(0, (k_hi + BK - 1) / BK - kt_begin);
-
-    // group 0: q, do and the first K/V tile
-    load_tile_bf16<DHP, BQ, NT>(Qs, q + b * st.v[0] + h * st.v[2], st.v[1], q0, Sq, dh, tid);
-    load_tile_bf16<DHP, BQ, NT>(dOs, dO + b * st.v[9] + h * st.v[11], st.v[10], q0, Sq, dh, tid);
-    if (n_tiles > 0) {
-        load_tile_bf16<DHP, BK, NT>(Ks, kb, st.v[4], kt_begin * BK, Sk, dh, tid);
-        load_tile_bf16<DHP, BK, NT>(Vs, vb, st.v[7], kt_begin * BK, Sk, dh, tid);
-    }
-    cp_async_commit();
-
-    // this thread's rows of the tile: r and r + 8 of its warp's 16
-    const int r_lo = warp * 16 + (lane >> 2), kq = 2 * (lane & 3);
+__global__ void __launch_bounds__(Cfg<DHP, true>::THREADS, Cfg<DHP, true>::MIN_BLOCKS)
+dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+          const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+          const float* __restrict__ lse, const float* __restrict__ delta, const Params p) {
+    using C = Cfg<DHP, true>;
+    using S = Smem<DHP, true>;
+    constexpr int NC = DHP / 64;        // 64-column panels of dq
+    constexpr int XR = C::XR;           // keys a step
+    constexpr int NJ = XR / 8, KS = XR / 16;
+    constexpr int PR = C::RROWS * 128, PX = XR * 128;  // panels of the two tiles
+    extern __shared__ uint8_t smem_wg[];
+    const uint32_t base = (smem_addr(smem_wg) + 1023) & ~1023u;
+    if (!start_block<DHP, true>(&map_q, &map_do, &map_k, &map_v, nullptr, nullptr, p, base))
+        return;
+    const Work w = block_work<DHP, true>(p, blockIdx.x);
+    const int wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int r0 = w.r0 + ROWS * (threadIdx.x >> 7);  // this warpgroup's first row
+    // this warpgroup's rows of the resident tiles
+    const uint32_t q_rows = base + S::R0 + (threadIdx.x >> 7) * ROWS * 128;
+    // this thread's rows: kr and kr + 8 of the warpgroup's; keys kq, kq + 1
+    // of each 8-key n-tile
+    const int kr = wl * 16 + (lane >> 2), kq = 2 * (lane & 3);
+    float acc[NC][8][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
     float lse_r[2], del_r[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-        const int row = q0 + r_lo + 8 * hr;
-        const int64_t at = ((int64_t)b * H + h) * Sq + row;
-        lse_r[hr] = row < Sq ? lse[at] : 0.f;
-        del_r[hr] = row < Sq ? delta[at] : 0.f;
+        const int row = r0 + kr + 8 * hr;
+        const int64_t at = ((int64_t)w.b * p.H + w.rh) * p.Sq + row;
+        lse_r[hr] = row < p.Sq ? lse[at] : 0.f;
+        del_r[hr] = row < p.Sq ? delta[at] : 0.f;
     }
-    float acc[NO][4];
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-    // this lane's ldmatrix addresses in shared memory: A fragments of q and
-    // do, B fragments of K and V row-major (rows along n) and of K
-    // transposed (rows along k), at row 0 of a stage
-    const uint32_t qa_addr = smem_addr(Qs + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8);
-    const uint32_t oa_addr = qa_addr + 2 * BQ * LDS;
-    const uint32_t b_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8);
-    // the product's B operand starts at this block's first column
-    const uint32_t r_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8 + c0);
-    for (int it = 0; it < n_tiles; ++it) {
-        const int k0 = (kt_begin + it) * BK;
-        const uint32_t k_st = smem_addr(Ks + (it & 1) * TILE), v_st = smem_addr(Vs + (it & 1) * TILE);
-        if (it + 1 < n_tiles) {  // the next tile, into the other stage
-            load_tile_bf16<DHP, BK, NT>(Ks + ((it + 1) & 1) * TILE, kb, st.v[4], k0 + BK, Sk, dh,
-                                        tid);
-            load_tile_bf16<DHP, BK, NT>(Vs + ((it + 1) & 1) * TILE, vb, st.v[7], k0 + BK, Sk, dh,
-                                        tid);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();  // this tile (and, at it = 0, q and do) has landed
-        __syncthreads();
-
-        // S = Q K^T and dP = dO V^T: s[j] holds keys k0 + 8 j + kq (+1) of rows r_lo ([0..1]) and r_lo + 8 ([2..3])
-        float s[NS][4], dp[NS][4];
-        mma_abt<KS, NS, LDS, (DHP > 128 ? 8 : KS)>(s, qa_addr, k_st + b_lane);
-        mma_abt<KS, NS, LDS, (DHP > 128 ? 8 : KS)>(dp, oa_addr, v_st + b_lane);
-
-        // dS = P (dP - delta) into dp, P = exp(S scale - lse)
-        const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qa0) ||
-                          (window > 0 && k0 <= qa0 + BQ - 1 - window);
+    const uint32_t bar_full = base + S::BAR + 8, bar_empty = bar_full + 8 * STAGES;
+    const int qa0 = p.q_offset + r0;
+    if (w.n_steps > 0) mbar_wait(base + S::BAR, 0);
+    for (int it = 0; it < w.n_steps; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+        const uint32_t k_st = base + S::X + 2 * s * S::TILE, v_st = k_st + S::TILE;
+        const int k0 = (w.x_begin + it) * XR;  // the key tile's first key
+        // S = q K^T and dP = do V^T; dS = P (dP - delta), P = exp(S scale -
+        // lse), 0 where masked; split hi + lo
+        const bool edge = k0 + XR > p.Sk || (p.causal && k0 + XR - 1 > qa0) ||
+                          (p.window > 0 && k0 <= qa0 + ROWS - 1 - p.window);
+        float sc[NJ][4], dp[NJ][4];
+        scores<DHP, XR, PR, PX>(sc, q_rows, k_st);
+        scores<DHP, XR, PR, PX>(dp, q_rows + S::TILE_R, v_st);
+        wgmma_wait<0>();
+        wgmma_hold(sc);
+        wgmma_hold(dp);
+        // only tiles across the diagonal, the window's edge or Sk are masked
+        // element by element
+        auto ds_tile = [&](auto masked) {
 #pragma unroll
-        for (int j = 0; j < NS; ++j)
+            for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int hr = e >> 1;
-                float p = __expf(fmaf(s[j][e], scale, -lse_r[hr]));
-                if (edge) {
-                    const int key = k0 + 8 * j + kq + (e & 1);
-                    if (!visible(key, qa0 + r_lo + 8 * hr, Sk, causal, window)) p = 0.f;
+                for (int e = 0; e < 4; ++e) {
+                    const int hr = e >> 1;
+                    const float pv = __expf(fmaf(sc[j][e], p.scale, -lse_r[hr]));
+                    const bool ok = !decltype(masked)::value ||
+                                    visible_sel(k0 + 8 * j + kq + (e & 1), qa0 + kr + 8 * hr,
+                                                p.Sk, p.causal, p.window);
+                    dp[j][e] = (ok ? pv : 0.f) * (dp[j][e] - del_r[hr]);
                 }
-                dp[j][e] = p * (dp[j][e] - del_r[hr]);
-            }
-
-        // dq += dS_hi K + dS_lo K over this tile's keys
-        uint32_t hi[BK / 16][4], lo[BK / 16][4];
+        };
+        if (edge)
+            ds_tile(std::true_type{});
+        else
+            ds_tile(std::false_type{});
+        uint32_t hi[KS][4], lo[KS][4];
 #pragma unroll
-        for (int t = 0; t < BK / 16; ++t) acc_to_a_split(dp, t, hi[t], lo[t]);
-        product_into<NO, BK / 16, LDS>(acc, hi, lo, k_st + r_lane);
-        __syncthreads();  // every warp is done with this stage before it is refilled
+        for (int t = 0; t < KS; ++t) acc_to_a_split(dp, t, hi[t], lo[t]);
+        // dq += dS_hi K + dS_lo K
+        product_into<NC, KS, PX>(acc, hi, lo, k_st);
+        mbar_arrive(bar_empty + 8 * s);
     }
-    if (n_tiles == 0) cp_async_wait<0>();  // q and do were loaded for nothing
 
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-        const int row = q0 + r_lo + 8 * hr;
-        if (row >= Sq) continue;
-        bf16* qrow = dq + b * st.v[18] + (int64_t)row * st.v[19] + h * st.v[20];
+        const int row = r0 + kr + 8 * hr;
+        if (row >= p.Sq) continue;
+        bf16* orow = p.out0 + w.b * p.os0[0] + (int64_t)row * p.os0[1] + w.rh * p.os0[2];
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
-            const int d = c0 + n * 8 + kq;
-            if (d < dh)
-                *reinterpret_cast<__nv_bfloat162*>(qrow + d) =
-                    __floats2bfloat162_rn(acc[n][2 * hr] * scale, acc[n][2 * hr + 1] * scale);
-        }
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int d = 64 * c + 8 * j + kq;
+                if (d < p.dh)
+                    *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+                        acc[c][j][2 * hr] * p.scale, acc[c][j][2 * hr + 1] * p.scale);
+            }
     }
 }
 
-}  // namespace dq
+// dk, dv = the sums over parts, in order, of the dk/dv pass's f32 partials
+// [parts, B, Sk, KV, dh], each rounded once (dk times scale); four
+// consecutive elements a thread
+__global__ void head_sum_kernel(const float* __restrict__ pk, const float* __restrict__ pv,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv, int parts, int B,
+                                int Sk, int KV, int dh, Strides st, float scale) {
+    const int64_t n = (int64_t)B * Sk * KV * dh;
+    const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    if (e >= n) return;
+    const int d = e % dh;
+    const int64_t row = e / dh;
+    const int g = row % KV, key = (row / KV) % Sk, b = row / ((int64_t)KV * Sk);
+    float4 sk = load4(pk + e), sv = load4(pv + e);
+    for (int i = 1; i < parts; ++i) {
+        const float4 xk = load4(pk + i * n + e), xv = load4(pv + i * n + e);
+        sk = make_float4(sk.x + xk.x, sk.y + xk.y, sk.z + xk.z, sk.w + xk.w);
+        sv = make_float4(sv.x + xv.x, sv.y + xv.y, sv.z + xv.z, sv.w + xv.w);
+    }
+    bf16* ko = dk + b * st.v[12] + (int64_t)key * st.v[13] + g * st.v[14] + d;
+    bf16* vo = dv + b * st.v[15] + (int64_t)key * st.v[16] + g * st.v[17] + d;
+    *reinterpret_cast<__nv_bfloat162*>(ko) = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+    *reinterpret_cast<__nv_bfloat162*>(ko + 2) = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+    *reinterpret_cast<__nv_bfloat162*>(vo) = __floats2bfloat162_rn(sv.x, sv.y);
+    *reinterpret_cast<__nv_bfloat162*>(vo + 2) = __floats2bfloat162_rn(sv.z, sv.w);
+}
+
+// Parts into which the dk/dv pass splits each group's rep query heads, one
+// block each: the least divisor of rep that gives the pass TARGET_BLOCKS
+// blocks (or rep).
+int head_parts(int B, int Sk, int KV, int rep) {
+    if (B <= 0 || Sk <= 0 || KV <= 0 || rep <= 0) return 1;
+    const long long tiles = (long long)((Sk + ROWS - 1) / ROWS) * KV * B;
+    for (int parts = 1; parts < rep; ++parts)
+        if (rep % parts == 0 && tiles * parts >= TARGET_BLOCKS) return parts;
+    return rep;
+}
 
 template <int DHP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dO,
-                   const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
-                   int B, int Sq, int Sk, int H, int KV, int dh, const Strides& st,
+                   const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, float* scratch,
+                   int parts, int B, int Sq, int Sk, int H, int KV, int dh, const Strides& st,
                    float scale, int causal, int window, int q_offset, cudaStream_t stream) {
     cudaError_t err = launch_delta(o, dO, delta, B, Sq, H, dh, st, stream);
     if (err != cudaSuccess) return err;
-
-    const int smem_kv = dkdv::smem_bytes<DHP>();
-    err = cudaFuncSetAttribute(dkdv::dkdv_kernel<DHP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-    if (err != cudaSuccess) return err;
+    const int64_t* s = st.v;
+    CUtensorMap mq{}, mdo{}, mk{}, mv{}, ml{}, md{};
+    if (!make_map_bf16(&mq, q, B, Sq, H, dh, s[0], s[1], s[2], XROWS) ||
+        !make_map_bf16(&mdo, dO, B, Sq, H, dh, s[9], s[10], s[11], XROWS) ||
+        !make_map_f32_flat(&ml, lse, (int64_t)B * H * Sq, LBOX) ||
+        !make_map_f32_flat(&md, delta, (int64_t)B * H * Sq, LBOX))
+        return cudaErrorInvalidValue;
+    if (Sk > 0 && (!make_map_bf16(&mk, k, B, Sk, KV, dh, s[3], s[4], s[5], XROWS) ||
+                   !make_map_bf16(&mv, v, B, Sk, KV, dh, s[6], s[7], s[8], XROWS)))
+        return cudaErrorInvalidValue;
+    Params p{B, Sq, Sk, H, KV, dh, parts, scale, causal, window, q_offset,
+             dk, dv, scratch,
+             parts > 1 ? scratch + (int64_t)parts * B * Sk * KV * dh : nullptr,
+             {s[12], s[13], s[14]}, {s[15], s[16], s[17]}};
     if (Sk > 0) {
-        const unsigned blocks = (unsigned)((Sk + dkdv::BK - 1) / dkdv::BK) * KV * B;
-        dkdv::dkdv_kernel<DHP><<<dim3(blocks, col_parts<DHP>()), NT, smem_kv, stream>>>(
-            q, k, v, dO, lse, delta, dk, dv, B, Sq, Sk, H, KV, dh, st, scale, causal, window,
-            q_offset);
+        using C = Cfg<DHP, false>;
+        const int smem = Smem<DHP, false>::BYTES;
+        err = cudaFuncSetAttribute(dkdv_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+        if (err != cudaSuccess) return err;
+        const unsigned blocks = (unsigned)((Sk + ROWS - 1) / ROWS) * KV * B * parts;
+        dkdv_kernel<DHP><<<blocks, C::THREADS, smem, stream>>>(mk, mv, mq, mdo, ml, md, p);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
+        if (parts > 1) {
+            const int64_t quads = (int64_t)B * Sk * KV * dh / 4;
+            head_sum_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
+                p.part0, p.part1, dk, dv, parts, B, Sk, KV, dh, st, scale);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return err;
+        }
     }
-
-    const int smem_q = dq::smem_bytes<DHP>();
-    err = cudaFuncSetAttribute(dq::dq_kernel<DHP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    p.out0 = dq;
+    p.out1 = nullptr;
+    p.parts = 1;
+    for (int i = 0; i < 3; ++i) p.os0[i] = s[18 + i];
+    using C = Cfg<DHP, true>;
+    // the dq pass's boxes: its resident q and do, its key tiles
+    if (!make_map_bf16(&mq, q, B, Sq, H, dh, s[0], s[1], s[2], C::RROWS) ||
+        !make_map_bf16(&mdo, dO, B, Sq, H, dh, s[9], s[10], s[11], C::RROWS))
+        return cudaErrorInvalidValue;
+    if (Sk > 0 && (!make_map_bf16(&mk, k, B, Sk, KV, dh, s[3], s[4], s[5], C::XR) ||
+                   !make_map_bf16(&mv, v, B, Sk, KV, dh, s[6], s[7], s[8], C::XR)))
+        return cudaErrorInvalidValue;
+    const int smem = Smem<DHP, true>::BYTES;
+    err = cudaFuncSetAttribute(dq_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const unsigned blocks = (unsigned)((Sq + dq::BQ - 1) / dq::BQ) * H * B;
-    dq::dq_kernel<DHP><<<dim3(blocks, col_parts<DHP>()), NT, smem_q, stream>>>(
-        q, k, v, dO, lse, delta, dq, B, Sq, Sk, H, KV, dh, st, scale, causal, window, q_offset);
+    const unsigned blocks = (unsigned)((Sq + C::RROWS - 1) / C::RROWS) * H * B;
+    dq_kernel<DHP><<<blocks, C::THREADS, smem, stream>>>(mq, mdo, mk, mv, lse, delta, p);
     return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 }  // namespace
 
@@ -962,45 +1185,92 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
 // takes dh): the kernels of every model path (the f32 kernels' is
 // `simt::*::smem_floats` * 4).
 extern "C" int repro_flash_attention_bwd_smem_bytes(int which, int dh) {
+    const bool dq = which == 1;
     switch (head_dim_tile(dh)) {
-        case 64: return which == 0 ? tc::dkdv::smem_bytes<64>() : tc::dq::smem_bytes<64>();
-        case 128: return which == 0 ? tc::dkdv::smem_bytes<128>() : tc::dq::smem_bytes<128>();
-        case 256: return which == 0 ? tc::dkdv::smem_bytes<256>() : tc::dq::smem_bytes<256>();
+        case 64: return dq ? wg::Smem<64, true>::BYTES : wg::Smem<64, false>::BYTES;
+        case 128: return dq ? wg::Smem<128, true>::BYTES : wg::Smem<128, false>::BYTES;
+        case 256: return dq ? wg::Smem<256, true>::BYTES : wg::Smem<256, false>::BYTES;
         default: return 0;
     }
 }
 
 // Tiles of the bf16 kernels: keys per block of the dk/dv kernel (which = 0),
-// q rows per block of the dq kernel (which = 1), q rows per step of the dk/dv
-// kernel's loop (which = 2).
+// q rows per consumer warpgroup of the dq kernel (which = 1), q rows per step
+// of the dk/dv kernel's loop (which = 2), streamed tiles in flight in either
+// (which = 3).  The dq kernel's block rows and key steps depend on dh:
+// `repro_flash_attention_bwd_dq_tile`.
 extern "C" int repro_flash_attention_bwd_tile(int which) {
-    return which == 0 ? tc::dkdv::BK : which == 1 ? tc::dq::BQ : tc::dkdv::BQ;
-}
-
-// Blocks that share one tile of the bf16 dk/dv and dq kernels at head dim dh,
-// each owning a part of the output columns and computing S and dP over all of
-// them: 1 up to 128, 2 above (0 where no kernel takes dh).
-extern "C" int repro_flash_attention_bwd_col_parts(int dh) {
-    switch (head_dim_tile(dh)) {
-        case 64: return tc::col_parts<64>();
-        case 128: return tc::col_parts<128>();
-        case 256: return tc::col_parts<256>();
+    switch (which) {
+        case 0: case 1: return wg::ROWS;
+        case 2: return wg::XROWS;
+        case 3: return wg::STAGES;
         default: return 0;
     }
 }
 
+// Blocks or warpgroups that share one tile of the bf16 kernels at head dim
+// dh, each owning a part of the output columns and forming S and dP over all
+// of them: 1 at every dh (0 where no kernel takes dh).  No kernel splits the
+// columns: the dk/dv kernel's two warpgroups split the products, the dq
+// kernel's own 64 rows each (`repro_flash_attention_bwd_dq_tile`).
+extern "C" int repro_flash_attention_bwd_col_parts(int dh) { return head_dim_tile(dh) ? 1 : 0; }
+
+// Tiles of the bf16 dq kernel at head dim dh: q rows a block (which = 0; 64
+// for each of its consumer warpgroups) and keys a step of its loop (which =
+// 1); 0 where no kernel takes dh.
+extern "C" int repro_flash_attention_bwd_dq_tile(int dh, int which) {
+    switch (head_dim_tile(dh)) {
+        case 64: return which == 0 ? wg::Cfg<64, true>::RROWS : wg::Cfg<64, true>::XR;
+        case 128: return which == 0 ? wg::Cfg<128, true>::RROWS : wg::Cfg<128, true>::XR;
+        case 256: return which == 0 ? wg::Cfg<256, true>::RROWS : wg::Cfg<256, true>::XR;
+        default: return 0;
+    }
+}
+
+// Registers a thread of the bf16 dk/dv kernel (which = 0) or dq kernel (which
+// = 1) at head dim dh: at launch (role 0, what ptxas must report), of the
+// producer warp (1) and of the consumer warpgroups (2) after `setmaxnreg`;
+// threads a block (role 3) and blocks an SM (role 4).
+extern "C" int repro_flash_attention_bwd_regs(int which, int dh, int role) {
+    auto get = [role](auto cfg) {
+        using C = decltype(cfg);
+        const int v[5] = {C::LAUNCH_REGS, C::PRODUCER_REGS, C::CONSUMER_REGS, C::THREADS,
+                          C::MIN_BLOCKS};
+        return role >= 0 && role < 5 ? v[role] : 0;
+    };
+    const bool dq = which == 1;
+    switch (head_dim_tile(dh)) {
+        case 64: return dq ? get(wg::Cfg<64, true>{}) : get(wg::Cfg<64, false>{});
+        case 128: return dq ? get(wg::Cfg<128, true>{}) : get(wg::Cfg<128, false>{});
+        case 256: return dq ? get(wg::Cfg<256, true>{}) : get(wg::Cfg<256, false>{});
+        default: return 0;
+    }
+}
+
+// Parts into which the bf16 dk/dv kernel splits each group's rep = H / KV
+// query heads, one block each, at a batch B, Sk keys and KV kv heads: the
+// wrapper allocates 2 * parts * B * Sk * KV * dh f32 of scratch where it is
+// above 1.
+extern "C" int repro_flash_attention_bwd_head_parts(int B, int Sk, int KV, int rep) {
+    return wg::head_parts(B, Sk, KV, rep);
+}
+
 // q, o, do [B,Sq,H,dh]; k, v [B,Sk,KV,dh]; lse [B,H,Sq] f32 contiguous (the
 // forward's); delta [B,H,Sq] f32 scratch; dq [B,Sq,H,dh], dk and dv
-// [B,Sk,KV,dh] outputs.  strides: 24 int64 in elements, (batch, seq, head) of
-// q, k, v, do, dk, dv, dq, o in that order.  dtype: 0 = f32, 1 = bf16; rows
-// start on 16-byte boundaries; in bf16 dh is a multiple of 8; dh is at most
-// 256.  window <= 0 means no window.  device is the CUDA ordinal of the
-// tensors and the stream.  Returns cudaError_t.
+// [B,Sk,KV,dh] outputs; in bf16, head_parts as
+// `repro_flash_attention_bwd_head_parts` gives it and, where it is above 1,
+// scratch of 2 * head_parts * B * Sk * KV * dh f32 (the f32 kernels take
+// neither).  strides: 24 int64 in elements, (batch, seq, head) of q, k, v,
+// do, dk, dv, dq, o in that order.  dtype: 0 = f32, 1 = bf16; rows start on
+// 16-byte boundaries; in bf16 dh is a multiple of 8; dh is at most 256.
+// window <= 0 means no window.  device is the CUDA ordinal of the tensors and
+// the stream.  Returns cudaError_t.
 extern "C" int repro_flash_attention_bwd(
         const void* q, const void* k, const void* v, const void* o, const void* dO,
-        const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype,
-        int B, int Sq, int Sk, int H, int KV, int dh, const int64_t* strides, float scale,
-        int causal, int window, int q_offset, int device, void* stream) {
+        const float* lse, float* delta, void* dq, void* dk, void* dv, float* scratch,
+        int head_parts, int dtype, int B, int Sq, int Sk, int H, int KV, int dh,
+        const int64_t* strides, float scale, int causal, int window, int q_offset, int device,
+        void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     Strides st;
     for (int i = 0; i < 24; ++i) st.v[i] = strides[i];
@@ -1025,19 +1295,21 @@ extern "C" int repro_flash_attention_bwd(
         }
     }
     if (dtype == REPRO_BF16) {
-        if (dh % 8) return (int)cudaErrorInvalidValue;
+        if (dh % 8 || head_parts < 1 || (H / KV) % head_parts ||
+            (head_parts > 1 && scratch == nullptr))
+            return (int)cudaErrorInvalidValue;
         auto c = [](const void* p) { return static_cast<const bf16*>(p); };
         auto m = [](void* p) { return static_cast<bf16*>(p); };
         switch (head_dim_tile(dh)) {
-            case 64: return tc::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
-                                           m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
-                                           window, q_offset, s);
-            case 128: return tc::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
-                                             m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale,
-                                             causal, window, q_offset, s);
-            default: return tc::launch<256>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
-                                            m(dk), m(dv), B, Sq, Sk, H, KV, dh, st, scale, causal,
-                                            window, q_offset, s);
+            case 64: return wg::launch<64>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                           m(dk), m(dv), scratch, head_parts, B, Sq, Sk, H, KV,
+                                           dh, st, scale, causal, window, q_offset, s);
+            case 128: return wg::launch<128>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                             m(dk), m(dv), scratch, head_parts, B, Sq, Sk, H, KV,
+                                             dh, st, scale, causal, window, q_offset, s);
+            default: return wg::launch<256>(c(q), c(k), c(v), c(o), c(dO), lse, delta, m(dq),
+                                            m(dk), m(dv), scratch, head_parts, B, Sq, Sk, H, KV,
+                                            dh, st, scale, causal, window, q_offset, s);
         }
     }
     return (int)cudaErrorInvalidValue;

@@ -1,0 +1,317 @@
+// Hopper (sm_90a) building blocks: mbarriers, named barriers, shared loads
+// and stores by 32-bit address, TMA tile loads and their tensor maps,
+// warpgroup matrix multiply (wgmma) on 128-byte-swizzled bf16 tiles, and
+// setmaxnreg.
+//
+// Tile layout: a bf16 tile of R rows by 64 k columns is stored as TMA writes
+// it with CU_TENSOR_MAP_SWIZZLE_128B and a box of {64, R}: row r at r * 128
+// bytes, its 16-byte chunk c at chunk c ^ (r % 8), the tile 1024-byte
+// aligned.  A tile wider than 64 columns is a run of such 64-column panels,
+// panel p at p * R * 128 bytes.  The wgmma descriptors below read that
+// layout: K-major (the contraction runs along the row) advancing 32 bytes a
+// 16-column k-step within a panel, and MN-major (the contraction runs down
+// the rows) advancing 16 rows (2048 bytes) a k-step.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival, and `bytes` more to come by TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n}\n" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+}
+
+// The same, but a wait that lasts ~10 s (2^34 cycles) traps: a pipeline
+// fault ends the kernel with an error instead of hanging the card.  For a
+// producer, whose waits follow every consumer's.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    long long t0 = 0;
+    for (int spin = 0;; ++spin) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if ((spin & 1023) == 0) {
+            const long long t = clock64();
+            if (spin == 0) t0 = t;
+            else if (t - t0 > (1ll << 34)) __trap();
+        }
+    }
+}
+
+// x, opaque to the compiler: keeps it from hoisting what is derived from x
+// (the descriptors of a loop's every k-step) out of a loop into registers.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+    asm volatile("" : "+r"(x));
+    return x;
+}
+
+// ---- named barriers: `threads` threads, a multiple of 32, meet at `id` ----
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- shared memory by 32-bit address ----
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+    float x;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+    return x;
+}
+
+__device__ __forceinline__ float4 lds_f32x4(uint32_t addr) {
+    float4 x;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+                 : "r"(addr)
+                 : "memory");
+    return x;
+}
+
+__device__ __forceinline__ void sts_f32x4(uint32_t addr, float a, float b, float c, float d) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+                 "f"(c), "f"(d)
+                 : "memory");
+}
+
+// ---- TMA ----
+
+// The box at coordinates (c0 innermost, c1, c2, c3) of a 4-D tensor map ->
+// shared memory at `dst`, completing `bytes` of `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// The box at coordinate c0 of a 1-D tensor map -> shared memory at `dst`.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+    asm volatile(
+        "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+        : "memory");
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that the
+// library needs no -lcuda; null where the driver does not offer it.
+static inline EncodeTiledFn encode_tiled_fn() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+        if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+    }
+    return fn;
+}
+
+// A tensor map of a bf16 [B, S, heads, dh] tensor with element strides (sb,
+// ss, sh) for boxes of 64 columns by `box_rows` rows of one (head, batch),
+// 128-byte swizzled; columns at or past dh and rows at or past S read as
+// zeros.  A dim of size 1 takes a packed stride (its own is never used).
+// Returns false where the driver refuses it.
+static inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                                 int dh, int64_t sb, int64_t ss, int64_t sh, int box_rows) {
+    EncodeTiledFn encode = encode_tiled_fn();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+    cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+    cuuint64_t packed = ((cuuint64_t)dh * 2 + 15) / 16 * 16;
+    for (int i = 0; i < 3; ++i) {
+        if (dims[i + 1] == 1) strides[i] = packed;
+        packed = strides[i] * dims[i + 1];
+    }
+    const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map of n f32 values read as one flat row, for boxes of `box`
+// values; values at or past n read as zeros.
+static inline bool make_map_f32_flat(CUtensorMap* map, const float* ptr, int64_t n, int box) {
+    EncodeTiledFn encode = encode_tiled_fn();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[1] = {(cuuint64_t)n};
+    const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+    const cuuint32_t boxd[1] = {(cuuint32_t)box};
+    const cuuint32_t elem[1] = {1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims, strides,
+                  boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- wgmma ----
+
+// Descriptor of a 128-byte-swizzled operand at shared address `addr`: 8-row
+// groups 1024 bytes apart.  That stride is the stride byte offset of a
+// K-major operand and of an MN-major one whose N or M is one 64-wide panel;
+// the leading byte offset is unused by both and set to the same value.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from touching an accumulator across an asynchronous
+// wgmma: after the wait, each register is taken as rewritten here (the
+// template for D [NT][4] is below).
+// The same for the A fragments of a register-sourced wgmma, which it reads
+// asynchronously too.
+template <int KS>
+__device__ __forceinline__ void wgmma_hold(uint32_t (&a)[KS][4]) {
+#pragma unroll
+    for (int t = 0; t < KS; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[t][i])::"memory");
+}
+
+// D (64 x 64 f32) = A B (+ D where accumulate), k = 16: A from shared memory
+// (K-major), B from shared memory (K-major, its 64 rows along n).  The
+// accumulator is the m16n8 layout of mma.sync for each warp's 16 rows
+// (warp w of the warpgroup: rows 16 w + lane / 4 and + 8), one [4] per
+// 8-column n-tile.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                                                int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+          "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+          "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+          "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+          "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+          "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same 32 columns wide (m64n32k16): B's 32 rows along n; D [4][4].
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[4][4], uint64_t a, uint64_t b,
+                                                int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+          "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+          "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+          "+f"(d[3][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64 f32) = A B (+ D where accumulate), k = 16: A from registers
+// (the m16n8k16 A fragment of each warp's 16 rows, as `acc_to_a_split`
+// makes it), B from shared memory MN-major (its 16 rows along k, 64
+// columns along n).
+__device__ __forceinline__ void wgmma_m64n64_rs_t(float (&d)[8][4], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+          "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+          "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+          "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+          "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+          "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_hold(float (&d)[NT][4]) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// ---- registers between warpgroups ----
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}

@@ -4,9 +4,11 @@ Counterpart of ``_flash_vjp_bwd`` in ``repro.kernels.flash_attention``,
 which on the TPU recomputes the gradient in XLA (``ref._mha_bwd_blocks``):
 it is not a Pallas kernel, but the port's plain version may not run on the
 card's main path, so it is a CUDA kernel here.  The wrapper checks its
-inputs, allocates the gradients and the ``delta`` scratch and launches the
-kernels on the current stream; it never runs the plain version
-(``ops.mha_bwd`` sends CPU tensors to ``ref.mha_bwd``).
+inputs, allocates the gradients, the ``delta`` scratch and, where the bf16
+dk/dv pass splits each group's query heads across blocks, their f32
+partials of dk and dv, and launches the kernels on the current stream; it
+never runs the plain version (``ops.mha_bwd`` sends CPU tensors to
+``ref.mha_bwd``).
 """
 from __future__ import annotations
 
@@ -20,10 +22,13 @@ from repro_torch.kernels.flash_attention import DTYPES, check_head_dim, check_ro
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("flash_attention_bwd", {
-    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 7 + [_P, _F, _I, _I, _I, _I, _P],
+    "repro_flash_attention_bwd": [_P] * 11 + [_I] * 8 + [_P, _F, _I, _I, _I, _I, _P],
     "repro_flash_attention_bwd_smem_bytes": [_I, _I],
     "repro_flash_attention_bwd_tile": [_I],
     "repro_flash_attention_bwd_col_parts": [_I],
+    "repro_flash_attention_bwd_head_parts": [_I, _I, _I, _I],
+    "repro_flash_attention_bwd_regs": [_I, _I, _I],
+    "repro_flash_attention_bwd_dq_tile": [_I, _I],
 })
 # the widest head dim these kernels are instantiated for (tiles 64, 128, 256 wide)
 MAX_HEAD_DIM = 256
@@ -48,9 +53,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
                          f"o {tuple(o.shape)} do {tuple(do.shape)}")
     check_cuda_tensor("lse", lse, torch.float32)
-    if lse.shape != (b, h, sq) or not lse.is_contiguous():
-        raise ValueError(f"lse must be a contiguous [B,H,Sq] = {(b, h, sq)}, got "
-                         f"{tuple(lse.shape)} strides {lse.stride()}")
+    # the bf16 kernels read lse by TMA, from a 16-byte boundary
+    if lse.shape != (b, h, sq) or not lse.is_contiguous() or lse.data_ptr() % 16:
+        raise ValueError(f"lse must be a contiguous [B,H,Sq] = {(b, h, sq)} starting on a "
+                         f"16-byte boundary, got {tuple(lse.shape)} strides {lse.stride()} "
+                         f"pointer {lse.data_ptr():#x}")
     if len({t.device for t in (q, k, v, o, do, lse)}) != 1:
         raise ValueError("q, k, v, o, do and lse must be on one device")
     check_head_dim(dh, q.dtype, MAX_HEAD_DIM)
@@ -61,12 +68,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.empty((b, sk, kvh, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = KERNEL.lib()
+    # bf16: the dk/dv pass splits each group's query heads across blocks, whose
+    # f32 partials of dk and dv a last pass sums in order
+    parts = lib.repro_flash_attention_bwd_head_parts(b, sk, kvh, h // kvh) if (
+        q.dtype == torch.bfloat16) else 1
+    scratch = (torch.empty((2 * parts * b * sk * kvh * dh,), dtype=torch.float32,
+                           device=q.device) if parts > 1 else None)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, do, dk, dv, dq, o)
                                        for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = KERNEL.lib().repro_flash_attention_bwd(
+    err = lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype],
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, parts, DTYPES[q.dtype],
         b, sq, sk, h, kvh, dh, ctypes.cast(strides, ctypes.c_void_p), scale, int(causal),
         int(window or 0), int(q_offset), q.device.index or 0, stream)
     KERNEL.check(err)

@@ -187,12 +187,12 @@ def _mha_bwd_rounding(q, k, v, o, lse, do, roundings, *, window=None):
     """The backward computed as the bf16 CUDA kernels compute it: P in f32
     from the forward's lse, dP and delta exact in f32, and P (in dv = P^T do)
     or dS (in dk = dS^T q and dq = dS k) rounded by ``roundings["dv"]``,
-    ``["dk"]`` and ``["dq"]`` before its product; the dk/dv kernel forms dS
-    from P as the dv product takes it (hi + lo).  Products of two bf16 values
-    are exact in f32, so the tensor cores' products are the f32 ones here,
-    up to the order of summation.  At dh 256 each half of the output columns
-    has its own block, both computing the same S and dP over all 256: every
-    element's sums are the ones here."""
+    ``["dk"]`` and ``["dq"]`` before its product; dS is formed from the f32
+    P.  Products of two bf16 values are exact in f32, so the tensor cores'
+    products are the f32 ones here, up to the order of summation
+    (``_mha_bwd_kernel_order`` takes the kernels' order).  At dh 256 each
+    half of dq's columns has its own warpgroup, both computing the same S and
+    dP over all 256: every element's sums are the ones here."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -206,7 +206,7 @@ def _mha_bwd_rounding(q, k, v, o, lse, do, roundings, *, window=None):
     dp = torch.einsum("bqgrd,bkgd->bgrqk", do5, vf)
     delta = torch.einsum("bqgrd,bqgrd->bgrq", do5, o5)
     p_dv = roundings["dv"](p)
-    ds = sum(p_dv) * (dp - delta[..., None])
+    ds = p * (dp - delta[..., None])
     dv = sum(torch.einsum("bgrqk,bqgrd->bkgd", part, do5) for part in p_dv)
     dk = sum(torch.einsum("bgrqk,bqgrd->bkgd", part, q5) for part in roundings["dk"](ds)) * scale
     dq = sum(torch.einsum("bgrqk,bkgd->bqgrd", part, kf) for part in roundings["dq"](ds)) * scale
@@ -233,6 +233,86 @@ def test_flash_bwd_kernel_p_and_ds_split_holds_the_bf16_tolerance(dh, window):
         once = _mha_bwd_rounding(q, k, v, o, lse, do, {**split, name: _p_bf16_once},
                                  window=window)
         assert tref.grad_tolerance_ratio(once[i], want[i]) > 1, name
+
+
+def _mha_bwd_kernel_order(q, k, v, o, lse, do, *, window=None, parts=1, step=64,
+                          drop_part=None):
+    """The backward summed in the order of the bf16 `wgmma` kernels: P (in
+    dv) and dS (in dk and dq, formed from the f32 P) split into bf16 hi + lo
+    as ``_mha_bwd_rounding`` takes them; the products of each step summed from 0 in a fresh f32
+    accumulator and added into the running f32 sum (dk and dv: each query
+    head's q tiles of ``step`` rows in turn; dq: key tiles of ``step``); a
+    group's ``rep`` query heads split into ``parts`` parts of consecutive
+    heads, each part's f32 partials of dk and dv added to the others' in part
+    order and rounded once.  ``drop_part`` leaves one part's partials out: a
+    planted fault.  At dh 256 a dq warpgroup owns half of the columns and
+    sums the same terms; dk and dv are whole in one warpgroup each."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    rep, n_t = h // kvh, -(-s // step)
+    scale = dh ** -0.5
+    q5, do5, o5 = (t.reshape(b, s, kvh, rep, dh).float() for t in (q, do, o))
+    kf, vf = k.float(), v.float()
+    qi = torch.arange(s)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", q5, kf) * scale
+    sc = torch.where(tref._block_mask(qi, qi, causal=True, window=window), sc, tref.NEG_INF)
+    p = torch.exp(sc - lse.reshape(b, kvh, rep, s)[..., None])
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", do5, vf)
+    delta = torch.einsum("bqgrd,bqgrd->bgrq", do5, o5)
+    p_split = _p_hi_lo(p)
+    ds_split = _p_hi_lo(p * (dp - delta[..., None]))
+    pad = n_t * step - s
+
+    def tiles(x, dim):  # [..., s, ...] -> [..., n_t, step, ...] along dim, zero-padded
+        x = torch.nn.functional.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, pad])
+        return x.unflatten(dim, (n_t, step))
+
+    # each (head, q tile)'s product: [b, g, r, t, k, d]
+    dv_steps = sum(torch.einsum("bgrtqk,bgrtqd->bgrtkd", tiles(x, 3),
+                                tiles(do5.permute(0, 2, 3, 1, 4), 3)) for x in p_split)
+    dk_steps = sum(torch.einsum("bgrtqk,bgrtqd->bgrtkd", tiles(x, 3),
+                                tiles(q5.permute(0, 2, 3, 1, 4), 3)) for x in ds_split)
+    dk_parts, dv_parts = [], []
+    for part in range(parts):
+        acc_k, acc_v = torch.zeros_like(dk_steps[:, :, 0, 0]), torch.zeros_like(dv_steps[:, :, 0, 0])
+        for r in range(part * rep // parts, (part + 1) * rep // parts):
+            for t in range(n_t):
+                acc_k += dk_steps[:, :, r, t]
+                acc_v += dv_steps[:, :, r, t]
+        dk_parts.append(acc_k)
+        dv_parts.append(acc_v)
+    keep = [i for i in range(parts) if i != drop_part]
+    dk = sum(dk_parts[i] for i in keep).permute(0, 2, 1, 3) * scale
+    dv = sum(dv_parts[i] for i in keep).permute(0, 2, 1, 3)
+    # each key tile's product: [b, g, r, t, q, d]
+    dq_steps = sum(torch.einsum("bgrqtk,btkgd->bgrtqd", tiles(x, 4), tiles(kf, 1))
+                   for x in ds_split)
+    acc_q = torch.zeros_like(dq_steps[:, :, :, 0])
+    for t in range(n_t):
+        acc_q += dq_steps[:, :, :, t]
+    dq = (acc_q * scale).permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("dh,window", [(120, None), (120, 100), (128, None), (128, 100),
+                                       (256, None), (256, 100)])
+def test_flash_bwd_kernel_order_of_sums_holds_the_bf16_tolerance(dh, window):
+    """The bf16 `wgmma` backward's order of sums (fresh accumulators a 64-row
+    q step or 64-key step, a group's 8 query heads in 4 parts whose f32
+    partials are summed in order and rounded once) keeps dq, dk and dv
+    within one bf16 ulp of ``ref.mha_bwd`` at rep 8 on one kv head
+    (paligemma-3b's grouping); one part's partials dropped does not."""
+    q, k, v = _bf16(*_qkv(1, 512, 512, 8, 1, dh, seed=6))
+    do = _bf16(_qkv(1, 512, 512, 8, 1, dh, seed=16)[0])[0]
+    o, lse = tref.mha_fwd_lse(q, k, v, causal=True, window=window)
+    want = tref.mha_bwd(q, k, v, o, lse, do, causal=True, window=window)
+    got = _mha_bwd_kernel_order(q, k, v, o, lse, do, window=window, parts=4)
+    ratios = [tref.grad_tolerance_ratio(g, w) for g, w in zip(got, want)]
+    assert max(ratios) <= 1, ratios
+    _, dk_f, dv_f = _mha_bwd_kernel_order(q, k, v, o, lse, do, window=window, parts=4,
+                                          drop_part=1)
+    assert tref.grad_tolerance_ratio(dk_f, want[1]) > 1
+    assert tref.grad_tolerance_ratio(dv_f, want[2]) > 1
 
 
 def test_ops_on_cpu_tensors_launch_nothing():

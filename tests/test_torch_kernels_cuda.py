@@ -112,10 +112,10 @@ def test_flash_kernel_reads_strided_views(dev, dtype, s, dh):
     assert ref.tolerance_ratio(got, want) <= 1
 
 
-# the backward kernels: bf16 64-key blocks walking 64-row q tiles (dk/dv) and
-# 64-row blocks walking 64-key tiles (dq); f32 64-key blocks of 32-row steps
-# and 64-row blocks of 32-key steps; edges of both, windows, q_offset, GQA
-# and rep = 1
+# the backward kernels: bf16 64-key blocks walking 64-row q tiles of a part of
+# a group's query heads (dk/dv) and 64-row blocks walking 64-key tiles (dq),
+# both on wgmma, fed by TMA; f32 64-key blocks of 32-row steps and 64-row
+# blocks of 32-key steps; edges of both, windows, q_offset, GQA and rep = 1
 _BWD_CASES = [
     (1, 256, 256, 8, 2, 128, torch.bfloat16, True, None, 0),
     (1, 1, 1, 8, 2, 64, torch.bfloat16, True, None, 0),
@@ -144,7 +144,7 @@ _BWD_CASES = [
     (1, 257, 257, 16, 2, 64, torch.bfloat16, True, None, 0),      # rep 8
     (2, 300, 300, 8, 2, 128, torch.bfloat16, True, None, 0),      # B = 2
     (1, 200, 200, 4, 2, 64, torch.bfloat16, False, 50, 0),        # window, not causal
-    # 256 wide: two blocks a tile, each owning 128 columns of dk/dv (dq)
+    # 256 wide: one warpgroup each for dk and dv, two for dq (128 columns each)
     (1, 256, 256, 16, 16, 256, torch.bfloat16, True, None, 0),    # gemma-7b heads
     (1, 1000, 1000, 8, 2, 256, torch.bfloat16, True, None, 0),    # ragged, GQA
     (1, 700, 700, 8, 2, 256, torch.bfloat16, True, 100, 0),       # window binds
@@ -228,6 +228,39 @@ def test_flash_bwd_kernel_rejects_planted_faults(dev, dtype):
     _, dk_q, dv_q = ref.mha_bwd(q, k, v, o, lse, do_f, **kw)
     assert ref.grad_tolerance_ratio(dk_q, want[1]) > 1
     assert ref.grad_tolerance_ratio(dv_q, want[2]) > 1
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh", [(1, 1000, 8, 1, 256), (1, 1000, 32, 8, 120)])
+def test_flash_bwd_kernel_gives_the_same_gradients_every_call(dev, b, s, h, kv, dh):
+    """No atomics: the head parts' partials are summed in a fixed order, so
+    two calls give the same dq, dk and dv bit for bit (rep 8 at dh 256, split
+    in parts; danube's grouping at dh 120)."""
+    q, k, v, o, lse, do = _bwd_inputs(b, s, s, h, kv, dh, torch.bfloat16, dev, 9)
+    first = tfab.flash_attention_bwd(q, k, v, o, lse, do)
+    again = tfab.flash_attention_bwd(q, k, v, o, lse, do)
+    for name, x, y in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(x, y), name
+
+
+def test_flash_bwd_kernel_rejects_a_dropped_head_part(dev):
+    """At paligemma-3b's training shape (8 query heads on one kv head, dh
+    256) the dk/dv pass splits the group's heads in parts, one block each;
+    the tolerance sees one part's share of dk and dv left out (its heads'
+    rows of do zeroed in the plain version), with the parts read from the
+    library."""
+    q, k, v, o, lse, do = _bwd_inputs(1, 4096, 4096, 8, 1, 256, torch.bfloat16, dev, 10)
+    got = tfab.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.mha_bwd(q, k, v, o, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert ref.grad_tolerance_ratio(g, w) <= 1, name
+    parts = tfab.KERNEL.lib().repro_flash_attention_bwd_head_parts(1, 4096, 1, 8)
+    assert 1 < parts <= 8 and 8 % parts == 0
+    per = 8 // parts
+    do_f = do.clone()
+    do_f[:, :, per:2 * per] = 0  # the second part's heads contribute nothing
+    _, dk_f, dv_f = ref.mha_bwd(q, k, v, o, lse, do_f)
+    assert ref.grad_tolerance_ratio(dk_f, want[1]) > 1
+    assert ref.grad_tolerance_ratio(dv_f, want[2]) > 1
 
 
 @pytest.mark.parametrize("b,s,h,kv,dh,dtype,window", [
