@@ -12,7 +12,9 @@ and the script exits non-zero without printing a result:
     memory and spills from ``-Xptxas -v``; a spill in the bf16 flash kernel,
     in the flash backward's kernels, in any pass of the SSD scan or of its
     backward or in any 256-wide instantiation fails, as does a missing bf16
-    tensor-core flash, dk/dv or dq kernel (dh 64, 128 and 256);
+    wgmma flash, dk/dv or dq kernel (dh 64, 128 and 256; the forward with
+    blocks of one and of two consumer warpgroups) or one whose registers at
+    launch are not its plan's;
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
@@ -315,9 +317,11 @@ group); two calls on the same inputs must give bit-identical gradients;
 and it times the kernel and each of its passes.  It also runs each
 attention kernel's 256-wide instantiation
 at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
-B=8 and a full 4096-slot cache), held to its plain version, with two planted
-faults of its column split (the output's columns 128-255 zeroed, S from the
-first 128 dims only) that must fail the same check.  And it runs the three
+B=8 and a full 4096-slot cache), held to its plain version, with planted
+faults that must fail the same check (the output's columns 128-255 zeroed,
+S from the first 128 dims only; for the flash forward those of its design,
+at every shape it runs: rows 64-127 of every 128-row q tile zeroed, the last
+64-column panel zeroed, the last KV tile dropped).  And it runs the three
 attention kernels at paligemma-3b's shapes (8 heads on one kv head, dh 256)
 and seamless-m4t-medium's decoder's (16 on 16, dh 64): flash at B=1 S=4096,
 its backward at the training step's B=1 and B=2, flash-decode at B=8 and a
@@ -361,16 +365,12 @@ MODEL_LIMIT = 0.05
 # flips a near-tie among the experts; a flipped token is left out of the
 # logits' comparison, see ``moe_prefill_depth2``).
 MOE_FLIP_LIMIT = 0.01
-# The bf16 flash kernel runs two blocks an SM up to dh 128; nvcc 12.9 gives
-# it 222 registers at dh=128 once told the block size, 255 without.  The
-# build phase fails above this count or on any spill, so a compiler that
-# drops the bound shows here rather than as a slower kernel.
-FLASH_BF16_MAX_REGISTERS = 240
-# At dh 256 it runs one block of 8 warps an SM (its 165 KiB of shared
-# memory), each warp owning half of the output columns and reading Q's
-# fragments from shared memory; nvcc 12.9 gives it 176 registers.  Keeping
-# Q's fragments in registers would add 64: the build fails above this count.
-FLASH_BF16_256_MAX_REGISTERS = 200
+# The bf16 flash forward's instantiations (csrc/flash_attention.cu): head-dim
+# tiles 64, 128 and 256, each with blocks of one and of two consumer
+# warpgroups (64- and 128-row q tiles).  Each must report the registers its
+# plan names at launch (`setmaxnreg` hands the producer's to the consumers
+# out of that allotment) and spill nothing.
+FLASH_FWD_PLANS = tuple((dh, rows) for dh in (64, 128, 256) for rows in (64, 128))
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
                "decode_attention_bwd": 0, "decode_attention_stats": 0, "ssd_scan": 0,
                "ssd_scan_bwd": 0}
@@ -454,16 +454,26 @@ def log(*a):
     print(*a, flush=True)
 
 
-def flash_tile() -> int:
-    """Keys per KV tile of the bf16 flash kernel, from its library."""
+def flash_tile(dh: int) -> int:
+    """Keys per KV tile of the bf16 flash kernel at head dim ``dh``, from its
+    library."""
     from repro_torch.kernels import flash_attention as fa
-    return fa.KERNEL.lib().repro_flash_attention_kv_tile(1)
+    return fa.KERNEL.lib().repro_flash_attention_kv_tile(1, dh)
 
 
-def flash_q_tile() -> int:
-    """Query rows per block of the bf16 flash kernel, from its library."""
+def flash_q_tile(dh: int, b: int, s: int, h: int) -> int:
+    """Query rows per block of the bf16 flash kernel at head dim ``dh`` and a
+    call's B, S and H (64 where a grid of 64-row blocks fits one wave), from
+    its library."""
     from repro_torch.kernels import flash_attention as fa
-    return fa.KERNEL.lib().repro_flash_attention_q_tile(1)
+    return fa.KERNEL.lib().repro_flash_attention_q_tile(1, dh, b, s, h)
+
+
+def last_tile_dropped(q, k, v, **kw):
+    """A planted fault of a model's attention: the plain version with the
+    last KV tile of the bf16 flash kernel (at k's head dim) dropped."""
+    from repro_torch.kernels import ref
+    return ref.mha(q, k, v, kv_valid_len=k.shape[1] - flash_tile(k.shape[-1]), **kw)
 
 
 def decode_split() -> int:
@@ -682,23 +692,37 @@ def phase_build():
     for name, k in ops.KERNELS.items():
         for fn, res in k.resources().items():
             log(f"[build] {name}: {fn}: {res}")
-    tc = {fn: res for fn, res in ops.KERNELS["flash_attention"].resources().items()
-          if "tc16flash_fwd_kernel" in fn}
-    if len(tc) != 3:  # dh 64, 128 and 256
-        raise AssertionError(f"[build] bf16 tensor-core flash kernels in the ptxas log: {sorted(tc)}")
-    for fn, res in tc.items():
-        limit = FLASH_BF16_256_MAX_REGISTERS if "Li256E" in fn else FLASH_BF16_MAX_REGISTERS
-        if res["registers"] is None or res["registers"] > limit or res["spill_stores"]:
-            raise AssertionError(f"[build] bf16 flash kernel {fn}: {res}, over {limit} "
-                                 f"registers or spilling")
-    log(f"[build] bf16 flash kernels within {FLASH_BF16_MAX_REGISTERS} registers up to dh 128 "
-        f"and {FLASH_BF16_256_MAX_REGISTERS} at 256, no spills")
+    fa_res = ops.KERNELS["flash_attention"].resources()
+    fa_lib = ops.KERNELS["flash_attention"].lib()
+    wg_fwd = {}
+    for fn, res in fa_res.items():
+        m = re.search(r"2wg16flash_fwd_kernelILi(\d+)ELi(\d)E", fn)
+        if m:
+            wg_fwd[(int(m[1]), 64 * int(m[2]))] = res
+    if sorted(wg_fwd) != sorted(FLASH_FWD_PLANS):
+        raise AssertionError(f"[build] bf16 wgmma flash forward instantiations (dh tile, q rows) "
+                             f"in the ptxas log: {sorted(wg_fwd)}")
+    for (dhp, rows), res in sorted(wg_fwd.items()):
+        launch, producer, consumer, threads = (
+            fa_lib.repro_flash_attention_regs(dhp, rows, role) for role in range(4))
+        # a launch count other than the plan would leave the consumers
+        # waiting for registers at setmaxnreg
+        if res["registers"] != launch or res["spill_stores"]:
+            raise AssertionError(f"[build] flash forward at dh {dhp}, {rows}-row blocks: {res}; "
+                                 f"the plan is {launch} registers at launch and no spill")
+        log(f"[build] flash forward at dh {dhp}, {rows}-row blocks: {threads} threads, "
+            f"{res['registers']} registers a thread at "
+            f"launch ({producer} for the producer warpgroup and {consumer} for each of "
+            f"{rows // 64} consumer warpgroup(s) after setmaxnreg), {res['spill_stores']} B "
+            f"spilled, {fa_lib.repro_flash_attention_smem_bytes(1, dhp, rows)} B of shared "
+            f"memory, {flash_tile(dhp)}-key K/V tiles by TMA")
     # every 256-wide instantiation (flash forward, backward and decode, bf16 and f32)
     wide = {f"{name}: {fn}": res for name, k in ops.KERNELS.items()
             for fn, res in k.resources().items() if "Li256E" in fn}
-    # forward 2, backward 4, decode pass 1: 2 dtypes x 3 bundle sizes; the
-    # decode backward's one pass: 2 dtypes x 2 head paddings (8, 16)
-    if len(wide) != 16:
+    # forward 3 (f32, bf16 with one and two consumer warpgroups), backward
+    # 4, decode pass 1: 2 dtypes x 3 bundle sizes; the decode backward's one
+    # pass: 2 dtypes x 2 head paddings (8, 16)
+    if len(wide) != 17:
         raise AssertionError(f"[build] 256-wide instantiations in the ptxas log: {sorted(wide)}")
     for fn, res in sorted(wide.items()):
         log(f"[build] dh 256: {fn[:110]}: {res['registers']} registers, {res['static_smem']} B "
@@ -783,17 +807,18 @@ def phase_build():
         f"on one kv head in {bwd_lib.repro_flash_attention_bwd_head_parts(1, 4096, 1, 8)} "
         f"parts, danube's 4 on each of 8 in "
         f"{bwd_lib.repro_flash_attention_bwd_head_parts(1, 4096, 8, 4)}")
-    fa_lib, da_lib = ops.KERNELS["flash_attention"].lib(), ops.KERNELS["decode_attention"].lib()
+    da_lib = ops.KERNELS["decode_attention"].lib()
     ssd_lib = ops.KERNELS["ssd_scan"].lib()
     log(f"[build] shared memory per block at dh=128: flash bf16 "
-        f"{fa_lib.repro_flash_attention_smem_bytes(1, 128)} B ({flash_tile()}-key tiles), "
-        f"f32 {fa_lib.repro_flash_attention_smem_bytes(0, 128)} B; decode pass 1 (rep=4) "
+        f"{fa_lib.repro_flash_attention_smem_bytes(1, 128, 128)} B (128-row blocks, "
+        f"{flash_tile(128)}-key tiles), f32 {fa_lib.repro_flash_attention_smem_bytes(0, 128, 64)} "
+        f"B; decode pass 1 (rep=4) "
         f"{da_lib.repro_decode_attention_smem_bytes(4, 128)} B ({decode_split()}-slot splits); "
         f"ssd scan passes A, B, D: "
         f"{', '.join(str(ssd_lib.repro_ssd_scan_smem_bytes(i)) for i in (0, 1, 3))} B")
-    log(f"[build] at dh=256: flash bf16 {fa_lib.repro_flash_attention_smem_bytes(1, 256)} B "
-        f"({fa_lib.repro_flash_attention_col_parts(256)} warps a row group, one a column half), "
-        f"f32 {fa_lib.repro_flash_attention_smem_bytes(0, 256)} B; backward bf16 dk/dv "
+    log(f"[build] at dh=256: flash bf16 {fa_lib.repro_flash_attention_smem_bytes(1, 256, 128)} "
+        f"B (128-row blocks, {flash_tile(256)}-key tiles, S formed once over all 256 columns), "
+        f"f32 {fa_lib.repro_flash_attention_smem_bytes(0, 256, 64)} B; backward bf16 dk/dv "
         f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(0, 256)} B, dq "
         f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 256)} B "
         f"({bwd_lib.repro_flash_attention_bwd_dq_tile(256, 0)}-row dq blocks, 64 rows a "
@@ -820,7 +845,9 @@ def phase_flash():
             (1, 4096, 32, 8, 128, bf16, 512),     # sliding window
             (1, 1024, 32, 8, 128, f32, None),
             (1, 1024, 32, 8, 120, bf16, None),    # h2o-danube head dim
-            (2, 1024, 32, 8, 64, bf16, None)]:
+            (2, 1024, 32, 8, 64, bf16, None),
+            (1, 4096, 1, 1, 256, bf16, None),     # a small grid: 64-row blocks
+            (1, 4096, 4, 1, 120, bf16, 700)]:     # the same, windowed
         q, k, v = flash_case(b, s, h, kv, dh, dtype)
         err, ratio = hold(f"[flash] B={b} S={s} H={h} KV={kv} dh={dh} {dtype} window={window}",
                           fa.flash_attention(q, k, v, causal=True, window=window),
@@ -832,12 +859,13 @@ def phase_flash():
     b, s, h, kv, dh = 1, 4096, 32, 8, 128
     q, k, v = flash_case(b, s, h, kv, dh, bf16, seed=1)
     want = ref.mha(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True)
     err, ratio = hold(f"[flash] main shape B={b} S={s} H={h} KV={kv} dh={dh} bf16 causal",
-                      fa.flash_attention(q, k, v, causal=True), want)
+                      got, want)
     worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-    tile = flash_tile()
-    ctrl = control(f"[flash] control: plain with the last {tile}-key tile dropped",
-                   ref.mha(q, k, v, causal=True, kv_valid_len=s - tile), want)
+    ctrl = min(control(f"[flash] control: {label}", fault, want)
+               for label, fault in flash_faults(q, k, v, got))
+    del got
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_ratio = ref.tolerance_ratio(lib.transpose(1, 2), want)
@@ -864,9 +892,9 @@ def bound(flops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
 
 def flash_times(q, k, v, tag: str) -> dict:
     """The bf16 flash kernel, its plain version and SDPA (the yardstick) on
-    causal q, k, v: CUDA events and device times, the bound, and the FLOPs
-    the kernel's tiles execute (derived from the library's tiles and column
-    parts, not measured)."""
+    causal q, k, v: CUDA events and device times and the bound. The FLOPs
+    the kernel's tiles execute (``flash_executed_flops``: derived, not
+    measured) go to the log only, never into the result."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -881,25 +909,31 @@ def flash_times(q, k, v, tag: str) -> dict:
     flops = 4 * pairs * dh                    # QK^T and PV, two FLOPs per multiply-add
     nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kv * dh)
     t.update(bound(flops, nbytes))
-    # every whole q x kv tile the kernel visits (q tile a multiple of the kv
-    # tile, so causal tiles end on the diagonal): S once for each column
-    # part, P.V twice (P split into a bf16 high and low part)
-    bq, bk = flash_q_tile(), flash_tile()
-    if bq % bk:
-        raise AssertionError(f"{tag} q tile {bq} not a multiple of the kv tile {bk}")
-    parts = fa.KERNEL.lib().repro_flash_attention_col_parts(dh)
-    kv_tiles = sum(-(-min(s, (i + 1) * bq) // bk) for i in range(-(-s // bq)))
-    executed = (parts + 2) * 2 * b * h * kv_tiles * bq * bk * dh
+    bq, bk = flash_q_tile(dh, b, s, h), flash_tile(dh)
+    executed = flash_executed_flops(b, s, h, dh)
     dev_ms = t["device_ms"] or t["ms"]
     log(f"{tag} {t['ms']:.3f} ms kernel, {t['plain_ms']:.3f} ms plain, {t['library_ms']:.3f} ms "
         f"sdpa (CUDA events; device time {t['device_ms']} / {t['plain_device_ms']} / "
         f"{t['library_device_ms']}), bound {t['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP "
         f"needed, {nbytes / 1e6:.1f} MB); {flops / dev_ms / 1e9:.1f} TFLOP/s needed, "
         f"{100 * t['bound_ms'] / dev_ms:.1f} % of the bound (device time)")
-    log(f"{tag} derived from the kernel's {bq}x{bk} tiles, S once for each of {parts} column "
-        f"part(s) and P.V twice, not measured: {executed / 1e9:.1f} GFLOP on the tensor cores, "
-        f"{executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
+    log(f"{tag} derived from the kernel's {bq}-row blocks and {bk}-key tiles, S once and P.V "
+        f"twice over the padded head dim, not measured: {executed / 1e9:.1f} GFLOP on the tensor "
+        f"cores ({executed / flops:.2f}x the needed), {executed / dev_ms / 1e9:.1f} TFLOP/s at "
+        f"the device time")
     return t
+
+
+def flash_executed_flops(b, s, h, dh) -> int:
+    """Derived, not measured: the tensor-core FLOPs of the bf16 flash forward
+    at a causal shape with no window: every (q block, KV tile) pair its
+    blocks visit (tiles from the library, dh padded to the kernel's 64, 128
+    or 256), each 6 dh_pad FLOP a (query, key) pair: S once, P.V twice (P
+    split into bf16 hi + lo)."""
+    bq, bk = flash_q_tile(dh, b, s, h), flash_tile(dh)
+    dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    tiles = sum(-(-min(s, (i + 1) * bq) // bk) for i in range(-(-s // bq)))
+    return 6 * b * h * tiles * bq * bk * dhp
 
 
 def upper_half_zeroed(t):
@@ -980,10 +1014,9 @@ def decode_times(q, kc, vc, valid, tag: str) -> dict:
 
 def flash_at(tag: str, b, s, h, kv, dh, seed) -> dict:
     """The bf16 flash kernel at one model's prefill shape (causal): held to
-    ``ref.mha``; planted faults must fail the same check: the last KV tile
-    dropped and, at dh 256, the two of its column split (the output's columns
-    128-255 zeroed, S from the first 128 dims only); times beside the bound,
-    the plain version and SDPA."""
+    ``ref.mha``; planted faults of its design must fail the same check
+    (``flash_faults``) and, at dh 256, S from the first 128 dims only; times
+    beside the bound, the plain version and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -992,16 +1025,32 @@ def flash_at(tag: str, b, s, h, kv, dh, seed) -> dict:
     want = ref.mha(q, k, v, causal=True)
     got = fa.flash_attention(q, k, v, causal=True)
     err, ratio = hold(f"{tag} {shape}", got, want)
-    tile = flash_tile()
-    faults = [(f"plain with the last {tile}-key tile dropped",
-               ref.mha(q, k, v, causal=True, kv_valid_len=s - tile))]
+    faults = flash_faults(q, k, v, got)
     if dh == 256:
-        faults += [("the kernel's output with columns 128-255 zeroed", upper_half_zeroed(got)),
-                   ("plain with S from the first 128 dims only",
-                    ref.mha(upper_half_zeroed(q), k, v, causal=True, scale=dh ** -0.5))]
+        faults.append(("plain with S from the first 128 dims only",
+                       ref.mha(upper_half_zeroed(q), k, v, causal=True, scale=dh ** -0.5)))
     ctrl = min(control(f"{tag} control: {label}", fault, want) for label, fault in faults)
     return {"shape": shape, "max_abs_err": err, "tolerance_ratio": ratio, "control_ratio": ctrl,
             **flash_times(q, k, v, tag)}
+
+
+def flash_faults(q, k, v, got) -> list:
+    """The planted faults of the bf16 flash forward's design at a causal
+    call: the last KV tile dropped (the plain version), and the kernel's
+    output with rows 64-127 of every 128-row q tile zeroed (a consumer
+    warpgroup dropped) and with its last 64-column panel zeroed.  Tiles from
+    the library.  Returns [(label, output)]."""
+    import torch
+    from repro_torch.kernels import ref
+    tile = flash_tile(q.shape[-1])
+    rows = got.clone()
+    rows[:, torch.arange(got.shape[1], device=got.device) % 128 >= 64] = 0
+    panel = got.clone()
+    panel[..., (got.shape[-1] - 1) // 64 * 64:] = 0
+    return [(f"plain with the last {tile}-key tile dropped",
+             ref.mha(q, k, v, causal=True, kv_valid_len=k.shape[1] - tile)),
+            ("the kernel's output with rows 64-127 of every 128-row q tile zeroed", rows),
+            ("the kernel's output with its last 64-column panel zeroed", panel)]
 
 
 def flash_bwd_at(tag: str, b, s, h, kv, dh, seed) -> dict:
@@ -1465,15 +1514,13 @@ def moe_prefill_depth2(cfg2, p2, tokens, tag: str) -> dict:
     rel, rel_all = position_rel_rms(got[agree], want_a), position_rel_rms(got, want)
     del got
     shifted = position_rel_rms(run(shifted_heads_ops())[0][agree], want_a)
-    tile = flash_tile()
-    dropped = position_rel_rms(run(swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
-        q, k, v, kv_valid_len=k.shape[1] - tile, **kw)))[0][agree], want_a)
+    dropped = position_rel_rms(run(swapped_ops(mha=last_tile_dropped))[0][agree], want_a)
     log(f"[{tag}] depth 2, full width, {tokens.shape[1]} positions: routed (token, k) choices "
         f"through the kernels that the plain versions did not make {100 * flips:.4f} % (limit "
         f"{100 * MOE_FLIP_LIMIT:.0f} %); {n_agree} positions route alike at both layers; "
         f"worst relative RMS of the logits over those, kernels vs plain {rel:.3g} (limit "
         f"{MODEL_LIMIT}; over all positions {rel_all:.3g}, reported); controls over the same "
-        f"positions: heads shifted {shifted:.3g}, last {tile}-key tile dropped {dropped:.3g} "
+        f"positions: heads shifted {shifted:.3g}, last KV tile dropped {dropped:.3g} "
         f"(both must exceed the limit)")
     if not (flips <= MOE_FLIP_LIMIT and rel <= MODEL_LIMIT < min(shifted, dropped)):
         raise AssertionError(f"depth-2 MoE prefill: flips {flips}, kernels {rel}, controls "
@@ -1516,12 +1563,10 @@ def hybrid_prefill_check(cfg8, p8, tokens, tag: str) -> dict:
     flips, _ = routing_agreement(cfg8, r_own, r_got)
     rel = position_rel_rms(got, want)
     del got
-    tile = flash_tile()
     faults = {}
     for key, ctx in (("chunks_independent", lambda: swapped_ops(ssd=ssd_chunks_independent)),
                      ("shifted_heads", shifted_heads_ops),
-                     ("tile_dropped", lambda: swapped_ops(mha=lambda q, k, v, **kw: ref.mha(
-                         q, k, v, kv_valid_len=k.shape[1] - tile, **kw)))):
+                     ("tile_dropped", lambda: swapped_ops(mha=last_tile_dropped))):
         with plain_ops(), ctx(), replayed_routing(r_got):
             faults[key] = position_rel_rms(logits(), want)
     log(f"[{tag}] {cfg8.n_layers} layers, full width, {tokens.shape[1]} positions, the plain "
@@ -1530,7 +1575,7 @@ def hybrid_prefill_check(cfg8, p8, tokens, tag: str) -> dict:
         f"worst position's relative RMS of the logits, kernels vs plain {rel:.3g} (limit "
         f"{MODEL_LIMIT}); controls on the plain versions: every chunk's entering state "
         f"dropped {faults['chunks_independent']:.3g}, kv heads shifted "
-        f"{faults['shifted_heads']:.3g} (each must exceed the limit), last {tile}-key tile "
+        f"{faults['shifted_heads']:.3g} (each must exceed the limit), last KV tile "
         f"dropped {faults['tile_dropped']:.3g} (reported)")
     log(f"[{tag}] routed freely (reported): choices that differ {100 * flips_free:.4f} %, "
         f"{int(agree.sum())} positions route alike at every MoE layer, worst relative RMS over "
@@ -1688,9 +1733,8 @@ def phase_prefill(cfg, params, tag: str = "prefill", prefix: str = ""):
     with plain_ops():
         want = all_logits()
     rel = position_rel_rms(got, want)
-    tile = flash_tile()
-    faults = {"tile_dropped": (f"last {tile}-key tile dropped", lambda: swapped_ops(
-        mha=lambda q, k, v, **kw: ref.mha(q, k, v, kv_valid_len=k.shape[1] - tile, **kw)))}
+    faults = {"tile_dropped": ("last KV tile dropped",
+                               lambda: swapped_ops(mha=last_tile_dropped))}
     if cfg.n_kv_heads > 1:  # with one kv head, shifting the kv heads is the identity
         faults["shifted_heads"] = ("heads shifted", shifted_heads_ops)
     if cfg.family == "vlm":

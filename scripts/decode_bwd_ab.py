@@ -13,16 +13,15 @@ softmax statistics itself, from (q, k, v, valid, do, dq, dk, dv, m_p, l_p,
 t_p, dq_p, dtype, B, C, H, KV, dh, strides, scale, device, stream), its
 scratch sized by ``repro_decode_bwd_num_splits(C)``.  The current kernel
 takes the forward's residuals, made once a shape by the forward kernel's
-residual mode and not timed with it.  Both are built from the same
-``common.cuh``.  With ``--target-blocks N`` the current source is built a
-second time with its split rule aiming at N blocks in place of
-TARGET_BLOCKS (132, one an SM; 264, two an SM, takes paligemma-3b's decode
-to 64-slot splits where 132 gives it 128), and that build ("target") is
-timed beside the current one.  Each round runs old, new, [target, target,] new, old, and
-the forward kernel
-without and with its residuals (plain, residuals, residuals, plain); each
-reading is torch.profiler's device time a call over ``--iters`` calls (each
-kernel's share beside it).
+residual mode and not timed with it.  The earlier source is built beside
+the headers of its own ``csrc``.  With ``--target-blocks N`` the current
+source is built a second time with its split rule aiming at N blocks in
+place of TARGET_BLOCKS (132, one an SM; 264, two an SM, takes paligemma-3b's
+decode to 64-slot splits where 132 gives it 128), and that build ("target")
+is timed beside the current one.  Each round runs old, new, [target,
+target,] new, old, and the forward kernel without and with its residuals
+(plain, residuals, residuals, plain); each reading is torch.profiler's
+device time a call over ``--iters`` calls (each kernel's share beside it).
 Both backwards are held to the plain version's autograd by
 ``ref.grad_tolerance_ratio`` <= 1 first.  Prints one line a reading, the
 medians, a JSON line and the card's ``nvidia-smi`` name and power limit.
@@ -33,8 +32,6 @@ import argparse
 import ctypes
 import json
 import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -45,41 +42,14 @@ SHAPES = (("llama3-8b", 8, 4096, 32, 8, 128), ("paligemma-3b", 8, 4096, 8, 1, 25
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def old_kernel(path: Path):
-    """A CudaKernel of the earlier source at ``path``, under another name."""
-    from repro_torch.kernels import _build
-    src = _build.BUILD_DIR / "decode_attention_bwd_old.cu"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(path.read_text())
-
-    class Old(_build.CudaKernel):
-        @property
-        def source(self) -> Path:
-            return src
-
-    return Old("decode_attention_bwd_old", {
-        "repro_decode_attention_bwd": [_P] * 12 + [_I] * 6 + [_P, _F, _I, _P],
-        "repro_decode_bwd_num_splits": [_I]})
-
-
-def target_kernel(kernel, blocks: int):
-    """A CudaKernel of ``kernel``'s source whose split rule aims at ``blocks``."""
-    from repro_torch.kernels import _build
+def target_text(kernel, blocks: int) -> str:
+    """``kernel``'s source with its split rule aiming at ``blocks``."""
     line = "constexpr int TARGET_BLOCKS = "
     text = kernel.source.read_text()
     if text.count(line) != 1:
         raise RuntimeError(f"{kernel.source}: expected one '{line}'")
     head, tail = text.split(line)
-    src = _build.BUILD_DIR / f"decode_attention_bwd_target{blocks}.cu"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(head + line + f"{blocks};" + tail.split(";", 1)[1])
-
-    class Target(_build.CudaKernel):
-        @property
-        def source(self) -> Path:
-            return src
-
-    return Target(f"decode_attention_bwd_target{blocks}", kernel.signatures)
+    return head + line + f"{blocks};" + tail.split(";", 1)[1]
 
 
 def old_call(lib, q, kc, vc, valid, do):
@@ -122,12 +92,17 @@ def main(argv=None) -> int:
         print("decode_bwd_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from _ab import build_of, card_line, read_rounds, with_lib
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import decode_attention_bwd as dab
 
-    old = old_kernel(args.old_source)
-    target = target_kernel(dab.KERNEL, args.target_blocks) if args.target_blocks else None
+    old = build_of(args.old_source, "decode_attention_bwd_old", {
+        "repro_decode_attention_bwd": [_P] * 12 + [_I] * 6 + [_P, _F, _I, _P],
+        "repro_decode_bwd_num_splits": [_I]})
+    target = build_of(dab.KERNEL.source, f"decode_attention_bwd_target{args.target_blocks}",
+                      dab.KERNEL.signatures, target_text(dab.KERNEL, args.target_blocks)
+                      ) if args.target_blocks else None
     secs = _build.build_all([da.KERNEL, dab.KERNEL, old] + ([target] if target else []))
     print(f"built in {secs:.1f} s", flush=True)
     for label, k in (("new", dab.KERNEL), ("old", old)):
@@ -135,15 +110,6 @@ def main(argv=None) -> int:
             print(f"[{label}] {fn}: {res}", flush=True)
     old_lib, new_lib = old.lib(), dab.KERNEL.lib()
     target_lib = target.lib() if target else None
-
-    def with_lib(lib, fn):  # the wrapper's call through another build of its library
-        def call():
-            dab.KERNEL._lib = lib
-            try:
-                return fn()
-            finally:
-                dab.KERNEL._lib = new_lib
-        return call
     bf16 = torch.bfloat16
     result = {}
     for tag, b, c, h, kv, dh in SHAPES:
@@ -155,7 +121,7 @@ def main(argv=None) -> int:
                  "fwd": lambda: da.decode_attention(q, kc, vc, valid),
                  "fwd_residuals": lambda: da.decode_attention(q, kc, vc, valid, residuals=True)}
         if target_lib is not None:
-            calls["target"] = with_lib(target_lib, new)
+            calls["target"] = with_lib(dab.KERNEL, target_lib, new)
             print(f"[{tag}] splits: {new_lib.repro_decode_bwd_split(b, c, kv, dh)} slots, "
                   f"target {target_lib.repro_decode_bwd_split(b, c, kv, dh)}", flush=True)
         want = ref.decode_attention_bwd(q, kc, vc, valid, do)
@@ -166,18 +132,11 @@ def main(argv=None) -> int:
             if not max(r) <= 1:
                 raise AssertionError(f"{tag}: the {label} kernel disagrees with the plain version")
         del want
-        readings = {label: [] for label in calls}
-        for rnd in range(args.rounds):
-            mid = ["target", "target"] if target_lib is not None else []
-            for label in ["old", "new", *mid, "new", "old", "fwd", "fwd_residuals",
-                          "fwd_residuals", "fwd"]:
-                per = cs.device_ms_by_kernel(calls[label], args.iters)
-                ms = sum(per.values())
-                readings[label].append(ms)
-                parts = ", ".join(f"{(re.findall(r'decode_\w+', k) or [k[:24]])[0]} {v:.5f}"
-                                  for k, v in per.items())
-                print(f"[{tag}] round {rnd} {label:13s} {ms:.5f} ms ({parts})", flush=True)
-        med = {label: statistics.median(r) for label, r in readings.items()}
+        mid = ["target", "target"] if target_lib is not None else []
+        readings, med = read_rounds(
+            tag, calls, ["old", "new", *mid, "new", "old", "fwd", "fwd_residuals",
+                         "fwd_residuals", "fwd"], args.rounds, args.iters,
+            parts=lambda k: (re.findall(r"decode_\w+", k) or [k[:24]])[0], width=13, digits=5)
         print(f"[{tag}] median device ms a call: old {med['old']:.5f}, new {med['new']:.5f} "
               f"(old / new {med['old'] / med['new']:.3f}); forward {med['fwd']:.5f}, with its "
               f"residuals {med['fwd_residuals']:.5f} "
@@ -187,9 +146,7 @@ def main(argv=None) -> int:
         del q, kc, vc, do, lse, o32
         torch.cuda.empty_cache()
     print(json.dumps(result))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip())
+    print(card_line())
     return 0
 
 

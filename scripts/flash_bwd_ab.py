@@ -8,13 +8,13 @@ its source, at the training shapes of the models whose backward it runs.
 Run from the root of the repository on a machine with an NVIDIA GPU and
 nvcc.  PATH is ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu`` of an
 earlier commit (for instance from ``git archive`` of it, unpacked under
-``build/``) whose C interface is the mma.sync kernel's: (q, k, v, o, do, lse,
-delta, dq, dk, dv, dtype, B, Sq, Sk, H, KV, dh, strides, scale, causal,
-window, q_offset, device, stream), its ``delta`` scratch [B, H, Sq] f32.  Each
+``build/``, beside the headers of its own ``csrc``) whose C interface is the
+mma.sync kernel's: (q, k, v, o, do, lse, delta, dq, dk, dv, dtype, B, Sq,
+Sk, H, KV, dh, strides, scale, causal, window, q_offset, device, stream),
+its ``delta`` scratch [B, H, Sq] f32.  Each
 ``--extra`` is another build of a source with the current interface (a
-variant under study), timed beside the current one as NAME.  All are built
-from the same ``common.cuh`` and ``hopper.cuh``.  Every build is first held
-to the plain version ``ref.mha_bwd`` by ``ref.grad_tolerance_ratio`` <= 1 at
+variant under study, headers beside it too), timed beside the current one
+as NAME.  Every build is first held to the plain version ``ref.mha_bwd`` by ``ref.grad_tolerance_ratio`` <= 1 at
 each shape, the forward's o and lse from the flash kernel; then each round
 runs old, new, the extras, new, old, each reading torch.profiler's device
 time a call over ``--iters`` calls, with each kernel's share.  Prints one
@@ -27,8 +27,6 @@ import argparse
 import ctypes
 import json
 import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -40,21 +38,6 @@ SHAPES = (("paligemma-3b", 1, 4096, 8, 1, 256), ("gemma-7b", 1, 4096, 16, 16, 25
           ("h2o-danube-3-4b", 1, 4096, 32, 8, 120), ("seamless-m4t-medium", 2, 4096, 16, 16, 64),
           ("h2o-danube-3-4b-pipeline", 1, 2048, 32, 8, 120))
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def build_of(path: Path, name: str, signatures: dict):
-    """A CudaKernel of the source at ``path``, under another name."""
-    from repro_torch.kernels import _build
-    src = _build.BUILD_DIR / f"{name}.cu"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(path.read_text())
-
-    class Other(_build.CudaKernel):
-        @property
-        def source(self) -> Path:
-            return src
-
-    return Other(name, signatures)
 
 
 def old_call(lib, q, k, v, o, lse, do):
@@ -92,6 +75,7 @@ def main(argv=None) -> int:
         print("flash_bwd_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from _ab import build_of, card_line, read_rounds, with_lib
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -112,15 +96,6 @@ def main(argv=None) -> int:
                 print(f"[{label}] {fn}: {res}", flush=True)
     new_lib = fab.KERNEL.lib()
 
-    def with_lib(lib, fn):  # the wrapper's call through another build of its library
-        def call():
-            fab.KERNEL._lib = lib
-            try:
-                return fn()
-            finally:
-                fab.KERNEL._lib = new_lib
-        return call
-
     wanted = set(args.shapes.split(",")) if args.shapes else None
     bf16 = torch.bfloat16
     result = {}
@@ -132,7 +107,7 @@ def main(argv=None) -> int:
         o, lse = fa.flash_attention(q, k, v, return_lse=True)
         new = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
         calls = {"old": lambda: old_call(old.lib(), q, k, v, o, lse, do), "new": new}
-        calls.update({name: with_lib(x.lib(), new) for name, x in extras.items()})
+        calls.update({name: with_lib(fab.KERNEL, x.lib(), new) for name, x in extras.items()})
         print(f"[{tag}] B={b} S={s} H={h} KV={kv} dh={dh}: head parts "
               f"{new_lib.repro_flash_attention_bwd_head_parts(b, s, kv, h // kv)}", flush=True)
         want = ref.mha_bwd(q, k, v, o, lse, do)
@@ -144,18 +119,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{tag}: the {label} kernel disagrees with the plain version")
         del want
         torch.cuda.empty_cache()
-        readings = {label: [] for label in calls}
-        order = ["old", "new", *extras, "new", "old"]
-        for rnd in range(args.rounds):
-            for label in order:
-                per = cs.device_ms_by_kernel(calls[label], args.iters)
-                ms = sum(per.values())
-                readings[label].append(ms)
-                parts = ", ".join(
-                    f"{(re.findall(r'(?:delta|dkdv|dq|head_sum)_kernel', k_) or [k_[:24]])[0]} "
-                    f"{v_:.4f}" for k_, v_ in per.items())
-                print(f"[{tag}] round {rnd} {label:8s} {ms:.4f} ms ({parts})", flush=True)
-        med = {label: statistics.median(r) for label, r in readings.items()}
+        readings, med = read_rounds(
+            tag, calls, ["old", "new", *extras, "new", "old"], args.rounds, args.iters,
+            parts=lambda k_: (re.findall(r"(?:delta|dkdv|dq|head_sum)_kernel", k_)
+                              or [k_[:24]])[0])
         print(f"[{tag}] median device ms a call: old {med['old']:.4f}, new {med['new']:.4f} "
               f"(old / new {med['old'] / med['new']:.3f})"
               + "".join(f"; {n} {med[n]:.4f}" for n in extras), flush=True)
@@ -163,9 +130,7 @@ def main(argv=None) -> int:
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     print(json.dumps(result))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip())
+    print(card_line())
     return 0
 
 

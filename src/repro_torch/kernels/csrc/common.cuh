@@ -1,9 +1,9 @@
 // Helpers shared by the kernels: vector loads of four f32 elements, the
 // stores back to the input type, 16- and 4-byte asynchronous copies into
-// shared memory, the attention kernels' head-dim tiles, and the bf16
-// tensor-core building blocks of the flash forward and backward kernels
-// (ldmatrix, mma.sync m16n8k16, A B^T from two shared tiles, the hi + lo
-// split of an f32 operand, padded bf16 tiles filled by cp.async).
+// shared memory, the attention kernels' head-dim tiles and mask, and the bf16
+// tensor-core building blocks of the attention kernels (ldmatrix, mma.sync
+// m16n8k16, the hi + lo split of an f32 operand and of an accumulator into
+// the A fragments of the next product).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +21,13 @@ enum ReproDtype { REPRO_F32 = 0, REPRO_BF16 = 1 };
 #define REPRO_MAX_HEAD_DIM 256
 __host__ __device__ constexpr int head_dim_tile(int dh) {
     return dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= REPRO_MAX_HEAD_DIM ? 256 : 0;
+}
+
+// Whether query position qpos sees key under the plain version's mask (key
+// < Sk, causal, a window of `window` keys; window <= 0: none), with no
+// short-circuit: a select, not a branch, in an unrolled loop.
+__device__ __forceinline__ bool visible_sel(int key, int qpos, int Sk, int causal, int window) {
+    return (key < Sk) & (!causal | (key <= qpos)) & ((window <= 0) | (key > qpos - window));
 }
 
 // Four consecutive f32 elements; the wrapper checks that every row it
@@ -116,51 +123,4 @@ __device__ __forceinline__ void acc_to_a_split(const float (&c)[N][4], int t, ui
     split_bf16(c[2 * t][2], c[2 * t][3], hi[1], lo[1]);
     split_bf16(c[2 * t + 1][0], c[2 * t + 1][1], hi[2], lo[2]);
     split_bf16(c[2 * t + 1][2], c[2 * t + 1][3], hi[3], lo[3]);
-}
-
-// c[j] = A B_j^T for the NS 8-row n-tiles j: A 16 rows by KS 16-column
-// k-steps of a shared bf16 tile read by `ldmatrix` from `a` (this lane's
-// address of k-step 0), B_j rows [8 j, 8 j + 8) of another read from `b`
-// (this lane's address of n-tile 0, k-step 0), both at row stride LDS
-template <int KS, int NS, int LDS, int UNROLL = KS>
-__device__ __forceinline__ void mma_abt(float (&c)[NS][4], uint32_t a, uint32_t b) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll UNROLL
-    for (int ks = 0; ks < KS; ++ks) {
-        uint32_t af[4];
-        ldsm4(af, a + 32 * ks);
-#pragma unroll
-        for (int j = 0; j < NS; j += 2) {  // n-tiles j and j + 1: b0, b1 of j, then of j + 1
-            uint32_t bf[4];
-            ldsm4(bf, b + 2 * (j * 8 * LDS + ks * 16));
-            mma_bf16(c[j], af, bf[0], bf[1]);
-            mma_bf16(c[j + 1], af, bf[2], bf[3]);
-        }
-    }
-}
-
-// Rows [row0, row0 + ROWS) of a [rows, dh] bf16 matrix -> a padded shared
-// tile [ROWS][bf16_lds<DHP>()] by NT threads, 16 bytes a copy; rows at or
-// past `nrows` and columns at or past dh are zero-filled.  A thread copies
-// one column chunk of rows NT / (DHP / 8) apart, from one row address.  The
-// caller commits the group.
-template <int DHP, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int64_t row_stride, int row0, int nrows, int dh,
-                                               int tid) {
-    constexpr int CPR = DHP / 8;      // 16-byte chunks per row
-    constexpr int RSTEP = NT / CPR;   // rows apart of one thread's chunks
-    static_assert(NT % CPR == 0 && ROWS % RSTEP == 0, "whole rows per pass");
-    const int r0 = tid / CPR, c = (tid % CPR) * 8;
-    const __nv_bfloat16* p = src + (int64_t)(row0 + r0) * row_stride + c;
-    const uint32_t d = smem_addr(dst + r0 * bf16_lds<DHP>() + c);
-#pragma unroll
-    for (int j = 0; j < ROWS / RSTEP; ++j) {
-        const bool ok = row0 + r0 + j * RSTEP < nrows && c < dh;
-        cp_async16(d + 2 * j * RSTEP * bf16_lds<DHP>(), ok ? p + j * RSTEP * row_stride : src,
-                   ok);
-    }
 }

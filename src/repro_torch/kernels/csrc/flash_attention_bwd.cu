@@ -139,11 +139,6 @@ __device__ __forceinline__ bool visible(int key, int qpos, int Sk, int causal, i
     return key < Sk && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
 }
 
-// The same with no short-circuit: a select, not a branch, in an unrolled loop
-__device__ __forceinline__ bool visible_sel(int key, int qpos, int Sk, int causal, int window) {
-    return (key < Sk) & (!causal | (key <= qpos)) & ((window <= 0) | (key > qpos - window));
-}
-
 // delta[(b * H + h) * Sq + i] = sum_d do[b,i,h,d] * o[b,i,h,d]; one warp per row
 template <typename T>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,

@@ -18,10 +18,10 @@ from repro_torch.kernels._build import CudaKernel, check_cuda_tensor
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("flash_attention", {
     "repro_flash_attention_fwd": [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _I, _I, _P],
-    "repro_flash_attention_smem_bytes": [_I, _I],
-    "repro_flash_attention_kv_tile": [_I],
-    "repro_flash_attention_q_tile": [_I],
-    "repro_flash_attention_col_parts": [_I],
+    "repro_flash_attention_smem_bytes": [_I, _I, _I],
+    "repro_flash_attention_kv_tile": [_I, _I],
+    "repro_flash_attention_q_tile": [_I] * 5,
+    "repro_flash_attention_regs": [_I, _I, _I],
 })
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head dim this kernel is instantiated for (tiles 64, 128, 256 wide)

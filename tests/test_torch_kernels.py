@@ -128,12 +128,11 @@ def test_bf16_tolerance_admits_reordering_and_rejects_planted_faults(kind):
 
 
 def _mha_rounding_p(q, k, v, p_rounding, *, window=None, block_k=64):
-    """Causal attention computed as the bf16 CUDA flash kernel computes it:
-    KV tiles of ``block_k`` keys, scores, softmax statistics and sums in f32,
-    and P rounded by ``p_rounding`` before P.V.  Products of two bf16 values
-    are exact in f32, so the tensor cores' products are the f32 ones here.
-    At dh 256 the kernel gives each half of the output columns to its own
-    warp, both computing the same S: every element's sums are the ones here."""
+    """Causal attention with P rounded as the bf16 CUDA flash kernel rounds
+    it: KV tiles of ``block_k`` keys, scores, softmax statistics and sums in
+    f32, and P rounded by ``p_rounding`` before P.V.  Products of two bf16
+    values are exact in f32, so the tensor cores' products are the f32 ones
+    here; ``_mha_wgmma_sums`` takes the kernel's order of sums too."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     q5 = q.reshape(b, s, kvh, h // kvh, dh).float()
@@ -177,10 +176,115 @@ def test_flash_kernel_p_split_holds_the_bf16_tolerance(dh, window):
     (``tolerance_ratio`` <= 1), where P rounded once to bf16 does not."""
     q, k, v = _bf16(*_qkv(1, 512, 512, 8, 2, dh, seed=4))
     want = tref.mha(q, k, v, causal=True, window=window)
-    split = tref.tolerance_ratio(_mha_rounding_p(q, k, v, _p_hi_lo, window=window), want)
-    once = tref.tolerance_ratio(_mha_rounding_p(q, k, v, _p_bf16_once, window=window), want)
+    bk = _flash_fwd_tiles(1, 512, 8, dh)[1]
+    split = tref.tolerance_ratio(_mha_rounding_p(q, k, v, _p_hi_lo, window=window, block_k=bk),
+                                 want)
+    once = tref.tolerance_ratio(_mha_rounding_p(q, k, v, _p_bf16_once, window=window,
+                                                block_k=bk), want)
     assert split <= 1, split
     assert once > 1, once
+
+
+def _flash_fwd_tiles(b, sq, h, dh):
+    """The bf16 flash forward's tiles at a call's shape (csrc/flash_attention.cu,
+    ``wg::consumer_groups`` and ``wg::kv_tile``): (q rows a block, keys a KV
+    tile, blocks).  Blocks of 128 rows (two consumer warpgroups), or of 64
+    (one) where a grid of 128-row blocks would not fill one wave of an
+    H100's 132 SMs; KV tiles of 128 keys up to dh 128, 64 above."""
+    rows = 64 if b * h * -(-sq // 128) < 132 else 128
+    return rows, 64 if dh > 128 else 128, b * h * -(-sq // rows)
+
+
+def test_flash_fwd_tiles_follow_the_shape():
+    """The prefill shapes (B=1, S=4096) take 128-row blocks, 128-key tiles up
+    to dh 128 and 64-key tiles at 256; the model-axis shares of a few heads
+    take 64-row blocks (grids of 128 and 32 128-row blocks would leave SMs
+    idle)."""
+    assert _flash_fwd_tiles(1, 4096, 32, 128) == (128, 128, 1024)  # llama3-8b
+    assert _flash_fwd_tiles(1, 4096, 16, 256) == (128, 64, 512)    # gemma-7b
+    assert _flash_fwd_tiles(1, 4096, 8, 256) == (128, 64, 256)     # paligemma-3b
+    assert _flash_fwd_tiles(1, 4096, 16, 64) == (128, 128, 512)    # seamless decoder
+    assert _flash_fwd_tiles(1, 4096, 32, 120) == (128, 128, 1024)  # h2o-danube-3-4b
+    assert _flash_fwd_tiles(1, 4096, 4, 120) == (64, 128, 256)     # shares: danube,
+    assert _flash_fwd_tiles(2, 4096, 2, 64) == (64, 128, 256)      # granite,
+    assert _flash_fwd_tiles(1, 4096, 1, 256) == (64, 64, 64)       # paligemma
+    assert _flash_fwd_tiles(1, 8448, 2, 128) == (128, 128, 132)    # 132 blocks fill a wave,
+    assert _flash_fwd_tiles(1, 8320, 2, 128) == (64, 128, 260)     # 130 do not
+
+
+def _trunc_f32(x):
+    """f64 -> f32 rounded toward zero, as the tensor cores add into an f32
+    accumulator."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mha_wgmma_sums(q, k, v, *, window=None, drop_rows=False):
+    """Causal attention summed as the bf16 `wgmma` forward sums it: KV tiles of
+    its width (``_flash_fwd_tiles``), S in f32, P = exp2(S c - m c) with c =
+    scale log2(e) and m each row's running max, P split into bf16 hi + lo,
+    and O rescaled by alpha a tile, then added into by the tensor cores one
+    16-key step at a time, hi then lo: each step's 16 products summed exactly
+    (f64) and added into the f32 O rounded toward zero.  ``drop_rows``
+    plants a fault: rows 64-127 of every 128-row q tile never written (a
+    consumer warpgroup dropped)."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    bk = _flash_fwd_tiles(b, s, h, dh)[1]
+    c = torch.tensor(dh ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    q5 = q.reshape(b, s, kvh, h // kvh, dh).float()
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, kvh, h // kvh, s), tref.NEG_INF)
+    l = torch.zeros((b, kvh, h // kvh, s))
+    o = torch.zeros((b, kvh, h // kvh, s, dh))
+    qi = torch.arange(s)
+    for k0 in range(0, s, bk):
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", q5, kf[:, k0:k0 + bk])
+        ki = k0 + torch.arange(sc.shape[-1])
+        sc = torch.where(tref._block_mask(qi, ki, causal=True, window=window), sc, tref.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        mc = torch.where(m_new == tref.NEG_INF, 0.0, m_new * c)
+        p = torch.exp2(sc * c - mc[..., None])
+        alpha = torch.exp2(m * c - mc)
+        l = l * alpha + p.sum(-1)
+        m = m_new
+        o = o * alpha[..., None]
+        for t0 in range(0, sc.shape[-1], 16):
+            vt = vf[:, k0 + t0:k0 + t0 + 16].double()
+            for part in _p_hi_lo(p[..., t0:t0 + 16]):
+                step = torch.einsum("bgrqk,bkgd->bgrqd", part.double(), vt)
+                o = _trunc_f32(o.double() + step)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    if drop_rows:
+        out[..., torch.arange(s) % 128 >= 64, :] = 0
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("dh,window,s", [(64, None, 512), (64, 100, 512), (120, None, 512),
+                                         (120, 100, 512), (128, None, 2048), (128, 100, 512),
+                                         (256, None, 512), (256, 100, 512)])
+def test_flash_kernel_order_of_sums_holds_the_bf16_tolerance(dh, window, s):
+    """The bf16 `wgmma` forward's sums (its KV tiles, P split hi + lo, O
+    rescaled a tile and added into by the tensor cores 16 keys at a time,
+    rounding toward zero) keep its output within one bf16 ulp of
+    ``ref.mha`` (``tolerance_ratio`` <= 1), over 2048 keys at dh 128; the
+    planted faults of its design do not: rows 64-127 of every 128-row q tile
+    zeroed (a consumer warpgroup dropped), the last 64-column panel zeroed,
+    the last KV tile dropped."""
+    h, kv = (2, 1) if s > 512 else (8, 2)
+    q, k, v = _bf16(*_qkv(1, s, s, h, kv, dh, seed=5))
+    want = tref.mha(q, k, v, causal=True, window=window)
+    got = _mha_wgmma_sums(q, k, v, window=window)
+    assert tref.tolerance_ratio(got, want) <= 1
+    assert tref.tolerance_ratio(_mha_wgmma_sums(q, k, v, window=window, drop_rows=True),
+                                want) > 1
+    panel = got.clone()
+    panel[..., (dh - 1) // 64 * 64:] = 0
+    assert tref.tolerance_ratio(panel, want) > 1
+    bk = _flash_fwd_tiles(1, s, h, dh)[1]
+    dropped = tref.mha(q, k, v, causal=True, window=window, kv_valid_len=s - bk)
+    assert tref.tolerance_ratio(dropped, want) > 1
 
 
 def _mha_bwd_rounding(q, k, v, o, lse, do, roundings, *, window=None):

@@ -52,7 +52,8 @@ def _randn(shape, dtype, dev, gen, scale=0.5):
     (1, 96, 96, 8, 8, 120, torch.float32, True, 40, 0),
     (2, 200, 200, 4, 2, 64, torch.float32, False, None, 0),      # not causal
     (1, 64, 320, 4, 1, 128, torch.float32, True, None, 256),     # q_offset
-    # bf16 tensor-core kernel (64-row q tiles, 64-key KV tiles) at its tile edges
+    # bf16 wgmma kernel (128-row blocks of two 64-row warpgroups, 128-key KV
+    # tiles up to dh 128, 64 at 256) at its tile edges
     (1, 1, 1, 8, 2, 128, torch.bfloat16, True, None, 0),
     (1, 63, 63, 8, 2, 128, torch.bfloat16, True, None, 0),
     (1, 65, 65, 8, 2, 64, torch.bfloat16, True, None, 0),
@@ -65,8 +66,12 @@ def _randn(shape, dtype, dev, gen, scale=0.5):
     (2, 512, 512, 32, 8, 128, torch.bfloat16, True, None, 0),    # llama3-8b heads
     (2, 200, 200, 8, 2, 64, torch.bfloat16, False, None, 0),     # not causal
     (1, 130, 257, 8, 2, 120, torch.bfloat16, False, None, 0),    # not causal, Sq != Sk
-    # the 256-wide tiles (gemma-7b: 16 heads on 16 kv heads, dh 256): 8 warps,
-    # two to a row group, each owning 128 output columns
+    # Sq and q_offset not multiples of 128 (nor of 64)
+    (1, 200, 450, 8, 2, 128, torch.bfloat16, True, None, 250),
+    (2, 333, 333, 4, 2, 64, torch.bfloat16, True, 129, 0),
+    (1, 190, 317, 8, 2, 256, torch.bfloat16, True, None, 127),
+    # the 256-wide tiles (gemma-7b: 16 heads on 16 kv heads, dh 256): S formed
+    # once over all 256 columns, 64-key KV tiles
     (1, 256, 256, 16, 16, 256, torch.bfloat16, True, None, 0),
     (2, 1000, 1000, 8, 2, 256, torch.bfloat16, True, None, 0),   # ragged S, GQA
     (1, 512, 512, 8, 2, 256, torch.bfloat16, True, 100, 0),      # window
@@ -83,6 +88,13 @@ def _randn(shape, dtype, dev, gen, scale=0.5):
     (1, 1000, 1000, 8, 1, 256, torch.bfloat16, True, None, 0),   # ragged S, rep 8
     (1, 100, 333, 8, 1, 256, torch.bfloat16, True, 90, 233),     # window and q_offset, rep 8
     (1, 4096, 4096, 16, 16, 64, torch.bfloat16, True, None, 0),
+    # small grids (under one wave of 128-row blocks): 64-row blocks of one
+    # consumer warpgroup; paligemma-3b's model-axis share (one head on one
+    # kv head at dh 256), ragged, windowed, offset
+    (1, 4096, 4096, 1, 1, 256, torch.bfloat16, True, None, 0),
+    (1, 1000, 1000, 1, 1, 128, torch.bfloat16, True, None, 0),
+    (1, 190, 317, 2, 1, 256, torch.bfloat16, True, 64, 127),
+    (2, 4096, 4096, 2, 1, 64, torch.bfloat16, True, None, 0),
 ])
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, dh, dtype, causal, window,
                                     q_offset):
@@ -110,6 +122,42 @@ def test_flash_kernel_reads_strided_views(dev, dtype, s, dh):
     got = tfa.flash_attention(q, k, v)
     want = ref.mha(q, k, v)
     assert ref.tolerance_ratio(got, want) <= 1
+
+
+@pytest.mark.parametrize("dh", [64, 120, 256])
+def test_flash_kernel_rejects_planted_faults(dev, dh):
+    """The tolerance sees the faults of the bf16 forward's design: rows 64-127
+    of every 128-row q tile zeroed (a consumer warpgroup dropped), the last
+    64-column panel zeroed, and the last KV tile dropped (tiles from the
+    library)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (_randn((1, 1024, n, dh), torch.bfloat16, dev, gen) for n in (8, 2, 2))
+    got = tfa.flash_attention(q, k, v)
+    want = ref.mha(q, k, v)
+    assert ref.tolerance_ratio(got, want) <= 1
+    rows, panel = got.clone(), got.clone()
+    rows[:, torch.arange(1024, device=dev) % 128 >= 64] = 0
+    panel[..., (dh - 1) // 64 * 64:] = 0
+    tile = tfa.KERNEL.lib().repro_flash_attention_kv_tile(1, dh)
+    assert tile == (64 if dh > 128 else 128)
+    for fault in (rows, panel, ref.mha(q, k, v, kv_valid_len=1024 - tile)):
+        assert ref.tolerance_ratio(fault, want) > 1
+
+
+def test_flash_kernel_tiles_follow_the_shape(dev):
+    """The library's tiles at the main paths' shapes: 128-row blocks and
+    128-key tiles (64 at dh 256) at the prefills, 64-row blocks where a grid
+    of 128-row blocks would not fill one wave (the model-axis shares), as
+    tests/test_torch_kernels.py mirrors them."""
+    lib = tfa.KERNEL.lib()
+    for (b, s, h, dh), rows in (((1, 4096, 32, 128), 128), ((1, 4096, 16, 256), 128),
+                                ((1, 4096, 8, 256), 128), ((1, 4096, 16, 64), 128),
+                                ((1, 4096, 4, 120), 64), ((2, 4096, 2, 64), 64),
+                                ((1, 4096, 1, 256), 64), ((1, 8448, 2, 128), 128),
+                                ((1, 8320, 2, 128), 64)):
+        assert lib.repro_flash_attention_q_tile(1, dh, b, s, h) == rows, (b, s, h, dh)
+        assert lib.repro_flash_attention_kv_tile(1, dh) == (64 if dh > 128 else 128)
+    assert lib.repro_flash_attention_q_tile(0, 128, 1, 4096, 32) == 64  # f32
 
 
 # the backward kernels: bf16 64-key blocks walking 64-row q tiles of a part of
@@ -266,7 +314,9 @@ def test_flash_bwd_kernel_rejects_a_dropped_head_part(dev):
 @pytest.mark.parametrize("b,s,h,kv,dh,dtype,window", [
     (1, 1000, 32, 8, 120, torch.bfloat16, None), (1, 300, 8, 2, 128, torch.bfloat16, 77),
     (2, 129, 4, 4, 64, torch.float32, None), (1, 200, 8, 2, 120, torch.float32, 40),
-    (1, 300, 16, 16, 256, torch.bfloat16, None), (1, 200, 8, 2, 256, torch.float32, 40)])
+    (1, 300, 16, 16, 256, torch.bfloat16, None), (1, 200, 8, 2, 256, torch.float32, 40),
+    (1, 1000, 8, 1, 256, torch.bfloat16, None), (1, 300, 8, 1, 256, torch.bfloat16, 77),
+    (1, 4096, 1, 1, 256, torch.bfloat16, None)])
 def test_flash_kernel_lse_matches_plain(dev, b, s, h, kv, dh, dtype, window):
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (_randn((b, s, n, dh), dtype, dev, gen) for n in (h, kv, kv))
