@@ -378,6 +378,15 @@ NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention
 FLASH_BWD_PASSES = ("delta_kernel", "dkdv_kernel", "head_sum_kernel", "dq_kernel")
 # The kernels of one decode_attention_bwd call (csrc/decode_attention_bwd.cu).
 DECODE_BWD_PASSES = ("decode_bwd_kernel", "decode_bwd_dq_kernel")
+# The bf16 flash-decode kernel's instantiations (csrc/decode_attention.cu,
+# tma::decode_tma_kernel<head-dim tile, head groups>) and the decode shapes
+# the script times it at, (B, C, H, KV, dh): llama3-8b, gemma-7b,
+# paligemma-3b, the seamless decoder, the model-axis shares of llama3-8b and
+# paligemma-3b, one rail shard (the stats variant) at 4096 and 32768 slots.
+DECODE_FWD_PLANS = tuple((dh, hg) for dh in (64, 128, 256) for hg in (1, 2))
+DECODE_SHAPES = ((8, 4096, 32, 8, 128), (8, 4096, 16, 16, 256), (8, 4096, 8, 1, 256),
+                 (8, 4096, 16, 16, 64), (8, 4096, 4, 1, 128), (8, 4096, 1, 1, 256),
+                 (1, 4096, 32, 8, 128), (1, 32768, 32, 8, 128))
 # Training (phase 11): h2o-danube-3-4b, the one dense configuration whose
 # training state (bf16 parameters and gradients, f32 AdamW moments: 47.5 GB)
 # fits one 80 GB card, on one sequence of S=4096 (flash attention at S >=
@@ -476,10 +485,37 @@ def last_tile_dropped(q, k, v, **kw):
     return ref.mha(q, k, v, kv_valid_len=k.shape[1] - flash_tile(k.shape[-1]), **kw)
 
 
-def decode_split() -> int:
-    """Cache slots per split (one pass-1 block) of the flash-decode kernel."""
+def decode_split(b: int, c: int, h: int, kv: int, dh: int) -> int:
+    """Cache slots per split (one pass-1 block) of the bf16 flash-decode
+    kernel at a call's shape, from its library's plan."""
     from repro_torch.kernels import decode_attention as da
-    return da.KERNEL.lib().repro_decode_split()
+    return da.KERNEL.lib().repro_decode_split(1, b, c, h, kv, dh)
+
+
+def decode_tile(dh: int) -> int:
+    """Cache slots of a tile of the bf16 flash-decode kernel (one TMA load of
+    K and of V, the granularity of its mask) at head dim ``dh``."""
+    from repro_torch.kernels import decode_attention as da
+    return da.KERNEL.lib().repro_decode_plan(1, 1, dh, 0)
+
+
+def decode_drops(b: int, c: int, h: int, kv: int, dh: int) -> list:
+    """The slots that the planted faults of the bf16 flash-decode kernel's
+    plan mask at a shape: [(label, first slot, end)] for one split from the
+    middle of the cache (the whole second half where one split takes it)
+    and one tile inside a split."""
+    split, tile = decode_split(b, c, h, kv, dh), decode_tile(dh)
+    lo = (c // 2 // tile + 1) * tile
+    return [(f"one {split}-slot split dropped", c // 2, c // 2 + split),
+            (f"one {tile}-slot tile dropped inside a split", lo, lo + tile)]
+
+
+# the kernels of one flash-decode call, as torch.profiler names them
+DECODE_KERNELS = ("decode_tma_kernel", "decode_partial_kernel", "decode_combine_kernel")
+
+
+def is_decode_kernel(name: str) -> bool:
+    return any(k in name for k in DECODE_KERNELS)
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -720,9 +756,9 @@ def phase_build():
     wide = {f"{name}: {fn}": res for name, k in ops.KERNELS.items()
             for fn, res in k.resources().items() if "Li256E" in fn}
     # forward 3 (f32, bf16 with one and two consumer warpgroups), backward
-    # 4, decode pass 1: 2 dtypes x 3 bundle sizes; the decode backward's one
-    # pass: 2 dtypes x 2 head paddings (8, 16)
-    if len(wide) != 17:
+    # 4, decode pass 1: f32 3 bundle sizes, bf16 1 and 2 head groups; the
+    # decode backward's one pass: 2 dtypes x 2 head paddings (8, 16)
+    if len(wide) != 16:
         raise AssertionError(f"[build] 256-wide instantiations in the ptxas log: {sorted(wide)}")
     for fn, res in sorted(wide.items()):
         log(f"[build] dh 256: {fn[:110]}: {res['registers']} registers, {res['static_smem']} B "
@@ -730,6 +766,28 @@ def phase_build():
     spills = {fn: res for fn, res in wide.items() if res["spill_stores"]}
     if spills:
         raise AssertionError(f"[build] 256-wide instantiations spilling: {spills}")
+    da_lib = ops.KERNELS["decode_attention"].lib()
+    tma_fwd = {}
+    for fn, res in ops.KERNELS["decode_attention"].resources().items():
+        m = re.search(r"decode_tma_kernelILi(\d+)ELi(\d)E", fn)
+        if m:
+            tma_fwd[(int(m[1]), int(m[2]))] = res
+    spills = {k: res for k, res in tma_fwd.items() if res["spill_stores"]}
+    if sorted(tma_fwd) != sorted(DECODE_FWD_PLANS) or spills:
+        raise AssertionError(f"[build] bf16 flash-decode instantiations (dh tile, head groups) "
+                             f"in the ptxas log: {sorted(tma_fwd)}, spilling {spills}")
+    for (dhp, hg), res in sorted(tma_fwd.items()):
+        rep = 8 * hg
+        tile, stages, threads, smem, per_sm = (da_lib.repro_decode_plan(1, rep, dhp, role)
+                                               for role in range(5))
+        log(f"[build] flash-decode bf16 at dh {dhp}, {hg} head group(s) of 8: {threads} "
+            f"threads, {res['registers']} registers, {res['spill_stores']} B spilled, {smem} B "
+            f"of shared memory ({per_sm} block(s) an SM), {stages} stages of {tile}-slot K/V "
+            f"tiles by TMA")
+    log("[build] flash-decode bf16 plan (B, C, H, KV, dh: slots a split x splits): " + "; ".join(
+        f"{b}, {c}, {h}, {kv}, {dh}: {da_lib.repro_decode_split(1, b, c, h, kv, dh)} x "
+        f"{da_lib.repro_decode_num_splits(1, b, c, h, kv, dh)}"
+        for b, c, h, kv, dh in DECODE_SHAPES))
     dbwd = ops.KERNELS["decode_attention_bwd"].resources()
     missing = [k for k in DECODE_BWD_PASSES if not any(k in fn for fn in dbwd)]
     spills = {fn: res for fn, res in dbwd.items() if res["spill_stores"]}
@@ -807,13 +865,12 @@ def phase_build():
         f"on one kv head in {bwd_lib.repro_flash_attention_bwd_head_parts(1, 4096, 1, 8)} "
         f"parts, danube's 4 on each of 8 in "
         f"{bwd_lib.repro_flash_attention_bwd_head_parts(1, 4096, 8, 4)}")
-    da_lib = ops.KERNELS["decode_attention"].lib()
     ssd_lib = ops.KERNELS["ssd_scan"].lib()
     log(f"[build] shared memory per block at dh=128: flash bf16 "
         f"{fa_lib.repro_flash_attention_smem_bytes(1, 128, 128)} B (128-row blocks, "
         f"{flash_tile(128)}-key tiles), f32 {fa_lib.repro_flash_attention_smem_bytes(0, 128, 64)} "
-        f"B; decode pass 1 (rep=4) "
-        f"{da_lib.repro_decode_attention_smem_bytes(4, 128)} B ({decode_split()}-slot splits); "
+        f"B; decode pass 1 (rep=4) bf16 {da_lib.repro_decode_plan(1, 4, 128, 3)} B, f32 "
+        f"{da_lib.repro_decode_plan(0, 4, 128, 3)} B; "
         f"ssd scan passes A, B, D: "
         f"{', '.join(str(ssd_lib.repro_ssd_scan_smem_bytes(i)) for i in (0, 1, 3))} B")
     log(f"[build] at dh=256: flash bf16 {fa_lib.repro_flash_attention_smem_bytes(1, 256, 128)} "
@@ -823,7 +880,8 @@ def phase_build():
         f"{bwd_lib.repro_flash_attention_bwd_smem_bytes(1, 256)} B "
         f"({bwd_lib.repro_flash_attention_bwd_dq_tile(256, 0)}-row dq blocks, 64 rows a "
         f"warpgroup, {bwd_lib.repro_flash_attention_bwd_dq_tile(256, 1)}-key steps); "
-        f"decode pass 1 (rep=1) {da_lib.repro_decode_attention_smem_bytes(1, 256)} B")
+        f"decode pass 1 (rep=1) bf16 {da_lib.repro_decode_plan(1, 1, 256, 3)} B, f32 "
+        f"{da_lib.repro_decode_plan(0, 1, 256, 3)} B")
 
 
 def flash_case(b, s, h, kv, dh, dtype, seed=0):
@@ -1109,9 +1167,10 @@ def flash_bwd_at(tag: str, b, s, h, kv, dh, seed) -> dict:
 def decode_at(tag: str, b, c, h, kv, dh, seed) -> dict:
     """The bf16 flash-decode kernel at one model's decode shape (a full cache
     of ``c`` slots): held to ``ref.decode_attention``; planted faults must
-    fail the same check: one split dropped and, at dh 256, the output's
-    columns 128-255 zeroed and S from the first 128 dims only; times beside
-    the bound, the plain version and SDPA."""
+    fail the same check: one split and one tile of the kernel's plan at this
+    shape dropped (``decode_drops``) and, at dh 256, the output's columns
+    128-255 zeroed and S from the first 128 dims only; times beside the
+    bound, the plain version and SDPA."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
@@ -1120,11 +1179,13 @@ def decode_at(tag: str, b, c, h, kv, dh, seed) -> dict:
     want = ref.decode_attention(q, kc, vc, valid)
     got = da.decode_attention(q, kc, vc, valid)
     err, ratio = hold(f"{tag} {shape}", got, want)
-    split = decode_split()
-    dropped = valid.clone()
-    dropped[:, c // 2:c // 2 + split] = False
-    faults = [(f"plain with one {split}-slot split dropped",
-               ref.decode_attention(q, kc, vc, dropped))]
+    log(f"{tag} plan: {decode_split(b, c, h, kv, dh)}-slot splits of {decode_tile(dh)}-slot "
+        f"tiles")
+    faults = []
+    for label, lo, hi in decode_drops(b, c, h, kv, dh):
+        dropped = valid.clone()
+        dropped[:, lo:hi] = False
+        faults.append((f"plain with {label}", ref.decode_attention(q, kc, vc, dropped)))
     if dh == 256:
         faults += [("the kernel's output with columns 128-255 zeroed", upper_half_zeroed(got)),
                    ("plain with S from the first 128 dims only",
@@ -1333,11 +1394,14 @@ def phase_decode_kernel():
     err, ratio = hold(f"[decode] main shape B={b} C={c} all valid",
                       da.decode_attention(q, kc, vc, valid), want)
     worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-    split = decode_split()
-    dropped = valid.clone()
-    dropped[:, c // 2:c // 2 + split] = False
-    ctrl = control(f"[decode] control: plain with one {split}-slot split dropped",
-                   ref.decode_attention(q, kc, vc, dropped), want)
+    log(f"[decode] main shape plan: {decode_split(b, c, h, kv, dh)}-slot splits of "
+        f"{decode_tile(dh)}-slot tiles")
+    ctrl = float("inf")
+    for label, lo, hi in decode_drops(b, c, h, kv, dh):
+        dropped = valid.clone()
+        dropped[:, lo:hi] = False
+        ctrl = min(ctrl, control(f"[decode] control: plain with {label}",
+                                 ref.decode_attention(q, kc, vc, dropped), want))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
     am = valid[:, None, None, :]
     lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
@@ -1892,8 +1956,7 @@ def phase_decode(cfg, params):
     full_busy, dev = device_profile(lambda: run_steps(n_ctx + n_full, 2, logits.argmax(-1)),
                                     f"decode 2 steps B={b} cap={cap}, {n_ctx + n_full + 1} "
                                     f"filled slots")
-    kernel_ms = sum(ms for key, ms in dev.items() if "decode_partial_kernel" in key
-                    or "decode_combine_kernel" in key)
+    kernel_ms = sum(ms for key, ms in dev.items() if is_decode_kernel(key))
     share = kernel_ms / sum(dev.values()) if dev else None
     if dev:
         log(f"[decode] full context: flash-decode kernels {kernel_ms:.3f} ms of "
@@ -2043,8 +2106,7 @@ def phase_decode_ab(cfg, params, tag: str) -> dict:
                                                         tok, cross=cross),
                                    f"{tag} 2 steps B={b} cap={cap}, {filled} filled slots")
         dev_ms = sum(dev.values()) / 2 if dev else None
-        kernel_ms = sum(ms for k_, ms in dev.items() if "decode_partial_kernel" in k_
-                        or "decode_combine_kernel" in k_) / 2
+        kernel_ms = sum(ms for k_, ms in dev.items() if is_decode_kernel(k_)) / 2
         floor = decode_floor_ms(cfg, params, state, filled, cross)
         log(f"[{tag}] ({label}) {cfg.name} B={b} cap={cap}, from {first} filled slots: {n} "
             f"steps, {secs / n * 1e3:.2f} ms/step (host), {b * n / secs:.1f} tok/s; device "
@@ -3840,8 +3902,7 @@ def phase_context_decode(cfg, params) -> dict:
         busy, devk = device_profile(lambda: step(params, state, tok, pos),
                                     f"context decode one step B={b} cap={CTX_CAP}, {pos + 1} "
                                     f"filled slots")
-        stats_ms = sum(ms for k, ms in devk.items() if "decode_partial_kernel" in k
-                       or "decode_stats_combine_kernel" in k)
+        stats_ms = sum(ms for k, ms in devk.items() if is_decode_kernel(k))
         ratios = []
         with checked_ops(ratios):
             got, _ = step(params, state, tok, pos)
@@ -4098,7 +4159,8 @@ def stats_at(tag: str, b, c, h, kv, dh, seed) -> dict:
     """The flash-decode stats variant at one rail shard's shape (bf16, all
     slots valid): held to ``ref.decode_attention(return_stats=True)`` by
     ``ref.stats_tolerance_ratio``, also with its first split empty; a split
-    dropped must fail; times beside the bound, the plain version and SDPA
+    or a tile of the kernel's plan dropped must fail; times beside the
+    bound, the plain version and SDPA
     (the normalised output: no PyTorch call returns the unnormalised
     stats)."""
     import torch
@@ -4111,19 +4173,22 @@ def stats_at(tag: str, b, c, h, kv, dh, seed) -> dict:
     got = da.decode_attention_stats(q, kc, vc, valid)
     ratio = ref.stats_tolerance_ratio(got, want, q.dtype)
     err = max(max_err(g, w) for g, w in zip(got, want))
-    split = decode_split()
+    split = decode_split(b, c, h, kv, dh)
     first_empty = valid.clone()
     first_empty[:, :split] = False
     ratio_empty = ref.stats_tolerance_ratio(
         da.decode_attention_stats(q, kc, vc, first_empty),
         ref.decode_attention(q, kc, vc, first_empty, return_stats=True), q.dtype)
-    dropped = valid.clone()
-    dropped[:, c // 2:c // 2 + split] = False
-    ctrl = ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, dropped,
-                                                               return_stats=True), q.dtype)
+    ctrls = {}
+    for label, lo, hi in decode_drops(b, c, h, kv, dh):
+        dropped = valid.clone()
+        dropped[:, lo:hi] = False
+        ctrls[label] = ref.stats_tolerance_ratio(
+            got, ref.decode_attention(q, kc, vc, dropped, return_stats=True), q.dtype)
+    ctrl = min(ctrls.values())
     log(f"{tag} {shape}: max_abs_err {err:.3g} (acc, m, l), {ratio:.3f} of the tolerance; "
-        f"first {split}-slot split empty {ratio_empty:.3f}; control: plain with one split "
-        f"dropped {ctrl:.1f} (must exceed 1)")
+        f"first {split}-slot split empty {ratio_empty:.3f}; controls: plain with " + ", ".join(
+            f"{label} {r:.1f}" for label, r in ctrls.items()) + " (each must exceed 1)")
     if not (ratio <= 1 and ratio_empty <= 1 and ctrl > 1):
         raise AssertionError(f"{tag}: stats {ratio}, empty split {ratio_empty}, control {ctrl}")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))

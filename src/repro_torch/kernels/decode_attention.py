@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.decode_attention`` (the Pallas TPU kernel
 ``_decode_kernel``).  The kernel splits the cache over thread blocks
-(split-K) and merges the partials in a second pass; the wrapper allocates
-the output and the f32 partials.  It takes a ragged cache length itself,
-so there is no fallback.  ``ops.decode_attention`` sends CPU tensors to
+(split-K), as many splits as the shape needs to fill the card
+(``repro_decode_num_splits``), and merges the partials in a second pass;
+the wrapper allocates the output and the f32 partials.  It takes a ragged
+cache length itself, so there is no fallback.  ``ops.decode_attention`` sends CPU tensors to
 ``ref.decode_attention``.
 
 With ``residuals=True`` (the autograd forward, ``ops``) the same launch
@@ -32,10 +33,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNEL = CudaKernel("decode_attention", {
     "repro_decode_attention_fwd": [_P] * 10 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
     "repro_decode_attention_stats": [_P] * 10 + [_I] * 6 + [_L] * 10 + [_F, _I, _P],
-    "repro_decode_num_splits": [_I],
-    "repro_decode_split": [],
+    "repro_decode_num_splits": [_I] * 6,
+    "repro_decode_split": [_I] * 6,
     "repro_decode_max_rep": [],
-    "repro_decode_attention_smem_bytes": [_I, _I],
+    "repro_decode_plan": [_I] * 4,
 })
 STATS = KernelEntry("decode_attention_stats", KERNEL)
 # the widest head dim this kernel is instantiated for (tiles 64, 128, 256 wide)
@@ -69,7 +70,8 @@ def _checked(q, k_cache, v_cache, valid_mask):
     if rep > lib.repro_decode_max_rep():
         raise ValueError(f"{rep} query heads per kv head; the kernel takes at most "
                          f"{lib.repro_decode_max_rep()}")
-    return valid_mask.view(torch.uint8), rep, lib.repro_decode_num_splits(c)
+    nsplit = lib.repro_decode_num_splits(DTYPES[q.dtype], b, c, h, kvh, dh)
+    return valid_mask.view(torch.uint8), rep, nsplit
 
 
 def _partials(q, kvh, nsplit, rep):

@@ -104,11 +104,14 @@ def test_plain_decode_ragged_cache_matches_jax():
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("kind", ["flash", "decode"])
-def test_bf16_tolerance_admits_reordering_and_rejects_planted_faults(kind):
+@pytest.mark.parametrize("kind,split", [("flash", 0), ("decode", 256), ("decode", 64),
+                                        ("decode", 128)],
+                         ids=["flash", "decode", "decode-64", "decode-128"])
+def test_bf16_tolerance_admits_reordering_and_rejects_planted_faults(kind, split):
     """The tolerance the CUDA kernels are held to (``ref.tolerance_ratio``):
     the plain version with the kernels' block sizes, its f32 sums in another
-    order, passes; a dropped KV tile or cache split fails."""
+    order, passes; a dropped KV tile or cache split fails.  Decode at the
+    split sizes the bf16 kernel's plan takes (``_decode_fwd_plan``)."""
     if kind == "flash":
         q, k, v = _bf16(*_qkv(1, 512, 512, 8, 2, 128, seed=4))
         want = tref.mha(q, k, v)
@@ -118,13 +121,62 @@ def test_bf16_tolerance_admits_reordering_and_rejects_planted_faults(kind):
         q, k, v = _bf16(*_qkv(4, 1, 1024, 8, 2, 128, seed=4))
         valid = torch.ones((4, 1024), dtype=torch.bool)
         want = tref.decode_attention(q, k, v, valid)
-        reordered = tref.decode_attention(q, k, v, valid, block_k=256)
+        reordered = tref.decode_attention(q, k, v, valid, block_k=split)
         dropped = valid.clone()
-        dropped[:, 512:768] = False
+        dropped[:, 512:512 + split] = False
         fault = tref.decode_attention(q, k, v, dropped)
     assert want.dtype == torch.bfloat16
     assert tref.tolerance_ratio(reordered, want) <= 1
     assert tref.tolerance_ratio(fault, want) > 1
+
+
+def _decode_fwd_plan(b, c, kv, dh):
+    """The bf16 flash-decode kernel's plan at a shape (csrc/decode_attention.cu,
+    ``tma::tile_slots`` and ``tma::plan``): (slots a tile, slots a split,
+    splits).  A tile is 32 KB of K and V (128 slots at a 64-wide head tile,
+    64 at 128, 32 at 256); the splits are as many as give one block (its
+    128 KB ring takes an SM) for each of an H100's 132 SMs, at most one a
+    tile, the tiles evened out over them."""
+    width = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    tile = 32768 // (4 * width)
+    tiles = -(-c // tile)
+    most = min(tiles, max(1, 132 // (b * kv)))
+    per = -(-tiles // most)
+    return tile, per * tile, -(-tiles // per)
+
+
+def test_decode_fwd_plan_follows_the_shape():
+    """One kv head at B=8 (paligemma-3b, the model-axis shares) or a rail
+    shard at B=1 takes 16 splits (128 blocks); llama3-8b's B*KV = 64 two;
+    B*KV = 128 (gemma-7b, the seamless decoder) one split of the whole
+    cache; a ragged cache evens its tiles out."""
+    assert _decode_fwd_plan(8, 4096, 1, 256) == (32, 256, 16)     # paligemma-3b
+    assert _decode_fwd_plan(8, 4096, 1, 128) == (64, 256, 16)     # llama3-8b's share at M=8
+    assert _decode_fwd_plan(8, 4096, 8, 128) == (64, 2048, 2)     # llama3-8b
+    assert _decode_fwd_plan(1, 4096, 8, 128) == (64, 256, 16)     # a rail shard (stats)
+    assert _decode_fwd_plan(1, 32768, 8, 128) == (64, 2048, 16)
+    assert _decode_fwd_plan(8, 4096, 16, 64) == (128, 4096, 1)    # seamless decoder
+    assert _decode_fwd_plan(8, 4096, 16, 256) == (32, 4096, 1)    # gemma-7b
+    assert _decode_fwd_plan(2, 777, 8, 120) == (64, 128, 7)       # ragged: 13 tiles
+    assert _decode_fwd_plan(1, 20, 1, 64) == (128, 128, 1)
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_bf16_tolerance_rejects_a_dropped_decode_tile(dh):
+    """One tile of the bf16 decode kernel dropped inside a split (its slots
+    masked in the plain version) fails ``ref.tolerance_ratio``, at the tile
+    and split of the kernel's plan for one kv head at B=8; the plain version
+    blocked as the plan splits the cache passes."""
+    b, c, h, kv = 8, 4096, 8, 1
+    q, k, v = _bf16(*_qkv(b, 1, c, h, kv, dh, seed=6))
+    valid = torch.ones((b, c), dtype=torch.bool)
+    tile, split, _ = _decode_fwd_plan(b, c, kv, dh)
+    assert split >= 2 * tile
+    want = tref.decode_attention(q, k, v, valid)
+    assert tref.tolerance_ratio(tref.decode_attention(q, k, v, valid, block_k=split), want) <= 1
+    dropped = valid.clone()
+    dropped[:, split + tile:split + 2 * tile] = False  # the second tile of the second split
+    assert tref.tolerance_ratio(tref.decode_attention(q, k, v, dropped), want) > 1
 
 
 def _mha_rounding_p(q, k, v, p_rounding, *, window=None, block_k=64):

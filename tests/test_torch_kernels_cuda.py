@@ -406,6 +406,10 @@ def _mask(kind, b, c, dev, gen):
         return torch.rand((b, c), generator=gen, device=dev) < 0.6
     if kind == "tail":  # every chunk but the last is empty: skipped tiles
         return (torch.arange(c, device=dev) >= c - 10)[None, :].expand(b, c)
+    if kind == "holes_run":  # holes, and slots 1088-1151 masked: whole tiles inside a split
+        m = torch.rand((b, c), generator=gen, device=dev) < 0.6
+        m[:, 1088:1152] = False
+        return m
     return torch.ones((b, c), dtype=torch.bool, device=dev)
 
 
@@ -439,6 +443,12 @@ def _mask(kind, b, c, dev, gen):
     (2, 4100, 8, 1, 256, torch.bfloat16, "holes"),      # ragged C, rep 8
     (8, 4096, 8, 1, 256, torch.bfloat16, "prefix"),
     (8, 4096, 16, 16, 64, torch.bfloat16, "all"),
+    # the TMA kernel's plan: rep 12 in two head groups (mistral-large-123b's
+    # 96 heads on 8), a grid of one kv head, whole masked tiles inside a split
+    (8, 4096, 96, 8, 128, torch.bfloat16, "all"),
+    (1, 4096, 8, 1, 256, torch.bfloat16, "all"),
+    (2, 4096, 32, 8, 128, torch.bfloat16, "holes_run"),
+    (8, 4096, 8, 1, 256, torch.bfloat16, "holes_run"),
 ])
 def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -455,11 +465,15 @@ def test_decode_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     assert ref.tolerance_ratio(got, want) <= 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_reads_strided_caches(dev, dtype):
-    """k and v caches sliced out of one [B,C,2KV,dh] tensor, a broadcast mask."""
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 128), (torch.bfloat16, 128),
+                                      (torch.bfloat16, 120), (torch.bfloat16, 256)],
+                         ids=["dtype0", "dtype1", "bf16-dh120", "bf16-dh256"])
+def test_decode_kernel_reads_strided_caches(dev, dtype, dh):
+    """k and v caches sliced out of one [B,C,2KV,dh] tensor, a broadcast mask;
+    in bf16 the TMA maps take the caller's strides at every head-dim tile
+    (120 zero-padded to 128)."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    b, c, h, kv, dh = 2, 1100, 32, 8, 128
+    b, c, h, kv = 2, 1100, 32, 8
     q = _randn((b, 1, h, dh), dtype, dev, gen)
     kvc = _randn((b, c, 2 * kv, dh), dtype, dev, gen)
     kc, vc = kvc[:, :, :kv], kvc[:, :, kv:]
@@ -470,13 +484,49 @@ def test_decode_kernel_reads_strided_caches(dev, dtype):
     assert ref.tolerance_ratio(got, want) <= 1
 
 
-def _stats_mask(kind, b, c, dev, gen):
+def test_decode_plan_follows_the_shape(dev):
+    """The bf16 kernel's plan from its library: (slots a split, splits) at
+    the decode shapes, as tests/test_torch_kernels.py's ``_decode_fwd_plan``
+    mirrors it (one block for each of 132 SMs; a tile of 32 KB of K and V);
+    the f32 kernel's 256-slot splits."""
+    lib = tda.KERNEL.lib()
+    for (b, c, h, kv, dh), want in (((8, 4096, 8, 1, 256), (256, 16, 32)),
+                                    ((8, 4096, 32, 8, 128), (2048, 2, 64)),
+                                    ((1, 4096, 32, 8, 128), (256, 16, 64)),
+                                    ((8, 4096, 16, 16, 64), (4096, 1, 128)),
+                                    ((8, 4096, 16, 16, 256), (4096, 1, 32)),
+                                    ((2, 777, 16, 8, 120), (128, 7, 64))):
+        got = (lib.repro_decode_split(1, b, c, h, kv, dh),
+               lib.repro_decode_num_splits(1, b, c, h, kv, dh), lib.repro_decode_plan(1, h // kv,
+                                                                                     dh, 0))
+        assert got == want, (b, c, h, kv, dh, got)
+    assert (lib.repro_decode_split(0, 8, 4096, 32, 8, 128),
+            lib.repro_decode_num_splits(0, 8, 4096, 32, 8, 128)) == (256, 16)
+
+
+@pytest.mark.parametrize("b,c,h,kv,dh", [(8, 4096, 8, 1, 256), (8, 4096, 16, 16, 256),
+                                         (2, 4100, 96, 8, 128), (3, 777, 24, 8, 64)])
+def test_decode_kernel_residual_output_is_the_plain_calls(dev, b, c, h, kv, dh):
+    """With residuals the bf16 kernel's rounded output is the plain call's
+    bit for bit, where the combine pass writes it (16 splits, 7) and where
+    pass 1 does (one split: gemma-7b's B*KV = 128)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = _randn((b, 1, h, dh), torch.bfloat16, dev, gen)
+    kc, vc = (_randn((b, c, kv, dh), torch.bfloat16, dev, gen) for _ in range(2))
+    valid = _mask("holes", b, c, dev, gen)
+    out, lse, o32 = tda.decode_attention(q, kc, vc, valid, residuals=True)
+    assert torch.equal(out, tda.decode_attention(q, kc, vc, valid))
+    assert torch.equal(out, o32.to(torch.bfloat16))
+    assert ref.tolerance_ratio(out, ref.decode_attention(q, kc, vc, valid)) <= 1
+
+
+def _stats_mask(kind, b, c, dev, gen, split=256):
     """_mask's kinds, and a shard with no valid slot ("empty") or whose
-    first 256-slot split has none ("split0")."""
+    first ``split``-slot split has none ("split0")."""
     if kind == "empty":
         return torch.zeros((b, c), dtype=torch.bool, device=dev)
     if kind == "split0":
-        return (torch.arange(c, device=dev) >= 256)[None, :].expand(b, c)
+        return (torch.arange(c, device=dev) >= split)[None, :].expand(b, c)
     return _mask(kind, b, c, dev, gen)
 
 
@@ -489,6 +539,9 @@ def _stats_mask(kind, b, c, dev, gen):
     (3, 300, 8, 2, 64, torch.float32, "holes"),
     (1, 700, 16, 1, 256, torch.bfloat16, "tail"),
     (2, 1000, 8, 8, 256, torch.float32, "prefix"),
+    # B*KV = 128: one split, the stats written by pass 1 itself
+    (8, 1000, 64, 16, 128, torch.bfloat16, "holes"),
+    (8, 700, 16, 16, 64, torch.bfloat16, "empty"),
 ])
 def test_decode_stats_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     """The stats variant against ``ref.decode_attention(return_stats=True)``
@@ -498,7 +551,8 @@ def test_decode_stats_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
     q = _randn((b, 1, h, dh), dtype, dev, gen)
     kc = _randn((b, c, kv, dh), dtype, dev, gen)
     vc = _randn((b, c, kv, dh), dtype, dev, gen)
-    valid = _stats_mask(kind, b, c, dev, gen)
+    split = tda.KERNEL.lib().repro_decode_split(tda.DTYPES[dtype], b, c, h, kv, dh)
+    valid = _stats_mask(kind, b, c, dev, gen, split)
     before, fwd = tda.STATS.launches, tda.KERNEL.launches
     got = ops.decode_attention(q, kc, vc, valid, return_stats=True)
     torch.cuda.synchronize()
@@ -511,22 +565,26 @@ def test_decode_stats_kernel_matches_plain(dev, b, c, h, kv, dh, dtype, kind):
 
 
 def test_decode_stats_kernel_rejects_a_dropped_split(dev):
-    """A planted fault, emulated in the plain version: one 256-slot split of
-    4096 dropped reads > 1."""
+    """Planted faults, emulated in the plain version: one split of 4096 (the
+    plan's, 256 slots) dropped, or one tile inside a split, reads > 1."""
     gen = torch.Generator(device=dev).manual_seed(4)
     q = _randn((1, 1, 32, 128), torch.bfloat16, dev, gen)
     kc = _randn((1, 4096, 8, 128), torch.bfloat16, dev, gen)
     vc = _randn((1, 4096, 8, 128), torch.bfloat16, dev, gen)
     valid = torch.ones((1, 4096), dtype=torch.bool, device=dev)
     got = tda.decode_attention_stats(q, kc, vc, valid)
-    dropped = valid.clone()
-    dropped[:, 1024:1280] = False
+    lib = tda.KERNEL.lib()
+    split = lib.repro_decode_split(1, 1, 4096, 32, 8, 128)
+    tile = lib.repro_decode_plan(1, 4, 128, 0)
     assert ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, valid,
                                                                return_stats=True),
                                      torch.bfloat16) <= 1
-    assert ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, dropped,
-                                                               return_stats=True),
-                                     torch.bfloat16) > 1
+    for lo, hi in ((4 * split, 5 * split), (4 * split + tile, 4 * split + 2 * tile)):
+        dropped = valid.clone()
+        dropped[:, lo:hi] = False
+        assert ref.stats_tolerance_ratio(got, ref.decode_attention(q, kc, vc, dropped,
+                                                                   return_stats=True),
+                                         torch.bfloat16) > 1
 
 
 # bf16 and f32; dh 64, 128 (and 120 zero-padded) and 256; rep 1, 4, 8 and 16; a
