@@ -14,20 +14,22 @@ and the script exits non-zero without printing a result:
     backward or in any 256-wide instantiation fails, as does a missing bf16
     wgmma flash, dk/dv or dq kernel (dh 64, 128 and 256; the forward with
     blocks of one and of two consumer warpgroups) or one whose registers at
-    launch are not its plan's;
+    launch are not its plan's, or an SSD state or output pass without HGMMA
+    (or with mma.sync's HMMA) in its SASS;
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
     ``ref.ssd_tolerance_ratio`` <= 1 for the SSD scan (f32, 1e-5 + 1e-4 of
     each (batch, head)'s largest value); a planted fault (a KV tile, a cache
     split, a chunk's entering state, also at the first chunk of one of the
-    SSD kernel's segments, or an intra-chunk term dropped, emulated in the
-    plain version) must fail the same check; times of kernel, plain version
-    and, for attention, ``scaled_dot_product_attention`` (the library
-    yardstick, never used by the port; no PyTorch call computes the SSD
-    scan) with CUDA events around back-to-back calls, and the card's own
-    time per call from torch.profiler, for the SSD scan also per pass; the
-    flash backward kernel against ``ref.mha_bwd`` (dq, dk and dv, to
+    SSD kernel's segments, an intra-chunk term dropped, or two SSD heads fed
+    each other's x, emulated in the plain version) must fail the same check;
+    times of kernel, plain version and, for attention,
+    ``scaled_dot_product_attention`` (the library yardstick, never used by
+    the port; no PyTorch call computes the SSD scan) with CUDA events around
+    back-to-back calls, and the card's own time per call from torch.profiler,
+    for the SSD scan also per pass and at a training step's forward shape;
+    the flash backward kernel against ``ref.mha_bwd`` (dq, dk and dv, to
     ``ref.grad_tolerance_ratio`` <= 1: one bf16 ulp, or 1e-4 in f32) at the
     training path's shape, with a binding window and in f32 with a ragged S,
     with the forward kernel's log-sum-exp against ``ref.mha_fwd_lse``'s, three
@@ -406,8 +408,10 @@ MOE_ARCH, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH = "deepseek_moe_16b", "granite_moe_1b_
 GEMMA_ARCH, GEMMA_TRAIN_LAYERS = "gemma_7b", 8
 PAPER_ARCH, PAPER_LAYERS = "llama_80b", 4
 GEMMA_ATTN = (16, 16, 256)  # heads, kv heads, head dim
-# The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order.
-SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
+# The CUDA kernels of one ssd_scan call (csrc/ssd_scan.cu), in launch order;
+# the state and output passes run their products on `wgmma`.
+SSD_PASSES = ("ssd_prep_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
+SSD_WGMMA_PASSES = ("ssd_state_kernel", "ssd_output_kernel")
 # The CUDA kernels of one ssd_scan_bwd call (csrc/ssd_scan_bwd.cu), in launch order.
 SSD_BWD_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_chunk_kernel",
                   "ssd_bwd_group_kernel", "ssd_bwd_da_kernel")
@@ -721,6 +725,29 @@ def phase_device():
     return name, count, smi
 
 
+def sass_counts(kernel, opcodes) -> dict:
+    """{function: {opcode: instructions}} in the SASS of ``kernel``'s built
+    library (``cuobjdump -sass``, beside the nvcc that built it)."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    kernel.lib()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(kernel._target())], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", line):
+                    out[fn][op] += 1
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build, ops
     secs = _build.build_all(list(ops.KERNELS.values()))
@@ -814,7 +841,17 @@ def phase_build():
     if missing or spills:
         raise AssertionError(f"[build] ssd scan: passes missing from the ptxas log {missing}, "
                              f"spilling {spills}")
-    log(f"[build] ssd scan: all {len(SSD_PASSES)} passes built, no spills")
+    # the passes that compute the state and y must run their products on
+    # wgmma: HGMMA in the SASS of each instantiation (N tiles 32, 64, 128)
+    hgmma = sass_counts(ops.KERNELS["ssd_scan"], ("HGMMA", "HMMA"))
+    tc = {fn: c for fn, c in hgmma.items() if any(k in fn for k in SSD_WGMMA_PASSES)}
+    if len(tc) != 2 * 3 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in tc.values()):
+        raise AssertionError(f"[build] ssd scan: state and output passes without HGMMA (or "
+                             f"with mma.sync's HMMA) in their SASS: {tc}")
+    log(f"[build] ssd scan: all {len(SSD_PASSES)} passes built, no spills; " + "; ".join(
+        "{} at N tile {}: {} registers, {} HGMMA".format(
+            *re.search(r"(state|output)_kernelILi(\d+)E", fn).groups(), ssd[fn]["registers"],
+            c["HGMMA"]) for fn, c in sorted(tc.items()) if fn in ssd))
     ssdb = ops.KERNELS["ssd_scan_bwd"].resources()
     missing = [k for k in SSD_BWD_PASSES if not any(k in fn for fn in ssdb)]
     spills = {fn: res for fn, res in ssdb.items() if res["spill_stores"]}
@@ -2193,6 +2230,15 @@ def ssd_drop_intra(x, dt, a, bm, cm, chunk, at):
     return y, st
 
 
+def ssd_heads_swapped(x, dt, a, bm, cm, chunk, h_init=None):
+    """A planted fault: the plain scan with heads 0 and 1 fed each other's x
+    (one head of a block of the kernel reading its neighbour's x tile)."""
+    from repro_torch.kernels import ref
+    xs = x.clone()
+    xs[:, :, [0, 1]] = x[:, :, [1, 0]]
+    return ref.ssd_chunked(xs, dt, a, bm, cm, chunk, h_init=h_init)
+
+
 def ssd_chunks_independent(x, dt, a, bm, cm, chunk, h_init=None):
     """A planted model fault: every chunk's entering state dropped (the plain
     scan over each chunk as a sequence of its own; a ragged S zero-padded)."""
@@ -2231,18 +2277,25 @@ def ssd_fwd_bound(b, s, h, p, g, n, chunk) -> tuple:
 
 
 def ssd_executed_flops(b, s, h, p, g, n, chunk) -> int:
-    """Derived, not measured: the FLOPs the SSD kernel's mma.sync tiles run on
-    the tensor cores (csrc/ssd_scan.cu: 16 x 8 x 8 tiles, causal tiles of C
-    B^T and of W X only, the state products in passes B and D, each product
-    three times for 3xTF32)."""
-    nc, up8 = -(-s // chunk), lambda v: -(-v // 8) * 8
-    i_tiles = range(0, chunk, 16)
-    k_n, k_l, p_tiles, n_tiles = up8(n) // 8, up8(chunk) // 8, -(-p // 8), -(-n // 8)
-    cb = sum(sum(1 for j in range(0, chunk, 8) if j <= i + 15) for i in i_tiles) * k_n
-    state = -(-p // 16) * n_tiles * k_l
-    y = sum(p_tiles * (k_n + min(k_l, (i + 16) // 8)) for i in i_tiles)
-    mma = b * nc * (g * cb + h * (2 * state + y))
-    return 3 * 2 * 16 * 8 * 8 * mma
+    """Derived, not measured: the FLOPs the SSD kernel's wgmma tiles run on
+    the tensor cores (csrc/ssd_scan.cu: a block of two heads of a group a
+    chunk runs C B^T [64 x 64 x NT] once, and per head y's S C^T [64 x 64 x
+    NT], X^T W^T [64 x 64 x 64] and the state update [64 x NT x 64] in pass
+    D, on every chunk; pass B runs the state update again on the chunks of
+    every segment but the last, none where the plan has one segment.  NT is
+    the 32-, 64- or 128-wide tile of N, P and the chunk are padded to 64, and
+    each product runs three times for 3xTF32.  A group of an odd number of
+    heads runs its last block's second head too.  Reads the plan of the
+    library built on this card."""
+    from repro_torch.kernels import ssd_scan as tssd
+    plan = tssd.plan(b, s, h, p, g, n, chunk)
+    nt = 32 if n <= 32 else 64 if n <= 64 else 128
+    heads = 2
+    blocks = b * g * -(-(h // g) // heads)
+    update = 64 * nt * 64
+    per_chunk_d = 64 * 64 * nt + heads * (64 * 64 * nt + 64 * 64 * 64 + update)
+    chunks_b = (plan.segments - 1) * plan.chunks_per_segment
+    return 3 * 2 * blocks * (-(-s // chunk) * per_chunk_d + chunks_b * heads * update)
 
 
 def phase_ssd_kernel():
@@ -2259,7 +2312,9 @@ def phase_ssd_kernel():
             (1, 1000, 32, 64, 1, 128, 64, False, True),     # ragged S, zero-padded by the caller
             (1, 4000, 32, 64, 1, 128, 64, False, False),    # ragged, inside the last segment
             (1, 2048, 32, 64, 1, 128, 64, True, False),     # h_init
-            (1, 4096, 128, 64, 1, 16, 64, False, False)]:   # jamba's mixer (generic passes)
+            (1, 4096, 128, 64, 1, 16, 64, False, False),    # jamba's mixer (N in a 32-wide tile)
+            (1, 4096, 4, 64, 1, 128, 64, True, False),      # mamba's share on a model axis of 8
+            (1, 2048, 6, 64, 2, 128, 64, False, False)]:    # 3 heads a group, 2 a block
         x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, p, g, n, h_init=h_init)
         y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk, h_init=h0)
         if padded:
@@ -2297,6 +2352,10 @@ def phase_ssd_kernel():
                        ratio_fn=ref.ssd_tolerance_ratio),
                control(f"[ssd] control: plain without chunk {at}'s intra-chunk term",
                        ssd_drop_intra(x, dt, a, bm, cm, chunk, at)[0], y_w,
+                       ratio_fn=ref.ssd_tolerance_ratio),
+               control("[ssd] control: plain with heads 0 and 1 fed each other's x (one head "
+                       "of a block reading its neighbour's tile)",
+                       ssd_heads_swapped(x, dt, a, bm, cm, chunk)[0], y_w,
                        ratio_fn=ref.ssd_tolerance_ratio))
     del y_w, st_w
     torch.cuda.empty_cache()
@@ -2321,12 +2380,33 @@ def phase_ssd_kernel():
     log(f"[ssd] derived from the kernel's tiles, not measured: {executed / 1e9:.1f} GFLOP on the "
         f"tensor cores in 3xTF32 ({executed / PEAK_TF32_FLOPS * 1e3:.4f} ms at the TF32 peak), "
         f"{executed / dev_ms / 1e9:.1f} TFLOP/s at the device time")
+    del x, dt, a, bm, cm
+    torch.cuda.empty_cache()
+    # beside it, a training step's forward: mamba2-370m at S=4096 (48 launches a step)
+    tb, ts = 1, 4096
+    x, dt, a, bm, cm, _ = ssd_inputs(tb, ts, h, p, g, n, seed=2)
+    y_w, st_w = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
+    y, st = tssd.ssd_scan(x, dt, a, bm, cm, chunk)
+    err, ratio = hold_ssd(f"[ssd] training forward B={tb} S={ts} H={h} P={p} G={g} N={n} "
+                          f"chunk={chunk}, strided inputs "
+                          f"({tssd.plan(tb, ts, h, p, g, n, chunk).segments} segments)",
+                          y, st, y_w, st_w)
+    worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    train = device_ms_by_kernel(lambda: tssd.ssd_scan(x, dt, a, bm, cm, chunk), 20)
+    train_pass = {k: sum(v for key, v in train.items() if k in key) for k in SSD_PASSES}
+    tflops, tbytes = ssd_fwd_bound(tb, ts, h, p, g, n, chunk)
+    train_bound = bound(tflops, tbytes, PEAK_TF32_FLOPS)
+    log(f"[ssd] training forward: {sum(train_pass.values()):.4f} ms device a call ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in train_pass.items())
+        + f"); bound {train_bound['bound_ms']:.4f} ms ({train_bound['bound_by']})")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:31",
             "max_abs_err": worst, "tolerance": "1e-5 + 1e-4 max|plain| per (batch, head) (f32)",
             "tolerance_ratio": worst_ratio, "control_ratio": ctrl, **t,
             "pass_device_ms": pass_ms, "bound_ms": bound_ms,
+            "train_forward_device_ms": sum(train_pass.values()),
+            "train_forward_bound_ms": train_bound["bound_ms"],
             "bound_by": "operations" if flops / PEAK_TF32_FLOPS > nbytes / PEAK_HBM_BYTES
             else "bytes",
             "shape": f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"}

@@ -1,25 +1,25 @@
 #!/usr/bin/env python3
-"""A/B on one card of the SSD scan's (or its backward's) shape-specialised
-build against its generic build, at mamba2-370m's shape.
+"""A/B on one card of the SSD scan backward's shape-specialised build
+against its generic build, at mamba2-370m's training shape.
 
-    python3 scripts/ssd_full_build_ab.py [--kernel fwd|bwd] [--rounds 3] [--iters 20]
+    python3 scripts/ssd_full_build_ab.py [--rounds 3] [--iters 20]
 
 Run from the root of the repository on a machine with an NVIDIA GPU and
-nvcc.  ``csrc/ssd_scan.cu`` builds passes B and D twice, and
-``csrc/ssd_scan_bwd.cu`` its local and chunk passes: ``FULL``, with the
-chunk, P and N at their largest and 16-byte row copies known to the
-compiler, which it launches at P=64, N=128, chunk 64 with 16-byte aligned
-rows; and a generic build for every other shape.  This script compiles a
-second library from the same source with that choice switched off, so that
-the main shape runs the generic passes, and times both on the same inputs
-(x, B and C strided slices of one conv output, as ``ssm_apply`` passes
-them) at the prefill shape (forward, S=32768) or the training shape
-(backward, S=4096, with random cotangents).  Each round runs the builds in
-the order FULL, generic, generic, FULL; each reading is torch.profiler's
-device time per call, by pass, over ``--iters`` calls.  Both builds are
-held against the plain version (``ref.ssd_tolerance_ratio`` or
-``ref.ssd_grad_ratios``) <= 1.  Prints one line per reading, the median of
-each build, and the card's ``nvidia-smi`` name and power limit.
+nvcc.  ``csrc/ssd_scan_bwd.cu`` builds its local and chunk passes twice:
+``FULL``, with the chunk, P and N at their largest and 16-byte row copies
+known to the compiler, which it launches at P=64, N=128, chunk 64 with
+16-byte aligned rows; and a generic build for every other shape.  This
+script compiles a second library from the same source with that choice
+switched off, so that the main shape runs the generic passes, and times
+both on the same inputs (x, B and C strided slices of one conv output, as
+``ssm_apply`` passes them, and random cotangents) at S=4096.  Each round
+runs the builds in the order FULL, generic, generic, FULL; each reading is
+torch.profiler's device time per call, by pass, over ``--iters`` calls.
+Both builds are held against the plain version (``ref.ssd_grad_ratios``)
+<= 1.  Prints one line per reading, the median of each build, and the
+card's ``nvidia-smi`` name and power limit.  (The forward has no such
+split: ``csrc/ssd_scan.cu`` compiles one kernel a state-width tile, and
+``scripts/ssd_fwd_ab.py`` times it against earlier builds.)
 """
 from __future__ import annotations
 
@@ -56,7 +56,6 @@ def generic_kernel(kernel):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -67,49 +66,32 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import ssd_scan as tssd
     from repro_torch.kernels import ssd_scan_bwd as tssdb
 
-    mod = tssd if args.kernel == "fwd" else tssdb
-    generic = generic_kernel(mod.KERNEL)
-    secs = _build.build_all([mod.KERNEL, generic])
+    generic = generic_kernel(tssdb.KERNEL)
+    secs = _build.build_all([tssdb.KERNEL, generic])
     print(f"built both in {secs:.1f} s", flush=True)
-    libs = {"full": mod.KERNEL.lib(), "generic": generic.lib()}
-    for label, k in (("full", mod.KERNEL), ("generic", generic)):
+    libs = {"full": tssdb.KERNEL.lib(), "generic": generic.lib()}
+    for label, k in (("full", tssdb.KERNEL), ("generic", generic)):
         for fn, res in k.resources().items():
             print(f"[{label}] {fn}: {res}", flush=True)
 
-    if args.kernel == "fwd":
-        b, s, h, p, g, n, chunk = 1, 32768, 32, 64, 1, 128, 64
-        x, dt, a, bm, cm, _ = cs.ssd_inputs(b, s, h, p, g, n, seed=1)
-        passes_of, specialised = cs.SSD_PASSES, ("ssd_output_kernel",)
+    b, s, h, p, g, n, chunk = 1, 4096, 32, 64, 1, 128, 64
+    ins = cs.ssd_inputs(b, s, h, p, g, n, seed=1)[:5]
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    dst = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    passes_of = cs.SSD_BWD_PASSES
+    specialised = ("ssd_bwd_local_kernel", "ssd_bwd_chunk_kernel")
 
-        def call():
-            return tssd.ssd_scan(x, dt, a, bm, cm, chunk)
+    def call():
+        return tssdb.ssd_scan_bwd(*ins, chunk, dy, dst)
 
-        def ratios(got, want):
-            return {"y": ref.ssd_tolerance_ratio(got[0], want[0]),
-                    "state": ref.ssd_tolerance_ratio(got[1], want[1], head_dim=1)}
-        want = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
-    else:
-        b, s, h, p, g, n, chunk = 1, 4096, 32, 64, 1, 128, 64
-        ins = cs.ssd_inputs(b, s, h, p, g, n, seed=1)[:5]
-        gen = torch.Generator(device="cuda").manual_seed(101)
-        dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
-        dst = torch.randn((b, h, p, n), generator=gen, device="cuda")
-        passes_of = cs.SSD_BWD_PASSES
-        specialised = ("ssd_bwd_local_kernel", "ssd_bwd_chunk_kernel")
-
-        def call():
-            return tssdb.ssd_scan_bwd(*ins, chunk, dy, dst)
-
-        ratios = ref.ssd_grad_ratios
-        want = ref.ssd_chunked_bwd(*ins, chunk, dy, dst)
+    ratios = ref.ssd_grad_ratios
+    want = ref.ssd_chunked_bwd(*ins, chunk, dy, dst)
 
     def use(label):
-        mod.KERNEL._lib = libs[label]
-        if args.kernel == "fwd":
-            tssd.plan.cache_clear()  # the plan sets each library's shared-memory limits
+        tssdb.KERNEL._lib = libs[label]
 
     for label in libs:
         use(label)
@@ -144,7 +126,7 @@ def main(argv=None) -> int:
           f"{max(rd['total'] for rd in readings['full']):.4f}, generic "
           f"{min(rd['total'] for rd in readings['generic']):.4f}-"
           f"{max(rd['total'] for rd in readings['generic']):.4f}")
-    print(json.dumps({"kernel": args.kernel, "median_device_ms": med, "readings": readings}))
+    print(json.dumps({"kernel": "bwd", "median_device_ms": med, "readings": readings}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())

@@ -68,6 +68,15 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// An f32 value split for 3xTF32 products: hi is x with the 13 mantissa bits
+// that TF32 lacks cleared (truncated, so within one TF32 ulp of x), lo = x -
+// hi (exact in f32), of which the tensor cores read the TF32 bits.  A
+// product lo.hi + hi.lo + hi.hi is then within ~2^-20 of the f32 one.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // ---- bf16 tensor cores (mma.sync.m16n8k16, sm_80 and later) ----
 
 // Padded row stride, in elements, of a bf16 tile DHP wide: rows 16 B apart

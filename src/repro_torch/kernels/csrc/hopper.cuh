@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, named barriers, shared loads
-// and stores by 32-bit address, TMA tile loads and their tensor maps,
-// warpgroup matrix multiply (wgmma) on 128-byte-swizzled bf16 tiles, and
+// and stores by 32-bit address, TMA tile loads and stores and their tensor maps (bf16,
+// and f32 for the SSD scan), bulk copies, warpgroup matrix multiply (wgmma)
+// on 128-byte-swizzled bf16 tiles and, in TF32, with A from registers, and
 // setmaxnreg.
 //
 // Tile layout: a bf16 tile of R rows by 64 k columns is stored as TMA writes
@@ -74,6 +75,19 @@ __device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity)
     }
 }
 
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operands, TMA writes) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed; the arrival is not counted ahead (`.noinc`), so the barrier's
+// count includes it.
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // x, opaque to the compiler: keeps it from hoisting what is derived from x
 // (the descriptors of a loop's every k-step) out of a loop into registers.
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
@@ -127,6 +141,31 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// Shared memory at `src` -> the box at (c0 innermost, c1, c2, c3) of a 4-D
+// tensor map, in this thread's bulk group (elements past the tensor's edge
+// are not written).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+        ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are pending: READ, until
+// their shared sources may be written again; else until they are done.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+    if constexpr (READ)
+        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+    else
+        asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The box at coordinate c0 of a 1-D tensor map -> shared memory at `dst`.
 __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0) {
@@ -134,6 +173,16 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
         "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) global -> shared by
+// the bulk-copy engine, completing `bytes` of `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
         : "memory");
 }
 
@@ -180,6 +229,33 @@ static inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int B, int S
     const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
     return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map of an f32 [B, S, heads, cols] tensor with element strides
+// (sb, ss, sh) for boxes of 32 columns (128 bytes) by `box_rows` rows of one
+// (head, batch), 128-byte swizzled: row r of a box at r * 128 bytes, its
+// 16-byte chunk c at chunk c ^ (r % 8).  Columns at or past `cols` and rows
+// at or past S read as zeros; a dim of size 1 takes a packed stride.  Every
+// stride of a dim larger than 1 must be a multiple of 4 elements and `ptr`
+// 16-byte aligned.  Returns false where the driver refuses it.
+static inline bool make_map_f32(CUtensorMap* map, const float* ptr, int B, int S, int heads,
+                                int cols, int64_t sb, int64_t ss, int64_t sh, int box_rows) {
+    EncodeTiledFn encode = encode_tiled_fn();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)heads,
+                                (cuuint64_t)B};
+    cuuint64_t strides[3] = {(cuuint64_t)ss * 4, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
+    cuuint64_t packed = ((cuuint64_t)cols * 4 + 15) / 16 * 16;
+    for (int i = 0; i < 3; ++i) {
+        if (dims[i + 1] == 1) strides[i] = packed;
+        packed = strides[i] * dims[i + 1];
+    }
+    const cuuint32_t box[4] = {32, (cuuint32_t)box_rows, 1, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(ptr), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -400,6 +476,85 @@ __device__ __forceinline__ void wgmma_m64n256_rs_t(float (&d)[32][4],
           "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]),
           "+f"(d[31][2]), "+f"(d[31][3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// TF32 (m64nNk8, N = 32, 64, 128): D (64 x N f32) = A B (+ D where
+// accumulate), k = 8.  A from registers: the m16n8k8 tf32 A fragment of each
+// warp's 16 rows, (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) with g =
+// lane / 4, t = lane % 4.  B from shared memory, K-major (tf32 takes no
+// transposes): its N rows along n, a k-step one 32-byte segment of a
+// 128-byte-swizzled row, so the bf16 descriptors above serve (a k-step
+// advances the address 32 bytes within a 32-float panel).  The tensor cores
+// read the TF32 bits of each f32 register and shared value.
+__device__ __forceinline__ void wgmma_tf32_m64n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+          "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+          "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+          "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+          "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+          "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+          "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+          "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+          "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+          "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+          "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+          "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+          "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+          "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+          "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
+          "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
+          "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The m64nNk8 TF32 product at N = 8 NB, NB 4, 8 or 16.
+template <int NB>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[NB][4], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+    if constexpr (NB == 4)
+        wgmma_tf32_m64n32(d, a, b, accumulate);
+    else if constexpr (NB == 8)
+        wgmma_tf32_m64n64(d, a, b, accumulate);
+    else if constexpr (NB == 16)
+        wgmma_tf32_m64n128(d, a, b, accumulate);
+    else
+        static_assert(NB == 0, "m64nNk8 TF32 at N = 32, 64 or 128");
 }
 
 template <int NT>

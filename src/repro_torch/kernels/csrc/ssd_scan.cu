@@ -1,5 +1,5 @@
 // Mamba-2 SSD chunk scan for Hopper (sm_90a), f32 in and out, every matrix
-// product on the TF32 tensor cores in 3xTF32.
+// product on the TF32 tensor cores by `wgmma` in 3xTF32.
 //
 // Replaces the TPU kernel `_ssd_kernel` in src/repro/kernels/ssd_scan.py
 // (launched by `_ssd_fwd`).  Same function as the plain version
@@ -17,52 +17,87 @@
 // What bounds it on an H100: at the prefill shape of mamba2-370m (B=1,
 // S=32768, H=32, P=64, N=128, G=1, L=64; 512 chunks) the function moves
 // ~576 MB (x and y f32, B, C, dt; 0.17 ms at 3.35 TB/s) and needs ~39
-// GFLOP of products (0.08 ms at the 495 TFLOP/s of TF32): bytes.  The
-// TPU kernel walks the chunks of a (b, h) in order, one grid step each.
-// Done that way on this card (one block per (b, h, 16 rows of P), f32 FMAs)
-// it gave 128 blocks of 8 warps that waited on latency, C B^T computed 128
-// times per chunk, and ~10 TFLOP/s on the CUDA cores: 7.3 ms.
+// GFLOP of products (0.08 ms at the 495 TFLOP/s of TF32): bytes.  What the
+// tensor cores execute is more: 3xTF32 runs each product three times, the
+// state products run in two passes, and each block of two heads forms C B^T
+// again, ~206 GFLOP at that shape (0.42 ms at the TF32 peak).
 //
-// Design: four passes on one stream, so that each chunk's work is spread
-// over the card and nothing is computed twice but the state products.
+// Up to four kernels on one stream, one call:
 //
-//   A. ssd_cb_kernel, one block per (b, group, chunk): C B^T of the chunk
-//      ([L, L], causal tiles only) once for all heads of the group, and per
-//      head the chunk's cs (a warp-parallel scan), dt and wd = dt *
-//      exp(cs_last - cs), padded to 64 positions.  8.4 MB of C B^T at the
-//      main shape; it stays in the 50 MB L2 for pass D.
-//   B. ssd_state_kernel, one block per (b, h, segment of `cps` chunks): the
-//      segment's state from a zero state, and its total decay exp(sum dA).
+//   A. ssd_prep_kernel, a warp per (b, head, chunk): the chunk's cs (a
+//      warp-parallel scan of dA) and dt, 64 each, zero-padded past the chunk
+//      and past S.
+//   B. ssd_state_kernel, a block per (b, two heads of a group, segment of
+//      `cps` chunks) but the last segment: the segment's state from a zero
+//      state, and its total decay exp(sum dA).
 //   C. ssd_combine_kernel, elementwise over (b, h, p, n), in order over the
-//      segments: the state entering each segment (segment 0: h_init or 0;
-//      then entering(k+1) = local(k) + decay(k) * entering(k)); the last is
-//      the final state.
-//   D. ssd_output_kernel, one block of 16 warps per (b, h, segment): from
-//      the entering state, for each chunk W = C B^T * exp(cs_i - cs_j) *
-//      dt_j (built in place of C B^T), y, then the state carried on.
+//      segments: the state entering each segment after the first (entering(k
+//      + 1) = local(k) + decay(k) * entering(k), entering(0) = h_init or 0).
+//      B and C run only where there are several segments.
+//   D. ssd_output_kernel, a block per (b, two heads, segment): from the
+//      entering states (h_init for segment 0), for each chunk y of both
+//      heads, then their states carried on; the last segment writes the
+//      final state.  Pass D recomputes pass B's state products rather than
+//      reading a state per chunk ([B, 512, H, P, N] f32, 537 MB each way).
+//
+// Passes B and D share one body (`chunk_pass`): two warpgroups, one per head
+// of the group (a group of an odd number of heads leaves its last block's
+// second warpgroup computing a copy of the first's head and writing
+// nothing).  Each chunk's C and B tiles are loaded once for both heads, with
+// the heads' x tiles and the chunk's cs and dt, by TMA (4-D tensor maps over
+// x [B,S,H,P] and B/C [B,S,G,N] with the caller's strides, 128-byte
+// swizzled, a box of 32 columns by L rows, so that rows past the chunk stay
+// as zeroed at the start and rows past S arrive as zeros) and a bulk copy,
+// completing one mbarrier; thread 0 issues the next chunk's as soon as both
+// warpgroups have built their tiles from this chunk's raw ones, so the loads
+// run under the rest of the chunk.  Where a row of x, B or C is not 16-byte
+// aligned, TMA cannot take it and every thread copies the same tiles by
+// 4-byte cp.async.  y goes out the same way: each warpgroup writes its y
+// tile into its head's W tile (its products are done with it) and one
+// thread stores it by TMA (rows past S are not written), or, where y's rows
+// are not 16-byte aligned, every thread stores its own elements.  One warp
+// more for loading would leave 9 warps, 3 on one of the SM's four
+// schedulers, and registers 168 a thread (the products spilled there); two
+// warpgroups keep 255.
+//
+// Products, each `wgmma` m64nNk8 .tf32 with A from registers and B from
+// shared memory.  TF32 `wgmma` takes both shared operands K-major only, so
+// each product is laid out so that its shared operand runs along k:
+//
+//   y^T [p][i]  = S [p][n] . C [i][n]              (A: the state, its accumulator)
+//   CB [j][i]   = B [j][n] . C [i][n]              (A: B from the B^T tiles)
+//   y^T [p][i] += X^T [p][j] . W [i][j]            (A: x, read from its tile)
+//   S [p][n]   += (X * wd)^T [p][s] . B^T [n][s]   (A: x scaled by wd)
+//
+// with W = C B^T * exp(cs_i - cs_j) * dt_j (j <= i, else 0) and wd = dt *
+// exp(cs_last - cs).  Each operand is split into a TF32 hi and lo part
+// (`tf32_split`: hi by truncation, lo = x - hi) and a product is lo.hi +
+// hi.lo + hi.hi, ~2^-20 of the f32 one; plain TF32 misses the tolerance
+// ~5x.  A register operand is split where it is read; a shared operand is
+// written as a hi tile and a lo tile by the warpgroups: C (for both heads,
+// and for both products that take it), B^T (the transpose of B, for both
+// heads) and each head's W.  The state's accumulator is A of y's first
+// product as it stands: its column r holds state column pi(r) = 8 (r / 8)
+// + (r % 2 ? r % 8 / 2 + 4 : r % 8 / 2), the order in which the A
+// fragment reads an accumulator's columns (t, t + 4 from 2t, 2t + 1), set
+// by the row order of the B^T tiles.  C B^T is formed once a chunk for both
+// heads, each warpgroup 32 of its 64 columns, and W of both heads written
+// from each warpgroup's columns.  The state stays in registers (64 a thread
+// at N = 128) over a segment; y's 32 are formed each chunk and stored.
+//
+// Shared memory (N = 128, pass D: 227 KB, one block an SM): raw C, B and
+// both x tiles (96 KB, free for the next chunk once built from), B^T hi and
+// lo (64 KB), and 64 KB that hold C's hi and lo for the first two products,
+// both heads' W hi and lo for the third, then y; cs and dt of two chunks.
+// Four barriers of both warpgroups a chunk: the last chunk's products done,
+// the tiles built, C read, W written.  N takes a 32-, 64- or 128-wide tile
+// (compile-time); P takes 64 rows, zero-padded, and a chunk 64, its padding
+// rows zero with dt = 0, as a ragged last chunk is padded.  No atomics: a
+// call gives the same bits every time.
 //
 // The number of segments is chosen from the SM count and the passes'
 // occupancy so that the waves of passes B and D are full (8 segments of 64
-// chunks at the main shape on 132 SMs: 256 blocks).  Pass D recomputes the
-// state products of pass B rather than reading a state per chunk ([B, 512,
-// H, P, N] f32, 537 MB each way).
-//
-// Products: mma.sync m16n8k8 TF32 with f32 accumulation (tf32.cuh, shared
-// with the backward).  Plain TF32 (10 mantissa bits) misses the tolerance
-// the kernel is held to by ~5x, so each f32 operand is split into a TF32
-// high part and a low part (x - hi), and a product is lo.hi + hi.lo +
-// hi.hi (about 2^-20 relative).  Decays, the
-// scans and dt stay f32 on the CUDA cores.  Each warp owns fixed 16-row
-// tiles of every product; operands come from shared memory, whose row
-// strides keep fragment loads free of bank conflicts.  Tiles of the next
-// chunk are copied in with cp.async (16 bytes, or 4 where a row is not
-// 16-byte aligned) while the current one is computed: two stages of C, B, x
-// and the scan values, one of C B^T.  Measured on an H100 at the main shape
-// (chip_smoke.py), what holds the passes back is shared: the tensor cores'
-// mma.sync TF32 rate times the three products of 3xTF32, fragment loads
-// from shared memory that several warps repeat, and the C and B tiles that
-// every head reads again from L2.  wgmma with operands in
-// shared memory, and several heads of a group per block, are the next steps.
+// chunks at the main shape on 132 SMs: 128 blocks in pass D).
 //
 // Layout: x [B,S,H,P], dt [B,S,H], B/C [B,S,G,N], y [B,S,H,P], h_init and
 // state [B,H,P,N] are read and written through the strides given (x, B and
@@ -75,453 +110,688 @@
 
 #include <algorithm>
 
-#include "tf32.cuh"
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 256;              // threads of passes A and B: 8 warps
-constexpr int NW = NT / 32;
-constexpr int NT_D = 512;            // threads of pass D: 16 warps
-constexpr int YT = 2;                // 8-column tiles of y per warp in pass D
-constexpr int MAX_L = 64;            // chunk length
-constexpr int MAX_N = 128;           // state width
-constexpr int MAX_P = 64;            // head width
-// Row strides of the shared tiles (floats).  A tile whose rows run along
-// the summed index k is read two k at a time (8 bytes, stride = 8 mod 32);
-// one whose rows are k is read one k at a time (stride = 4 mod 32); either
-// way no two lanes of a load hit one bank.
-constexpr int LD_K = MAX_N + 8;      // C, and B in pass A, and the state: rows along n
-constexpr int LD_B = MAX_N + 4;      // B in passes B and D: rows are s
-constexpr int LD_X = MAX_P + 4;      // x: rows are s
-constexpr int LD_W = MAX_L + 8;      // C B^T: rows along j
-constexpr int CD = 3 * MAX_L;        // per (b, h, chunk): cs, dt, wd
+constexpr int MAX_L = 64;                 // chunk length: wgmma's M and a tile's rows
+constexpr int MAX_N = 128;                // state width
+constexpr int MAX_P = 64;                 // head width
+constexpr int HEADS = 2;                  // warpgroups a block, a head each
+constexpr int THREADS = 128 * HEADS;
+constexpr int CB_COLS = MAX_L / HEADS;    // columns i of C B^T a warpgroup forms
+static_assert(HEADS == 1 || HEADS == 2, "C B^T split 64 or 32 columns a warpgroup");
+constexpr int SYNC = 1;                   // the warpgroups' named barrier
+constexpr int RING = 2;                   // A fragments in flight a product: k-steps
+constexpr int CD = 2 * MAX_L;             // per (b, h, chunk): cs, dt
+constexpr int PANEL = MAX_L * 128;        // bytes of a 64-row panel of 32 floats
+constexpr int HEAD_TILE = MAX_L * MAX_P * 4;  // an x tile or a W tile: 16 KB
+constexpr int NT_PREP = 256;
 constexpr int NT_COMBINE = 256;
 
-// Shared memory of each pass, in floats.
-constexpr int SMEM_A = 2 * MAX_L * LD_K;                                 // C, B
-constexpr int STAGE_B = MAX_L * LD_B + MAX_L * LD_X + CD;                // B, x, cd
-constexpr int SMEM_B = 2 * STAGE_B;
-constexpr int STAGE_D = MAX_L * LD_K + MAX_L * LD_B + MAX_L * LD_X + CD; // C, B, x, cd
-constexpr int SMEM_D = 2 * STAGE_D + MAX_L * LD_W + MAX_P * LD_K;        // + C B^T, state
+// State-width tile of N: 32, 64 or 128.
+__host__ __device__ constexpr int n_tile(int N) { return N <= 32 ? 32 : N <= 64 ? 64 : 128; }
 
-struct Strides {
-    int64_t xb, xs, xh, db, ds, dh, bb, bs, bg, cb, cs, cg, yb, ys, yh,
-            hb, hh, hp, sb, sh, sp;
+// Shared memory of a pass (OUT: pass D) at state-width tile NT.  Barriers
+// and cs/dt first, then, from a 1024-aligned base, the tiles (offsets in
+// bytes): raw C [i][n] (pass D), raw B [s][n], x [s][p] of each head, B^T
+// hi and lo [r][s] (row r holds n = pi(r)), and the W area (pass D): C hi and
+// lo [i][n], then each head's W hi and lo [i][j].  The 64-row tiles are
+// panels of 32 columns 8 KB apart, B^T's panels of NT rows; all 128-byte
+// swizzled as TMA writes them.
+template <int NT, bool OUT>
+struct Cfg {
+    static constexpr int C_TILE = MAX_L * NT * 4;
+    static constexpr int BT_TILE = NT * MAX_L * 4;
+    static constexpr int CH = 0;
+    static constexpr int BR = CH + (OUT ? C_TILE : 0);
+    static constexpr int X = BR + C_TILE;
+    static constexpr int BT = X + HEADS * HEAD_TILE;
+    static constexpr int WA = BT + 2 * BT_TILE;
+    static constexpr int W_AREA =
+        !OUT ? 0 : 2 * C_TILE > 2 * HEADS * HEAD_TILE ? 2 * C_TILE : 2 * HEADS * HEAD_TILE;
+    static constexpr int TILES = WA + W_AREA;
+    static constexpr int SMALL = 16 + 2 * HEADS * CD * 4;  // the barrier; cs, dt of 2 chunks
+    static constexpr int SMEM = SMALL + 1008 + TILES;       // + aligning a 16-byte base
+    static_assert(SMEM <= 232448, "a block fits an SM");
 };
 
-struct Shape {
-    int S, H, P, G, N, L, nc, cps, nseg;
-    bool vec;  // every x, B and C row starts on a 16-byte boundary and P, N % 4 == 0
+struct Params {
+    const float *x, *bm, *cm;
+    const float* cd;  // pass A's cs, dt per (b, h, chunk)
+    float* ls;        // per (b, h, segment k < nseg - 1): pass B's local state of segment
+                      // k, then (pass C) the state entering segment k + 1
+    float* sdec;      // per (b, h, segment k < nseg - 1): the segment's total decay
+    const float* h_init;  // the state entering segment 0, or null (zero)
+    float* y;
+    float* st;        // the final state, written by pass D's last segment
+    int S, H, P, G, N, L, nc, cps, nseg, rep, pairs, tma, tma_y;
+    int64_t xs[3], bs[3], cs[3], ys[3];  // (batch, seq, head or group) strides
+    int64_t hs[3], ss[3];                // (batch, head, p) strides of h_init and st
 };
 
-// ---- pass A: C B^T per (b, group, chunk); cs, dt, wd per (b, head, chunk) ----
+// A block's work: batch b, group g, heads h[0..HEADS) (active where the
+// group has them), chunks [c_begin, c_end).
+struct Work {
+    int b, g, seg, c_begin, n;
+    int h[HEADS];
+    bool active[HEADS];
+};
 
-__global__ void __launch_bounds__(NT)
-ssd_cb_kernel(const float* __restrict__ dt, const float* __restrict__ a,
-              const float* __restrict__ bm, const float* __restrict__ cm,
-              float* __restrict__ cb, float* __restrict__ cd, Shape sh, Strides sd) {
-    extern __shared__ float4 smem4[];
-    float* Cs = reinterpret_cast<float*>(smem4);  // [MAX_L][LD_K]
-    float* Bs = Cs + MAX_L * LD_K;                 // [MAX_L][LD_K]
-    const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-    const int L = sh.L, s0 = c * L, valid = min(L, sh.S - s0);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
-
-    zero_smem(Cs, SMEM_A);
-    __syncthreads();
-    load_tile<MAX_L>(Cs, LD_K, cm + b * sd.cb + g * sd.cg + s0 * sd.cs, sd.cs, valid, sh.N, sh.vec);
-    load_tile<MAX_L>(Bs, LD_K, bm + b * sd.bb + g * sd.bg + s0 * sd.bs, sd.bs, valid, sh.N, sh.vec);
-    cp_async_commit();
-
-    // While the tiles load: per head of the group, the inclusive scan of dA
-    // over the chunk (lane holds positions lane and lane + 32; positions past
-    // the chunk or S have dt = 0, so cs stays at its last value there).
-    const int rep = sh.H / sh.G;
-    for (int hl = warp; hl < rep; hl += NW) {
-        const int h = g * rep + hl;
-        const float ah = a[h];
-        const float* dtp = dt + b * sd.db + h * sd.dh + (int64_t)s0 * sd.ds;
-        const float d0 = lane < valid ? dtp[lane * sd.ds] : 0.f;
-        const float d1 = lane + 32 < valid ? dtp[(lane + 32) * sd.ds] : 0.f;
-        float v0 = d0 * ah, v1 = d1 * ah;
+__device__ __forceinline__ Work block_work(const Params& p) {
+    Work w;
+    w.seg = blockIdx.x;
+    w.b = blockIdx.z;
+    w.g = blockIdx.y / p.pairs;
+    const int pair = blockIdx.y - w.g * p.pairs;
+    w.c_begin = w.seg * p.cps;
+    w.n = min(p.nc, w.c_begin + p.cps) - w.c_begin;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-            const float u0 = __shfl_up_sync(0xffffffffu, v0, off);
-            const float u1 = __shfl_up_sync(0xffffffffu, v1, off);
-            if (lane >= off) { v0 += u0; v1 += u1; }
-        }
-        v1 += __shfl_sync(0xffffffffu, v0, 31);
-        const float last = __shfl_sync(0xffffffffu, v1, 31);
-        float* o = cd + (((int64_t)b * sh.H + h) * sh.nc + c) * CD;
-        o[lane] = v0;
-        o[lane + 32] = v1;
-        o[MAX_L + lane] = d0;
-        o[MAX_L + lane + 32] = d1;
-        o[2 * MAX_L + lane] = d0 * expf(last - v0);
-        o[2 * MAX_L + lane + 32] = d1 * expf(last - v1);
+    for (int k = 0; k < HEADS; ++k) {
+        const int hl = pair * HEADS + k;
+        w.active[k] = hl < p.rep;
+        w.h[k] = w.g * p.rep + min(hl, p.rep - 1);
     }
-    cp_async_wait<0>();
-    __syncthreads();
+    return w;
+}
 
-    // C B^T: warp w owns rows 16 (w % 4).. and columns 32 (w / 4).., four
-    // 8-column tiles; tiles wholly above the diagonal are written as 0.
-    const int i0 = 16 * (warp & 3), j0 = 32 * (warp >> 2);
-    if (i0 >= L) return;
-    float acc[4][4] = {};
-    const int n8 = (sh.N + 7) & ~7;
-#pragma unroll 2
-    for (int k0 = 0; k0 < n8; k0 += 8) {
-        Frag<4> fa;
-        const float* ca = Cs + (i0 + gq) * LD_K + k0 + 2 * tq;
-        fa.set2(0, 2, ld2(ca));
-        fa.set2(1, 3, ld2(ca + 8 * LD_K));
+// Byte offset of element (r, c) of a swizzled tile of `rows`-row panels.
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+    return (c >> 5) * rows * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// ---- pass A: cs and dt per (b, head, chunk) ----
+
+__global__ void __launch_bounds__(NT_PREP)
+ssd_prep_kernel(const float* __restrict__ dt, const float* __restrict__ a, float* __restrict__ cd,
+                int B, int S, int H, int L, int nc, int64_t dsb, int64_t dss, int64_t dsh) {
+    const int lane = threadIdx.x & 31;
+    const int64_t item = (int64_t)blockIdx.x * (NT_PREP / 32) + (threadIdx.x >> 5);
+    if (item >= (int64_t)B * H * nc) return;
+    const int c = (int)(item % nc), h = (int)(item / nc % H), b = (int)(item / nc / H);
+    // lane holds positions lane and lane + 32; positions past the chunk or S
+    // have dt = 0, so cs stays at its last value there
+    const int s0 = c * L, valid = min(L, S - s0);
+    const float ah = a[h];
+    const float* dtp = dt + b * dsb + h * dsh + (int64_t)s0 * dss;
+    const float d0 = lane < valid ? dtp[lane * dss] : 0.f;
+    const float d1 = lane + 32 < valid ? dtp[(lane + 32) * dss] : 0.f;
+    float v0 = d0 * ah, v1 = d1 * ah;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-            const int jt = j0 + 8 * nt;
-            if (jt < L && jt <= i0 + 15) {
-                Frag<2> fb;
-                fb.set2(0, 1, ld2(Bs + (jt + gq) * LD_K + k0 + 2 * tq));  // B(n, j) = B[j][n]
-                mma3(acc[nt], fa, fb);
-            }
+    for (int off = 1; off < 32; off <<= 1) {
+        const float u0 = __shfl_up_sync(0xffffffffu, v0, off);
+        const float u1 = __shfl_up_sync(0xffffffffu, v1, off);
+        if (lane >= off) {
+            v0 += u0;
+            v1 += u1;
         }
     }
-    float* out = cb + (((int64_t)b * sh.G + g) * sh.nc + c) * L * L;
+    v1 += __shfl_sync(0xffffffffu, v0, 31);
+    float* o = cd + item * CD;
+    o[lane] = v0;
+    o[lane + 32] = v1;
+    o[MAX_L + lane] = d0;
+    o[MAX_L + lane + 32] = d1;
+}
+
+// ---- passes B and D: the loads ----
+
+// Rows [0, L) of a swizzled tile of `np` 32-column panels from global rows
+// `ld` floats apart: element (r, c) is src[r * ld + c] where r < valid and
+// c < cols, else zero.  4-byte cp.async by every thread of the block.
+__device__ __forceinline__ void copy_tile(uint32_t dst, const float* src, int64_t ld, int L,
+                                          int valid, int cols, int np) {
+    const int width = 32 * np;
+    for (int e = threadIdx.x; e < L * width; e += THREADS) {
+        const int r = e / width, c = e - r * width;
+        const bool ok = r < valid && c < cols;
+        cp_async4(dst + swz(r, c, MAX_L), ok ? src + r * ld + c : src, ok);
+    }
+}
+
+// The loads of chunk `it` of the block's segment into the raw tiles and cs /
+// dt slot it % 2, completing the barrier's phase it: C (pass D), B, the
+// heads' x tiles, their cs and dt.  TMA by thread 0, or cp.async by every
+// thread where rows are not 16-byte aligned.  The caller has seen every
+// thread done with the tiles (and with the slot's chunk it - 2).
+template <int NT, bool OUT>
+__device__ __forceinline__ void load_chunk(const CUtensorMap* mx, const CUtensorMap* mb,
+                                           const CUtensorMap* mc, const Params& p, const Work& w,
+                                           uint32_t base, uint32_t small, int it) {
+    using C = Cfg<NT, OUT>;
+    const uint32_t full = small;
+    const int npn = (p.N + 31) >> 5, npx = (p.P + 31) >> 5;  // panels holding N, P columns
+    const int c = w.c_begin + it, s0 = c * p.L;
+    const uint32_t cd_dst = small + 16 + (it & 1) * HEADS * CD * 4;
+    if (p.tma) {
+        if (threadIdx.x != 0) return;
+        mbar_arrive_expect_tx(full, ((OUT ? npn : 0) + npn + HEADS * npx) * 128 * p.L +
+                                        HEADS * CD * 4);
+        for (int pn = 0; pn < npn; ++pn) {
+            if (OUT) tma_load_4d(base + C::CH + pn * PANEL, mc, full, 32 * pn, s0, w.g, w.b);
+            tma_load_4d(base + C::BR + pn * PANEL, mb, full, 32 * pn, s0, w.g, w.b);
+        }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+        for (int k = 0; k < HEADS; ++k) {
+            for (int px = 0; px < npx; ++px)
+                tma_load_4d(base + C::X + k * HEAD_TILE + px * PANEL, mx, full, 32 * px, s0,
+                            w.h[k], w.b);
+            bulk_load(cd_dst + k * CD * 4, p.cd + (((int64_t)w.b * p.H + w.h[k]) * p.nc + c) * CD,
+                      CD * 4, full);
+        }
+        return;
+    }
+    const int valid = min(p.L, p.S - s0);
+    if (OUT)
+        copy_tile(base + C::CH, p.cm + w.b * p.cs[0] + (int64_t)s0 * p.cs[1] + w.g * p.cs[2],
+                  p.cs[1], p.L, valid, p.N, npn);
+    copy_tile(base + C::BR, p.bm + w.b * p.bs[0] + (int64_t)s0 * p.bs[1] + w.g * p.bs[2],
+              p.bs[1], p.L, valid, p.N, npn);
+#pragma unroll
+    for (int k = 0; k < HEADS; ++k) {
+        copy_tile(base + C::X + k * HEAD_TILE,
+                  p.x + w.b * p.xs[0] + (int64_t)s0 * p.xs[1] + w.h[k] * p.xs[2], p.xs[1], p.L,
+                  valid, p.P, npx);
+        if (threadIdx.x < CD / 4)  // 16 bytes a thread
+            cp_async16(cd_dst + k * CD * 4 + threadIdx.x * 16,
+                       p.cd + (((int64_t)w.b * p.H + w.h[k]) * p.nc + c) * CD + threadIdx.x * 4,
+                       true);
+    }
+    cp_async_mbar_arrive_noinc(full);
+}
+
+// ---- passes B and D: the consumers ----
+
+// d (+)= (a_hi + a_lo)(b_hi + b_lo) without lo.lo, small terms first; the
+// first product overwrites d where !accumulate.  Issued, not committed.
+template <int NB>
+__device__ __forceinline__ void mma3_tf32(float (&d)[NB][4], const uint32_t (&a)[2][4],
+                                          uint64_t b_hi, uint64_t b_lo, int accumulate) {
+    wgmma_tf32<NB>(d, a[1], b_hi, accumulate);
+    wgmma_tf32<NB>(d, a[0], b_lo, 1);
+    wgmma_tf32<NB>(d, a[0], b_hi, 1);
+}
+
+// a[0] = hi, a[1] = lo of the four values
+__device__ __forceinline__ void split4(uint32_t (&a)[2][4], float v0, float v1, float v2,
+                                       float v3) {
+    tf32_split(v0, a[0][0], a[1][0]);
+    tf32_split(v1, a[0][1], a[1][1]);
+    tf32_split(v2, a[0][2], a[1][2]);
+    tf32_split(v3, a[0][3], a[1][3]);
+}
+
+__device__ __forceinline__ float4 as_float4(const uint32_t (&a)[4]) {
+    return make_float4(__uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
+                       __uint_as_float(a[3]));
+}
+
+// Descriptor of k-step kk (8 columns) of a K-major operand of `rows`-row
+// panels at `tile`.
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk, int rows) {
+    return sw128_desc(opaque(tile) + (kk >> 2) * rows * 128 + (kk & 3) * 32);
+}
+
+// See the note at the top.  No branch sits between a product's issue and
+// its wait: a register of an asynchronous `wgmma` live across a branch makes
+// ptxas serialize every `wgmma` of the kernel.  A ring of RING A fragments a
+// product: a k-step's are written once the k-step RING before has retired.
+// The `// phase: NAME` ... `// end of phase: NAME` comments mark the spans
+// that scripts/ssd_fwd_phases.py times.
+template <int NT, bool OUT>
+__device__ __forceinline__ void consume(const CUtensorMap* mx, const CUtensorMap* mb,
+                                        const CUtensorMap* mc, const CUtensorMap* my,
+                                        const Params& p, const Work& w, uint32_t base,
+                                        uint32_t small, uint8_t* smem) {
+    using C = Cfg<NT, OUT>;
+    // shared memory at address a as a C++ lvalue (`smem` is address `small`):
+    // plain accesses that the compiler may schedule, where ordered asm ones
+    // made every load wait for the stores before it
+    auto sf = [&](uint32_t a) -> float& { return *reinterpret_cast<float*>(smem + (a - small)); };
+    auto sf4 = [&](uint32_t a) -> float4& {
+        return *reinterpret_cast<float4*>(smem + (a - small));
+    };
+    constexpr int NK = NT / 8;  // k-steps over n
+    constexpr int BT_ITEMS = NT * (MAX_L / 4) / THREADS;  // B^T's 4-float rows a thread
+    constexpr int C_ITEMS = C::C_TILE / 16 / THREADS;      // C's float4s a thread
+    static_assert(BT_ITEMS * THREADS == NT * (MAX_L / 4) && C_ITEMS * THREADS == C::C_TILE / 16,
+                  "whole rounds of the builds");
+    const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int p0 = 16 * ((tid >> 5) & 3) + gq;  // this thread's rows p0, p0 + 8 (of p and of j)
+    int h = w.h[0];
+    bool active = w.active[0];
+#pragma unroll
+    for (int k = 1; k < HEADS; ++k) {  // selects, not an indexed array
+        h = wg == k ? w.h[k] : h;
+        active = wg == k ? w.active[k] : active;
+    }
+    const uint32_t full = small;
+
+    // the state: element (p0 + 8 (e / 2), pi(8 j + 2 tq + e % 2)) in st[j][e],
+    // pi(8 j + 2 tq + e % 2) = 8 j + tq + 4 (e % 2)
+    // pass D enters segment 0 with h_init (or zero) and segment k > 0 with
+    // pass C's state in slot k - 1; pass B enters each from zero
+    float st[NK][4];
+    const int64_t slot_k = ((int64_t)w.b * p.H + h) * (p.nseg - 1) + w.seg;
+    const float* ent = w.seg > 0 ? p.ls + (slot_k - 1) * p.P * p.N : p.h_init;
+    const int64_t ent_b = w.seg > 0 ? 0 : w.b * p.hs[0] + h * p.hs[1];
+    const int64_t ent_p = w.seg > 0 ? p.N : p.hs[2];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int i = i0 + gq + (e >> 1) * 8, j = j0 + 8 * nt + 2 * tq + (e & 1);
-            if (i < L && j < L) out[i * L + j] = acc[nt][e];
+            const int pr = p0 + 8 * (e >> 1), n = 8 * j + tq + 4 * (e & 1);
+            st[j][e] = OUT && ent != nullptr && pr < p.P && n < p.N ? ent[ent_b + pr * ent_p + n]
+                                                                     : 0.f;
         }
-}
+    float log_decay = 0.f;
 
-// ---- the state products, shared by passes B and D ----
+    for (int it = 0; it < w.n; ++it) {
+        const int s0 = (w.c_begin + it) * p.L;
+        const uint32_t cd = small + 16 + (it & 1) * HEADS * CD * 4;  // cs, dt of both heads
+        // the tiles' addresses and this thread's place in them, worked out
+        // again each chunk: held across the chunks, the compiler would keep
+        // every offset derived from them in registers (these shadow the
+        // function's own)
+        const uint32_t tiles = opaque(base);
+        const int tid_c = (int)opaque((uint32_t)tid), wg = tid_c >> 7;
+        const int tq = tid_c & 3, p0 = 16 * ((tid_c >> 5) & 3) + ((tid_c & 31) >> 2);
+        const uint32_t bt_hi = tiles + C::BT, bt_lo = bt_hi + C::BT_TILE;
+        const uint32_t c_hi = tiles + C::WA, c_lo = c_hi + C::C_TILE;
+        const uint32_t w_own = tiles + C::WA + wg * 2 * HEAD_TILE;  // this head's W hi, then lo
+        const uint32_t cs_own = cd + wg * CD * 4, dt_own = cs_own + MAX_L * 4;
+        mbar_wait_or_trap(full, it & 1);  // a load that never lands ends the launch
+        if (it > 0) {
+            // the last chunk's y is read out of this head's W tile, and every
+            // product of the last chunk is done
+            if (OUT && p.tma_y && (tid & 127) == 0) bulk_wait<0, true>();
+            named_sync(SYNC, THREADS);
+        }
 
-// st = decay * st + Xw^T B over one chunk, Xw = x * wd.  Warp w owns state
-// rows p = 16 (w % 4).. and TILES 8-column tiles from column n = 8 TILES (w / 4):
-// 8 tiles for a block of 8 warps, 4 for 16.
-template <int TILES, bool FULL>
-__device__ __forceinline__ void state_update(float (&st)[TILES][4], const float* Xs,
-                                             const float* Bs, const float* wd, float decay,
-                                             const Shape& sh) {
-    const int L = FULL ? MAX_L : sh.L, P = FULL ? MAX_P : sh.P, N = FULL ? MAX_N : sh.N;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
-    const int p0 = 16 * (warp & 3), n0 = 8 * TILES * (warp >> 2);
+        // x: A fragments (8 kk + tq, p0), (8 kk + tq, p0 + 8), (8 kk + tq + 4, p0), (.., p0 + 8),
+        // read once the first products are done (pass D), so that they are
+        // not live through them
+        float xr[8][4];
+        auto load_x = [&] {
+            const uint32_t xt = tiles + C::X + wg * HEAD_TILE;
 #pragma unroll
-    for (int nt = 0; nt < TILES; ++nt)
+            for (int kk = 0; kk < 8; ++kk) {
+                const int s = 8 * kk + tq;
+                xr[kk][0] = sf(xt + swz(s, p0, MAX_L));
+                xr[kk][1] = sf(xt + swz(s, p0 + 8, MAX_L));
+                xr[kk][2] = sf(xt + swz(s + 4, p0, MAX_L));
+                xr[kk][3] = sf(xt + swz(s + 4, p0 + 8, MAX_L));
+            }
+        };
+        if constexpr (!OUT) load_x();
+        // phase: build
+        // B^T hi and lo: row r holds column pi(r) of B, four s a store; a
+        // build's loads all go out before its stores
+        {
+            float v[BT_ITEMS][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] *= decay;
-    if (p0 >= P) return;
-    const int l8 = (L + 7) & ~7;
+            for (int k = 0; k < BT_ITEMS; ++k) {
+                const int item = tid_c + k * THREADS, r = item % NT, s4 = item / NT * 4;
+                const int n = (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1);
 #pragma unroll
-    for (int k0 = 0; k0 < l8; k0 += 8) {
-        const float2 w = ld2(wd + k0 + 2 * tq);
-        const float* xa = Xs + (k0 + 2 * tq) * LD_X + p0 + gq;  // A(p, s) = Xw[s][p]
-        Frag<4> fa;
-        fa.set(0, xa[0] * w.x);
-        fa.set(1, xa[8] * w.x);
-        fa.set(2, xa[LD_X] * w.y);
-        fa.set(3, xa[LD_X + 8] * w.y);
+                for (int q = 0; q < 4; ++q) v[k][q] = sf(tiles + C::BR + swz(s4 + q, n, MAX_L));
+            }
 #pragma unroll
-        for (int nt = 0; nt < TILES; ++nt) {
-            const int nn = n0 + 8 * nt;
-            if (nn < N) {
-                Frag<2> fb;
-                const float* bp = Bs + (k0 + 2 * tq) * LD_B + nn + gq;  // B(s, n)
-                fb.set(0, bp[0]);
-                fb.set(1, bp[LD_B]);
-                mma3(st[nt], fa, fb);
+            for (int k = 0; k < BT_ITEMS; ++k) {
+                const int item = tid_c + k * THREADS, r = item % NT, s4 = item / NT * 4;
+                uint32_t a[2][4];
+                split4(a, v[k][0], v[k][1], v[k][2], v[k][3]);
+                const uint32_t off = swz(r, s4, NT);
+                sf4(bt_hi + off) = as_float4(a[0]);
+                sf4(bt_lo + off) = as_float4(a[1]);
+            }
+        }
+        if constexpr (OUT) {  // C hi and lo, in the raw tile's layout
+            float4 v[C_ITEMS];
+#pragma unroll
+            for (int k = 0; k < C_ITEMS; ++k)
+                v[k] = sf4(tiles + C::CH + (tid_c + k * THREADS) * 16);
+#pragma unroll
+            for (int k = 0; k < C_ITEMS; ++k) {
+                const uint32_t off = (tid_c + k * THREADS) * 16;
+                uint32_t a[2][4];
+                split4(a, v[k].x, v[k].y, v[k].z, v[k].w);
+                sf4(c_hi + off) = as_float4(a[0]);
+                sf4(c_lo + off) = as_float4(a[1]);
+            }
+        }
+        // end of phase: build
+        fence_proxy_async();
+        named_sync(SYNC, THREADS);  // the tiles are built (pass B: the raw ones are free)
+        if (!OUT && it + 1 < w.n) load_chunk<NT, OUT>(mx, mb, mc, p, w, base, small, it + 1);
+        const float cs_last = sf(cs_own + 4 * (MAX_L - 1));
+
+        float y[8][4];
+        if constexpr (OUT) {
+            // y^T = S C^T over the chunk's 64 rows i, and C B^T for rows i in
+            // [CB_COLS wg, CB_COLS (wg + 1)): one commit group a k-step of n
+            // (the first product of each overwrites it)
+            float cb[CB_COLS / 8][4];
+            uint32_t ay[RING][2][4], ab[RING][2][4];
+            // phase: S4
+#pragma unroll
+            for (int kk = 0; kk < NK; ++kk) {
+                const int slot = kk % RING;
+                if (kk >= RING) {
+                    wgmma_wait<RING - 1>();
+                    wgmma_hold(ay[slot]);
+                    wgmma_hold(ab[slot]);
+                }
+                // the state's columns pi(8 kk + 2 tq) = 8 kk + tq and 8 kk + tq + 4
+                split4(ay[slot], st[kk][0], st[kk][2], st[kk][1], st[kk][3]);
+                const int r0 = 8 * kk + 2 * tq;  // B^T rows holding n = 8 kk + tq, + 4
+                const uint32_t o0 = swz(r0, p0, NT), o1 = swz(r0, p0 + 8, NT);
+                const uint32_t o2 = swz(r0 + 1, p0, NT), o3 = swz(r0 + 1, p0 + 8, NT);
+                ab[slot][0][0] = __float_as_uint(sf(bt_hi + o0));
+                ab[slot][0][1] = __float_as_uint(sf(bt_hi + o1));
+                ab[slot][0][2] = __float_as_uint(sf(bt_hi + o2));
+                ab[slot][0][3] = __float_as_uint(sf(bt_hi + o3));
+                ab[slot][1][0] = __float_as_uint(sf(bt_lo + o0));
+                ab[slot][1][1] = __float_as_uint(sf(bt_lo + o1));
+                ab[slot][1][2] = __float_as_uint(sf(bt_lo + o2));
+                ab[slot][1][3] = __float_as_uint(sf(bt_lo + o3));
+                wgmma_fence();
+                mma3_tf32<8>(y, ay[slot], kdesc(c_hi, kk, MAX_L), kdesc(c_lo, kk, MAX_L), kk > 0);
+                mma3_tf32<CB_COLS / 8>(cb, ab[slot], kdesc(c_hi + wg * CB_COLS * 128, kk, MAX_L),
+                                   kdesc(c_lo + wg * CB_COLS * 128, kk, MAX_L), kk > 0);
+                wgmma_commit();
+            }
+            // end of phase: S4
+            wgmma_wait<0>();
+            wgmma_hold(y);
+            wgmma_hold(cb);
+#pragma unroll
+            for (int r = 0; r < RING; ++r) {
+                wgmma_hold(ay[r]);
+                wgmma_hold(ab[r]);
+            }
+            load_x();
+            // C and x are read: the W area takes W, the raw tiles the next chunk
+            named_sync(SYNC, THREADS);
+            if (it + 1 < w.n) load_chunk<NT, OUT>(mx, mb, mc, p, w, base, small, it + 1);
+
+            // W [i][j] of both heads for this warpgroup's rows i of C B^T:
+            // cb[nt][e] is (j, i) = (p0 + 8 (e / 2), CB_COLS wg + 8 nt + 2 tq + e % 2)
+            // phase: W
+            // (its cs and dt loaded first)
+            float csi[HEADS][CB_COLS / 8][2], csj[HEADS][2], dtj[HEADS][2];
+#pragma unroll
+            for (int k = 0; k < HEADS; ++k) {
+                const uint32_t csk = cd + k * CD * 4, dtk = csk + MAX_L * 4;
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    csj[k][u] = sf(csk + 4 * (p0 + 8 * u));
+                    dtj[k][u] = sf(dtk + 4 * (p0 + 8 * u));
+                }
+#pragma unroll
+                for (int nt = 0; nt < CB_COLS / 8; ++nt)
+#pragma unroll
+                    for (int u = 0; u < 2; ++u)
+                        csi[k][nt][u] = sf(csk + 4 * (CB_COLS * wg + 8 * nt + 2 * tq + u));
+            }
+#pragma unroll
+            for (int k = 0; k < HEADS; ++k) {
+                const uint32_t whi = tiles + C::WA + k * 2 * HEAD_TILE, wlo = whi + HEAD_TILE;
+#pragma unroll
+                for (int nt = 0; nt < CB_COLS / 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = CB_COLS * wg + 8 * nt + 2 * tq + (e & 1);
+                        const int j = p0 + 8 * (e >> 1);
+                        const float v = j <= i ? cb[nt][e] *
+                                                     __expf(csi[k][nt][e & 1] - csj[k][e >> 1]) *
+                                                     dtj[k][e >> 1]
+                                               : 0.f;
+                        uint32_t hi, lo;
+                        tf32_split(v, hi, lo);
+                        const uint32_t off = swz(i, j, MAX_L);
+                        sf(whi + off) = __uint_as_float(hi);
+                        sf(wlo + off) = __uint_as_float(lo);
+                    }
+            }
+            // end of phase: W
+            fence_proxy_async();
+            // y's inter-chunk term times exp(cs_i): y[nt][e] is (p0 + 8 (e / 2),
+            // 8 nt + 2 tq + e % 2)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+                const float e0 = __expf(sf(cs_own + 4 * (8 * nt + 2 * tq)));
+                const float e1 = __expf(sf(cs_own + 4 * (8 * nt + 2 * tq + 1)));
+                y[nt][0] *= e0;
+                y[nt][1] *= e1;
+                y[nt][2] *= e0;
+                y[nt][3] *= e1;
+            }
+        }
+        const float decay = expf(cs_last);
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[j][e] *= decay;
+        log_decay += cs_last;
+        if constexpr (OUT) named_sync(SYNC, THREADS);  // both heads' W are in
+
+        // y^T += X^T W^T (pass D) and S += (X wd)^T B over the chunk's 64 s,
+        // wd = dt exp(cs_last - cs) at this thread's s = 8 kk + tq and + 4
+        // (__expf: no call among the products)
+        uint32_t ax[RING][2][4], aw[RING][2][4];
+        // phase: S6
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+            const int slot = kk % RING;
+            if (kk >= RING) {
+                wgmma_wait<RING - 1>();
+                if constexpr (OUT) wgmma_hold(ax[slot]);
+                wgmma_hold(aw[slot]);
+            }
+            const int s = 8 * kk + tq;
+            const float wd0 = sf(dt_own + 4 * s) * __expf(cs_last - sf(cs_own + 4 * s));
+            const float wd1 = sf(dt_own + 4 * (s + 4)) *
+                              __expf(cs_last - sf(cs_own + 4 * (s + 4)));
+            if constexpr (OUT) split4(ax[slot], xr[kk][0], xr[kk][1], xr[kk][2], xr[kk][3]);
+            split4(aw[slot], xr[kk][0] * wd0, xr[kk][1] * wd0, xr[kk][2] * wd1, xr[kk][3] * wd1);
+            wgmma_fence();
+            if constexpr (OUT)
+                mma3_tf32<8>(y, ax[slot], kdesc(w_own, kk, MAX_L),
+                             kdesc(w_own + HEAD_TILE, kk, MAX_L), 1);
+            mma3_tf32<NK>(st, aw[slot], kdesc(bt_hi, kk, NT), kdesc(bt_lo, kk, NT), 1);
+            wgmma_commit();
+        }
+        // end of phase: S6
+        wgmma_wait<0>();
+        wgmma_hold(st);
+#pragma unroll
+        for (int r = 0; r < RING; ++r) {
+            wgmma_hold(aw[r]);
+            if constexpr (OUT) wgmma_hold(ax[r]);
+        }
+        if constexpr (OUT) {
+            wgmma_hold(y);
+            if (p.tma_y) {
+                // phase: ystore
+                // y [i][p] into this head's W hi tile, which its products are
+                // done with, then out by one TMA store a panel (rows past the
+                // chunk are not stored, rows past S not written)
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = 8 * nt + 2 * tq + (e & 1), pr = p0 + 8 * (e >> 1);
+                        sf(w_own + swz(i, pr, MAX_L)) = y[nt][e];
+                    }
+                fence_proxy_async();
+                named_sync(SYNC + 1 + wg, 128);
+                if ((tid & 127) == 0 && active) {
+                    for (int px = 0; px < (p.P + 31) >> 5; ++px)
+                        tma_store_4d(my, w_own + px * PANEL, 32 * px, s0, h, w.b);
+                    bulk_commit();
+                }
+                // end of phase: ystore
+            } else if (active) {  // rows that TMA cannot take
+                float* yb = p.y + w.b * p.ys[0] + h * p.ys[2];
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = 8 * nt + 2 * tq + (e & 1), pr = p0 + 8 * (e >> 1);
+                        if (i < p.L && s0 + i < p.S && pr < p.P)
+                            yb[(int64_t)(s0 + i) * p.ys[1] + pr] = y[nt][e];
+                    }
             }
         }
     }
+    if (OUT && p.tma_y && (tid & 127) == 0) bulk_wait<0, false>();  // y is out
+    // pass B: the segment's local state and decay; pass D's last segment:
+    // the final state
+    if (active && (!OUT || w.seg == p.nseg - 1)) {
+        float* out = OUT ? p.st + w.b * p.ss[0] + h * p.ss[1] : p.ls + slot_k * p.P * p.N;
+        const int64_t out_p = OUT ? p.ss[2] : p.N;
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int pr = p0 + 8 * (e >> 1), n = 8 * j + tq + 4 * (e & 1);
+                if (pr < p.P && n < p.N) out[pr * out_p + n] = st[j][e];
+            }
+        if (!OUT && (tid & 127) == 0) p.sdec[slot_k] = expf(log_decay);
+    }
 }
 
-// The element (row, column) of the state that st[nt][e] holds.
-__device__ __forceinline__ int st_row(int e) {
-    return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + (e >> 1) * 8;
-}
-template <int TILES>
-__device__ __forceinline__ int st_col(int nt, int e) {
-    return 8 * TILES * (threadIdx.x >> 7) + 8 * nt + 2 * (threadIdx.x & 3) + (e & 1);
+// Thread 0 sets up the barrier; every thread zeroes the raw tiles (rows past
+// the chunk and panels past P or N are never loaded); the first chunk's
+// loads go out and the two warpgroups take the chunks in turn.
+template <int NT, bool OUT>
+__device__ __forceinline__ void chunk_pass(const CUtensorMap* mx, const CUtensorMap* mb,
+                                           const CUtensorMap* mc, const CUtensorMap* my,
+                                           const Params& p) {
+    using C = Cfg<NT, OUT>;
+    extern __shared__ float4 smem_ssd[];
+    const uint32_t small = smem_addr(smem_ssd);
+    const uint32_t base = (small + C::SMALL + 1023) & ~1023u;
+    if (threadIdx.x == 0) {
+        mbar_init(small, p.tma ? 1 : THREADS);
+        fence_barrier_init();
+    }
+    for (int off = threadIdx.x * 16; off < C::BT; off += THREADS * 16)
+        sts_f32x4(base + off, 0.f, 0.f, 0.f, 0.f);
+    fence_proxy_async();
+    __syncthreads();
+    const Work w = block_work(p);
+    load_chunk<NT, OUT>(mx, mb, mc, p, w, base, small, 0);
+    consume<NT, OUT>(mx, mb, mc, my, p, w, base, small, reinterpret_cast<uint8_t*>(smem_ssd));
 }
 
 // ---- pass B: each segment's state from a zero state, and its total decay ----
 
-// FULL: L, P and N at their largest (mamba2-370m's head) and rows that take
-// 16-byte copies, all known to the compiler.  At mamba2-370m's prefill shape
-// a call takes 1.55 ms of device time with the FULL passes B and D and 2.06
-// ms with the generic ones (H100 SXM, scripts/ssd_full_build_ab.py).
-template <bool FULL>
-__global__ void __launch_bounds__(NT, 2)
-ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
-                 const float* __restrict__ cd, float* __restrict__ ls, float* __restrict__ sdec,
-                 Shape sh, Strides sd) {
-    extern __shared__ float4 smem4[];
-    float* stage0 = reinterpret_cast<float*>(smem4);  // per stage: B, x, cd
-    const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z, g = h / (sh.H / sh.G);
-    const int c_begin = seg * sh.cps, c_end = min(sh.nc, c_begin + sh.cps);
-    const float* bbase = bm + b * sd.bb + g * sd.bg;
-    const float* xbase = x + b * sd.xb + h * sd.xh;
-    const float* cdbase = cd + ((int64_t)b * sh.H + h) * sh.nc * CD;
-
-    auto fetch = [&](int c) {
-        float* Bs = stage0 + ((c - c_begin) & 1) * STAGE_B;
-        const int s0 = c * sh.L, valid = min(sh.L, sh.S - s0);
-        if (FULL) {
-            load_rows<MAX_L, MAX_N, NT>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid);
-            load_rows<MAX_L, MAX_P, NT>(Bs + MAX_L * LD_B, LD_X, xbase + (int64_t)s0 * sd.xs,
-                                        sd.xs, valid);
-        } else {
-            load_tile<MAX_L>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid, sh.N, sh.vec);
-            load_tile<MAX_L>(Bs + MAX_L * LD_B, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid,
-                             sh.P, sh.vec);
-        }
-        load_flat(Bs + MAX_L * LD_B + MAX_L * LD_X, cdbase + (int64_t)c * CD, CD);
-        cp_async_commit();
-    };
-
-    zero_smem(stage0, SMEM_B);
-    __syncthreads();
-    fetch(c_begin);
-    float st[8][4] = {};
-    float log_decay = 0.f;
-    for (int c = c_begin; c < c_end; ++c) {
-        cp_async_wait<0>();
-        __syncthreads();  // chunk c is in; every thread is done with chunk c - 1
-        if (c + 1 < c_end) fetch(c + 1);
-        const float* Bs = stage0 + ((c - c_begin) & 1) * STAGE_B;
-        const float* Xs = Bs + MAX_L * LD_B;
-        const float* cs = Xs + MAX_L * LD_X;
-        log_decay += cs[MAX_L - 1];
-        state_update<8, FULL>(st, Xs, Bs, cs + 2 * MAX_L, expf(cs[MAX_L - 1]), sh);
-    }
-    float* out = ls + (((int64_t)b * sh.H + h) * sh.nseg + seg) * sh.P * sh.N;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int p = st_row(e), n = st_col<8>(nt, e);
-            if (p < sh.P && n < sh.N) out[p * sh.N + n] = st[nt][e];
-        }
-    if (threadIdx.x == 0) sdec[((int64_t)b * sh.H + h) * sh.nseg + seg] = expf(log_decay);
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_state_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mb,
+                 const Params p) {
+    chunk_pass<NT, false>(&mx, &mb, nullptr, nullptr, p);
 }
 
-// ---- pass C: the state entering each segment, in place of its local state ----
+// ---- pass C: the state entering each segment but the first, in place of
+// the local state of the one before; with no chunks, the final state ----
 
 __global__ void __launch_bounds__(NT_COMBINE)
 ssd_combine_kernel(const float* __restrict__ h_init, float* __restrict__ ls,
-                   const float* __restrict__ sdec, float* __restrict__ st, Shape sh,
-                   Strides sd) {
+                   const float* __restrict__ sdec, float* __restrict__ st, int H, int P, int N,
+                   int nloc, int64_t hsb, int64_t hsh, int64_t hsp, int64_t ssb, int64_t ssh,
+                   int64_t ssp) {
     const int i = blockIdx.x * NT_COMBINE + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int pn = sh.P * sh.N;
+    const int pn = P * N;
     if (i >= pn) return;
-    const int p = i / sh.N, n = i - p * sh.N;
-    float e = h_init != nullptr ? h_init[b * sd.hb + h * sd.hh + p * sd.hp + n] : 0.f;
-    float* l = ls + ((int64_t)b * sh.H + h) * sh.nseg * pn + i;
-    const float* dec = sdec + ((int64_t)b * sh.H + h) * sh.nseg;
-#pragma unroll 4
-    for (int k = 0; k < sh.nseg; ++k) {
-        const float local = l[(int64_t)k * pn];
-        l[(int64_t)k * pn] = e;
-        e = local + dec[k] * e;
+    const int p = i / N, n = i - p * N;
+    float e = h_init != nullptr ? h_init[b * hsb + h * hsh + p * hsp + n] : 0.f;
+    const int nseg = nloc;  // local states to fold in
+    float* l = ls + ((int64_t)b * H + h) * nseg * pn + i;
+    const float* dec = sdec + ((int64_t)b * H + h) * nseg;
+    for (int k0 = 0; k0 < nseg; k0 += 8) {  // eight segments' loads in flight at once
+        float local[8], d[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            local[u] = k0 + u < nseg ? l[(int64_t)(k0 + u) * pn] : 0.f;
+            d[u] = k0 + u < nseg ? dec[k0 + u] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+            if (k0 + u < nseg) {
+                e = local[u] + d[u] * e;
+                l[(int64_t)(k0 + u) * pn] = e;
+            }
     }
-    st[b * sd.sb + h * sd.sh + p * sd.sp + n] = e;
+    if (st != nullptr) st[b * ssb + h * ssh + p * ssp + n] = e;
 }
 
-// ---- pass D: y of every chunk of a segment, from the segment's entering state ----
+// ---- pass D: y of every chunk of a segment, from the segment's entering states ----
 
-template <bool FULL>
-__global__ void __launch_bounds__(NT_D, 1)
-ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ bm,
-                  const float* __restrict__ cm, const float* __restrict__ cb,
-                  const float* __restrict__ cd, const float* __restrict__ ls,
-                  float* __restrict__ y, Shape sh, Strides sd) {
-    extern __shared__ float4 smem4[];
-    float* stage0 = reinterpret_cast<float*>(smem4);  // per stage: C, B, x, cd
-    float* CBs = stage0 + 2 * STAGE_D;                 // [MAX_L][LD_W]
-    float* Ss = CBs + MAX_L * LD_W;                    // [MAX_P][LD_K]: the entering state
-    const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z, g = h / (sh.H / sh.G);
-    const int L = FULL ? MAX_L : sh.L, P = FULL ? MAX_P : sh.P, N = FULL ? MAX_N : sh.N;
-    const int c_begin = seg * sh.cps, c_end = min(sh.nc, c_begin + sh.cps);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
-    const float* bbase = bm + b * sd.bb + g * sd.bg;
-    const float* cbase = cm + b * sd.cb + g * sd.cg;
-    const float* xbase = x + b * sd.xb + h * sd.xh;
-    const float* cdbase = cd + ((int64_t)b * sh.H + h) * sh.nc * CD;
-    const float* cbbase = cb + ((int64_t)b * sh.G + g) * sh.nc * L * L;
-    float* ybase = y + b * sd.yb + h * sd.yh;
-
-    auto fetch = [&](int c) {
-        float* Cs = stage0 + ((c - c_begin) & 1) * STAGE_D;
-        const int s0 = c * L, valid = min(L, sh.S - s0);
-        float* Bs = Cs + MAX_L * LD_K;
-        float* Xs = Bs + MAX_L * LD_B;
-        if (FULL) {
-            load_rows<MAX_L, MAX_N, NT_D>(Cs, LD_K, cbase + (int64_t)s0 * sd.cs, sd.cs, valid);
-            load_rows<MAX_L, MAX_N, NT_D>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid);
-            load_rows<MAX_L, MAX_P, NT_D>(Xs, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid);
-        } else {
-            load_tile<MAX_L>(Cs, LD_K, cbase + (int64_t)s0 * sd.cs, sd.cs, valid, N, sh.vec);
-            load_tile<MAX_L>(Bs, LD_B, bbase + (int64_t)s0 * sd.bs, sd.bs, valid, N, sh.vec);
-            load_tile<MAX_L>(Xs, LD_X, xbase + (int64_t)s0 * sd.xs, sd.xs, valid, P, sh.vec);
-        }
-        load_flat(Xs + MAX_L * LD_X, cdbase + (int64_t)c * CD, CD);
-    };
-    auto fetch_cb = [&](int c) {
-        if (FULL)
-            load_rows<MAX_L, MAX_L, NT_D>(CBs, LD_W, cbbase + (int64_t)c * L * L, L, L);
-        else
-            load_tile<MAX_L>(CBs, LD_W, cbbase + (int64_t)c * L * L, L, L, L, true);
-    };
-
-    zero_smem(stage0, SMEM_D);
-    __syncthreads();
-    fetch(c_begin);
-    fetch_cb(c_begin);
-    cp_async_commit();
-    // the entering state, in shared memory (for C state^T) and in the
-    // accumulators of the state products
-    const float* ent = ls + (((int64_t)b * sh.H + h) * sh.nseg + seg) * P * N;
-    for (int i = threadIdx.x; i < P * N; i += NT_D) Ss[(i / N) * LD_K + i % N] = ent[i];
-    float st[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int p = st_row(e), n = st_col<4>(nt, e);
-            st[nt][e] = p < P && n < N ? ent[p * N + n] : 0.f;
-        }
-
-    // this warp's tile of y: warp w runs on scheduler w % 4, so each scheduler
-    // gets one warp of each row tile (the causal W X is 1 to 4 times as long)
-    const int i0 = 16 * (warp >> 2), p0 = 16 * (warp & 3);
-    const int n8 = (N + 7) & ~7, l8 = (L + 7) & ~7;
-    for (int c = c_begin; c < c_end; ++c) {
-        cp_async_wait<0>();
-        __syncthreads();  // chunk c and the state entering it are in; chunk c - 1 is done
-        if (c + 1 < c_end) {
-            fetch(c + 1);
-            cp_async_commit();
-        }
-        const float* Cs = stage0 + ((c - c_begin) & 1) * STAGE_D;
-        const float* Bs = Cs + MAX_L * LD_K;
-        const float* Xs = Bs + MAX_L * LD_B;
-        const float* cs = Xs + MAX_L * LD_X;
-        const float* dts = cs + MAX_L;
-
-        // W = C B^T * exp(cs_i - cs_j) * dt_j for j <= i, else 0, in place of C B^T
-        for (int e = threadIdx.x; e < MAX_L * MAX_L; e += NT_D) {
-            const int i = e / MAX_L, j = e % MAX_L;
-            float* w = CBs + i * LD_W + j;
-            *w = j <= i ? *w * __expf(cs[i] - cs[j]) * dts[j] : 0.f;
-        }
-        const bool mine = i0 < L && p0 < P;
-        const int ia = i0 + gq, ib = ia + 8;
-        float acc[YT][4] = {};
-        if (mine) {
-            // C state^T, then scaled by exp(cs_i)
-#pragma unroll
-            for (int k0 = 0; k0 < n8; k0 += 8) {
-                Frag<4> fa;
-                const float* ca = Cs + (i0 + gq) * LD_K + k0 + 2 * tq;
-                fa.set2(0, 2, ld2(ca));
-                fa.set2(1, 3, ld2(ca + 8 * LD_K));
-#pragma unroll
-                for (int nt = 0; nt < YT; ++nt) {
-                    const int pp = p0 + 8 * nt;
-                    if (pp < P) {
-                        Frag<2> fb;  // B(n, p) = S[p][n]
-                        fb.set2(0, 1, ld2(Ss + (pp + gq) * LD_K + k0 + 2 * tq));
-                        mma3(acc[nt], fa, fb);
-                    }
-                }
-            }
-            const float ea = expf(cs[ia]), eb = expf(cs[ib]);
-#pragma unroll
-            for (int nt = 0; nt < YT; ++nt) {
-                acc[nt][0] *= ea;
-                acc[nt][1] *= ea;
-                acc[nt][2] *= eb;
-                acc[nt][3] *= eb;
-            }
-        }
-        __syncthreads();  // W is in
-        if (mine) {
-            // + W X
-            const int jend = min(l8, i0 + 16);
-            for (int k0 = 0; k0 < jend; k0 += 8) {
-                const int ja = k0 + 2 * tq;
-                const float* wa = CBs + ia * LD_W + ja;
-                Frag<4> fa;
-                fa.set2(0, 2, ld2(wa));
-                fa.set2(1, 3, ld2(wa + 8 * LD_W));
-#pragma unroll
-                for (int nt = 0; nt < YT; ++nt) {
-                    const int pp = p0 + 8 * nt;
-                    if (pp < P) {
-                        Frag<2> fb;
-                        const float* xp = Xs + ja * LD_X + pp + gq;  // B(j, p) = X[j][p]
-                        fb.set(0, xp[0]);
-                        fb.set(1, xp[LD_X]);
-                        mma3(acc[nt], fa, fb);
-                    }
-                }
-            }
-            const int s0 = c * L;
-#pragma unroll
-            for (int nt = 0; nt < YT; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int i = e < 2 ? ia : ib, p = p0 + 8 * nt + 2 * tq + (e & 1);
-                    if (i < L && s0 + i < sh.S && p < P)
-                        ybase[(int64_t)(s0 + i) * sd.ys + p] = acc[nt][e];
-                }
-        }
-        __syncthreads();  // every read of W and of the entering state is done
-        if (c + 1 < c_end) {
-            fetch_cb(c + 1);
-            cp_async_commit();
-        }
-        state_update<4, FULL>(st, Xs, Bs, cs + 2 * MAX_L, expf(cs[MAX_L - 1]), sh);
-        if (c + 1 < c_end) {
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) Ss[st_row(e) * LD_K + st_col<4>(nt, e)] = st[nt][e];
-        }
-    }
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_output_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mb,
+                  const __grid_constant__ CUtensorMap mc, const __grid_constant__ CUtensorMap my,
+                  const Params p) {
+    chunk_pass<NT, true>(&mx, &mb, &mc, &my, p);
 }
 
-// Segments of chunks for B*H heads of nc chunks: the count that keeps the
-// waves of passes B and D fullest, in units of one chunk of pass D (a chunk
-// of pass B ~0.4 of that; a block's set-up ~1).  Also sets the passes'
-// shared-memory limits on the current device, which their launches need.
-Shape plan(int B, int S, int H, int P, int G, int N, int L, int device) {
-    Shape sh{S, H, P, G, N, L, (S + L - 1) / L, 1, 0, false};
-    cudaFuncSetAttribute(ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_A * 4);
-    for (auto k : {ssd_state_kernel<false>, ssd_state_kernel<true>})
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_B * 4);
-    for (auto k : {ssd_output_kernel<false>, ssd_output_kernel<true>})
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_D * 4);
+struct Shape {
+    int nc, cps, nseg;
+};
+
+template <int NT>
+void set_smem_limits() {
+    cudaFuncSetAttribute(ssd_state_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         Cfg<NT, false>::SMEM);
+    cudaFuncSetAttribute(ssd_output_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         Cfg<NT, true>::SMEM);
+}
+
+template <int NT>
+void occupancy(int* occ_b, int* occ_d) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ_b, ssd_state_kernel<NT>, THREADS,
+                                                  Cfg<NT, false>::SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ_d, ssd_output_kernel<NT>, THREADS,
+                                                  Cfg<NT, true>::SMEM);
+}
+
+// Segments of nc chunks, each B * G * ceil(rep / 2) blocks: the count that
+// keeps the waves of passes B and D fullest, in units of one chunk of pass D
+// (a chunk of pass B ~0.4 of that; a block's set-up ~1).  Also sets the
+// passes' shared-memory limits on the current device, which their launches
+// need.
+Shape plan(int B, int S, int H, int G, int N, int L, int device) {
+    Shape sh{(S + L - 1) / L, 1, 0};
+    set_smem_limits<32>();
+    set_smem_limits<64>();
+    set_smem_limits<128>();
     if (sh.nc == 0) return sh;
-    int sms = 132, occ_b = 2, occ_d = 1;
+    int sms = 132, occ_b = 1, occ_d = 1;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_b, ssd_state_kernel<false>, NT,
-                                                  SMEM_B * 4);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_d, ssd_output_kernel<false>, NT_D,
-                                                  SMEM_D * 4);
+    switch (n_tile(N)) {
+        case 32: occupancy<32>(&occ_b, &occ_d); break;
+        case 64: occupancy<64>(&occ_b, &occ_d); break;
+        default: occupancy<128>(&occ_b, &occ_d); break;
+    }
     occ_b = occ_b < 1 ? 1 : occ_b;
     occ_d = occ_d < 1 ? 1 : occ_d;
-    const int64_t heads = (int64_t)B * H;
-    const int64_t most = std::min<int64_t>(sh.nc, 16 * (int64_t)sms / heads + 1);
+    const int rep = H / G;
+    const int64_t units = (int64_t)B * G * ((rep + HEADS - 1) / HEADS);
+    const int64_t most = std::min<int64_t>(sh.nc, 16 * (int64_t)sms / units + 1);
+    auto waves = [sms](int64_t blocks, int occ) {
+        return (double)((blocks + (int64_t)sms * occ - 1) / ((int64_t)sms * occ));
+    };
     double best = 1e300;
     for (int64_t want = 1; want <= most; ++want) {
         const int cps = (int)((sh.nc + want - 1) / want);
-        const int nseg = (sh.nc + cps - 1) / cps;
-        const int64_t blocks = heads * nseg;
-        const double waves_d = (double)((blocks + (int64_t)sms * occ_d - 1) / ((int64_t)sms * occ_d));
-        const double waves_b = (double)((blocks + (int64_t)sms * occ_b - 1) / ((int64_t)sms * occ_b));
-        const double cost = (waves_d + 0.4 * waves_b) * (cps + 1);
+        const int nseg = (sh.nc + cps - 1) / cps;  // pass B runs all but the last
+        const double cost =
+            (waves(units * nseg, occ_d) + 0.4 * waves(units * (nseg - 1), occ_b)) * (cps + 1);
         if (cost < best) {
             best = cost;
             sh.cps = cps;
@@ -531,10 +801,11 @@ Shape plan(int B, int S, int H, int P, int G, int N, int L, int device) {
     return sh;
 }
 
-// Floats of scratch: C B^T, the scan values, the segment states and decays.
-int64_t workspace_floats(int B, const Shape& sh) {
-    return (int64_t)B * sh.G * sh.nc * sh.L * sh.L + (int64_t)B * sh.H * sh.nc * CD +
-           (int64_t)B * sh.H * sh.nseg * sh.P * sh.N + (int64_t)B * sh.H * sh.nseg;
+// Floats of scratch: the cs and dt, the states and decays of every segment
+// but the last.
+int64_t workspace_floats(int B, int H, int P, int N, const Shape& sh) {
+    const int64_t nloc = sh.nseg > 0 ? sh.nseg - 1 : 0;
+    return (int64_t)B * H * sh.nc * CD + (int64_t)B * H * nloc * P * N + (int64_t)B * H * nloc;
 }
 
 bool valid_shape(int B, int S, int H, int P, int G, int N, int L) {
@@ -542,12 +813,28 @@ bool valid_shape(int B, int S, int H, int P, int G, int N, int L) {
            N <= MAX_N && L >= 4 && L <= MAX_L && L % 4 == 0;
 }
 
+template <int NT>
+cudaError_t launch_state(const CUtensorMap& mx, const CUtensorMap& mb, const CUtensorMap& mc,
+                          const Params& prm, int B, cudaStream_t s) {
+    const dim3 grid(prm.nseg - 1, prm.G * prm.pairs, B);  // the last segment's is not needed
+    ssd_state_kernel<NT><<<grid, THREADS, Cfg<NT, false>::SMEM, s>>>(mx, mb, prm);
+    return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_output(const CUtensorMap& mx, const CUtensorMap& mb, const CUtensorMap& mc,
+                          const CUtensorMap& my, const Params& prm, int B, cudaStream_t s) {
+    const dim3 grid(prm.nseg, prm.G * prm.pairs, B);
+    ssd_output_kernel<NT><<<grid, THREADS, Cfg<NT, true>::SMEM, s>>>(mx, mb, mc, my, prm);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory of each pass (0..3: A, B, C, D) in bytes.
+// Dynamic shared memory of each pass (0..3: A, B, C, D) at N = 128, in bytes.
 extern "C" int repro_ssd_scan_smem_bytes(int pass) {
-    const int floats[4] = {SMEM_A, SMEM_B, 0, SMEM_D};
-    return pass >= 0 && pass < 4 ? floats[pass] * 4 : -1;
+    const int bytes[4] = {0, Cfg<128, false>::SMEM, 0, Cfg<128, true>::SMEM};
+    return pass >= 0 && pass < 4 ? bytes[pass] : -1;
 }
 
 // The limits of the kernel: chunk L a multiple of 4 in [4, 64], P in
@@ -569,10 +856,10 @@ extern "C" int repro_ssd_scan_plan(int B, int S, int H, int P, int G, int N, int
     if (!valid_shape(B, S, H, P, G, N, L)) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const Shape sh = plan(B, S, H, P, G, N, L, device);
+    const Shape sh = plan(B, S, H, G, N, L, device);
     *nseg = sh.nseg;
     *cps = sh.cps;
-    *ws_floats = workspace_floats(B, sh);
+    *ws_floats = workspace_floats(B, H, P, N, sh);
     return (int)cudaGetLastError();
 }
 
@@ -583,8 +870,10 @@ extern "C" int repro_ssd_scan_plan(int B, int S, int H, int P, int G, int N, int
 // (repro_ssd_scan_plan, called before on this device).
 // Strides in elements: (batch, seq, head) for x, dt, y; (batch, seq, group)
 // for bm, cm; (batch, head, row) for h_init and st; the last dim is
-// unit-stride.  device is the CUDA ordinal of the tensors and the stream.
-// Returns cudaError_t.
+// unit-stride.  x, B and C go by TMA where every stride is a multiple of 4
+// elements and each pointer 16-byte aligned, else by 4-byte cp.async.
+// device is the CUDA ordinal of the tensors and the stream.  Returns
+// cudaError_t.
 extern "C" int repro_ssd_scan_fwd(
         const float* x, const float* dt, const float* a, const float* bm, const float* cm,
         const float* h_init, float* y, float* st, float* ws, int64_t ws_floats,
@@ -598,38 +887,59 @@ extern "C" int repro_ssd_scan_fwd(
     if (err != cudaSuccess) return (int)err;
     if (B == 0) return (int)cudaSuccess;
     auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-    const bool vec = P % 4 == 0 && N % 4 == 0 && al16(x) && al16(bm) && al16(cm) &&
-                     (xsb | xss | xsh | bsb | bss | bsg | csb | css | csg) % 4 == 0;
     const int nc = (S + L - 1) / L;
-    const Shape sh{S, H, P, G, N, L, nc, cps, nseg, vec};
+    const Shape sh{nc, cps, nseg};
     if (cps < 1 || nseg != (nc + cps - 1) / cps || !al16(ws) ||
-        ws_floats < workspace_floats(B, sh))
+        ws_floats < workspace_floats(B, H, P, N, sh))
         return (int)cudaErrorInvalidValue;
-    const Strides sd{xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg,
-                     ysb, yss, ysh, hsb, hsh, hsp, ssb, ssh, ssp};
+    const bool tma = al16(x) && al16(bm) && al16(cm) &&
+                     (xsb | xss | xsh | bsb | bss | bsg | csb | css | csg) % 4 == 0;
+    const bool tma_y = al16(y) && (ysb | yss | ysh) % 4 == 0;
+    const int rep = H / G;
+    const int nloc = nseg > 0 ? nseg - 1 : 0;
     float* cd = ws;
-    float* cb = cd + (int64_t)B * H * sh.nc * CD;
-    float* ls = cb + (int64_t)B * G * sh.nc * L * L;
-    float* sdec = ls + (int64_t)B * H * sh.nseg * P * N;
+    float* ls = cd + (int64_t)B * H * nc * CD;
+    float* sdec = ls + (int64_t)B * H * nloc * P * N;
+    const Params prm{x, bm, cm, cd, ls, sdec, h_init, y, st, S, H, P, G, N, L, nc, cps, nseg,
+                     rep, (rep + HEADS - 1) / HEADS, tma ? 1 : 0, tma_y ? 1 : 0,
+                     {xsb, xss, xsh}, {bsb, bss, bsg}, {csb, css, csg}, {ysb, yss, ysh},
+                     {hsb, hsh, hsp}, {ssb, ssh, ssp}};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool full = L == MAX_L && P == MAX_P && N == MAX_N && vec;
-    if (sh.nc > 0) {
-        ssd_cb_kernel<<<dim3(sh.nc, G, B), NT, SMEM_A * 4, s>>>(dt, a, bm, cm, cb, cd, sh, sd);
-        const dim3 grid(sh.nseg, H, B);
-        if (full)
-            ssd_state_kernel<true><<<grid, NT, SMEM_B * 4, s>>>(x, bm, cd, ls, sdec, sh, sd);
-        else
-            ssd_state_kernel<false><<<grid, NT, SMEM_B * 4, s>>>(x, bm, cd, ls, sdec, sh, sd);
+    CUtensorMap mx{}, mb{}, mc{}, my{};
+    if (nc > 0 && tma &&
+        (!make_map_f32(&mx, x, B, S, H, P, xsb, xss, xsh, L) ||
+         !make_map_f32(&mb, bm, B, S, G, N, bsb, bss, bsg, L) ||
+         !make_map_f32(&mc, cm, B, S, G, N, csb, css, csg, L)))
+        return (int)cudaErrorInvalidValue;
+    if (nc > 0 && tma_y && !make_map_f32(&my, y, B, S, H, P, ysb, yss, ysh, L))
+        return (int)cudaErrorInvalidValue;
+    if (nc > 0) {
+        const int64_t items = (int64_t)B * H * nc;
+        ssd_prep_kernel<<<(unsigned)((items + NT_PREP / 32 - 1) / (NT_PREP / 32)), NT_PREP, 0,
+                          s>>>(dt, a, cd, B, S, H, L, nc, dsb, dss, dsh);
+        if (nloc > 0) {
+            switch (n_tile(N)) {
+                case 32: err = launch_state<32>(mx, mb, mc, prm, B, s); break;
+                case 64: err = launch_state<64>(mx, mb, mc, prm, B, s); break;
+                default: err = launch_state<128>(mx, mb, mc, prm, B, s); break;
+            }
+            if (err != cudaSuccess) return (int)err;
+        }
     }
+    // the entering states of segments 1.. (pass D's last segment writes the
+    // final state); with no chunks, the final state is h_init or zero
     const int pn_blocks = (P * N + NT_COMBINE - 1) / NT_COMBINE;
-    ssd_combine_kernel<<<dim3(pn_blocks, H, B), NT_COMBINE, 0, s>>>(h_init, ls, sdec, st, sh, sd);
-    if (sh.nc > 0) {
-        const dim3 grid(sh.nseg, H, B);
-        if (full)
-            ssd_output_kernel<true><<<grid, NT_D, SMEM_D * 4, s>>>(x, bm, cm, cb, cd, ls, y, sh, sd);
-        else
-            ssd_output_kernel<false><<<grid, NT_D, SMEM_D * 4, s>>>(x, bm, cm, cb, cd, ls, y, sh,
-                                                                     sd);
+    if (nloc > 0 || nc == 0)
+        ssd_combine_kernel<<<dim3(pn_blocks, H, B), NT_COMBINE, 0, s>>>(
+            h_init, ls, sdec, nc == 0 ? st : nullptr, H, P, N, nloc, hsb, hsh, hsp, ssb, ssh,
+            ssp);
+    if (nc > 0) {
+        switch (n_tile(N)) {
+            case 32: err = launch_output<32>(mx, mb, mc, my, prm, B, s); break;
+            case 64: err = launch_output<64>(mx, mb, mc, my, prm, B, s); break;
+            default: err = launch_output<128>(mx, mb, mc, my, prm, B, s); break;
+        }
+        if (err != cudaSuccess) return (int)err;
     }
     return (int)cudaGetLastError();
 }

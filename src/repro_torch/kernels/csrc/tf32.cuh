@@ -1,7 +1,7 @@
-// The f32 building blocks of the SSD scan and its gradient (ssd_scan.cu,
-// ssd_scan_bwd.cu): cp.async loaders of f32 tiles into padded shared
-// memory, and matrix products on the TF32 tensor cores in 3xTF32
-// (mma.sync m16n8k8, each f32 operand split into a TF32 high and low part).
+// The f32 building blocks of the SSD scan's gradient (ssd_scan_bwd.cu):
+// cp.async loaders of f32 tiles into padded shared memory, and matrix
+// products on the TF32 tensor cores in 3xTF32 (mma.sync m16n8k8, each f32
+// operand split into a TF32 high and low part).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,18 +85,11 @@ __device__ __forceinline__ void load_tile_zf(float* dst, int lds, const float* s
 
 // ---- 3xTF32 products on the tensor cores ----
 
-// An operand fragment split into TF32 high and low parts: hi is x with the
-// 13 mantissa bits that TF32 lacks cleared (truncated, so within one TF32
-// ulp of x), lo = x - hi (exact in f32), of which the tensor cores read the
-// TF32 bits.  Two instructions a value; a product is then within ~2^-20 of
-// the f32 one.
+// An operand fragment split into TF32 high and low parts (`tf32_split`).
 template <int K>
 struct Frag {
     uint32_t hi[K], lo[K];
-    __device__ __forceinline__ void set(int i, float x) {
-        hi[i] = __float_as_uint(x) & 0xffffe000u;
-        lo[i] = __float_as_uint(x - __uint_as_float(hi[i]));
-    }
+    __device__ __forceinline__ void set(int i, float x) { tf32_split(x, hi[i], lo[i]); }
     __device__ __forceinline__ void set2(int i, int j, float2 v) {
         set(i, v.x);
         set(j, v.y);

@@ -6,8 +6,9 @@ state and launches the kernel on the current stream; it never runs the
 plain version (``ops.ssd`` sends CPU tensors to ``ref.ssd_chunked``).  Unlike
 the TPU kernel it takes ``h_init`` and a sequence length that is not a
 multiple of the chunk itself, so there is no fallback.  One call launches
-the kernel's four passes (``csrc/ssd_scan.cu``) on scratch it allocates
-here, and counts as one launch.
+up to four CUDA kernels (``csrc/ssd_scan.cu``; the state and combine passes
+only where the plan has several segments) on scratch it allocates here, and
+counts as one launch.
 """
 from __future__ import annotations
 

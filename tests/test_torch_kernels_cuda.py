@@ -815,7 +815,17 @@ _SSD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_CASES)
+# and the forward's own, at the shapes its heads-a-block plan has to serve
+_SSD_FWD_CASES = _SSD_CASES + [
+    (1, 4096, 4, 64, 1, 128, 64, False),    # mamba2-370m's share on a model axis of 8
+    (1, 4096, 32, 64, 1, 128, 64, False),   # mamba2-370m's training forward
+    (1, 2048, 24, 64, 2, 128, 64, False),   # rep 12: H=24 on G=2
+    (1, 2048, 6, 64, 2, 128, 64, False),    # 3 heads a group: 2 a block do not divide it
+    (1, 6000, 4, 64, 1, 128, 64, True),     # h_init at P=64 N=128 over several segments
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_FWD_CASES)
 def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
     gen = torch.Generator(device=dev).manual_seed(3)
     x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init)
@@ -829,6 +839,20 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
     assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
     assert ref.ssd_tolerance_ratio(y, y_w) <= 1
     assert ref.ssd_tolerance_ratio(st, st_w, head_dim=1) <= 1
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 4096, 32, 64, 1, 128, 64),     # several segments, TMA loads
+    (1, 999, 3, 6, 1, 10, 12),         # rows not 16-byte aligned: cp.async loads
+    (1, 4096, 128, 64, 1, 16, 64),     # jamba's mixer
+])
+def test_ssd_kernel_gives_the_same_bits_every_call(dev, b, s, h, p, g, n, chunk):
+    """No atomics: two calls on the same inputs give identical y and state."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init=True)
+    first = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
+    second = tssd.ssd_scan(x, dt, a, bm, cm, chunk, h_init=h0)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
 
 
 def test_ssd_kernel_reads_strided_views(dev):

@@ -617,6 +617,88 @@ def test_ssd_kernel_3xtf32_holds_the_tolerance_where_tf32_does_not(seed):
     assert once > 1, once
 
 
+def _tc3(spec, a, b, drop=None):
+    """A 3xTF32 product hi.hi + hi.lo + lo.hi, hi by truncation (``_tf32_hi_lo``);
+    ``drop`` "a_lo" or "b_lo" leaves out that operand's lo term."""
+    (ah, al), (bh, bl) = _tf32_hi_lo(a), _tf32_hi_lo(b)
+    out = torch.einsum(spec, ah, bh)
+    if drop != "b_lo":
+        out = out + torch.einsum(spec, ah, bl)
+    if drop != "a_lo":
+        out = out + torch.einsum(spec, al, bh)
+    return out
+
+
+# The products of csrc/ssd_scan.cu in the orders its `wgmma`s take them
+# (A from registers, B from shared memory along k):
+# "cb": CB [j][i] = B [j][n] . C [i][n]; "y_inter": y^T [p][i] = S [p][n] . C [i][n];
+# "y_intra": y^T [p][i] += X^T [p][j] . W [i][j]; "state": S [p][n] += (X wd)^T [p][s] . B^T [n][s].
+_SSD_WGMMA_PRODUCTS = ("cb", "y_inter", "y_intra", "state")
+
+
+def _ssd_as_the_wgmma_kernel(x, dt, a, bm, cm, chunk, drop=(None, None)):
+    """The SSD scan as csrc/ssd_scan.cu's passes compute it: each product of
+    ``_SSD_WGMMA_PRODUCTS`` in 3xTF32 in its own order, W formed from C B^T
+    taken transposed, y as y^T, the state update from B^T; decays, sums and
+    dt in f32.  ``drop`` = (product, "a_lo" or "b_lo") leaves one lo term
+    out of that product."""
+    bsz, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    x, dt, bm, cm = (tref._pad_to(t, chunk, 1)[0] for t in (x, dt, bm, cm))
+    nc, rep = x.shape[1] // chunk, h // g
+    xc = x.reshape(bsz, nc, chunk, h, p).movedim(3, 2)    # [B,NC,H,L,P]
+    dtc = dt.reshape(bsz, nc, chunk, h).movedim(3, 2)     # [B,NC,H,L]
+    bc = bm.reshape(bsz, nc, chunk, g, n).movedim(3, 2)   # [B,NC,G,L,N]
+    cc = cm.reshape(bsz, nc, chunk, g, n).movedim(3, 2)
+
+    def tc(name, spec, u, v):
+        return _tc3(spec, u, v, drop[1] if drop[0] == name else None)
+
+    cbt = tc("cb", "bcgjn,bcgin->bcgji", bc, cc).repeat_interleave(rep, 2)  # [j][i]
+    cs = torch.cumsum(dtc * a[:, None], -1)
+    low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    diff = torch.where(low, cs[..., :, None] - cs[..., None, :], 0.0)
+    w = torch.where(low, cbt.transpose(-1, -2) * torch.exp(diff) * dtc[..., None, :], 0.0)
+    yt = tc("y_intra", "bchjp,bchij->bchpi", xc, w)                         # y^T [p][i]
+    xw = xc * (dtc * torch.exp(cs[..., -1:] - cs))[..., None]
+    bt = bc.transpose(-1, -2).repeat_interleave(rep, 2)                     # B^T [n][s]
+    ch = cc.repeat_interleave(rep, 2)
+    st = torch.zeros(bsz, h, p, n)
+    for c in range(nc):
+        yt[:, c] += (tc("y_inter", "bhpn,bhin->bhpi", st, ch[:, c])
+                     * torch.exp(cs[:, c])[:, :, None, :])
+        st = (torch.exp(cs[:, c, :, -1])[..., None, None] * st
+              + tc("state", "bhsp,bhns->bhpn", xw[:, c], bt[:, c]))
+    y = yt.transpose(-1, -2)
+    return y.movedim(2, 3).reshape(bsz, nc * chunk, h, p)[:, :s], st
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssd_wgmma_kernel_product_orders_hold_the_tolerance(seed):
+    """The `wgmma` kernel's product orders (y^T = X^T W^T, the state update
+    from a transposed B, C B^T taken transposed), each in 3xTF32 with hi by
+    truncation, stay within ``ref.ssd_tolerance_ratio`` <= 1 at mamba2-370m's
+    head (P=64, N=128, G=1, chunk 64)."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(1, 1024, 4, 64, 1, 128, seed=seed)
+    args = _t(x, dt, a, bm, cm)
+    y_w, st_w = tref.ssd_chunked(*args, 64)
+    y, st = _ssd_as_the_wgmma_kernel(*args, 64)
+    assert tref.ssd_tolerance_ratio(y, y_w) <= 1
+    assert tref.ssd_tolerance_ratio(st, st_w, 1) <= 1
+
+
+@pytest.mark.parametrize("which", ["a_lo", "b_lo"])
+@pytest.mark.parametrize("product", _SSD_WGMMA_PRODUCTS)
+def test_ssd_wgmma_kernel_needs_every_lo_term(product, which):
+    """The same emulation with one lo term of one product dropped misses the
+    tolerance (1.6-7.7x at this shape): no lo term of the kernel can go."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(1, 1024, 4, 64, 1, 128, seed=0)
+    args = _t(x, dt, a, bm, cm)
+    y_w, st_w = tref.ssd_chunked(*args, 64)
+    y, st = _ssd_as_the_wgmma_kernel(*args, 64, drop=(product, which))
+    assert max(tref.ssd_tolerance_ratio(y, y_w), tref.ssd_tolerance_ratio(st, st_w, 1)) > 1
+
+
 # The matrix products of csrc/ssd_scan_bwd.cu, by the names _ssd_bwd_as_the_kernel gives them.
 _SSD_BWD_PRODUCTS = ("local", "cb", "q", "du_intra", "du_inter", "db_inter", "db_intra",
                      "dc_inter", "dc_intra")
