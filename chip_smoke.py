@@ -14,8 +14,9 @@ and the script exits non-zero without printing a result:
     backward or in any 256-wide instantiation fails, as does a missing bf16
     wgmma flash, dk/dv or dq kernel (dh 64, 128 and 256; the forward with
     blocks of one and of two consumer warpgroups) or one whose registers at
-    launch are not its plan's, or an SSD state or output pass without HGMMA
-    (or with mma.sync's HMMA) in its SASS;
+    launch are not its plan's, or an SSD state or output pass, or a local or
+    chunk pass of the SSD backward, without HGMMA (or with mma.sync's HMMA)
+    in its SASS;
  3. kernels: each kernel against its plain version on the card at the main
     path's shapes and a few edge cases, to ``ref.tolerance_ratio`` <= 1 for
     the attention kernels (in bf16 one bf16 ulp of each element) and
@@ -312,11 +313,12 @@ The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
 (G=2, a ragged S, h_init, jamba's H=128 and N=16 with a = -(1..128), with
 and without h_init, a chunk of 16) by ``ref.ssd_grad_tolerance_ratio`` <= 1
-on every gradient, with four planted faults that must read > 1 (a carried
+on every gradient, with five planted faults that must read > 1 (a carried
 state cotangent dropped at a segment boundary, the intra-chunk term of du
 dropped, ddt without the decays' gradient, dB from one head of each
-group); two calls on the same inputs must give bit-identical gradients;
-and it times the kernel and each of its passes.  It also runs each
+group, dB's intra-chunk term from Mq transposed); two calls on the same
+inputs must give bit-identical gradients; and it times the kernel and each
+of its passes at the training shape and at its model-axis share (H=4).  It also runs each
 attention kernel's 256-wide instantiation
 at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
 B=8 and a full 4096-slot cache), held to its plain version, with planted
@@ -412,9 +414,11 @@ GEMMA_ATTN = (16, 16, 256)  # heads, kv heads, head dim
 # the state and output passes run their products on `wgmma`.
 SSD_PASSES = ("ssd_prep_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
 SSD_WGMMA_PASSES = ("ssd_state_kernel", "ssd_output_kernel")
-# The CUDA kernels of one ssd_scan_bwd call (csrc/ssd_scan_bwd.cu), in launch order.
+# The CUDA kernels of one ssd_scan_bwd call (csrc/ssd_scan_bwd.cu), in launch order;
+# the local and chunk passes run their products on `wgmma`.
 SSD_BWD_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_chunk_kernel",
                   "ssd_bwd_group_kernel", "ssd_bwd_da_kernel")
+SSD_BWD_WGMMA_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_chunk_kernel")
 # SSM training (phase 19): mamba2-370m at full width and depth.  The hybrid
 # family (phases 13 and 14): jamba-v0.1-52b at full width on HYBRID_LAYERS of
 # its 32 (one period of the 1:7 pattern with its 4 MoE layers: 13.27 B
@@ -858,7 +862,17 @@ def phase_build():
     if missing or spills:
         raise AssertionError(f"[build] ssd scan backward: passes missing from the ptxas log "
                              f"{missing}, spilling {spills}")
+    # the local and chunk passes run their products on wgmma: HGMMA in the
+    # SASS of each (the local pass at one and two 64-row tiles of N)
+    tc = {fn: c for fn, c in sass_counts(ops.KERNELS["ssd_scan_bwd"], ("HGMMA", "HMMA")).items()
+          if any(k in fn for k in SSD_BWD_WGMMA_PASSES)}
+    if len(tc) != 3 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in tc.values()):
+        raise AssertionError(f"[build] ssd scan backward: local and chunk passes without HGMMA "
+                             f"(or with mma.sync's HMMA) in their SASS: {tc}")
     ssdb_lib = ops.KERNELS["ssd_scan_bwd"].lib()
+    log("[build] ssd scan backward: local and chunk passes HGMMA " + ", ".join(
+        f"{k} {c['HGMMA']}" for fn, c in sorted(tc.items()) for k in SSD_BWD_WGMMA_PASSES
+        if k in fn) + ", no HMMA")
     log("[build] ssd scan backward: all {} passes built, no spills; {}; shared memory per "
         "block: local {} B, chunk {} B".format(
             len(SSD_BWD_PASSES), "; ".join(
@@ -2472,6 +2486,30 @@ def ssd_bwd_one_head_per_group(x, dt, a, bm, cm, chunk, dy, dst, h_init):
     return tuple(g)
 
 
+def ssd_bwd_mq_transposed(x, dt, a, bm, cm, chunk, dy, dst, h_init):
+    """A planted fault: dB's intra-chunk term sum_i Mq_ij C_i taken with Mq
+    transposed, sum_i Mq_ji C_i (the kernel reading its Mq tile where Mq^T
+    belongs), summed over each group's heads as dB is."""
+    import torch
+    from repro_torch.kernels import ref
+    g = list(ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init))
+    b, s, h, p = x.shape
+    gn, n = bm.shape[2], bm.shape[3]
+    rep, nc = h // gn, -(-s // chunk)
+    xc, dyc = (pad_seq(t, nc * chunk).reshape(b, nc, chunk, h, p) for t in (x, dy))
+    dtc = pad_seq(dt, nc * chunk).reshape(b, nc, chunk, h)
+    cc = pad_seq(cm, nc * chunk).reshape(b, nc, chunk, gn, n).repeat_interleave(rep, 3)
+    cs = torch.cumsum(dtc * a, 2)                                             # [B,NC,L,H]
+    low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))[..., None]
+    diff = torch.where(low, cs[:, :, :, None] - cs[:, :, None], 0.0)         # [B,NC,i,j,H]
+    mq = (torch.einsum("bcihp,bcjhp->bcijh", dyc, xc) * dtc[:, :, None]
+          * torch.where(low, torch.exp(diff), 0.0))
+    delta = (torch.einsum("bcjih,bcihn->bcjhn", mq, cc)
+             - torch.einsum("bcijh,bcihn->bcjhn", mq, cc))
+    g[3] = g[3] + delta.reshape(b, nc * chunk, gn, rep, n).sum(3)[:, :s]
+    return tuple(g)
+
+
 def ssd_bwd_bound(b, s, h, p, g, n, chunk, h_init: bool) -> tuple:
     """(FLOPs, bytes) the SSD backward needs, derived from the shapes: each
     input (x, dt, a, B, C, dy, d(final state), h_init) read once and each
@@ -2488,25 +2526,19 @@ def ssd_bwd_bound(b, s, h, p, g, n, chunk, h_init: bool) -> tuple:
 
 
 def ssd_bwd_executed_flops(b, s, h, p, g, n, chunk) -> int:
-    """Derived, not measured: the FLOPs the SSD backward's mma.sync tiles run
-    on the tensor cores (csrc/ssd_scan_bwd.cu: 16 x 8 x 8 tiles, each
-    product three times for 3xTF32): pass 1's local state and cotangent and
-    C B^T once per group and chunk; pass 3's nine products per (b, h,
-    chunk), causal tiles only, N in steps of 32 columns."""
-    nc, up8 = -(-s // chunk), lambda v: -(-v // 8) * 8
-    l8, p_t = up8(chunk) // 8, -(-p // 8)
-    local = 2 * -(-p // 16) * l8 * -(-n // 8)
-    cb = 8 * (up8(n) // 8) * 4
-    steps = [min(32, n - nb) for nb in range(0, n, 32)]
-    chunk_tiles = 0
-    for r0 in range(0, chunk, 16):
-        below, above = l8 - r0 // 8, min(l8, r0 // 8 + 2)  # k-steps i >= j0; j <= i0 + 15
-        chunk_tiles += min(r0 // 8 + 2, l8) * p_t + below * p_t
-        for cols in steps:
-            n_t = -(-cols // 8)
-            chunk_tiles += up8(cols) // 8 * p_t + (2 * p_t + below + above) * n_t
-    mma = b * nc * (g * cb + h * (local + chunk_tiles))
-    return 3 * 2 * 16 * 8 * 8 * mma
+    """Derived, not measured: the FLOPs the SSD backward's wgmma tiles run on
+    the tensor cores (csrc/ssd_scan_bwd.cu, each product three times for
+    3xTF32, the chunk and P padded to 64 and N to 64-row tiles): per (b, h,
+    chunk) pass 1's local state and cotangent [NT x 64 x 64] each, and C B^T
+    [64 x 64 x NT] once per (b, group, chunk); pass 3's Q and du^T = dy^T A^T
+    [64 x 64 x 64] each, and per 64-column step of N dB^T and dC^T [64 x 64]
+    of depth 64 twice each and du^T += G (eout B)^T [64 x 64 x 64].  NT is N
+    padded to 64 or 128."""
+    nc, nt = -(-s // chunk), 64 if n <= 64 else 128
+    steps = -(-n // 64)
+    tile = 64 * 64 * 64
+    per_head = 2 * nt * 64 * 64 + 2 * tile + steps * 5 * tile
+    return 3 * 2 * b * nc * (h * per_head + g * 64 * 64 * nt)
 
 
 def hold_ssd_bwd(label: str, got, want) -> tuple:
@@ -2525,8 +2557,8 @@ def hold_ssd_bwd(label: str, got, want) -> tuple:
 
 def phase_ssd_bwd_kernel():
     """The SSD backward kernel against ``ref.ssd_chunked_bwd`` at mamba2-370m's
-    training shape and its edge cases, four planted faults, times and the
-    bound."""
+    training shape and its edge cases, five planted faults, times and the
+    bound, and times at the model-axis share (H=4)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan_bwd as tssdb
@@ -2584,7 +2616,9 @@ def phase_ssd_bwd_kernel():
                   ssd_bwd_drop_intra_du(*args, at), 0),
              ctrl("ddt without the decays' gradient", ssd_bwd_drop_decay_grad(*args), 1),
              ctrl(f"dB from one head of each group of {h // g}",
-                  ssd_bwd_one_head_per_group(*args), 3)]
+                  ssd_bwd_one_head_per_group(*args), 3),
+             ctrl("dB's intra-chunk term from Mq transposed (Mq read where Mq^T belongs)",
+                  ssd_bwd_mq_transposed(*args), 3)]
     del want
     torch.cuda.empty_cache()
     t = timings(lambda: tssdb.ssd_scan_bwd(*ins, chunk, dy, dst),
@@ -2593,6 +2627,19 @@ def phase_ssd_bwd_kernel():
     pass_ms = {k: sum(v for key, v in passes.items() if k in key) for k in SSD_BWD_PASSES}
     log("[ssd bwd] device ms per call by pass: "
         + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items()))
+    # the model-axis share of the same layer: H=4 of its 32 heads
+    sins, sdy, sdst, _ = case(b, s, 4, p, g, n, chunk, seed=2)
+    err, ratio = hold_ssd_bwd(f"[ssd bwd] model-axis share B={b} S={s} H=4 P={p} G={g} N={n} "
+                              f"chunk={chunk}", tssdb.ssd_scan_bwd(*sins, chunk, sdy, sdst),
+                              ref.ssd_chunked_bwd(*sins, chunk, sdy, sdst))
+    worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    share = device_ms_by_kernel(lambda: tssdb.ssd_scan_bwd(*sins, chunk, sdy, sdst), 12)
+    share_ms = {k: sum(v for key, v in share.items() if k in key) for k in SSD_BWD_PASSES}
+    share_bound = bound(*ssd_bwd_bound(b, s, 4, p, g, n, chunk, False), PEAK_TF32_FLOPS)
+    log(f"[ssd bwd] the share H=4: {sum(share_ms.values()):.4f} ms device a call ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in share_ms.items())
+        + f"); bound {share_bound['bound_ms']:.4f} ms ({share_bound['bound_by']})")
+    del sins, sdy, sdst
     flops, nbytes = ssd_bwd_bound(b, s, h, p, g, n, chunk, False)
     # f32 operands: the card's peak for them is the TF32 tensor cores
     t.update(bound(flops, nbytes, PEAK_TF32_FLOPS))
@@ -2617,7 +2664,8 @@ def phase_ssd_bwd_kernel():
                          "group) for dB, dC; per head for da, dh_init (f32)",
             "tolerance_ratio": worst_ratio, "control_ratio": min(ctrls), **t,
             "library_note": "none: no PyTorch call computes the SSD scan or its gradient",
-            "pass_device_ms": pass_ms,
+            "pass_device_ms": pass_ms, "share_device_ms": sum(share_ms.values()),
+            "share_bound_ms": share_bound["bound_ms"],
             "shape": f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} f32, strided"}
 
 

@@ -130,6 +130,11 @@ __device__ __forceinline__ void sts_f32x4(uint32_t addr, float a, float b, float
 
 // ---- TMA ----
 
+// Fetch a tensor map into the TMA unit's cache ahead of its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // The box at coordinates (c0 innermost, c1, c2, c3) of a 4-D tensor map ->
 // shared memory at `dst`, completing `bytes` of `bar`'s transaction count.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,

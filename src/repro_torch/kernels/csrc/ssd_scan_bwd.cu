@@ -1,5 +1,5 @@
 // Gradient of the Mamba-2 SSD chunk scan for Hopper (sm_90a), f32 in and out,
-// every matrix product on the TF32 tensor cores in 3xTF32.
+// every matrix product on the TF32 tensor cores by `wgmma` in 3xTF32.
 //
 // Replaces the backward of the TPU kernel's custom VJP, `_ssd_vjp_bwd` in
 // src/repro/kernels/ssd_scan.py, which XLA recomputes through the VJP of the
@@ -39,130 +39,165 @@
 // C and d(final state) and writes dx, ddt, dB, dC, ~111 MB (0.033 ms at
 // 3.35 TB/s), and needs ~14 GFLOP of products, the entering states
 // recomputed (0.028 ms at the 495 TFLOP/s of TF32): bytes, by a little.
-// What the design meets instead: 3xTF32 makes each product three mma.sync,
-// 44.5 GFLOP of tiles a call (31.4 in pass 3, 12.9 in pass 1), whose
-// fragments every warp loads from shared memory and splits itself; and the
-// workspace (entering states and cotangents, dB and dC per head: 268 MB at
-// the training shape), which passes 2 and 4 stream through.
+// What the design meets instead: 3xTF32 runs each product three times, on
+// 64-row tiles padded past the chunk, P and N, and the workspace (entering
+// states and cotangents, dB and dC per head: 268 MB at the training shape)
+// goes through device memory between the passes.
 //
 // Design: five passes on one stream; every chunk of every head is a block of
 // its own, so a call fills the card with B * H * nc blocks (2048 at the
 // training shape), and the two sequential recurrences over the chunks
 // (states forward, their cotangents in reverse) are elementwise passes:
 //
-//   1. ssd_bwd_local_kernel, one block of 8 warps per (b, h, chunk): the
-//      chunk's cs (a warp scan), its local state sum_j e^{cs_last - cs_j}
-//      u_j (x) B_j and local state cotangent sum_i e^{cs_i} dy_i (x) C_i
-//      (four warps each, [P x N] products of depth L) and its decay
+//   1. ssd_bwd_local_kernel, two warpgroups per (b, h, chunk): the chunk's
+//      cs (a warp scan), its local state sum_j e^{cs_last - cs_j} u_j (x)
+//      B_j (warpgroup 0) and local state cotangent sum_i e^{cs_i} dy_i (x)
+//      C_i (warpgroup 1), each [P x N] of depth L, and its decay
 //      e^{cs_last}, into a workspace [B, H, nc, P, N] each; the block of
 //      each group's first head also writes the chunk's C B^T [64 x 64] (1 MB
 //      at the training shape, read back from L2): once per (b, group,
-//      chunk), not once per head.  105 KiB of shared memory: two blocks an SM.
+//      chunk), not once per head.
 //   2. ssd_bwd_scan_kernel, one thread per (b, h, p, n): over the chunks,
 //      each local state replaced by the state entering its chunk (from
 //      h_init or 0) and, in reverse in the same loop, each local cotangent
 //      by the cotangent of the state leaving its chunk (from d(final
 //      state)); the last carried cotangent is dh_init.  A segment is one
 //      chunk.
-//   3. ssd_bwd_chunk_kernel, one block of 8 warps per (b, h, chunk): warps w
-//      and w + 4 own rows 16w..16w+15, both as positions i (Q = dy x^T, Mq,
-//      M, dC) and as positions j (du, dB), each half of every product's
-//      column tiles, so that the causal products balance over a step (row
-//      tile w does 2w + 2 of the 8 column tiles of an i-product and 8 - 2w
-//      of a j-product).  First from x, dy and C B^T: Mq and M, A in place of
-//      C B^T, the intra-chunk du = A^T dy, the straddling sums of M; then
-//      over N in steps of 32 columns (C, B, S and G staged per step): du +=
-//      (e^{cs_last - cs_j} B) G^T, and per step dB and dC (inter-chunk
-//      product first, then the intra-chunk one into the same accumulators),
-//      T, the C . (S^T dy) terms and <G, S>; dx and ddt written, dB and dC
-//      per head into the workspace, da as one partial sum per block.
-//      94 KiB of shared memory: two blocks an SM, each loading while the
-//      other computes.
+//   3. ssd_bwd_chunk_kernel, two warpgroups per (b, h, chunk): from x, dy
+//      and C B^T, Q = dy x^T and from it Mq, M and A; the intra-chunk du =
+//      A^T dy and the straddling sums of M; then over N in steps of 64
+//      columns (C, B, S and G loaded a step): du += (e^{cs_last - cs_j} B)
+//      G^T (each warpgroup half of du's columns), dB (warpgroup 0) and dC
+//      (warpgroup 1), each inter-chunk product first, T or the C . (S^T dy)
+//      terms from it, then the intra-chunk product into the same
+//      accumulator, and <G, S>; dx and ddt written, dB and dC per head into
+//      the workspace, da as one partial sum per block.
 //   4. ssd_bwd_group_kernel: dB and dC summed over each group's heads.
 //   5. ssd_bwd_da_kernel: da summed over its partials, one warp a head.
 //
-// Passes 1 and 3 have an instantiation for mamba2-370m's head (L, P and N at
-// their largest, 16-byte rows) with every bound known to the compiler.  Sums
-// across blocks go through a second pass in a fixed order, never atomics,
-// so a gradient is the same from run to run.
+// Sums across blocks go through a second pass in a fixed order, never
+// atomics, so a gradient is the same from run to run.
 //
-// Products: mma.sync m16n8k8 TF32 with f32 accumulation, each f32 operand
-// split into TF32 hi + lo and each product lo.hi + hi.lo + hi.hi (3xTF32,
-// tf32.cuh, as the forward); plain TF32 in any one product misses the
-// tolerance at mamba2-370m's head (tests/test_torch_ssm.py emulates both).
+// Products of passes 1 and 3: `wgmma` m64nNk8 .tf32, A from registers and B
+// from shared memory.  TF32 `wgmma` takes its shared operand K-major only
+// (no transpose for 32-bit types), so each product is laid out with its
+// shared operand running along k, and where neither factor does, the
+// transpose of the output is formed (rows n: N runs in 64-row tiles):
+//
+//   pass 1:  st^T [n][p] = B^T [n][j] . (wout x)^T [p][j]   (A: B across its rows)
+//            ct^T [n][p] = C^T [n][i] . (ein dy)^T [p][i]    (A: C across its rows)
+//            CB [i][j]   = C [i][n] . B [j][n]               (A: C along its rows)
+//   pass 3:  Q [i][j]    = dy [i][p] . x [j][p]              (A: dy)
+//            du^T [p][j] = dy^T [p][i] . A^T [j][i]          (A: dy across its rows)
+//                        + G [p][n] . (eout B) [j][n]        (A: G)
+//            dB^T [n][j] = G^T [n][p] . (wout x) [j][p]  + C^T [n][i] . Mq^T [j][i]
+//            dC^T [n][i] = S^T [n][p] . (ein dy) [i][p]  + B^T [n][j] . Mq [i][j]
+//
+// with ein = e^{cs_i}, eout = e^{cs_last - cs_j}, wout = dt_j eout.  Each
+// shared operand is written as a TF32 hi tile and a lo tile (`tf32_split`:
+// hi by truncation, lo = x - hi) and a product is lo.hi + hi.lo + hi.hi,
+// ~2^-20 of the f32 one; a register operand is split where it is read.
 // Where a factor scales an operand's rows (e^{cs_i} dy, e^{cs_last - cs_j}
-// B, dt_j e^{cs_last - cs_j} x) it is applied before the split.  Decays,
-// scans, dt and the decays' gradient stay f32 on the CUDA cores.  Each
-// shared tile's row stride is 4 or 8 mod 32 floats, and each product takes
-// its fragments' k in the order (t, t + 4 or 2t, 2t + 1) that keeps both
-// operands' loads free of bank conflicts.
+// B, dt_j e^{cs_last - cs_j} x) it is applied before the split.  Pass 3
+// forms Mq, Mq^T and A^T from Q's accumulator in the orientations their
+// products read.  Decays, scans, dt and the decays' gradient stay f32 on the
+// CUDA cores.  No branch sits between a product's issue and its wait, and
+// each product keeps a ring of two k-steps' A fragments.
 //
-// Measured on an H100 SXM at 700 W (chip_smoke.py, the training shape): a
-// call takes 0.753 ms of device time (4.4 % of the bound): pass 1 0.153,
-// pass 2 0.152, pass 3 0.394, pass 4 0.052.  The passes' tiles run at ~59
-// TFLOP/s (12 % of the TF32 peak), the forward's at ~109.  Why was not
-// measured (no hardware counters on that machine); the candidates are the
-// phases of pass 3 that split between i- and j-rows around barriers (a row
-// tile's share of a causal product there is 1 to 4 times another's) and
-// fewer independent products per warp than the forward's.
-// scripts/ssd_full_build_ab.py --kernel bwd times the generic passes 1 and
-// 3 against the FULL ones.
+// Loads: x, dy, B and C by TMA (4-D f32 maps over the caller's strides,
+// 128-byte swizzle, boxes of 32 columns by L rows), and C B^T, S and G from
+// the workspace by TMA too, completing one mbarrier; where a row of x, dy, B
+// or C is not 16-byte aligned, or N % 4 != 0, every thread copies the same
+// tiles by 4-byte cp.async instead.  Rows past the chunk, P or N are zero in
+// every tile (TMA's out-of-bounds fill or cleared before the load), so the
+// 64-row tiles pad a short chunk as a ragged last chunk is padded (dt = 0).
+// Step 0's G is loaded at the start and its S once x is built from, so that
+// both come in under Q, the formation of Mq and A and du's intra-chunk
+// product; C and B come from L2.  Shared memory (N = 128): pass 1 160 KB,
+// pass 3 224 KB (the hi + lo tiles of Mq, Mq^T, wout x and ein dy, 128 KB,
+// for the whole chunk; 96 KB that hold the raw x, dy, C B^T and x's hi +
+// lo, then A^T, then each n-step's S, C, B, (eout B)'s hi + lo and G), so
+// one block an SM, 256 threads with up to 255 registers (pass 3 uses them
+// all: the next step's S and G loaded under the intra-chunk products
+// spilled).  Pass 3's Q rows are permuted
+// across the warps and its Q, du^T columns interleaved across the
+// warpgroups (8-row groups 2048 bytes apart in the descriptor), so that the
+// causal formation of Mq and A, a select per element, has the same work in
+// every warp.  The `// phase: NAME` ... `// end of phase: NAME` comments
+// mark the spans of each pass.
 //
-// What it still trades away: C B^T, x, dy and the n-steps of every head
-// are loaded by its own block (heads of a group share only L2), dB and dC
-// go through the per-head workspace and pass 4, and the n-steps are not
-// double-buffered (the other block on the SM overlaps them).  wgmma, the
-// next step for the products, takes TF32 operands K-major only (no
-// transpose for 32-bit types): A^T dy, Mq^T C, (wout x) G, Mq B, dy S and
-// the local products read an operand across its rows, so they would need
-// transposed copies in shared memory (16-32 KiB more per tile), which the
-// second block an SM could not afford at 94 KiB; a block of several heads of
-// one group, with C B^T, C and B staged once for them and dB and dC summed
-// over them before they are written, would pay for that space and drop
-// pass 4.
+// What it still trades away: each block loads x, dy, C B^T, S and G and
+// stores dB and dC per head with nothing else on its SM to overlap them (a
+// second block would need 448 KB), so the loads at a block's start, the
+// next n-step's and the stores are waits; the 64-row tiles pad N = 16
+// (jamba) four times over in the transposed products; dB and dC still go
+// through the per-head workspace and pass 4, and the per-chunk states and
+// cotangents through device memory (passes 1-3).
+//
+// Measured on an H100 SXM at 700 W (scripts/ssd_bwd_ab.py, beside the
+// earlier passes on mma.sync m16n8k8 in the same run): 0.640 ms a call at
+// the training shape against 0.749 (local 0.110 against 0.152, chunk 0.325
+// against 0.391), 5.2 % of the bound; jamba's mixer (H=128, N=16) 1.217 ms
+// against 1.000, where a block's fixed work and the padding of N dominate.
 //
 // Layout: x, dy [B,S,H,P], dt [B,S,H], B/C [B,S,G,N], h_init, dstate
 // [B,H,P,N] are read through the strides given (x, B and C may be slices of
 // the conv output), unit-stride in the last dim; the gradients are written
 // contiguous.  Positions >= S (a ragged last chunk) are read as x = dy = B
 // = C = dt = 0, as the plain version's zero-padding with dt = 0, and their
-// gradients are not written.  Rows that do not start on a 16-byte boundary
-// are copied 4 bytes at a time.
+// gradients are not written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
 
-#include "tf32.cuh"
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 256;              // threads of passes 1, 2 and 4: 8 warps
-constexpr int NT_CHUNK = 256;        // threads of pass 3: 8 warps, two to a row tile
-constexpr int MAX_L = 64;            // chunk length
+constexpr int NT = 256;              // threads of passes 2 and 4: 8 warps
+constexpr int THREADS = 256;         // threads of passes 1 and 3: two warpgroups
+constexpr int MAX_L = 64;            // chunk length: wgmma's M and a tile's rows
 constexpr int MAX_P = 64;            // head width
 constexpr int MAX_N = 128;           // state width
-constexpr int NB = 32;               // columns of N a step of pass 3
+constexpr int NB = 64;               // columns of N a step of pass 3
 constexpr int SCAN_BATCH = 16;       // chunks whose loads pass 2 starts together
+constexpr int RING = 2;              // A fragments in flight a product: k-steps
+constexpr int PANEL = MAX_L * 128;   // bytes of a 64-row panel of 32 floats
+constexpr int TILE = 2 * PANEL;      // a 64 x 64 f32 tile: 16 KB
+constexpr int BARS = 32;                   // bytes of the mbarriers
+constexpr int SMALL = BARS + 6 * MAX_L * 4;  // the barriers; cs, cs lo, dt and three of 64
 
-// Row strides (floats).  A tile read along its rows' axis by 8-byte loads,
-// or across its rows with the fragment's k = t, t + 4, has a stride of 8
-// mod 32; one read across its rows with k = 2t, 2t + 1, or along them one
-// float at a time with k = t, t + 4, a stride of 4 mod 32.
-constexpr int LD1_P = MAX_P + 8;     // pass 1: x, dy
-constexpr int LD1_N = MAX_N + 8;     // pass 1: B, C
-constexpr int LDT = MAX_L + 8;       // pass 3: x, dy, Mq, C B^T (then A)
-constexpr int LDM = MAX_L + 4;       // pass 3: M (rows read as float4)
-constexpr int LDC = NB + 8;          // pass 3: an n-step of C
-constexpr int LDB = NB + 4;          // pass 3: an n-step of B, S and G
+// Pass 1 at NTL 64-row tiles of N (1: N <= 64, 2: N <= 128), offsets in
+// bytes from a 1024-aligned base: raw x [j][p], dy [i][p], B [j][n], C
+// [i][n]; (wout x)^T hi, lo [p][j] and (ein dy)^T hi, lo [p][i], whose room
+// B's hi and lo [j][n] take for C B^T.
+template <int NTL>
+struct LocalCfg {
+    static constexpr int X = 0, DY = TILE, BR = 2 * TILE, CR = BR + NTL * TILE;
+    static constexpr int XT = CR + NTL * TILE, DT = XT + 2 * TILE, BHL = XT;
+    static constexpr int TILES = DT + 2 * TILE;
+    static constexpr int SMEM = SMALL + 1008 + TILES;  // + aligning the base to 1024
+    static_assert(SMEM <= 232448, "a block fits an SM");
+};
 
-// Shared memory of passes 1 and 3, in floats.
-constexpr int SMEM_LOCAL = 2 * MAX_L * LD1_P + 2 * MAX_L * LD1_N + 5 * MAX_L;
-constexpr int TILE = MAX_L * LDT;
-constexpr int NSTAGE = MAX_L * LDC + 3 * MAX_L * LDB;  // C, B, S, G of an n-step
-static_assert(TILE + MAX_L * LDM <= NSTAGE, "C B^T and M fit where the n-steps go");
-constexpr int SCALARS = 12 * MAX_L + NT_CHUNK / 32;  // see ssd_bwd_chunk_kernel
-constexpr int SMEM_CHUNK = 3 * TILE + NSTAGE + SCALARS;
+// Pass 3, offsets in bytes from a 1024-aligned base: for the whole chunk Mq
+// hi, lo [i][j], Mq^T [j][i], (wout x) [j][p], (ein dy) [i][p]; then six
+// tiles E that hold, before the n-steps, raw x [j][p], dy [i][p], C B^T
+// [i][j] (then M) and x's hi, lo [j][p] (then A^T's [j][i]), and in the
+// n-steps a step's S [p][n] (in x's place, loaded once x is built from), C
+// [i][n], B [j][n], (eout B)'s hi, lo [j][n] and G [p][n] (in the sixth,
+// loaded at the start); and last the partial sums.
+struct ChunkCfg {
+    static constexpr int MQ = 0, MQT = 2 * TILE, WX = 4 * TILE, EDY = 6 * TILE, E = 8 * TILE;
+    static constexpr int XR = E, DYR = E + TILE, CBR = E + 2 * TILE, XHL = E + 3 * TILE;
+    static constexpr int SS = E, CS = E + TILE, BS = E + 2 * TILE, EB = E + 3 * TILE;
+    static constexpr int GS = E + 5 * TILE;
+    static constexpr int TILES = E + 6 * TILE;
+    static constexpr int SMEM = SMALL + 1008 + TILES;
+    static_assert(SMEM <= 232448, "a block fits an SM");
+};
 
 struct Strides {
     int64_t xb, xs, xh, db, ds, dh, bb, bs, bg, cb, cs, cg, yb, ys, yh, hb, hh, hp, gb, gh, gp;
@@ -200,12 +235,6 @@ int64_t workspace_floats(const Shape& sh) {
     return (int64_t)sh.B * sh.G * sh.nc * MAX_L * MAX_L +
            2 * (int64_t)sh.B * sh.H * sh.nc * sh.P * sh.N +
            2 * (int64_t)sh.B * sh.nc * sh.L * sh.H * sh.N + 2 * (int64_t)sh.B * sh.H * sh.nc;
-}
-
-// The sum over the 4 lanes of a quad (one row of an mma fragment), in a fixed order.
-__device__ __forceinline__ float quad_sum(float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -252,116 +281,285 @@ __device__ __forceinline__ float decay_exp(const float* cs, const float* csl, in
     return (cs[i] - cs[j]) + (csl[i] - csl[j]);
 }
 
+// ---- passes 1 and 3: tiles, loads and products ----
+
+// Byte offset of element (r, c) of a 128-byte-swizzled tile of 64-row
+// panels of 32 columns, as TMA writes it.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+    return (c >> 5) * PANEL + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// Descriptor of k-step kk (8 columns) of a K-major operand of 64-row panels at `tile`.
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
+    return sw128_desc(opaque(tile) + (kk >> 2) * PANEL + (kk & 3) * 32);
+}
+
+// a[0] = hi, a[1] = lo of the four values
+__device__ __forceinline__ void split4(uint32_t (&a)[2][4], float v0, float v1, float v2,
+                                       float v3) {
+    tf32_split(v0, a[0][0], a[1][0]);
+    tf32_split(v1, a[0][1], a[1][1]);
+    tf32_split(v2, a[0][2], a[1][2]);
+    tf32_split(v3, a[0][3], a[1][3]);
+}
+
+__device__ __forceinline__ float4 as_float4(const uint32_t (&a)[4]) {
+    return make_float4(__uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
+                       __uint_as_float(a[3]));
+}
+
+// d (+)= (a_hi + a_lo)(b_hi + b_lo) without lo.lo, small terms first; the
+// first product overwrites d where !accumulate.  Issued, not committed.
+template <int NB8>
+__device__ __forceinline__ void mma3(float (&d)[NB8][4], const uint32_t (&a)[2][4], uint32_t b_hi,
+                                     uint32_t b_lo, int kk, int accumulate) {
+    wgmma_tf32<NB8>(d, a[1], kdesc(b_hi, kk), accumulate);
+    wgmma_tf32<NB8>(d, a[0], kdesc(b_lo, kk), 1);
+    wgmma_tf32<NB8>(d, a[0], kdesc(b_hi, kk), 1);
+}
+
+// Clear what a TMA load of `np` panels of `rows` rows leaves untouched in a
+// tile of `total` panels at generic address `p` (rows past the chunk or P,
+// panels past P or N).
+__device__ __forceinline__ void zero_uncovered(uint8_t* p, int rows, int np, int total) {
+    if (rows >= MAX_L && np >= total) return;
+    for (int e = threadIdx.x; e < total * (PANEL / 16); e += THREADS) {
+        const int pc = e / (PANEL / 16), r = (e >> 3) & (MAX_L - 1);
+        if (pc >= np || r >= rows)
+            *reinterpret_cast<float4*>(p + e * 16) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+}
+
+// The whole tile of `np` panels at `dst` from global rows `ld` floats apart:
+// element (r, c) is src[r * ld + c] where r < rows and c < cols, else zero.
+// 4-byte cp.async by every thread of the block.
+__device__ __forceinline__ void copy_tile(uint32_t dst, const float* src, int64_t ld, int rows,
+                                          int cols, int np) {
+    const int width = 32 * np;
+    for (int e = threadIdx.x; e < MAX_L * width; e += THREADS) {
+        const int r = e / width, c = e - r * width;
+        const bool ok = r < rows && c < cols;
+        cp_async4(dst + swz(r, c), ok ? src + r * ld + c : src, ok);
+    }
+}
+
+// The tensor maps of one call: x, dy [B,S,H,P] and B, C [B,S,G,N] in boxes
+// of L rows; the workspace's C B^T [.,64,64] and states and cotangents
+// [.,P,N] in boxes of 64 and P rows.
+struct Maps {
+    CUtensorMap x, dy, b, c, cb, st, ct;
+};
+
 // ---- pass 1: each chunk's local state, local state cotangent and decay; C B^T ----
 
-template <bool FULL>
-__global__ void __launch_bounds__(NT, 2)
-ssd_bwd_local_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ a, const float* __restrict__ bm,
-                     const float* __restrict__ cm, const float* __restrict__ dy, Work w,
-                     Shape sh, Strides sd) {
-    extern __shared__ float4 smem4[];
-    float* Xs = reinterpret_cast<float*>(smem4);  // [MAX_L][LD1_P]
-    float* DYs = Xs + MAX_L * LD1_P;               // [MAX_L][LD1_P]
-    float* Bs = DYs + MAX_L * LD1_P;               // [MAX_L][LD1_N]
-    float* Cs = Bs + MAX_L * LD1_N;                // [MAX_L][LD1_N]
-    float* cs = Cs + MAX_L * LD1_N;
+template <int NTL>
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_bwd_local_kernel(const __grid_constant__ Maps maps, const float* __restrict__ x,
+                     const float* __restrict__ dt, const float* __restrict__ a,
+                     const float* __restrict__ bm, const float* __restrict__ cm,
+                     const float* __restrict__ dy, Work w, Shape sh, Strides sd) {
+    using K = LocalCfg<NTL>;
+    extern __shared__ float4 smem_bwd[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(smem_bwd);
+    const uint32_t small = smem_addr(smem_bwd);
+    const uint32_t base = (small + SMALL + 1023) & ~1023u;
+    // shared memory at address ad as a C++ lvalue
+    auto sf = [&](uint32_t ad) -> float& { return *reinterpret_cast<float*>(smem + (ad - small)); };
+    auto sf4 = [&](uint32_t ad) -> float4& {
+        return *reinterpret_cast<float4*>(smem + (ad - small));
+    };
+    float* cs = reinterpret_cast<float*>(smem + BARS);
     float* csl = cs + MAX_L;
     float* dts = csl + MAX_L;
     float* win = dts + MAX_L;   // e^{cs_i}
     float* wout = win + MAX_L;  // dt_j e^{cs_last - cs_j}
+    const uint32_t bar = small;
     const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, rep = sh.H / sh.G, g = h / rep;
-    const int L = FULL ? MAX_L : sh.L, P = FULL ? MAX_P : sh.P, N = FULL ? MAX_N : sh.N;
-    const bool vec = FULL || sh.vec;
-    const int s0 = c * L, valid = min(L, sh.S - s0);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
+    const int L = sh.L, P = sh.P, N = sh.N, s0 = c * L, valid = min(L, sh.S - s0);
+    const int tid = threadIdx.x, wg = tid >> 7, wq = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int npx = (P + 31) >> 5, npn = (N + 31) >> 5;
+    const bool tma = sh.vec;
 
-    load_tile_zf<MAX_L, MAX_P, NT>(Xs, LD1_P, x + b * sd.xb + h * sd.xh + s0 * sd.xs, sd.xs,
-                                   valid, P, vec);
-    load_tile_zf<MAX_L, MAX_P, NT>(DYs, LD1_P, dy + b * sd.yb + h * sd.yh + s0 * sd.ys, sd.ys,
-                                   valid, P, vec);
-    load_tile_zf<MAX_L, MAX_N, NT>(Bs, LD1_N, bm + b * sd.bb + g * sd.bg + s0 * sd.bs, sd.bs,
-                                   valid, N, vec);
-    load_tile_zf<MAX_L, MAX_N, NT>(Cs, LD1_N, cm + b * sd.cb + g * sd.cg + s0 * sd.cs, sd.cs,
-                                   valid, N, vec);
-    cp_async_commit();
-    if (warp == 0)
+    if (tid == 0) {
+        mbar_init(bar, tma ? 1 : THREADS);
+        fence_barrier_init();
+        if (tma)
+            for (const CUtensorMap* m : {&maps.x, &maps.dy, &maps.b, &maps.c})
+                prefetch_tensormap(m);
+    }
+    if (tma) {
+        zero_uncovered(smem + (base - small) + K::X, L, npx, 2);
+        zero_uncovered(smem + (base - small) + K::DY, L, npx, 2);
+        zero_uncovered(smem + (base - small) + K::BR, L, npn, 2 * NTL);
+        zero_uncovered(smem + (base - small) + K::CR, L, npn, 2 * NTL);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    // phase: load
+    if (tma) {
+        if (tid == 0) {
+            mbar_arrive_expect_tx(bar, (2 * npx + 2 * npn) * L * 128);
+            for (int pc = 0; pc < npx; ++pc) {
+                tma_load_4d(base + K::X + pc * PANEL, &maps.x, bar, 32 * pc, s0, h, b);
+                tma_load_4d(base + K::DY + pc * PANEL, &maps.dy, bar, 32 * pc, s0, h, b);
+            }
+            for (int pc = 0; pc < npn; ++pc) {
+                tma_load_4d(base + K::BR + pc * PANEL, &maps.b, bar, 32 * pc, s0, g, b);
+                tma_load_4d(base + K::CR + pc * PANEL, &maps.c, bar, 32 * pc, s0, g, b);
+            }
+        }
+    } else {
+        copy_tile(base + K::X, x + b * sd.xb + h * sd.xh + (int64_t)s0 * sd.xs, sd.xs, valid, P,
+                  2);
+        copy_tile(base + K::DY, dy + b * sd.yb + h * sd.yh + (int64_t)s0 * sd.ys, sd.ys, valid,
+                  P, 2);
+        copy_tile(base + K::BR, bm + b * sd.bb + g * sd.bg + (int64_t)s0 * sd.bs, sd.bs, valid, N,
+                  2 * NTL);
+        copy_tile(base + K::CR, cm + b * sd.cb + g * sd.cg + (int64_t)s0 * sd.cs, sd.cs, valid, N,
+                  2 * NTL);
+        cp_async_mbar_arrive_noinc(bar);
+    }
+    if (tid < 32)
         chunk_scan(cs, csl, dts, dt + b * sd.db + h * sd.dh + (int64_t)s0 * sd.ds, sd.ds, a[h],
                    valid);
-    cp_async_wait<0>();
     __syncthreads();
-    if (threadIdx.x < MAX_L) {
-        const int i = threadIdx.x;
-        win[i] = expf(cs[i]);
-        wout[i] = dts[i] * expf(decay_exp(cs, csl, L - 1, i));
+    if (tid < MAX_L) {
+        win[tid] = expf(cs[tid]);
+        wout[tid] = dts[tid] * expf(decay_exp(cs, csl, L - 1, tid));
     }
     __syncthreads();
+    mbar_wait_or_trap(bar, 0);  // a load that never lands ends the launch
+    // end of phase: load
 
-    // warps 0-3 the local state (Xw^T B), warps 4-7 the local cotangent
-    // (DYw^T C); warp w owns rows p = 16 (w % 4).. and every column n.  A(p,
-    // j) = w_j X[j][p] and B(j, n) are read across their rows, k = t, t + 4.
-    const int64_t blk = ((int64_t)b * sh.H + h) * sh.nc + c;
-    const int p0 = 16 * (warp & 3), l8 = (L + 7) & ~7;
-    if (p0 < P) {
-        const bool cot = warp >= 4;
-        const float* As = cot ? DYs : Xs;
-        const float* Bt = cot ? Cs : Bs;
-        const float* sc = cot ? win : wout;
-        float acc[MAX_N / 8][4] = {};
-        for (int k0 = 0; k0 < l8; k0 += 8) {
-            const float s_a = sc[k0 + tq], s_b = sc[k0 + tq + 4];
-            const float* xa = As + (k0 + tq) * LD1_P + p0 + gq;
-            Frag<4> fa;
-            fa.set(0, s_a * xa[0]);
-            fa.set(1, s_a * xa[8]);
-            fa.set(2, s_b * xa[4 * LD1_P]);
-            fa.set(3, s_b * xa[4 * LD1_P + 8]);
+    // phase: build
+    // (wout x)^T and (win dy)^T hi and lo, [p][j]: four j of one p a store, a
+    // build's loads all out before its stores
+    {
+        float v[4][4], u[4][4];
 #pragma unroll
-            for (int nt = 0; nt < MAX_N / 8; ++nt)
-                if (8 * nt < N) {
-                    const float* bb = Bt + (k0 + tq) * LD1_N + 8 * nt + gq;
-                    Frag<2> fb;
-                    fb.set(0, bb[0]);
-                    fb.set(1, bb[4 * LD1_N]);
-                    mma3(acc[nt], fa, fb);
-                }
+        for (int k = 0; k < 4; ++k) {
+            const int item = tid + k * THREADS, p = item & (MAX_P - 1), j4 = (item >> 6) * 4;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                v[k][q] = wout[j4 + q] * sf(base + K::X + swz(j4 + q, p));
+                u[k][q] = win[j4 + q] * sf(base + K::DY + swz(j4 + q, p));
+            }
         }
-        float* out = (cot ? w.ct : w.st) + blk * P * N;
 #pragma unroll
-        for (int nt = 0; nt < MAX_N / 8; ++nt)
+        for (int k = 0; k < 4; ++k) {
+            const int item = tid + k * THREADS, p = item & (MAX_P - 1), j4 = (item >> 6) * 4;
+            const uint32_t off = swz(p, j4);
+            uint32_t s[2][4];
+            split4(s, v[k][0], v[k][1], v[k][2], v[k][3]);
+            sf4(base + K::XT + off) = as_float4(s[0]);
+            sf4(base + K::XT + TILE + off) = as_float4(s[1]);
+            split4(s, u[k][0], u[k][1], u[k][2], u[k][3]);
+            sf4(base + K::DT + off) = as_float4(s[0]);
+            sf4(base + K::DT + TILE + off) = as_float4(s[1]);
+        }
+    }
+    // end of phase: build
+    fence_proxy_async();
+    __syncthreads();
+
+    // phase: local
+    // warpgroup 0 the local state^T [n][p], warpgroup 1 the local cotangent^T:
+    // A = B or C across its rows (n = 64 nt + 16 wq + gq, + 8; k = j)
+    const uint32_t araw = base + (wg ? K::CR : K::BR), bop = base + (wg ? K::DT : K::XT);
+    float acc[NTL][8][4];
+    {
+        uint32_t af[RING][NTL][2][4];
+#pragma unroll
+        for (int kk = 0; kk < MAX_L / 8; ++kk) {
+            const int slot = kk % RING;
+            if (kk >= RING) {
+                wgmma_wait<RING - 1>();
+#pragma unroll
+                for (int nt = 0; nt < NTL; ++nt) wgmma_hold(af[slot][nt]);
+            }
+            const int j = 8 * kk + tq;
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt) {
+                const int n = 64 * nt + 16 * wq + gq;
+                split4(af[slot][nt], sf(araw + swz(j, n)), sf(araw + swz(j, n + 8)),
+                       sf(araw + swz(j + 4, n)), sf(araw + swz(j + 4, n + 8)));
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt)
+                mma3<8>(acc[nt], af[slot][nt], bop, bop + TILE, kk, kk > 0);
+            wgmma_commit();
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) {
+            wgmma_hold(acc[nt]);
+#pragma unroll
+            for (int r = 0; r < RING; ++r) wgmma_hold(af[r][nt]);
+        }
+    }
+    // end of phase: local
+    const int64_t blk = ((int64_t)b * sh.H + h) * sh.nc + c;
+    float* out = (wg ? w.ct : w.st) + blk * P * N;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int p = p0 + gq + 8 * (e >> 1), n = 8 * nt + 2 * tq + (e & 1);
-                if (p < P && n < N) out[p * N + n] = acc[nt][e];
+                const int n = 64 * nt + 16 * wq + gq + 8 * (e >> 1), p = 8 * cc + 2 * tq + (e & 1);
+                if (p < P && n < N) out[p * N + n] = acc[nt][cc][e];
             }
-    }
-    if (threadIdx.x == 0) w.dec[blk] = expf(cs[L - 1]);
+    if (tid == 0) w.dec[blk] = expf(cs[L - 1]);
 
-    // C B^T of the chunk, once per group: warp w owns rows i = 16 (w % 4)..
-    // and columns j = 32 (w / 4)..; C and B read along their rows (k = 2t, 2t + 1)
+    // C B^T of the chunk, once per group
     if (h % rep != 0) return;
-    const int i0 = 16 * (warp & 3), j0 = 32 * (warp >> 2), n8 = (N + 7) & ~7;
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < n8; k0 += 8) {
-        const float* ca = Cs + (i0 + gq) * LD1_N + k0 + 2 * tq;
-        Frag<4> fa;
-        fa.set2(0, 2, ld2(ca));
-        fa.set2(1, 3, ld2(ca + 8 * LD1_N));
-#pragma unroll
-        for (int jt = 0; jt < 4; ++jt) {
-            Frag<2> fb;  // B(n, j) = B[j][n]
-            fb.set2(0, 1, ld2(Bs + (j0 + 8 * jt + gq) * LD1_N + k0 + 2 * tq));
-            mma3(acc[jt], fa, fb);
-        }
+    __syncthreads();  // both warpgroups' products are done with the transposed tiles
+    // phase: cb
+    // B hi and lo [j][n] in the raw tile's layout, where those were
+    for (int off = tid * 16; off < NTL * TILE; off += THREADS * 16) {
+        const float4 v = sf4(base + K::BR + off);
+        uint32_t s[2][4];
+        split4(s, v.x, v.y, v.z, v.w);
+        sf4(base + K::BHL + off) = as_float4(s[0]);
+        sf4(base + K::BHL + NTL * TILE + off) = as_float4(s[1]);
     }
+    fence_proxy_async();
+    __syncthreads();
+    // [i][j] for this warpgroup's 32 columns j: A = C along its rows
+    float cb[4][4];
+    {
+        uint32_t af[RING][2][4];
+        const uint32_t bh = base + K::BHL + wg * 32 * 128, bl = bh + NTL * TILE;
+#pragma unroll
+        for (int kk = 0; kk < 8 * NTL; ++kk) {
+            const int slot = kk % RING;
+            if (kk >= RING) {
+                wgmma_wait<RING - 1>();
+                wgmma_hold(af[slot]);
+            }
+            const int n = 8 * kk + tq, i = 16 * wq + gq;
+            split4(af[slot], sf(base + K::CR + swz(i, n)), sf(base + K::CR + swz(i + 8, n)),
+                   sf(base + K::CR + swz(i, n + 4)), sf(base + K::CR + swz(i + 8, n + 4)));
+            wgmma_fence();
+            mma3<4>(cb, af[slot], bh, bl, kk, kk > 0);
+            wgmma_commit();
+        }
+        wgmma_wait<0>();
+        wgmma_hold(cb);
+#pragma unroll
+        for (int r = 0; r < RING; ++r) wgmma_hold(af[r]);
+    }
+    // end of phase: cb
     float* cbo = w.cb + (((int64_t)b * sh.G + g) * sh.nc + c) * MAX_L * MAX_L;
 #pragma unroll
-    for (int jt = 0; jt < 4; ++jt)
+    for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-            const int i = i0 + gq + 8 * hf, j = j0 + 8 * jt + 2 * tq;
+            const int i = 16 * wq + gq + 8 * hf, j = 32 * wg + 8 * cc + 2 * tq;
             *reinterpret_cast<float2*>(cbo + i * MAX_L + j) =
-                make_float2(acc[jt][2 * hf], acc[jt][2 * hf + 1]);
+                make_float2(cb[cc][2 * hf], cb[cc][2 * hf + 1]);
         }
 }
 
@@ -409,365 +607,554 @@ ssd_bwd_scan_kernel(const float* __restrict__ h_init, const float* __restrict__ 
 
 // ---- pass 3: the gradients of one chunk of one head ----
 
-template <bool FULL>
-__global__ void __launch_bounds__(NT_CHUNK, 2)
-ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ a, const float* __restrict__ bm,
-                     const float* __restrict__ cm, const float* __restrict__ dy,
-                     float* __restrict__ dx, float* __restrict__ ddt, Work w, Shape sh,
-                     Strides sd) {
-    extern __shared__ float4 smem4[];
-    float* Xs = reinterpret_cast<float*>(smem4);  // [MAX_L][LDT]
-    float* DYs = Xs + TILE;                        // [MAX_L][LDT]
-    float* Mqs = DYs + TILE;                       // [MAX_L][LDT]: E o (dy x^T) dt_j
-    float* stage = Mqs + TILE;
-    float* As = stage;                             // [MAX_L][LDT]: C B^T, then A in place
-    float* Ms = stage + TILE;                      // [MAX_L][LDM]: M, then its rows' prefixes
-    float* Cn = stage;                             // n-step: C [MAX_L][LDC]
-    float* Bn = Cn + MAX_L * LDC;                  // B [MAX_L][LDB]
-    float* Gn = Bn + MAX_L * LDB;                  // G [MAX_P][LDB]: the cotangent leaving
-    float* Sn = Gn + MAX_P * LDB;                  // S [MAX_P][LDB]: the entering state
-    float* cs = stage + NSTAGE;
+// Descriptor of k-step kk of this warpgroup's 32 rows of a K-major operand
+// of 64-row panels at `tile`: the 8-row groups wg, wg + 2, wg + 4, wg + 6
+// (a stride of 2048 bytes between them), so that row r of the product's N
+// is row 16 (r / 8) + 8 wg + r % 8 of the tile.
+__device__ __forceinline__ uint64_t kdesc_wg(uint32_t tile, int kk, int wg) {
+    const uint32_t addr = opaque(tile) + wg * 1024 + (kk >> 2) * PANEL + (kk & 3) * 32;
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+           ((uint64_t)(2048 >> 4) << 32) | (1ull << 62);
+}
+
+template <int NB8>
+__device__ __forceinline__ void mma3_wg(float (&d)[NB8][4], const uint32_t (&a)[2][4],
+                                        uint32_t b_hi, uint32_t b_lo, int kk, int wg,
+                                        int accumulate) {
+    wgmma_tf32<NB8>(d, a[1], kdesc_wg(b_hi, kk, wg), accumulate);
+    wgmma_tf32<NB8>(d, a[0], kdesc_wg(b_lo, kk, wg), 1);
+    wgmma_tf32<NB8>(d, a[0], kdesc_wg(b_hi, kk, wg), 1);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict__ x,
+                     const float* __restrict__ dt, const float* __restrict__ a,
+                     const float* __restrict__ bm, const float* __restrict__ cm,
+                     const float* __restrict__ dy, float* __restrict__ dx,
+                     float* __restrict__ ddt, Work w, Shape sh, Strides sd) {
+    using K = ChunkCfg;
+    extern __shared__ float4 smem_bwd[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(smem_bwd);
+    const uint32_t small = smem_addr(smem_bwd);
+    const uint32_t base = (small + SMALL + 1023) & ~1023u;
+    auto sf = [&](uint32_t ad) -> float& { return *reinterpret_cast<float*>(smem + (ad - small)); };
+    auto sf2 = [&](uint32_t ad) -> float2& {
+        return *reinterpret_cast<float2*>(smem + (ad - small));
+    };
+    auto sf4 = [&](uint32_t ad) -> float4& {
+        return *reinterpret_cast<float4*>(smem + (ad - small));
+    };
+    uint8_t* tiles = smem + (base - small);
+    float* cs = reinterpret_cast<float*>(smem + BARS);
     float* csl = cs + MAX_L;
     float* dts = csl + MAX_L;
-    float* ein = dts + MAX_L;         // e^{cs_i}
-    float* eout = ein + MAX_L;        // e^{cs_last - cs_j}
-    float* straddle = eout + MAX_L;      // sum_{i>=k, j<k} M_ij
-    float* inter = straddle + MAX_L;     // [2][MAX_L]: e^{cs_i} C_i . (S^T dy_i), by column half
-    float* tj = inter + 2 * MAX_L;       // [2][MAX_L]: T_j, by column half
-    float* xdu = tj + 2 * MAX_L;         // [2][MAX_L]: x_j . du_j, by column half
-    float* red = xdu + 2 * MAX_L;        // [8]: per-warp partial sums of <G, S>
+    float* ein = dts + MAX_L;        // e^{cs_i}
+    float* eout = ein + MAX_L;       // e^{cs_last - cs_j}
+    float* straddle = eout + MAX_L;  // sum_{i>=k, j<k} M_ij
+    // the chunk's x, dy and C B^T; each step's S and G; each step's C and B
+    const uint32_t bar_ld = small, bar_sg = small + 8, bar_cb = small + 16;
     const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, g = h / (sh.H / sh.G);
-    const int L = FULL ? MAX_L : sh.L, P = FULL ? MAX_P : sh.P, N = FULL ? MAX_N : sh.N;
-    // the workspace's state rows start on 16-byte boundaries where N % 4 == 0
-    const bool vec = FULL || sh.vec, vec_ws = FULL || N % 4 == 0;
-    const int s0 = c * L, valid = min(L, sh.S - s0);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
-    // this warp's rows, as positions i and as positions j, and its half of
-    // the column tiles of each product (tiles hf, hf + 2, ...)
-    const int hf = warp >> 2, r0 = 16 * (warp & 3);
-    const bool mine = r0 < L;
-    const int l8 = (L + 7) & ~7, p8 = (P + 7) & ~7;
+    const int L = sh.L, P = sh.P, N = sh.N, s0 = c * L, valid = min(L, sh.S - s0);
+    const int tid = threadIdx.x, wg = tid >> 7, wq = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int npx = (P + 31) >> 5, npn0 = (min(N, NB) + 31) >> 5;
+    const bool tma = sh.vec;
     const int64_t blk = ((int64_t)b * sh.H + h) * sh.nc + c;
+    const int64_t cbk = ((int64_t)b * sh.G + g) * sh.nc + c;  // this chunk's C B^T
+    const int64_t sp = (int64_t)sh.nc * L;  // the padded sequence of the per-head sums
+    const float* cbase = cm + b * sd.cb + g * sd.cg + (int64_t)s0 * sd.cs;
+    const float* bbase = bm + b * sd.bb + g * sd.bg + (int64_t)s0 * sd.bs;
+    // this thread's columns j of Q, du^T: 16 cc + 8 wg + 2 tq (+ 1), and of
+    // dB^T and dC^T: 8 cc + 2 tq (+ 1); its rows i of Q (Q's rows permuted so
+    // that every warp holds rows of every part of the causal triangle): iq and
+    // iq + 32; its rows p of du^T and n of dB^T, dC^T: 16 wq + gq (+ 8)
+    const int iq = 16 * (gq >> 2) + 4 * wq + (gq & 3), r0 = 16 * wq + gq;
 
-    load_tile_zf<MAX_L, MAX_P, NT_CHUNK>(Xs, LDT, x + b * sd.xb + h * sd.xh + s0 * sd.xs, sd.xs,
-                                         valid, P, vec);
-    load_tile_zf<MAX_L, MAX_P, NT_CHUNK>(DYs, LDT, dy + b * sd.yb + h * sd.yh + s0 * sd.ys,
-                                         sd.ys, valid, P, vec);
-    load_tile_zf<MAX_L, MAX_L, NT_CHUNK>(
-            As, LDT, w.cb + (((int64_t)b * sh.G + g) * sh.nc + c) * MAX_L * MAX_L, MAX_L,
-            MAX_L, MAX_L, true);
-    cp_async_commit();
+    // the loads of step st's S and G (the chunk's S and G, from the workspace)
+    // and of its C and B, each completing its barrier; TMA by thread 0 or
+    // cp.async by every thread
+    auto load_sg = [&](int nb) {
+        const int npn = (min(NB, N - nb) + 31) >> 5;
+        if (tma) {
+            if (tid == 0) {
+                mbar_arrive_expect_tx(bar_sg, npn * 128 * 2 * P);
+                for (int pc = 0; pc < npn; ++pc) {
+                    tma_load_4d(base + K::SS + pc * PANEL, &maps.st, bar_sg, nb + 32 * pc, 0,
+                                (int)blk, 0);
+                    tma_load_4d(base + K::GS + pc * PANEL, &maps.ct, bar_sg, nb + 32 * pc, 0,
+                                (int)blk, 0);
+                }
+            }
+        } else {
+            copy_tile(base + K::SS, w.st + blk * P * N + nb, N, P, min(NB, N - nb), 2);
+            copy_tile(base + K::GS, w.ct + blk * P * N + nb, N, P, min(NB, N - nb), 2);
+            cp_async_mbar_arrive_noinc(bar_sg);
+        }
+    };
+    auto load_cb = [&](int nb) {
+        const int npn = (min(NB, N - nb) + 31) >> 5;
+        if (tma) {
+            if (tid == 0) {
+                mbar_arrive_expect_tx(bar_cb, npn * 128 * 2 * L);
+                for (int pc = 0; pc < npn; ++pc) {
+                    tma_load_4d(base + K::CS + pc * PANEL, &maps.c, bar_cb, nb + 32 * pc, s0, g,
+                                b);
+                    tma_load_4d(base + K::BS + pc * PANEL, &maps.b, bar_cb, nb + 32 * pc, s0, g,
+                                b);
+                }
+            }
+        } else {
+            copy_tile(base + K::CS, cbase + nb, sd.cs, valid, min(NB, N - nb), 2);
+            copy_tile(base + K::BS, bbase + nb, sd.bs, valid, min(NB, N - nb), 2);
+            cp_async_mbar_arrive_noinc(bar_cb);
+        }
+    };
+
+    if (tid == 0) {
+        for (uint32_t bar : {bar_ld, bar_sg, bar_cb}) mbar_init(bar, tma ? 1 : THREADS);
+        fence_barrier_init();
+        if (tma)
+            for (const CUtensorMap* m : {&maps.x, &maps.dy, &maps.cb, &maps.ct, &maps.st,
+                                         &maps.c, &maps.b})
+                prefetch_tensormap(m);
+    }
+    if (tma) {
+        zero_uncovered(tiles + K::XR, L, npx, 2);
+        zero_uncovered(tiles + K::DYR, L, npx, 2);
+        zero_uncovered(tiles + K::GS, P, npn0, 2);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    // phase: load
+    if (tma) {
+        if (tid == 0) {
+            mbar_arrive_expect_tx(bar_ld, 2 * npx * L * 128 + TILE);
+            for (int pc = 0; pc < npx; ++pc) {
+                tma_load_4d(base + K::XR + pc * PANEL, &maps.x, bar_ld, 32 * pc, s0, h, b);
+                tma_load_4d(base + K::DYR + pc * PANEL, &maps.dy, bar_ld, 32 * pc, s0, h, b);
+            }
+            for (int pc = 0; pc < 2; ++pc)
+                tma_load_4d(base + K::CBR + pc * PANEL, &maps.cb, bar_ld, 32 * pc, 0, (int)cbk,
+                            0);
+            // step 0's G now, its S once x is built from (the same barrier phase)
+            mbar_arrive_expect_tx(bar_sg, npn0 * 128 * 2 * P);
+            for (int pc = 0; pc < npn0; ++pc)
+                tma_load_4d(base + K::GS + pc * PANEL, &maps.ct, bar_sg, 32 * pc, 0, (int)blk, 0);
+        }
+    } else {
+        copy_tile(base + K::XR, x + b * sd.xb + h * sd.xh + (int64_t)s0 * sd.xs, sd.xs, valid, P,
+                  2);
+        copy_tile(base + K::DYR, dy + b * sd.yb + h * sd.yh + (int64_t)s0 * sd.ys, sd.ys, valid,
+                  P, 2);
+        copy_tile(base + K::CBR, w.cb + cbk * MAX_L * MAX_L, MAX_L, MAX_L, MAX_L, 2);
+        cp_async_mbar_arrive_noinc(bar_ld);
+    }
     const float ah = a[h];
-    if (warp == 0)
+    if (tid < 32)
         chunk_scan(cs, csl, dts, dt + b * sd.db + h * sd.dh + (int64_t)s0 * sd.ds, sd.ds, ah,
                    valid);
-    else if (threadIdx.x < 32 + MAX_L) {  // rows no warp owns stay 0
-        const int k = threadIdx.x - 32;
-        straddle[k] = inter[k] = inter[MAX_L + k] = tj[k] = tj[MAX_L + k] = xdu[k] =
-                xdu[MAX_L + k] = 0.f;
-    }
-    cp_async_wait<0>();
     __syncthreads();
-    if (threadIdx.x < MAX_L) {
-        ein[threadIdx.x] = expf(cs[threadIdx.x]);
-        eout[threadIdx.x] = expf(decay_exp(cs, csl, L - 1, threadIdx.x));
-    }
-
-    // (a) rows i: Q = dy x^T (k = 2t, 2t + 1), column tiles j0 <= i only;
-    // Mq = Q dt_j E, M = (C B^T) o Mq below the diagonal, A = (C B^T) o E
-    // in place of C B^T
-    if (mine) {
-        const int qend = min(r0 / 8 + 2, l8 / 8);
-        float q[MAX_L / 16][4] = {};  // column tiles 2u + hf
-        for (int k0 = 0; k0 < p8; k0 += 8) {
-            const float* ya = DYs + (r0 + gq) * LDT + k0 + 2 * tq;
-            Frag<4> fa;
-            fa.set2(0, 2, ld2(ya));
-            fa.set2(1, 3, ld2(ya + 8 * LDT));
-#pragma unroll
-            for (int u = 0; u < MAX_L / 16; ++u)
-                if (2 * u + hf < qend) {
-                    Frag<2> fb;  // B(p, j) = x[j][p]
-                    fb.set2(0, 1, ld2(Xs + (16 * u + 8 * hf + gq) * LDT + k0 + 2 * tq));
-                    mma3(q[u], fa, fb);
-                }
-        }
-#pragma unroll
-        for (int u = 0; u < MAX_L / 16; ++u)
-#pragma unroll
-            for (int rh = 0; rh < 2; ++rh) {
-                const int jt = 2 * u + hf, i = r0 + gq + 8 * rh, j = 8 * jt + 2 * tq;
-                float mq[2] = {0.f, 0.f}, m[2] = {0.f, 0.f}, av[2] = {0.f, 0.f};
-                if (jt < qend) {
-                    const float2 cb = ld2(As + i * LDT + j);
-#pragma unroll
-                    for (int e = 0; e < 2; ++e)
-                        if (j + e <= i && i < L) {
-                            const float ex = expf(decay_exp(cs, csl, i, j + e));
-                            const float cbe = e ? cb.y : cb.x;
-                            mq[e] = q[u][2 * rh + e] * dts[j + e] * ex;
-                            av[e] = cbe * ex;
-                            if (j + e < i) m[e] = cbe * mq[e];
-                        }
-                }
-                *reinterpret_cast<float2*>(Mqs + i * LDT + j) = make_float2(mq[0], mq[1]);
-                *reinterpret_cast<float2*>(Ms + i * LDM + j) = make_float2(m[0], m[1]);
-                *reinterpret_cast<float2*>(As + i * LDT + j) = make_float2(av[0], av[1]);
-            }
-    }
-    __syncthreads();  // Mq, M and A are in
-
-    // (b) rows j: du = A^T dy, i >= j (k = t, t + 4), this warp's column tiles of p
-    float du[MAX_P / 16][4] = {};  // column tiles p = 8 (2u + hf)..
-    if (mine) {
-        for (int k0 = r0; k0 < l8; k0 += 8) {
-            const float* aa = As + (k0 + tq) * LDT + r0 + gq;  // A(j, i) = A[i][j]
-            Frag<4> fa;
-            fa.set(0, aa[0]);
-            fa.set(1, aa[8]);
-            fa.set(2, aa[4 * LDT]);
-            fa.set(3, aa[4 * LDT + 8]);
-#pragma unroll
-            for (int u = 0; u < MAX_P / 16; ++u)
-                if (8 * (2 * u + hf) < P) {
-                    const float* yb = DYs + (k0 + tq) * LDT + 16 * u + 8 * hf + gq;  // B(i, p)
-                    Frag<2> fb;
-                    fb.set(0, yb[0]);
-                    fb.set(1, yb[4 * LDT]);
-                    mma3(du[u], fa, fb);
-                }
-        }
-    }
-    // the straddling sums: each row of M to its exclusive prefix sums over j,
-    // then straddle[k] = sum over rows i >= k of row i's prefix at k
-    if (threadIdx.x < L) {
-        float4* row = reinterpret_cast<float4*>(Ms + threadIdx.x * LDM);
-        float run = 0.f;
-#pragma unroll 4
-        for (int q4 = 0; q4 < MAX_L / 4; ++q4) {
-            const float4 m = row[q4];
-            float4 o;
-            o.x = run;
-            run += m.x;
-            o.y = run;
-            run += m.y;
-            o.z = run;
-            run += m.z;
-            o.w = run;
-            run += m.w;
-            row[q4] = o;
-        }
+    if (tid < MAX_L) {
+        ein[tid] = expf(cs[tid]);
+        eout[tid] = expf(decay_exp(cs, csl, L - 1, tid));
     }
     __syncthreads();
-    if (threadIdx.x < L) {
-        float sk = 0.f;
-        for (int i = threadIdx.x; i < L; ++i) sk += Ms[i * LDM + threadIdx.x];
-        straddle[threadIdx.x] = sk;
-    }
-    __syncthreads();  // the stage is free for the n-steps
+    mbar_wait_or_trap(bar_ld, 0);
+    // end of phase: load
 
-    // (c) per step of NB columns of N: du += (e^{cs_last - cs_j} B) G^T; dB =
-    // (wout x) G (then T) + Mq^T C; dC = (e^{cs_i} dy) S (then C . (S^T dy))
-    // + Mq B; <G, S>
-    const int ja = r0 + gq, jb = ja + 8;  // this lane's rows (i or j)
-    const float eo_a = eout[ja], eo_b = eout[jb];
-    const float wo_a = eo_a * dts[ja], wo_b = eo_b * dts[jb];
-    const float ei_a = ein[ja], ei_b = ein[jb];
-    const int64_t sp = (int64_t)sh.nc * L;  // the padded sequence of the per-head sums
-    const float* cbase = cm + b * sd.cb + g * sd.cg + s0 * sd.cs;
-    const float* bbase = bm + b * sd.bb + g * sd.bg + s0 * sd.bs;
-    const float* gbase = w.ct + blk * P * N;
-    const float* sbase = w.st + blk * P * N;
-    float tsum[2] = {0.f, 0.f}, isum[2] = {0.f, 0.f}, gsum = 0.f;
-    for (int nb = 0; nb < N; nb += NB) {
-        const int ncols = min(NB, N - nb), n8 = (ncols + 7) & ~7;
-        load_tile_zf<MAX_L, NB, NT_CHUNK>(Cn, LDC, cbase + nb, sd.cs, valid, ncols, vec);
-        load_tile_zf<MAX_L, NB, NT_CHUNK>(Bn, LDB, bbase + nb, sd.bs, valid, ncols, vec);
-        load_tile_zf<MAX_P, NB, NT_CHUNK>(Gn, LDB, gbase + nb, N, P, ncols, vec_ws);
-        load_tile_zf<MAX_P, NB, NT_CHUNK>(Sn, LDB, sbase + nb, N, P, ncols, vec_ws);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();  // the step is in
-        if (mine) {
-            // du += (eout B) G^T: A(j, n), B(n, p) = G[p][n], both along rows (k = t, t + 4)
-            for (int k0 = 0; k0 < n8; k0 += 8) {
-                const float* ba = Bn + ja * LDB + k0 + tq;
-                Frag<4> fa;
-                fa.set(0, eo_a * ba[0]);
-                fa.set(1, eo_b * ba[8 * LDB]);
-                fa.set(2, eo_a * ba[4]);
-                fa.set(3, eo_b * ba[8 * LDB + 4]);
+    // phase: build
+    // x, (wout x) [j][p] and (ein dy) [i][p] hi and lo, each in its raw tile's
+    // layout; x at this thread's elements of du^T, for x . du after the n-steps
+    float xr[4][4];
+    {
+        float4 xv[4], yv[4];
 #pragma unroll
-                for (int u = 0; u < MAX_P / 16; ++u)
-                    if (8 * (2 * u + hf) < P) {
-                        const float* gb = Gn + (16 * u + 8 * hf + gq) * LDB + k0 + tq;
-                        Frag<2> fb;
-                        fb.set(0, gb[0]);
-                        fb.set(1, gb[4]);
-                        mma3(du[u], fa, fb);
-                    }
-            }
-            // dB rows j: (wout x) G (k = 2t, 2t + 1), T_j += B_j . that, then + Mq^T C
-            // (k = t, t + 4)
-            float acc[NB / 16][4] = {};  // column tiles n = nb + 8 (2u + hf)..
-            for (int k0 = 0; k0 < p8; k0 += 8) {
-                const float2 xa = ld2(Xs + ja * LDT + k0 + 2 * tq);
-                const float2 xb = ld2(Xs + jb * LDT + k0 + 2 * tq);
-                Frag<4> fa;
-                fa.set2(0, 2, make_float2(wo_a * xa.x, wo_a * xa.y));
-                fa.set2(1, 3, make_float2(wo_b * xb.x, wo_b * xb.y));
-#pragma unroll
-                for (int u = 0; u < NB / 16; ++u)
-                    if (8 * (2 * u + hf) < ncols) {
-                        const int nt = 2 * u + hf;
-                        const float* gb = Gn + (k0 + 2 * tq) * LDB + 8 * nt + gq;  // B(p, n)
-                        Frag<2> fb;
-                        fb.set(0, gb[0]);
-                        fb.set(1, gb[LDB]);
-                        mma3(acc[u], fa, fb);
-                    }
-            }
-#pragma unroll
-            for (int u = 0; u < NB / 16; ++u) {
-                const int n = 16 * u + 8 * hf + 2 * tq;
-                const float2 b0 = ld2(Bn + ja * LDB + n), b1 = ld2(Bn + jb * LDB + n);
-                tsum[0] += b0.x * acc[u][0] + b0.y * acc[u][1];
-                tsum[1] += b1.x * acc[u][2] + b1.y * acc[u][3];
-            }
-            for (int k0 = r0; k0 < l8; k0 += 8) {
-                const float* ma = Mqs + (k0 + tq) * LDT + ja;  // A(j, i) = Mq[i][j]
-                Frag<4> fa;
-                fa.set(0, ma[0]);
-                fa.set(1, ma[8]);
-                fa.set(2, ma[4 * LDT]);
-                fa.set(3, ma[4 * LDT + 8]);
-#pragma unroll
-                for (int u = 0; u < NB / 16; ++u)
-                    if (8 * (2 * u + hf) < ncols) {
-                        const int nt = 2 * u + hf;
-                        const float* cb = Cn + (k0 + tq) * LDC + 8 * nt + gq;  // B(i, n)
-                        Frag<2> fb;
-                        fb.set(0, cb[0]);
-                        fb.set(1, cb[4 * LDC]);
-                        mma3(acc[u], fa, fb);
-                    }
-            }
-#pragma unroll
-            for (int u = 0; u < NB / 16; ++u)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int j = e < 2 ? ja : jb, n = nb + 16 * u + 8 * hf + 2 * tq + (e & 1);
-                    if (j < valid && n < N)
-                        w.dbh[(((int64_t)b * sp + s0 + j) * sh.H + h) * N + n] = acc[u][e];
-                }
-            // dC rows i: (ein dy) S (k = 2t, 2t + 1), the C . (S^T dy) terms,
-            // then + Mq B (k = 2t, 2t + 1), j <= i
-#pragma unroll
-            for (int u = 0; u < NB / 16; ++u)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
-            for (int k0 = 0; k0 < p8; k0 += 8) {
-                const float2 ya = ld2(DYs + ja * LDT + k0 + 2 * tq);
-                const float2 yb = ld2(DYs + jb * LDT + k0 + 2 * tq);
-                Frag<4> fa;
-                fa.set2(0, 2, make_float2(ei_a * ya.x, ei_a * ya.y));
-                fa.set2(1, 3, make_float2(ei_b * yb.x, ei_b * yb.y));
-#pragma unroll
-                for (int u = 0; u < NB / 16; ++u)
-                    if (8 * (2 * u + hf) < ncols) {
-                        const int nt = 2 * u + hf;
-                        const float* sb = Sn + (k0 + 2 * tq) * LDB + 8 * nt + gq;  // B(p, n)
-                        Frag<2> fb;
-                        fb.set(0, sb[0]);
-                        fb.set(1, sb[LDB]);
-                        mma3(acc[u], fa, fb);
-                    }
-            }
-#pragma unroll
-            for (int u = 0; u < NB / 16; ++u) {
-                const int n = 16 * u + 8 * hf + 2 * tq;
-                const float2 c0 = ld2(Cn + ja * LDC + n), c1 = ld2(Cn + jb * LDC + n);
-                isum[0] += c0.x * acc[u][0] + c0.y * acc[u][1];
-                isum[1] += c1.x * acc[u][2] + c1.y * acc[u][3];
-            }
-            const int jend = min(l8, r0 + 16);
-            for (int k0 = 0; k0 < jend; k0 += 8) {
-                const float* ma = Mqs + ja * LDT + k0 + 2 * tq;  // A(i, j) = Mq[i][j]
-                Frag<4> fa;
-                fa.set2(0, 2, ld2(ma));
-                fa.set2(1, 3, ld2(ma + 8 * LDT));
-#pragma unroll
-                for (int u = 0; u < NB / 16; ++u)
-                    if (8 * (2 * u + hf) < ncols) {
-                        const int nt = 2 * u + hf;
-                        const float* bb = Bn + (k0 + 2 * tq) * LDB + 8 * nt + gq;  // B(j, n)
-                        Frag<2> fb;
-                        fb.set(0, bb[0]);
-                        fb.set(1, bb[LDB]);
-                        mma3(acc[u], fa, fb);
-                    }
-            }
-#pragma unroll
-            for (int u = 0; u < NB / 16; ++u)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int i = e < 2 ? ja : jb, n = nb + 16 * u + 8 * hf + 2 * tq + (e & 1);
-                    if (i < valid && n < N)
-                        w.dch[(((int64_t)b * sp + s0 + i) * sh.H + h) * N + n] = acc[u][e];
-                }
+        for (int k = 0; k < 4; ++k) {
+            const uint32_t off = (tid + k * THREADS) * 16;
+            xv[k] = sf4(base + K::XR + off);
+            yv[k] = sf4(base + K::DYR + off);
         }
-        for (int e = threadIdx.x; e < MAX_P * NB; e += NT_CHUNK) {
-            const int p = e / NB, n = e % NB;
-            gsum += Gn[p * LDB + n] * Sn[p * LDB + n];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                xr[cc][e] = sf(base + K::XR +
+                               swz(16 * cc + 8 * wg + 2 * tq + (e & 1), r0 + 8 * (e >> 1)));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const uint32_t off = (tid + k * THREADS) * 16;
+            const int r = (off % PANEL) / 128;
+            const float wo = eout[r] * dts[r], ei = ein[r];
+            uint32_t s[2][4];
+            split4(s, xv[k].x, xv[k].y, xv[k].z, xv[k].w);
+            sf4(base + K::XHL + off) = as_float4(s[0]);
+            sf4(base + K::XHL + TILE + off) = as_float4(s[1]);
+            split4(s, wo * xv[k].x, wo * xv[k].y, wo * xv[k].z, wo * xv[k].w);
+            sf4(base + K::WX + off) = as_float4(s[0]);
+            sf4(base + K::WX + TILE + off) = as_float4(s[1]);
+            split4(s, ei * yv[k].x, ei * yv[k].y, ei * yv[k].z, ei * yv[k].w);
+            sf4(base + K::EDY + off) = as_float4(s[0]);
+            sf4(base + K::EDY + TILE + off) = as_float4(s[1]);
         }
-        __syncthreads();  // every read of the step is done
+    }
+    // end of phase: build
+    fence_proxy_async();
+    __syncthreads();  // x is built from: its raw tile takes step 0's S
+
+    // phase: q
+    // Q [i][j] = dy x^T for this warpgroup's 32 columns j: A = dy along its rows
+    float q[4][4];
+    {
+        uint32_t af[RING][2][4];
+#pragma unroll
+        for (int kk = 0; kk < MAX_P / 8; ++kk) {
+            const int slot = kk % RING;
+            if (kk >= RING) {
+                wgmma_wait<RING - 1>();
+                wgmma_hold(af[slot]);
+            }
+            const int pc = 8 * kk + tq;
+            split4(af[slot], sf(base + K::DYR + swz(iq, pc)), sf(base + K::DYR + swz(iq + 32, pc)),
+                   sf(base + K::DYR + swz(iq, pc + 4)), sf(base + K::DYR + swz(iq + 32, pc + 4)));
+            wgmma_fence();
+            mma3_wg<4>(q, af[slot], base + K::XHL, base + K::XHL + TILE, kk, wg, kk > 0);
+            wgmma_commit();
+        }
+        wgmma_wait<0>();
+        wgmma_hold(q);
+#pragma unroll
+        for (int r = 0; r < RING; ++r) wgmma_hold(af[r]);
+    }
+    // end of phase: q
+    if (tma) zero_uncovered(tiles + K::SS, P, npn0, 2);
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups are done with x's hi and lo, where A^T goes
+    if (tma) {
+        if (tid == 0)
+            for (int pc = 0; pc < npn0; ++pc)
+                tma_load_4d(base + K::SS + pc * PANEL, &maps.st, bar_sg, 32 * pc, 0, (int)blk, 0);
+    } else {
+        load_sg(0);
     }
 
-    // (d) rows j: dx = dt du, x . du; T_j and the C . (S^T dy) terms per row
-    if (mine) {
+    // phase: form
+    // Mq = Q dt_j E, M = (C B^T) o Mq below the diagonal, A = (C B^T) o E:
+    // Mq [i][j] and Mq^T [j][i] hi and lo, A^T [j][i] hi and lo, M [i][j] in
+    // place of C B^T
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
         for (int rh = 0; rh < 2; ++rh) {
-            const int j = rh ? jb : ja;
-            const float dtj = dts[j];
-            float xd = 0.f;
+            const int i = iq + 32 * rh, j0 = 16 * cc + 8 * wg + 2 * tq;
+            const float2 cb2 = sf2(base + K::CBR + swz(i, j0));
+            float mq[2], av[2], m[2];
 #pragma unroll
-            for (int u = 0; u < MAX_P / 16; ++u) {
-                const int p = 16 * u + 8 * hf + 2 * tq;
-                const float2 xv = ld2(Xs + j * LDT + p);
-                const float d0 = du[u][2 * rh], d1 = du[u][2 * rh + 1];
-                xd += xv.x * d0 + xv.y * d1;
-                if (j < valid) {
-                    float* o = dx + (((int64_t)b * sh.S + s0 + j) * sh.H + h) * P + p;
-                    if (p < P) o[0] = dtj * d0;
-                    if (p + 1 < P) o[1] = dtj * d1;
+            for (int f = 0; f < 2; ++f) {  // selects, no branch: e^{-inf} = 0 off the triangle
+                const int j = j0 + f;
+                const bool on = j <= i && i < L;
+                const float ex = expf(on ? decay_exp(cs, csl, i, j) : -__int_as_float(0x7f800000));
+                const float cbe = f ? cb2.y : cb2.x;
+                mq[f] = q[cc][2 * rh + f] * dts[j] * ex;
+                av[f] = cbe * ex;
+                m[f] = j < i ? cbe * mq[f] : 0.f;
+            }
+            uint32_t mh[2], ml[2], ah2[2], al2[2];
+#pragma unroll
+            for (int f = 0; f < 2; ++f) {
+                tf32_split(mq[f], mh[f], ml[f]);
+                tf32_split(av[f], ah2[f], al2[f]);
+            }
+            const uint32_t oij = swz(i, j0);
+            sf2(base + K::MQ + oij) = make_float2(__uint_as_float(mh[0]), __uint_as_float(mh[1]));
+            sf2(base + K::MQ + TILE + oij) =
+                make_float2(__uint_as_float(ml[0]), __uint_as_float(ml[1]));
+            sf2(base + K::CBR + oij) = make_float2(m[0], m[1]);
+#pragma unroll
+            for (int f = 0; f < 2; ++f) {
+                const uint32_t oji = swz(j0 + f, i);
+                sf(base + K::MQT + oji) = __uint_as_float(mh[f]);
+                sf(base + K::MQT + TILE + oji) = __uint_as_float(ml[f]);
+                sf(base + K::XHL + oji) = __uint_as_float(ah2[f]);
+                sf(base + K::XHL + TILE + oji) = __uint_as_float(al2[f]);
+            }
+        }
+    // end of phase: form
+    fence_proxy_async();
+    __syncthreads();
+
+    // phase: du
+    // du^T [p][j] = sum_i dy[i][p] A[i][j] for this warpgroup's 32 columns j:
+    // A = dy across its rows, B = A^T
+    float du[4][4];
+    {
+        uint32_t af[RING][2][4];
+#pragma unroll
+        for (int kk = 0; kk < MAX_L / 8; ++kk) {
+            const int slot = kk % RING;
+            if (kk >= RING) {
+                wgmma_wait<RING - 1>();
+                wgmma_hold(af[slot]);
+            }
+            const int i = 8 * kk + tq;
+            split4(af[slot], sf(base + K::DYR + swz(i, r0)), sf(base + K::DYR + swz(i, r0 + 8)),
+                   sf(base + K::DYR + swz(i + 4, r0)), sf(base + K::DYR + swz(i + 4, r0 + 8)));
+            wgmma_fence();
+            mma3_wg<4>(du, af[slot], base + K::XHL, base + K::XHL + TILE, kk, wg, kk > 0);
+            wgmma_commit();
+        }
+        wgmma_wait<0>();
+        wgmma_hold(du);
+#pragma unroll
+        for (int r = 0; r < RING; ++r) wgmma_hold(af[r]);
+    }
+    // end of phase: du
+
+    // phase: straddle
+    // each row of M to its exclusive prefix sums over j (four threads a row,
+    // 16 columns each), then straddle[k] = sum over rows i >= k of row i's
+    // prefix at k (four threads a column, each the rows i = part mod 4)
+    {
+        const int i = tid >> 2, qd = tid & 3;
+        float4 m4[4];
+        float tot = 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            m4[u] = sf4(base + K::CBR + swz(i, 16 * qd + 4 * u));
+            tot += ((m4[u].x + m4[u].y) + m4[u].z) + m4[u].w;
+        }
+        const float e1 = __shfl_up_sync(0xffffffffu, tot, 1, 4);
+        const float e2 = __shfl_up_sync(0xffffffffu, tot, 2, 4);
+        const float e3 = __shfl_up_sync(0xffffffffu, tot, 3, 4);
+        float run = ((qd > 2 ? e3 : 0.f) + (qd > 1 ? e2 : 0.f)) + (qd > 0 ? e1 : 0.f);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            float4 o;
+            o.x = run;
+            run += m4[u].x;
+            o.y = run;
+            run += m4[u].y;
+            o.z = run;
+            run += m4[u].z;
+            o.w = run;
+            run += m4[u].w;
+            sf4(base + K::CBR + swz(i, 16 * qd + 4 * u)) = o;
+        }
+    }
+    __syncthreads();  // the prefixes are in; both warpgroups are done with A^T
+    {
+        const int k = tid & (MAX_L - 1), part = tid >> 6;
+        float sk = 0.f;
+#pragma unroll
+        for (int r = 0; r < MAX_L / 4; ++r) {
+            const int i = 4 * r + part;
+            const float v = sf(base + K::CBR + swz(i, k));
+            sk += i >= k ? v : 0.f;
+        }
+        sf(base + K::XHL + 4 * tid) = sk;
+    }
+    __syncthreads();
+    if (tid < MAX_L) {
+        const uint32_t pr = base + K::XHL + 4 * tid;
+        straddle[tid] = ((sf(pr) + sf(pr + 256)) + sf(pr + 512)) + sf(pr + 768);
+    }
+    // end of phase: straddle
+    if (tma) {
+        zero_uncovered(tiles + K::CS, L, npn0, 2);
+        zero_uncovered(tiles + K::BS, L, npn0, 2);
+    }
+    fence_proxy_async();
+    __syncthreads();  // dy, M and the partial sums are free for step 0's C and B
+    load_cb(0);
+
+    // phase: steps
+    // per step of NB columns of N: (eout B) hi and lo, <G, S>; warpgroup 0
+    // dB^T = G^T (wout x) (then T_j) + C^T Mq^T, warpgroup 1 dC^T = S^T (ein
+    // dy) (then the C . (S^T dy) terms) + B^T Mq; each du^T += G (eout B)^T
+    // for its 32 columns j
+    // T_j or C_i . (S^T dy_i) at column 8 cc + 2 tq + f, over this thread's rows
+    float part[8][2] = {};
+    float gsum = 0.f;
+    const uint32_t a_inter = base + (wg ? K::SS : K::GS), a_intra = base + (wg ? K::BS : K::CS);
+    const uint32_t b_inter = base + (wg ? K::EDY : K::WX), b_intra = base + (wg ? K::MQ : K::MQT);
+    const uint32_t rowv = base + (wg ? K::CS : K::BS);  // the rows T or the C . (S^T dy) terms take
+    for (int st = 0, nb = 0; nb < N; ++st, nb += NB) {
+        if (st > 0) {
+            const int npn = (min(NB, N - nb) + 31) >> 5;
+            if (tma) {
+                zero_uncovered(tiles + K::CS, L, npn, 2);
+                zero_uncovered(tiles + K::BS, L, npn, 2);
+                zero_uncovered(tiles + K::SS, P, npn, 2);
+                zero_uncovered(tiles + K::GS, P, npn, 2);
+            }
+            fence_proxy_async();
+            __syncthreads();
+            load_sg(nb);
+            load_cb(nb);
+        }
+        mbar_wait_or_trap(bar_sg, st & 1);
+        mbar_wait_or_trap(bar_cb, st & 1);
+        {
+            float4 bv[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const uint32_t off = (tid + k * THREADS) * 16;
+                bv[k] = sf4(base + K::BS + off);
+                const float4 gv = sf4(base + K::GS + off), sv = sf4(base + K::SS + off);
+                gsum += gv.x * sv.x + gv.y * sv.y + gv.z * sv.z + gv.w * sv.w;
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const uint32_t off = (tid + k * THREADS) * 16;
+                const float eo = eout[(off % PANEL) / 128];
+                uint32_t s[2][4];
+                split4(s, eo * bv[k].x, eo * bv[k].y, eo * bv[k].z, eo * bv[k].w);
+                sf4(base + K::EB + off) = as_float4(s[0]);
+                sf4(base + K::EB + TILE + off) = as_float4(s[1]);
+            }
+        }
+        fence_proxy_async();
+        __syncthreads();
+
+        // the inter-chunk product, K = p: A = G or S across its rows (n = r0, r0 + 8)
+        float acc[8][4];
+        {
+            uint32_t af[RING][2][4];
+#pragma unroll
+            for (int kk = 0; kk < MAX_P / 8; ++kk) {
+                const int slot = kk % RING;
+                if (kk >= RING) {
+                    wgmma_wait<RING - 1>();
+                    wgmma_hold(af[slot]);
                 }
+                const int pc = 8 * kk + tq;
+                split4(af[slot], sf(a_inter + swz(pc, r0)), sf(a_inter + swz(pc, r0 + 8)),
+                       sf(a_inter + swz(pc + 4, r0)), sf(a_inter + swz(pc + 4, r0 + 8)));
+                wgmma_fence();
+                mma3<8>(acc, af[slot], b_inter, b_inter + TILE, kk, kk > 0);
+                wgmma_commit();
             }
-            xd = quad_sum(xd);
-            const float t = quad_sum(tsum[rh]), it = quad_sum(isum[rh]);
-            if (tq == 0) {
-                xdu[hf * MAX_L + j] = xd;
-                tj[hf * MAX_L + j] = t;
-                inter[hf * MAX_L + j] = it;
+            wgmma_wait<0>();
+            wgmma_hold(acc);
+#pragma unroll
+            for (int r = 0; r < RING; ++r) wgmma_hold(af[r]);
+        }
+        // T_j += B_j . (G^T u_j) e^{cs_last - cs_j}, or the C_i . (S^T dy_i)
+        // e^{cs_i} terms, over this thread's rows n
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                part[cc][e & 1] +=
+                    sf(rowv + swz(8 * cc + 2 * tq + (e & 1), r0 + 8 * (e >> 1))) * acc[cc][e];
+        // the intra-chunk product, K = i or j: A = C or B across its rows;
+        // with du^T += G (eout B)^T, K = n: A = G along its rows (p = r0, r0 + 8)
+        {
+            uint32_t af[RING][2][4], ag[RING][2][4];
+#pragma unroll
+            for (int kk = 0; kk < MAX_L / 8; ++kk) {
+                const int slot = kk % RING;
+                if (kk >= RING) {
+                    wgmma_wait<RING - 1>();
+                    wgmma_hold(af[slot]);
+                    wgmma_hold(ag[slot]);
+                }
+                const int k = 8 * kk + tq;
+                split4(af[slot], sf(a_intra + swz(k, r0)), sf(a_intra + swz(k, r0 + 8)),
+                       sf(a_intra + swz(k + 4, r0)), sf(a_intra + swz(k + 4, r0 + 8)));
+                split4(ag[slot], sf(base + K::GS + swz(r0, k)), sf(base + K::GS + swz(r0 + 8, k)),
+                       sf(base + K::GS + swz(r0, k + 4)), sf(base + K::GS + swz(r0 + 8, k + 4)));
+                wgmma_fence();
+                mma3<8>(acc, af[slot], b_intra, b_intra + TILE, kk, 1);
+                mma3_wg<4>(du, ag[slot], base + K::EB, base + K::EB + TILE, kk, wg, 1);
+                wgmma_commit();
             }
+            wgmma_wait<0>();
+            wgmma_hold(acc);
+            wgmma_hold(du);
+#pragma unroll
+            for (int r = 0; r < RING; ++r) {
+                wgmma_hold(af[r]);
+                wgmma_hold(ag[r]);
+            }
+        }
+        // dB^T or dC^T [n][j or i] into the per-head workspace
+        float* outh = wg ? w.dch : w.dbh;
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int n = nb + r0 + 8 * (e >> 1), j = 8 * cc + 2 * tq + (e & 1);
+                if (j < valid && n < N)
+                    outh[(((int64_t)b * sp + s0 + j) * sh.H + h) * N + n] = acc[cc][e];
+            }
+        __syncthreads();  // every read of the step's tiles is done
+    }
+    // end of phase: steps
+
+    // phase: epilogue
+    // dx = dt du; x . du, T and the C . (S^T dy) terms summed over each
+    // warp's rows, then over the warps of its warpgroup in order; <G, S>
+    float* red = reinterpret_cast<float*>(tiles + K::E);
+    float* xdu = red;                 // [4][MAX_L]: x_j . du_j by warp of its warpgroup
+    float* trow = xdu + 4 * MAX_L;    // [2][4][MAX_L]: T_j (warpgroup 0), C . (S^T dy) (1)
+    float* gred = trow + 8 * MAX_L;   // [8]: <G, S> by warp
+    float xd[4][2];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+            xd[cc][f] = xr[cc][f] * du[cc][f] + xr[cc][2 + f] * du[cc][2 + f];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int p = r0 + 8 * (e >> 1), j = 16 * cc + 8 * wg + 2 * tq + (e & 1);
+            if (j < valid && p < P)
+                dx[(((int64_t)b * sh.S + s0 + j) * sh.H + h) * P + p] = dts[j] * du[cc][e];
+        }
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+                xd[cc][f] += __shfl_xor_sync(0xffffffffu, xd[cc][f], off);
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc)
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+                part[cc][f] += __shfl_xor_sync(0xffffffffu, part[cc][f], off);
+    }
+    if (gq == 0) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+                xdu[wq * MAX_L + 16 * cc + 8 * wg + 2 * tq + f] = xd[cc][f];
+#pragma unroll
+            for (int cc = 0; cc < 8; ++cc)
+                trow[(wg * 4 + wq) * MAX_L + 8 * cc + 2 * tq + f] = part[cc][f];
         }
     }
     gsum = warp_sum(gsum);
-    if (lane == 0) red[warp] = gsum;
+    if (lane == 0) gred[tid >> 5] = gsum;
     __syncthreads();  // every term of d(dA) is in
 
-    // (e) warp 0: d(dA) = the straddling sums of M, the reverse cumulative sum
+    // warp 0: d(dA) = the straddling sums of M, the reverse cumulative sum
     // of the inter-chunk terms, the exclusive prefix sum of T and e^{cs_last}
     // <G, S>; ddt and da's partial
-    if (warp == 0) {
+    if (tid < 32) {
         float gs = 0.f;
 #pragma unroll
-        for (int k = 0; k < NT_CHUNK / 32; ++k) gs += red[k];
-        // the column halves' partial sums, in a fixed order
-        const auto both = [](const float* v, int k) { return v[k] + v[MAX_L + k]; };
-        float v[2] = {both(inter, lane), both(inter, lane + 32)};  // reverse inclusive scan
+        for (int k = 0; k < THREADS / 32; ++k) gs += gred[k];
+        // a term's partial sums over the warps, in a fixed order
+        const auto over = [](const float* v, int k) {
+            return ((v[k] + v[MAX_L + k]) + v[2 * MAX_L + k]) + v[3 * MAX_L + k];
+        };
+        const float* tj = trow;
+        const float* inter = trow + 4 * MAX_L;
+        float v[2] = {over(inter, lane), over(inter, lane + 32)};  // reverse inclusive scan
         // T shifted by one position, so that its inclusive scan is the exclusive one
-        float t[2] = {lane > 0 ? both(tj, lane - 1) : 0.f, both(tj, lane + 31)};
+        float t[2] = {lane > 0 ? over(tj, lane - 1) : 0.f, over(tj, lane + 31)};
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
             const float u0 = __shfl_down_sync(0xffffffffu, v[0], off);
@@ -797,11 +1184,12 @@ ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
             const int k = lane + 32 * hlf;
             dap += dts[k] * v[hlf];
             if (k < valid)
-                ddt[((int64_t)b * sh.S + s0 + k) * sh.H + h] = both(xdu, k) + ah * v[hlf];
+                ddt[((int64_t)b * sh.S + s0 + k) * sh.H + h] = over(xdu, k) + ah * v[hlf];
         }
         dap = warp_sum(dap);
         if (lane == 0) w.dap[blk] = dap;
     }
+    // end of phase: epilogue
 }
 
 // ---- pass 4: dB and dC summed over the heads of each group ----
@@ -846,9 +1234,9 @@ bool valid_shape(int B, int S, int H, int P, int G, int N, int L) {
 
 }  // namespace
 
-// Dynamic shared memory of passes 1 and 3 (0, 1) in bytes.
+// Dynamic shared memory of passes 1 and 3 (0, 1) at N = 128, in bytes.
 extern "C" int repro_ssd_scan_bwd_smem_bytes(int pass) {
-    return pass == 0 ? SMEM_LOCAL * 4 : pass == 1 ? SMEM_CHUNK * 4 : -1;
+    return pass == 0 ? LocalCfg<2>::SMEM : pass == 1 ? ChunkCfg::SMEM : -1;
 }
 
 // The limits of the kernel: chunk L a multiple of 4 in [4, 64], P in
@@ -874,8 +1262,11 @@ extern "C" int repro_ssd_scan_bwd_workspace(int B, int S, int H, int P, int G, i
 // is), contiguous; ws scratch of ws_floats floats, 16-byte aligned
 // (repro_ssd_scan_bwd_workspace); all f32.  Strides in elements: (batch,
 // seq, head) for x, dt, dy; (batch, seq, group) for bm, cm; (batch, head,
-// row) for h_init and dstate; the last dim is unit-stride.  device is the
-// CUDA ordinal of the tensors and the stream.  Returns cudaError_t.
+// row) for h_init and dstate; the last dim is unit-stride.  x, dy, B and C
+// go by TMA where every stride is a multiple of 4 elements, each pointer
+// 16-byte aligned and P and N multiples of 4, else by 4-byte cp.async.
+// device is the CUDA ordinal of the tensors and the stream.  Returns
+// cudaError_t.
 extern "C" int repro_ssd_scan_bwd(
         const float* x, const float* dt, const float* a, const float* bm, const float* cm,
         const float* h_init, const float* dy, const float* dstate, float* dx, float* ddt,
@@ -899,32 +1290,38 @@ extern "C" int repro_ssd_scan_bwd(
     const Strides sd{xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg,
                      ysb, yss, ysh, hsb, hsh, hsp, gsb, gsh, gsp};
     const Work w = carve(ws, sh);
+    Maps maps{};
+    if (vec && sh.nc > 0 &&
+        !(make_map_f32(&maps.x, x, B, S, H, P, xsb, xss, xsh, L) &&
+          make_map_f32(&maps.dy, dy, B, S, H, P, ysb, yss, ysh, L) &&
+          make_map_f32(&maps.b, bm, B, S, G, N, bsb, bss, bsg, L) &&
+          make_map_f32(&maps.c, cm, B, S, G, N, csb, css, csg, L) &&
+          make_map_f32(&maps.cb, w.cb, 1, MAX_L, B * G * sh.nc, MAX_L, 0, MAX_L, MAX_L * MAX_L,
+                       MAX_L) &&
+          make_map_f32(&maps.st, w.st, 1, P, B * H * sh.nc, N, 0, N, (int64_t)P * N, P) &&
+          make_map_f32(&maps.ct, w.ct, 1, P, B * H * sh.nc, N, 0, N, (int64_t)P * N, P)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    for (auto k : {ssd_bwd_local_kernel<false>, ssd_bwd_local_kernel<true>})
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LOCAL * 4);
-    for (auto k : {ssd_bwd_chunk_kernel<false>, ssd_bwd_chunk_kernel<true>})
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CHUNK * 4);
-    // mamba2-370m's head (L, P and N at their largest, 16-byte rows): the
-    // passes with every bound known to the compiler
-    const bool full = L == MAX_L && P == MAX_P && N == MAX_N && vec;
+    cudaFuncSetAttribute(ssd_bwd_local_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         LocalCfg<1>::SMEM);
+    cudaFuncSetAttribute(ssd_bwd_local_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         LocalCfg<2>::SMEM);
+    cudaFuncSetAttribute(ssd_bwd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         ChunkCfg::SMEM);
     const dim3 chunks(sh.nc, H, B);
     if (sh.nc > 0) {
-        if (full)
-            ssd_bwd_local_kernel<true><<<chunks, NT, SMEM_LOCAL * 4, s>>>(x, dt, a, bm, cm, dy, w,
-                                                                          sh, sd);
+        if (N <= 64)
+            ssd_bwd_local_kernel<1><<<chunks, THREADS, LocalCfg<1>::SMEM, s>>>(
+                    maps, x, dt, a, bm, cm, dy, w, sh, sd);
         else
-            ssd_bwd_local_kernel<false><<<chunks, NT, SMEM_LOCAL * 4, s>>>(x, dt, a, bm, cm, dy, w,
-                                                                           sh, sd);
+            ssd_bwd_local_kernel<2><<<chunks, THREADS, LocalCfg<2>::SMEM, s>>>(
+                    maps, x, dt, a, bm, cm, dy, w, sh, sd);
     }
     ssd_bwd_scan_kernel<<<dim3((P * N + NT - 1) / NT, H, B), NT, 0, s>>>(h_init, dstate, dh_init,
                                                                          w, sh, sd);
     if (sh.nc > 0) {
-        if (full)
-            ssd_bwd_chunk_kernel<true><<<chunks, NT_CHUNK, SMEM_CHUNK * 4, s>>>(
-                    x, dt, a, bm, cm, dy, dx, ddt, w, sh, sd);
-        else
-            ssd_bwd_chunk_kernel<false><<<chunks, NT_CHUNK, SMEM_CHUNK * 4, s>>>(
-                    x, dt, a, bm, cm, dy, dx, ddt, w, sh, sd);
+        ssd_bwd_chunk_kernel<<<chunks, THREADS, ChunkCfg::SMEM, s>>>(maps, x, dt, a, bm, cm, dy,
+                                                                     dx, ddt, w, sh, sd);
         const int64_t n_out = (int64_t)B * S * G * N;
         ssd_bwd_group_kernel<<<(unsigned)((n_out + NT - 1) / NT), NT, 0, s>>>(db, dc, w, sh);
     }

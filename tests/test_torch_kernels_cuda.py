@@ -886,8 +886,16 @@ def test_ssd_kernel_refuses_unsupported_inputs(dev):
 
 
 # and the backward's own: jamba's mixer with h_init, a = -(1..128), where da
-# was the hardest gradient to hold (dh_init held there too)
-_SSD_BWD_CASES = _SSD_CASES + [(1, 4096, 128, 64, 1, 16, 64, True)]
+# was the hardest gradient to hold (dh_init held there too); then the shapes
+# of its `wgmma` passes: mamba2-370m's model-axis share and training layer,
+# rep 12, and a chunk of 32 (a half-height tile) at full width on G=2
+_SSD_BWD_CASES = _SSD_CASES + [
+    (1, 4096, 128, 64, 1, 16, 64, True),
+    (1, 4096, 4, 64, 1, 128, 64, False),    # mamba2-370m's share on a model axis of 8
+    (1, 4096, 32, 64, 1, 128, 64, True),    # mamba2-370m's training layer, h_init
+    (1, 2048, 24, 64, 2, 128, 64, False),   # rep 12: H=24 on G=2
+    (1, 2048, 6, 64, 2, 128, 32, False),    # a chunk of 32 at P=64 N=128, G=2
+]
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,h_init", _SSD_BWD_CASES)
@@ -910,11 +918,13 @@ def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, h_init):
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(1, 4096, 32, 64, 1, 128, 64),
-                                                 (1, 4096, 128, 64, 1, 16, 64)])
+                                                 (1, 4096, 128, 64, 1, 16, 64),
+                                                 (1, 999, 3, 6, 1, 10, 12)])
 def test_ssd_bwd_kernel_gives_the_same_gradients_every_call(dev, b, s, h, p, g, n, chunk):
     """Two calls on the same inputs give bit-identical gradients: every sum
     across blocks is taken in a fixed order, with no atomics (mamba2-370m's
-    training shape, and jamba's mixer with h_init)."""
+    training shape and jamba's mixer with h_init, both with TMA loads, and
+    rows not 16-byte aligned, with 4-byte cp.async loads)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     x, dt, a, bm, cm, h0 = _ssd_case(b, s, h, p, g, n, dev, gen, h_init=h == 128)
     dy = torch.randn((b, s, h, p), generator=gen, device=dev)

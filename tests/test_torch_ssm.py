@@ -487,6 +487,23 @@ def test_ssd_grad_tolerance_rejects_planted_faults():
         assert {k for k, v in ratios.items() if v > 1} == hit, ratios
 
 
+def test_ssd_grad_tolerance_rejects_dbs_intra_term_from_mq_transposed():
+    """The fifth planted fault of chip_smoke.py's SSD backward phase, which
+    reaches the `wgmma` kernel's transposed tiles: dB's intra-chunk term
+    taken from Mq transposed (the Mq tile read where Mq^T belongs) moves dB,
+    and only dB, past ``ref.ssd_grad_tolerance_ratio``."""
+    cs = _chip_smoke()
+    b, s, h, p, g, n, chunk = 1, 200, 4, 16, 2, 16, 32
+    x, dt, a, bm, cm, h0 = _ssd_inputs(b, s, h, p, g, n, seed=16, h_init=True)
+    rng = np.random.default_rng(17)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dst = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    args = (*_t(x, dt, a, bm, cm), chunk, *_t(dy, dst, h0))
+    want = tref.ssd_chunked_bwd(*args[:-1], h_init=args[-1])
+    ratios = tref.ssd_grad_ratios(cs.ssd_bwd_mq_transposed(*args), want)
+    assert {k for k, v in ratios.items() if v > 1} == {"db"}, ratios
+
+
 def _da_one_chunk(x, dt, a, bm, cm, dy, kernel_form: bool):
     """da of sequences of one chunk each, from a zero state and with no
     cotangent on the final state, so that d(dA) is the intra-chunk term
@@ -704,22 +721,35 @@ _SSD_BWD_PRODUCTS = ("local", "cb", "q", "du_intra", "du_inter", "db_inter", "db
                      "dc_inter", "dc_intra")
 
 
-def _ssd_bwd_as_the_kernel(x, dt, a, bm, cm, chunk, dy, dst, h_init, parts, plain=()):
+def _ssd_bwd_as_the_kernel(x, dt, a, bm, cm, chunk, dy, dst, h_init, parts, plain=(),
+                           drop=(None, None)):
     """The SSD scan's gradient computed as csrc/ssd_scan_bwd.cu computes it,
     every matrix product's operands split by ``parts`` (those named in
-    ``plain`` rounded once to TF32 instead).  Pass 1: per head and chunk the
-    local state (dt e^{cs_last - cs} x)^T B and cotangent (e^{cs} dy)^T C
-    ("local"), and C B^T once per group and chunk ("cb"), shared by the
-    group's heads; pass 2: the states entering and the cotangents leaving
-    each chunk; pass 3: Q = dy x^T ("q"), Mq = Q dt_j E, M = (C B^T) o Mq,
-    A = (C B^T) o E, du = A^T dy ("du_intra") + (e^{cs_last - cs_j} B) G^T
-    ("du_inter"), dB = (dt e^{cs_last - cs} x) G ("db_inter") + Mq^T C
-    ("db_intra"), dC = (e^{cs} dy) S ("dc_inter") + Mq B ("dc_intra"), and
-    the decays' gradient as straddling sums with cs scanned in f64 and kept
-    as an f32 hi + lo pair (``_da_one_chunk``).  A factor that scales an
-    operand's rows is applied before the split; decays, sums and dt stay
-    f32."""
+    ``plain`` rounded once to TF32 instead; ``drop`` = (product, "a_lo" or
+    "b_lo") leaves one lo term out of that product, the others split by
+    ``_tf32_hi_lo``).  Pass 1: per head and chunk the local state
+    (dt e^{cs_last - cs} x)^T B and cotangent (e^{cs} dy)^T C ("local"), and
+    C B^T once per group and chunk ("cb"), shared by the group's heads; pass
+    2: the states entering and the cotangents leaving each chunk; pass 3: Q =
+    dy x^T ("q"), Mq = Q dt_j E, M = (C B^T) o Mq, A = (C B^T) o E, du = A^T
+    dy ("du_intra") + (e^{cs_last - cs_j} B) G^T ("du_inter"), dB = (dt
+    e^{cs_last - cs} x) G ("db_inter") + Mq^T C ("db_intra"), dC = (e^{cs}
+    dy) S ("dc_inter") + Mq B ("dc_intra"), and the decays' gradient as
+    straddling sums with cs scanned in f64 and kept as an f32 hi + lo pair
+    (``_da_one_chunk``).  A factor that scales an operand's rows is applied
+    before the split; decays, sums and dt stay f32.
+
+    Each einsum takes its operands in the kernel's `wgmma` roles: first the
+    one read into registers (A: B, C, dy, G or S, unscaled), then the one
+    read from shared memory as hi and lo tiles (B: the scaled x and dy,
+    (e^{cs_last - cs_j} B), x, A, Mq).  The kernel forms the local state and
+    cotangent, du, dB and dC transposed (rows n or p, so that its shared
+    operand runs along k); a transposed output holds the same sums of the
+    same split products, so the einsums write each in its own orientation.
+    """
     def tc(name, spec, u, v):
+        if drop[0] == name:
+            return _tc3(spec, u, v, drop[1])
         return _tc(spec, u, v, _tf32_once if name in plain else parts)
 
     bsz, s, h, p = x.shape
@@ -740,8 +770,8 @@ def _ssd_bwd_as_the_kernel(x, dt, a, bm, cm, chunk, dy, dst, h_init, parts, plai
     eout = torch.exp((hi[..., -1:] - hi) + (lo[..., -1:] - lo))
     wout = dtc * eout
     dec = torch.exp(hi[..., -1])[..., None, None]                             # [B,NC,H,1,1]
-    local_st = tc("local", "bchjp,bchjn->bchpn", xc * wout[..., None], bc)
-    local_ct = tc("local", "bchip,bchin->bchpn", dyc * ein[..., None], cc)
+    local_st = tc("local", "bchjn,bchjp->bchpn", bc, xc * wout[..., None])
+    local_ct = tc("local", "bchin,bchip->bchpn", cc, dyc * ein[..., None])
     cb = tc("cb", "bcgin,bcgjn->bcgij", cg, bg).repeat_interleave(rep, 2)
     st, ct = torch.empty_like(local_st), torch.empty_like(local_ct)
     carry = torch.zeros(bsz, h, p, n) if h_init is None else h_init
@@ -754,12 +784,12 @@ def _ssd_bwd_as_the_kernel(x, dt, a, bm, cm, chunk, dy, dst, h_init, parts, plai
         carry = dec[:, c] * carry + local_ct[:, c]
     mq = torch.where(low, tc("q", "bchip,bchjp->bchij", dyc, xc) * dtc[..., None, :] * e, 0.0)
     m = torch.where(torch.tril(low, -1), cb * mq, 0.0)
-    du = (tc("du_intra", "bchij,bchip->bchjp", cb * e, dyc)
-          + tc("du_inter", "bchjn,bchpn->bchjp", bc * eout[..., None], ct))
-    ug = tc("db_inter", "bchjp,bchpn->bchjn", xc * wout[..., None], ct)
-    dbh = ug + tc("db_intra", "bchij,bchin->bchjn", mq, cc)
-    ys = tc("dc_inter", "bchip,bchpn->bchin", dyc * ein[..., None], st)
-    dch = ys + tc("dc_intra", "bchij,bchjn->bchin", mq, bc)
+    du = (tc("du_intra", "bchip,bchij->bchjp", dyc, cb * e)
+          + tc("du_inter", "bchpn,bchjn->bchjp", ct, bc * eout[..., None]))
+    ug = tc("db_inter", "bchpn,bchjp->bchjn", ct, xc * wout[..., None])
+    dbh = ug + tc("db_intra", "bchin,bchij->bchjn", cc, mq)
+    ys = tc("dc_inter", "bchpn,bchip->bchin", st, dyc * ein[..., None])
+    dch = ys + tc("dc_intra", "bchjn,bchij->bchin", bc, mq)
     pre = torch.cumsum(m, -1) - m  # each row's exclusive prefix over j
     dda = (torch.stack([pre[..., k:, k].sum(-1) for k in range(L)], -1)
            + torch.flip(torch.cumsum(torch.flip((cc * ys).sum(-1), [-1]), -1), [-1])
@@ -816,6 +846,19 @@ def test_ssd_bwd_kernel_needs_3xtf32_in_every_product(product):
     args, want = _ssd_bwd_case("mamba")
     ratios = tref.ssd_grad_ratios(_ssd_bwd_as_the_kernel(*args, _tf32_hi_lo, plain=(product,)),
                                   want)
+    assert max(ratios.values()) > 1, ratios
+
+
+@pytest.mark.parametrize("which", ["a_lo", "b_lo"])
+@pytest.mark.parametrize("product", _SSD_BWD_PRODUCTS)
+def test_ssd_bwd_wgmma_kernel_needs_every_lo_term(product, which):
+    """At mamba2-370m's head, each product of the `wgmma` passes with the lo
+    term of its register operand (A) or of its shared one (B) dropped, hi by
+    truncation as the kernel splits, takes some gradient past the
+    tolerance: no lo term of the kernel can go."""
+    args, want = _ssd_bwd_case("mamba")
+    ratios = tref.ssd_grad_ratios(
+        _ssd_bwd_as_the_kernel(*args, _tf32_hi_lo, drop=(product, which)), want)
     assert max(ratios.values()) > 1, ratios
 
 
