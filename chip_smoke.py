@@ -313,12 +313,14 @@ The kernel phase also holds the SSD scan's backward kernel to
 ``ref.ssd_chunked_bwd`` at mamba2-370m's training shape and its edge cases
 (G=2, a ragged S, h_init, jamba's H=128 and N=16 with a = -(1..128), with
 and without h_init, a chunk of 16) by ``ref.ssd_grad_tolerance_ratio`` <= 1
-on every gradient, with five planted faults that must read > 1 (a carried
-state cotangent dropped at a segment boundary, the intra-chunk term of du
+on every gradient, with six planted faults that must read > 1 (a carried
+state cotangent dropped at a chunk boundary, the intra-chunk term of du
 dropped, ddt without the decays' gradient, dB from one head of each
-group, dB's intra-chunk term from Mq transposed); two calls on the same
-inputs must give bit-identical gradients; and it times the kernel and each
-of its passes at the training shape and at its model-axis share (H=4).  It also runs each
+group, dB's intra-chunk term from Mq transposed, the state entering a
+segment of the kernel's walks not carried into its later chunks); two
+calls on the same inputs must give bit-identical gradients; and it times
+the kernel and each of its passes, with its plan of segments, at the
+training shape and at its model-axis share (H=4).  It also runs each
 attention kernel's 256-wide instantiation
 at gemma-7b's shapes (flash and its backward at B=1 S=4096, flash-decode at
 B=8 and a full 4096-slot cache), held to its plain version, with planted
@@ -414,11 +416,12 @@ GEMMA_ATTN = (16, 16, 256)  # heads, kv heads, head dim
 # the state and output passes run their products on `wgmma`.
 SSD_PASSES = ("ssd_prep_kernel", "ssd_state_kernel", "ssd_combine_kernel", "ssd_output_kernel")
 SSD_WGMMA_PASSES = ("ssd_state_kernel", "ssd_output_kernel")
-# The CUDA kernels of one ssd_scan_bwd call (csrc/ssd_scan_bwd.cu), in launch order;
-# the local and chunk passes run their products on `wgmma`.
-SSD_BWD_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_chunk_kernel",
+# The CUDA kernels of one ssd_scan_bwd call (csrc/ssd_scan_bwd.cu), in launch order
+# (the combine only where the plan has several segments); the walk and chunk
+# passes run their products on `wgmma`.
+SSD_BWD_PASSES = ("ssd_bwd_walk_kernel", "ssd_bwd_combine_kernel", "ssd_bwd_chunk_kernel",
                   "ssd_bwd_group_kernel", "ssd_bwd_da_kernel")
-SSD_BWD_WGMMA_PASSES = ("ssd_bwd_local_kernel", "ssd_bwd_chunk_kernel")
+SSD_BWD_WGMMA_PASSES = ("ssd_bwd_walk_kernel", "ssd_bwd_chunk_kernel")
 # SSM training (phase 19): mamba2-370m at full width and depth.  The hybrid
 # family (phases 13 and 14): jamba-v0.1-52b at full width on HYBRID_LAYERS of
 # its 32 (one period of the 1:7 pattern with its 4 MoE layers: 13.27 B
@@ -862,19 +865,20 @@ def phase_build():
     if missing or spills:
         raise AssertionError(f"[build] ssd scan backward: passes missing from the ptxas log "
                              f"{missing}, spilling {spills}")
-    # the local and chunk passes run their products on wgmma: HGMMA in the
-    # SASS of each (the local pass at one and two 64-row tiles of N)
+    # the walk and chunk passes run their products on wgmma: HGMMA in the
+    # SASS of each (the walk pass at one and two 64-row tiles of N, the chunk
+    # pass with and without the segments' correction)
     tc = {fn: c for fn, c in sass_counts(ops.KERNELS["ssd_scan_bwd"], ("HGMMA", "HMMA")).items()
           if any(k in fn for k in SSD_BWD_WGMMA_PASSES)}
-    if len(tc) != 3 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in tc.values()):
-        raise AssertionError(f"[build] ssd scan backward: local and chunk passes without HGMMA "
+    if len(tc) != 4 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in tc.values()):
+        raise AssertionError(f"[build] ssd scan backward: walk and chunk passes without HGMMA "
                              f"(or with mma.sync's HMMA) in their SASS: {tc}")
     ssdb_lib = ops.KERNELS["ssd_scan_bwd"].lib()
-    log("[build] ssd scan backward: local and chunk passes HGMMA " + ", ".join(
+    log("[build] ssd scan backward: walk and chunk passes HGMMA " + ", ".join(
         f"{k} {c['HGMMA']}" for fn, c in sorted(tc.items()) for k in SSD_BWD_WGMMA_PASSES
         if k in fn) + ", no HMMA")
     log("[build] ssd scan backward: all {} passes built, no spills; {}; shared memory per "
-        "block: local {} B, chunk {} B".format(
+        "block: walk {} B, chunk {} B".format(
             len(SSD_BWD_PASSES), "; ".join(
                 f"{k} {res['registers']} registers, {res['spill_stores']} B spilled"
                 for k in SSD_BWD_PASSES for fn, res in ssdb.items() if k in fn),
@@ -2428,9 +2432,10 @@ def phase_ssd_kernel():
 
 def ssd_bwd_drop_carried(x, dt, a, bm, cm, chunk, dy, dst, h_init, at):
     """A planted fault: the state cotangent carried out of chunk ``at`` into
-    chunk ``at`` - 1 dropped (a segment boundary of the backward kernel,
-    whose segments are chunks): the chunks before ``at`` get the gradients
-    of a zero cotangent on the state leaving them."""
+    chunk ``at`` - 1 dropped (at the main shape the boundary between the
+    backward kernel's two segments, which its combine carries): the chunks
+    before ``at`` get the gradients of a zero cotangent on the state leaving
+    them."""
     import torch
     from repro_torch.kernels import ref
     cut = at * chunk
@@ -2441,6 +2446,33 @@ def ssd_bwd_drop_carried(x, dt, a, bm, cm, chunk, dy, dst, h_init, at):
     g2 = ref.ssd_chunked_bwd(*tail, chunk, dy[:, cut:], dst, h_init=st)
     cat = lambda i: torch.cat([g1[i], g2[i]], 1)  # noqa: E731
     return cat(0), cat(1), g1[2] + g2[2], cat(3), cat(4), g1[5]
+
+
+def ssd_bwd_drop_segment_state(x, dt, a, bm, cm, chunk, dy, dst, h_init, first, end):
+    """A planted fault: the state entering chunk ``first`` (the first chunk of
+    a segment of the backward kernel's walks) not carried into the
+    segment's later chunks ``first`` + 1 .. ``end`` - 1 (pass 3 without the
+    correction D_c S(seg)): their dC, ddt and da from the states that a zero
+    state at ``first`` gives, the cotangents left true."""
+    from repro_torch.kernels import ref
+    s = x.shape[1]
+    lo, hi = min(s, (first + 1) * chunk), min(s, end * chunk)
+    ins = lambda i, j: ([t[:, i:j] for t in (x, dt)] + [a]  # noqa: E731
+                        + [t[:, i:j] for t in (bm, cm)])
+    g = list(ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h_init))
+    _, true_lo = ref.ssd_chunked(*ins(0, lo), chunk, h_init=h_init)
+    _, from_zero = ref.ssd_chunked(*ins(first * chunk, lo), chunk)
+    cot = dst
+    if hi < s:
+        _, true_hi = ref.ssd_chunked(*ins(0, hi), chunk, h_init=h_init)
+        cot = ref.ssd_chunked_bwd(*ins(hi, s), chunk, dy[:, hi:], dst, h_init=true_hi)[5]
+    good = ref.ssd_chunked_bwd(*ins(lo, hi), chunk, dy[:, lo:hi], cot, h_init=true_lo)
+    bad = ref.ssd_chunked_bwd(*ins(lo, hi), chunk, dy[:, lo:hi], cot, h_init=from_zero)
+    for i in (1, 4):
+        g[i] = g[i].clone()
+        g[i][:, lo:hi] = bad[i]
+    g[2] = g[2] - good[2] + bad[2]
+    return tuple(g)
 
 
 def ssd_bwd_drop_intra_du(x, dt, a, bm, cm, chunk, dy, dst, h_init, at):
@@ -2557,8 +2589,9 @@ def hold_ssd_bwd(label: str, got, want) -> tuple:
 
 def phase_ssd_bwd_kernel():
     """The SSD backward kernel against ``ref.ssd_chunked_bwd`` at mamba2-370m's
-    training shape and its edge cases, five planted faults, times and the
-    bound, and times at the model-axis share (H=4)."""
+    training shape and its edge cases, six planted faults, times and the
+    bound with the plan (segments of the walks), and times at the model-axis
+    share (H=4)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan_bwd as tssdb
@@ -2604,6 +2637,12 @@ def phase_ssd_bwd_kernel():
     del got, again
     at = s // chunk // 2
     keep = ref.SSD_GRAD_KEEP
+    pl = tssdb.plan(b, s, h, p, g, n, chunk)
+    log(f"[ssd bwd] plan at the main shape: {pl.segments} segments of "
+        f"{pl.chunks_per_segment} chunks (pass 1: {2 * b * h * pl.segments} blocks)")
+    # the second segment of the plan, or of 2 where the plan has one
+    first = pl.chunks_per_segment if pl.segments > 1 else s // chunk // 2
+    end = min(s // chunk, 2 * first)
 
     def ctrl(label, fault, i):
         name = ref.SSD_GRAD_NAMES[i]
@@ -2611,21 +2650,24 @@ def phase_ssd_bwd_kernel():
                        ratio_fn=lambda f, w: ref.ssd_grad_tolerance_ratio(f, w, keep[name]))
     args = (*ins, chunk, dy, dst, None)
     ctrls = [ctrl(f"the state cotangent carried into chunk {at - 1} from chunk {at} dropped "
-                  f"(a segment boundary)", ssd_bwd_drop_carried(*args, at), 0),
+                  f"(a chunk boundary)", ssd_bwd_drop_carried(*args, at), 0),
              ctrl(f"chunk {at}'s intra-chunk term of du dropped",
                   ssd_bwd_drop_intra_du(*args, at), 0),
              ctrl("ddt without the decays' gradient", ssd_bwd_drop_decay_grad(*args), 1),
              ctrl(f"dB from one head of each group of {h // g}",
                   ssd_bwd_one_head_per_group(*args), 3),
              ctrl("dB's intra-chunk term from Mq transposed (Mq read where Mq^T belongs)",
-                  ssd_bwd_mq_transposed(*args), 3)]
+                  ssd_bwd_mq_transposed(*args), 3),
+             ctrl(f"the state entering segment 1 (chunk {first}) not carried into its chunks "
+                  f"{first + 1}-{end - 1}", ssd_bwd_drop_segment_state(*args, first, end), 4)]
     del want
     torch.cuda.empty_cache()
     t = timings(lambda: tssdb.ssd_scan_bwd(*ins, chunk, dy, dst),
                 lambda: ref.ssd_chunked_bwd(*ins, chunk, dy, dst), None, 12)
     passes = device_ms_by_kernel(lambda: tssdb.ssd_scan_bwd(*ins, chunk, dy, dst), 12)
     pass_ms = {k: sum(v for key, v in passes.items() if k in key) for k in SSD_BWD_PASSES}
-    log("[ssd bwd] device ms per call by pass: "
+    log(f"[ssd bwd] device ms per call by pass ({pl.segments} segments of "
+        f"{pl.chunks_per_segment} chunks): "
         + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items()))
     # the model-axis share of the same layer: H=4 of its 32 heads
     sins, sdy, sdst, _ = case(b, s, 4, p, g, n, chunk, seed=2)
@@ -2636,7 +2678,9 @@ def phase_ssd_bwd_kernel():
     share = device_ms_by_kernel(lambda: tssdb.ssd_scan_bwd(*sins, chunk, sdy, sdst), 12)
     share_ms = {k: sum(v for key, v in share.items() if k in key) for k in SSD_BWD_PASSES}
     share_bound = bound(*ssd_bwd_bound(b, s, 4, p, g, n, chunk, False), PEAK_TF32_FLOPS)
-    log(f"[ssd bwd] the share H=4: {sum(share_ms.values()):.4f} ms device a call ("
+    spl = tssdb.plan(b, s, 4, p, g, n, chunk)
+    log(f"[ssd bwd] the share H=4 ({spl.segments} segments of {spl.chunks_per_segment} "
+        f"chunks): {sum(share_ms.values()):.4f} ms device a call ("
         + ", ".join(f"{k} {v:.4f}" for k, v in share_ms.items())
         + f"); bound {share_bound['bound_ms']:.4f} ms ({share_bound['bound_by']})")
     del sins, sdy, sdst

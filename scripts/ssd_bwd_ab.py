@@ -10,22 +10,28 @@ nvcc.  PATH is ``src/repro_torch/kernels/csrc/ssd_scan_bwd.cu`` of an
 earlier commit (for instance from ``git archive`` of it, unpacked under
 ``build/``), built beside the headers of its own ``csrc``; its C interface
 is the current one (``repro_ssd_scan_bwd``, which the wrapper calls, and
-``repro_ssd_scan_bwd_workspace``).  Each ``--extra`` builds another source
+``repro_ssd_scan_bwd_workspace``; the current build's plan entry,
+``repro_ssd_scan_bwd_plan``, is not asked of the others).  Each ``--extra`` builds another source
 with that interface (a variant under study, beside the headers of its own
 directory), timed beside the current one as NAME.  Inputs as
 ``chip_smoke.ssd_inputs`` makes them (x, B and C strided slices of one conv
 output, as ``ssm_apply`` passes them) with random cotangents.  Every build is
 first held to the plain version (``ref.ssd_grad_ratios`` <= 1 on every
-gradient) at each shape; then each round runs old, new, the variants, new,
-old, each reading torch.profiler's device time a call, by pass (the passes
-keep their kernels' names across builds), over ``--iters`` calls.  Prints
-one line a reading, the medians beside the bound, a JSON line and the card's
-``nvidia-smi`` name and power limit.
+gradient) at each shape but the rep-12 case, whose ratios are printed and
+not held (its da sits at the f32 plain version's own rounding, and an
+earlier build read 1.1 there: ROADMAP Queue 3, and
+``scripts/ssd_bwd_da_check.py``); then each round runs old,
+new, the variants, new, old, each reading torch.profiler's device time a
+call, by pass under each build's own kernel names, over ``--iters`` calls.
+Prints the current build's plan (segments and chunks a segment) at each
+shape, one line a reading, the medians beside the bound, a JSON line and
+the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import sys
 from pathlib import Path
@@ -33,10 +39,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "scripts")]
 # (tag, B, S, H, P, G, N, chunk, h_init): a mamba2-370m training step's
-# layer, its model-axis share of 8 ranks, jamba-v0.1-52b's mixer
+# layer, its model-axis share of 8 ranks, jamba-v0.1-52b's mixer, and the
+# card test's rep-12 case (H=24 on G=2), whose da is not held here
 SHAPES = (("mamba2-370m-train", 1, 4096, 32, 64, 1, 128, 64, False),
           ("mamba2-370m-share", 1, 4096, 4, 64, 1, 128, 64, False),
-          ("jamba-v0.1-52b-mixer", 1, 4096, 128, 64, 1, 16, 64, True))
+          ("jamba-v0.1-52b-mixer", 1, 4096, 128, 64, 1, 16, 64, True),
+          ("rep12", 1, 2048, 24, 64, 2, 128, 64, False))
+UNHELD = {"rep12"}
 
 
 def main(argv=None) -> int:
@@ -57,7 +66,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ssd_scan_bwd as tssdb
 
-    sig = tssdb.KERNEL.signatures
+    sig = {k: v for k, v in tssdb.KERNEL.signatures.items() if k != "repro_ssd_scan_bwd_plan"}
     old = build_of(args.old_source, "ssd_scan_bwd_old", sig)
     extras = {}
     for spec in args.extra:
@@ -71,7 +80,8 @@ def main(argv=None) -> int:
             print(f"[{label}] {fn}: {res}", flush=True)
 
     def pass_of(key: str) -> str:
-        return next((p for p in cs.SSD_BWD_PASSES if p in key), key[:24])
+        m = re.search(r"ssd_bwd_[a-z]+_kernel", key)
+        return m.group(0) if m else key[:24]
 
     wanted = set(args.shapes.split(",")) if args.shapes else None
     result = {}
@@ -88,14 +98,16 @@ def main(argv=None) -> int:
 
         calls = {label: (call if k is tssdb.KERNEL else with_lib(tssdb.KERNEL, k.lib(), call))
                  for label, k in builds.items()}
+        pl = tssdb.plan(b, s, h, p, g, n, chunk)
         print(f"[{tag}] B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}"
-              f"{' h_init' if h_init else ''}", flush=True)
+              f"{' h_init' if h_init else ''}; new plan: {pl.segments} segments of "
+              f"{pl.chunks_per_segment} chunks", flush=True)
         want = ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dst, h_init=h0)
         for label, fn in calls.items():
             r = ref.ssd_grad_ratios(fn(), want)
             print(f"[{tag}] {label}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items())
                   + " of the tolerance", flush=True)
-            if not max(r.values()) <= 1:
+            if not max(r.values()) <= 1 and tag not in UNHELD:
                 raise AssertionError(f"{tag}: the {label} kernel disagrees with the plain version")
         del want
         torch.cuda.empty_cache()
@@ -127,6 +139,8 @@ def main(argv=None) -> int:
               f"new at {100 * bnd['bound_ms'] / med['new']['total']:.1f} % of the bound; "
               f"{len(readings['new'])} readings each", flush=True)
         result[tag] = {"median_device_ms": med, "readings": readings, **bnd,
+                       "plan": {"segments": pl.segments,
+                                "chunks_per_segment": pl.chunks_per_segment},
                        "executed_gflop_new": cs.ssd_bwd_executed_flops(b, s, h, p, g, n, chunk)
                        / 1e9}
         del x, dt, a, bm, cm, h0, dy, dst

@@ -40,43 +40,76 @@
 // 3.35 TB/s), and needs ~14 GFLOP of products, the entering states
 // recomputed (0.028 ms at the 495 TFLOP/s of TF32): bytes, by a little.
 // What the design meets instead: 3xTF32 runs each product three times, on
-// 64-row tiles padded past the chunk, P and N, and the workspace (entering
-// states and cotangents, dB and dC per head: 268 MB at the training shape)
-// goes through device memory between the passes.
+// 64-row tiles padded past the chunk, P and N, and the workspace (the state
+// entering and the cotangent leaving each chunk, written once by pass 1 and
+// read once by pass 3, 134 MB at the training shape; dB and dC per head,
+// 134 MB more) goes through device memory between the passes.
 //
-// Design: five passes on one stream; every chunk of every head is a block of
-// its own, so a call fills the card with B * H * nc blocks (2048 at the
-// training shape), and the two sequential recurrences over the chunks
-// (states forward, their cotangents in reverse) are elementwise passes:
+// Design: five passes on one stream.  The two recurrences over the chunks
+// (states forward, their cotangents in reverse) are carried by blocks that
+// walk a segment of `cps` chunks in order; the plan (`plan`, from the shape
+// and the SM count) cuts the nc chunks into nseg segments so that pass 1's
+// 2 * B * H * nseg blocks fill the card in whole waves (2 segments of 32
+// chunks at the training shape, 128 blocks; 16 of 4 at its H=4 share; one
+// of 64 at jamba's H=128, with no combine and no correction):
 //
-//   1. ssd_bwd_local_kernel, two warpgroups per (b, h, chunk): the chunk's
-//      cs (a warp scan), its local state sum_j e^{cs_last - cs_j} u_j (x)
-//      B_j (warpgroup 0) and local state cotangent sum_i e^{cs_i} dy_i (x)
-//      C_i (warpgroup 1), each [P x N] of depth L, and its decay
-//      e^{cs_last}, into a workspace [B, H, nc, P, N] each; the block of
-//      each group's first head also writes the chunk's C B^T [64 x 64] (1 MB
-//      at the training shape, read back from L2): once per (b, group,
-//      chunk), not once per head.
-//   2. ssd_bwd_scan_kernel, one thread per (b, h, p, n): over the chunks,
-//      each local state replaced by the state entering its chunk (from
-//      h_init or 0) and, in reverse in the same loop, each local cotangent
-//      by the cotangent of the state leaving its chunk (from d(final
-//      state)); the last carried cotangent is dh_init.  A segment is one
-//      chunk.
+//   1. ssd_bwd_walk_kernel, two kinds of block in one grid, each two
+//      warpgroups per (b, h, segment): a state walker goes forward over the
+//      segment's chunks, its carry R (zero, or h_init for segment 0) in
+//      registers: R stored as the state entering chunk c, then R <-
+//      e^{cs_last} R + the chunk's local state sum_j e^{cs_last - cs_j} u_j
+//      (x) B_j, that product in a fresh accumulator and the carry update an
+//      f32 FMA (the tensor cores' adds truncate, so the carry never enters
+//      them); a cotangent walker goes in reverse, its carry (zero, or
+//      d(final state) for the last segment) stored as the cotangent leaving
+//      chunk c, then Gamma <- e^{cs_last} Gamma + sum_i e^{cs_i} dy_i (x)
+//      C_i.  Each warpgroup holds one 64-row tile of N (N > 64) or half of P
+//      (N <= 64).  The block first tables every chunk's row scales (wout or
+//      ein) and decay, the warps taking the chunks in turn; then a chunk is
+//      one barrier: its raw x or dy and B or C have come by TMA into a ring
+//      of three stages (each refilled two chunks ahead), its transposed
+//      operand is built into one of two buffers, its 24 `wgmma`s are issued
+//      at once, and the carry's stores to the workspace run under them
+//      (stores before the build's proxy fence waited for the stores to
+//      drain).  Also per chunk the decay walked so far, D_c (from the
+//      segment's start into c, states, in `dec`) and D'_c (from c's end to
+//      the segment's end, cotangents, in `dap` until pass 3 overwrites it
+//      with its da partial); and per segment the totals for the combine in
+//      the slots a walk from zero leaves free: the state a segment reaches
+//      in the first slot of the next (whose walk starts from zero), the
+//      cotangent it reaches in the last slot of the previous, its total
+//      decay in `dec` at its first chunk (segment 0's cotangent total goes
+//      to dh_init).  C B^T [64 x 64] (1 MB at the training shape, read back
+//      from L2) once per (b, group, chunk), spread over the group's 2 * rep
+//      walkers of the segment, each taking chunks wk, wk + 2 rep, ... before
+//      its walk, under the walk's first loads and the table (in the
+//      transposed buffers and the last stage, which is loaded after), the
+//      two warpgroups each over half of N, summed in a fixed order.
+//   2. ssd_bwd_combine_kernel, one thread per (b, h, p, n), only where the
+//      plan has several segments: over the nseg - 1 boundaries in order,
+//      S(k + 1) = D(k) S(k) + R_end(k) and, in reverse, G(k) = D(k + 1) G(k +
+//      1) + Gamma_start(k + 1), each written in place of its total: the true
+//      state entering each segment and cotangent leaving it; dh_init = D(0)
+//      G(0) + Gamma_start(0).
 //   3. ssd_bwd_chunk_kernel, two warpgroups per (b, h, chunk): from x, dy
 //      and C B^T, Q = dy x^T and from it Mq, M and A; the intra-chunk du =
 //      A^T dy and the straddling sums of M; then over N in steps of 64
-//      columns (C, B, S and G loaded a step): du += (e^{cs_last - cs_j} B)
-//      G^T (each warpgroup half of du's columns), dB (warpgroup 0) and dC
-//      (warpgroup 1), each inter-chunk product first, T or the C . (S^T dy)
-//      terms from it, then the intra-chunk product into the same
-//      accumulator, and <G, S>; dx and ddt written, dB and dC per head into
-//      the workspace, da as one partial sum per block.
+//      columns (C, B, S and G loaded a step, and inside a segment S(k) and
+//      G(k) from L2: S_c = R_c + D_c S(k) past a segment's first chunk, G_c =
+//      Gamma_c + D'_c G(k) before its last, formed in shared memory as the
+//      tiles land): du += (e^{cs_last - cs_j} B) G^T (each warpgroup half of
+//      du's columns), dB (warpgroup 0) and dC (warpgroup 1), each
+//      inter-chunk product first, T or the C . (S^T dy) terms from it, then
+//      the intra-chunk product into the same accumulator, and <G, S>; dx and
+//      ddt written, dB and dC per head into the workspace, da as one partial
+//      sum per block.
 //   4. ssd_bwd_group_kernel: dB and dC summed over each group's heads.
 //   5. ssd_bwd_da_kernel: da summed over its partials, one warp a head.
 //
-// Sums across blocks go through a second pass in a fixed order, never
-// atomics, so a gradient is the same from run to run.
+// Sums across blocks go through a later pass in a fixed order, never
+// atomics, so a gradient is the same from run to run.  With one segment the
+// carries are those of a scan over every chunk to the bit (the same
+// products and FMAs in the same order).
 //
 // Products of passes 1 and 3: `wgmma` m64nNk8 .tf32, A from registers and B
 // from shared memory.  TF32 `wgmma` takes its shared operand K-major only
@@ -86,7 +119,8 @@
 //
 //   pass 1:  st^T [n][p] = B^T [n][j] . (wout x)^T [p][j]   (A: B across its rows)
 //            ct^T [n][p] = C^T [n][i] . (ein dy)^T [p][i]    (A: C across its rows)
-//            CB [i][j]   = C [i][n] . B [j][n]               (A: C along its rows)
+//            CB [i][j]   = C [i][n] . B [j][n]               (A: C along its rows;
+//                                                        each warpgroup half of n)
 //   pass 3:  Q [i][j]    = dy [i][p] . x [j][p]              (A: dy)
 //            du^T [p][j] = dy^T [p][i] . A^T [j][i]          (A: dy across its rows)
 //                        + G [p][n] . (eout B) [j][n]        (A: G)
@@ -100,45 +134,49 @@
 // Where a factor scales an operand's rows (e^{cs_i} dy, e^{cs_last - cs_j}
 // B, dt_j e^{cs_last - cs_j} x) it is applied before the split.  Pass 3
 // forms Mq, Mq^T and A^T from Q's accumulator in the orientations their
-// products read.  Decays, scans, dt and the decays' gradient stay f32 on the
-// CUDA cores.  No branch sits between a product's issue and its wait, and
-// each product keeps a ring of two k-steps' A fragments.
+// products read.  Decays, scans, dt, the carries and the decays' gradient
+// stay f32 on the CUDA cores.  No branch sits between a product's issue and
+// its wait (pass 1's work under its products stores under predicates); pass
+// 1 splits every k-step's A fragments up front and issues its products at
+// once, pass 3 keeps a ring of two k-steps' A fragments a product.
 //
 // Loads: x, dy, B and C by TMA (4-D f32 maps over the caller's strides,
-// 128-byte swizzle, boxes of 32 columns by L rows), and C B^T, S and G from
-// the workspace by TMA too, completing one mbarrier; where a row of x, dy, B
-// or C is not 16-byte aligned, or N % 4 != 0, every thread copies the same
-// tiles by 4-byte cp.async instead.  Rows past the chunk, P or N are zero in
-// every tile (TMA's out-of-bounds fill or cleared before the load), so the
-// 64-row tiles pad a short chunk as a ragged last chunk is padded (dt = 0).
-// Step 0's G is loaded at the start and its S once x is built from, so that
-// both come in under Q, the formation of Mq and A and du's intra-chunk
-// product; C and B come from L2.  Shared memory (N = 128): pass 1 160 KB,
-// pass 3 224 KB (the hi + lo tiles of Mq, Mq^T, wout x and ein dy, 128 KB,
-// for the whole chunk; 96 KB that hold the raw x, dy, C B^T and x's hi +
-// lo, then A^T, then each n-step's S, C, B, (eout B)'s hi + lo and G), so
-// one block an SM, 256 threads with up to 255 registers (pass 3 uses them
-// all: the next step's S and G loaded under the intra-chunk products
-// spilled).  Pass 3's Q rows are permuted
-// across the warps and its Q, du^T columns interleaved across the
-// warpgroups (8-row groups 2048 bytes apart in the descriptor), so that the
-// causal formation of Mq and A, a select per element, has the same work in
-// every warp.  The `// phase: NAME` ... `// end of phase: NAME` comments
-// mark the spans of each pass.
+// 128-byte swizzle, boxes of 32 columns by L rows), and C B^T, S, G, S(k)
+// and G(k) from the workspace by TMA too, completing mbarriers; where a row
+// of x, dy, B or C is not 16-byte aligned, or N % 4 != 0, every thread
+// copies the same tiles by 4-byte cp.async instead.  Rows past the chunk,
+// P or N are zero in every tile (TMA's out-of-bounds fill or cleared before
+// the load), so the 64-row tiles pad a short chunk as a ragged last chunk
+// is padded (dt = 0).  In pass 3 step 0's G is loaded at the start and its
+// S once x is built from, so that both come in under Q, the formation of Mq
+// and A and du's intra-chunk product; C, B, S(k) and G(k) come from L2,
+// S(k) and G(k) into the (eout B) tiles' room before those are built.
+// Shared memory (N = 128): pass 1 225 KB (three stages of raw x or dy and
+// B or C, 48 KB each, two buffers of the transposed operand's hi + lo and
+// the table of row scales), pass 3 224 KB (the hi + lo tiles of Mq, Mq^T,
+// wout x and ein dy, 128 KB, for the whole chunk; 96 KB that hold the raw
+// x, dy, C B^T and x's hi + lo, then A^T, then each n-step's S, C, B, (eout
+// B)'s hi + lo and G), so one block an
+// SM, 256 threads with up to 255 registers (pass 3 uses them all: the next
+// step's S and G loaded under the intra-chunk products spilled).  Pass 3's
+// Q rows are permuted across the warps and its Q, du^T columns interleaved
+// across the warpgroups (8-row groups 2048 bytes apart in the descriptor),
+// so that the causal formation of Mq and A, a select per element, has the
+// same work in every warp.  The `// phase: NAME` ... `// end of phase:
+// NAME` comments mark the spans of each pass.
 //
-// What it still trades away: each block loads x, dy, C B^T, S and G and
-// stores dB and dC per head with nothing else on its SM to overlap them (a
-// second block would need 448 KB), so the loads at a block's start, the
-// next n-step's and the stores are waits; the 64-row tiles pad N = 16
-// (jamba) four times over in the transposed products; dB and dC still go
-// through the per-head workspace and pass 4, and the per-chunk states and
-// cotangents through device memory (passes 1-3).
-//
-// Measured on an H100 SXM at 700 W (scripts/ssd_bwd_ab.py, beside the
-// earlier passes on mma.sync m16n8k8 in the same run): 0.640 ms a call at
-// the training shape against 0.749 (local 0.110 against 0.152, chunk 0.325
-// against 0.391), 5.2 % of the bound; jamba's mixer (H=128, N=16) 1.217 ms
-// against 1.000, where a block's fixed work and the padding of N dominate.
+// What it still trades away: pass 3's block loads x, dy, C B^T, S and G
+// and stores dB and dC per head with nothing else on its SM to overlap them
+// (a second block would need 448 KB), so the loads at a block's start, the
+// next n-step's and the stores are waits; inside a segment pass 3 also
+// loads S(k) or G(k) an n-step and corrects its tiles (its instantiation
+// with the correction compiled in runs a few per cent slower even where
+// there is none, so a one-segment plan takes the other); the 64-row tiles
+// pad N = 16 (jamba) four times over in the transposed products; dB and dC
+// still go through the per-head workspace and pass 4, and the per-chunk
+// states and cotangents through device memory once each way (pass 1 to
+// pass 3); a walk is serial, so a block's fixed work (its first loads, the
+// table, C B^T) weighs on a plan of short segments.
 //
 // Layout: x, dy [B,S,H,P], dt [B,S,H], B/C [B,S,G,N], h_init, dstate
 // [B,H,P,N] are read through the strides given (x, B and C may be slices of
@@ -149,6 +187,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <initializer_list>
 
 #include "common.cuh"
@@ -162,7 +201,10 @@ constexpr int MAX_L = 64;            // chunk length: wgmma's M and a tile's row
 constexpr int MAX_P = 64;            // head width
 constexpr int MAX_N = 128;           // state width
 constexpr int NB = 64;               // columns of N a step of pass 3
-constexpr int SCAN_BATCH = 16;       // chunks whose loads pass 2 starts together
+constexpr int STAGES = 3;            // chunks of raw tiles in flight in pass 1
+constexpr int COMBINE_BATCH = 8;     // segment boundaries whose loads pass 2 starts together
+constexpr int WALK_SETUP = 2;        // a pass-1 block's set-up, in chunks of its walk (the plan)
+constexpr int MAX_CPS = 64;          // chunks a segment: pass 1 tables their row scales
 constexpr int RING = 2;              // A fragments in flight a product: k-steps
 constexpr int PANEL = MAX_L * 128;   // bytes of a 64-row panel of 32 floats
 constexpr int TILE = 2 * PANEL;      // a 64 x 64 f32 tile: 16 KB
@@ -170,15 +212,20 @@ constexpr int BARS = 32;                   // bytes of the mbarriers
 constexpr int SMALL = BARS + 6 * MAX_L * 4;  // the barriers; cs, cs lo, dt and three of 64
 
 // Pass 1 at NTL 64-row tiles of N (1: N <= 64, 2: N <= 128), offsets in
-// bytes from a 1024-aligned base: raw x [j][p], dy [i][p], B [j][n], C
-// [i][n]; (wout x)^T hi, lo [p][j] and (ein dy)^T hi, lo [p][i], whose room
-// B's hi and lo [j][n] take for C B^T.
+// bytes from a 1024-aligned base (the barriers below it): the stages' raw x
+// or dy [j][p], then their raw B or C [j][n], then two buffers of (wout
+// x)^T or (ein dy)^T hi and lo [p][j] (chunks in turn), then the walk's row
+// scales [chunk][64] and decays [chunk].  C B^T, before the walk, takes B
+// [j][n] in the first transposed buffer (its hi in place, its lo in the last
+// stage's raw B tile) and C, then the second warpgroup's partial, in the
+// second.
 template <int NTL>
-struct LocalCfg {
-    static constexpr int X = 0, DY = TILE, BR = 2 * TILE, CR = BR + NTL * TILE;
-    static constexpr int XT = CR + NTL * TILE, DT = XT + 2 * TILE, BHL = XT;
-    static constexpr int TILES = DT + 2 * TILE;
-    static constexpr int SMEM = SMALL + 1008 + TILES;  // + aligning the base to 1024
+struct WalkCfg {
+    static constexpr int XR = 0, BR = STAGES * TILE, XT = BR + STAGES * NTL * TILE;
+    static constexpr int WV = XT + 4 * TILE, DEC = WV + MAX_CPS * MAX_L * 4;
+    static constexpr int TILES = DEC + MAX_CPS * 4;
+    static constexpr int SMEM = BARS + 1024 + TILES;  // + aligning the base to 1024
+    static_assert(NTL * TILE <= STAGES * TILE && NTL * TILE <= 2 * TILE, "C B^T's B fits");
     static_assert(SMEM <= 232448, "a block fits an SM");
 };
 
@@ -187,8 +234,9 @@ struct LocalCfg {
 // tiles E that hold, before the n-steps, raw x [j][p], dy [i][p], C B^T
 // [i][j] (then M) and x's hi, lo [j][p] (then A^T's [j][i]), and in the
 // n-steps a step's S [p][n] (in x's place, loaded once x is built from), C
-// [i][n], B [j][n], (eout B)'s hi, lo [j][n] and G [p][n] (in the sixth,
-// loaded at the start); and last the partial sums.
+// [i][n], B [j][n], (eout B)'s hi, lo [j][n] (S(seg) and G(seg) there
+// before they are built) and G [p][n] (in the sixth, loaded at the start);
+// and last the partial sums.
 struct ChunkCfg {
     static constexpr int MQ = 0, MQT = 2 * TILE, WX = 4 * TILE, EDY = 6 * TILE, E = 8 * TILE;
     static constexpr int XR = E, DYR = E + TILE, CBR = E + 2 * TILE, XHL = E + 3 * TILE;
@@ -205,12 +253,17 @@ struct Strides {
 
 struct Shape {
     int B, S, H, P, G, N, L, nc;
-    bool vec;  // every x, dy, B and C row starts on a 16-byte boundary, P, N % 4 == 0
+    bool vec;       // every x, dy, B and C row starts on a 16-byte boundary, P, N % 4 == 0
+    int cps, nseg;  // the plan: segments of cps chunks (the last may be shorter)
 };
 
 // The workspace: C B^T per (b, group, chunk), padded to 64 x 64; entering
-// states and cotangents leaving per (b, h, chunk); dB and dC per head over
-// the padded sequence; decays and da partials per (b, h, chunk).
+// states and cotangents leaving per (b, h, chunk) (and the segments' totals
+// in the slots of the chunks where a walk starts from zero); dB and dC per
+// head over the padded sequence; per (b, h, chunk) the decay from its
+// segment's start into the chunk (the segment's total at its first chunk),
+// and the decay from the chunk's end to its segment's end, then da's
+// partial.
 struct Work {
     float *cb, *st, *ct, *dbh, *dch, *dec, *dap;
 };
@@ -243,19 +296,18 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// Warp 0: cs (the inclusive cumulative sum of dA = dt * a_h, the products
-// rounded to f32 and summed in f64) as an f32 pair hi + lo, and dt, at the
-// chunk's MAX_L positions; positions >= valid have dt = 0, so cs stays at
-// its last value there.  A decay e^{cs_i - cs_j} takes its exponent as
-// (hi_i - hi_j) + (lo_i - lo_j) (decay_exp), within an f32 ulp of the
-// exponent however large cs grows: from a single f32 cs its error is an ulp
-// of cs itself (3e-5 where cs reaches -330 within a chunk at jamba's a =
-// -128), which read 0.7 of the tolerance on ddt and 1.2 on da on an H100.
-__device__ __forceinline__ void chunk_scan(float* cs, float* csl, float* dts, const float* dtp,
-                                           int64_t ds, float ah, int valid) {
+// A warp's cs (the inclusive cumulative sum of dA = dt * a_h, the products
+// rounded to f32 and summed in f64) as an f32 pair hi + lo, at positions
+// lane and lane + 32 from this lane's dt there; positions past the chunk
+// have dt = 0, so cs stays at its last value there.  A decay e^{cs_i - cs_j}
+// takes its exponent as (hi_i - hi_j) + (lo_i - lo_j) (decay_exp), within an
+// f32 ulp of the exponent however large cs grows: from a single f32 cs its
+// error is an ulp of cs itself (3e-5 where cs reaches -330 within a chunk at
+// jamba's a = -128), which read 0.7 of the tolerance on ddt and 1.2 on da on
+// an H100.
+__device__ __forceinline__ void cs_scan(float d0, float d1, float ah, float& h0, float& h1,
+                                        float& l0, float& l1) {
     const int lane = threadIdx.x & 31;
-    const float d0 = lane < valid ? dtp[lane * ds] : 0.f;
-    const float d1 = lane + 32 < valid ? dtp[(lane + 32) * ds] : 0.f;
     double v0 = (double)(d0 * ah), v1 = (double)(d1 * ah);
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
@@ -267,11 +319,24 @@ __device__ __forceinline__ void chunk_scan(float* cs, float* csl, float* dts, co
         }
     }
     v1 += __shfl_sync(0xffffffffu, v0, 31);
-    const float h0 = (float)v0, h1 = (float)v1;
+    h0 = (float)v0;
+    h1 = (float)v1;
+    l0 = (float)(v0 - (double)h0);
+    l1 = (float)(v1 - (double)h1);
+}
+
+// Warp 0 (pass 3): cs, cs lo and dt at the chunk's MAX_L positions.
+__device__ __forceinline__ void chunk_scan(float* cs, float* csl, float* dts, const float* dtp,
+                                           int64_t ds, float ah, int valid) {
+    const int lane = threadIdx.x & 31;
+    const float d0 = lane < valid ? dtp[lane * ds] : 0.f;
+    const float d1 = lane + 32 < valid ? dtp[(lane + 32) * ds] : 0.f;
+    float h0, h1, l0, l1;
+    cs_scan(d0, d1, ah, h0, h1, l0, l1);
     cs[lane] = h0;
     cs[lane + 32] = h1;
-    csl[lane] = (float)(v0 - (double)h0);
-    csl[lane + 32] = (float)(v1 - (double)h1);
+    csl[lane] = l0;
+    csl[lane + 32] = l1;
     dts[lane] = d0;
     dts[lane + 32] = d1;
 }
@@ -350,259 +415,405 @@ struct Maps {
     CUtensorMap x, dy, b, c, cb, st, ct;
 };
 
-// ---- pass 1: each chunk's local state, local state cotangent and decay; C B^T ----
+// ---- pass 1: the walks over each segment's chunks; C B^T ----
 
+// A global store under a predicate, in PTX: no branch where a product is
+// in flight (ptxas serializes every `wgmma` of a kernel where a
+// branch sits between one's issue and its wait).
+__device__ __forceinline__ void stg_if(float* p, float v, bool pred) {
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q st.global.f32 [%0], %1;\n}\n" ::"l"(p),
+        "f"(v), "r"((int)pred)
+        : "memory");
+}
+
+// The row scales and decay of a chunk, by one warp from dt already loaded
+// (d0, d1: positions lane and lane + 32): cs as chunk_scan forms it (f64,
+// kept as an f32 hi + lo pair), then wv = e^{cs_i} (ein, the cotangents) or
+// dt_j e^{cs_last - cs_j} (wout, the states), and e^{cs_last}.
+__device__ __forceinline__ void walk_scales(float* wv, float* dec, float d0, float d1, float ah,
+                                            int L, bool ein) {
+    const int lane = threadIdx.x & 31;
+    float h0, h1, l0, l1;
+    cs_scan(d0, d1, ah, h0, h1, l0, l1);
+    // cs and cs lo at the chunk's last position, L - 1
+    const int src = (L - 1) & 31;
+    const float hl = __shfl_sync(0xffffffffu, L > 32 ? h1 : h0, src);
+    const float ll = __shfl_sync(0xffffffffu, L > 32 ? l1 : l0, src);
+    wv[lane] = ein ? expf(h0) : d0 * expf((hl - h0) + (ll - l0));
+    wv[lane + 32] = ein ? expf(h1) : d1 * expf((hl - h1) + (ll - l1));
+    if (lane == 0) *dec = expf(hl);
+}
+
+// Block (2 seg + kind, h, b): kind 0 walks the segment's chunks forward
+// carrying the state, kind 1 in reverse carrying the state's cotangent.
+// Warpgroup wg holds the carry's rows n of its 64-row tile (NTL = 2) or, at
+// NTL = 1, its 32 columns p.  First every chunk's row scales and decay (the
+// warps in turn); then a chunk: wait for its raw tiles, build its transposed
+// operand (one barrier), issue its product's 24 `wgmma`s, and while they run
+// store the carry entering it; then the carry update.
 template <int NTL>
 __global__ void __launch_bounds__(THREADS, 1)
-ssd_bwd_local_kernel(const __grid_constant__ Maps maps, const float* __restrict__ x,
-                     const float* __restrict__ dt, const float* __restrict__ a,
-                     const float* __restrict__ bm, const float* __restrict__ cm,
-                     const float* __restrict__ dy, Work w, Shape sh, Strides sd) {
-    using K = LocalCfg<NTL>;
+ssd_bwd_walk_kernel(const __grid_constant__ Maps maps, const float* __restrict__ x,
+                    const float* __restrict__ dt, const float* __restrict__ a,
+                    const float* __restrict__ bm, const float* __restrict__ cm,
+                    const float* __restrict__ dy, const float* __restrict__ h_init,
+                    const float* __restrict__ dstate, float* __restrict__ dh_init, Work w,
+                    Shape sh, Strides sd) {
+    using K = WalkCfg<NTL>;
+    constexpr int NB8 = NTL == 2 ? 8 : 4;  // the product's 8-column tiles of p
     extern __shared__ float4 smem_bwd[];
     uint8_t* smem = reinterpret_cast<uint8_t*>(smem_bwd);
     const uint32_t small = smem_addr(smem_bwd);
-    const uint32_t base = (small + SMALL + 1023) & ~1023u;
+    const uint32_t base = (small + BARS + 1023) & ~1023u;
     // shared memory at address ad as a C++ lvalue
     auto sf = [&](uint32_t ad) -> float& { return *reinterpret_cast<float*>(smem + (ad - small)); };
     auto sf4 = [&](uint32_t ad) -> float4& {
         return *reinterpret_cast<float4*>(smem + (ad - small));
     };
-    float* cs = reinterpret_cast<float*>(smem + BARS);
-    float* csl = cs + MAX_L;
-    float* dts = csl + MAX_L;
-    float* win = dts + MAX_L;   // e^{cs_i}
-    float* wout = win + MAX_L;  // dt_j e^{cs_last - cs_j}
-    const uint32_t bar = small;
-    const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, rep = sh.H / sh.G, g = h / rep;
-    const int L = sh.L, P = sh.P, N = sh.N, s0 = c * L, valid = min(L, sh.S - s0);
+    const uint32_t bar_cb = small + 8 * STAGES;  // stage s's barrier at small + 8 s
+    float* wtab = reinterpret_cast<float*>(smem + (base - small) + K::WV);  // [t][64]
+    float* dtab = reinterpret_cast<float*>(smem + (base - small) + K::DEC);  // [t]
+    const int kind = blockIdx.x & 1, seg = blockIdx.x >> 1, h = blockIdx.y, b = blockIdx.z;
+    const int rep = sh.H / sh.G, g = h / rep;
+    const int L = sh.L, P = sh.P, N = sh.N;
+    const int c0 = seg * sh.cps, n = min(sh.nc, c0 + sh.cps) - c0;
     const int tid = threadIdx.x, wg = tid >> 7, wq = (tid >> 5) & 3, lane = tid & 31;
     const int gq = lane >> 2, tq = lane & 3;
     const int npx = (P + 31) >> 5, npn = (N + 31) >> 5;
     const bool tma = sh.vec;
+    const int64_t bh = (int64_t)b * sh.H + h;
+    const float ah = a[h];
+    // this thread's carry elements: rows n nr (+ 8), columns p pc + 8 cc (+ 1)
+    const int nr = (NTL == 2 ? 64 * wg : 0) + 16 * wq + gq;
+    const int pc = (NTL == 2 ? 0 : 32 * wg) + 2 * tq;
+    // the walk's tensors: x and B forward, dy and C in reverse
+    const CUtensorMap* mxy = kind ? &maps.dy : &maps.x;
+    const CUtensorMap* mbc = kind ? &maps.c : &maps.b;
+    const float* xyp = kind ? dy + b * sd.yb + h * sd.yh : x + b * sd.xb + h * sd.xh;
+    const int64_t xys = kind ? sd.ys : sd.xs;
+    const float* bcp = kind ? cm + b * sd.cb + g * sd.cg : bm + b * sd.bb + g * sd.bg;
+    const int64_t bcs = kind ? sd.cs : sd.bs;
+    const float* dtp = dt + b * sd.db + h * sd.dh;
+    auto chunk_of = [&](int t) { return kind ? c0 + n - 1 - t : c0 + t; };
+    // chunk t's raw tiles into stage t % STAGES, completing its barrier
+    auto load = [&](int t) {
+        const int st = t % STAGES, s0 = chunk_of(t) * L;
+        const uint32_t bar = small + 8 * st, xr = base + K::XR + st * TILE;
+        const uint32_t br = base + K::BR + st * NTL * TILE;
+        if (tma) {
+            if (tid == 0) {
+                mbar_arrive_expect_tx(bar, (npx + npn) * L * 128);
+                for (int q = 0; q < npx; ++q)
+                    tma_load_4d(xr + q * PANEL, mxy, bar, 32 * q, s0, h, b);
+                for (int q = 0; q < npn; ++q)
+                    tma_load_4d(br + q * PANEL, mbc, bar, 32 * q, s0, g, b);
+            }
+        } else {
+            const int valid = min(L, sh.S - s0);
+            copy_tile(xr, xyp + (int64_t)s0 * xys, xys, valid, P, 2);
+            copy_tile(br, bcp + (int64_t)s0 * bcs, bcs, valid, N, 2 * NTL);
+            cp_async_mbar_arrive_noinc(bar);
+        }
+    };
+    // C B^T of chunk c, before the walk: B into the first transposed buffer
+    // (its hi in place, its lo into the last stage's raw B tile, zero where
+    // that tile's B or C is), C into the second (then the second
+    // warpgroup's partial)
+    const uint32_t cbb = base + K::XT, cbc = base + K::XT + 2 * TILE;
+    const uint32_t cbl = base + K::BR + (STAGES - 1) * NTL * TILE;
+    auto load_cb = [&](int c) {
+        const int s0 = c * L;
+        if (tma) {
+            zero_uncovered(smem + (cbb - small), L, npn, 2 * NTL);
+            zero_uncovered(smem + (cbc - small), L, npn, 2 * NTL);
+            fence_proxy_async();  // the zeros, for the product (the loads fill the rest)
+            if (tid == 0) {
+                mbar_arrive_expect_tx(bar_cb, 2 * npn * L * 128);
+                for (int q = 0; q < npn; ++q) {
+                    tma_load_4d(cbb + q * PANEL, &maps.b, bar_cb, 32 * q, s0, g, b);
+                    tma_load_4d(cbc + q * PANEL, &maps.c, bar_cb, 32 * q, s0, g, b);
+                }
+            }
+        } else {
+            const int valid = min(L, sh.S - s0);
+            copy_tile(cbb, bm + b * sd.bb + g * sd.bg + (int64_t)s0 * sd.bs, sd.bs, valid, N,
+                      2 * NTL);
+            copy_tile(cbc, cm + b * sd.cb + g * sd.cg + (int64_t)s0 * sd.cs, sd.cs, valid, N,
+                      2 * NTL);
+            cp_async_mbar_arrive_noinc(bar_cb);
+        }
+    };
 
     if (tid == 0) {
-        mbar_init(bar, tma ? 1 : THREADS);
+        for (int st = 0; st <= STAGES; ++st) mbar_init(small + 8 * st, tma ? 1 : THREADS);
         fence_barrier_init();
         if (tma)
             for (const CUtensorMap* m : {&maps.x, &maps.dy, &maps.b, &maps.c})
                 prefetch_tensormap(m);
     }
-    if (tma) {
-        zero_uncovered(smem + (base - small) + K::X, L, npx, 2);
-        zero_uncovered(smem + (base - small) + K::DY, L, npx, 2);
-        zero_uncovered(smem + (base - small) + K::BR, L, npn, 2 * NTL);
-        zero_uncovered(smem + (base - small) + K::CR, L, npn, 2 * NTL);
-    }
+    if (tma)
+        for (int st = 0; st < STAGES; ++st) {
+            zero_uncovered(smem + (base - small) + K::XR + st * TILE, L, npx, 2);
+            zero_uncovered(smem + (base - small) + K::BR + st * NTL * TILE, L, npn, 2 * NTL);
+        }
     fence_proxy_async();
     __syncthreads();
-    // phase: load
-    if (tma) {
-        if (tid == 0) {
-            mbar_arrive_expect_tx(bar, (2 * npx + 2 * npn) * L * 128);
-            for (int pc = 0; pc < npx; ++pc) {
-                tma_load_4d(base + K::X + pc * PANEL, &maps.x, bar, 32 * pc, s0, h, b);
-                tma_load_4d(base + K::DY + pc * PANEL, &maps.dy, bar, 32 * pc, s0, h, b);
-            }
-            for (int pc = 0; pc < npn; ++pc) {
-                tma_load_4d(base + K::BR + pc * PANEL, &maps.b, bar, 32 * pc, s0, g, b);
-                tma_load_4d(base + K::CR + pc * PANEL, &maps.c, bar, 32 * pc, s0, g, b);
-            }
+    // this block's share of the segment's C B^T: chunks c0 + wk + 2 rep k
+    const int wk = kind * rep + h % rep;
+    if (wk < n) load_cb(c0 + wk);
+    for (int t = 0; t < min(n, STAGES - 1); ++t) load(t);
+    // phase: walk scan
+    // every chunk's row scales and decay, in walk order: warp w the chunks
+    // w, w + 8, ..., four chunks' dt loads in flight at once
+    for (int t0 = tid >> 5; t0 < n; t0 += 4 * (THREADS / 32)) {
+        float d[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int t = t0 + u * (THREADS / 32);
+            const int s0 = chunk_of(min(t, n - 1)) * L, valid = t < n ? min(L, sh.S - s0) : 0;
+            const float* q = dtp + (int64_t)s0 * sd.ds;
+            d[u][0] = lane < valid ? q[lane * sd.ds] : 0.f;
+            d[u][1] = lane + 32 < valid ? q[(lane + 32) * sd.ds] : 0.f;
         }
-    } else {
-        copy_tile(base + K::X, x + b * sd.xb + h * sd.xh + (int64_t)s0 * sd.xs, sd.xs, valid, P,
-                  2);
-        copy_tile(base + K::DY, dy + b * sd.yb + h * sd.yh + (int64_t)s0 * sd.ys, sd.ys, valid,
-                  P, 2);
-        copy_tile(base + K::BR, bm + b * sd.bb + g * sd.bg + (int64_t)s0 * sd.bs, sd.bs, valid, N,
-                  2 * NTL);
-        copy_tile(base + K::CR, cm + b * sd.cb + g * sd.cg + (int64_t)s0 * sd.cs, sd.cs, valid, N,
-                  2 * NTL);
-        cp_async_mbar_arrive_noinc(bar);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int t = t0 + u * (THREADS / 32);
+            if (t < n) walk_scales(wtab + t * MAX_L, dtab + t, d[u][0], d[u][1], ah, L, kind);
+        }
     }
-    if (tid < 32)
-        chunk_scan(cs, csl, dts, dt + b * sd.db + h * sd.dh + (int64_t)s0 * sd.ds, sd.ds, a[h],
-                   valid);
-    __syncthreads();
-    if (tid < MAX_L) {
-        win[tid] = expf(cs[tid]);
-        wout[tid] = dts[tid] * expf(decay_exp(cs, csl, L - 1, tid));
-    }
-    __syncthreads();
-    mbar_wait_or_trap(bar, 0);  // a load that never lands ends the launch
-    // end of phase: load
-
-    // phase: build
-    // (wout x)^T and (win dy)^T hi and lo, [p][j]: four j of one p a store, a
-    // build's loads all out before its stores
+    // end of phase: walk scan
+    // the carry: zero, or h_init (the states of segment 0) or d(final state)
+    // (the cotangents of the last segment)
+    float carry[NB8][4];
     {
-        float v[4][4], u[4][4];
+        const float* from = kind ? (seg == sh.nseg - 1 ? dstate + b * sd.gb + h * sd.gh : nullptr)
+                                 : (seg == 0 && h_init != nullptr ? h_init + b * sd.hb + h * sd.hh
+                                                                  : nullptr);
+        const int64_t fp = kind ? sd.gp : sd.hp;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int item = tid + k * THREADS, p = item & (MAX_P - 1), j4 = (item >> 6) * 4;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                v[k][q] = wout[j4 + q] * sf(base + K::X + swz(j4 + q, p));
-                u[k][q] = win[j4 + q] * sf(base + K::DY + swz(j4 + q, p));
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int item = tid + k * THREADS, p = item & (MAX_P - 1), j4 = (item >> 6) * 4;
-            const uint32_t off = swz(p, j4);
-            uint32_t s[2][4];
-            split4(s, v[k][0], v[k][1], v[k][2], v[k][3]);
-            sf4(base + K::XT + off) = as_float4(s[0]);
-            sf4(base + K::XT + TILE + off) = as_float4(s[1]);
-            split4(s, u[k][0], u[k][1], u[k][2], u[k][3]);
-            sf4(base + K::DT + off) = as_float4(s[0]);
-            sf4(base + K::DT + TILE + off) = as_float4(s[1]);
-        }
-    }
-    // end of phase: build
-    fence_proxy_async();
-    __syncthreads();
-
-    // phase: local
-    // warpgroup 0 the local state^T [n][p], warpgroup 1 the local cotangent^T:
-    // A = B or C across its rows (n = 64 nt + 16 wq + gq, + 8; k = j)
-    const uint32_t araw = base + (wg ? K::CR : K::BR), bop = base + (wg ? K::DT : K::XT);
-    float acc[NTL][8][4];
-    {
-        uint32_t af[RING][NTL][2][4];
-#pragma unroll
-        for (int kk = 0; kk < MAX_L / 8; ++kk) {
-            const int slot = kk % RING;
-            if (kk >= RING) {
-                wgmma_wait<RING - 1>();
-#pragma unroll
-                for (int nt = 0; nt < NTL; ++nt) wgmma_hold(af[slot][nt]);
-            }
-            const int j = 8 * kk + tq;
-#pragma unroll
-            for (int nt = 0; nt < NTL; ++nt) {
-                const int n = 64 * nt + 16 * wq + gq;
-                split4(af[slot][nt], sf(araw + swz(j, n)), sf(araw + swz(j, n + 8)),
-                       sf(araw + swz(j + 4, n)), sf(araw + swz(j + 4, n + 8)));
-            }
-            wgmma_fence();
-#pragma unroll
-            for (int nt = 0; nt < NTL; ++nt)
-                mma3<8>(acc[nt], af[slot][nt], bop, bop + TILE, kk, kk > 0);
-            wgmma_commit();
-        }
-        wgmma_wait<0>();
-#pragma unroll
-        for (int nt = 0; nt < NTL; ++nt) {
-            wgmma_hold(acc[nt]);
-#pragma unroll
-            for (int r = 0; r < RING; ++r) wgmma_hold(af[r][nt]);
-        }
-    }
-    // end of phase: local
-    const int64_t blk = ((int64_t)b * sh.H + h) * sh.nc + c;
-    float* out = (wg ? w.ct : w.st) + blk * P * N;
-#pragma unroll
-    for (int nt = 0; nt < NTL; ++nt)
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc)
+        for (int cc = 0; cc < NB8; ++cc)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int n = 64 * nt + 16 * wq + gq + 8 * (e >> 1), p = 8 * cc + 2 * tq + (e & 1);
-                if (p < P && n < N) out[p * N + n] = acc[nt][cc][e];
+                const int nn = nr + 8 * (e >> 1), p = pc + 8 * cc + (e & 1);
+                carry[cc][e] = from != nullptr && p < P && nn < N ? from[p * fp + nn] : 0.f;
             }
-    if (tid == 0) w.dec[blk] = expf(cs[L - 1]);
-
-    // C B^T of the chunk, once per group
-    if (h % rep != 0) return;
-    __syncthreads();  // both warpgroups' products are done with the transposed tiles
-    // phase: cb
-    // B hi and lo [j][n] in the raw tile's layout, where those were
-    for (int off = tid * 16; off < NTL * TILE; off += THREADS * 16) {
-        const float4 v = sf4(base + K::BR + off);
-        uint32_t s[2][4];
-        split4(s, v.x, v.y, v.z, v.w);
-        sf4(base + K::BHL + off) = as_float4(s[0]);
-        sf4(base + K::BHL + NTL * TILE + off) = as_float4(s[1]);
     }
-    fence_proxy_async();
-    __syncthreads();
-    // [i][j] for this warpgroup's 32 columns j: A = C along its rows
-    float cb[4][4];
-    {
-        uint32_t af[RING][2][4];
-        const uint32_t bh = base + K::BHL + wg * 32 * 128, bl = bh + NTL * TILE;
+    // the carry into a [P][N] slot, each store under a predicate
+    auto store = [&](float* out, bool want) {
 #pragma unroll
-        for (int kk = 0; kk < 8 * NTL; ++kk) {
-            const int slot = kk % RING;
-            if (kk >= RING) {
-                wgmma_wait<RING - 1>();
-                wgmma_hold(af[slot]);
+        for (int cc = 0; cc < NB8; ++cc)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int nn = nr + 8 * (e >> 1), p = pc + 8 * cc + (e & 1);
+                stg_if(out + p * N + nn, carry[cc][e], want && p < P && nn < N);
             }
-            const int n = 8 * kk + tq, i = 16 * wq + gq;
-            split4(af[slot], sf(base + K::CR + swz(i, n)), sf(base + K::CR + swz(i + 8, n)),
-                   sf(base + K::CR + swz(i, n + 4)), sf(base + K::CR + swz(i + 8, n + 4)));
+    };
+    __syncthreads();  // the table is in
+
+    // phase: walk cb
+    // C B^T of this block's chunks of the segment, under the walk's first loads
+    for (int j = wk, k = 0; j < n; j += 2 * rep, ++k) {
+        if (k > 0) load_cb(c0 + j);
+        mbar_wait_or_trap(bar_cb, k & 1);
+        // B hi in place and lo apart, [j][n]
+        for (int off = tid * 16; off < NTL * TILE; off += THREADS * 16) {
+            const float4 v = sf4(cbb + off);
+            uint32_t s2[2][4];
+            split4(s2, v.x, v.y, v.z, v.w);
+            sf4(cbb + off) = as_float4(s2[0]);
+            sf4(cbl + off) = as_float4(s2[1]);
+        }
+        fence_proxy_async();
+        __syncthreads();
+        // [i][j] over this warpgroup's half of n (k-steps 4 NTL wg ..): A = C
+        // along its rows, every k-step's A split up front, one commit
+        float cb[8][4];
+        {
+            uint32_t af[4 * NTL][2][4];
+            const int i = 16 * wq + gq;
+#pragma unroll
+            for (int kk = 0; kk < 4 * NTL; ++kk) {
+                const int nn = 32 * NTL * wg + 8 * kk + tq;
+                split4(af[kk], sf(cbc + swz(i, nn)), sf(cbc + swz(i + 8, nn)),
+                       sf(cbc + swz(i, nn + 4)), sf(cbc + swz(i + 8, nn + 4)));
+            }
             wgmma_fence();
-            mma3<4>(cb, af[slot], bh, bl, kk, kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < 4 * NTL; ++kk)
+                mma3<8>(cb, af[kk], cbb, cbl, kk + 4 * NTL * wg, kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_hold(cb);
+#pragma unroll
+            for (int kk = 0; kk < 4 * NTL; ++kk) wgmma_hold(af[kk]);
+        }
+        // warpgroup 1's partial through shared memory (C's tile, once both
+        // warpgroups have read it), added to warpgroup 0's
+        __syncthreads();
+        float* ex = reinterpret_cast<float*>(smem + (cbc - small));
+        if (wg == 1) {
+#pragma unroll
+            for (int cc = 0; cc < 8; ++cc)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) ex[(cc * 4 + e) * 128 + (tid & 127)] = cb[cc][e];
+        }
+        __syncthreads();
+        if (wg == 0) {
+            float* cbo = w.cb + (((int64_t)b * sh.G + g) * sh.nc + c0 + j) * MAX_L * MAX_L;
+#pragma unroll
+            for (int cc = 0; cc < 8; ++cc)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int i = 16 * wq + gq + 8 * hf, jj = 8 * cc + 2 * tq;
+                    *reinterpret_cast<float2*>(cbo + i * MAX_L + jj) = make_float2(
+                            cb[cc][2 * hf] + ex[(cc * 4 + 2 * hf) * 128 + tid],
+                            cb[cc][2 * hf + 1] + ex[(cc * 4 + 2 * hf + 1) * 128 + tid]);
+                }
+        }
+        __syncthreads();  // both warpgroups are done with the tiles
+    }
+    // end of phase: walk cb
+    if (STAGES - 1 < n) load(STAGES - 1);  // the last stage, free of C B^T now
+
+    float dprod = 1.f;  // the decays walked: D_c (states) or D'_c (cotangents)
+    for (int t = 0; t < n; ++t) {
+        const int c = chunk_of(t), st = t % STAGES;
+        const uint32_t xt = base + K::XT + (t & 1) * 2 * TILE;
+        const int64_t blk = bh * sh.nc + c;
+        const float dec = dtab[t];
+        const float* wv = wtab + t * MAX_L;
+        mbar_wait_or_trap(small + 8 * st, (t / STAGES) & 1);
+        // phase: walk build
+        // (wout x)^T or (ein dy)^T hi and lo, [p][j]: four j of one p a
+        // store, the loads all out before the stores
+        {
+            const uint32_t xr = base + K::XR + st * TILE;
+            float v[4][4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int item = tid + k * THREADS, p = item & (MAX_P - 1), j4 = (item >> 6) * 4;
+#pragma unroll
+                for (int q = 0; q < 4; ++q) v[k][q] = wv[j4 + q] * sf(xr + swz(j4 + q, p));
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int item = tid + k * THREADS, p = item & (MAX_P - 1), j4 = (item >> 6) * 4;
+                const uint32_t off = swz(p, j4);
+                uint32_t s2[2][4];
+                split4(s2, v[k][0], v[k][1], v[k][2], v[k][3]);
+                sf4(xt + off) = as_float4(s2[0]);
+                sf4(xt + TILE + off) = as_float4(s2[1]);
+            }
+        }
+        // end of phase: walk build
+        fence_proxy_async();
+        // every warp has built chunk t and read chunk t - 1's raw tiles: the
+        // stage of chunk t - 1 takes chunk t + 2
+        __syncthreads();
+        if (t >= 1 && t + 2 < n) load(t + 2);
+        // the chunk's local state^T or cotangent^T [n][p] in a fresh
+        // accumulator: A = B or C across its rows (n = nr, nr + 8; k = j),
+        // every k-step's A split up front and the 24 products issued at once
+        float acc[NB8][4];
+        uint32_t af[MAX_L / 8][2][4];
+        // phase: walk local
+        {
+            const uint32_t araw = base + K::BR + st * NTL * TILE;
+            const uint32_t bop = xt + (NTL == 2 ? 0 : wg * 32 * 128);
+#pragma unroll
+            for (int kk = 0; kk < MAX_L / 8; ++kk) {
+                const int j = 8 * kk + tq;
+                split4(af[kk], sf(araw + swz(j, nr)), sf(araw + swz(j, nr + 8)),
+                       sf(araw + swz(j + 4, nr)), sf(araw + swz(j + 4, nr + 8)));
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < MAX_L / 8; ++kk)
+                mma3<NB8>(acc, af[kk], bop, bop + TILE, kk, kk > 0);
             wgmma_commit();
         }
+        // end of phase: walk local
+        // phase: walk store
+        // under the product: the state entering chunk c or the cotangent
+        // leaving it to its slot, but where the walk started from zero (that
+        // slot takes a segment's total); the decay walked into c
+        store((kind ? w.ct : w.st) + blk * P * N, t > 0 || seg == (kind ? sh.nseg - 1 : 0));
+        stg_if((kind ? w.dap : w.dec) + blk, dprod, t > 0 && tid == 0);
+        // end of phase: walk store
         wgmma_wait<0>();
-        wgmma_hold(cb);
+        wgmma_hold(acc);
 #pragma unroll
-        for (int r = 0; r < RING; ++r) wgmma_hold(af[r]);
+        for (int kk = 0; kk < MAX_L / 8; ++kk) wgmma_hold(af[kk]);
+        // phase: walk carry
+#pragma unroll
+        for (int cc = 0; cc < NB8; ++cc)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) carry[cc][e] = fmaf(dec, carry[cc][e], acc[cc][e]);
+        dprod *= dec;
+        // end of phase: walk carry
     }
-    // end of phase: cb
-    float* cbo = w.cb + (((int64_t)b * sh.G + g) * sh.nc + c) * MAX_L * MAX_L;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-            const int i = 16 * wq + gq + 8 * hf, j = 32 * wg + 8 * cc + 2 * tq;
-            *reinterpret_cast<float2*>(cbo + i * MAX_L + j) =
-                make_float2(cb[cc][2 * hf], cb[cc][2 * hf + 1]);
-        }
+    // the segment's totals: the state it reaches into the next segment's
+    // first slot, and its total decay; the cotangent it reaches into the
+    // previous segment's last slot, or for segment 0 into dh_init (pass 2
+    // adds the later segments' part where there are several)
+    if (kind == 0) {
+        store(w.st + (bh * sh.nc + c0 + n) * P * N, seg < sh.nseg - 1);
+        if (tid == 0) w.dec[bh * sh.nc + c0] = dprod;
+    } else if (seg > 0) {
+        store(w.ct + (bh * sh.nc + c0 - 1) * P * N, true);
+    } else if (dh_init != nullptr) {
+        store(dh_init + bh * P * N, true);
+    }
 }
 
-// ---- pass 2: the states entering and the cotangents leaving each chunk ----
+// ---- pass 2: the combine over the segments' boundaries ----
 
+// One thread per (b, h, p, n): the states entering segments 1.. nseg - 1
+// forward and the cotangents leaving segments nseg - 2 .. 0 in reverse, each
+// in place of the total pass 1 left in its slot; dh_init.  With no chunks,
+// dh_init is d(final state).
 __global__ void __launch_bounds__(NT)
-ssd_bwd_scan_kernel(const float* __restrict__ h_init, const float* __restrict__ dstate,
-                    float* __restrict__ dh_init, Work w, Shape sh, Strides sd) {
+ssd_bwd_combine_kernel(const float* __restrict__ dstate, float* __restrict__ dh_init, Work w,
+                       Shape sh, Strides sd) {
     const int i = blockIdx.x * NT + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int pn = sh.P * sh.N;
     if (i >= pn) return;
-    const int p = i / sh.N, n = i - p * sh.N;
     const int64_t bh = (int64_t)b * sh.H + h;
-    const float* dec = w.dec + bh * sh.nc;
+    if (sh.nc == 0) {
+        const int p = i / sh.N, n = i - p * sh.N;
+        if (dh_init != nullptr)
+            dh_init[bh * pn + i] = dstate[b * sd.gb + h * sd.gh + p * sd.gp + n];
+        return;
+    }
+    const float* dec = w.dec + bh * sh.nc;  // a segment's total decay at its first chunk
     float* st = w.st + bh * sh.nc * pn + i;
     float* ct = w.ct + bh * sh.nc * pn + i;
-    // the states forward and the cotangents in reverse, in one loop: each
-    // batch's loads (of both) start before its stores, since a thread walks
-    // the chunks in order and one load at a time left it waiting on each
-    float s = h_init != nullptr ? h_init[b * sd.hb + h * sd.hh + p * sd.hp + n] : 0.f;
-    float gc = dstate[b * sd.gb + h * sd.gh + p * sd.gp + n];
-    for (int c0 = 0; c0 < sh.nc; c0 += SCAN_BATCH) {
-        float ls[SCAN_BATCH], ds[SCAN_BATCH], lc[SCAN_BATCH], dc[SCAN_BATCH];
+    const int cps = sh.cps, nb = sh.nseg - 1;
+    // each batch's loads (of both) start before its stores
+    float s = 0.f, gc = 0.f;
+    for (int k0 = 0; k0 < nb; k0 += COMBINE_BATCH) {
+        float ls[COMBINE_BATCH], ds[COMBINE_BATCH], lc[COMBINE_BATCH], dc[COMBINE_BATCH];
 #pragma unroll
-        for (int k = 0; k < SCAN_BATCH; ++k)
-            if (c0 + k < sh.nc) {
-                const int cf = c0 + k, cr = sh.nc - 1 - cf;
-                ls[k] = st[(int64_t)cf * pn];
-                ds[k] = dec[cf];
-                lc[k] = ct[(int64_t)cr * pn];
-                dc[k] = dec[cr];
+        for (int u = 0; u < COMBINE_BATCH; ++u)
+            if (k0 + u < nb) {
+                const int kf = k0 + u + 1, kr = nb - 1 - (k0 + u);  // entered; left
+                ls[u] = st[(int64_t)kf * cps * pn];
+                ds[u] = dec[(kf - 1) * cps];
+                lc[u] = ct[((int64_t)(kr + 1) * cps - 1) * pn];
+                dc[u] = dec[(kr + 1) * cps];
             }
 #pragma unroll
-        for (int k = 0; k < SCAN_BATCH; ++k)
-            if (c0 + k < sh.nc) {
-                const int cf = c0 + k, cr = sh.nc - 1 - cf;
-                st[(int64_t)cf * pn] = s;
-                s = ls[k] + ds[k] * s;
-                ct[(int64_t)cr * pn] = gc;
-                gc = dc[k] * gc + lc[k];
+        for (int u = 0; u < COMBINE_BATCH; ++u)
+            if (k0 + u < nb) {
+                const int kf = k0 + u + 1, kr = nb - 1 - (k0 + u);
+                s = fmaf(ds[u], s, ls[u]);
+                st[(int64_t)kf * cps * pn] = s;
+                gc = fmaf(dc[u], gc, lc[u]);
+                ct[((int64_t)(kr + 1) * cps - 1) * pn] = gc;
             }
     }
-    if (dh_init != nullptr) dh_init[bh * pn + i] = gc;
+    if (dh_init != nullptr) dh_init[bh * pn + i] = fmaf(dec[0], gc, dh_init[bh * pn + i]);
 }
 
 // ---- pass 3: the gradients of one chunk of one head ----
@@ -626,6 +837,9 @@ __device__ __forceinline__ void mma3_wg(float (&d)[NB8][4], const uint32_t (&a)[
     wgmma_tf32<NB8>(d, a[0], kdesc_wg(b_hi, kk, wg), 1);
 }
 
+// SEG: the plan has several segments, so that S and G are corrected inside
+// them (without, the correction's code is not compiled in).
+template <bool SEG>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict__ x,
                      const float* __restrict__ dt, const float* __restrict__ a,
@@ -661,6 +875,13 @@ ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict_
     const bool tma = sh.vec;
     const int64_t blk = ((int64_t)b * sh.H + h) * sh.nc + c;
     const int64_t cbk = ((int64_t)b * sh.G + g) * sh.nc + c;  // this chunk's C B^T
+    // inside a segment pass 1 walked from zero: S_c = R_c + D_c S(seg) past
+    // the segment's first chunk (S(seg) in the first chunk's slot), G_c =
+    // Gamma_c + D'_c G(seg) before its last (G(seg) in the last chunk's
+    // slot); 0 where no correction is due (or the decay is 0: it adds nothing)
+    const int seg = c / sh.cps, cf = seg * sh.cps, cl = min(sh.nc, cf + sh.cps) - 1;
+    const float dsc = SEG && seg > 0 && c > cf ? w.dec[blk] : 0.f;
+    const float dgc = SEG && seg < sh.nseg - 1 && c < cl ? w.dap[blk] : 0.f;
     const int64_t sp = (int64_t)sh.nc * L;  // the padded sequence of the per-head sums
     const float* cbase = cm + b * sd.cb + g * sd.cg + (int64_t)s0 * sd.cs;
     const float* bbase = bm + b * sd.bb + g * sd.bg + (int64_t)s0 * sd.bs;
@@ -691,21 +912,35 @@ ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict_
             cp_async_mbar_arrive_noinc(bar_sg);
         }
     };
+    // with them the step's S(seg) and G(seg) where a correction is due, into
+    // the (eout B) tiles' room
     auto load_cb = [&](int nb) {
         const int npn = (min(NB, N - nb) + 31) >> 5;
+        const int64_t bs = blk - (c - cf), bg = blk + (cl - c);  // S(seg)'s and G(seg)'s slots
         if (tma) {
             if (tid == 0) {
-                mbar_arrive_expect_tx(bar_cb, npn * 128 * 2 * L);
+                const int seg_tiles = (dsc != 0.f) + (dgc != 0.f);
+                mbar_arrive_expect_tx(bar_cb, npn * 128 * (2 * L + seg_tiles * P));
                 for (int pc = 0; pc < npn; ++pc) {
                     tma_load_4d(base + K::CS + pc * PANEL, &maps.c, bar_cb, nb + 32 * pc, s0, g,
                                 b);
                     tma_load_4d(base + K::BS + pc * PANEL, &maps.b, bar_cb, nb + 32 * pc, s0, g,
                                 b);
+                    if (dsc != 0.f)
+                        tma_load_4d(base + K::EB + pc * PANEL, &maps.st, bar_cb, nb + 32 * pc, 0,
+                                    (int)bs, 0);
+                    if (dgc != 0.f)
+                        tma_load_4d(base + K::EB + TILE + pc * PANEL, &maps.ct, bar_cb,
+                                    nb + 32 * pc, 0, (int)bg, 0);
                 }
             }
         } else {
             copy_tile(base + K::CS, cbase + nb, sd.cs, valid, min(NB, N - nb), 2);
             copy_tile(base + K::BS, bbase + nb, sd.bs, valid, min(NB, N - nb), 2);
+            if (dsc != 0.f)
+                copy_tile(base + K::EB, w.st + bs * P * N + nb, N, P, min(NB, N - nb), 2);
+            if (dgc != 0.f)
+                copy_tile(base + K::EB + TILE, w.ct + bg * P * N + nb, N, P, min(NB, N - nb), 2);
             cp_async_mbar_arrive_noinc(bar_cb);
         }
     };
@@ -961,9 +1196,11 @@ ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict_
     if (tma) {
         zero_uncovered(tiles + K::CS, L, npn0, 2);
         zero_uncovered(tiles + K::BS, L, npn0, 2);
+        if (dsc != 0.f) zero_uncovered(tiles + K::EB, P, npn0, 2);
+        if (dgc != 0.f) zero_uncovered(tiles + K::EB + TILE, P, npn0, 2);
     }
     fence_proxy_async();
-    __syncthreads();  // dy, M and the partial sums are free for step 0's C and B
+    __syncthreads();  // dy, M, A^T and the partial sums are free for step 0's tiles
     load_cb(0);
 
     // phase: steps
@@ -985,6 +1222,8 @@ ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict_
                 zero_uncovered(tiles + K::BS, L, npn, 2);
                 zero_uncovered(tiles + K::SS, P, npn, 2);
                 zero_uncovered(tiles + K::GS, P, npn, 2);
+                if (dsc != 0.f) zero_uncovered(tiles + K::EB, P, npn, 2);
+                if (dgc != 0.f) zero_uncovered(tiles + K::EB + TILE, P, npn, 2);
             }
             fence_proxy_async();
             __syncthreads();
@@ -993,13 +1232,31 @@ ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict_
         }
         mbar_wait_or_trap(bar_sg, st & 1);
         mbar_wait_or_trap(bar_cb, st & 1);
+        // phase: correct
+        // S and G made true where pass 1's walk started from zero (each
+        // thread its own elements of S(seg) and G(seg), which the (eout B)
+        // tiles then overwrite), <G, S>, (eout B) hi and lo
         {
             float4 bv[4];
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
                 const uint32_t off = (tid + k * THREADS) * 16;
                 bv[k] = sf4(base + K::BS + off);
-                const float4 gv = sf4(base + K::GS + off), sv = sf4(base + K::SS + off);
+                float4 gv = sf4(base + K::GS + off), sv = sf4(base + K::SS + off);
+                // phase: seg fix
+                if (dsc != 0.f) {
+                    const float4 u = sf4(base + K::EB + off);
+                    sv = make_float4(fmaf(dsc, u.x, sv.x), fmaf(dsc, u.y, sv.y),
+                                     fmaf(dsc, u.z, sv.z), fmaf(dsc, u.w, sv.w));
+                    sf4(base + K::SS + off) = sv;
+                }
+                if (dgc != 0.f) {
+                    const float4 u = sf4(base + K::EB + TILE + off);
+                    gv = make_float4(fmaf(dgc, u.x, gv.x), fmaf(dgc, u.y, gv.y),
+                                     fmaf(dgc, u.z, gv.z), fmaf(dgc, u.w, gv.w));
+                    sf4(base + K::GS + off) = gv;
+                }
+                // end of phase: seg fix
                 gsum += gv.x * sv.x + gv.y * sv.y + gv.z * sv.z + gv.w * sv.w;
             }
 #pragma unroll
@@ -1012,6 +1269,7 @@ ssd_bwd_chunk_kernel(const __grid_constant__ Maps maps, const float* __restrict_
                 sf4(base + K::EB + TILE + off) = as_float4(s[1]);
             }
         }
+        // end of phase: correct
         fence_proxy_async();
         __syncthreads();
 
@@ -1232,11 +1490,57 @@ bool valid_shape(int B, int S, int H, int P, int G, int N, int L) {
            N <= MAX_N && L >= 4 && L <= MAX_L && L % 4 == 0;
 }
 
+int sm_count(int device) {
+    static int known[64] = {};  // per device ordinal, read once
+    if (device >= 0 && device < 64 && known[device] > 0) return known[device];
+    int sms = 132;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (device >= 0 && device < 64) known[device] = sms;
+    return sms;
+}
+
+// The plan: segments of at most MAX_CPS chunks, so that pass 1's 2 * B * H *
+// nseg blocks (one an SM) finish soonest, in units of one chunk of a walk (a
+// block's set-up ~WALK_SETUP); the fewest segments among equals (each
+// boundary costs pass 2 and pass 3's corrections).
+Shape plan(int B, int S, int H, int P, int G, int N, int L, int device) {
+    Shape sh{B, S, H, P, G, N, L, (S + L - 1) / L, false, 1, 0};
+    if (sh.nc == 0 || B == 0) return sh;
+    const int sms = sm_count(device);
+    const int64_t per = 2 * (int64_t)B * H;  // blocks a segment
+    const int64_t least = (sh.nc + MAX_CPS - 1) / MAX_CPS;  // the walk's table holds MAX_CPS
+    const int64_t most = std::max(least, std::min<int64_t>(sh.nc, 4 * (int64_t)sms / per + 1));
+    double best = 1e300;
+    for (int64_t want = least; want <= most; ++want) {
+        const int cps = (int)((sh.nc + want - 1) / want);
+        const int nseg = (sh.nc + cps - 1) / cps;
+        const double cost =
+            (double)((per * nseg + sms - 1) / sms) * (cps + WALK_SETUP);
+        if (cost < best) {
+            best = cost;
+            sh.cps = cps;
+            sh.nseg = nseg;
+        }
+    }
+    return sh;
+}
+
 }  // namespace
 
 // Dynamic shared memory of passes 1 and 3 (0, 1) at N = 128, in bytes.
 extern "C" int repro_ssd_scan_bwd_smem_bytes(int pass) {
-    return pass == 0 ? LocalCfg<2>::SMEM : pass == 1 ? ChunkCfg::SMEM : -1;
+    return pass == 0 ? WalkCfg<2>::SMEM : pass == 1 ? ChunkCfg::SMEM : -1;
+}
+
+// The plan of a shape on a device: segments and chunks a segment (pass 1's
+// grid is 2 * B * H * nseg blocks).  Returns cudaError_t.
+extern "C" int repro_ssd_scan_bwd_plan(int B, int S, int H, int P, int G, int N, int L,
+                                        int device, int* nseg, int* cps) {
+    if (!valid_shape(B, S, H, P, G, N, L)) return (int)cudaErrorInvalidValue;
+    const Shape sh = plan(B, S, H, P, G, N, L, device);
+    *nseg = sh.nseg;
+    *cps = sh.cps;
+    return 0;
 }
 
 // The limits of the kernel: chunk L a multiple of 4 in [4, 64], P in
@@ -1252,7 +1556,7 @@ extern "C" int repro_ssd_scan_bwd_limits(int* max_l, int* max_p, int* max_n) {
 extern "C" int repro_ssd_scan_bwd_workspace(int B, int S, int H, int P, int G, int N, int L,
                                              int64_t* ws_floats) {
     if (!valid_shape(B, S, H, P, G, N, L)) return (int)cudaErrorInvalidValue;
-    *ws_floats = workspace_floats(Shape{B, S, H, P, G, N, L, (S + L - 1) / L, false});
+    *ws_floats = workspace_floats(Shape{B, S, H, P, G, N, L, (S + L - 1) / L, false, 1, 0});
     return 0;
 }
 
@@ -1285,7 +1589,8 @@ extern "C" int repro_ssd_scan_bwd(
     const int64_t strides = xsb | xss | xsh | ysb | yss | ysh | bsb | bss | bsg | csb | css | csg;
     const bool vec = P % 4 == 0 && N % 4 == 0 && al16(x) && al16(dy) && al16(bm) && al16(cm) &&
                      strides % 4 == 0;
-    const Shape sh{B, S, H, P, G, N, L, (S + L - 1) / L, vec};
+    Shape sh = plan(B, S, H, P, G, N, L, device);
+    sh.vec = vec;
     if (ws_floats < workspace_floats(sh) || !al16(ws)) return (int)cudaErrorInvalidValue;
     const Strides sd{xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg,
                      ysb, yss, ysh, hsb, hsh, hsp, gsb, gsh, gsp};
@@ -1302,26 +1607,34 @@ extern "C" int repro_ssd_scan_bwd(
           make_map_f32(&maps.ct, w.ct, 1, P, B * H * sh.nc, N, 0, N, (int64_t)P * N, P)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaFuncSetAttribute(ssd_bwd_local_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         LocalCfg<1>::SMEM);
-    cudaFuncSetAttribute(ssd_bwd_local_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         LocalCfg<2>::SMEM);
-    cudaFuncSetAttribute(ssd_bwd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(ssd_bwd_walk_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         WalkCfg<1>::SMEM);
+    cudaFuncSetAttribute(ssd_bwd_walk_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         WalkCfg<2>::SMEM);
+    cudaFuncSetAttribute(ssd_bwd_chunk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          ChunkCfg::SMEM);
-    const dim3 chunks(sh.nc, H, B);
+    cudaFuncSetAttribute(ssd_bwd_chunk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         ChunkCfg::SMEM);
     if (sh.nc > 0) {
+        const dim3 walkers(2 * sh.nseg, H, B);
         if (N <= 64)
-            ssd_bwd_local_kernel<1><<<chunks, THREADS, LocalCfg<1>::SMEM, s>>>(
-                    maps, x, dt, a, bm, cm, dy, w, sh, sd);
+            ssd_bwd_walk_kernel<1><<<walkers, THREADS, WalkCfg<1>::SMEM, s>>>(
+                    maps, x, dt, a, bm, cm, dy, h_init, dstate, dh_init, w, sh, sd);
         else
-            ssd_bwd_local_kernel<2><<<chunks, THREADS, LocalCfg<2>::SMEM, s>>>(
-                    maps, x, dt, a, bm, cm, dy, w, sh, sd);
+            ssd_bwd_walk_kernel<2><<<walkers, THREADS, WalkCfg<2>::SMEM, s>>>(
+                    maps, x, dt, a, bm, cm, dy, h_init, dstate, dh_init, w, sh, sd);
     }
-    ssd_bwd_scan_kernel<<<dim3((P * N + NT - 1) / NT, H, B), NT, 0, s>>>(h_init, dstate, dh_init,
-                                                                         w, sh, sd);
+    if (sh.nseg > 1 || sh.nc == 0)
+        ssd_bwd_combine_kernel<<<dim3((P * N + NT - 1) / NT, H, B), NT, 0, s>>>(dstate, dh_init, w,
+                                                                               sh, sd);
     if (sh.nc > 0) {
-        ssd_bwd_chunk_kernel<<<chunks, THREADS, ChunkCfg::SMEM, s>>>(maps, x, dt, a, bm, cm, dy,
-                                                                     dx, ddt, w, sh, sd);
+        const dim3 chunks(sh.nc, H, B);
+        if (sh.nseg > 1)
+            ssd_bwd_chunk_kernel<true><<<chunks, THREADS, ChunkCfg::SMEM, s>>>(
+                    maps, x, dt, a, bm, cm, dy, dx, ddt, w, sh, sd);
+        else
+            ssd_bwd_chunk_kernel<false><<<chunks, THREADS, ChunkCfg::SMEM, s>>>(
+                    maps, x, dt, a, bm, cm, dy, dx, ddt, w, sh, sd);
         const int64_t n_out = (int64_t)B * S * G * N;
         ssd_bwd_group_kernel<<<(unsigned)((n_out + NT - 1) / NT), NT, 0, s>>>(db, dc, w, sh);
     }

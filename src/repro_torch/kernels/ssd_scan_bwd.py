@@ -6,12 +6,16 @@ wrapper checks its inputs, allocates the gradients and the scratch and
 launches the kernel on the current stream; it never runs the plain version
 (``ops.ssd_bwd`` sends CPU tensors to ``ref.ssd_chunked_bwd``).  It takes
 the forward's inputs, not its residuals: the kernel recomputes the states
-entering each chunk.  One call launches the kernel's five passes
-(``csrc/ssd_scan_bwd.cu``) and counts as one launch.
+entering each chunk.  One call launches the kernel's passes
+(``csrc/ssd_scan_bwd.cu``: the walks over segments of chunks, the combine
+over the segments' boundaries where the plan has several, the per-chunk
+gradients, the group sum of dB and dC, da) and counts as one launch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +25,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 KERNEL = CudaKernel("ssd_scan_bwd", {
     "repro_ssd_scan_bwd": [_P] * 15 + [_L] + [_I] * 7 + [_L] * 21 + [_I, _P],
     "repro_ssd_scan_bwd_workspace": [_I] * 7 + [ctypes.POINTER(_L)],
+    "repro_ssd_scan_bwd_plan": [_I] * 8 + [ctypes.POINTER(_I)] * 2,
     "repro_ssd_scan_bwd_smem_bytes": [_I],
     "repro_ssd_scan_bwd_limits": [ctypes.POINTER(_I)] * 3,
 })
@@ -31,6 +36,22 @@ def limits() -> dict:
     vals = [_I() for _ in range(3)]
     KERNEL.lib().repro_ssd_scan_bwd_limits(*(ctypes.byref(v) for v in vals))
     return dict(zip(("chunk", "p", "n"), (v.value for v in vals)))
+
+
+class Plan(NamedTuple):
+    segments: int
+    chunks_per_segment: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int, device: int = 0) -> Plan:
+    """How the kernel cuts a shape's chunks into segments on a device (pass 1
+    walks each segment with 2 * b * h blocks); ``ssd_scan_bwd`` chooses the
+    same plan inside its call."""
+    nseg, cps = _I(), _I()
+    KERNEL.check(KERNEL.lib().repro_ssd_scan_bwd_plan(b, s, h, p, g, n, chunk, device,
+                                                      ctypes.byref(nseg), ctypes.byref(cps)))
+    return Plan(nseg.value, cps.value)
 
 
 def ssd_scan_bwd(x, dt, a, b_mat, c_mat, chunk: int, dy, dstate, h_init=None):

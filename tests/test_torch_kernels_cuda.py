@@ -895,6 +895,11 @@ _SSD_BWD_CASES = _SSD_CASES + [
     (1, 4096, 32, 64, 1, 128, 64, True),    # mamba2-370m's training layer, h_init
     (1, 2048, 24, 64, 2, 128, 64, False),   # rep 12: H=24 on G=2
     (1, 2048, 6, 64, 2, 128, 32, False),    # a chunk of 32 at P=64 N=128, G=2
+    # the walks' segments on an H100 (132 SMs): 10 of 5 chunks, the last of
+    # 2 with a ragged last chunk, G=2; then 9 of 4, the last of 3, with
+    # h_init at N=64 (one 64-row tile of N)
+    (1, 3000, 6, 64, 2, 128, 64, False),
+    (1, 2200, 6, 64, 1, 64, 64, True),
 ]
 
 

@@ -448,6 +448,124 @@ def test_ssd_bwd_segment_decomposition_matches_autograd(s, chunk, seg_chunks, h_
     assert tref.ssd_grad_ratios(bad, want)["dx"] > 1
 
 
+def _ssd_bwd_by_walks(x, dt, a, bm, cm, chunk, cps, dy, dst, h_init=None, fault=None):
+    """The backward kernel's walks over segments of ``cps`` chunks
+    (csrc/ssd_scan_bwd.cu, passes 1-3), built from the plain versions: each
+    chunk's local state (from a zero state), local state cotangent (its own
+    dy, from a zero cotangent) and decay; in each segment the state walked
+    forward from zero (segment 0 from h_init) and the cotangent in reverse
+    from zero (the last segment from d(final state)), each chunk's carry R_c,
+    Gamma_c and decay D_c (from the segment's start into c), D'_c (from c's
+    end to the segment's end); the combine over the segments' totals; then
+    S_c = R_c + D_c S(seg) and G_c = Gamma_c + D'_c G(seg).  Returns the
+    per-chunk S_c, G_c, dh_init and the serial recurrence's three, each chunk
+    scanned alone.  ``fault``: "past_first" drops D_c S(seg) past a
+    segment's first chunk, "last_from_zero" starts the last segment's
+    cotangent walk from zero."""
+    b, s, h, p = x.shape
+    nc = -(-s // chunk)
+    piece = lambda t, c: t[:, c * chunk:min(s, (c + 1) * chunk)]  # noqa: E731
+    zero = torch.zeros((b, h, p, bm.shape[3]))
+    local, lcot, dec = [], [], []
+    for c in range(nc):
+        args = [piece(t, c) for t in (x, dt)] + [a] + [piece(t, c) for t in (bm, cm)]
+        local.append(tref.ssd_chunked(*args, chunk)[1])
+        lcot.append(tref.ssd_chunked_bwd(*args, chunk, piece(dy, c), zero, h_init=zero)[5])
+        dec.append(torch.exp((piece(dt, c) * a).sum(1))[..., None, None])
+    segs = [(c0, min(nc, c0 + cps)) for c0 in range(0, nc, cps)]
+    carry, down, gam, up = [None] * nc, [None] * nc, [None] * nc, [None] * nc
+    r_end, g_start, d_seg = [], [], []
+    for k, (c0, c1) in enumerate(segs):
+        r, d = (h_init if k == 0 and h_init is not None else zero), torch.ones_like(dec[0])
+        for c in range(c0, c1):
+            carry[c], down[c] = r, d
+            r, d = dec[c] * r + local[c], d * dec[c]
+        r_end.append(r)
+        d_seg.append(d)
+        last = k == len(segs) - 1 and fault != "last_from_zero"
+        gm, d = (dst if last else zero), torch.ones_like(dec[0])
+        for c in range(c1 - 1, c0 - 1, -1):
+            gam[c], up[c] = gm, d
+            gm, d = dec[c] * gm + lcot[c], d * dec[c]
+        g_start.append(gm)
+    seg_s, seg_g = [zero] * len(segs), [zero] * len(segs)
+    for k in range(1, len(segs)):
+        seg_s[k] = d_seg[k - 1] * seg_s[k - 1] + r_end[k - 1]
+    for k in range(len(segs) - 2, -1, -1):
+        seg_g[k] = d_seg[k + 1] * seg_g[k + 1] + g_start[k + 1]
+    states, cots = [], []
+    for k, (c0, c1) in enumerate(segs):
+        for c in range(c0, c1):
+            carried = fault != "past_first" or c == c0
+            states.append(carry[c] + (down[c] * seg_s[k] if carried else 0))
+            cots.append(gam[c] + up[c] * seg_g[k])
+    dh0 = d_seg[0] * seg_g[0] + g_start[0]
+    serial_s = [zero if h_init is None else h_init]
+    for c in range(nc - 1):
+        serial_s.append(dec[c] * serial_s[-1] + local[c])
+    serial_g = [dst]
+    for c in range(nc - 1, 0, -1):
+        serial_g.insert(0, dec[c] * serial_g[0] + lcot[c])
+    return states, cots, dh0, serial_s, serial_g, dec[0] * serial_g[0] + lcot[0]
+
+
+def _grads_by_chunk(x, dt, a, bm, cm, chunk, dy, states, cots, dh0, h_init):
+    """The gradients of each chunk scanned alone from its entering state and
+    the cotangent leaving it, assembled over the sequence."""
+    s = x.shape[1]
+    piece = lambda t, c: t[:, c * chunk:min(s, (c + 1) * chunk)]  # noqa: E731
+    grads = [tref.ssd_chunked_bwd(*[piece(t, c) for t in (x, dt)], a,
+                                  *[piece(t, c) for t in (bm, cm)], chunk, piece(dy, c),
+                                  cots[c], h_init=states[c])
+             for c in range(len(states))]
+    cat = lambda i: torch.cat([gr[i] for gr in grads], 1)  # noqa: E731
+    return (cat(0), cat(1), sum(gr[2] for gr in grads), cat(3), cat(4),
+            dh0 if h_init is not None else None)
+
+
+def _walk_case(s, chunk, h_init):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(2, s, 4, 16, 2, 32, h_init=h_init, seed=21)
+    rng = np.random.default_rng(22)
+    dy, dst = _t(rng.standard_normal((2, s, 4, 16)).astype(np.float32),
+                 rng.standard_normal((2, 4, 16, 32)).astype(np.float32))
+    return _t(x, dt, a, bm, cm), dy, dst, _t(h0)[0]
+
+
+@pytest.mark.parametrize("s,chunk,cps,h_init", [
+    (160, 16, 1, True),    # segments of one chunk
+    (300, 16, 4, False),   # a ragged last segment (3 chunks, the last ragged)
+    (300, 16, 4, True),    # the same with h_init
+    (200, 32, 7, False),   # one segment for the whole sequence
+])
+def test_ssd_bwd_segment_walks_match_the_serial_recurrence(s, chunk, cps, h_init):
+    """The algebra of the backward kernel's walks and combine: the states
+    entering and the cotangents leaving each chunk, and dh_init, formed from
+    segments walked from zero and corrected by the segments' totals, equal
+    the serial recurrence's; the gradients of the chunks scanned from them
+    hold ``ref.ssd_chunked_bwd`` over the whole sequence to
+    ``ssd_grad_tolerance_ratio``."""
+    args, dy, dst, h0 = _walk_case(s, chunk, h_init)
+    states, cots, dh0, ser_s, ser_g, ser_dh0 = _ssd_bwd_by_walks(*args, chunk, cps, dy, dst, h0)
+    for got, want in [*zip(states, ser_s), *zip(cots, ser_g), (dh0, ser_dh0)]:
+        assert tref.ssd_tolerance_ratio(got, want, head_dim=1) <= 1
+    want = tref.ssd_chunked_bwd(*args, chunk, dy, dst, h_init=h0)
+    got = _grads_by_chunk(*args, chunk, dy, states, cots, dh0, h0)
+    ratios = tref.ssd_grad_ratios(got, want)
+    assert len(ratios) == (6 if h_init else 5) and max(ratios.values()) <= 1, ratios
+
+
+@pytest.mark.parametrize("fault", ["past_first", "last_from_zero"])
+def test_ssd_bwd_segment_walks_reject_planted_faults(fault):
+    """The same over segments of 4 chunks: D_c S(seg) dropped past a
+    segment's first chunk, or the last segment's cotangent walk started from
+    zero in place of d(final state), moves a gradient past the tolerance."""
+    args, dy, dst, h0 = _walk_case(300, 16, True)
+    states, cots, dh0, *_ = _ssd_bwd_by_walks(*args, 16, 4, dy, dst, h0, fault=fault)
+    want = tref.ssd_chunked_bwd(*args, 16, dy, dst, h_init=h0)
+    got = _grads_by_chunk(*args, 16, dy, states, cots, dh0, h0)
+    assert max(tref.ssd_grad_ratios(got, want).values()) > 1
+
+
 def _chip_smoke():
     """``chip_smoke.py`` at the root of the repository, whose planted faults
     the SSD backward kernel's checks on the card must see."""
@@ -502,6 +620,24 @@ def test_ssd_grad_tolerance_rejects_dbs_intra_term_from_mq_transposed():
     want = tref.ssd_chunked_bwd(*args[:-1], h_init=args[-1])
     ratios = tref.ssd_grad_ratios(cs.ssd_bwd_mq_transposed(*args), want)
     assert {k for k, v in ratios.items() if v > 1} == {"db"}, ratios
+
+
+def test_ssd_grad_tolerance_rejects_a_segment_state_not_carried():
+    """The sixth planted fault of chip_smoke.py's SSD backward phase: the
+    state entering a segment of the kernel's walks not carried into the
+    segment's later chunks (pass 3 without its correction D_c S(seg)) moves
+    dC, ddt and da, and only those, past ``ref.ssd_grad_tolerance_ratio``;
+    a ragged S and h_init."""
+    cs = _chip_smoke()
+    b, s, h, p, g, n, chunk = 1, 250, 8, 16, 2, 16, 32
+    x, dt, a, bm, cm, h0 = _ssd_inputs(b, s, h, p, g, n, seed=13, h_init=True)
+    rng = np.random.default_rng(14)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dst = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    args = (*_t(x, dt, a, bm, cm), chunk, *_t(dy, dst, h0))
+    want = tref.ssd_chunked_bwd(*args[:-1], h_init=args[-1])
+    ratios = tref.ssd_grad_ratios(cs.ssd_bwd_drop_segment_state(*args, 2, 8), want)
+    assert {k for k, v in ratios.items() if v > 1} == {"ddt", "da", "dc"}, ratios
 
 
 def _da_one_chunk(x, dt, a, bm, cm, dy, kernel_form: bool):
